@@ -6,9 +6,9 @@ NVIDIA GPU.
 
 1. Builds the CUDA kernels from ``rust_bio_tpu_torch/ops/csrc`` with nvcc
    (``sm_90a``) and prints the card's name and power limit.
-2. Drives the slice through its entry points with every launch counter at
-   0: ``BatchAligner.global_`` and ``.scores(..., "global")`` on 8192
-   random 150 bp pairs and on 8192 pairs at 2% divergence, then a
+2. Drives the global path through its entry points with every launch
+   counter at 0: ``BatchAligner.global_`` and ``.scores(..., "global")``
+   on 8192 random 150 bp pairs and on 8192 pairs at 2% divergence, then a
    ``DeviceFMIndex`` built on the card from a random 4,641,652 bp DNA text
    (the length of E. coli K-12 MG1655, GenBank U00096.3) searched with
    65,536 20-mers (half sampled from the text, half mutated) and located.
@@ -16,10 +16,18 @@ NVIDIA GPU.
    agree with ``scores`` and, on a subset, with the plain PyTorch path on
    the CPU; every sampled query must be COMPLETE and locate to its start,
    and a subset of interval sizes must equal a brute-force count.
-3. Holds each kernel against its plain PyTorch version on the card at the
+3. Drives the read mapper with the counters at 0 again: a ``ReadMapper``
+   built on the card over that text as genome maps 8192 150 bp reads (half
+   reverse-complemented, 1% substitutions) plus 256 random reads. Every
+   mapped read's CIGAR must re-score to its score against the genome and
+   consume the read; every read with an error-free seed window on its
+   strand must map to its origin; the random reads must stay unmapped; on
+   64 reads the card must equal the port's CPU path.
+4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
    both with CUDA events.
-4. Prints alignments/s and queries/s, device-only and delivered.
+5. Prints alignments/s, queries/s and mapped reads/s, device-only and
+   delivered.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -48,16 +56,21 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit operations per DP cell in the inner loops of csrc/sw_global.cu
-# (compares, selects, adds, max, the run counter and the cell packing;
+# and csrc/sw_semiglobal.cu (compares, selects, adds, max, the run counter,
+# the cell packing and, in K5, the y-prefix clip and the Sn/Ly update;
 # loads, stores and address arithmetic not counted)
 K1_OPS_PER_CELL = 31
 K3_OPS_PER_CELL = 12
+K5_OPS_PER_CELL = 39
 
 DEVICE = "cuda"
 GO, GE, MA, MI = -5, -1, 2, -2
 B_ALN, LEN = 8192, 150
 TEXT_LEN = 4_641_652
 B_FM, QLEN = 65_536, 20
+B_READS, READ_LEN, B_RANDOM = 8192, 150, 256
+SEED_LEN, SEED_TRIES, FLANK = 20, 3, 8
+SEED_STARTS = (0, 65, 130)  # the mapper's seed windows on a 150 bp read
 
 
 def fail(msg: str) -> None:
@@ -108,13 +121,13 @@ def host_s(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def rescore(ops, x: bytes, y: bytes):
-    """(score, x consumed, y consumed) of an op list under the affine model
-    gap(k) = GO + GE * (k - 1); None if a Match/Subst contradicts x, y."""
+def rescore(kinds, x: bytes, y: bytes):
+    """(score, x consumed, y consumed) of a list of op kinds under the
+    affine model gap(k) = GO + GE * (k - 1); None if a Match/Subst
+    contradicts x, y."""
     i = j = score = 0
     prev = None
-    for op in ops:
-        k = op.kind
+    for k in kinds:
         if k in ("Match", "Subst"):
             if i >= len(x) or j >= len(y) or (x[i] == y[j]) != (k == "Match"):
                 return None
@@ -133,8 +146,81 @@ def rescore(ops, x: bytes, y: bytes):
     return score, i, j
 
 
+CIGAR_KIND = {"=": "Match", "X": "Subst", "I": "Ins", "D": "Del"}
+
+
+def cigar_kinds(cigar: str):
+    """The op kinds of a CIGAR without clips, one per base."""
+    out, n = [], 0
+    for ch in cigar:
+        if ch.isdigit():
+            n = 10 * n + int(ch)
+        else:
+            out.extend([CIGAR_KIND[ch]] * n)
+            n = 0
+    return out
+
+
+def occurrences(text: bytes, pat: bytes):
+    at = text.find(pat)
+    while at >= 0:
+        yield at
+        at = text.find(pat, at + 1)
+
+
+def seeds_hit_elsewhere(genome: bytes, strands, oriented, origin: int) -> bool:
+    """Whether a seed window of a read on either of its ``strands`` (the
+    read and its reverse complement) occurs in the genome anywhere but at
+    its true place, which only the ``oriented`` strand has: ``origin`` plus
+    the window's offset (``oriented`` None: a random read, no true place)."""
+    for seq in strands:
+        for s in SEED_STARTS:
+            true = origin + s if seq == oriented else -1
+            if any(pos != true for pos in occurrences(genome, seq[s : s + SEED_LEN])):
+                return True
+    return False
+
+
 def fields(a):
     return (a.score, a.xstart, a.xend, a.ystart, a.yend, [op.kind for op in a.operations])
+
+
+def defined(outs, mlens, nlens):
+    """K5's outputs with what the kernel leaves unwritten set to 0: traceback
+    cells past column nlens[b] or below row mlens[b], final rows below
+    mlens[b]."""
+    import torch
+
+    tb, *finals = outs
+    N, X, _ = tb.shape
+    rows = torch.arange(X, device=tb.device)
+    keep = (torch.arange(N, device=tb.device)[:, None, None] < nlens[None, None, :]) & (
+        rows[None, :, None] <= mlens[None, None, :]
+    )
+    keep_f = rows[None, :] <= mlens[:, None]
+    return [torch.where(keep, tb.to(torch.int32), 0)] + [torch.where(keep_f, f, 0) for f in finals]
+
+
+def host_profile(torch, fn, top: int = 14) -> dict:
+    """cProfile of one ``fn()`` ending in a synchronize: its host seconds
+    and the functions with the most time of their own (profiling adds a
+    cost to every Python call, so read the shares, not the totals)."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    total = time.perf_counter() - t0
+    rows = sorted(pstats.Stats(prof).stats.items(), key=lambda kv: kv[1][2], reverse=True)[:top]
+    return {
+        "profiled_s": total,
+        "top_tottime": [[f"{Path(f).name}:{line}:{name}", calls, own, cum] for (f, line, name), (_, calls, own, cum, _) in rows],
+    }
 
 
 def max_abs_err(got, want) -> int:
@@ -158,9 +244,11 @@ def main() -> int:
     check(Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(ROOT), "package outside this checkout")
 
     from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
     from rust_bio_tpu_torch.alphabets import dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
+    from rust_bio_tpu_torch.pipelines import ReadMapper
 
     dev = torch.device(DEVICE)
     smi = nvidia_smi_line()
@@ -175,6 +263,8 @@ def main() -> int:
         "sweep_walk_global": walk.SWEEP_WALK_GLOBAL,
         "sw_scores_global": sw.SCORES_GLOBAL,
         "fm_backward_search": fm.FM_BACKWARD_SEARCH,
+        "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
+        "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -198,8 +288,24 @@ def main() -> int:
     rows_m = np.arange(n_sampled, B_FM)
     pats_np[rows_m, mpos] = acgt[(np.searchsorted(acgt, pats_np[rows_m, mpos]) + rng.integers(1, 4, size=rows_m.size)) % 4]
     queries = [bytes(r) for r in pats_np]
+    # mapper reads: four batches of 150 bp from the text (the genome), 1%
+    # substitutions, every second one reverse-complemented; the first
+    # batch plus 256 random reads is the main batch
+    genome = text[:-1]
+    n_reads = 4 * B_READS
+    origins = rng.integers(0, TEXT_LEN - READ_LEN, size=n_reads)
+    oriented_np = text_arr[origins[:, None] + np.arange(READ_LEN)[None, :]].copy()
+    rmut = rng.random(size=oriented_np.shape) < 0.01
+    oriented_np[rmut] = acgt[(np.searchsorted(acgt, oriented_np[rmut]) + rng.integers(1, 4, size=int(rmut.sum()))) % 4]
+    is_rev = np.arange(n_reads) % 2 == 1
+    oriented = [bytes(r) for r in oriented_np]
+    reads = [dna.revcomp(o) if r else o for o, r in zip(oriented, is_rev)]
+    main_reads = reads[:B_READS] + [bytes(r) for r in acgt[rng.integers(0, 4, size=(B_RANDOM, READ_LEN))]]
+    clean_seed = np.zeros(n_reads, bool)
+    for s0 in SEED_STARTS:
+        clean_seed |= ~rmut[:, s0 : s0 + SEED_LEN].any(axis=1)
 
-    # ---- 2. the slice, counted ----------------------------------------
+    # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
         k.launches = 0
     sc = Scoring.from_scores(GO, GE, MA, MI)
@@ -211,7 +317,7 @@ def main() -> int:
         check(len(alns) == B_ALN and scores.shape == (B_ALN,), f"{name}: result count")
         check(all(int(s) == a.score for s, a in zip(scores, alns)), f"{name}: scores() != global_ scores")
         for k, (a, x, y) in enumerate(zip(alns, xs, ys)):
-            check(rescore(a.operations, x, y) == (a.score, len(x), len(y)), f"{name}: pair {k} does not re-score to {a.score}")
+            check(rescore([op.kind for op in a.operations], x, y) == (a.score, len(x), len(y)), f"{name}: pair {k} does not re-score to {a.score}")
             check((a.xstart, a.ystart, a.xend, a.yend) == (0, 0, len(x), len(y)), f"{name}: pair {k} coordinates")
         results[name] = alns
     t0 = time.perf_counter()
@@ -232,7 +338,8 @@ def main() -> int:
     for q in range(0, n_sampled, n_sampled // 64):
         check(starts[q] in index.locate_interval(sampled[q].interval), f"locate_interval: query {q}")
     launches = {name: k.launches for name, k in counters.items()}
-    check(all(v > 0 for v in launches.values()), f"a kernel of the path did not launch: {launches}")
+    path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search")
+    check(all(launches[n] > 0 for n in path_kernels), f"a kernel of the global path did not launch: {launches}")
     print(json.dumps({"phase": "main_path", "launches": launches, "fm_index_build_s": build_s}), flush=True)
 
     # small-input reference: the plain PyTorch path on the CPU, and a
@@ -250,7 +357,53 @@ def main() -> int:
         size = r.interval.upper - r.interval.lower if r.kind.value == "complete" else 0
         check(size == occ, f"query {q}: interval size {size}, text holds {occ}")
 
-    # ---- 3. kernels against their plain versions, timed ---------------
+    # ---- 3. the read mapper, counted -------------------------------------
+    for k in counters.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    mapper = ReadMapper(
+        genome, sc, seed_len=SEED_LEN, seed_tries=SEED_TRIES, flank=FLANK, sa_sampling_rate=32, device=dev
+    )
+    torch.cuda.synchronize()
+    mapper_build_s = time.perf_counter() - t0
+    mapped = mapper.map_batch(main_reads)
+    mapper_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("fm_backward_search", "sw_scan_semiglobal", "sweep_walk_semiglobal")
+    check(all(mapper_launches[n] > 0 for n in path_kernels), f"a kernel of the mapper did not launch: {mapper_launches}")
+    check(len(mapped) == len(main_reads), "mapper: result count")
+    exempt = []  # reads whose seed also occurs elsewhere in the genome
+    for k, (read, m) in enumerate(zip(main_reads, mapped)):
+        rc = dna.revcomp(read)
+        if m.pos >= 0:
+            x = read if m.strand == "+" else rc
+            got = rescore(cigar_kinds(m.cigar), x, genome[m.pos : m.pos + 2 * READ_LEN])
+            check(got is not None and got[:2] == (m.score, len(x)), f"read {k}: CIGAR {m.cigar} does not re-score to {m.score} over the read")
+        if k < B_READS:
+            want = (int(origins[k]), "-" if is_rev[k] else "+")
+            if clean_seed[k] and (m.pos, m.strand) != want:
+                check(seeds_hit_elsewhere(genome, (read, rc), oriented[k], want[0]), f"read {k}: mapped to {(m.pos, m.strand)}, origin {want}")
+                exempt.append(k)
+        elif m.pos >= 0:
+            check(seeds_hit_elsewhere(genome, (read, rc), None, -1), f"random read {k} mapped to {m.pos}")
+            exempt.append(k)
+    n_mapped = sum(m.pos >= 0 for m in mapped)
+    print(json.dumps({
+        "phase": "mapper", "launches": mapper_launches, "reads": len(main_reads), "mapped": n_mapped,
+        "clean_seed_reads": int(clean_seed[:B_READS].sum()), "exempt_repeat_seeds": exempt,
+        "mapper_index_build_s": mapper_build_s,
+    }), flush=True)
+    # small-input reference: 64 reads through the port's CPU path, on the
+    # card-built index moved to the CPU
+    sample = list(range(60)) + list(range(len(main_reads) - 4, len(main_reads)))
+    on_cpu = mapper.to("cpu").map_batch([main_reads[k] for k in sample])
+
+    def mkey(m):
+        return (m.pos, m.strand, m.score, m.cigar, None if m.alignment is None else fields(m.alignment))
+
+    check([mkey(mapped[k]) for k in sample] == [mkey(m) for m in on_cpu], "mapper: card != CPU plain path")
+    launches = {name: launches[name] + mapper_launches[name] for name in counters}
+
+    # ---- 4. kernels against their plain versions, timed ---------------
     def tens(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
@@ -259,7 +412,7 @@ def main() -> int:
     pats_d, plens_d = tens(pats_np, np.full(B_FM, QLEN, np.int32))
     kernels = []
 
-    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops):
+    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops, **extra):
         err = max_abs_err(got, want)
         check(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -271,7 +424,7 @@ def main() -> int:
             "library_ms": None,
         }
         kernels.append(row)
-        print(json.dumps({"phase": "kernel", **row, "bytes": nbytes, "int_ops": nops, "card": smi}), flush=True)
+        print(json.dumps({"phase": "kernel", **row, "bytes": nbytes, "int_ops": nops, **extra, "card": smi}), flush=True)
 
     cells = B_ALN * LEN * LEN
     got = sw.scan_global(xb_d, yb_d, ml_d, nl_d, *pens)
@@ -326,7 +479,50 @@ def main() -> int:
         12 * (steps_ok + steps_failed),
     )
 
-    # ---- 4. end-to-end rates --------------------------------------------
+    # the mapper's extension batch: the oriented reads against their
+    # windows (origin -/+ FLANK), as the mapper builds it for seeded reads
+    ws = np.maximum(origins[:B_READS] - FLANK, 0)
+    nl_ext = (np.minimum(origins[:B_READS] + READ_LEN + FLANK, TEXT_LEN) - ws).astype(np.int32)
+    W = int(nl_ext.max())
+    yb_ext = text_arr[ws[:, None] + np.arange(W)[None, :]]
+    yb_ext[np.arange(W)[None, :] >= nl_ext[:, None]] = 0
+    xb_ext = oriented_np[:B_READS]
+    ml_ext = np.full(B_READS, READ_LEN, np.int32)
+    ext = tens(xb_ext, yb_ext, ml_ext, nl_ext)
+    sg = (GO, GE, MA, MI, 0, 0)
+    got = sw.scan_semiglobal(*ext, *sg)
+    torch.cuda.synchronize()
+    want = sw.scan_semiglobal_plain(*ext, *sg)
+    report(
+        "sw_scan_semiglobal", "rust_bio_tpu_torch/ops/csrc/sw_semiglobal.cu", "rust_bio_tpu/ops/sw_pallas.py:855",
+        defined(got, ext[2], ext[3]), defined(want, ext[2], ext[3]),
+        cuda_ms(torch, lambda: sw.scan_semiglobal(*ext, *sg), 10),
+        cuda_ms(torch, lambda: sw.scan_semiglobal_plain(*ext, *sg), 2),
+        B_READS * (READ_LEN + W) + 8 * B_READS + 2 * (READ_LEN + 1) * int(nl_ext.sum()) + 5 * 4 * B_READS * (READ_LEN + 1),
+        K5_OPS_PER_CELL * READ_LEN * int(nl_ext.sum()),
+    )
+    del want
+    tb5 = got[0]
+    _, tbfix = _fixed_column(*got[1:], ext[2], GO, GE)
+    wgot = walk.sweep_walk_semiglobal(tb5, tbfix, ext[2], ext[3])
+    torch.cuda.synchronize()
+    wwant = walk.sweep_walk_semiglobal_plain(tb5, tbfix, ext[2], ext[3])
+    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum()) + B_READS
+    # ms: the launch alone, from the entry state the torch prolog resolves;
+    # wrapper_ms adds the prolog and the input checks
+    entry = walk.resolve_fixed_column(tbfix, ext[2], ext[3])[3:9]
+    report(
+        "sweep_walk_semiglobal", "rust_bio_tpu_torch/ops/csrc/walk_semiglobal.cu", "rust_bio_tpu/ops/walk_pallas.py:609",
+        wgot, wwant,
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb5, *entry), 10),
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_plain(tb5, tbfix, ext[2], ext[3]), 2),
+        2 * path_cells + 4 * 7 * B_READS + 2 * 2 * W * B_READS + 6 * B_READS,
+        8 * path_cells,
+        wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_semiglobal(tb5, tbfix, ext[2], ext[3]), 10),
+    )
+    del got, tb5, wwant
+
+    # ---- 5. end-to-end rates --------------------------------------------
     rates = {}
     for name, (xs, ys) in corpora.items():
         yarr = yb if name == "random" else yb_hi
@@ -339,6 +535,19 @@ def main() -> int:
     rates["fm_queries_per_s_device"] = B_FM / host_s(torch, lambda: index.search_arrays(pats_d, plens_d), 10)
     rates["fm_queries_per_s_delivered"] = B_FM / host_s(torch, lambda: index.backward_search_batch(queries), 3)
     rates["fm_index_build_s"] = build_s
+    rates["mapper_reads_per_s"] = len(main_reads) / host_s(torch, lambda: mapper.map_batch(main_reads), 3)
+    stream = [reads[o : o + B_READS] for o in range(0, n_reads, B_READS)]
+    rates["mapper_stream_reads_per_s"] = n_reads / host_s(torch, lambda: [len(p) for p in mapper.map_stream(stream)], 2)
+    rates["semiglobal_pairs_per_s_device"] = B_READS / host_s(
+        torch, lambda: ba.semiglobal_packed_async_arrays(xb_ext, yb_ext, ml_ext, nl_ext), 5
+    )
+    rates["semiglobal_pairs_per_s_delivered"] = B_READS / host_s(
+        torch,
+        lambda: ba.semiglobal_packed_finish(ba.semiglobal_packed_async_arrays(xb_ext, yb_ext, ml_ext, nl_ext)).cigars(),
+        3,
+    )
+    rates["mapper_index_build_s"] = mapper_build_s
+    print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "card": smi}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,11 +4,14 @@ The JAX package stays the reference; this package reimplements its main
 path with hand-written CUDA kernels (``ops/csrc/*.cu``, built with nvcc for
 ``sm_90a`` at first use and bound with ``ctypes``):
 
-- ``BatchAligner.global_`` / ``BatchAligner.scores(..., "global")`` with
+- ``BatchAligner.global_``, ``.semiglobal`` and ``.scores(...)`` in those
+  two modes, and the packed results (``PackedSemiglobal``), with
   ``MatchParams`` scoring (:mod:`rust_bio_tpu_torch.alignment.pairwise`);
 - ``DeviceFMIndex`` construction, backward search and locate
   (:mod:`rust_bio_tpu_torch.data_structures.fm_device`), and loading of
-  index files written by the JAX package (:mod:`rust_bio_tpu_torch.carry`).
+  index files written by the JAX package (:mod:`rust_bio_tpu_torch.carry`);
+- the FM-seeded read mapper ``ReadMapper``
+  (:mod:`rust_bio_tpu_torch.pipelines`).
 
 Entry points take ``device=None``, which means the CUDA device; without one
 they raise ``RuntimeError``. Pass ``device="cpu"`` to run the plain PyTorch

@@ -1,5 +1,5 @@
-"""Pairwise alignment (port of ``rust_bio_tpu.alignment.pairwise``, slice 1:
-global mode with ``MatchParams`` scoring).
+"""Pairwise alignment (port of ``rust_bio_tpu.alignment.pairwise``: global
+and semiglobal modes with ``MatchParams`` scoring).
 
 Gap model (reference: pairwise/mod.rs:9-15, v4.0 semantics):
 ``GapScore(k) = gap_open + gap_extend * (k - 1)``.

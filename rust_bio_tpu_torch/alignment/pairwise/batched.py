@@ -1,5 +1,5 @@
-"""Batched global pairwise alignment on the device (port of
-``rust_bio_tpu.alignment.pairwise.batched``, slice 1).
+"""Batched pairwise alignment on the device (port of
+``rust_bio_tpu.alignment.pairwise.batched``, global and semiglobal modes).
 
 The path of ``BatchAligner.global_``: pad the pairs to (B, M) / (B, N)
 uint8; K1 (``ops.sw.scan_global``) computes the scores and the traceback
@@ -7,12 +7,19 @@ tensor; K2 (``ops.walk.sweep_walk_global``) walks it into per-column
 run-length ops; ``_pack_rle`` packs those into one (10 + N, B) uint16
 tensor, the only device-to-host transfer; the host decodes it into
 reference-exact ``Alignment`` objects. ``scores(..., "global")`` runs K3
-(``ops.sw.scores_global``) instead. Results are bit-identical to the JAX
-package and to its scalar oracle.
+(``ops.sw.scores_global``) instead.
 
-Only global mode with ``MatchParams`` scoring and M + 1 < 4096 is ported;
-everything else raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+The path of ``BatchAligner.semiglobal`` (and of the read mapper's
+extension, ``semiglobal_packed_*``): K5 (``ops.sw.scan_semiglobal``) with
+the y-clip penalties 0, ``_suffix_fixups`` (plain torch) on its finals, K6
+(``ops.walk.sweep_walk_semiglobal``) from the fixed final column, and the
+same pack with the fix/clip fields live. ``PackedSemiglobal`` holds the
+pulled result: vectorized CIGARs and per-read ``Alignment`` decode.
+
+Results are bit-identical to the JAX package and to its scalar oracle.
+Only ``MatchParams`` scoring and M + 1 < 4096 are ported; local and custom
+modes, LUT scorings and longer x raise ``NotImplementedError`` naming the
+ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from rust_bio_tpu_torch._device import resolve_device
 from rust_bio_tpu_torch.alignment.pairwise.scoring import (
+    MIN_SCORE,
     MatchParams,
     Scoring,
 )
@@ -31,7 +39,12 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_DEL,
     TB_INS,
     TB_MATCH,
+    TB_START,
     TB_SUBST,
+    TB_XCLIP_PREFIX,
+    TB_XCLIP_SUFFIX,
+    TB_YCLIP_PREFIX,
+    TB_YCLIP_SUFFIX,
 )
 from rust_bio_tpu_torch.alignment.types import (
     Alignment,
@@ -41,10 +54,13 @@ from rust_bio_tpu_torch.alignment.types import (
     Ins,
     Match,
     Subst,
+    Xclip,
+    Yclip,
 )
 from rust_bio_tpu_torch.utils.text import to_bytes
 
 _MAX_ROWS = 4096  # _pack_rle keeps ins_cnt <= M + 1 in 12 bits
+_SENTINEL = -(2**31)  # int32 min: masked-out entries of the fixup maxima
 
 
 def _pack_rle(
@@ -93,7 +109,121 @@ def _unpack_rle(packed: np.ndarray):
     }
 
 
+def _geometry(B, M, mlens):
+    """Row index, row >= 1, mlens as a column and the row-m mask, each
+    (B, M+1) or (B, 1) on ``mlens``' device (batched.py ``_geometry``)."""
+    rows = torch.arange(M + 1, dtype=torch.int32, device=mlens.device)[None, :].expand(B, M + 1)
+    row_ge1 = rows >= 1
+    mlens_c = mlens[:, None]
+    is_row_m = (rows == mlens_c) & (mlens_c >= 1)
+    return rows, row_ge1, mlens_c, is_row_m
+
+
+def _suffix_fixups(
+    S_f, I_f, Sn_f, tb_f,
+    B, M, rows, row_ge1, mlens, mlens_c, is_row_m, pens,
+):
+    """Post-loop suffix fixups at j = n (batched.py ``_suffix_fixups``,
+    reference pairwise/mod.rs:809-843), torch ops on the (B, M+1) finals.
+
+    Returns (score (B,) int32, tb_col_fixed (B, M+1) uint16: the final
+    column's 12-bit cells after the fixups, Lx_n (B,) int32: the x-suffix
+    clip length at column n, and whether it was set (B,) bool)."""
+    go, ge, xcp, xcs, ycp, ycs = pens
+    i32 = torch.int32
+    tb = tb_f.to(i32)
+    i_bits_f = tb & 0xF
+    d_bits_f = (tb >> 4) & 0xF
+    s_bits_f = (tb >> 8) & 0xF
+    idx_m = mlens_c.long()
+
+    def take_m(a):
+        return a.gather(1, idx_m)[:, 0]
+
+    def first_index(vals, best):
+        # argmax takes the first of equal maxima
+        return torch.argmax((vals == best[:, None]).to(torch.uint8), dim=1).to(i32)
+
+    # fixup 1: yclip-suffix improvements + xclip-suffix re-accumulation
+    y_take = (Sn_f > S_f) & (rows <= mlens_c)
+    S1 = torch.where(y_take, Sn_f, S_f)
+    sb1 = torch.where(y_take, TB_YCLIP_SUFFIX, s_bits_f)
+    S_m_base = take_m(S_f)
+    # accumulate S1[i]+xcs for 0 <= i <= m-1 against acc0 = S_f[m]
+    vals = torch.where(rows <= mlens_c - 1, S1 + xcs, _SENTINEL)
+    A2 = vals.amax(dim=1)
+    x_upd = A2 > S_m_base
+    acc = torch.where(x_upd, A2, S_m_base)
+    sb_m = torch.where(x_upd, TB_XCLIP_SUFFIX, take_m(sb1))
+    Lx_n = torch.where(x_upd, mlens - first_index(vals, A2), 0)
+    lx_n_set = x_upd
+    # then row m's own yclip-suffix check
+    Sn_m = take_m(Sn_f)
+    y_take_m = Sn_m > acc
+    acc = torch.where(y_take_m, Sn_m, acc)
+    sb_m = torch.where(y_take_m, TB_YCLIP_SUFFIX, sb_m)
+    col0 = rows == 0
+    m0 = (mlens == 0)[:, None]
+    S1 = torch.where(is_row_m | (col0 & m0), acc[:, None], S1)
+    sb1 = torch.where(is_row_m | (col0 & m0), sb_m[:, None], sb1)
+
+    # fixup 2: recompute last-column I (chained opens after clip updates)
+    # S2[i] = max(S1[i], S2[i-1] + go) for i = 1..m-1 (row m handled after)
+    rgo = rows * go
+    S2 = torch.cummax(S1 - rgo, dim=1).values + rgo
+    upd2 = S2 > S1
+    sb2 = torch.where(upd2, TB_INS, sb1)
+    S2m1 = torch.cat([torch.full((B, 1), MIN_SCORE, dtype=i32, device=S2.device), S2[:, :-1]], dim=1)
+    i_take2 = S2m1 + go > I_f
+    sb2_prev = torch.cat([torch.full((B, 1), TB_START, dtype=i32, device=S2.device), sb2[:, :-1]], dim=1)
+    ib2 = torch.where(i_take2 & row_ge1, sb2_prev, i_bits_f)
+    # xclip re-check for updated rows 1..m-1 against evolving S[m]
+    vals3 = torch.where(row_ge1 & (rows <= mlens_c - 1) & upd2, S2 + xcs, _SENTINEL)
+    A3 = vals3.amax(dim=1)
+    acc_m = take_m(S1)  # fixup-1 final row-m value
+    x_upd3 = A3 > acc_m
+    acc3 = torch.where(x_upd3, A3, acc_m)
+    sb_m3 = torch.where(x_upd3, TB_XCLIP_SUFFIX, take_m(sb2))
+    Lx_n = torch.where(x_upd3, mlens - first_index(vals3, A3), Lx_n)
+    lx_n_set = lx_n_set | x_upd3
+    # row m second statement: S[m] = max(acc3, S2[m-1]+go)
+    sm_open = take_m(S2m1) + go
+    m_take = (sm_open > acc3) & (mlens >= 1)
+    S_final_m = torch.where(m_take, sm_open, acc3)
+    sb_final_m = torch.where(m_take, TB_INS, sb_m3)
+    # row m first statement (I)
+    i_take_m = (sm_open > take_m(I_f)) & (mlens >= 1)
+    ib_m = torch.where(i_take_m, take_m(sb2_prev), take_m(i_bits_f))
+
+    S_fixed = torch.where(is_row_m, S_final_m[:, None], S2)
+    sb_fixed = torch.where(is_row_m, sb_final_m[:, None], sb2)
+    ib_fixed = torch.where(is_row_m, ib_m[:, None], ib2)
+    S_fixed = torch.where(mlens_c == 0, S1, S_fixed)
+    sb_fixed = torch.where(mlens_c == 0, sb1, sb_fixed)
+    ib_fixed = torch.where(mlens_c == 0, i_bits_f, ib_fixed)
+
+    tb_col_fixed = (ib_fixed | (d_bits_f << 4) | (sb_fixed << 8)).to(torch.uint16)
+    return take_m(S_fixed), tb_col_fixed, Lx_n.to(i32), lx_n_set
+
+
+def _fixed_column(S_f, I_f, Sn_f, Ly_f, tbk, mlens, go, ge):
+    """(score (B,) int32, tbfix (B, M+1) int32): the suffix fixups on the
+    finals of K5 run with the semiglobal penalties (x-clips off, y-clips 0),
+    and the fixed final column K6 enters from, its 12-bit cells with
+    Ly << 12."""
+    B, X = S_f.shape
+    rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, mlens)
+    score, tb_col_fixed, _lx, _lx_set = _suffix_fixups(
+        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, mlens, mlens_c, is_row_m,
+        (go, ge, MIN_SCORE, MIN_SCORE, 0, 0),
+    )
+    return score, (tb_col_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+
+
 _OP_BY_CODE = {TB_INS: Ins, TB_DEL: Del, TB_MATCH: Match, TB_SUBST: Subst}
+_OP_ARR = np.empty(16, object)
+for _c, _o in _OP_BY_CODE.items():
+    _OP_ARR[_c] = _o
 
 
 def _decode_ops_colrle(
@@ -113,6 +243,179 @@ def _decode_ops_colrle(
         if n:
             ops.extend([Ins] * n)
     return ops
+
+
+def _decode_ops_colrle_semi(
+    ins_cnt, exit_op, ins0: int,
+    fix_ins: int, fix_exit: int, fix_ly: int, nlen: int,
+) -> List[AlignmentOperation]:
+    """Decode the semiglobal column-RLE walk of one pair: per sweep column
+    an ``[Ins x cnt][exit]`` group (the exit may be a Yclip-prefix of
+    length j), then the fixed final column's group, emitted end -> start
+    and rebuilt here start -> end."""
+    ops: List[AlignmentOperation] = [Ins] * int(ins0)
+    exits = exit_op[:nlen].tolist()
+    cnts = ins_cnt[:nlen].tolist()
+    for j in range(nlen):
+        c = exits[j]
+        if c:
+            ops.append(Yclip(j + 1) if c == TB_YCLIP_PREFIX else _OP_BY_CODE[c])
+        n = cnts[j]
+        if n:
+            ops.extend([Ins] * n)
+    c = int(fix_exit)
+    if c:
+        if c in (TB_YCLIP_PREFIX, TB_YCLIP_SUFFIX):
+            ops.append(Yclip(int(fix_ly)))
+        else:
+            ops.append(_OP_BY_CODE[c])
+    ops.extend([Ins] * int(fix_ins))
+    return ops
+
+
+def _interleave_semi(ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens):
+    """Every lane's op stream as (B, 2N + 3) code and length arrays, in op
+    order: ``Ins*ins0``, per column its exit and Ins run, then the fixed
+    column's exit and Ins run (columns past a lane's length are empty)."""
+    B = len(nlens)
+    N = int(nlens.max()) if B else 0
+    valid = np.arange(N)[None, :] < np.asarray(nlens)[:, None]  # (B, N)
+    W = 2 * N + 3
+    C = np.zeros((B, W), np.int32)
+    Lm = np.zeros((B, W), np.int32)
+    C[:, 0] = TB_INS
+    Lm[:, 0] = ins0
+    C[:, 1 : 1 + 2 * N : 2] = exit_op[:N].T.astype(np.int32) * valid
+    Lm[:, 1 : 1 + 2 * N : 2] = 1
+    C[:, 2 : 2 + 2 * N : 2] = TB_INS
+    Lm[:, 2 : 2 + 2 * N : 2] = ins_cnt[:N].T.astype(np.int32) * valid
+    C[:, 1 + 2 * N] = fix_exit
+    Lm[:, 1 + 2 * N] = 1
+    C[:, 2 + 2 * N] = TB_INS
+    Lm[:, 2 + 2 * N] = fix_ins
+    return C, Lm, N
+
+
+def _decode_semi_batch(
+    ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly, nlens,
+    drop_clips: bool = False,
+) -> List[List[AlignmentOperation]]:
+    """Whole-batch ``_decode_ops_colrle_semi``: one object-LUT
+    ``np.repeat`` over the interleaved op stream of every lane."""
+    B = len(nlens)
+    C, Lm, N = _interleave_semi(ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens)
+    is_clip = C >= TB_XCLIP_PREFIX
+    reps = np.where(C == 0, 0, np.where(is_clip, 0 if drop_clips else 1, np.maximum(Lm, 0)))
+    ops_flat = np.repeat(_OP_ARR[np.where(is_clip, 0, C).ravel()], reps.ravel())
+    offs = np.concatenate([[0], np.cumsum(reps.sum(axis=1))])
+    within = np.cumsum(reps, axis=1) - reps
+    for r, col in zip(*np.nonzero(is_clip & (reps > 0))):
+        c = int(C[r, col])
+        # the fixed column's clip has length fix_ly; a sweep column j's
+        # Yclip-prefix exit has length j + 1
+        ln = int(fix_ly[r]) if col == 1 + 2 * N else (col - 1) // 2 + 1
+        ops_flat[offs[r] + within[r, col]] = (
+            Xclip(ln) if c in (TB_XCLIP_PREFIX, TB_XCLIP_SUFFIX) else Yclip(ln)
+        )
+    return [ops_flat[offs[k] : offs[k + 1]].tolist() for k in range(B)]
+
+
+def _format_cigar_strings(run_row, run_kind, run_len, B, xs_a, xe_a, m_a):
+    """CIGAR strings of a flat merged-run list (row-major per lane), built
+    with fixed-width digit buffers and one boolean compaction; soft clips
+    for x outside [xstart, xend)."""
+    if len(run_len) and run_len.max() >= 10_000_000:
+        raise ValueError("CIGAR run exceeds 7 digits")
+    R = len(run_len)
+    opch = np.array([0, ord("I"), ord("D"), ord("X"), ord("=")], np.uint8)[run_kind]
+    ndig = 1 + sum((run_len >= 10**k) for k in range(1, 7)).astype(np.int64)
+    buf = np.empty((R, 8), np.uint8)
+    for d in range(7):
+        buf[:, d] = 48 + run_len // 10 ** (6 - d) % 10
+    buf[:, 7] = opch
+    keep = np.arange(8)[None, :] >= (7 - ndig)[:, None]
+    flat = buf[keep].tobytes()  # row-major: run order preserved
+    row_nbytes = np.bincount(run_row, weights=ndig + 1, minlength=B).astype(np.int64)
+    offs = np.zeros(B + 1, np.int64)
+    np.cumsum(row_nbytes, out=offs[1:])
+    out = []
+    for b in range(B):
+        s = flat[offs[b] : offs[b + 1]].decode()
+        xs_, xe, m = int(xs_a[b]), int(xe_a[b]), int(m_a[b])
+        if xs_ > 0:
+            s = f"{xs_}S" + s
+        if m > xe:
+            s = s + f"{m - xe}S"
+        out.append(s)
+    return out
+
+
+class PackedSemiglobal:
+    """Column-RLE batch result of the semiglobal (or global) path pulled to
+    the host: scores and coordinates as arrays, whole-batch CIGARs, and
+    per-read ``Alignment`` decode on demand."""
+
+    def __init__(
+        self, score, up, mlens, nlens,
+        mode: AlignmentMode = AlignmentMode.Semiglobal,
+    ) -> None:
+        self.score = score
+        self._up = up
+        self.mlens = np.asarray(mlens)
+        self.nlens = np.asarray(nlens)
+        self.mode = mode
+        self.xstart = up["xstart"]
+        self.ystart = up["ystart"]
+        self.xend = up["xend"]
+        self.yend = up["yend"]
+
+    def cigars(self) -> List[str]:
+        """All CIGAR strings, by one flat numpy run-length merge over the
+        interleaved op streams (clips dropped; runs merge across them)."""
+        up = self._up
+        B = len(self.mlens)
+        C, Lm, _ = _interleave_semi(
+            up["ins_cnt"], up["exit_op"], up["ins0"], up["fix_ins"], up["fix_exit"], self.nlens
+        )
+        keep = (C >= TB_INS) & (C <= TB_MATCH) & (Lm > 0)
+        rr, cc = np.nonzero(keep)
+        if len(rr) == 0:
+            return [""] * B
+        k = C[rr, cc]
+        ln = Lm[rr, cc]
+        # merge consecutive same-kind entries within each row
+        new = np.empty(len(rr), bool)
+        new[0] = True
+        new[1:] = (rr[1:] != rr[:-1]) | (k[1:] != k[:-1])
+        run_len = np.bincount(np.cumsum(new) - 1, weights=ln).astype(np.int64)
+        starts = np.nonzero(new)[0]
+        return _format_cigar_strings(
+            rr[starts], k[starts], run_len, B,
+            np.asarray(self.xstart), np.asarray(self.xend), self.mlens,
+        )
+
+    def alignment(self, k: int) -> Alignment:
+        """The reference-exact ``Alignment`` of pair ``k``."""
+        up = self._up
+        if self.mode is AlignmentMode.Global:
+            ops = _decode_ops_colrle(
+                up["ins_cnt"][:, k], up["exit_op"][:, k], up["ins0"][k], int(self.nlens[k]),
+            )
+        else:
+            ops = _decode_ops_colrle_semi(
+                up["ins_cnt"][:, k], up["exit_op"][:, k], up["ins0"][k],
+                up["fix_ins"][k], up["fix_exit"][k], up["fix_ly"][k], int(self.nlens[k]),
+            )
+        aln = Alignment(
+            score=int(self.score[k]),
+            xstart=int(self.xstart[k]), ystart=int(self.ystart[k]),
+            xend=int(self.xend[k]), yend=int(self.yend[k]),
+            xlen=int(self.mlens[k]), ylen=int(self.nlens[k]),
+            operations=ops, mode=self.mode,
+        )
+        if self.mode is not AlignmentMode.Global:
+            aln.filter_clip_operations()
+        return aln
 
 
 class BatchAligner:
@@ -160,16 +463,19 @@ class BatchAligner:
             for a in (xb, yb, np.asarray(mlens, np.int32), np.asarray(nlens, np.int32))
         )
 
+    def _check_rows(self, M: int) -> None:
+        if M + 1 >= _MAX_ROWS:
+            raise NotImplementedError(
+                f"M + 1 = {M + 1} >= {_MAX_ROWS}: the packed walk keeps "
+                "ins_cnt in 12 bits; the block-row engines are ROADMAP "
+                "Queue 1 item 6"
+            )
+
     def global_packed_arrays(self, xb, yb, mlens, nlens) -> torch.Tensor:
         """The device part of ``global_`` on padded arrays: K1, K2 and the
         pack, returning the (10 + N, B) uint16 tensor on the device."""
         params = self._params()
-        if xb.shape[1] + 1 >= _MAX_ROWS:
-            raise NotImplementedError(
-                f"M + 1 = {xb.shape[1] + 1} >= {_MAX_ROWS}: the packed walk "
-                "keeps ins_cnt in 12 bits; the block-row global engine is "
-                "ROADMAP Queue 1 item 6"
-            )
+        self._check_rows(xb.shape[1])
         # kernel modules import this package's tb/scoring: import them here
         from rust_bio_tpu_torch.ops.sw import scan_global
         from rust_bio_tpu_torch.ops.walk import sweep_walk_global
@@ -179,6 +485,31 @@ class BatchAligner:
         ins_cnt, exit_op, ins0 = sweep_walk_global(tb, ml, nl)
         z = torch.zeros_like(ml)
         return _pack_rle(score, ins_cnt, exit_op, ins0, z, z, z, z, z, ml, nl)
+
+    def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True):
+        """The semiglobal path on padded arrays (batched.py
+        ``_align_batch_device_semiglobal_mp``, sweep-walk branch): K5 with
+        y-clips 0, the suffix fixups, then, with traceback, K6 and the
+        pack. Returns the (10 + N, B) uint16 packed tensor, or the (B,)
+        int32 scores without traceback; both stay on the device."""
+        go, ge, ma, mi = self._params()
+        B, M = xb.shape
+        self._check_rows(M)
+        from rust_bio_tpu_torch.ops.sw import scan_semiglobal
+        from rust_bio_tpu_torch.ops.walk import sweep_walk_semiglobal
+
+        xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
+        tb, S_f, I_f, Sn_f, Ly_f, tbk = scan_semiglobal(xt, yt, ml, nl, go, ge, ma, mi, 0, 0)
+        score, tbfix = _fixed_column(S_f, I_f, Sn_f, Ly_f, tbk, ml, go, ge)
+        if not with_traceback:
+            return score
+        ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly, ystart, yend = sweep_walk_semiglobal(
+            tb, tbfix, ml, nl
+        )
+        return _pack_rle(
+            score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly,
+            torch.zeros_like(ml), ystart, ml, yend,
+        )
 
     def global_(self, xs, ys) -> List[Alignment]:
         xb, yb, mlens, nlens = self._pad(xs, ys)
@@ -205,21 +536,91 @@ class BatchAligner:
             )
         return results
 
-    def scores(self, xs, ys, mode: str = "global") -> np.ndarray:
-        """Score-only path (K3, no traceback): (B,) int32."""
-        if mode != "global":
-            raise NotImplementedError(
-                f"scores(mode={mode!r}) is not ported; semiglobal is "
-                "ROADMAP Queue 1 item 3, local and custom item 6"
+    def semiglobal(self, xs, ys) -> List[Alignment]:
+        """Semiglobal alignments: x aligned whole, y's ends free; clip ops
+        are dropped from the op lists (batched.py ``_run``)."""
+        xb, yb, mlens, nlens = self._pad(xs, ys)
+        score, up = _unpack_rle(self._semiglobal_device(xb, yb, mlens, nlens).cpu().numpy())
+        ops = _decode_semi_batch(
+            up["ins_cnt"], up["exit_op"], up["ins0"], up["fix_ins"], up["fix_exit"],
+            up["fix_ly"], nlens, drop_clips=True,
+        )
+        return [
+            Alignment(
+                score=int(score[k]),
+                xstart=int(up["xstart"][k]),
+                ystart=int(up["ystart"][k]),
+                xend=int(up["xend"][k]),
+                yend=int(up["yend"][k]),
+                xlen=int(mlens[k]),
+                ylen=int(nlens[k]),
+                operations=ops[k],
+                mode=AlignmentMode.Semiglobal,
             )
+            for k in range(len(mlens))
+        ]
+
+    def scores(self, xs, ys, mode: str = "global") -> np.ndarray:
+        """Score-only path, no traceback: (B,) int32. Global runs K3;
+        semiglobal runs K5 and the suffix fixups."""
+        if mode not in ("global", "semiglobal"):
+            raise NotImplementedError(
+                f"scores(mode={mode!r}) is not ported; local and custom are "
+                "ROADMAP Queue 1 item 6"
+            )
+        xb, yb, mlens, nlens = self._pad(xs, ys)
+        if mode == "semiglobal":
+            return self._semiglobal_device(xb, yb, mlens, nlens, with_traceback=False).cpu().numpy()
         from rust_bio_tpu_torch.ops.sw import scores_global
 
         params = self._params()
-        xb, yb, mlens, nlens = self._pad(xs, ys)
         return scores_global(*self._tensors(xb, yb, mlens, nlens), *params).cpu().numpy()
 
-    def semiglobal(self, xs, ys) -> List[Alignment]:
-        raise NotImplementedError("semiglobal mode is ROADMAP Queue 1 item 3")
+    # --- packed results: one device-to-host pull, host decode on demand ---
+
+    def semiglobal_packed_async(self, xs, ys):
+        """Start the packed semiglobal batch on the device without waiting
+        for it; pass the handle to ``semiglobal_packed_finish``."""
+        return self.semiglobal_packed_async_arrays(*self._pad(xs, ys))
+
+    def semiglobal_packed_async_arrays(self, xb, yb, mlens, nlens):
+        """``semiglobal_packed_async`` on padded (B, M) / (B, N) uint8
+        batches and their (B,) lengths."""
+        mlens = np.asarray(mlens, np.int32)
+        nlens = np.asarray(nlens, np.int32)
+        return self._semiglobal_device(xb, yb, mlens, nlens), mlens, nlens
+
+    @staticmethod
+    def semiglobal_packed_finish(handle) -> "PackedSemiglobal":
+        """Pull a ``semiglobal_packed_async`` handle (one device-to-host
+        transfer) into a ``PackedSemiglobal``."""
+        packed, mlens, nlens = handle
+        score, up = _unpack_rle(packed.cpu().numpy())
+        return PackedSemiglobal(score, up, mlens, nlens)
+
+    def semiglobal_packed(self, xs, ys) -> "PackedSemiglobal":
+        """Semiglobal batch without op-list objects: a ``PackedSemiglobal``
+        with vectorized CIGARs and per-read ``Alignment`` decode."""
+        return self.semiglobal_packed_finish(self.semiglobal_packed_async(xs, ys))
+
+    def global_packed_async_arrays(self, xb, yb, mlens, nlens):
+        """``semiglobal_packed_async_arrays`` for global mode (K1, K2):
+        the fix/clip fields of the packed layout are 0."""
+        mlens = np.asarray(mlens, np.int32)
+        nlens = np.asarray(nlens, np.int32)
+        return self.global_packed_arrays(xb, yb, mlens, nlens), mlens, nlens
+
+    @staticmethod
+    def global_packed_finish(handle) -> "PackedSemiglobal":
+        """Pull a ``global_packed_async_arrays`` handle into a
+        ``PackedSemiglobal`` in global mode."""
+        packed, mlens, nlens = handle
+        score, up = _unpack_rle(packed.cpu().numpy())
+        return PackedSemiglobal(score, up, mlens, nlens, mode=AlignmentMode.Global)
+
+    def global_packed(self, xs, ys) -> "PackedSemiglobal":
+        """Global batch without op-list objects (see ``semiglobal_packed``)."""
+        return self.global_packed_finish(self.global_packed_async_arrays(*self._pad(xs, ys)))
 
     def local(self, xs, ys) -> List[Alignment]:
         raise NotImplementedError("local mode is ROADMAP Queue 1 item 6")

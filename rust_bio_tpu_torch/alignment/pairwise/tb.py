@@ -1,9 +1,10 @@
 """Traceback move codes (reference: pairwise/mod.rs:1036-1046).
 
 A traceback cell packs three 4-bit layer pointers into a uint16:
-``i_bits | d_bits << 4 | s_bits << 8``; the global scan puts the capped
-vertical insertion-run length in bits 12-15. The same codes are hard-coded
-in ``ops/csrc/*.cu``.
+``i_bits | d_bits << 4 | s_bits << 8``; the scans put the capped vertical
+insertion-run length in bits 12-15. The same codes are hard-coded in
+``ops/csrc/*.cu``. Clip codes (5-8) occur only where the mode's clip
+penalties are live: the semiglobal engine has the two y-clips.
 """
 
 TB_START = 0
@@ -11,3 +12,7 @@ TB_INS = 1
 TB_DEL = 2
 TB_SUBST = 3
 TB_MATCH = 4
+TB_XCLIP_PREFIX = 5
+TB_XCLIP_SUFFIX = 6
+TB_YCLIP_PREFIX = 7
+TB_YCLIP_SUFFIX = 8

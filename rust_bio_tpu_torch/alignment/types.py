@@ -8,6 +8,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from enum import Enum
+from itertools import groupby
 from typing import List, NamedTuple, Tuple
 
 
@@ -34,6 +35,17 @@ Del = AlignmentOperation("Del")
 Ins = AlignmentOperation("Ins")
 
 
+def Xclip(n: int) -> AlignmentOperation:
+    return AlignmentOperation("Xclip", n)
+
+
+def Yclip(n: int) -> AlignmentOperation:
+    return AlignmentOperation("Yclip", n)
+
+
+_CIGAR_CHAR = {"Match": "=", "Subst": "X", "Del": "D", "Ins": "I"}
+
+
 @dataclass
 class Alignment:
     """Pairwise alignment of x (query) against y (reference).
@@ -55,6 +67,29 @@ class Alignment:
     operations: List[AlignmentOperation] = field(default_factory=list)
     mode: AlignmentMode = AlignmentMode.Custom
 
+    def filter_clip_operations(self) -> None:
+        """Drop Xclip/Yclip ops (reference: Alignment::filter_clip_operations)."""
+        self.operations = [op for op in self.operations if op.kind in _CIGAR_CHAR]
+
+    def cigar(self, hard_clip: bool = False) -> str:
+        """CIGAR string, x as the query (reference: Alignment::cigar): clipped
+        query prefix/suffix as S (or H with ``hard_clip``), Match '=',
+        Subst 'X', Ins 'I', Del 'D'; runs merge across removed clip ops."""
+        if self.mode in (AlignmentMode.Global, AlignmentMode.Local):
+            raise ValueError(
+                f"Cigar fn not supported for {self.mode.name} Alignment mode"
+            )
+        clip_str = "H" if hard_clip else "S"
+        out: List[str] = []
+        if self.xstart > 0:
+            out.append(f"{self.xstart}{clip_str}")
+        ops = [op for op in self.operations if op.kind in _CIGAR_CHAR]
+        for op, grp in groupby(ops):
+            out.append(f"{sum(1 for _ in grp)}{_CIGAR_CHAR[op.kind]}")
+        if self.xlen > self.xend:
+            out.append(f"{self.xlen - self.xend}{clip_str}")
+        return "".join(out)
+
     def path(self) -> List[Tuple[int, int, AlignmentOperation]]:
         """Matrix-path coordinates per op (reference: Alignment::path)."""
         path: List[Tuple[int, int, AlignmentOperation]] = []
@@ -71,3 +106,9 @@ class Alignment:
                 continue
             path.append((x_i, y_i, op))
         return path
+
+    def y_aln_len(self) -> int:
+        return self.yend - self.ystart
+
+    def x_aln_len(self) -> int:
+        return self.xend - self.xstart

@@ -19,6 +19,7 @@ kernels are ROADMAP Queue 1 item 2). Results are bit-identical to the JAX
 
 from __future__ import annotations
 
+import copy
 from typing import List, Sequence
 
 import numpy as np
@@ -169,6 +170,16 @@ class DeviceFMIndex:
             self.sent_vals = to_dev(arrays["sent_vals"], torch.int32)
         else:
             self.sa_sample = None
+
+    def to(self, device) -> "DeviceFMIndex":
+        """A copy of this index with every table on ``device``."""
+        dev = resolve_device(device)
+        twin = copy.copy(self)
+        for name, value in vars(self).items():
+            if isinstance(value, torch.Tensor):
+                setattr(twin, name, value.to(dev))
+        twin.device = dev
+        return twin
 
     @property
     def bits(self) -> torch.Tensor:

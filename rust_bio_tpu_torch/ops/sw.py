@@ -1,12 +1,15 @@
-"""Global affine-gap DP with constant match/mismatch scoring: kernels K1
+"""Affine-gap DP with constant match/mismatch scoring: kernels K1
 (``scan_global``: score + traceback cells) and K3 (``scores_global``: score
-only), CUDA sources in ``csrc/sw_global.cu``.
+only), CUDA sources in ``csrc/sw_global.cu``, and K5 (``scan_semiglobal``:
+traceback cells + the finals of the y-clip machinery), CUDA source in
+``csrc/sw_semiglobal.cu``.
 
 They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``
-(``runs="ins"``) and ``sw_scores_global_matchparams``. The plain versions
-below follow the Pallas kernels' column formulation (rows vectorized, the
-insertion recurrence as a (max,+) prefix scan); the CUDA kernels walk each
-pair's cells in order. Both are exact in int32.
+and ``scan_semiglobal_pallas_mp`` (both ``runs="ins"``) and
+``sw_scores_global_matchparams``. The plain versions below follow the
+Pallas kernels' column formulation (rows vectorized, the insertion
+recurrence as a (max,+) prefix scan); the CUDA kernels walk each pair's
+cells in order. Both are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``.
@@ -24,6 +27,8 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_INS,
     TB_START,
     TB_SUBST,
+    TB_YCLIP_PREFIX,
+    TB_YCLIP_SUFFIX,
 )
 from rust_bio_tpu_torch.ops._build import (
     INT,
@@ -45,6 +50,10 @@ SCAN_GLOBAL = CudaKernel(
 SCORES_GLOBAL = CudaKernel(
     "sw_global", "sw_scores_global",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR, PTR],
+)
+SCAN_SEMIGLOBAL = CudaKernel(
+    "sw_semiglobal", "sw_scan_semiglobal",
+    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
 )
 
 
@@ -116,6 +125,35 @@ def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, misma
             B, M, *pens, score.data_ptr(), _ptr(scratch),
         )
     return score
+
+
+def scan_semiglobal(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score,
+                    yclip_prefix, yclip_suffix):
+    """K5: the DP of the semiglobal family (x-clips disabled, y-clip
+    penalties ``yclip_prefix``/``yclip_suffix`` live). Returns (tb (N, M+1,
+    B) uint16, S_f, I_f, Sn_f, Ly_f, tbk), the finals (B, M+1) int32.
+
+    ``tb`` is laid out and packed as K1's, with y-clip codes in the s- and
+    d-bits. The finals are the column-``nlens[b]`` state that
+    ``_suffix_fixups`` reads: S, I (the insertion score of that column),
+    Sn/Ly (best y-suffix-clip score per row and its clip length) and the
+    cells ``tbk``. Defined for rows ``<= mlens[b]`` and, in ``tb``, columns
+    ``1 <= j <= nlens[b]``."""
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    pens = tuple(int(v) for v in (gap_open, gap_extend, match_score, mismatch_score, yclip_prefix, yclip_suffix))
+    if dev.type == "cpu":
+        return scan_semiglobal_plain(xb, yb, mlens, nlens, *pens)
+    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+    finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
+    if B:
+        xt = xb.t().contiguous()
+        yt = yb.t().contiguous()
+        scratch = _scratch(5, B, M, dev)
+        SCAN_SEMIGLOBAL.launch(
+            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, M, *pens, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
+        )
+    return (tb, *finals)
 
 
 # ---------------------------------------------------------------------------
@@ -232,3 +270,97 @@ def scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
         S = torch.where(active, s_col, S)
         D = torch.where(active, best_d, D)
     return torch.where(rows == mlens[None, :], S, NEG).amax(dim=0)
+
+
+def scan_semiglobal_plain(xb, yb, mlens, nlens, go, ge, ma, mi, ycp, ycs):
+    """Plain version of K5 (sw_pallas.py ``_kernel_scan_semiglobal_mp``)."""
+    B, M = xb.shape
+    N = yb.shape[1]
+    dev = xb.device
+    i32 = torch.int32
+    rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
+    row0 = rows == 0
+    rge = rows * ge
+    in_x = (rows >= 1) & (rows <= mlens[None, :])
+    yclip_row = ycp + go + ge * (rows - 1)
+    xt = xb.t().to(i32)
+    yt = yb.t().to(i32)
+    neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
+    start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
+
+    S0 = torch.where(row0, 0, go + ge * (rows - 1))
+    S = S0.expand(M + 1, B).contiguous()
+    D = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    I = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    SB = torch.where(row0, TB_START, TB_INS).to(i32).expand(M + 1, B).contiguous()
+    ib0 = torch.where(rows <= 1, TB_START, TB_INS).to(i32)
+    TBK = (ib0 | (TB_START << 4) | (SB << 8)).contiguous()
+    # y-suffix accumulators: row 0 = (ycs, nlens), rows in x = (S0 + ycs, nlens)
+    SN = torch.where(row0, ycs, torch.where(in_x, S0 + ycs, MIN_SCORE)).to(i32)
+    LY = torch.where(row0 | in_x, nlens[None, :], 0).to(i32)
+    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+
+    for j in range(1, N + 1):
+        active = (j <= nlens)[None, :]
+        is_last = (j == nlens)[None, :]
+        eq = (xt == yt[j - 1][None, :]).to(i32)
+        m_val = torch.cat([neg_row, S[:-1] + (mi + (ma - mi) * eq)])
+        m_bits = torch.cat([start_row, TB_SUBST + eq])
+        d_ext = D + ge
+        d_open = S + go
+        d_wins = d_ext > d_open
+        best_d = torch.where(d_wins, d_ext, d_open)
+        d_bits = torch.where(d_wins, TB_DEL, SB)
+
+        # row 0: Del against the y-prefix clip; in the lane's last column the
+        # y-suffix accumulator may take it over
+        d_gap = go + ge * (j - 1)
+        d_clip = ycp + go
+        dj0 = go if j == 1 else max(d_gap, d_clip)
+        db0 = TB_START if j == 1 else (TB_DEL if d_gap > d_clip else TB_YCLIP_PREFIX)
+        s0j = dj0 if dj0 > ycp else ycp
+        sb0 = TB_DEL if dj0 > ycp else TB_YCLIP_PREFIX
+        sn0 = SN[0:1]
+        take_sn = is_last & (sn0 > s0j)
+        s0j = torch.where(take_sn, sn0, s0j)
+        sb0 = torch.where(take_sn, TB_YCLIP_SUFFIX, torch.full_like(sn0, sb0))
+        upd_sn0 = ~take_sn & (s0j + ycs > sn0) & active
+        sn0_new = torch.where(upd_sn0, s0j + ycs, sn0)
+        ly0_new = torch.where(upd_sn0, nlens[None, :] - j, LY[0:1])
+
+        best_d = torch.where(row0, dj0, best_d)
+        d_bits = torch.where(row0, db0, d_bits)
+        s_tilde = torch.where(row0, s0j, torch.maximum(torch.maximum(m_val, best_d), yclip_row))
+
+        T = torch.cat([neg_row, s_tilde[:-1] + go])
+        best_i = torch.cummax(T - rge, dim=0).values + rge
+        i_ext = torch.cat([neg_row, best_i[:-1] + ge])
+
+        # S selection, priority Match/Subst > Ins > Del > Yclip-prefix
+        take_i = best_i > m_val
+        s_col = torch.where(take_i, best_i, m_val)
+        s_bits = torch.where(take_i, TB_INS, m_bits)
+        take_d = best_d > s_col
+        s_col = torch.where(take_d, best_d, s_col)
+        s_bits = torch.where(take_d, TB_DEL, s_bits)
+        take_y = yclip_row > s_col
+        s_col = torch.where(row0, s0j, torch.where(take_y, yclip_row, s_col))
+        s_bits = torch.where(row0, sb0, torch.where(take_y, TB_YCLIP_PREFIX, s_bits))
+
+        i_bits = torch.where(i_ext > T, TB_INS, torch.cat([start_row, s_bits[:-1]]))
+        i_bits = torch.where(row0, TB_START, i_bits)
+
+        upd_sn = (s_col + ycs > SN) & in_x & active
+        SN = torch.where(row0, sn0_new, torch.where(upd_sn, s_col + ycs, SN))
+        LY = torch.where(row0, ly0_new, torch.where(upd_sn, nlens[None, :] - j, LY))
+
+        cell = i_bits | (d_bits << 4) | (s_bits << 8) | _ins_run_nib(i_bits, rows)
+        tb[j - 1] = cell.to(torch.uint16)
+        S = torch.where(active, s_col, S)
+        D = torch.where(active, best_d, D)
+        SB = torch.where(active, s_bits, SB)
+        I = torch.where(active, best_i, I)
+        TBK = torch.where(active, cell, TBK)
+
+    finals = (S, I, SN, LY, TBK)
+    return (tb, *(f.t().contiguous() for f in finals))

@@ -107,15 +107,18 @@ def test_pack_unpack_roundtrip():
 
 def test_unported_paths_raise():
     ba = BatchAligner(Scoring.from_scores(-5, -1, 2, -2), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ba.scores([b"ACGT"], [b"ACGT"], "semiglobal")
-    for mode in (ba.semiglobal, ba.local, ba.custom):
+    for mode in ("local", "custom"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ba.scores([b"ACGT"], [b"ACGT"], mode)
+    for mode in (ba.local, ba.custom):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode([b"ACGT"], [b"ACGT"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ba.global_([b"A" * 4095], [b"A"])
+    for mode in (ba.global_, ba.semiglobal, ba.semiglobal_packed):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mode([b"A" * 4095], [b"A"])
     lut = BatchAligner(Scoring.new(-5, -1, lambda a, b: 1 if a == b else -1), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lut.global_([b"ACGT"], [b"ACGT"])
+    for mode in (lut.global_, lut.semiglobal):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            mode([b"ACGT"], [b"ACGT"])
     with pytest.raises(AssertionError):
         BatchAligner(Scoring.from_scores(-1, -5, 2, -2), device="cpu")

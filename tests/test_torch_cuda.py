@@ -14,9 +14,11 @@ import pytest
 import torch
 
 from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 from rust_bio_tpu_torch.alphabets import dna
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
 from rust_bio_tpu_torch.ops import fm, sw, walk
+from rust_bio_tpu_torch.pipelines import ReadMapper
 
 pytestmark = pytest.mark.cuda
 
@@ -106,3 +108,96 @@ def test_fm_index_on_card_matches_cpu(cuda_device):
         assert torch.equal(g, w) and torch.equal(g.cpu(), c)
     rows = np.arange(len(text), dtype=np.int32)
     np.testing.assert_array_equal(on_card.locate_batch(rows), on_cpu.locate_batch(rows))
+
+
+def _masked(t, mlens, nlens=None):
+    """``t`` with the entries outside the defined region zeroed: rows above
+    mlens[b] of (B, X) finals, or of (N, X, B) cells also columns past
+    nlens[b] (the kernels leave those unwritten)."""
+    t = t.to(torch.int64).cpu()
+    ml = torch.as_tensor(mlens, dtype=torch.int64)
+    if t.dim() == 2:
+        return torch.where(torch.arange(t.shape[1])[None, :] <= ml[:, None], t, 0)
+    nl = torch.as_tensor(nlens, dtype=torch.int64)
+    keep = (torch.arange(t.shape[0])[:, None, None] < nl[None, None, :]) & (
+        torch.arange(t.shape[1])[None, :, None] <= ml[None, None, :]
+    )
+    return torch.where(keep, t, 0)
+
+
+def _semi_finals_match(got, want, mlens, nlens):
+    assert torch.equal(_masked(got[0], mlens, nlens), _masked(want[0], mlens, nlens))
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+
+
+@pytest.mark.parametrize("go,ge", PENS)
+def test_semiglobal_scan_and_walk_match_plain(cuda_device, go, ge):
+    """K5 and K6 at the mapper's shapes (M = 150, N = 166)."""
+    args, mlens, nlens = _pairs(np.random.default_rng(21), 300, 150, 166, cuda_device)
+    got = sw.scan_semiglobal(*args, go, ge, 2, -2, 0, 0)
+    torch.cuda.synchronize()
+    want = sw.scan_semiglobal_plain(*args, go, ge, 2, -2, 0, 0)
+    _semi_finals_match(got, want, mlens, nlens)
+    # K6 on the plain path's traceback tensor and fixed column
+    tb = want[0]
+    _, tbfix = _fixed_column(*want[1:], args[2], go, ge)
+    wgot = walk.sweep_walk_semiglobal(tb, tbfix, args[2], args[3])
+    torch.cuda.synchronize()
+    for g, w in zip(wgot, walk.sweep_walk_semiglobal_plain(tb, tbfix, args[2], args[3])):
+        assert torch.equal(g, w)
+
+
+def test_semiglobal_scan_with_clip_penalties_and_scratch_match_plain(cuda_device):
+    """Nonzero y-clip penalties, and M large enough that the five column
+    layers leave shared memory for the device scratch."""
+    args, mlens, nlens = _pairs(np.random.default_rng(22), 40, 700, 30, cuda_device)
+    for ycp, ycs in ((0, 0), (-3, -4)):
+        got = sw.scan_semiglobal(*args, -5, -1, 2, -2, ycp, ycs)
+        torch.cuda.synchronize()
+        _semi_finals_match(got, sw.scan_semiglobal_plain(*args, -5, -1, 2, -2, ycp, ycs), mlens, nlens)
+
+
+def test_semiglobal_aligner_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(5)
+    xs, ys = [], []
+    for _ in range(64):
+        y = rng.choice(list(b"ACGT"), size=int(rng.integers(30, 170))).astype(np.uint8).tobytes()
+        m = int(rng.integers(1, min(150, len(y))))
+        s = int(rng.integers(0, len(y) - m + 1))
+        x = bytearray(y[s : s + m])
+        for _ in range(int(rng.integers(0, 5))):
+            x[int(rng.integers(0, m))] = int(rng.choice(list(b"ACGT")))
+        xs.append(bytes(x))
+        ys.append(y)
+    sc = Scoring.from_scores(-5, -1, 2, -2)
+    on_card = BatchAligner(sc, device=cuda_device)
+    on_cpu = BatchAligner(sc, device="cpu")
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    assert [key(a) for a in on_card.semiglobal(xs, ys)] == [key(a) for a in on_cpu.semiglobal(xs, ys)]
+    np.testing.assert_array_equal(on_card.scores(xs, ys, "semiglobal"), on_cpu.scores(xs, ys, "semiglobal"))
+    assert on_card.semiglobal_packed(xs, ys).cigars() == on_cpu.semiglobal_packed(xs, ys).cigars()
+
+
+def test_read_mapper_on_card_matches_cpu(cuda_device):
+    rng = np.random.default_rng(1234)
+    genome = rng.choice(list(b"ACGT"), size=5000).astype(np.uint8).tobytes()
+    reads = []
+    for k in range(48):
+        s = int(rng.integers(0, len(genome) - 100))
+        r = bytearray(genome[s : s + 100])
+        for _ in range(int(rng.integers(0, 4))):
+            r[int(rng.integers(0, 100))] = int(rng.choice(list(b"ACGT")))
+        r = bytes(r)
+        if k % 3 == 1:
+            r = dna.revcomp(r)
+        if k % 7 == 3:
+            r = rng.choice(list(b"ACGT"), size=100).astype(np.uint8).tobytes()
+        reads.append(r)
+    on_card = ReadMapper(genome, device=cuda_device)
+    on_cpu = ReadMapper(genome, device="cpu")
+    key = lambda m: (m.read_id, m.pos, m.strand, m.score, m.cigar)  # noqa: E731
+    got = on_card.map_batch(reads)
+    assert [key(m) for m in got] == [key(m) for m in on_cpu.map_batch(reads)]
+    assert sum(m.pos >= 0 for m in got) > 30
+    assert [key(m) for m in on_card.to("cpu").map_batch(reads)] == [key(m) for m in got]

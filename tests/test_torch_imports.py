@@ -12,6 +12,7 @@ from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
 from rust_bio_tpu_torch.alphabets import dna
 from rust_bio_tpu_torch.carry import fm_index_from_arrays
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.pipelines import ReadMapper
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "rust_bio_tpu")
@@ -47,7 +48,9 @@ def test_port_has_its_files():
     assert "chip_smoke.py" in names
     assert "rust_bio_tpu_torch/carry.py" in names
     csrc = ROOT / "rust_bio_tpu_torch" / "ops" / "csrc"
-    assert {p.name for p in csrc.glob("*.cu")} == {"sw_global.cu", "walk_global.cu", "fm_search.cu"}
+    assert {p.name for p in csrc.glob("*.cu")} == {
+        "sw_global.cu", "walk_global.cu", "fm_search.cu", "sw_semiglobal.cu", "walk_semiglobal.cu",
+    }
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -61,4 +64,6 @@ def test_default_device_raises_without_cuda(monkeypatch):
         DeviceFMIndex.from_text(b"ACGT$")
     with pytest.raises(RuntimeError, match="CUDA"):
         fm_index_from_arrays({}, {"n": 1, "s": 1, "sentinel": 36, "symbols": []})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ReadMapper(b"ACGTACGTTGCA")
     assert BatchAligner(sc, device="cpu").device.type == "cpu"
