@@ -23,6 +23,14 @@ NVIDIA GPU.
    consume the read; every read with an error-free seed window on its
    strand must map to its origin; the random reads must stay unmapped; on
    64 reads the card must equal the port's CPU path.
+3b. Drives local and custom alignment with the counters at 0 again:
+   ``BatchAligner.local`` and ``.scores(..., "local")`` on both pair corpora
+   of step 2, and ``BatchAligner.custom`` and ``.scores(..., "custom")``
+   with BWA-MEM's soft-clip scoring on the mapper's 8192 oriented reads,
+   their first and last 0-30 bases replaced by random bases, against their
+   166 bp origin windows. Every alignment must re-score to its score (clip
+   ops at their penalties), agree with ``scores`` and, on 64 pairs, with
+   the CPU path; every custom alignment must consume both sequences.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
    both with CUDA events.
@@ -55,13 +63,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
-# 32-bit operations per DP cell in the inner loops of csrc/sw_global.cu
-# and csrc/sw_semiglobal.cu (compares, selects, adds, max, the run counter,
-# the cell packing and, in K5, the y-prefix clip and the Sn/Ly update;
-# loads, stores and address arithmetic not counted)
+# 32-bit operations per DP cell in the inner loops of csrc/sw_global.cu,
+# csrc/sw_semiglobal.cu and csrc/sw_custom.cu (compares, selects, adds, max,
+# the run counter, the cell packing and, in K5, K7 and K9, the clip
+# candidates and the Sn/Ly update; K7 and K9 add the running x-suffix
+# maximum; loads, stores and address arithmetic not counted)
 K1_OPS_PER_CELL = 31
 K3_OPS_PER_CELL = 12
 K5_OPS_PER_CELL = 39
+K7_OPS_PER_CELL = 44
+K9_OPS_PER_CELL = 49
 
 DEVICE = "cuda"
 GO, GE, MA, MI = -5, -1, 2, -2
@@ -71,6 +82,10 @@ B_FM, QLEN = 65_536, 20
 B_READS, READ_LEN, B_RANDOM = 8192, 150, 256
 SEED_LEN, SEED_TRIES, FLANK = 20, 3, 8
 SEED_STARTS = (0, 65, 130)  # the mapper's seed windows on a 150 bp read
+# custom mode: BWA-MEM's -A1 -B4 -O6 -E1 -L5 in the affine form, x clipped
+# at 5 per end, the reference window's ends free; reads lose up to 30
+# bases at each end to random ones (adapter read-through, chimeric ends)
+CUSTOM_PENS, CUSTOM_XCLIP, CUSTOM_YCLIP, MAX_JUNK = (-6, -1, 1, -4), -5, 0, 30
 
 
 def fail(msg: str) -> None:
@@ -121,25 +136,39 @@ def host_s(torch, fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def rescore(kinds, x: bytes, y: bytes):
+def rescore(kinds, x: bytes, y: bytes, pens=(GO, GE, MA, MI)):
     """(score, x consumed, y consumed) of a list of op kinds under the
-    affine model gap(k) = GO + GE * (k - 1); None if a Match/Subst
+    affine model gap(k) = go + ge * (k - 1); None if a Match/Subst
     contradicts x, y."""
+    return rescore_ops([(k, 0) for k in kinds], x, y, pens)
+
+
+def rescore_ops(ops, x: bytes, y: bytes, pens=(GO, GE, MA, MI), xclip=None, yclip=None):
+    """``rescore`` of (kind, len) ops, with Xclip/Yclip ops at the clip
+    penalties ``xclip``/``yclip`` (None: a clip op fails), consuming their
+    length of x or y."""
+    go, ge, ma, mi = pens
     i = j = score = 0
     prev = None
-    for k in kinds:
+    for k, n in ops:
         if k in ("Match", "Subst"):
             if i >= len(x) or j >= len(y) or (x[i] == y[j]) != (k == "Match"):
                 return None
-            score += MA if k == "Match" else MI
+            score += ma if k == "Match" else mi
             i += 1
             j += 1
         elif k == "Ins":
-            score += GE if prev == "Ins" else GO
+            score += ge if prev == "Ins" else go
             i += 1
         elif k == "Del":
-            score += GE if prev == "Del" else GO
+            score += ge if prev == "Del" else go
             j += 1
+        elif k == "Xclip" and xclip is not None:
+            score += xclip
+            i += n
+        elif k == "Yclip" and yclip is not None:
+            score += yclip
+            j += n
         else:
             return None
         prev = k
@@ -199,6 +228,38 @@ def defined(outs, mlens, nlens):
     )
     keep_f = rows[None, :] <= mlens[:, None]
     return [torch.where(keep, tb.to(torch.int32), 0)] + [torch.where(keep_f, f, 0) for f in finals]
+
+
+def defined_clip(outs, mlens, nlens):
+    """K7's / K9's outputs with what the kernel leaves unwritten set to 0:
+    traceback cells past column nlens[b] (column 0 is index 0) or below row
+    mlens[b], lx past column nlens[b], final rows below mlens[b]."""
+    import torch
+
+    tb, lx, *finals = outs
+    Nc, X, _ = tb.shape
+    cols = torch.arange(Nc, device=tb.device)
+    rows = torch.arange(X, device=tb.device)
+    keep = (cols[:, None, None] <= nlens[None, None, :]) & (rows[None, :, None] <= mlens[None, None, :])
+    keep_f = rows[None, :] <= mlens[:, None]
+    return [torch.where(keep, tb.to(torch.int32), 0), torch.where(cols[:, None] <= nlens[None, :], lx, 0)] + [
+        torch.where(keep_f, f, 0) for f in finals
+    ]
+
+
+def clip_walk_inputs(torch, scan, mlens, nlens, pens, clips):
+    """The fixed final column and x-suffix clip length K8/K10 start from,
+    from a K7/K9 scan (``BatchAligner._custom_device``'s steps)."""
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fixups
+
+    tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
+    B, X = S_f.shape
+    rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, mlens)
+    _, tb_fixed, Lx_n, lx_set = _suffix_fixups(
+        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, mlens, mlens_c, is_row_m, (pens[0], pens[1], *clips)
+    )
+    tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+    return tbfix, torch.where(lx_set, Lx_n, lx.gather(0, nlens.long()[None, :])[0])
 
 
 def host_profile(torch, fn, top: int = 14) -> dict:
@@ -265,6 +326,10 @@ def main() -> int:
         "fm_backward_search": fm.FM_BACKWARD_SEARCH,
         "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
         "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
+        "sw_scan_local": sw.SCAN_LOCAL,
+        "sweep_walk_local": walk.SWEEP_WALK_LOCAL,
+        "sw_scan_custom": sw.SCAN_CUSTOM,
+        "sweep_walk_custom": walk.SWEEP_WALK_CUSTOM,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -304,6 +369,24 @@ def main() -> int:
     clean_seed = np.zeros(n_reads, bool)
     for s0 in SEED_STARTS:
         clean_seed |= ~rmut[:, s0 : s0 + SEED_LEN].any(axis=1)
+    # the mapper's extension batch: the oriented reads against their
+    # windows (origin -/+ FLANK), as the mapper builds it for seeded reads
+    ws = np.maximum(origins[:B_READS] - FLANK, 0)
+    nl_ext = (np.minimum(origins[:B_READS] + READ_LEN + FLANK, TEXT_LEN) - ws).astype(np.int32)
+    W = int(nl_ext.max())
+    yb_ext = text_arr[ws[:, None] + np.arange(W)[None, :]]
+    yb_ext[np.arange(W)[None, :] >= nl_ext[:, None]] = 0
+    xb_ext = oriented_np[:B_READS]
+    ml_ext = np.full(B_READS, READ_LEN, np.int32)
+    # the custom corpus: those reads with their first a and last b bases
+    # replaced by random ones, against the same windows
+    xb_clip = xb_ext.copy()
+    junk = rng.integers(0, MAX_JUNK + 1, size=(B_READS, 2))
+    cols_np = np.arange(READ_LEN)[None, :]
+    ends = (cols_np < junk[:, :1]) | (cols_np >= READ_LEN - junk[:, 1:])
+    xb_clip[ends] = acgt[rng.integers(0, 4, size=int(ends.sum()))]
+    custom_xs = [bytes(r) for r in xb_clip]
+    custom_ys = [bytes(yb_ext[k, : nl_ext[k]]) for k in range(B_READS)]
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
@@ -403,6 +486,44 @@ def main() -> int:
     check([mkey(mapped[k]) for k in sample] == [mkey(m) for m in on_cpu], "mapper: card != CPU plain path")
     launches = {name: launches[name] + mapper_launches[name] for name in counters}
 
+    # ---- 3b. local and custom alignment, counted ---------------------------
+    for k in counters.values():
+        k.launches = 0
+    local_out = {}
+    for name, (xs, ys) in corpora.items():
+        alns = ba.local(xs, ys)
+        scores = ba.scores(xs, ys, "local")
+        check(len(alns) == B_ALN and scores.shape == (B_ALN,), f"local {name}: result count")
+        check(all(int(s) == a.score for s, a in zip(scores, alns)), f"local {name}: scores() != local scores")
+        for k, (a, x, y) in enumerate(zip(alns, xs, ys)):
+            got = rescore([op.kind for op in a.operations], x[a.xstart : a.xend], y[a.ystart : a.yend])
+            check(got == (a.score, a.xend - a.xstart, a.yend - a.ystart), f"local {name}: pair {k} does not re-score to {a.score}")
+        local_out[name] = alns
+    csc = Scoring.from_scores(*CUSTOM_PENS).xclip(CUSTOM_XCLIP).yclip(CUSTOM_YCLIP)
+    bac = BatchAligner(csc, device=dev)
+    custom_alns = bac.custom(custom_xs, custom_ys)
+    custom_scores = bac.scores(custom_xs, custom_ys, "custom")
+    check(len(custom_alns) == B_READS and custom_scores.shape == (B_READS,), "custom: result count")
+    check(all(int(s) == a.score for s, a in zip(custom_scores, custom_alns)), "custom: scores() != custom scores")
+    n_clipped = 0
+    for k, (a, x, y) in enumerate(zip(custom_alns, custom_xs, custom_ys)):
+        ops = [(op.kind, op.len) for op in a.operations]
+        got = rescore_ops(ops, x, y, CUSTOM_PENS, CUSTOM_XCLIP, CUSTOM_YCLIP)
+        check(got == (a.score, len(x), len(y)), f"custom: pair {k} does not re-score to {a.score} over both sequences: {got}")
+        n_clipped += any(kind == "Xclip" for kind, _ in ops)
+    clip_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("sw_scan_local", "sweep_walk_local", "sw_scan_custom", "sweep_walk_custom")
+    check(all(clip_launches[n] > 0 for n in path_kernels), f"a kernel of the local/custom path did not launch: {clip_launches}")
+    cpu_c = BatchAligner(csc, device="cpu")
+    for name, (xs, ys) in corpora.items():
+        check([fields(a) for a in local_out[name][:64]] == [fields(a) for a in cpu.local(xs[:64], ys[:64])], f"local {name}: card != CPU plain path")
+    check([fields(a) for a in custom_alns[:64]] == [fields(a) for a in cpu_c.custom(custom_xs[:64], custom_ys[:64])], "custom: card != CPU plain path")
+    print(json.dumps({
+        "phase": "local_custom", "launches": clip_launches, "local_pairs": 2 * B_ALN, "custom_pairs": B_READS,
+        "custom_with_xclip": n_clipped, "custom_mean_score": float(np.mean(custom_scores)),
+    }), flush=True)
+    launches = {name: launches[name] + clip_launches[name] for name in counters}
+
     # ---- 4. kernels against their plain versions, timed ---------------
     def tens(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
@@ -479,15 +600,6 @@ def main() -> int:
         12 * (steps_ok + steps_failed),
     )
 
-    # the mapper's extension batch: the oriented reads against their
-    # windows (origin -/+ FLANK), as the mapper builds it for seeded reads
-    ws = np.maximum(origins[:B_READS] - FLANK, 0)
-    nl_ext = (np.minimum(origins[:B_READS] + READ_LEN + FLANK, TEXT_LEN) - ws).astype(np.int32)
-    W = int(nl_ext.max())
-    yb_ext = text_arr[ws[:, None] + np.arange(W)[None, :]]
-    yb_ext[np.arange(W)[None, :] >= nl_ext[:, None]] = 0
-    xb_ext = oriented_np[:B_READS]
-    ml_ext = np.full(B_READS, READ_LEN, np.int32)
     ext = tens(xb_ext, yb_ext, ml_ext, nl_ext)
     sg = (GO, GE, MA, MI, 0, 0)
     got = sw.scan_semiglobal(*ext, *sg)
@@ -522,6 +634,69 @@ def main() -> int:
     )
     del got, tb5, wwant
 
+    # K7 and K8 on the random corpus (local scoring), K9 and K10 on the
+    # custom corpus; the plain versions run on the same inputs
+    def clip_kernels(scan_name, walk_name, args, pens, clips, nlens_np, ops_per_cell, replaces):
+        local = all(c == 0 for c in clips)
+        scan_fn = (lambda plain=False: (sw.scan_local_plain if plain else sw.scan_local)(*args, *pens)) if local else (
+            lambda plain=False: (sw.scan_custom_plain if plain else sw.scan_custom)(*args, *pens, *clips)
+        )
+        got = scan_fn()
+        torch.cuda.synchronize()
+        want = scan_fn(plain=True)
+        ml_d_, nl_d_ = args[2], args[3]
+        Bq, Mq = args[0].shape
+        Nq = args[1].shape[1]
+        cells_q = Mq * int(nlens_np.sum())
+        report(
+            scan_name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", replaces[0],
+            defined_clip(got, ml_d_, nl_d_), defined_clip(want, ml_d_, nl_d_),
+            cuda_ms(torch, scan_fn, 10), cuda_ms(torch, lambda: scan_fn(plain=True), 2),
+            Bq * (Mq + Nq) + 8 * Bq + 2 * (Mq + 1) * int((nlens_np + 1).sum()) + 4 * (Nq + 1) * Bq + 5 * 4 * Bq * (Mq + 1),
+            ops_per_cell * cells_q,
+        )
+        del want
+        tb_q, lx_q = got[0], got[1]
+        tbfix, lx_n = clip_walk_inputs(torch, got, ml_d_, nl_d_, pens, clips)
+        winputs = (tb_q, tbfix, lx_q, lx_n, ml_d_, nl_d_)
+        if walk_name == "sweep_walk_local":
+            wrapper, plain = walk.sweep_walk_local, walk.sweep_walk_local_plain
+            entry = walk.local_entry(tb_q, lx_q, tbfix, lx_n, ml_d_, nl_d_)[2:9]
+            launch = lambda: walk.sweep_walk_local_launch(tb_q, *entry)  # noqa: E731
+            n_out, ins_at = 2, 0  # (ins_cnt, exit_op, ...)
+        else:
+            wrapper, plain = walk.sweep_walk_custom, walk.sweep_walk_custom_plain
+            entry = walk.resolve_fixed_column_custom(tbfix, lx_n, ml_d_, nl_d_)[2:7]
+            launch = lambda: walk.sweep_walk_custom_launch(tb_q, lx_q, *entry)  # noqa: E731
+            n_out, ins_at = 5, 1  # (pre, ins_cnt, exit_op, exit_len, post, ...)
+        wgot = wrapper(*winputs)
+        torch.cuda.synchronize()
+        wwant = plain(*winputs)
+        # the walk reads one cell per emitted op plus the entry cell
+        path_cells = int(wgot[ins_at].long().sum() + (wgot[ins_at + 1].long() > 0).sum()) + Bq
+        report(
+            walk_name, "rust_bio_tpu_torch/ops/csrc/walk_custom.cu", replaces[1],
+            wgot, wwant,
+            cuda_ms(torch, launch, 10), cuda_ms(torch, lambda: plain(*winputs), 2),
+            2 * path_cells + 4 * 8 * Bq + 2 * n_out * (Nq + 1) * Bq + 8 * Bq,
+            8 * path_cells,
+            wrapper_ms=cuda_ms(torch, lambda: wrapper(*winputs), 10),
+        )
+        del got, wgot, wwant
+
+    clip_kernels(
+        "sw_scan_local", "sweep_walk_local", (xb_d, yb_d, ml_d, nl_d), pens, (0, 0, 0, 0),
+        np.full(B_ALN, LEN), K7_OPS_PER_CELL,
+        ("rust_bio_tpu/ops/sw_pallas.py:1966", "rust_bio_tpu/ops/walk_pallas.py:916"),
+    )
+    cust = tens(xb_clip, yb_ext, ml_ext, nl_ext)
+    custom_clips = (CUSTOM_XCLIP, CUSTOM_XCLIP, CUSTOM_YCLIP, CUSTOM_YCLIP)
+    clip_kernels(
+        "sw_scan_custom", "sweep_walk_custom", cust, CUSTOM_PENS, custom_clips,
+        nl_ext, K9_OPS_PER_CELL,
+        ("rust_bio_tpu/ops/sw_pallas.py:1601", "rust_bio_tpu/ops/walk_pallas.py:1128"),
+    )
+
     # ---- 5. end-to-end rates --------------------------------------------
     rates = {}
     for name, (xs, ys) in corpora.items():
@@ -547,6 +722,17 @@ def main() -> int:
         3,
     )
     rates["mapper_index_build_s"] = mapper_build_s
+    ml_np = np.full(B_ALN, LEN, np.int32)
+    rates["local_alignments_per_s_device"] = B_ALN / host_s(
+        torch, lambda: ba._custom_device(xb, yb, ml_np, ml_np, (0, 0, 0, 0)), 5
+    )
+    rates["local_alignments_per_s_delivered"] = B_ALN / host_s(torch, lambda: ba.local(*corpora["random"]), 3)
+    rates["scores_local_pairs_per_s"] = B_ALN / host_s(torch, lambda: ba.scores(*corpora["random"], "local"), 3)
+    rates["custom_alignments_per_s_device"] = B_READS / host_s(
+        torch, lambda: bac._custom_device(xb_clip, yb_ext, ml_ext, nl_ext, custom_clips), 5
+    )
+    rates["custom_alignments_per_s_delivered"] = B_READS / host_s(torch, lambda: bac.custom(custom_xs, custom_ys), 3)
+    rates["scores_custom_pairs_per_s"] = B_READS / host_s(torch, lambda: bac.scores(custom_xs, custom_ys, "custom"), 3)
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "card": smi}), flush=True)
 

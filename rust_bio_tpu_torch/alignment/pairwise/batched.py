@@ -16,10 +16,18 @@ the y-clip penalties 0, ``_suffix_fixups`` (plain torch) on its finals, K6
 same pack with the fix/clip fields live. ``PackedSemiglobal`` holds the
 pulled result: vectorized CIGARs and per-read ``Alignment`` decode.
 
+The path of ``BatchAligner.local`` and ``.custom`` (``_custom_device``):
+K7 (``ops.sw.scan_local``) when all four clip penalties are 0, else K9
+(``ops.sw.scan_custom``); ``_suffix_fixups`` with all four clips; then K8
+(``ops.walk.sweep_walk_local``) after K7 with gap_open + gap_extend < 0,
+else K10 (``ops.walk.sweep_walk_custom``); ``_pack_rle_local`` or
+``_pack_rle_custom`` and the host decode. ``scores(..., "local"|"custom")``
+stops after the fixups.
+
 Results are bit-identical to the JAX package and to its scalar oracle.
-Only ``MatchParams`` scoring and M + 1 < 4096 are ported; local and custom
-modes, LUT scorings and longer x raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+Only ``MatchParams`` scoring and M + 1 < 4096 are ported; LUT scorings and
+longer x raise ``NotImplementedError`` naming the ROADMAP item that ports
+them.
 """
 
 from __future__ import annotations
@@ -107,6 +115,67 @@ def _unpack_rle(packed: np.ndarray):
         "ins_cnt": merged & 0xFFF,
         "exit_op": merged >> 12,
     }
+
+
+def _small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens):
+    """The 14 per-pair rows of the clip-mode packs: the score in two 16-bit
+    halves, the four coordinates, the four fix slots' codes and lengths."""
+    head = torch.stack([(score >> 16) & 0xFFFF, score & 0xFFFF, xstart, ystart, xend, yend])
+    return torch.cat([head, fix_codes.t(), fix_lens.t()]).to(torch.uint16)
+
+
+def _pack_rle_custom(
+    score, pre, ins_cnt, exit_op, elen, post, fix_codes, fix_lens,
+    xstart, ystart, xend, yend,
+):
+    """One (14 + 4 Nc, B) uint16 tensor of the K10 walk (batched.py
+    ``_pack_rle_custom`` layout): the 14 per-pair rows, then ``exit_op << 12
+    | pre``, ``ins_cnt``, ``exit_len`` and ``post`` per column."""
+    i32 = torch.int32
+    pre_op = (exit_op.to(i32) << 12) | pre.to(i32)
+    cols = [pre_op.to(torch.uint16), ins_cnt, elen, post]
+    return torch.cat([_small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens)] + cols)
+
+
+def _pack_rle_local(score, ins_cnt, exit_op, fix_codes, fix_lens, xstart, ystart, xend, yend):
+    """One (14 + Nc, B) uint16 tensor of the K8 walk (batched.py
+    ``_pack_rle_local`` layout): the 14 per-pair rows, then ``exit_op << 12
+    | ins_cnt`` per column."""
+    i32 = torch.int32
+    merged = ((exit_op.to(i32) << 12) | ins_cnt.to(i32)).to(torch.uint16)
+    return torch.cat([_small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens), merged])
+
+
+def _unpack_small(packed: np.ndarray):
+    small = packed[:14].astype(np.int64)
+    v = (small[0] << 16) | small[1]
+    score = np.where(v >= 2**31, v - 2**32, v).astype(np.int64)
+    return score, {
+        "xstart": small[2],
+        "ystart": small[3],
+        "xend": small[4],
+        "yend": small[5],
+        "fix_codes": small[6:10],
+        "fix_lens": small[10:14],
+    }
+
+
+def _unpack_rle_local(packed: np.ndarray):
+    """Host-side inverse of ``_pack_rle_local``: (score (B,), dict)."""
+    score, out = _unpack_small(packed)
+    merged = packed[14:]
+    out["ins_cnt"] = merged & 0xFFF
+    out["exit_op"] = merged >> 12
+    return score, out
+
+
+def _unpack_rle_custom(packed: np.ndarray):
+    """Host-side inverse of ``_pack_rle_custom``: (score (B,), dict)."""
+    score, out = _unpack_small(packed)
+    Nc = (packed.shape[0] - 14) // 4
+    pre_op, ins_cnt, elen, post = (packed[14 + t * Nc : 14 + (t + 1) * Nc] for t in range(4))
+    out.update(pre=pre_op & 0xFFF, exit_op=pre_op >> 12, ins_cnt=ins_cnt, elen=elen, post=post)
+    return score, out
 
 
 def _geometry(B, M, mlens):
@@ -271,6 +340,91 @@ def _decode_ops_colrle_semi(
             ops.append(_OP_BY_CODE[c])
     ops.extend([Ins] * int(fix_ins))
     return ops
+
+
+def _fix_slot_ops(fix_codes, fix_lens) -> List[AlignmentOperation]:
+    """The fixed final column's ops, start -> end (its four slots hold them
+    end -> start)."""
+    ops: List[AlignmentOperation] = []
+    for t in range(3, -1, -1):
+        c = int(fix_codes[t])
+        if not c:
+            continue
+        if c == TB_INS:
+            ops.extend([Ins] * int(fix_lens[t]))
+        elif c in (TB_XCLIP_PREFIX, TB_XCLIP_SUFFIX):
+            ops.append(Xclip(int(fix_lens[t])))
+        elif c in (TB_YCLIP_PREFIX, TB_YCLIP_SUFFIX):
+            ops.append(Yclip(int(fix_lens[t])))
+        else:
+            ops.append(_OP_BY_CODE[c])
+    return ops
+
+
+def _decode_ops_colrle_local(
+    ins_cnt, exit_op, fix_codes, fix_lens, nlen: int,
+    xstart: int = 0, ystart: int = 0, keep_clips: bool = False,
+) -> List[AlignmentOperation]:
+    """Decode the K8 walk of one pair: per column 0..nlen ascending its exit
+    op and Ins run, then the fixed column's slots. Local paths carry no
+    interior clips; with ``keep_clips`` (``custom`` at clips 0, which takes
+    the local path) the prefix clips that ended the path are re-emitted from
+    (xstart, ystart) as ``[Yclip(ystart), Xclip(xstart)]`` unless the slots
+    already hold them: with zero clips and strictly negative gaps a path
+    starting at xstart > 0 enters through an Xclip-prefix, and a row-0 cell
+    at ystart > 0 is a Yclip-prefix."""
+    ops: List[AlignmentOperation] = []
+    exits = exit_op[: nlen + 1].tolist()
+    cnts = ins_cnt[: nlen + 1].tolist()
+    for j in range(nlen + 1):
+        e = exits[j]
+        if e:
+            ops.append(_OP_BY_CODE[e])
+        n = cnts[j]
+        if n:
+            ops.extend([Ins] * n)
+    codes = [int(c) for c in fix_codes]
+    ops += _fix_slot_ops(fix_codes, fix_lens)
+    if keep_clips:
+        pre: List[AlignmentOperation] = []
+        if ystart and TB_YCLIP_PREFIX not in codes:
+            pre.append(Yclip(ystart))
+        if xstart and TB_XCLIP_PREFIX not in codes:
+            pre.append(Xclip(xstart))
+        ops = pre + ops
+    return ops
+
+
+def _decode_ops_colrle_custom(
+    pre, ins_cnt, exit_op, elen, post, fix_codes, fix_lens, nlen: int,
+) -> List[AlignmentOperation]:
+    """Decode the K10 walk of one pair: per column 0..nlen ascending
+    ``[post][exit][Ins x cnt][Xclip-suffix pre]``, then the fixed column's
+    slots."""
+    ops: List[AlignmentOperation] = []
+    posts = post[: nlen + 1].tolist()
+    exits = exit_op[: nlen + 1].tolist()
+    elens = elen[: nlen + 1].tolist()
+    cnts = ins_cnt[: nlen + 1].tolist()
+    pres = pre[: nlen + 1].tolist()
+    for j in range(nlen + 1):
+        p = posts[j]
+        if p:
+            ops.append(Yclip(j) if p == TB_YCLIP_PREFIX else _OP_BY_CODE[p])
+        e = exits[j]
+        if e:
+            if e == TB_XCLIP_PREFIX:
+                ops.append(Xclip(elens[j]))
+            elif e == TB_YCLIP_PREFIX:
+                ops.append(Yclip(elens[j]))
+            else:
+                ops.append(_OP_BY_CODE[e])
+        n = cnts[j]
+        if n:
+            ops.extend([Ins] * n)
+        if pres[j]:
+            ops.append(Xclip(pres[j]))
+    return ops + _fix_slot_ops(fix_codes, fix_lens)
 
 
 def _interleave_semi(ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens):
@@ -560,17 +714,109 @@ class BatchAligner:
             for k in range(len(mlens))
         ]
 
+    def _clips(self, mode: str) -> Tuple[int, int, int, int]:
+        """(xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix) of a
+        clip mode: all 0 for local, the scoring's for custom."""
+        if mode == "local":
+            return (0, 0, 0, 0)
+        s = self.scoring
+        return (s.xclip_prefix, s.xclip_suffix, s.yclip_prefix, s.yclip_suffix)
+
+    def _custom_device(self, xb, yb, mlens, nlens, clips, with_traceback: bool = True):
+        """The local/custom path on padded arrays (batched.py
+        ``_align_batch_device_custom_mp``, sweep-walk branch): K7 when all
+        four clips are 0, else K9; the suffix fixups with the four clips;
+        then, with traceback, K8 after K7 with gap_open + gap_extend < 0,
+        else K10 (with go + ge == 0 a Del run past a free x-suffix clip can
+        tie the clip, which only K10 resolves), and the pack. Returns
+        ("local" or "custom", the packed uint16 tensor), or the (B,) int32
+        scores without traceback; both stay on the device."""
+        go, ge, ma, mi = self._params()
+        B, M = xb.shape
+        self._check_rows(M)
+        from rust_bio_tpu_torch.ops.sw import scan_custom, scan_local
+        from rust_bio_tpu_torch.ops.walk import sweep_walk_custom, sweep_walk_local
+
+        xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
+        local = all(int(c) == 0 for c in clips)
+        if local:
+            scan = scan_local(xt, yt, ml, nl, go, ge, ma, mi, traceback=with_traceback)
+        else:
+            scan = scan_custom(xt, yt, ml, nl, go, ge, ma, mi, *clips, traceback=with_traceback)
+        tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
+        rows, row_ge1, mlens_c, is_row_m = _geometry(B, M, ml)
+        score, tb_col_fixed, Lx_n, lx_n_set = _suffix_fixups(
+            S_f, I_f, Sn_f, tbk, B, M, rows, row_ge1, ml, mlens_c, is_row_m,
+            (go, ge, *(int(c) for c in clips)),
+        )
+        if not with_traceback:
+            return score
+        tbfix = (tb_col_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+        # the fixups' clip length where they set one, else the scan's at nlens
+        lx_n = torch.where(lx_n_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
+        if local and go + ge < 0:
+            ins_cnt, exit_op, fix_codes, fix_lens, *coords = sweep_walk_local(tb, tbfix, lx, lx_n, ml, nl)
+            return "local", _pack_rle_local(score, ins_cnt, exit_op, fix_codes, fix_lens, *coords)
+        return "custom", _pack_rle_custom(score, *sweep_walk_custom(tb, tbfix, lx, lx_n, ml, nl))
+
+    def _run_clips(self, xs, ys, mode: AlignmentMode, filter_clips: bool) -> List[Alignment]:
+        """Local and custom alignments (batched.py ``_run`` for the two
+        clip-mode packs): one pull, then a per-pair decode."""
+        xb, yb, mlens, nlens = self._pad(xs, ys)
+        kind, packed = self._custom_device(xb, yb, mlens, nlens, self._clips(mode.value))
+        packed = packed.cpu().numpy()
+        score, up = (_unpack_rle_local if kind == "local" else _unpack_rle_custom)(packed)
+        results = []
+        for k in range(len(mlens)):
+            if kind == "local":
+                ops = _decode_ops_colrle_local(
+                    up["ins_cnt"][:, k], up["exit_op"][:, k], up["fix_codes"][:, k],
+                    up["fix_lens"][:, k], int(nlens[k]),
+                    xstart=int(up["xstart"][k]), ystart=int(up["ystart"][k]),
+                    keep_clips=not filter_clips,
+                )
+            else:
+                ops = _decode_ops_colrle_custom(
+                    up["pre"][:, k], up["ins_cnt"][:, k], up["exit_op"][:, k], up["elen"][:, k],
+                    up["post"][:, k], up["fix_codes"][:, k], up["fix_lens"][:, k], int(nlens[k]),
+                )
+            aln = Alignment(
+                score=int(score[k]),
+                xstart=int(up["xstart"][k]),
+                ystart=int(up["ystart"][k]),
+                xend=int(up["xend"][k]),
+                yend=int(up["yend"][k]),
+                xlen=int(mlens[k]),
+                ylen=int(nlens[k]),
+                operations=ops,
+                mode=mode,
+            )
+            if filter_clips:
+                aln.filter_clip_operations()
+            results.append(aln)
+        return results
+
+    def local(self, xs, ys) -> List[Alignment]:
+        """Local (Smith-Waterman) alignments: clips (0, 0, 0, 0), clip ops
+        dropped from the op lists."""
+        return self._run_clips(xs, ys, AlignmentMode.Local, filter_clips=True)
+
+    def custom(self, xs, ys) -> List[Alignment]:
+        """Alignments under the scoring's four clip penalties, clip ops
+        kept."""
+        return self._run_clips(xs, ys, AlignmentMode.Custom, filter_clips=False)
+
     def scores(self, xs, ys, mode: str = "global") -> np.ndarray:
         """Score-only path, no traceback: (B,) int32. Global runs K3;
-        semiglobal runs K5 and the suffix fixups."""
-        if mode not in ("global", "semiglobal"):
-            raise NotImplementedError(
-                f"scores(mode={mode!r}) is not ported; local and custom are "
-                "ROADMAP Queue 1 item 6"
-            )
+        semiglobal runs K5 and the suffix fixups; local and custom run K7 or
+        K9 and the suffix fixups."""
+        if mode not in ("global", "semiglobal", "local", "custom"):
+            raise ValueError(f"unknown mode {mode!r}")
         xb, yb, mlens, nlens = self._pad(xs, ys)
         if mode == "semiglobal":
             return self._semiglobal_device(xb, yb, mlens, nlens, with_traceback=False).cpu().numpy()
+        if mode in ("local", "custom"):
+            return self._custom_device(xb, yb, mlens, nlens, self._clips(mode), with_traceback=False).cpu().numpy()
         from rust_bio_tpu_torch.ops.sw import scores_global
 
         params = self._params()
@@ -621,9 +867,3 @@ class BatchAligner:
     def global_packed(self, xs, ys) -> "PackedSemiglobal":
         """Global batch without op-list objects (see ``semiglobal_packed``)."""
         return self.global_packed_finish(self.global_packed_async_arrays(*self._pad(xs, ys)))
-
-    def local(self, xs, ys) -> List[Alignment]:
-        raise NotImplementedError("local mode is ROADMAP Queue 1 item 6")
-
-    def custom(self, xs, ys) -> List[Alignment]:
-        raise NotImplementedError("custom mode is ROADMAP Queue 1 item 6")

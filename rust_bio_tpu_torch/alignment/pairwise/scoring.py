@@ -8,7 +8,7 @@ other match functions are accepted here and refused by ``BatchAligner``.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Callable, Optional, Tuple, Union
 
 import numpy as np
@@ -74,6 +74,35 @@ class Scoring:
             match_fn=MatchParams(match_score, mismatch_score),
             match_scores=(match_score, mismatch_score),
         )
+
+    # ---- clip penalties (rust_bio_tpu/alignment/pairwise/scoring.py:91-127) ----
+
+    def xclip(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, xclip_prefix=penalty, xclip_suffix=penalty)
+
+    def xclip_prefix_(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, xclip_prefix=penalty)
+
+    def xclip_suffix_(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, xclip_suffix=penalty)
+
+    def yclip(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, yclip_prefix=penalty, yclip_suffix=penalty)
+
+    def yclip_prefix_(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, yclip_prefix=penalty)
+
+    def yclip_suffix_(self, penalty: int) -> "Scoring":
+        assert penalty <= 0, "Clipping penalty can't be positive"
+        return replace(self, yclip_suffix=penalty)
+
+    def with_clips(self, xp: int, xs: int, yp: int, ys: int) -> "Scoring":
+        return replace(self, xclip_prefix=xp, xclip_suffix=xs, yclip_prefix=yp, yclip_suffix=ys)
 
     def score(self, a: int, b: int) -> int:
         fn = self.match_fn

@@ -29,7 +29,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-SOURCES = ("sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal")
+SOURCES = (
+    "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
+    "sw_custom", "walk_custom",
+)
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int

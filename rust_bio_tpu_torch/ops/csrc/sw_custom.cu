@@ -1,0 +1,344 @@
+// K9 sw_scan_custom and K7 sw_scan_local: the affine-gap DP with all four
+// clip penalties, for constant match/mismatch scoring. Replace
+// rust_bio_tpu/ops/sw_pallas.py scan_custom_pallas_mp -> _kernel_scan_custom_mp
+// and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins").
+//
+// Outputs: the traceback cells of columns j = 0..nlens (column 0, the init
+// column, at index 0) for rows i = 0..mlens, 12 bits plus the vertical
+// insertion-run nibble; lx, the x-suffix clip length of each column's row
+// mlens; and the finals at j = nlens that the suffix fixups read: S, I, Sn,
+// Ly and the cells tbk, each (B, M+1). A null tb skips the tb and lx stores
+// (score-only calls).
+//
+// Design: K5's (sw_semiglobal.cu). One thread per pair walks columns in
+// order and rows i = 0..mlens in order, so the insertion recurrence is a
+// scalar carry; the previous column's S, D, s-bits, Sn and Ly live in shared
+// memory as [row][pair], 32 pairs a block (96.6 KB at M = 150), or in a
+// (5, M+1, B) device scratch when they do not fit. What the TPU kernel does
+// as a masked column reduction, the row-m replacement by the x-suffix clip,
+// is here a running maximum of S + xcs over rows 1..m-1 (strict '>', so the
+// first row that reaches it gives Lx), applied when the thread reaches row m.
+// K7 is the same kernel at clips 0 with the branches that clip 0 makes dead
+// removed at compile time (the y-prefix clip candidate, the x-prefix clip
+// score), so it gives K9's outputs byte for byte and needs no packing.
+//
+// Bound on this card: like K5, it writes (N+1) * (M+1) * B uint16 cells and
+// five (B, M+1) int32 finals, and the per-cell dependency chain (about 45
+// integer operations, one thread per pair) makes it latency-bound.
+//
+// Exactness (sw_pallas.py:1601-1881): int32 arithmetic wraps as in XLA; D
+// starts at MIN_I32 = -858993459; the running maximum starts at
+// -2^31 + 1 and counts only when it exceeds MIN_I32; every selection is a
+// strict '>' with priority Match/Subst > Ins > Del > Xclip-prefix >
+// Yclip-prefix; the per-row y-prefix clip ycp + go + ge*(i-1) and the
+// per-column x-prefix clip xcp + max(ycp, go + ge*(j-1)) enter
+// S~ = max(m, D, yclip, xclip), hence the I-open candidate; row 0 takes Del
+// or the y-prefix clip, and in the last column the y-suffix accumulator may
+// take row 0 over; the Sn/Ly update reads S after the row-m replacement.
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TB_START = 0;
+constexpr int TB_INS = 1;
+constexpr int TB_DEL = 2;
+constexpr int TB_SUBST = 3;
+constexpr int TB_XCLIP_PREFIX = 5;
+constexpr int TB_XCLIP_SUFFIX = 6;
+constexpr int TB_YCLIP_PREFIX = 7;
+constexpr int TB_YCLIP_SUFFIX = 8;
+constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
+constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
+constexpr int PAIRS = 32;            // pairs (threads) per block
+constexpr int LAYERS = 5;            // S, D, s-bits, Sn, Ly
+
+// int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
+__device__ __forceinline__ int add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// s, bits <- cand, cbits when cand is strictly greater
+__device__ __forceinline__ void take(int& s, int& bits, int cand, int cbits) {
+  if (cand > s) {
+    s = cand;
+    bits = cbits;
+  }
+}
+
+// Column state of this thread's pair: row i of layer k is at
+// base[(k * rows + i) * stride].
+struct Column {
+  int* base;
+  size_t stride;
+  size_t layer;  // rows * stride
+  __device__ int& at(int k, int i) const {
+    return base[k * layer + static_cast<size_t>(i) * stride];
+  }
+};
+
+template <bool LOCAL, bool TB>
+__global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
+    const uint8_t* __restrict__ xt,  // (M, B)
+    const uint8_t* __restrict__ yt,  // (N, B)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
+    int go, int ge, int ma, int mi, int xcp, int xcs, int ycp, int ycs,
+    uint16_t* __restrict__ tb,    // (N + 1, M + 1, B), or null
+    int* __restrict__ lx,         // (N + 1, B), or null
+    int* __restrict__ s_f,        // (B, M + 1) each
+    int* __restrict__ i_f,
+    int* __restrict__ sn_f,
+    int* __restrict__ ly_f,
+    int* __restrict__ tbk,
+    int* __restrict__ scratch) {  // (5, M + 1, B) or null
+  if constexpr (LOCAL) {
+    xcp = xcs = ycp = ycs = 0;
+  }
+  extern __shared__ int smem[];
+  const int b = blockIdx.x * PAIRS + threadIdx.x;
+  if (b >= B) return;
+  const int rows = M + 1;
+  Column st;
+  st.stride = scratch ? static_cast<size_t>(B) : static_cast<size_t>(PAIRS);
+  st.base = scratch ? scratch + b : smem + threadIdx.x;
+  st.layer = static_cast<size_t>(rows) * st.stride;
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const size_t fb = static_cast<size_t>(b) * rows;
+
+  // column 0 (sw_pallas.py:1648-1711): I0 takes a gap or the x-prefix clip,
+  // S the better of I0 and the clip, row m the x-suffix replacement
+  {
+    const int clip_i = add(xcp, go);
+    int acc = SENT;  // running max of S + xcs over rows 1..m-1
+    int first = 0;
+    int run = 0;
+    for (int i = 0; i <= ml; ++i) {
+      int s0 = 0;
+      int sb = TB_START;
+      int ib = TB_START;
+      if (i >= 1) {
+        const int gap_i = add(go, mul(ge, i - 1));
+        const bool ins_wins = gap_i > clip_i;
+        const int i0 = i == 1 ? go : (ins_wins ? gap_i : clip_i);
+        if (i >= 2) ib = ins_wins ? TB_INS : TB_XCLIP_PREFIX;
+        if (i < ml) {
+          s0 = MIN_I32;
+          take(s0, sb, i0, TB_INS);
+          take(s0, sb, xcp, TB_XCLIP_PREFIX);
+          const int v = add(s0, xcs);
+          if (v > acc) {
+            acc = v;
+            first = i;
+          }
+        } else {
+          s0 = acc > MIN_I32 ? acc : MIN_I32;
+          sb = TB_XCLIP_SUFFIX;
+          take(s0, sb, i0, TB_INS);
+          take(s0, sb, xcp, TB_XCLIP_PREFIX);
+        }
+      }
+      const int cell = ib | (TB_START << 4) | (sb << 8);
+      if constexpr (TB) {
+        run = ib == TB_INS ? run + 1 : 0;
+        tb[static_cast<size_t>(i) * B + b] = static_cast<uint16_t>(cell | (min(run, 15) << 12));
+      }
+      st.at(0, i) = s0;
+      st.at(1, i) = MIN_I32;
+      st.at(2, i) = sb;
+      const int sn = add(s0, ycs);
+      const bool live = i == 0 || sn > MIN_I32;
+      st.at(3, i) = i == 0 ? ycs : (live ? sn : MIN_I32);
+      st.at(4, i) = live ? nl : 0;
+      if (nl == 0) {
+        i_f[fb + i] = MIN_I32;
+        tbk[fb + i] = cell;
+      }
+    }
+    if constexpr (TB) lx[b] = acc > MIN_I32 ? ml - first : 0;
+  }
+
+  const int d_clip = add(ycp, go);
+  for (int j = 1; j <= nl; ++j) {
+    const bool last = j == nl;
+    const int yj = yt[static_cast<size_t>(j - 1) * B + b];
+    uint16_t* tbcol = TB ? tb + static_cast<size_t>(j) * rows * B + b : nullptr;
+
+    // row 0: Del against the y-prefix clip, then the y-suffix takeover
+    const int d_gap = add(go, mul(ge, j - 1));
+    int dj0, db0;
+    if (j == 1) {
+      dj0 = go;
+      db0 = TB_START;
+    } else if (d_gap > d_clip) {
+      dj0 = d_gap;
+      db0 = TB_DEL;
+    } else {
+      dj0 = d_clip;
+      db0 = TB_YCLIP_PREFIX;
+    }
+    int s0j = dj0 > ycp ? dj0 : ycp;
+    int sb0 = dj0 > ycp ? TB_DEL : TB_YCLIP_PREFIX;
+    const int sn0 = st.at(3, 0);
+    if (last && sn0 > s0j) {
+      s0j = sn0;
+      sb0 = TB_YCLIP_SUFFIX;
+    } else if (add(s0j, ycs) > sn0) {
+      st.at(3, 0) = add(s0j, ycs);
+      st.at(4, 0) = nl - j;
+    }
+    const int cell0 = TB_START | (db0 << 4) | (sb0 << 8);
+    if constexpr (TB) tbcol[0] = static_cast<uint16_t>(cell0);
+    int s_up_old = st.at(0, 0);  // previous column's S, row i - 1
+    int st_up = s0j;             // this column's S~, row i - 1
+    int bi_up = MIN_I32;         // this column's I, row i - 1
+    int sbits_up = sb0;          // this column's s-bits, row i - 1
+    int run = 0;                 // Ins i-bits run ending at row i - 1
+    st.at(0, 0) = s0j;
+    st.at(1, 0) = dj0;
+    st.at(2, 0) = sb0;
+    if (last) {
+      i_f[fb] = MIN_I32;
+      tbk[fb] = cell0;
+    }
+
+    // the column's x-prefix clip score (0 at clips 0: go + ge*(j-1) <= 0)
+    const int xclip = LOCAL ? 0 : add(xcp, max(ycp, d_gap));
+    int yclip = d_clip;  // ycp + go + ge*(i-1), row i
+    int acc = SENT;      // running max of S + xcs over rows 1..m-1
+    int first = 0;
+    for (int i = 1; i <= ml; ++i) {
+      const int sp = st.at(0, i);
+      const int dp = st.at(1, i);
+      const int sbp = st.at(2, i);
+      const int snp = st.at(3, i);
+      const int eq = xt[static_cast<size_t>(i - 1) * B + b] == yj;
+      const int m_val = add(s_up_old, eq ? ma : mi);
+      const int m_bits = TB_SUBST + eq;  // TB_MATCH = TB_SUBST + 1
+      const int d_ext = add(dp, ge);
+      const int d_open = add(sp, go);
+      const bool d_wins = d_ext > d_open;
+      const int best_d = d_wins ? d_ext : d_open;
+      const int d_bits = d_wins ? TB_DEL : sbp;
+      const int t_open = add(st_up, go);
+      const int i_ext = add(bi_up, ge);
+      const int best_i = max(i_ext, t_open);
+      const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
+      int s_col = m_val;
+      int s_bits = m_bits;
+      take(s_col, s_bits, best_i, TB_INS);
+      take(s_col, s_bits, best_d, TB_DEL);
+      take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
+      // at clips 0, S >= 0 from here on and the y-prefix clip is <= 0
+      if constexpr (!LOCAL) take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
+      if (i < ml) {
+        const int v = add(s_col, xcs);
+        if (v > acc) {
+          acc = v;
+          first = i;
+        }
+      } else {
+        // row m: the x-suffix clip seeds the chain, the cell's own
+        // candidates take it over only where strictly greater
+        s_col = acc > MIN_I32 ? acc : MIN_I32;
+        s_bits = TB_XCLIP_SUFFIX;
+        take(s_col, s_bits, m_val, m_bits);
+        take(s_col, s_bits, best_i, TB_INS);
+        take(s_col, s_bits, best_d, TB_DEL);
+        take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
+        if constexpr (!LOCAL) take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
+      }
+      int cell = i_bits | (d_bits << 4) | (s_bits << 8);
+      if constexpr (TB) {  // the run nibble, in tbk too (as in the Pallas kernel)
+        run = i_bits == TB_INS ? run + 1 : 0;
+        cell |= min(run, 15) << 12;
+        tbcol[static_cast<size_t>(i) * B] = static_cast<uint16_t>(cell);
+      }
+      if (add(s_col, ycs) > snp) {
+        st.at(3, i) = add(s_col, ycs);
+        st.at(4, i) = nl - j;
+      }
+      s_up_old = sp;
+      st_up = LOCAL ? max(max(m_val, best_d), 0) : max(max(max(m_val, best_d), yclip), xclip);
+      bi_up = best_i;
+      sbits_up = s_bits;
+      st.at(0, i) = s_col;
+      st.at(1, i) = best_d;
+      st.at(2, i) = s_bits;
+      if (last) {
+        i_f[fb + i] = best_i;
+        tbk[fb + i] = cell;
+      }
+      if constexpr (!LOCAL) yclip = add(yclip, ge);
+    }
+    if constexpr (TB) lx[static_cast<size_t>(j) * B + b] = acc > MIN_I32 ? ml - first : 0;
+  }
+  for (int i = 0; i <= ml; ++i) {
+    s_f[fb + i] = st.at(0, i);
+    sn_f[fb + i] = st.at(3, i);
+    ly_f[fb + i] = st.at(4, i);
+  }
+}
+
+template <bool LOCAL, bool TB>
+int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
+           int B, int M, int go, int ge, int ma, int mi, int xcp, int xcs,
+           int ycp, int ycs, void* tb, void* lx, void* s_f, void* i_f,
+           void* sn_f, void* ly_f, void* tbk, void* scratch, void* stream) {
+  const size_t smem =
+      scratch ? 0 : static_cast<size_t>(LAYERS) * (M + 1) * PAIRS * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        scan_clip_kernel<LOCAL, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  scan_clip_kernel<LOCAL, TB><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
+      ge, ma, mi, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
+      static_cast<int*>(lx), static_cast<int*>(s_f), static_cast<int*>(i_f),
+      static_cast<int*>(sn_f), static_cast<int*>(ly_f), static_cast<int*>(tbk),
+      static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* rbt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// K9. tb/lx: null for a score-only call. scratch: null to keep the column
+// state in shared memory (5 * (M+1) * 32 * 4 bytes per block), else a
+// (5, M+1, B) int32 buffer.
+int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
+                   const void* nlens, int B, int M, int go, int ge, int ma,
+                   int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
+                   void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
+                   void* tbk, void* scratch, void* stream) {
+  auto fn = tb ? launch<false, true> : launch<false, false>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, ma, mi, xcp, xcs, ycp, ycs, tb,
+            lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K7: K9 at clips (0, 0, 0, 0); needs gap_open, gap_extend <= 0.
+int sw_scan_local(const void* xt, const void* yt, const void* mlens,
+                  const void* nlens, int B, int M, int go, int ge, int ma,
+                  int mi, void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
+                  void* ly_f, void* tbk, void* scratch, void* stream) {
+  auto fn = tb ? launch<true, true> : launch<true, false>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, ma, mi, 0, 0, 0, 0, tb, lx,
+            s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+}  // extern "C"

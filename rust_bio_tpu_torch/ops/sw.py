@@ -1,11 +1,14 @@
 """Affine-gap DP with constant match/mismatch scoring: kernels K1
 (``scan_global``: score + traceback cells) and K3 (``scores_global``: score
-only), CUDA sources in ``csrc/sw_global.cu``, and K5 (``scan_semiglobal``:
+only), CUDA sources in ``csrc/sw_global.cu``; K5 (``scan_semiglobal``:
 traceback cells + the finals of the y-clip machinery), CUDA source in
-``csrc/sw_semiglobal.cu``.
+``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip penalties
+live) and K7 (``scan_local``: K9 at clips 0), CUDA source in
+``csrc/sw_custom.cu``.
 
-They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``
-and ``scan_semiglobal_pallas_mp`` (both ``runs="ins"``) and
+They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
+``scan_semiglobal_pallas_mp``, ``scan_custom_pallas_mp`` and
+``scan_local_pallas_mp`` (all ``runs="ins"``) and
 ``sw_scores_global_matchparams``. The plain versions below follow the
 Pallas kernels' column formulation (rows vectorized, the insertion
 recurrence as a (max,+) prefix scan); the CUDA kernels walk each pair's
@@ -27,6 +30,8 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_INS,
     TB_START,
     TB_SUBST,
+    TB_XCLIP_PREFIX,
+    TB_XCLIP_SUFFIX,
     TB_YCLIP_PREFIX,
     TB_YCLIP_SUFFIX,
 )
@@ -40,6 +45,7 @@ from rust_bio_tpu_torch.ops._build import (
 )
 
 NEG = -(2**30)  # final-reduction sentinel (and K3's -inf)
+_SENT = -(2**31) + 1  # the empty x-suffix accumulator of K7/K9
 _PAIRS = 32  # pairs per block in csrc/sw_global.cu
 _SMEM_MAX = 232_448  # dynamic shared memory a block may opt into on Hopper
 
@@ -55,6 +61,8 @@ SCAN_SEMIGLOBAL = CudaKernel(
     "sw_semiglobal", "sw_scan_semiglobal",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
 )
+SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
+SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [PTR] * 8)
 
 
 def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -154,6 +162,53 @@ def scan_semiglobal(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mis
             B, M, *pens, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
         )
     return (tb, *finals)
+
+
+def scan_custom(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score,
+                xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
+    """K9: the DP with all four clip penalties live. Returns (tb (N+1, M+1,
+    B) uint16, lx (N+1, B) int32, S_f, I_f, Sn_f, Ly_f, tbk), the finals
+    (B, M+1) int32 as K5's; ``tb`` and ``lx`` are None when ``traceback`` is
+    False (the score-only call).
+
+    ``tb[j, i, b]`` is the cell of DP cell (i, j), packed as K1's, for
+    ``0 <= j <= nlens[b]`` (column 0, the init column, at index 0) and
+    ``0 <= i <= mlens[b]``; ``lx[j, b]`` is the x-suffix clip length of
+    column j's row ``mlens[b]`` (0 when it has none). Clip codes sit in the
+    s-bits (and the x-prefix clip in column 0's i-bits)."""
+    clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
+    return _scan_clip(SCAN_CUSTOM, xb, yb, mlens, nlens, (gap_open, gap_extend, match_score, mismatch_score), clips, traceback)
+
+
+def scan_local(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, traceback=True):
+    """K7: ``scan_custom`` at clips (0, 0, 0, 0), the local preset; same
+    outputs, byte for byte."""
+    pens = (gap_open, gap_extend, match_score, mismatch_score)
+    return _scan_clip(SCAN_LOCAL, xb, yb, mlens, nlens, pens, (0, 0, 0, 0), traceback)
+
+
+def _scan_clip(kernel, xb, yb, mlens, nlens, pens, clips, traceback):
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    pens = tuple(int(v) for v in pens)
+    clips = tuple(int(v) for v in clips)
+    if pens[0] > 0 or pens[1] > 0:
+        raise ValueError("gap_open and gap_extend must be <= 0")
+    local = kernel is SCAN_LOCAL
+    if dev.type == "cpu":
+        return _scan_clip_plain(xb, yb, mlens, nlens, *pens, *clips, local=local, traceback=traceback)
+    tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
+    lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
+    finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
+    if B:
+        xt = xb.t().contiguous()
+        yt = yb.t().contiguous()
+        scratch = _scratch(5, B, M, dev)
+        kernel.launch(
+            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, M, *pens, *(() if local else clips), _ptr(tb), _ptr(lx),
+            *(f.data_ptr() for f in finals), _ptr(scratch),
+        )
+    return (tb, lx, *finals)
 
 
 # ---------------------------------------------------------------------------
@@ -364,3 +419,160 @@ def scan_semiglobal_plain(xb, yb, mlens, nlens, go, ge, ma, mi, ycp, ycs):
 
     finals = (S, I, SN, LY, TBK)
     return (tb, *(f.t().contiguous() for f in finals))
+
+
+def scan_custom_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, traceback=True):
+    """Plain version of K9 (sw_pallas.py ``_kernel_scan_custom_mp``)."""
+    return _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, local=False, traceback=traceback)
+
+
+def scan_local_plain(xb, yb, mlens, nlens, go, ge, ma, mi, traceback=True):
+    """Plain version of K7: the K9 recurrence at clips 0 with the terms
+    clip 0 makes dead left out (the y-prefix clip, the x-prefix clip score
+    0), as the kernel leaves them out."""
+    return _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, 0, 0, 0, 0, local=True, traceback=traceback)
+
+
+def _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, local, traceback):
+    B, M = xb.shape
+    N = yb.shape[1]
+    dev = xb.device
+    i32 = torch.int32
+    # 0-dim int32 penalties: sums of clips wrap in int32, as in the kernels
+    go, ge, ma, mi, xcp, xcs, ycp, ycs = (
+        torch.tensor(v, dtype=i32, device=dev) for v in (go, ge, ma, mi, xcp, xcs, ycp, ycs)
+    )
+    rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
+    row0 = rows == 0
+    row_ge1 = rows >= 1
+    ml = mlens[None, :]
+    in_x = row_ge1 & (rows <= ml)
+    is_row_m = (rows == ml) & (ml >= 1)
+    mid = row_ge1 & (rows <= ml - 1)
+    rge = rows * ge
+    yclip_row = ycp + go + ge * (rows - 1)
+    xt = xb.t().to(i32)
+    yt = yb.t().to(i32)
+    neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
+    start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
+
+    def take(s, bits, cand, cbits):
+        tk = cand > s
+        return torch.where(tk, cand, s), torch.where(tk, cbits, bits)
+
+    def row_m(S_col, s_bits, cands):
+        """Row m replaced by the x-suffix clip (the maximum of S + xcs over
+        rows 1..m-1, the first row on ties) unless one of the cell's own
+        candidates is strictly greater; and the clip length (B,)."""
+        vals = torch.where(mid, S_col + xcs, _SENT)
+        A = vals.amax(dim=0, keepdim=True)
+        upd = A > MIN_SCORE
+        first = torch.argmax((vals == A).to(torch.uint8), dim=0).to(i32)
+        s_m = torch.where(upd, A, MIN_SCORE).expand_as(S_col)
+        sb_m = torch.full_like(s_bits, TB_XCLIP_SUFFIX)
+        for cand, cbits in cands:
+            s_m, sb_m = take(s_m, sb_m, cand, cbits)
+        lx_j = torch.where(upd[0], mlens - first, 0)
+        return torch.where(is_row_m, s_m, S_col), torch.where(is_row_m, sb_m, s_bits), lx_j
+
+    # column 0 (sw_pallas.py:1648-1711)
+    gap_i = go + ge * (rows - 1)
+    clip_i = xcp + go
+    ins_wins = gap_i > clip_i
+    I0 = torch.where(rows == 1, go, torch.where(ins_wins, gap_i, clip_i))
+    I0 = torch.where(row_ge1, I0, MIN_SCORE).expand(M + 1, B)
+    ib0 = torch.where(rows == 1, TB_START, torch.where(ins_wins, TB_INS, TB_XCLIP_PREFIX))
+    ib0 = torch.where(row_ge1, ib0, TB_START).to(i32).expand(M + 1, B)
+    S0 = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    sb0 = torch.full((M + 1, B), TB_START, dtype=i32, device=dev)
+    S0, sb0 = take(S0, sb0, I0, TB_INS)
+    S0, sb0 = take(S0, sb0, torch.where(row_ge1, xcp, MIN_SCORE), TB_XCLIP_PREFIX)
+    S0, sb0, lx0 = row_m(S0, sb0, [(I0, TB_INS), (xcp, TB_XCLIP_PREFIX)])
+    S = torch.where(row0, 0, S0)
+    SB = torch.where(row0, TB_START, sb0)
+    D = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    I = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    TBK = ib0 | (TB_START << 4) | (SB << 8)
+    sn_live = in_x & (S + ycs > MIN_SCORE)
+    SN = torch.where(row0, ycs, torch.where(sn_live, S + ycs, MIN_SCORE))
+    LY = torch.where(row0 | sn_live, nlens[None, :], 0).to(i32)
+    tb = lx = None
+    if traceback:
+        tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev)
+        lx = torch.empty((N + 1, B), dtype=i32, device=dev)
+        tb[0] = (TBK | _ins_run_nib(ib0, rows)).to(torch.uint16)
+        lx[0] = lx0
+
+    d_clip = ycp + go
+    for j in range(1, N + 1):
+        active = (j <= nlens)[None, :]
+        is_last = (j == nlens)[None, :]
+        eq = (xt == yt[j - 1][None, :]).to(i32)
+        m_val = torch.cat([neg_row, S[:-1] + (mi + (ma - mi) * eq)])
+        m_bits = torch.cat([start_row, TB_SUBST + eq])
+        d_ext = D + ge
+        d_open = S + go
+        d_wins = d_ext > d_open
+        best_d = torch.where(d_wins, d_ext, d_open)
+        d_bits = torch.where(d_wins, TB_DEL, SB)
+
+        # row 0: Del against the y-prefix clip; in the lane's last column
+        # the y-suffix accumulator may take it over
+        d_gap = go + ge * (j - 1)
+        if j == 1:
+            dj0, db0 = go, torch.tensor(TB_START, dtype=i32, device=dev)
+        else:
+            dj0 = torch.where(d_gap > d_clip, d_gap, d_clip)
+            db0 = torch.where(d_gap > d_clip, TB_DEL, TB_YCLIP_PREFIX).to(i32)
+        s0j = torch.where(dj0 > ycp, dj0, ycp)
+        sb0 = torch.where(dj0 > ycp, TB_DEL, TB_YCLIP_PREFIX).to(i32)
+        sn0 = SN[0:1]
+        take_sn = is_last & (sn0 > s0j)
+        s0j = torch.where(take_sn, sn0, s0j)
+        sb0 = torch.where(take_sn, TB_YCLIP_SUFFIX, sb0)
+        upd_sn0 = ~take_sn & (s0j + ycs > sn0) & active
+        sn0_new = torch.where(upd_sn0, s0j + ycs, sn0)
+        ly0_new = torch.where(upd_sn0, nlens[None, :] - j, LY[0:1])
+        best_d = torch.where(row0, dj0, best_d)
+        d_bits = torch.where(row0, db0, d_bits)
+
+        # the column's x-prefix clip score (0 at clips 0)
+        xclip = torch.zeros_like(go) if local else xcp + torch.maximum(ycp, d_gap)
+        s_tilde = torch.maximum(torch.maximum(m_val, best_d), xclip)
+        if not local:
+            s_tilde = torch.maximum(s_tilde, yclip_row)
+        s_tilde = torch.where(row0, s0j, s_tilde)
+        T = torch.cat([neg_row, s_tilde[:-1] + go])
+        best_i = torch.cummax(T - rge, dim=0).values + rge
+        i_ext = torch.cat([neg_row, best_i[:-1] + ge])
+
+        # priority Match/Subst > Ins > Del > Xclip-prefix > Yclip-prefix
+        cands = [(best_i, TB_INS), (best_d, TB_DEL), (xclip, TB_XCLIP_PREFIX)]
+        if not local:  # at clips 0, S >= 0 here and the y-prefix clip <= 0
+            cands.append((yclip_row, TB_YCLIP_PREFIX))
+        s_col, s_bits = m_val, m_bits
+        for cand, cbits in cands:
+            s_col, s_bits = take(s_col, s_bits, cand, cbits)
+        s_col = torch.where(row0, s0j, s_col)
+        s_bits = torch.where(row0, sb0, s_bits)
+        s_col, s_bits, lx_j = row_m(s_col, s_bits, [(m_val, m_bits)] + cands)
+
+        i_bits = torch.where(i_ext > T, TB_INS, torch.cat([start_row, s_bits[:-1]]))
+        i_bits = torch.where(row0, TB_START, i_bits)
+        upd_sn = (s_col + ycs > SN) & in_x & active
+        SN = torch.where(row0, sn0_new, torch.where(upd_sn, s_col + ycs, SN))
+        LY = torch.where(row0, ly0_new, torch.where(upd_sn, nlens[None, :] - j, LY))
+
+        cell = i_bits | (d_bits << 4) | (s_bits << 8)
+        if traceback:  # the run nibble, in tbk too (as in the Pallas kernel)
+            cell = cell | _ins_run_nib(i_bits, rows)
+            tb[j] = cell.to(torch.uint16)
+            lx[j] = torch.where(active[0], lx_j, 0)
+        S = torch.where(active, s_col, S)
+        D = torch.where(active, best_d, D)
+        SB = torch.where(active, s_bits, SB)
+        I = torch.where(active, best_i, I)
+        TBK = torch.where(active, cell, TBK)
+
+    finals = (S, I, SN, LY, TBK)
+    return (tb, lx, *(f.t().contiguous() for f in finals))

@@ -1,14 +1,17 @@
 """Column-sweep traceback walks: kernel K2 (global mode, CUDA source
-``csrc/walk_global.cu``) and kernel K6 (semiglobal family,
-``csrc/walk_semiglobal.cu``). They replace ``rust_bio_tpu/ops/walk_pallas.py``
-``sweep_walk_global`` and ``sweep_walk_semiglobal``.
+``csrc/walk_global.cu``), kernel K6 (semiglobal family,
+``csrc/walk_semiglobal.cu``), and kernels K10 (general clips) and K8 (local
+mode), CUDA source ``csrc/walk_custom.cu``. They replace
+``rust_bio_tpu/ops/walk_pallas.py`` ``sweep_walk_global``,
+``sweep_walk_semiglobal``, ``sweep_walk_custom`` and ``sweep_walk_local``.
 
 Input: the traceback tensor of K1 or K5 (``ops.sw``), ``tb`` (N, X, B) uint16
 with X = M + 1, and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
 (row j - 1) and pair: ``ins_cnt`` Ins ops, then one exit op ``exit_op``
 (TB_MATCH / TB_SUBST / TB_DEL, in K6 also TB_YCLIP_PREFIX; 0 where the pair
 is not), walking end -> start; plus ``ins0``, the Ins run in column 0. All
-uint16.
+uint16. K8 and K10 walk the (N+1, X, B) tensor of K7/K9, column 0 included,
+and emit (N+1, B) outputs; their module section says what.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_MATCH,
     TB_START,
     TB_SUBST,
+    TB_XCLIP_PREFIX,
+    TB_XCLIP_SUFFIX,
     TB_YCLIP_PREFIX,
     TB_YCLIP_SUFFIX,
 )
@@ -39,6 +44,12 @@ SWEEP_WALK_GLOBAL = CudaKernel(
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     "walk_semiglobal", "sweep_walk_semiglobal",
     [PTR] * 7 + [INT, INT, INT] + [PTR] * 4,
+)
+SWEEP_WALK_CUSTOM = CudaKernel(
+    "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT] + [PTR] * 5
+)
+SWEEP_WALK_LOCAL = CudaKernel(
+    "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT] + [PTR] * 4
 )
 
 
@@ -255,3 +266,335 @@ def sweep_walk_semiglobal_plain(tb, tbfix, mlens, nlens):
     )
     ins_cnt, exit_op, ins0, ystart = _sweep_plain(tb, icur, jcur, carried, us1 == 1, dn1 == 1, ystart0)
     return ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly, ystart, yend0
+
+
+# ---------------------------------------------------------------------------
+# general-clip family (K10) and local mode (K8)
+# ---------------------------------------------------------------------------
+#
+# Both walk the (N+1, X, B) traceback tensor of K9 / K7 (column 0 at index 0)
+# after the fixed final column is resolved in torch
+# (``resolve_fixed_column_custom``). That prolog writes up to four op slots
+# ``fix_codes``/``fix_lens`` (B, 4), in end -> start order: the fixed
+# column's ops. K10's per-column outputs (N+1, B) uint16, in the decode's
+# start -> end order ``[post][exit][Ins x ins_cnt][Xclip-suffix pre]``:
+# ``pre`` an x-suffix clip length taken at the entry row, ``ins_cnt``,
+# ``exit_op`` (Match, Subst, Del, Xclip-prefix, Yclip-prefix) with its
+# length ``exit_len``, and ``post``, the row-0 op after an Xclip-prefix.
+# K8's are ``ins_cnt`` and ``exit_op`` (Match, Subst, Del): in local mode
+# the prefix clips end the path and give xstart/ystart.
+
+
+def _gather_cols(a, idx):
+    """a[b, idx[b]] of a (B, X) tensor with JAX's index rules: a negative
+    index counts from the end, an index still outside is clamped."""
+    X = a.shape[1]
+    idx = torch.where(idx < 0, idx + X, idx).clamp(0, X - 1)
+    return a.gather(1, idx.long()[:, None])[:, 0]
+
+
+def resolve_fixed_column_custom(tbfix, lx_n, mlens, nlens):
+    """The walk's steps inside the suffix-fixed final column with every clip
+    layer live (walk_pallas.py ``_resolve_fixed_column_custom``), torch ops
+    on the tensors' device: three unrolled steps, each an optional
+    Xclip-suffix jump of ``lx_n`` rows, an Ins run and one exit.
+
+    ``tbfix`` (B, X) int32 is the fixed column's 12-bit cells with Ly << 12,
+    ``lx_n`` (B,) its x-suffix clip length. Returns (fix_codes, fix_lens
+    (B, 4), i1, j1, ca1, us1, dn1, xstart0, ystart0, xend0, yend0 (B,)), all
+    int32: the op slots and the sweep's entry state (row, column, carried
+    layer, use-s flag, done) with the coordinates the prolog fixed."""
+    B, X = tbfix.shape
+    dev = tbfix.device
+    i32 = torch.int32
+    cols = torch.arange(X, dtype=i32, device=dev)[None, :]
+    ib = tbfix & 0xF
+    db = (tbfix >> 4) & 0xF
+    sb = (tbfix >> 8) & 0xF
+    ly = tbfix >> 12
+    # vertical Ins runs of the i-bits, ending at each row
+    cont = ib == TB_INS
+    lz = torch.cummax(torch.where(cont, -(2**20), cols), dim=1).values
+    rl = torch.where(cont, cols - lz, 0)
+
+    slot = torch.arange(4, device=dev)[None, :]
+    fix_codes = torch.zeros((B, 4), dtype=i32, device=dev)
+    fix_lens = torch.zeros((B, 4), dtype=i32, device=dev)
+    nslot = torch.zeros(B, dtype=i32, device=dev)
+
+    def emit(act, code, length):
+        nonlocal fix_codes, fix_lens, nslot
+        oh = (slot == nslot[:, None]) & act[:, None]
+        fix_codes = torch.where(oh, code[:, None], fix_codes)
+        fix_lens = torch.where(oh, length[:, None], fix_lens)
+        nslot = nslot + act.to(i32)
+
+    def full(v):
+        return torch.full((B,), v, dtype=i32, device=dev)
+
+    i, j = mlens.clone(), nlens.clone()
+    carried = full(TB_START)
+    use_s = torch.ones(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    left = torch.zeros(B, dtype=torch.bool, device=dev)
+    xstart, ystart, xend, yend = full(0), full(0), mlens.clone(), nlens.clone()
+    zero = full(0)
+    for _ in range(3):
+        act = ~done & ~left
+        entry = torch.where(use_s, _gather_cols(sb, i), carried)
+        is_xs = act & (entry == TB_XCLIP_SUFFIX)  # row mlens only
+        emit(is_xs, full(TB_XCLIP_SUFFIX), lx_n)
+        i = torch.where(is_xs, i - lx_n, i)
+        xend = torch.where(is_xs, i, xend)
+        use_s = use_s | is_xs
+        entry = torch.where(is_xs, _gather_cols(sb, i), entry)
+        is_ins = act & (entry == TB_INS)
+        m = torch.where(is_ins, _gather_cols(rl, i), 0)
+        emit(is_ins, full(TB_INS), torch.where(is_ins, m + 1, 0))
+        i2 = torch.where(is_ins, i - m - 1, i)
+        layer2 = torch.where(is_ins, _gather_cols(ib, torch.clamp(i - m, min=0)), entry)
+        db2 = _gather_cols(db, i2)
+        ly2 = _gather_cols(ly, i2)
+
+        is_mm = act & ((layer2 == TB_MATCH) | (layer2 == TB_SUBST))
+        is_del = act & (layer2 == TB_DEL)
+        is_ycs = act & (layer2 == TB_YCLIP_SUFFIX)
+        is_ycp = act & (layer2 == TB_YCLIP_PREFIX)
+        is_xcp = act & (layer2 == TB_XCLIP_PREFIX)
+        is_start = act & (layer2 == TB_START)
+        do_emit = is_mm | is_del | is_ycs | is_ycp | is_xcp
+        length = torch.where(is_ycs, ly2, torch.where(is_ycp, j, torch.where(is_xcp, i2, zero)))
+        emit(do_emit, torch.where(do_emit, layer2, 0), length)
+
+        i = torch.where(is_mm, i2 - 1, torch.where(is_xcp, 0, i2))
+        yend = torch.where(is_ycs, j - ly2, yend)
+        ystart = torch.where(is_ycp, j, ystart)
+        xstart = torch.where(is_xcp, i2, xstart)
+        carried = torch.where(is_del, db2, carried)
+        use_s = torch.where(is_del, False, use_s | do_emit)
+        done = done | is_start
+        left_now = is_mm | is_del
+        j = torch.where(left_now, j - 1, torch.where(is_ycp, 0, torch.where(is_ycs, j - ly2, j)))
+        left = left | left_now | is_ycp | is_ycs
+    outs = (i, j, carried, use_s, done, xstart, ystart, xend, yend)
+    return (fix_codes, fix_lens) + tuple(o.to(i32) for o in outs)
+
+
+def _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens):
+    dev = same_device(tb, tbfix, lx, lx_n, mlens, nlens)
+    if tb.dim() != 3:
+        raise ValueError(f"tb: expected (N+1, X, B), got shape {tuple(tb.shape)}")
+    Nc, X, B = tb.shape
+    check(tb, "tb", torch.uint16, (Nc, X, B))
+    check(tbfix, "tbfix", torch.int32, (B, X))
+    check(lx, "lx", torch.int32, (Nc, B))
+    check(lx_n, "lx_n", torch.int32, (B,))
+    check(mlens, "mlens", torch.int32, (B,))
+    check(nlens, "nlens", torch.int32, (B,))
+    check_lengths(mlens, "mlens", X - 1)
+    check_lengths(nlens, "nlens", Nc - 1)
+    return dev
+
+
+def sweep_walk_custom(tb, tbfix, lx, lx_n, mlens, nlens):
+    """K10. ``tb`` (N+1, X, B) uint16 and ``lx`` (N+1, B) int32 of K9 or K7,
+    ``tbfix`` (B, X) int32 the fixed final column with Ly << 12, ``lx_n``
+    (B,) its x-suffix clip length (``batched._custom_device``). Returns
+    (pre, ins_cnt, exit_op, exit_len, post (N+1, B) uint16, fix_codes,
+    fix_lens (B, 4), xstart, ystart, xend, yend (B,)) int32."""
+    if _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens).type == "cpu":
+        return sweep_walk_custom_plain(tb, tbfix, lx, lx_n, mlens, nlens)
+    fix_codes, fix_lens, *entry, xstart0, ystart0, xend0, yend0 = resolve_fixed_column_custom(
+        tbfix, lx_n, mlens, nlens
+    )
+    outs = sweep_walk_custom_launch(tb, lx, *entry)
+    return outs + (fix_codes, fix_lens) + _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0)
+
+
+def _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0):
+    """(xstart, ystart, xend, yend) of K10's outputs (walk_pallas.py
+    ``sweep_walk_custom`` epilog): the largest Xclip-prefix length, the
+    column of a Yclip-prefix exit or post, the largest x-suffix clip."""
+    pre, _, exit_op, elen, post = (o.to(torch.int32) for o in outs)
+    jcols = torch.arange(pre.shape[0], dtype=torch.int32, device=pre.device)[:, None]
+    xstart = torch.maximum(torch.where(exit_op == TB_XCLIP_PREFIX, elen, 0).amax(dim=0), xstart0)
+    xs_hit = pre > 0
+    xend = torch.where(xs_hit.any(dim=0), mlens - torch.where(xs_hit, pre, 0).amax(dim=0), xend0)
+    ycp_hit = (exit_op == TB_YCLIP_PREFIX) | (post == TB_YCLIP_PREFIX)
+    ystart = torch.maximum(torch.where(ycp_hit, jcols, 0).amax(dim=0), ystart0)
+    return xstart, ystart, xend.to(torch.int32), yend0
+
+
+def sweep_walk_custom_launch(tb, lx, i1, j1, ca1, us1, dn1):
+    """The launch of K10 alone, from the entry state of
+    ``resolve_fixed_column_custom`` (CUDA tensors): (pre, ins_cnt, exit_op,
+    exit_len, post)."""
+    Nc, X, B = tb.shape
+    dev = tb.device
+    if dev.type != "cuda":
+        raise ValueError(f"K10 launches on a CUDA device, got {dev}")
+    outs = tuple(torch.empty((Nc, B), dtype=torch.uint16, device=dev) for _ in range(5))
+    if B:
+        SWEEP_WALK_CUSTOM.launch(
+            dev, tb.data_ptr(), lx.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(),
+            us1.data_ptr(), dn1.data_ptr(), B, X, Nc - 1, *(o.data_ptr() for o in outs),
+        )
+    return outs
+
+
+def sweep_walk_custom_plain(tb, tbfix, lx, lx_n, mlens, nlens):
+    """Plain version of K10 (walk_pallas.py ``sweep_walk_custom``), same
+    outputs."""
+    fix_codes, fix_lens, *entry, xstart0, ystart0, xend0, yend0 = resolve_fixed_column_custom(
+        tbfix, lx_n, mlens, nlens
+    )
+    outs = _sweep_clip_plain(tb, lx, *entry, local=False)
+    return outs + (fix_codes, fix_lens) + _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0)
+
+
+def local_entry(tb, lx, tbfix, lx_n, mlens, nlens):
+    """The prolog of K8: ``resolve_fixed_column_custom``, then the x-suffix
+    cell a lane reaches after leaving the fixed column through a y-suffix
+    clip (walk_pallas.py:1054-1072): row mlens of column j1, read from
+    ``tb`` and ``lx``; its clip goes into a free fix slot. Returns
+    (fix_codes, fix_lens, i1, j1, ca1, us1, dn1, xstart0, ystart0, xend,
+    yend0)."""
+    fix_codes, fix_lens, i1, j1, ca1, us1, dn1, xs0, ys0, xend0, yend0 = resolve_fixed_column_custom(
+        tbfix, lx_n, mlens, nlens
+    )
+    B = tb.shape[2]
+    bidx = torch.arange(B, device=tb.device)
+    live = (dn1 == 0) & (us1 == 1) & (j1 < nlens) & (j1 > 0)
+    jg = torch.where(live, j1, 0).long()
+    # (CUDA has no uint16 gather: read the cells as int16)
+    cell = tb.view(torch.int16)[jg, torch.where(live, i1, 0).long(), bidx].to(torch.int32) & 0xFFFF
+    lxj = lx[jg, bidx]
+    is_xs = live & (((cell >> 8) & 0xF) == TB_XCLIP_SUFFIX)
+    i1 = torch.where(is_xs, i1 - lxj, i1)
+    xend = torch.where(is_xs, i1, xend0)
+    nslot = (fix_codes != 0).sum(dim=1)
+    oh = (torch.arange(4, device=tb.device)[None, :] == nslot[:, None]) & is_xs[:, None]
+    fix_codes = torch.where(oh, TB_XCLIP_SUFFIX, fix_codes)
+    fix_lens = torch.where(oh, lxj[:, None], fix_lens)
+    return fix_codes, fix_lens, i1, j1, ca1, us1, dn1, xs0, ys0, xend, yend0
+
+
+def sweep_walk_local(tb, tbfix, lx, lx_n, mlens, nlens):
+    """K8: the local-mode walk, for K7's output with gap_open + gap_extend
+    < 0 (a Del run past a free x-suffix clip would tie it otherwise, which
+    only K10 resolves). Inputs as ``sweep_walk_custom``. Returns (ins_cnt,
+    exit_op (N+1, B) uint16, fix_codes, fix_lens (B, 4), xstart, ystart,
+    xend, yend (B,)) int32."""
+    if _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens).type == "cpu":
+        return sweep_walk_local_plain(tb, tbfix, lx, lx_n, mlens, nlens)
+    fix_codes, fix_lens, *entry, xend, yend0 = local_entry(tb, lx, tbfix, lx_n, mlens, nlens)
+    ins_cnt, exit_op, xstart, ystart = sweep_walk_local_launch(tb, *entry)
+    return ins_cnt, exit_op, fix_codes, fix_lens, xstart, ystart, xend, yend0
+
+
+def sweep_walk_local_launch(tb, i1, j1, ca1, us1, dn1, xs0, ys0):
+    """The launch of K8 alone, from the entry state of ``local_entry``
+    (CUDA tensors): (ins_cnt, exit_op, xstart, ystart)."""
+    Nc, X, B = tb.shape
+    dev = tb.device
+    if dev.type != "cuda":
+        raise ValueError(f"K8 launches on a CUDA device, got {dev}")
+    ins_cnt = torch.empty((Nc, B), dtype=torch.uint16, device=dev)
+    exit_op = torch.empty((Nc, B), dtype=torch.uint16, device=dev)
+    xstart = torch.empty(B, dtype=torch.int32, device=dev)
+    ystart = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        SWEEP_WALK_LOCAL.launch(
+            dev, tb.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(), us1.data_ptr(),
+            dn1.data_ptr(), xs0.data_ptr(), ys0.data_ptr(), B, X, Nc - 1,
+            ins_cnt.data_ptr(), exit_op.data_ptr(), xstart.data_ptr(), ystart.data_ptr(),
+        )
+    return ins_cnt, exit_op, xstart, ystart
+
+
+def sweep_walk_local_plain(tb, tbfix, lx, lx_n, mlens, nlens):
+    """Plain version of K8 (walk_pallas.py ``sweep_walk_local``), same
+    outputs."""
+    fix_codes, fix_lens, *entry, xend, yend0 = local_entry(tb, lx, tbfix, lx_n, mlens, nlens)
+    ins_cnt, exit_op, xstart, ystart = _sweep_clip_plain(tb, lx, *entry, local=True)
+    return ins_cnt, exit_op, fix_codes, fix_lens, xstart, ystart, xend, yend0
+
+
+def _sweep_clip_plain(tb, lx, icur, jcur, carried, us1, dn1, xs0=None, ys0=None, local=False):
+    """The column sweep of K10 (``local`` False: returns pre, ins_cnt,
+    exit_op, exit_len, post) or K8 (returns ins_cnt, exit_op, xstart,
+    ystart), plain: pairs vectorized, columns j = N..0 in a Python loop."""
+    Nc, X, B = tb.shape
+    dev = tb.device
+    i32 = torch.int32
+    use_s = us1 == 1
+    done = dn1 == 1
+    outs = torch.zeros((5, Nc, B), dtype=i32, device=dev)
+    xs, ys = xs0, ys0
+    for j in range(Nc - 1, -1, -1):
+        col = tb[j].to(i32)  # (X, B)
+
+        def gather(idx):
+            """col[idx[b], b]; -1 where idx is outside the column."""
+            inside = (idx >= 0) & (idx < X)
+            got = col.gather(0, idx.clamp(0, X - 1).long()[None, :])[0]
+            return torch.where(inside, got, -1)
+
+        at = (jcur == j) & ~done
+        g = gather(icur)
+        entry = torch.where(use_s, (g >> 8) & 0xF, carried)
+        pre = torch.zeros_like(icur)
+        ip = icur
+        if not local:
+            is_xs = at & (entry == TB_XCLIP_SUFFIX)
+            pre = torch.where(is_xs, lx[j], 0)
+            ip = icur - pre
+            g = torch.where(is_xs, gather(ip), g)
+            entry = torch.where(is_xs, (g >> 8) & 0xF, entry)
+        is_ins = at & (entry == TB_INS)
+        m = torch.where(is_ins, g >> 12, 0)
+        act = is_ins & (m == 15)
+        while bool(act.any()):
+            nib = gather(ip - m) >> 12
+            m = m + torch.where(act, nib, 0)
+            act = act & (nib == 15)
+        ins_cnt = torch.where(is_ins, m + 1, 0)
+        layer2 = torch.where(is_ins, gather(ip - m) & 0xF, entry)
+        db2 = torch.where(is_ins, (gather(ip - m - 1) >> 4) & 0xF, (g >> 4) & 0xF)
+        i2 = torch.where(is_ins, ip - m - 1, ip)
+        is_mm = (layer2 == TB_MATCH) | (layer2 == TB_SUBST)
+        is_del = layer2 == TB_DEL
+        is_ycp = layer2 == TB_YCLIP_PREFIX
+        is_xcp = layer2 == TB_XCLIP_PREFIX
+        outs[1, j] = ins_cnt
+        if local:
+            finish = at & ((layer2 == TB_START) | is_xcp | is_ycp)
+            outs[2, j] = torch.where(at & (is_mm | is_del), layer2, 0)
+            icur = torch.where(at & is_mm, i2 - 1, torch.where(at, i2, icur))
+            jcur = torch.where(at & (is_mm | is_del), j - 1, jcur)
+            carried = torch.where(at & is_del, db2, carried)
+            use_s = torch.where(at, is_mm, use_s)
+            done = done | finish
+            xs = torch.where(finish, torch.maximum(i2, xs), xs)
+            ys = torch.where(finish, torch.clamp(ys, min=j), ys)
+            continue
+        outs[0, j] = pre
+        outs[2, j] = torch.where(at & (is_mm | is_del | is_ycp | is_xcp), layer2, 0)
+        outs[3, j] = torch.where(at & is_xcp, i2, torch.where(at & is_ycp, j, 0))
+        sb0 = (col[0] >> 8) & 0xF
+        db0 = (col[0] >> 4) & 0xF
+        outs[4, j] = torch.where(at & is_xcp, sb0, 0)
+        post_del = at & is_xcp & (sb0 == TB_DEL)
+        post_ycp = at & is_xcp & (sb0 == TB_YCLIP_PREFIX)
+        post_start = at & is_xcp & (sb0 == TB_START)
+        icur = torch.where(at & is_mm, i2 - 1, torch.where(at & is_xcp, 0, torch.where(at, i2, icur)))
+        jcur = torch.where(
+            at & (is_mm | is_del | post_del), j - 1, torch.where(at & (is_ycp | post_ycp), 0, jcur)
+        )
+        carried = torch.where(at & is_del, db2, torch.where(post_del, db0, carried))
+        use_s = torch.where(at, ~(is_del | post_del), use_s)
+        done = done | (at & (layer2 == TB_START)) | post_start
+    u16 = torch.uint16
+    if local:
+        return outs[1].to(u16), outs[2].to(u16), xs & 0xFFFF, ys & 0xFFFF
+    return tuple(o.to(u16) for o in outs)

@@ -107,18 +107,33 @@ def test_pack_unpack_roundtrip():
 
 def test_unported_paths_raise():
     ba = BatchAligner(Scoring.from_scores(-5, -1, 2, -2), device="cpu")
-    for mode in ("local", "custom"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ba.scores([b"ACGT"], [b"ACGT"], mode)
-    for mode in (ba.local, ba.custom):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mode([b"ACGT"], [b"ACGT"])
-    for mode in (ba.global_, ba.semiglobal, ba.semiglobal_packed):
+    for mode in (ba.global_, ba.semiglobal, ba.semiglobal_packed, ba.local, ba.custom):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode([b"A" * 4095], [b"A"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ba.scores([b"A" * 4095], [b"A"], "local")
     lut = BatchAligner(Scoring.new(-5, -1, lambda a, b: 1 if a == b else -1), device="cpu")
-    for mode in (lut.global_, lut.semiglobal):
+    for mode in (lut.global_, lut.semiglobal, lut.local, lut.custom):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             mode([b"ACGT"], [b"ACGT"])
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        lut.scores([b"ACGT"], [b"ACGT"], "custom")
     with pytest.raises(AssertionError):
         BatchAligner(Scoring.from_scores(-1, -5, 2, -2), device="cpu")
+
+
+def test_scoring_clip_builders_match_jax():
+    """``xclip``, ``yclip``, the one-sided builders and ``with_clips`` set
+    the same four fields as the JAX package's builders."""
+    def clips(sc):
+        return (sc.gap_open, sc.gap_extend, sc.match_scores, sc.xclip_prefix, sc.xclip_suffix, sc.yclip_prefix, sc.yclip_suffix)
+
+    port, jax_sc = Scoring.from_scores(-6, -1, 1, -4), JaxScoring.from_scores(-6, -1, 1, -4)
+    assert clips(port) == clips(jax_sc)
+    assert clips(port.xclip(-5).yclip(0)) == clips(jax_sc.xclip(-5).yclip(0))
+    for name in ("xclip_prefix_", "xclip_suffix_", "yclip_prefix_", "yclip_suffix_"):
+        assert clips(getattr(port, name)(-3)) == clips(getattr(jax_sc, name)(-3)), name
+    assert clips(port.with_clips(-1, -2, -3, -4)) == clips(jax_sc.with_clips(-1, -2, -3, -4))
+    assert clips(port.xclip(-5)) != clips(port)  # builders return a new Scoring
+    with pytest.raises(AssertionError):
+        port.xclip(1)

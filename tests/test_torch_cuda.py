@@ -201,3 +201,108 @@ def test_read_mapper_on_card_matches_cpu(cuda_device):
     assert [key(m) for m in got] == [key(m) for m in on_cpu.map_batch(reads)]
     assert sum(m.pos >= 0 for m in got) > 30
     assert [key(m) for m in on_card.to("cpu").map_batch(reads)] == [key(m) for m in got]
+
+
+# ---- local and custom: K7, K9 (scans), K8, K10 (walks) ----
+
+MIN = -858_993_459  # MIN_SCORE: a clip switched off
+
+
+def _clip_pens(rng):
+    """(go, ge, clips) cases: local, go = ge = 0 at clips 0, and three
+    random clip choices of {MIN_SCORE, 0, -1, -7}."""
+    cases = [(-5, -1, (0, 0, 0, 0)), (0, 0, (0, 0, 0, 0)), (-6, -1, (-5, -5, 0, 0))]
+    for _ in range(3):
+        go = int(rng.integers(-9, 0))
+        cases.append((go, int(rng.integers(go, 1)), tuple(int(c) for c in rng.choice([MIN, 0, -1, -7], size=4))))
+    return cases
+
+
+def _clip_scan(args, go, ge, clips, plain=False, traceback=True):
+    if all(c == 0 for c in clips):
+        fn = sw.scan_local_plain if plain else sw.scan_local
+        return fn(*args, go, ge, 2, -2, traceback=traceback)
+    fn = sw.scan_custom_plain if plain else sw.scan_custom
+    return fn(*args, go, ge, 2, -2, *clips, traceback=traceback)
+
+
+def _clip_scans_match(got, want, mlens, nlens):
+    """tb (N+1, X, B) over columns 0..nlens, lx over columns 0..nlens, the
+    finals over rows 0..mlens."""
+    assert torch.equal(_masked(got[0], mlens, nlens + 1), _masked(want[0], mlens, nlens + 1))
+    keep = torch.arange(got[1].shape[0])[:, None] <= torch.as_tensor(nlens, dtype=torch.int64)[None, :]
+    assert torch.equal(torch.where(keep, got[1].cpu(), 0), torch.where(keep, want[1].cpu(), 0))
+    for g, w in zip(got[2:], want[2:]):
+        assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+
+
+def test_clip_scans_and_walks_match_plain(cuda_device):
+    """K7 and K9 (with traceback and score-only), then K8 and K10 on the
+    plain scan's tensors, at B = 64."""
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fixups
+
+    rng = np.random.default_rng(31)
+    for go, ge, clips in _clip_pens(rng):
+        args, mlens, nlens = _pairs(rng, 64, 150, 166, cuda_device)
+        got = _clip_scan(args, go, ge, clips)
+        torch.cuda.synchronize()
+        want = _clip_scan(args, go, ge, clips, plain=True)
+        _clip_scans_match(got, want, mlens, nlens)
+        if all(c == 0 for c in clips):  # K7 gives K9's outputs at clips 0
+            _clip_scans_match(got, sw.scan_custom(*args, go, ge, 2, -2, 0, 0, 0, 0), mlens, nlens)
+        # score-only: no traceback, the same finals
+        only = _clip_scan(args, go, ge, clips, traceback=False)
+        assert only[0] is None and only[1] is None
+        for g, w in zip(only[2:6], got[2:6]):
+            assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+        # tbk without the run nibble, which only a traceback run computes
+        assert torch.equal(_masked(only[6], mlens), _masked(got[6] & 0xFFF, mlens))
+        tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = want
+        B, X = S_f.shape
+        ml, nl = args[2], args[3]
+        rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, ml)
+        score, tb_fixed, Lx_n, lx_set = _suffix_fixups(
+            S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, *clips)
+        )
+        _, _, oS, oI, oSn, _, otbk = only
+        o_score = _suffix_fixups(oS, oI, oSn, otbk, B, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, *clips))[0]
+        assert torch.equal(o_score, score)
+        tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+        lx_n = torch.where(lx_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
+        walks = [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain)]
+        if all(c == 0 for c in clips) and go + ge < 0:
+            walks.append((walk.sweep_walk_local, walk.sweep_walk_local_plain))
+        for fn, plain in walks:
+            wgot = fn(tb, tbfix, lx, lx_n, ml, nl)
+            torch.cuda.synchronize()
+            for g, w in zip(wgot, plain(tb, tbfix, lx, lx_n, ml, nl)):
+                assert torch.equal(g, w)
+
+
+def test_custom_scan_with_device_scratch_matches_plain(cuda_device):
+    """M = 400: the five column layers leave shared memory."""
+    rng = np.random.default_rng(32)
+    args, mlens, nlens = _pairs(rng, 40, 400, 30, cuda_device)
+    for clips in ((0, 0, 0, 0), (-3, -7, -2, -5)):
+        got = _clip_scan(args, -5, -1, clips)
+        torch.cuda.synchronize()
+        _clip_scans_match(got, _clip_scan(args, -5, -1, clips, plain=True), mlens, nlens)
+
+
+def test_local_and_custom_aligners_on_card_match_cpu(cuda_device):
+    rng = np.random.default_rng(6)
+    xs, ys = [], []
+    for _ in range(64):
+        y = rng.choice(list(b"ACGT"), size=int(rng.integers(1, 170))).astype(np.uint8).tobytes()
+        x = bytearray(rng.choice(list(b"ACGT"), size=int(rng.integers(1, 150))).astype(np.uint8).tobytes())
+        s = int(rng.integers(0, len(y)))
+        x[5 : 5 + 40] = y[s : s + 40]
+        xs.append(bytes(x))
+        ys.append(y)
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    for sc in (Scoring.from_scores(-5, -1, 2, -2), Scoring.from_scores(-6, -1, 1, -4).xclip(-5).yclip(0)):
+        on_card = BatchAligner(sc, device=cuda_device)
+        on_cpu = BatchAligner(sc, device="cpu")
+        for mode in ("local", "custom"):
+            assert [key(a) for a in getattr(on_card, mode)(xs, ys)] == [key(a) for a in getattr(on_cpu, mode)(xs, ys)]
+            np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
