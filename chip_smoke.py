@@ -31,11 +31,25 @@ NVIDIA GPU.
    166 bp origin windows. Every alignment must re-score to its score (clip
    ops at their penalties), agree with ``scores`` and, on 64 pairs, with
    the CPU path; every custom alignment must consume both sequences.
+3c. Drives protein alignment under BLOSUM62 with the counters at 0 again
+   (``Scoring.new(-11, -1, blosum62)``, rust-bio's doctest scoring: BLASTP's
+   default gap costs, existence 11 and extension 1, in rust-bio's affine
+   form): 8192 homolog pairs (x of 250-450 residues, y = x at 30%
+   substitutions and 3% single-residue indels) through ``global_``,
+   ``local``, ``global_packed(...).cigars()`` and ``scores`` in global and
+   local mode; 8192 domain pairs (y a protein of 250-450 residues, x an
+   80-200 residue segment of it at 20% substitutions) through
+   ``semiglobal``, ``semiglobal_packed(...).cigars()``, ``scores(...,
+   "semiglobal")`` and ``custom`` with x soft-clipped at -10 per end and y's
+   ends free. Every alignment must re-score to its score under the LUT,
+   every global alignment consume both sequences, ``scores`` agree with the
+   alignments; 64 pairs of each mode, 256 pairs under PAM250 and 256
+   random-byte pairs must equal the CPU path.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
    both with CUDA events.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
-   delivered.
+   delivered, for DNA and for protein.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -73,6 +87,8 @@ K3_OPS_PER_CELL = 12
 K5_OPS_PER_CELL = 39
 K7_OPS_PER_CELL = 44
 K9_OPS_PER_CELL = 49
+# the LUT-fed kernels (K11, K18, K12 and K7/K9 fed by the LUT) do the same
+# operations, the LUT read in place of the match/mismatch select
 
 DEVICE = "cuda"
 GO, GE, MA, MI = -5, -1, 2, -2
@@ -86,6 +102,14 @@ SEED_STARTS = (0, 65, 130)  # the mapper's seed windows on a 150 bp read
 # at 5 per end, the reference window's ends free; reads lose up to 30
 # bases at each end to random ones (adapter read-through, chimeric ends)
 CUSTOM_PENS, CUSTOM_XCLIP, CUSTOM_YCLIP, MAX_JUNK = (-6, -1, 1, -4), -5, 0, 30
+# protein: BLOSUM62 with BLASTP's default gap costs in rust-bio's affine
+# form; homologs of 250-450 residues, domains of 80-200 in proteins of
+# 250-450; custom mode soft-clips the domain's ends at -10 each
+AA = b"ARNDCQEGHILKMFPSTWYV"
+PROT_GO, PROT_GE = -11, -1
+B_PROT, PROT_LEN, DOMAIN_LEN = 8192, (250, 450), (80, 200)
+HOMOLOG_SUB, HOMOLOG_INDEL, DOMAIN_SUB = 0.30, 0.03, 0.20
+DOMAIN_XCLIP, DOMAIN_YCLIP = -10, 0
 
 
 def fail(msg: str) -> None:
@@ -143,10 +167,11 @@ def rescore(kinds, x: bytes, y: bytes, pens=(GO, GE, MA, MI)):
     return rescore_ops([(k, 0) for k in kinds], x, y, pens)
 
 
-def rescore_ops(ops, x: bytes, y: bytes, pens=(GO, GE, MA, MI), xclip=None, yclip=None):
+def rescore_ops(ops, x: bytes, y: bytes, pens=(GO, GE, MA, MI), xclip=None, yclip=None, lut=None):
     """``rescore`` of (kind, len) ops, with Xclip/Yclip ops at the clip
     penalties ``xclip``/``yclip`` (None: a clip op fails), consuming their
-    length of x or y."""
+    length of x or y. With ``lut`` (a (256, 256) nested list) a Match or
+    Subst scores ``lut[x_i][y_j]`` instead of ``pens``' match/mismatch."""
     go, ge, ma, mi = pens
     i = j = score = 0
     prev = None
@@ -154,7 +179,7 @@ def rescore_ops(ops, x: bytes, y: bytes, pens=(GO, GE, MA, MI), xclip=None, ycli
         if k in ("Match", "Subst"):
             if i >= len(x) or j >= len(y) or (x[i] == y[j]) != (k == "Match"):
                 return None
-            score += ma if k == "Match" else mi
+            score += lut[x[i]][y[j]] if lut is not None else (ma if k == "Match" else mi)
             i += 1
             j += 1
         elif k == "Ins":
@@ -176,6 +201,7 @@ def rescore_ops(ops, x: bytes, y: bytes, pens=(GO, GE, MA, MI), xclip=None, ycli
 
 
 CIGAR_KIND = {"=": "Match", "X": "Subst", "I": "Ins", "D": "Del"}
+OP_CHAR = {kind: ch for ch, kind in CIGAR_KIND.items()}
 
 
 def cigar_kinds(cigar: str):
@@ -188,6 +214,24 @@ def cigar_kinds(cigar: str):
             out.extend([CIGAR_KIND[ch]] * n)
             n = 0
     return out
+
+
+def cigar_of(ops) -> str:
+    """The CIGAR of an op list: runs of '=', 'X', 'I', 'D'; clip ops skipped."""
+    out, prev, n = [], None, 0
+    for op in ops:
+        ch = OP_CHAR.get(op.kind)
+        if ch is None:
+            continue
+        if ch == prev:
+            n += 1
+            continue
+        if prev:
+            out.append(f"{n}{prev}")
+        prev, n = ch, 1
+    if prev:
+        out.append(f"{n}{prev}")
+    return "".join(out)
 
 
 def occurrences(text: bytes, pat: bytes):
@@ -262,6 +306,43 @@ def clip_walk_inputs(torch, scan, mlens, nlens, pens, clips):
     return tbfix, torch.where(lx_set, Lx_n, lx.gather(0, nlens.long()[None, :])[0])
 
 
+def protein_corpora(rng):
+    """The homolog and domain corpora as (x bytes, y bytes) lists: residues
+    uniform over the 20 amino acids; a substitution draws one of the 19
+    other residues; an indel deletes the residue or inserts a random one
+    after it, with equal odds."""
+    aa = np.frombuffer(AA, np.uint8)
+    rank = np.zeros(256, np.int64)
+    rank[aa] = np.arange(20)
+
+    def protein():
+        return aa[rng.integers(0, 20, size=int(rng.integers(PROT_LEN[0], PROT_LEN[1] + 1)))]
+
+    def substitute(seq, rate):
+        mut = rng.random(seq.size) < rate
+        out = seq.copy()
+        out[mut] = aa[(rank[seq[mut]] + rng.integers(1, 20, size=int(mut.sum()))) % 20]
+        return out
+
+    homolog, domain = ([], []), ([], [])
+    for _ in range(B_PROT):
+        x = protein()
+        y = substitute(x, HOMOLOG_SUB)
+        indel = rng.random(y.size) < HOMOLOG_INDEL
+        ins = indel & (rng.random(y.size) < 0.5)
+        # row-major: each kept residue, then the residue inserted after it
+        both = np.stack([y, aa[rng.integers(0, 20, size=y.size)]], axis=1)
+        y = both[np.stack([~indel | ins, ins], axis=1)]
+        homolog[0].append(x.tobytes())
+        homolog[1].append(y.tobytes())
+        t = protein()
+        m = int(rng.integers(DOMAIN_LEN[0], DOMAIN_LEN[1] + 1))
+        s0 = int(rng.integers(0, t.size - m + 1))
+        domain[0].append(substitute(t[s0 : s0 + m], DOMAIN_SUB).tobytes())
+        domain[1].append(t.tobytes())
+    return homolog, domain
+
+
 def host_profile(torch, fn, top: int = 14) -> dict:
     """cProfile of one ``fn()`` ending in a synchronize: its host seconds
     and the functions with the most time of their own (profiling adds a
@@ -293,6 +374,7 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -310,6 +392,7 @@ def main() -> int:
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
     from rust_bio_tpu_torch.pipelines import ReadMapper
+    from rust_bio_tpu_torch.scores import blosum62, dense_matrix, pam250
 
     dev = torch.device(DEVICE)
     smi = nvidia_smi_line()
@@ -330,6 +413,11 @@ def main() -> int:
         "sweep_walk_local": walk.SWEEP_WALK_LOCAL,
         "sw_scan_custom": sw.SCAN_CUSTOM,
         "sweep_walk_custom": walk.SWEEP_WALK_CUSTOM,
+        "sw_scan_global_lut": sw.SCAN_GLOBAL_LUT,
+        "sw_scores_global_lut": sw.SCORES_GLOBAL_LUT,
+        "sw_scan_semiglobal_lut": sw.SCAN_SEMIGLOBAL_LUT,
+        "sw_scan_local_lut": sw.SCAN_LOCAL_LUT,
+        "sw_scan_custom_lut": sw.SCAN_CUSTOM_LUT,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -387,10 +475,13 @@ def main() -> int:
     xb_clip[ends] = acgt[rng.integers(0, 4, size=int(ends.sum()))]
     custom_xs = [bytes(r) for r in xb_clip]
     custom_ys = [bytes(yb_ext[k, : nl_ext[k]]) for k in range(B_READS)]
+    (hxs, hys), (dxs, dys) = protein_corpora(rng)
+    rand_bytes = [rng.integers(0, 256, size=int(rng.integers(1, 81))).astype(np.uint8).tobytes() for _ in range(512)]
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
         k.launches = 0
+    t_phase = time.perf_counter()
     sc = Scoring.from_scores(GO, GE, MA, MI)
     ba = BatchAligner(sc, device=dev)
     results = {}
@@ -423,7 +514,7 @@ def main() -> int:
     launches = {name: k.launches for name, k in counters.items()}
     path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search")
     check(all(launches[n] > 0 for n in path_kernels), f"a kernel of the global path did not launch: {launches}")
-    print(json.dumps({"phase": "main_path", "launches": launches, "fm_index_build_s": build_s}), flush=True)
+    print(json.dumps({"phase": "main_path", "launches": launches, "fm_index_build_s": build_s, "seconds": time.perf_counter() - t_phase}), flush=True)
 
     # small-input reference: the plain PyTorch path on the CPU, and a
     # brute-force count of pattern occurrences in the text
@@ -443,6 +534,7 @@ def main() -> int:
     # ---- 3. the read mapper, counted -------------------------------------
     for k in counters.values():
         k.launches = 0
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     mapper = ReadMapper(
         genome, sc, seed_len=SEED_LEN, seed_tries=SEED_TRIES, flank=FLANK, sa_sampling_rate=32, device=dev
@@ -473,7 +565,7 @@ def main() -> int:
     print(json.dumps({
         "phase": "mapper", "launches": mapper_launches, "reads": len(main_reads), "mapped": n_mapped,
         "clean_seed_reads": int(clean_seed[:B_READS].sum()), "exempt_repeat_seeds": exempt,
-        "mapper_index_build_s": mapper_build_s,
+        "mapper_index_build_s": mapper_build_s, "seconds": time.perf_counter() - t_phase,
     }), flush=True)
     # small-input reference: 64 reads through the port's CPU path, on the
     # card-built index moved to the CPU
@@ -489,6 +581,7 @@ def main() -> int:
     # ---- 3b. local and custom alignment, counted ---------------------------
     for k in counters.values():
         k.launches = 0
+    t_phase = time.perf_counter()
     local_out = {}
     for name, (xs, ys) in corpora.items():
         alns = ba.local(xs, ys)
@@ -521,10 +614,94 @@ def main() -> int:
     print(json.dumps({
         "phase": "local_custom", "launches": clip_launches, "local_pairs": 2 * B_ALN, "custom_pairs": B_READS,
         "custom_with_xclip": n_clipped, "custom_mean_score": float(np.mean(custom_scores)),
+        "seconds": time.perf_counter() - t_phase,
     }), flush=True)
     launches = {name: launches[name] + clip_launches[name] for name in counters}
 
+    # ---- 3c. protein alignment under BLOSUM62, counted -------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    psc = Scoring.new(PROT_GO, PROT_GE, blosum62)
+    csc_p = psc.xclip(DOMAIN_XCLIP).yclip(DOMAIN_YCLIP)
+    bp = BatchAligner(psc, device=dev)
+    bpc = BatchAligner(csc_p, device=dev)
+    lut_l = dense_matrix("blosum62").tolist()
+    ppens = (PROT_GO, PROT_GE, None, None)
+    prot = {
+        "global": bp.global_(hxs, hys),
+        "local": bp.local(hxs, hys),
+        "semiglobal": bp.semiglobal(dxs, dys),
+        "custom": bpc.custom(dxs, dys),
+    }
+    prot_scores = {
+        "global": bp.scores(hxs, hys, "global"),
+        "local": bp.scores(hxs, hys, "local"),
+        "semiglobal": bp.scores(dxs, dys, "semiglobal"),
+        "custom": bpc.scores(dxs, dys, "custom"),
+    }
+    cig_global = bp.global_packed(hxs, hys).cigars()
+    cig_semi = bp.semiglobal_packed(dxs, dys).cigars()
+    prot_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = (
+        "sw_scan_global_lut", "sweep_walk_global", "sw_scores_global_lut", "sw_scan_semiglobal_lut",
+        "sweep_walk_semiglobal", "sw_scan_local_lut", "sweep_walk_local", "sw_scan_custom_lut", "sweep_walk_custom",
+    )
+    check(all(prot_launches[n] > 0 for n in path_kernels), f"a kernel of the protein path did not launch: {prot_launches}")
+    for mode, alns in prot.items():
+        check(len(alns) == B_PROT and prot_scores[mode].shape == (B_PROT,), f"protein {mode}: result count")
+        check(all(int(sc_) == a.score for sc_, a in zip(prot_scores[mode], alns)), f"protein {mode}: scores() != alignment scores")
+    for k, (a, x, y) in enumerate(zip(prot["global"], hxs, hys)):
+        got = rescore_ops([(op.kind, 0) for op in a.operations], x, y, ppens, lut=lut_l)
+        check(got == (a.score, len(x), len(y)), f"protein global: pair {k} does not re-score to {a.score} over both sequences")
+    for k, (a, x, y) in enumerate(zip(prot["local"], hxs, hys)):
+        got = rescore_ops([(op.kind, 0) for op in a.operations], x[a.xstart : a.xend], y[a.ystart : a.yend], ppens, lut=lut_l)
+        check(got == (a.score, a.xend - a.xstart, a.yend - a.ystart), f"protein local: pair {k} does not re-score to {a.score}")
+    for k, (a, x, y) in enumerate(zip(prot["semiglobal"], dxs, dys)):
+        got = rescore_ops([(op.kind, 0) for op in a.operations], x, y[a.ystart : a.yend], ppens, lut=lut_l)
+        check(got == (a.score, len(x), a.yend - a.ystart), f"protein semiglobal: pair {k} does not re-score to {a.score} over x")
+    n_xclipped = 0
+    for k, (a, x, y) in enumerate(zip(prot["custom"], dxs, dys)):
+        ops = [(op.kind, op.len) for op in a.operations]
+        got = rescore_ops(ops, x, y, ppens, DOMAIN_XCLIP, DOMAIN_YCLIP, lut=lut_l)
+        check(got == (a.score, len(x), len(y)), f"protein custom: pair {k} does not re-score to {a.score} over both sequences")
+        n_xclipped += any(kind == "Xclip" for kind, _ in ops)
+    # the packed CIGARs spell the same operations as the alignments
+    check(cig_global == [cigar_of(a.operations) for a in prot["global"]], "protein global_packed CIGARs != global_ operations")
+    check(
+        cig_semi == [cigar_of(a.operations) for a in prot["semiglobal"]],
+        "protein semiglobal_packed CIGARs != semiglobal operations",
+    )
+    # small-input references: the CPU path, on 64 pairs of each mode, 256
+    # homolog pairs under PAM250 and 256 random-byte pairs
+    cpu_p, cpu_pc = BatchAligner(psc, device="cpu"), BatchAligner(csc_p, device="cpu")
+    for mode, ref, (xs, ys) in (
+        ("global", cpu_p, (hxs, hys)), ("local", cpu_p, (hxs, hys)),
+        ("semiglobal", cpu_p, (dxs, dys)), ("custom", cpu_pc, (dxs, dys)),
+    ):
+        fn = "global_" if mode == "global" else mode
+        want = getattr(ref, fn)(xs[:64], ys[:64])
+        check([fields(a) for a in prot[mode][:64]] == [fields(a) for a in want], f"protein {mode}: card != CPU plain path")
+    psc250 = Scoring.new(PROT_GO, PROT_GE, pam250)
+    got = BatchAligner(psc250, device=dev).global_(hxs[:256], hys[:256])
+    want = BatchAligner(psc250, device="cpu").global_(hxs[:256], hys[:256])
+    check([fields(a) for a in got] == [fields(a) for a in want], "pam250 global: card != CPU plain path")
+    rxs, rys = rand_bytes[:256], rand_bytes[256:]
+    for mode, on_card, on_cpu in (("global", bp, cpu_p), ("semiglobal", bp, cpu_p), ("local", bp, cpu_p), ("custom", bpc, cpu_pc)):
+        fn = "global_" if mode == "global" else mode
+        got = getattr(on_card, fn)(rxs, rys)
+        check([fields(a) for a in got] == [fields(a) for a in getattr(on_cpu, fn)(rxs, rys)], f"random bytes {mode}: card != CPU plain path")
+        check(on_card.scores(rxs, rys, mode).tolist() == on_cpu.scores(rxs, rys, mode).tolist(), f"random bytes scores {mode}: card != CPU")
+    print(json.dumps({
+        "phase": "protein", "launches": prot_launches, "homolog_pairs": B_PROT, "domain_pairs": B_PROT,
+        "mean_scores": {m: float(np.mean(v)) for m, v in prot_scores.items()}, "custom_with_xclip": n_xclipped,
+        "homolog_max_len": [max(map(len, hxs)), max(map(len, hys))], "domain_max_len": [max(map(len, dxs)), max(map(len, dys))],
+        "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + prot_launches[name] for name in counters}
+
     # ---- 4. kernels against their plain versions, timed ---------------
+    t_phase = time.perf_counter()
     def tens(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
@@ -697,7 +874,94 @@ def main() -> int:
         ("rust_bio_tpu/ops/sw_pallas.py:1601", "rust_bio_tpu/ops/walk_pallas.py:1128"),
     )
 
+    # K11, K18 and K7 fed by BLOSUM62 on the homolog corpus, K12 and K9 fed
+    # by it on the domain corpus; the plain versions take the feeder's
+    # stream (or, for K18, its (B, M, N) tensor) of the same inputs
+    lut_d = torch.from_numpy(dense_matrix("blosum62")).to(dev)
+    hxb, hyb, hml, hnl = bp._pad(hxs, hys)
+    dxb, dyb, dml, dnl = bp._pad(dxs, dys)
+    hom = tens(hxb, hyb, hml, hnl)
+    dom = tens(dxb, dyb, dml, dnl)
+
+    def lut_bytes(xb_, yb_, ml_, nl_, out_bytes):
+        """Bytes a LUT-fed scan must move: sequences, lengths and the LUT
+        read once, ``out_bytes`` written."""
+        return xb_.size + yb_.size + 8 * len(ml_) + 256 * 256 * 4 + out_bytes
+
+    hcells = int((hml.astype(np.int64) * hnl).sum())
+    h_tb = 2 * int(((hml.astype(np.int64) + 1) * hnl).sum())  # the cells K11 writes
+    h_rows = int((hml.astype(np.int64) + 1).sum())
+    plain_k11 = lambda: sw.scan_global_lut_plain(sw.subs2_stream_plain(hom[0], hom[1], lut_d), hom[2], hom[3], PROT_GO, PROT_GE)  # noqa: E731
+    got = sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d)
+    torch.cuda.synchronize()
+    want = plain_k11()
+    report(
+        "sw_scan_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:1129",
+        [got[0]] + defined(got[1:], hom[2], hom[3]), [want[0]] + defined(want[1:], hom[2], hom[3]),
+        cuda_ms(torch, lambda: sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d), 5), cuda_ms(torch, plain_k11, 1),
+        lut_bytes(hxb, hyb, hml, hnl, 4 * B_PROT + h_tb + 4 * h_rows),
+        K1_OPS_PER_CELL * hcells,
+    )
+    del got, want
+    plain_k18 = lambda: sw.scores_global_lut_plain(sw.subs_tensor_plain(hom[0], hom[1], lut_d), hom[2], hom[3], PROT_GO, PROT_GE)  # noqa: E731
+    sgot = sw.scores_global_lut(*hom, PROT_GO, PROT_GE, lut_d)
+    torch.cuda.synchronize()
+    report(
+        "sw_scores_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:79",
+        [sgot], [plain_k18()],
+        cuda_ms(torch, lambda: sw.scores_global_lut(*hom, PROT_GO, PROT_GE, lut_d), 5), cuda_ms(torch, plain_k18, 1),
+        lut_bytes(hxb, hyb, hml, hnl, 4 * B_PROT),
+        K3_OPS_PER_CELL * hcells,
+    )
+    dcells = int((dml.astype(np.int64) * dnl).sum())
+    d_tb = 2 * int(((dml.astype(np.int64) + 1) * dnl).sum())
+    d_rows = int((dml.astype(np.int64) + 1).sum())
+    plain_k12 = lambda: sw.scan_semiglobal_lut_plain(sw.subs2_stream_plain(dom[0], dom[1], lut_d), dom[2], dom[3], PROT_GO, PROT_GE, 0, 0)  # noqa: E731
+    got = sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0)
+    torch.cuda.synchronize()
+    want = plain_k12()
+    report(
+        "sw_scan_semiglobal_lut", "rust_bio_tpu_torch/ops/csrc/sw_semiglobal.cu", "rust_bio_tpu/ops/sw_pallas.py:1328",
+        defined(got, dom[2], dom[3]), defined(want, dom[2], dom[3]),
+        cuda_ms(torch, lambda: sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0), 5), cuda_ms(torch, plain_k12, 1),
+        lut_bytes(dxb, dyb, dml, dnl, d_tb + 5 * 4 * d_rows),
+        K5_OPS_PER_CELL * dcells,
+    )
+    del got, want
+    clip_cases = (
+        ("sw_scan_local_lut", hom, (hxb, hyb, hml, hnl), (0, 0, 0, 0), K7_OPS_PER_CELL),
+        ("sw_scan_custom_lut", dom, (dxb, dyb, dml, dnl), (DOMAIN_XCLIP, DOMAIN_XCLIP, DOMAIN_YCLIP, DOMAIN_YCLIP), K9_OPS_PER_CELL),
+    )
+    for name, args_d, (xb_, yb_, ml_, nl_), clips, ops_per_cell in clip_cases:
+        local = name == "sw_scan_local_lut"
+
+        def scan_fn(plain=False, args_d=args_d, clips=clips, local=local):
+            if plain:
+                subs2 = sw.subs2_stream_plain(args_d[0], args_d[1], lut_d)
+                if local:
+                    return sw.scan_local_lut_plain(subs2, args_d[2], args_d[3], PROT_GO, PROT_GE)
+                return sw.scan_custom_lut_plain(subs2, args_d[2], args_d[3], PROT_GO, PROT_GE, *clips)
+            if local:
+                return sw.scan_local_lut(*args_d, PROT_GO, PROT_GE, lut_d)
+            return sw.scan_custom_lut(*args_d, PROT_GO, PROT_GE, lut_d, *clips)
+
+        got = scan_fn()
+        torch.cuda.synchronize()
+        want = scan_fn(plain=True)
+        rows_ = int((ml_.astype(np.int64) + 1).sum())
+        report(
+            name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", "rust_bio_tpu/alignment/pairwise/batched.py:948",
+            defined_clip(got, args_d[2], args_d[3]), defined_clip(want, args_d[2], args_d[3]),
+            cuda_ms(torch, scan_fn, 5), cuda_ms(torch, lambda: scan_fn(plain=True), 1),
+            lut_bytes(xb_, yb_, ml_, nl_, 2 * int(((ml_.astype(np.int64) + 1) * (nl_ + 1)).sum()) + 4 * int((nl_ + 1).sum()) + 5 * 4 * rows_),
+            ops_per_cell * int((ml_.astype(np.int64) * nl_).sum()),
+        )
+        del got, want
+
+    print(json.dumps({"phase": "kernel_checks", "seconds": time.perf_counter() - t_phase}), flush=True)
+
     # ---- 5. end-to-end rates --------------------------------------------
+    t_phase = time.perf_counter()
     rates = {}
     for name, (xs, ys) in corpora.items():
         yarr = yb if name == "random" else yb_hi
@@ -733,8 +997,20 @@ def main() -> int:
     )
     rates["custom_alignments_per_s_delivered"] = B_READS / host_s(torch, lambda: bac.custom(custom_xs, custom_ys), 3)
     rates["scores_custom_pairs_per_s"] = B_READS / host_s(torch, lambda: bac.scores(custom_xs, custom_ys, "custom"), 3)
+    rates["protein_global_alignments_per_s_device"] = B_PROT / host_s(torch, lambda: bp.global_packed_arrays(hxb, hyb, hml, hnl), 5)
+    rates["protein_global_alignments_per_s_delivered"] = B_PROT / host_s(torch, lambda: bp.global_(hxs, hys), 2)
+    rates["scores_protein_global_pairs_per_s"] = B_PROT / host_s(torch, lambda: bp.scores(hxs, hys, "global"), 3)
+    rates["protein_local_alignments_per_s_device"] = B_PROT / host_s(
+        torch, lambda: bp._custom_device(hxb, hyb, hml, hnl, (0, 0, 0, 0)), 5
+    )
+    rates["protein_local_alignments_per_s_delivered"] = B_PROT / host_s(torch, lambda: bp.local(hxs, hys), 2)
+    rates["protein_semiglobal_pairs_per_s_device"] = B_PROT / host_s(
+        torch, lambda: bp.semiglobal_packed_async_arrays(dxb, dyb, dml, dnl), 5
+    )
+    rates["protein_semiglobal_pairs_per_s_delivered"] = B_PROT / host_s(torch, lambda: bp.semiglobal(dxs, dys), 2)
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
-    print(json.dumps({"phase": "rates", **rates, "card": smi}), flush=True)
+    print(json.dumps({"phase": "rates", **rates, "seconds": time.perf_counter() - t_phase, "card": smi}), flush=True)
+    print(json.dumps({"phase": "script", "seconds": time.perf_counter() - t_start}), flush=True)
 
     print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {smi}", flush=True)

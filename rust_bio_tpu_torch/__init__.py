@@ -4,9 +4,11 @@ The JAX package stays the reference; this package reimplements its main
 path with hand-written CUDA kernels (``ops/csrc/*.cu``, built with nvcc for
 ``sm_90a`` at first use and bound with ``ctypes``):
 
-- ``BatchAligner.global_``, ``.semiglobal`` and ``.scores(...)`` in those
-  two modes, and the packed results (``PackedSemiglobal``), with
-  ``MatchParams`` scoring (:mod:`rust_bio_tpu_torch.alignment.pairwise`);
+- ``BatchAligner.global_``, ``.semiglobal``, ``.local``, ``.custom`` and
+  ``.scores(...)`` in those four modes, and the packed results
+  (``PackedSemiglobal``), under ``MatchParams`` scoring or a substitution
+  matrix (BLOSUM/PAM from :mod:`rust_bio_tpu_torch.scores`, a (256, 256)
+  table or a callable) (:mod:`rust_bio_tpu_torch.alignment.pairwise`);
 - ``DeviceFMIndex`` construction, backward search and locate
   (:mod:`rust_bio_tpu_torch.data_structures.fm_device`), and loading of
   index files written by the JAX package (:mod:`rust_bio_tpu_torch.carry`);

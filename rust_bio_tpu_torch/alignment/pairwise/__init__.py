@@ -1,5 +1,6 @@
-"""Pairwise alignment (port of ``rust_bio_tpu.alignment.pairwise``: global
-and semiglobal modes with ``MatchParams`` scoring).
+"""Pairwise alignment (port of ``rust_bio_tpu.alignment.pairwise``: global,
+semiglobal, local and custom modes, with ``MatchParams`` scoring or a
+substitution matrix).
 
 Gap model (reference: pairwise/mod.rs:9-15, v4.0 semantics):
 ``GapScore(k) = gap_open + gap_extend * (k - 1)``.

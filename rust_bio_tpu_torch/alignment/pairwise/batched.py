@@ -1,5 +1,14 @@
 """Batched pairwise alignment on the device (port of
-``rust_bio_tpu.alignment.pairwise.batched``, global and semiglobal modes).
+``rust_bio_tpu.alignment.pairwise.batched``: global, semiglobal, local and
+custom modes).
+
+The substitution source is chosen once, in ``BatchAligner.__init__``:
+``MatchParams`` scoring runs the kernels below with its two scores; every
+other match function (a BLOSUM/PAM scorer, a (256, 256) ndarray, a
+callable) becomes the dense (256, 256) int32 LUT of ``Scoring.dense_lut``,
+kept on the device, and runs each kernel's LUT twin (K1 -> K11, K3 -> K18,
+K5 -> K12, K7/K9 -> their LUT instantiations). The walks, fixups and packs
+read only traceback cells and are the same for both.
 
 The path of ``BatchAligner.global_``: pad the pairs to (B, M) / (B, N)
 uint8; K1 (``ops.sw.scan_global``) computes the scores and the traceback
@@ -22,12 +31,13 @@ K7 (``ops.sw.scan_local``) when all four clip penalties are 0, else K9
 (``ops.walk.sweep_walk_local``) after K7 with gap_open + gap_extend < 0,
 else K10 (``ops.walk.sweep_walk_custom``); ``_pack_rle_local`` or
 ``_pack_rle_custom`` and the host decode. ``scores(..., "local"|"custom")``
-stops after the fixups.
+stops after the fixups. Custom mode with the x-clips off takes this path
+too (the JAX package sends it through its semiglobal subs kernel; the
+results are the same).
 
 Results are bit-identical to the JAX package and to its scalar oracle.
-Only ``MatchParams`` scoring and M + 1 < 4096 are ported; LUT scorings and
-longer x raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+M + 1 >= 4096 raises ``NotImplementedError`` naming the ROADMAP item that
+ports the block-row engines.
 """
 
 from __future__ import annotations
@@ -584,6 +594,16 @@ class BatchAligner:
         )
         self.scoring = scoring
         self.device = resolve_device(device)
+        # the kernels' substitution arguments: (match, mismatch) for
+        # MatchParams, else the (256, 256) int32 LUT (tabulating a callable
+        # takes 65,536 Python calls: once, here)
+        mp = scoring.match_fn
+        if isinstance(mp, MatchParams):
+            self._lut = None
+            self._subst = (mp.match_score, mp.mismatch_score)
+        else:
+            self._lut = torch.from_numpy(scoring.dense_lut()).to(self.device)
+            self._subst = (self._lut,)
 
     def _pad(self, xs, ys):
         xs = [to_bytes(x) for x in xs]
@@ -601,15 +621,13 @@ class BatchAligner:
         nlens = np.array([len(y) for y in ys], dtype=np.int32)
         return xb, yb, mlens, nlens
 
-    def _params(self) -> Tuple[int, int, int, int]:
-        mp = self.scoring.match_fn
-        if not isinstance(mp, MatchParams):
-            raise NotImplementedError(
-                "only MatchParams scoring is ported; LUT scoring "
-                "(BLOSUM/PAM/callables) is ROADMAP Queue 1 item 6"
-            )
-        s = self.scoring
-        return s.gap_open, s.gap_extend, mp.match_score, mp.mismatch_score
+    def _kernel(self, name: str):
+        """The ``ops.sw`` kernel ``name`` for this scoring's substitution
+        source: ``name`` itself for MatchParams, else its ``_lut`` twin.
+        Call it with ``(..., gap_open, gap_extend, *self._subst, ...)``."""
+        from rust_bio_tpu_torch.ops import sw  # imports this package's tb/scoring
+
+        return getattr(sw, name if self._lut is None else f"{name}_lut")
 
     def _tensors(self, xb, yb, mlens, nlens):
         return tuple(
@@ -626,34 +644,32 @@ class BatchAligner:
             )
 
     def global_packed_arrays(self, xb, yb, mlens, nlens) -> torch.Tensor:
-        """The device part of ``global_`` on padded arrays: K1, K2 and the
-        pack, returning the (10 + N, B) uint16 tensor on the device."""
-        params = self._params()
+        """The device part of ``global_`` on padded arrays: K1 (K11 under a
+        LUT), K2 and the pack, returning the (10 + N, B) uint16 tensor on
+        the device."""
         self._check_rows(xb.shape[1])
-        # kernel modules import this package's tb/scoring: import them here
-        from rust_bio_tpu_torch.ops.sw import scan_global
         from rust_bio_tpu_torch.ops.walk import sweep_walk_global
 
+        s = self.scoring
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
-        score, tb, _tbk = scan_global(xt, yt, ml, nl, *params)
+        score, tb, _tbk = self._kernel("scan_global")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
         ins_cnt, exit_op, ins0 = sweep_walk_global(tb, ml, nl)
         z = torch.zeros_like(ml)
         return _pack_rle(score, ins_cnt, exit_op, ins0, z, z, z, z, z, ml, nl)
 
     def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True):
         """The semiglobal path on padded arrays (batched.py
-        ``_align_batch_device_semiglobal_mp``, sweep-walk branch): K5 with
-        y-clips 0, the suffix fixups, then, with traceback, K6 and the
-        pack. Returns the (10 + N, B) uint16 packed tensor, or the (B,)
-        int32 scores without traceback; both stay on the device."""
-        go, ge, ma, mi = self._params()
-        B, M = xb.shape
-        self._check_rows(M)
-        from rust_bio_tpu_torch.ops.sw import scan_semiglobal
+        ``_align_batch_device_semiglobal_mp``, sweep-walk branch): K5 (K12
+        under a LUT) with y-clips 0, the suffix fixups, then, with
+        traceback, K6 and the pack. Returns the (10 + N, B) uint16 packed
+        tensor, or the (B,) int32 scores without traceback; both stay on
+        the device."""
+        go, ge = self.scoring.gap_open, self.scoring.gap_extend
+        self._check_rows(xb.shape[1])
         from rust_bio_tpu_torch.ops.walk import sweep_walk_semiglobal
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
-        tb, S_f, I_f, Sn_f, Ly_f, tbk = scan_semiglobal(xt, yt, ml, nl, go, ge, ma, mi, 0, 0)
+        tb, S_f, I_f, Sn_f, Ly_f, tbk = self._kernel("scan_semiglobal")(xt, yt, ml, nl, go, ge, *self._subst, 0, 0)
         score, tbfix = _fixed_column(S_f, I_f, Sn_f, Ly_f, tbk, ml, go, ge)
         if not with_traceback:
             return score
@@ -725,24 +741,25 @@ class BatchAligner:
     def _custom_device(self, xb, yb, mlens, nlens, clips, with_traceback: bool = True):
         """The local/custom path on padded arrays (batched.py
         ``_align_batch_device_custom_mp``, sweep-walk branch): K7 when all
-        four clips are 0, else K9; the suffix fixups with the four clips;
+        four clips are 0, else K9 (their LUT instantiations under a LUT,
+        where the JAX package runs its XLA engine ``_align_batch_device``);
+        the suffix fixups with the four clips;
         then, with traceback, K8 after K7 with gap_open + gap_extend < 0,
         else K10 (with go + ge == 0 a Del run past a free x-suffix clip can
         tie the clip, which only K10 resolves), and the pack. Returns
         ("local" or "custom", the packed uint16 tensor), or the (B,) int32
         scores without traceback; both stay on the device."""
-        go, ge, ma, mi = self._params()
+        go, ge = self.scoring.gap_open, self.scoring.gap_extend
         B, M = xb.shape
         self._check_rows(M)
-        from rust_bio_tpu_torch.ops.sw import scan_custom, scan_local
         from rust_bio_tpu_torch.ops.walk import sweep_walk_custom, sweep_walk_local
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
         local = all(int(c) == 0 for c in clips)
         if local:
-            scan = scan_local(xt, yt, ml, nl, go, ge, ma, mi, traceback=with_traceback)
+            scan = self._kernel("scan_local")(xt, yt, ml, nl, go, ge, *self._subst, traceback=with_traceback)
         else:
-            scan = scan_custom(xt, yt, ml, nl, go, ge, ma, mi, *clips, traceback=with_traceback)
+            scan = self._kernel("scan_custom")(xt, yt, ml, nl, go, ge, *self._subst, *clips, traceback=with_traceback)
         tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
         rows, row_ge1, mlens_c, is_row_m = _geometry(B, M, ml)
         score, tb_col_fixed, Lx_n, lx_n_set = _suffix_fixups(
@@ -807,9 +824,9 @@ class BatchAligner:
         return self._run_clips(xs, ys, AlignmentMode.Custom, filter_clips=False)
 
     def scores(self, xs, ys, mode: str = "global") -> np.ndarray:
-        """Score-only path, no traceback: (B,) int32. Global runs K3;
-        semiglobal runs K5 and the suffix fixups; local and custom run K7 or
-        K9 and the suffix fixups."""
+        """Score-only path, no traceback: (B,) int32. Global runs K3 (K18
+        under a LUT); semiglobal runs K5 (K12) and the suffix fixups; local
+        and custom run K7 or K9 (fed by the LUT) and the suffix fixups."""
         if mode not in ("global", "semiglobal", "local", "custom"):
             raise ValueError(f"unknown mode {mode!r}")
         xb, yb, mlens, nlens = self._pad(xs, ys)
@@ -817,10 +834,9 @@ class BatchAligner:
             return self._semiglobal_device(xb, yb, mlens, nlens, with_traceback=False).cpu().numpy()
         if mode in ("local", "custom"):
             return self._custom_device(xb, yb, mlens, nlens, self._clips(mode), with_traceback=False).cpu().numpy()
-        from rust_bio_tpu_torch.ops.sw import scores_global
-
-        params = self._params()
-        return scores_global(*self._tensors(xb, yb, mlens, nlens), *params).cpu().numpy()
+        s = self.scoring
+        scores_global = self._kernel("scores_global")
+        return scores_global(*self._tensors(xb, yb, mlens, nlens), s.gap_open, s.gap_extend, *self._subst).cpu().numpy()
 
     # --- packed results: one device-to-host pull, host decode on demand ---
 
@@ -850,7 +866,7 @@ class BatchAligner:
         return self.semiglobal_packed_finish(self.semiglobal_packed_async(xs, ys))
 
     def global_packed_async_arrays(self, xb, yb, mlens, nlens):
-        """``semiglobal_packed_async_arrays`` for global mode (K1, K2):
+        """``semiglobal_packed_async_arrays`` for global mode (K1 or K11, K2):
         the fix/clip fields of the packed layout are 0."""
         mlens = np.asarray(mlens, np.int32)
         nlens = np.asarray(nlens, np.int32)

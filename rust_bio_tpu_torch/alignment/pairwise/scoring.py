@@ -2,8 +2,10 @@
 ``rust_bio_tpu.alignment.pairwise.scoring``; reference parity:
 src/alignment/pairwise/mod.rs:171-470).
 
-The port's kernels take constant match/mismatch scores (``MatchParams``);
-other match functions are accepted here and refused by ``BatchAligner``.
+The kernels take constant match/mismatch scores (``MatchParams``) as two
+integers and every other match function as the dense (256, 256) int32 LUT
+of ``Scoring.dense_lut``: a BLOSUM/PAM scorer by its matrix, a callable
+tabulated over all byte pairs, an ndarray as it is.
 """
 
 from __future__ import annotations
@@ -33,6 +35,15 @@ class MatchParams:
 
     def score(self, a: int, b: int) -> int:
         return self.match_score if a == b else self.mismatch_score
+
+
+def _lut_from_fn(fn: MatchFn) -> np.ndarray:
+    """``fn`` over all 256 x 256 byte pairs (65,536 Python calls)."""
+    lut = np.zeros((256, 256), dtype=np.int32)
+    for a in range(256):
+        for b in range(256):
+            lut[a, b] = fn(a, b)
+    return lut
 
 
 @dataclass(frozen=True)
@@ -111,3 +122,18 @@ class Scoring:
         if isinstance(fn, np.ndarray):
             return int(fn[a, b])
         return int(fn(a, b))
+
+    def dense_lut(self) -> np.ndarray:
+        """(256, 256) int32 substitution LUT (scoring.py ``dense_lut``)."""
+        fn = self.match_fn
+        if isinstance(fn, np.ndarray):
+            return np.ascontiguousarray(fn, dtype=np.int32)
+        if isinstance(fn, MatchParams):
+            lut = np.full((256, 256), fn.mismatch_score, dtype=np.int32)
+            np.fill_diagonal(lut, fn.match_score)
+            return lut
+        if hasattr(fn, "matrix_name"):
+            from rust_bio_tpu_torch.scores import dense_matrix
+
+            return dense_matrix(fn.matrix_name)
+        return _lut_from_fn(fn)

@@ -22,6 +22,10 @@ class Alphabet:
     def insert(self, a: int) -> None:
         self._mask[a] = True
 
+    def is_word(self, text: TextLike) -> bool:
+        """Whether every symbol of ``text`` is in the alphabet."""
+        return bool(self._mask[np.frombuffer(to_bytes(text), np.uint8)].all())
+
     def __len__(self) -> int:
         return int(self._mask.sum())
 

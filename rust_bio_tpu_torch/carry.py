@@ -9,6 +9,10 @@ file, checks the hash the same way, and returns the port's
 ``DeviceFMIndex``; ``fm_index_from_arrays`` does the same from the arrays
 and header already in memory. Index caches built by the JAX package load
 unchanged.
+
+A scoring needs no converter: it is a handful of integers plus, for
+substitution matrices, a (256, 256) int32 table (``Scoring.dense_lut``),
+which both packages take as they are.
 """
 
 from __future__ import annotations

@@ -2,6 +2,11 @@
 // clip penalties, for constant match/mismatch scoring. Replace
 // rust_bio_tpu/ops/sw_pallas.py scan_custom_pallas_mp -> _kernel_scan_custom_mp
 // and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins").
+// sw_scan_custom_lut and sw_scan_local_lut: the same two kernels with the
+// substitution score read from a (256, 256) LUT. They take the place of the
+// JAX package's XLA general engine (alignment/pairwise/batched.py
+// _align_batch_device, which aligns local and custom mode under a LUT
+// scoring, with K9's semantics); no Pallas kernel serves those modes there.
 //
 // Outputs: the traceback cells of columns j = 0..nlens (column 0, the init
 // column, at index 0) for rows i = 0..mlens, 12 bits plus the vertical
@@ -20,7 +25,10 @@
 // first row that reaches it gives Lx), applied when the thread reaches row m.
 // K7 is the same kernel at clips 0 with the branches that clip 0 makes dead
 // removed at compile time (the y-prefix clip candidate, the x-prefix clip
-// score), so it gives K9's outputs byte for byte and needs no packing.
+// score), so it gives K9's outputs byte for byte and needs no packing. The
+// substitution source is a third template parameter, as in sw_global.cu:
+// MatchParams or Lut (read through the read-only path); the Match/Subst bit
+// is byte equality under either source.
 //
 // Bound on this card: like K5, it writes (N+1) * (M+1) * B uint16 cells and
 // five (B, M+1) int32 finals, and the per-cell dependency chain (about 45
@@ -72,6 +80,16 @@ __device__ __forceinline__ void take(int& s, int& bits, int cand, int cbits) {
   }
 }
 
+// Substitution sources: the score of DP cell (x_i, y_j) from their bytes.
+struct MatchParams {
+  int ma, mi;
+  __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
+};
+struct Lut {
+  const int* __restrict__ lut;  // (256, 256) int32, row x
+  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
+};
+
 // Column state of this thread's pair: row i of layer k is at
 // base[(k * rows + i) * stride].
 struct Column {
@@ -83,12 +101,12 @@ struct Column {
   }
 };
 
-template <bool LOCAL, bool TB>
+template <bool LOCAL, bool TB, class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, int ma, int mi, int xcp, int xcs, int ycp, int ycs,
+    int go, int ge, Subst sub, int xcp, int xcs, int ycp, int ycs,
     uint16_t* __restrict__ tb,    // (N + 1, M + 1, B), or null
     int* __restrict__ lx,         // (N + 1, B), or null
     int* __restrict__ s_f,        // (B, M + 1) each
@@ -218,8 +236,9 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       const int dp = st.at(1, i);
       const int sbp = st.at(2, i);
       const int snp = st.at(3, i);
-      const int eq = xt[static_cast<size_t>(i - 1) * B + b] == yj;
-      const int m_val = add(s_up_old, eq ? ma : mi);
+      const int xi = xt[static_cast<size_t>(i - 1) * B + b];
+      const int eq = xi == yj;
+      const int m_val = add(s_up_old, sub.score(xi, yj));
       const int m_bits = TB_SUBST + eq;  // TB_MATCH = TB_SUBST + 1
       const int d_ext = add(dp, ge);
       const int d_open = add(sp, go);
@@ -286,24 +305,24 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
   }
 }
 
-template <bool LOCAL, bool TB>
+template <bool LOCAL, bool TB, class Subst>
 int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
-           int B, int M, int go, int ge, int ma, int mi, int xcp, int xcs,
+           int B, int M, int go, int ge, Subst sub, int xcp, int xcs,
            int ycp, int ycs, void* tb, void* lx, void* s_f, void* i_f,
            void* sn_f, void* ly_f, void* tbk, void* scratch, void* stream) {
   const size_t smem =
       scratch ? 0 : static_cast<size_t>(LAYERS) * (M + 1) * PAIRS * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        scan_clip_kernel<LOCAL, TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scan_clip_kernel<LOCAL, TB, Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  scan_clip_kernel<LOCAL, TB><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  scan_clip_kernel<LOCAL, TB, Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
-      ge, ma, mi, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
+      ge, sub, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
       static_cast<int*>(lx), static_cast<int*>(s_f), static_cast<int*>(i_f),
       static_cast<int*>(sn_f), static_cast<int*>(ly_f), static_cast<int*>(tbk),
       static_cast<int*>(scratch));
@@ -318,17 +337,31 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K9. tb/lx: null for a score-only call. scratch: null to keep the column
-// state in shared memory (5 * (M+1) * 32 * 4 bytes per block), else a
-// (5, M+1, B) int32 buffer.
+// Entry points: tb/lx null for a score-only call; scratch null to keep the
+// column state in shared memory (5 * (M+1) * 32 * 4 bytes per block), else
+// a (5, M+1, B) int32 buffer; lut a (256, 256) int32 table on the device.
+
+// K9.
 int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
                    const void* nlens, int B, int M, int go, int ge, int ma,
                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
                    void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
                    void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true> : launch<false, false>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, ma, mi, xcp, xcs, ycp, ycs, tb,
-            lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+  auto fn = tb ? launch<false, true, MatchParams> : launch<false, false, MatchParams>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
+            ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K9 fed by the LUT.
+int sw_scan_custom_lut(const void* xt, const void* yt, const void* mlens,
+                       const void* nlens, int B, int M, int go, int ge,
+                       const void* lut, int xcp, int xcs, int ycp, int ycs,
+                       void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
+                       void* ly_f, void* tbk, void* scratch, void* stream) {
+  auto fn = tb ? launch<false, true, Lut> : launch<false, false, Lut>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
+            xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
+            stream);
 }
 
 // K7: K9 at clips (0, 0, 0, 0); needs gap_open, gap_extend <= 0.
@@ -336,9 +369,20 @@ int sw_scan_local(const void* xt, const void* yt, const void* mlens,
                   const void* nlens, int B, int M, int go, int ge, int ma,
                   int mi, void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
                   void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<true, true> : launch<true, false>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, ma, mi, 0, 0, 0, 0, tb, lx,
-            s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+  auto fn = tb ? launch<true, true, MatchParams> : launch<true, false, MatchParams>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, 0, 0, 0, 0,
+            tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K7 fed by the LUT.
+int sw_scan_local_lut(const void* xt, const void* yt, const void* mlens,
+                      const void* nlens, int B, int M, int go, int ge,
+                      const void* lut, void* tb, void* lx, void* s_f,
+                      void* i_f, void* sn_f, void* ly_f, void* tbk,
+                      void* scratch, void* stream) {
+  auto fn = tb ? launch<true, true, Lut> : launch<true, false, Lut>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
+            0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

@@ -1,12 +1,21 @@
-// Global affine-gap DP for constant match/mismatch scoring, two kernels:
+// Global affine-gap DP, four kernels from two templates:
 //
-//   K1 sw_scan_global   replaces rust_bio_tpu/ops/sw_pallas.py
-//                       scan_global_pallas_mp -> _kernel_scan_global_mp
-//                       (runs="ins"): score, 12-bit traceback cells plus the
-//                       vertical insertion-run nibble, and the cells frozen
-//                       at j = nlens (tbk).
-//   K3 sw_scores_global replaces sw_pallas.py sw_scores_global_matchparams
-//                       -> _kernel_mp: the score only.
+//   K1  sw_scan_global       replaces rust_bio_tpu/ops/sw_pallas.py
+//                            scan_global_pallas_mp -> _kernel_scan_global_mp
+//                            (runs="ins"): score, 12-bit traceback cells plus
+//                            the vertical insertion-run nibble, and the cells
+//                            frozen at j = nlens (tbk).
+//   K11 sw_scan_global_lut   replaces scan_global_pallas_subs ->
+//                            _kernel_scan_global_subs (runs="ins"): K1 with
+//                            the substitution score read from a (256, 256)
+//                            LUT, composed with its feeder (the JAX package
+//                            streams lut[x, y] * 2 | (x == y) in; this
+//                            kernel reads the LUT itself).
+//   K3  sw_scores_global     replaces sw_scores_global_matchparams ->
+//                            _kernel_mp: the score only.
+//   K18 sw_scores_global_lut replaces sw_scores_global -> _kernel: K3 fed by
+//                            the LUT (the JAX kernel reads a (B, M, N)
+//                            substitution tensor).
 //
 // Design: one thread per pair walks DP columns j = 1..nlens and rows
 // i = 0..mlens in order, so the insertion recurrence I[i] = max(I[i-1] + ge,
@@ -16,7 +25,11 @@
 // pairs per block, so a warp's accesses are conflict-free; columns longer
 // than the shared-memory budget use a (layers, M+1, B) scratch in device
 // memory instead. Sequences arrive transposed ((M, B), (N, B)) so a warp
-// reads one 32-byte line per row.
+// reads one 32-byte line per row. The substitution source is a template
+// parameter: MatchParams (ma / mi by byte equality) or Lut (lut[x][y] read
+// through the read-only path; a column's live entries are a few hundred
+// words and stay in L1, while shared memory holds the column state: 173 KB
+// at M = 450). The Match/Subst bit is byte equality under either source.
 //
 // Bound on this card: K1 writes N * (M+1) * B uint16 cells (371 MB at
 // 8192 x 150 x 150): a warp stores 64 contiguous bytes per cell row, so the
@@ -24,12 +37,13 @@
 // per cell, one thread per pair) makes both kernels latency-bound at 8192
 // pairs (2 warps per SM), which the design accepts for a first version.
 //
-// Exactness (sw_pallas.py:597-721): int32 arithmetic wraps as in XLA; D and
-// the row-0 match value start at MIN_SCORE = -858993459 in K1, at
-// NEG = -2^30 in K3; every selection is a strict '>' with priority
-// Match/Subst > Ins > Del; the I-open candidate uses S~ = max(m, D), not S;
-// an I-cell whose extend does not strictly win points at the s-bits of the
-// cell above in the same column.
+// Exactness (sw_pallas.py:597-721, 1129-1272, 79-136): int32 arithmetic
+// wraps as in XLA, LUT entries included; D and the row-0 match value start
+// at MIN_SCORE = -858993459 in K1 / K11, at NEG = -2^30 in K3 / K18; every
+// selection is a strict '>' with priority Match/Subst > Ins > Del; the
+// I-open candidate uses S~ = max(m, D), not S; an I-cell whose extend does
+// not strictly win points at the s-bits of the cell above in the same
+// column.
 
 #include <cstddef>
 #include <cstdint>
@@ -65,6 +79,16 @@ struct Column {
   }
 };
 
+// Substitution sources: the score of DP cell (x_i, y_j) from their bytes.
+struct MatchParams {
+  int ma, mi;
+  __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
+};
+struct Lut {
+  const int* __restrict__ lut;  // (256, 256) int32, row x
+  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
+};
+
 __device__ __forceinline__ Column column_state(int* scratch, int B, int rows,
                                                int b) {
   extern __shared__ int smem[];
@@ -75,11 +99,12 @@ __device__ __forceinline__ Column column_state(int* scratch, int B, int rows,
   return c;
 }
 
+template <class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, int ma, int mi,
+    int go, int ge, Subst sub,
     int* __restrict__ score,      // (B,)
     uint16_t* __restrict__ tb,    // (N, M + 1, B)
     int* __restrict__ tbk,        // (B, M + 1)
@@ -124,8 +149,9 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
       const int sp = st.at(0, i);
       const int dp = st.at(1, i);
       const int sbp = st.at(2, i);
-      const int eq = xt[static_cast<size_t>(i - 1) * B + b] == yj;
-      const int m_val = add(s_up_old, eq ? ma : mi);
+      const int xi = xt[static_cast<size_t>(i - 1) * B + b];
+      const int eq = xi == yj;
+      const int m_val = add(s_up_old, sub.score(xi, yj));
       const int d_ext = add(dp, ge);
       const int d_open = add(sp, go);
       const bool d_wins = d_ext > d_open;
@@ -161,10 +187,11 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
   score[b] = max(st.at(0, ml), NEG);
 }
 
+template <class Subst>
 __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
     const uint8_t* __restrict__ xt, const uint8_t* __restrict__ yt,
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, int ma, int mi, int* __restrict__ score,
+    int go, int ge, Subst sub, int* __restrict__ score,
     int* __restrict__ scratch) {  // (2, M + 1, B) or null
   const int b = blockIdx.x * PAIRS + threadIdx.x;
   if (b >= B) return;
@@ -187,8 +214,7 @@ __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
     for (int i = 1; i <= ml; ++i) {
       const int sp = st.at(0, i);
       const int dp = st.at(1, i);
-      const int eq = xt[static_cast<size_t>(i - 1) * B + b] == yj;
-      const int m_val = add(s_up_old, eq ? ma : mi);
+      const int m_val = add(s_up_old, sub.score(xt[static_cast<size_t>(i - 1) * B + b], yj));
       const int best_d = max(add(dp, ge), add(sp, go));
       const int best_i = max(add(bi_up, ge), add(st_up, go));
       s_up_old = sp;
@@ -201,10 +227,46 @@ __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
   score[b] = max(st.at(0, ml), NEG);
 }
 
-int set_smem(const void* kernel, size_t smem) {
+template <class Kernel>
+int set_smem(Kernel* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+// scratch: null to keep the column state in shared memory
+// (3 * (M+1) * 32 * 4 bytes per block), else a (3, M+1, B) int32 buffer.
+template <class Subst>
+int launch_scan(const void* xt, const void* yt, const void* mlens,
+                const void* nlens, int B, int M, int go, int ge, Subst sub,
+                void* score, void* tb, void* tbk, void* scratch, void* stream) {
+  const size_t smem = scratch ? 0 : static_cast<size_t>(3) * (M + 1) * PAIRS * sizeof(int);
+  int rc = set_smem(scan_global_kernel<Subst>, smem);
+  if (rc) return rc;
+  scan_global_kernel<Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
+      ge, sub, static_cast<int*>(score), static_cast<uint16_t*>(tb),
+      static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// scratch: null for shared memory (2 * (M+1) * 32 * 4 bytes per block),
+// else a (2, M+1, B) int32 buffer.
+template <class Subst>
+int launch_scores(const void* xt, const void* yt, const void* mlens,
+                  const void* nlens, int B, int M, int go, int ge, Subst sub,
+                  void* score, void* scratch, void* stream) {
+  const size_t smem = scratch ? 0 : static_cast<size_t>(2) * (M + 1) * PAIRS * sizeof(int);
+  int rc = set_smem(scores_global_kernel<Subst>, smem);
+  if (rc) return rc;
+  scores_global_kernel<Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
+      ge, sub, static_cast<int*>(score), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -215,38 +277,41 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K1. scratch: null to keep the column state in shared memory
-// (3 * (M+1) * 32 * 4 bytes per block), else a (3, M+1, B) int32 buffer.
+// K1.
 int sw_scan_global(const void* xt, const void* yt, const void* mlens,
                    const void* nlens, int B, int M, int go, int ge, int ma,
                    int mi, void* score, void* tb, void* tbk, void* scratch,
                    void* stream) {
-  const size_t smem = scratch ? 0 : static_cast<size_t>(3) * (M + 1) * PAIRS * sizeof(int);
-  int rc = set_smem(reinterpret_cast<const void*>(scan_global_kernel), smem);
-  if (rc) return rc;
-  scan_global_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
-      ge, ma, mi, static_cast<int*>(score), static_cast<uint16_t*>(tb),
-      static_cast<int*>(tbk), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scan(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
+                     score, tb, tbk, scratch, stream);
 }
 
-// K3. scratch: null for shared memory (2 * (M+1) * 32 * 4 bytes per block),
-// else a (2, M+1, B) int32 buffer.
+// K11. lut: (256, 256) int32 on the device.
+int sw_scan_global_lut(const void* xt, const void* yt, const void* mlens,
+                       const void* nlens, int B, int M, int go, int ge,
+                       const void* lut, void* score, void* tb, void* tbk,
+                       void* scratch, void* stream) {
+  return launch_scan(xt, yt, mlens, nlens, B, M, go, ge,
+                     Lut{static_cast<const int*>(lut)}, score, tb, tbk,
+                     scratch, stream);
+}
+
+// K3.
 int sw_scores_global(const void* xt, const void* yt, const void* mlens,
                      const void* nlens, int B, int M, int go, int ge, int ma,
                      int mi, void* score, void* scratch, void* stream) {
-  const size_t smem = scratch ? 0 : static_cast<size_t>(2) * (M + 1) * PAIRS * sizeof(int);
-  int rc = set_smem(reinterpret_cast<const void*>(scores_global_kernel), smem);
-  if (rc) return rc;
-  scores_global_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
-      ge, ma, mi, static_cast<int*>(score), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scores(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
+                       score, scratch, stream);
+}
+
+// K18. lut: (256, 256) int32 on the device.
+int sw_scores_global_lut(const void* xt, const void* yt, const void* mlens,
+                         const void* nlens, int B, int M, int go, int ge,
+                         const void* lut, void* score, void* scratch,
+                         void* stream) {
+  return launch_scores(xt, yt, mlens, nlens, B, M, go, ge,
+                       Lut{static_cast<const int*>(lut)}, score, scratch,
+                       stream);
 }
 
 }  // extern "C"

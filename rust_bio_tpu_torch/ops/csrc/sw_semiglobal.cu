@@ -1,6 +1,11 @@
 // K5 sw_scan_semiglobal: affine-gap DP of the semiglobal family for constant
 // match/mismatch scoring. Replaces rust_bio_tpu/ops/sw_pallas.py
 // scan_semiglobal_pallas_mp -> _kernel_scan_semiglobal_mp (runs="ins").
+// K12 sw_scan_semiglobal_lut: the same DP with the substitution score read
+// from a (256, 256) LUT. Replaces scan_semiglobal_pallas_subs ->
+// _kernel_scan_semiglobal_subs (runs="ins"), composed with its feeder (the
+// JAX package streams lut[x, y] * 2 | (x == y) in; this kernel reads the
+// LUT itself). The two Pallas kernels differ only in that source.
 //
 // The x-clips are disabled (MIN_SCORE by contract); the y-clip penalties
 // ycp (prefix) and ycs (suffix) are live arguments, 0/0 for semiglobal mode.
@@ -16,7 +21,10 @@
 // 32 pairs a block (5 * 151 * 32 * 4 = 96.6 KB at M = 150), or in a
 // (5, M+1, B) device scratch when they do not fit. The I layer is not part
 // of the recurrence: I_f and tbk are written from column nlens (from the
-// init column when nlens == 0).
+// init column when nlens == 0). The substitution source is a template
+// parameter, as in sw_global.cu: MatchParams or Lut (read through the
+// read-only path, so the LUT stays out of the shared memory the column
+// state needs). The Match/Subst bit is byte equality under either source.
 //
 // Bound on this card: it writes N * (M+1) * B uint16 cells (coalesced: a
 // warp stores 64 contiguous bytes per cell row) and five (B, M+1) int32
@@ -55,6 +63,16 @@ __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
 
+// Substitution sources: the score of DP cell (x_i, y_j) from their bytes.
+struct MatchParams {
+  int ma, mi;
+  __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
+};
+struct Lut {
+  const int* __restrict__ lut;  // (256, 256) int32, row x
+  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
+};
+
 // Column state of this thread's pair: row i of layer k is at
 // base[(k * rows + i) * stride].
 struct Column {
@@ -66,11 +84,12 @@ struct Column {
   }
 };
 
+template <class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, int ma, int mi, int ycp, int ycs,
+    int go, int ge, Subst sub, int ycp, int ycs,
     uint16_t* __restrict__ tb,    // (N, M + 1, B)
     int* __restrict__ s_f,        // (B, M + 1) each
     int* __restrict__ i_f,
@@ -156,8 +175,9 @@ __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
       const int dp = st.at(1, i);
       const int sbp = st.at(2, i);
       const int snp = st.at(3, i);
-      const int eq = xt[static_cast<size_t>(i - 1) * B + b] == yj;
-      const int m_val = add(s_up_old, eq ? ma : mi);
+      const int xi = xt[static_cast<size_t>(i - 1) * B + b];
+      const int eq = xi == yj;
+      const int m_val = add(s_up_old, sub.score(xi, yj));
       const int d_ext = add(dp, ge);
       const int d_open = add(sp, go);
       const bool d_wins = d_ext > d_open;
@@ -209,6 +229,31 @@ __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
   }
 }
 
+// scratch: null to keep the column state in shared memory
+// (5 * (M+1) * 32 * 4 bytes per block), else a (5, M+1, B) int32 buffer.
+template <class Subst>
+int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
+           int B, int M, int go, int ge, Subst sub, int ycp, int ycs, void* tb,
+           void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
+           void* scratch, void* stream) {
+  const size_t smem =
+      scratch ? 0 : static_cast<size_t>(LAYERS) * (M + 1) * PAIRS * sizeof(int);
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        scan_semiglobal_kernel<Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  scan_semiglobal_kernel<Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
+      ge, sub, ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(s_f),
+      static_cast<int*>(i_f), static_cast<int*>(sn_f), static_cast<int*>(ly_f),
+      static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -217,29 +262,25 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K5. scratch: null to keep the column state in shared memory
-// (5 * (M+1) * 32 * 4 bytes per block), else a (5, M+1, B) int32 buffer.
+// K5.
 int sw_scan_semiglobal(const void* xt, const void* yt, const void* mlens,
                        const void* nlens, int B, int M, int go, int ge, int ma,
                        int mi, int ycp, int ycs, void* tb, void* s_f, void* i_f,
                        void* sn_f, void* ly_f, void* tbk, void* scratch,
                        void* stream) {
-  const size_t smem =
-      scratch ? 0 : static_cast<size_t>(LAYERS) * (M + 1) * PAIRS * sizeof(int);
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        scan_semiglobal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-  }
-  scan_semiglobal_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
-      ge, ma, mi, ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(s_f),
-      static_cast<int*>(i_f), static_cast<int*>(sn_f), static_cast<int*>(ly_f),
-      static_cast<int*>(tbk), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, ycp,
+                ycs, tb, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K12. lut: (256, 256) int32 on the device.
+int sw_scan_semiglobal_lut(const void* xt, const void* yt, const void* mlens,
+                           const void* nlens, int B, int M, int go, int ge,
+                           const void* lut, int ycp, int ycs, void* tb,
+                           void* s_f, void* i_f, void* sn_f, void* ly_f,
+                           void* tbk, void* scratch, void* stream) {
+  return launch(xt, yt, mlens, nlens, B, M, go, ge,
+                Lut{static_cast<const int*>(lut)}, ycp, ycs, tb, s_f, i_f,
+                sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

@@ -1,21 +1,34 @@
-"""Affine-gap DP with constant match/mismatch scoring: kernels K1
-(``scan_global``: score + traceback cells) and K3 (``scores_global``: score
-only), CUDA sources in ``csrc/sw_global.cu``; K5 (``scan_semiglobal``:
-traceback cells + the finals of the y-clip machinery), CUDA source in
-``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip penalties
-live) and K7 (``scan_local``: K9 at clips 0), CUDA source in
-``csrc/sw_custom.cu``.
+"""Affine-gap DP kernels: K1 (``scan_global``: score + traceback cells) and
+K3 (``scores_global``: score only), CUDA source ``csrc/sw_global.cu``; K5
+(``scan_semiglobal``: traceback cells + the finals of the y-clip
+machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
+penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``.
+
+Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
+(256, 256) int32 substitution LUT in their place and gives the same
+outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K12
+``scan_semiglobal_lut``, and ``scan_custom_lut`` / ``scan_local_lut`` (K9 and
+K7 fed by the LUT). The kernels read ``lut[x, y]`` per cell; the
+Match/Subst traceback bit is byte equality (``x == y``) whatever the LUT
+says.
 
 They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
 ``scan_semiglobal_pallas_mp``, ``scan_custom_pallas_mp`` and
-``scan_local_pallas_mp`` (all ``runs="ins"``) and
-``sw_scores_global_matchparams``. The plain versions below follow the
-Pallas kernels' column formulation (rows vectorized, the insertion
-recurrence as a (max,+) prefix scan); the CUDA kernels walk each pair's
-cells in order. Both are exact in int32.
+``scan_local_pallas_mp`` (all ``runs="ins"``), ``sw_scores_global_matchparams``,
+``scan_global_pallas_subs``, ``scan_semiglobal_pallas_subs`` and
+``sw_scores_global``. The plain versions below follow the Pallas kernels'
+column formulation (rows vectorized, the insertion recurrence as a (max,+)
+prefix scan), one column core per kernel fed column by column with
+(substitution scores, equality bits): from the bytes for constant scores,
+and, for a LUT, from the (N, M, B) stream ``lut[x, y] * 2 | (x == y)``
+(``subs2_stream_plain``) that the JAX package's subs kernels read, or for
+K18 from the (B, M, N) tensor of ``sw_scores_global``
+(``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order.
+Both are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
-int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``.
+int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
+int32 on the same device.
 """
 
 from __future__ import annotations
@@ -63,6 +76,14 @@ SCAN_SEMIGLOBAL = CudaKernel(
 )
 SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
 SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [PTR] * 8)
+# the LUT twins: the table's pointer in place of (match, mismatch)
+SCAN_GLOBAL_LUT = CudaKernel("sw_global", "sw_scan_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 5)
+SCORES_GLOBAL_LUT = CudaKernel("sw_global", "sw_scores_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 3)
+SCAN_SEMIGLOBAL_LUT = CudaKernel(
+    "sw_semiglobal", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 4 + [PTR, INT, INT] + [PTR] * 7
+)
+SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
+SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
 
 
 def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -76,6 +97,25 @@ def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
     check_lengths(mlens, "mlens", M)
     check_lengths(nlens, "nlens", N)
     return B, M, N, dev
+
+
+def _subst(subst, dev) -> tuple:
+    """The C arguments of a substitution source: ``(match, mismatch)`` as
+    two ints, or a (256, 256) int32 LUT on ``dev`` as its pointer."""
+    if isinstance(subst, torch.Tensor):
+        if subst.device != dev:
+            raise ValueError(f"lut on {subst.device}, the pairs on {dev}")
+        check(subst, "lut", torch.int32, (256, 256))
+        return (subst.data_ptr(),)
+    return tuple(int(v) for v in subst)
+
+
+def _plain_feed(xb, yb, subst):
+    """The plain versions' column feeder of a substitution source: from the
+    bytes for ``(match, mismatch)``, from ``subs2_stream_plain`` for a LUT."""
+    if isinstance(subst, torch.Tensor):
+        return _stream_feed(subs2_stream_plain(xb, yb, subst))
+    return _mp_feed(xb, yb, *(int(v) for v in subst))
 
 
 def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
@@ -98,10 +138,20 @@ def scan_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
     ``i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12``; only
     ``1 <= j <= nlens[b]``, ``0 <= i <= mlens[b]`` is defined. ``tbk[b]``
     holds the cells of column ``nlens[b]`` (rows ``<= mlens[b]``)."""
+    return _scan_global(SCAN_GLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score))
+
+
+def scan_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
+    """K11: K1 with the substitution score ``lut[x, y]``; same outputs."""
+    return _scan_global(SCAN_GLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut)
+
+
+def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    pens = (int(gap_open), int(gap_extend), int(match_score), int(mismatch_score))
+    go, ge = int(go), int(ge)
+    sub = _subst(subst, dev)
     if dev.type == "cpu":
-        return scan_global_plain(xb, yb, mlens, nlens, *pens)
+        return _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
     tbk = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
@@ -109,9 +159,9 @@ def scan_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(3, B, M, dev)
-        SCAN_GLOBAL.launch(
+        kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, *pens, score.data_ptr(), tb.data_ptr(), tbk.data_ptr(),
+            B, M, go, ge, *sub, score.data_ptr(), tb.data_ptr(), tbk.data_ptr(),
             _ptr(scratch),
         )
     return score, tb, tbk
@@ -119,18 +169,30 @@ def scan_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
 
 def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
     """K3. Global alignment scores (B,) int32."""
+    return _scores_global(SCORES_GLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score))
+
+
+def scores_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
+    """K18: K3 with the substitution score ``lut[x, y]``."""
+    return _scores_global(SCORES_GLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut)
+
+
+def _scores_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    pens = (int(gap_open), int(gap_extend), int(match_score), int(mismatch_score))
+    go, ge = int(go), int(ge)
+    sub = _subst(subst, dev)
     if dev.type == "cpu":
-        return scores_global_plain(xb, yb, mlens, nlens, *pens)
+        if isinstance(subst, torch.Tensor):
+            return scores_global_lut_plain(subs_tensor_plain(xb, yb, subst), mlens, nlens, go, ge)
+        return scores_global_plain(xb, yb, mlens, nlens, go, ge, *sub)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(2, B, M, dev)
-        SCORES_GLOBAL.launch(
+        kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, *pens, score.data_ptr(), _ptr(scratch),
+            B, M, go, ge, *sub, score.data_ptr(), _ptr(scratch),
         )
     return score
 
@@ -147,19 +209,34 @@ def scan_semiglobal(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mis
     Sn/Ly (best y-suffix-clip score per row and its clip length) and the
     cells ``tbk``. Defined for rows ``<= mlens[b]`` and, in ``tb``, columns
     ``1 <= j <= nlens[b]``."""
+    return _scan_semiglobal(
+        SCAN_SEMIGLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score),
+        yclip_prefix, yclip_suffix,
+    )
+
+
+def scan_semiglobal_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix):
+    """K12: K5 with the substitution score ``lut[x, y]``; same outputs."""
+    return _scan_semiglobal(
+        SCAN_SEMIGLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix
+    )
+
+
+def _scan_semiglobal(kernel, xb, yb, mlens, nlens, go, ge, subst, ycp, ycs):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    pens = tuple(int(v) for v in (gap_open, gap_extend, match_score, mismatch_score, yclip_prefix, yclip_suffix))
+    go, ge, ycp, ycs = (int(v) for v in (go, ge, ycp, ycs))
+    sub = _subst(subst, dev)
     if dev.type == "cpu":
-        return scan_semiglobal_plain(xb, yb, mlens, nlens, *pens)
+        return _scan_semiglobal_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, ycp, ycs)
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(5, B, M, dev)
-        SCAN_SEMIGLOBAL.launch(
+        kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, *pens, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
+            B, M, go, ge, *sub, ycp, ycs, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
         )
     return (tb, *finals)
 
@@ -177,25 +254,43 @@ def scan_custom(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
     column j's row ``mlens[b]`` (0 when it has none). Clip codes sit in the
     s-bits (and the x-prefix clip in column 0's i-bits)."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
-    return _scan_clip(SCAN_CUSTOM, xb, yb, mlens, nlens, (gap_open, gap_extend, match_score, mismatch_score), clips, traceback)
+    return _scan_clip(
+        SCAN_CUSTOM, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), clips, traceback
+    )
+
+
+def scan_custom_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
+                    xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
+    """K9 with the substitution score ``lut[x, y]``; same outputs."""
+    clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
+    return _scan_clip(SCAN_CUSTOM_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, clips, traceback)
 
 
 def scan_local(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, traceback=True):
     """K7: ``scan_custom`` at clips (0, 0, 0, 0), the local preset; same
     outputs, byte for byte."""
-    pens = (gap_open, gap_extend, match_score, mismatch_score)
-    return _scan_clip(SCAN_LOCAL, xb, yb, mlens, nlens, pens, (0, 0, 0, 0), traceback)
+    return _scan_clip(
+        SCAN_LOCAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), (0, 0, 0, 0),
+        traceback,
+    )
 
 
-def _scan_clip(kernel, xb, yb, mlens, nlens, pens, clips, traceback):
+def scan_local_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback=True):
+    """K7 with the substitution score ``lut[x, y]``; same outputs."""
+    return _scan_clip(SCAN_LOCAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, (0, 0, 0, 0), traceback)
+
+
+def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    pens = tuple(int(v) for v in pens)
+    go, ge = int(go), int(ge)
     clips = tuple(int(v) for v in clips)
-    if pens[0] > 0 or pens[1] > 0:
+    if go > 0 or ge > 0:
         raise ValueError("gap_open and gap_extend must be <= 0")
-    local = kernel is SCAN_LOCAL
+    sub = _subst(subst, dev)
+    local = kernel in (SCAN_LOCAL, SCAN_LOCAL_LUT)
     if dev.type == "cpu":
-        return _scan_clip_plain(xb, yb, mlens, nlens, *pens, *clips, local=local, traceback=traceback)
+        feed = _plain_feed(xb, yb, subst)
+        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, local=local, traceback=traceback)
     tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
@@ -205,7 +300,7 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, pens, clips, traceback):
         scratch = _scratch(5, B, M, dev)
         kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, *pens, *(() if local else clips), _ptr(tb), _ptr(lx),
+            B, M, go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),
             *(f.data_ptr() for f in finals), _ptr(scratch),
         )
     return (tb, lx, *finals)
@@ -233,17 +328,79 @@ def _ins_run_nib(i_bits: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
     return torch.where(is_ins, torch.clamp(rows - z, max=15), 0) << 12
 
 
-def scan_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
-    """Plain version of K1 (sw_pallas.py ``_kernel_scan_global_mp``)."""
+def _mp_feed(xb, yb, ma, mi):
+    """Column feeder of constant scores: ``feed(j)`` is column j's (subs,
+    eq), each (M, B) int32 (``ma``/``mi`` ints or 0-dim int32 tensors)."""
+    xt = xb.t().to(torch.int32)
+    yt = yb.t().to(torch.int32)
+
+    def feed(j):
+        eq = xt == yt[j - 1][None, :]
+        return torch.where(eq, ma, mi).to(torch.int32), eq.to(torch.int32)
+
+    return feed
+
+
+def _stream_feed(subs2):
+    """Column feeder of an (N, M, B) ``subs * 2 | eq`` stream (sw_pallas.py
+    ``_kernel_scan_global_subs``: the arithmetic shift restores negative
+    scores)."""
+
+    def feed(j):
+        packed = subs2[j - 1]
+        return packed >> 1, packed & 1
+
+    return feed
+
+
+def subs2_stream_plain(xb, yb, lut):
+    """(N, M, B) int32 ``lut[x, y] * 2 | (x == y)``: the stream the JAX
+    package's subs kernels read (batched.py ``_subs2_stream``), by an integer
+    gather, exact for every byte (the JAX one-hot einsum covers the
+    distinct bytes of its ``n_syms`` bucket, float32-exact below 2^24)."""
     B, M = xb.shape
     N = yb.shape[1]
-    dev = xb.device
+    xi = xb.t().to(torch.int64) << 8  # (M, B): row offsets into the LUT
+    flat = lut.reshape(-1)
+    out = torch.empty((N, M, B), dtype=torch.int32, device=xb.device)
+    for j in range(N):  # one column at a time: no (N, M, B) int64 index
+        yj = yb[:, j].to(torch.int64)[None, :]
+        out[j] = flat[xi | yj] * 2 + ((xi >> 8) == yj).to(torch.int32)
+    return out
+
+
+def subs_tensor_plain(xb, yb, lut):
+    """(B, M, N) int32 ``lut[x, y]``, the input of sw_pallas.py
+    ``sw_scores_global`` (``subs_tensor``), by an integer gather."""
+    B, M = xb.shape
+    N = yb.shape[1]
+    xi = xb.to(torch.int64) << 8  # (B, M)
+    flat = lut.reshape(-1)
+    out = torch.empty((B, M, N), dtype=torch.int32, device=xb.device)
+    for j in range(N):
+        out[:, :, j] = flat[xi | yb[:, j].to(torch.int64)[:, None]]
+    return out
+
+
+def scan_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
+    """Plain version of K1 (sw_pallas.py ``_kernel_scan_global_mp``)."""
+    return _scan_global_core(_mp_feed(xb, yb, ma, mi), xb.shape[1], yb.shape[1], mlens, nlens, go, ge)
+
+
+def scan_global_lut_plain(subs2, mlens, nlens, go, ge):
+    """Plain version of K11 on its (N, M, B) stream (sw_pallas.py
+    ``scan_global_pallas_subs``, ``runs="ins"``)."""
+    N, M, _ = subs2.shape
+    return _scan_global_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge)
+
+
+def _scan_global_core(feed, M, N, mlens, nlens, go, ge):
+    B = mlens.shape[0]
+    dev = mlens.device
     i32 = torch.int32
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
     rge = rows * ge
-    xt = xb.t().to(i32)  # (M, B)
-    yt = yb.t().to(i32)  # (N, B)
     neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
     start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
 
@@ -255,8 +412,8 @@ def scan_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
 
     for j in range(1, N + 1):
-        eq = (xt == yt[j - 1][None, :]).to(i32)
-        m_val = torch.cat([neg_row, S[:-1] + (mi + (ma - mi) * eq)])
+        subs, eq = feed(j)
+        m_val = torch.cat([neg_row, S[:-1] + subs])
         m_bits = torch.cat([start_row, TB_SUBST + eq])
         d_ext = D + ge
         d_open = S + go
@@ -298,21 +455,29 @@ def scan_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
 
 def scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
     """Plain version of K3 (sw_pallas.py ``_kernel_mp``)."""
-    B, M = xb.shape
-    N = yb.shape[1]
-    dev = xb.device
+    return _scores_global_core(_mp_feed(xb, yb, ma, mi), xb.shape[1], yb.shape[1], mlens, nlens, go, ge)
+
+
+def scores_global_lut_plain(subs, mlens, nlens, go, ge):
+    """Plain version of K18 on its (B, M, N) substitution tensor
+    (sw_pallas.py ``sw_scores_global``)."""
+    _, M, N = subs.shape
+    return _scores_global_core(lambda j: (subs[:, :, j - 1].t(), None), M, N, mlens, nlens, go, ge)
+
+
+def _scores_global_core(feed, M, N, mlens, nlens, go, ge):
+    B = mlens.shape[0]
+    dev = mlens.device
     i32 = torch.int32
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]
     row0 = rows == 0
     rge = rows * ge
-    xt = xb.t().to(i32)
-    yt = yb.t().to(i32)
     neg_row = torch.full((1, B), NEG, dtype=i32, device=dev)
 
     S = torch.where(row0, 0, go + ge * (rows - 1)).expand(M + 1, B).contiguous()
     D = torch.full((M + 1, B), NEG, dtype=i32, device=dev)
     for j in range(1, N + 1):
-        subs = torch.where(xt == yt[j - 1][None, :], ma, mi).to(i32)
+        subs, _eq = feed(j)
         m_score = torch.cat([neg_row, S[:-1] + subs])
         best_d = torch.maximum(D + ge, S + go)
         s0j = go + ge * (j - 1)
@@ -329,17 +494,25 @@ def scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
 
 def scan_semiglobal_plain(xb, yb, mlens, nlens, go, ge, ma, mi, ycp, ycs):
     """Plain version of K5 (sw_pallas.py ``_kernel_scan_semiglobal_mp``)."""
-    B, M = xb.shape
-    N = yb.shape[1]
-    dev = xb.device
+    return _scan_semiglobal_core(_mp_feed(xb, yb, ma, mi), xb.shape[1], yb.shape[1], mlens, nlens, go, ge, ycp, ycs)
+
+
+def scan_semiglobal_lut_plain(subs2, mlens, nlens, go, ge, ycp, ycs):
+    """Plain version of K12 on its (N, M, B) stream (sw_pallas.py
+    ``scan_semiglobal_pallas_subs``, ``runs="ins"``)."""
+    N, M, _ = subs2.shape
+    return _scan_semiglobal_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, ycp, ycs)
+
+
+def _scan_semiglobal_core(feed, M, N, mlens, nlens, go, ge, ycp, ycs):
+    B = mlens.shape[0]
+    dev = mlens.device
     i32 = torch.int32
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
     rge = rows * ge
     in_x = (rows >= 1) & (rows <= mlens[None, :])
     yclip_row = ycp + go + ge * (rows - 1)
-    xt = xb.t().to(i32)
-    yt = yb.t().to(i32)
     neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
     start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
 
@@ -358,8 +531,8 @@ def scan_semiglobal_plain(xb, yb, mlens, nlens, go, ge, ma, mi, ycp, ycs):
     for j in range(1, N + 1):
         active = (j <= nlens)[None, :]
         is_last = (j == nlens)[None, :]
-        eq = (xt == yt[j - 1][None, :]).to(i32)
-        m_val = torch.cat([neg_row, S[:-1] + (mi + (ma - mi) * eq)])
+        subs, eq = feed(j)
+        m_val = torch.cat([neg_row, S[:-1] + subs])
         m_bits = torch.cat([start_row, TB_SUBST + eq])
         d_ext = D + ge
         d_open = S + go
@@ -423,24 +596,37 @@ def scan_semiglobal_plain(xb, yb, mlens, nlens, go, ge, ma, mi, ycp, ycs):
 
 def scan_custom_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, traceback=True):
     """Plain version of K9 (sw_pallas.py ``_kernel_scan_custom_mp``)."""
-    return _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, local=False, traceback=traceback)
+    feed = _mp_feed(xb, yb, ma, mi)
+    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback)
 
 
 def scan_local_plain(xb, yb, mlens, nlens, go, ge, ma, mi, traceback=True):
     """Plain version of K7: the K9 recurrence at clips 0 with the terms
     clip 0 makes dead left out (the y-prefix clip, the x-prefix clip score
     0), as the kernel leaves them out."""
-    return _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, 0, 0, 0, 0, local=True, traceback=traceback)
+    feed = _mp_feed(xb, yb, ma, mi)
+    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, 0, 0, 0, 0, True, traceback)
 
 
-def _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, local, traceback):
-    B, M = xb.shape
-    N = yb.shape[1]
-    dev = xb.device
+def scan_custom_lut_plain(subs2, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback=True):
+    """Plain version of K9 fed by the LUT, on its (N, M, B) stream."""
+    N, M, _ = subs2.shape
+    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback)
+
+
+def scan_local_lut_plain(subs2, mlens, nlens, go, ge, traceback=True):
+    """Plain version of K7 fed by the LUT, on its (N, M, B) stream."""
+    N, M, _ = subs2.shape
+    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, 0, 0, 0, 0, True, traceback)
+
+
+def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local, traceback):
+    B = mlens.shape[0]
+    dev = mlens.device
     i32 = torch.int32
     # 0-dim int32 penalties: sums of clips wrap in int32, as in the kernels
-    go, ge, ma, mi, xcp, xcs, ycp, ycs = (
-        torch.tensor(v, dtype=i32, device=dev) for v in (go, ge, ma, mi, xcp, xcs, ycp, ycs)
+    go, ge, xcp, xcs, ycp, ycs = (
+        torch.tensor(v, dtype=i32, device=dev) for v in (go, ge, xcp, xcs, ycp, ycs)
     )
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
@@ -451,8 +637,6 @@ def _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, l
     mid = row_ge1 & (rows <= ml - 1)
     rge = rows * ge
     yclip_row = ycp + go + ge * (rows - 1)
-    xt = xb.t().to(i32)
-    yt = yb.t().to(i32)
     neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
     start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
 
@@ -507,8 +691,8 @@ def _scan_clip_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, l
     for j in range(1, N + 1):
         active = (j <= nlens)[None, :]
         is_last = (j == nlens)[None, :]
-        eq = (xt == yt[j - 1][None, :]).to(i32)
-        m_val = torch.cat([neg_row, S[:-1] + (mi + (ma - mi) * eq)])
+        subs, eq = feed(j)
+        m_val = torch.cat([neg_row, S[:-1] + subs])
         m_bits = torch.cat([start_row, TB_SUBST + eq])
         d_ext = D + ge
         d_open = S + go

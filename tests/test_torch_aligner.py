@@ -112,12 +112,15 @@ def test_unported_paths_raise():
             mode([b"A" * 4095], [b"A"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ba.scores([b"A" * 4095], [b"A"], "local")
-    lut = BatchAligner(Scoring.new(-5, -1, lambda a, b: 1 if a == b else -1), device="cpu")
-    for mode in (lut.global_, lut.semiglobal, lut.local, lut.custom):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mode([b"ACGT"], [b"ACGT"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lut.scores([b"ACGT"], [b"ACGT"], "custom")
+    # LUT scorings (a callable here) are ported: the calls that raised
+    # before return what the JAX package returns
+    fn = lambda a, b: 1 if a == b else -1  # noqa: E731
+    lut = BatchAligner(Scoring.new(-5, -1, fn), device="cpu")
+    ref = JaxBatchAligner(JaxScoring.new(-5, -1, fn))
+    xs, ys = [b"ACGT", b"GATTACA"], [b"ACGT", b"TACCA"]
+    for mode in ("global_", "semiglobal", "local", "custom"):
+        assert [_fields(a) for a in getattr(lut, mode)(xs, ys)] == [_fields(a) for a in getattr(ref, mode)(xs, ys)], mode
+    np.testing.assert_array_equal(lut.scores(xs, ys, "custom"), ref.scores(xs, ys, "custom"))
     with pytest.raises(AssertionError):
         BatchAligner(Scoring.from_scores(-1, -5, 2, -2), device="cpu")
 

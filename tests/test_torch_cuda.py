@@ -306,3 +306,128 @@ def test_local_and_custom_aligners_on_card_match_cpu(cuda_device):
         for mode in ("local", "custom"):
             assert [key(a) for a in getattr(on_card, mode)(xs, ys)] == [key(a) for a in getattr(on_cpu, mode)(xs, ys)]
             np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
+
+
+# ---- substitution LUTs: K11, K18, K12 and K7/K9 fed by the LUT ----
+
+
+def _protein_pairs(rng, B, M, N, device, alphabet=b"ARNDCQEGHILKMFPSTWYV"):
+    """Random pairs over ``alphabet`` with the ragged and edge lengths of
+    ``_pairs``."""
+    syms = np.frombuffer(alphabet, np.uint8)
+    xb = syms[rng.integers(0, len(syms), size=(B, M))]
+    yb = syms[rng.integers(0, len(syms), size=(B, N))]
+    mlens = rng.integers(0, M + 1, size=B).astype(np.int32)
+    nlens = rng.integers(0, N + 1, size=B).astype(np.int32)
+    mlens[:4] = [M, 0, M, 1]
+    nlens[:4] = [N, N, 0, 1]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in (xb, yb, mlens, nlens)], mlens, nlens
+
+
+def _lut(name, device):
+    from rust_bio_tpu_torch.scores import dense_matrix
+
+    return torch.from_numpy(dense_matrix(name)).to(device)
+
+
+def _lut_scans_match_plain(args, mlens, nlens, lut, go, ge):
+    """K11, K18, K12 (y-clips 0 and (-5, -3)), K7 and K9 fed by ``lut``
+    against their plain versions on the streams of the same inputs."""
+    subs2 = sw.subs2_stream_plain(args[0], args[1], lut)
+    ml, nl = args[2], args[3]
+    score, tb, tbk = sw.scan_global_lut(*args, go, ge, lut)
+    torch.cuda.synchronize()
+    ps, ptb, ptbk = sw.scan_global_lut_plain(subs2, ml, nl, go, ge)
+    assert torch.equal(score, ps)
+    assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+    assert torch.equal(_masked(tbk, mlens), _masked(ptbk, mlens))
+    k18 = sw.scores_global_lut(*args, go, ge, lut)
+    assert torch.equal(k18, sw.scores_global_lut_plain(sw.subs_tensor_plain(args[0], args[1], lut), ml, nl, go, ge))
+    assert torch.equal(k18, score)
+    for ycp, ycs in ((0, 0), (-5, -3)):
+        got = sw.scan_semiglobal_lut(*args, go, ge, lut, ycp, ycs)
+        torch.cuda.synchronize()
+        _semi_finals_match(got, sw.scan_semiglobal_lut_plain(subs2, ml, nl, go, ge, ycp, ycs), mlens, nlens)
+    got = sw.scan_local_lut(*args, go, ge, lut)
+    torch.cuda.synchronize()
+    _clip_scans_match(got, sw.scan_local_lut_plain(subs2, ml, nl, go, ge), mlens, nlens)
+    for clips in ((-7, -1, 0, -7), (0, 0, 0, 0)):
+        got = sw.scan_custom_lut(*args, go, ge, lut, *clips)
+        torch.cuda.synchronize()
+        _clip_scans_match(got, sw.scan_custom_lut_plain(subs2, ml, nl, go, ge, *clips), mlens, nlens)
+
+
+@pytest.mark.parametrize("go,ge", [(-11, -1), (-2, -2)])
+def test_lut_scans_match_plain(cuda_device, go, ge):
+    """BLOSUM62 protein pairs at B = 96, M = 150, N = 166."""
+    args, mlens, nlens = _protein_pairs(np.random.default_rng(41), 96, 150, 166, cuda_device)
+    _lut_scans_match_plain(args, mlens, nlens, _lut("blosum62", cuda_device), go, ge)
+
+
+def test_lut_scans_on_all_bytes_match_plain(cuda_device):
+    """256 distinct bytes in the batch (byte 0 and lowercase included), under
+    BLOSUM62's dense LUT (out-of-alphabet bytes score as 'A')."""
+    rng = np.random.default_rng(42)
+    args, mlens, nlens = _protein_pairs(rng, 64, 60, 70, cuda_device, alphabet=bytes(range(256)))
+    assert len(torch.unique(torch.cat([args[0].ravel(), args[1].ravel()]))) == 256
+    _lut_scans_match_plain(args, mlens, nlens, _lut("blosum62", cuda_device), -11, -1)
+
+
+def test_lut_kernels_equal_matchparams_kernels(cuda_device):
+    """Under the MatchParams table K11 equals K1, K18 equals K3, K12 equals
+    K5 and K9 fed by the LUT equals K9."""
+    args, mlens, nlens = _pairs(np.random.default_rng(43), 96, 150, 166, cuda_device)
+    lut = torch.full((256, 256), -2, dtype=torch.int32, device=cuda_device)
+    lut.fill_diagonal_(2)
+    score, tb, tbk = sw.scan_global_lut(*args, -5, -1, lut)
+    torch.cuda.synchronize()
+    ws, wtb, wtbk = sw.scan_global(*args, -5, -1, 2, -2)
+    assert torch.equal(score, ws)
+    assert torch.equal(_masked(tb, mlens, nlens), _masked(wtb, mlens, nlens))
+    assert torch.equal(_masked(tbk, mlens), _masked(wtbk, mlens))
+    assert torch.equal(sw.scores_global_lut(*args, -5, -1, lut), sw.scores_global(*args, -5, -1, 2, -2))
+    _semi_finals_match(sw.scan_semiglobal_lut(*args, -5, -1, lut, -5, -3), sw.scan_semiglobal(*args, -5, -1, 2, -2, -5, -3), mlens, nlens)
+    clips = (-7, -1, 0, -7)
+    _clip_scans_match(sw.scan_custom_lut(*args, -5, -1, lut, *clips), sw.scan_custom(*args, -5, -1, 2, -2, *clips), mlens, nlens)
+    _clip_scans_match(sw.scan_local_lut(*args, -5, -1, lut), sw.scan_local(*args, -5, -1, 2, -2), mlens, nlens)
+
+
+def test_lut_semiglobal_and_local_scans_with_device_scratch_match_plain(cuda_device):
+    """M = 400: the five column layers of K12 and of K7/K9 fed by the LUT
+    leave shared memory for the device scratch."""
+    args, mlens, nlens = _protein_pairs(np.random.default_rng(44), 40, 400, 30, cuda_device)
+    lut = _lut("pam250", cuda_device)
+    subs2 = sw.subs2_stream_plain(args[0], args[1], lut)
+    got = sw.scan_semiglobal_lut(*args, -11, -1, lut, -5, -3)
+    torch.cuda.synchronize()
+    _semi_finals_match(got, sw.scan_semiglobal_lut_plain(subs2, args[2], args[3], -11, -1, -5, -3), mlens, nlens)
+    got = sw.scan_local_lut(*args, -11, -1, lut)
+    torch.cuda.synchronize()
+    _clip_scans_match(got, sw.scan_local_lut_plain(subs2, args[2], args[3], -11, -1), mlens, nlens)
+
+
+def test_lut_aligner_on_card_matches_cpu(cuda_device):
+    """``BatchAligner`` under BLOSUM62 and a callable scorer, every mode and
+    ``scores``, on the card and on the CPU."""
+    from rust_bio_tpu_torch.scores import blosum62
+
+    rng = np.random.default_rng(45)
+    aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    ys = [aa[rng.integers(0, 20, size=int(rng.integers(1, 200)))].tobytes() for _ in range(64)]
+    xs = []
+    for y in ys:
+        s = int(rng.integers(0, len(y)))
+        x = bytearray(y[s : s + int(rng.integers(1, 120))])
+        for _ in range(len(x) // 5):
+            x[int(rng.integers(0, len(x)))] = int(aa[rng.integers(0, 20)])
+        xs.append(bytes(x))
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    for sc in (Scoring.new(-11, -1, blosum62), Scoring.new(-5, -2, lambda a, b: 3 if a == b else -1).yclip(-4)):
+        on_card = BatchAligner(sc, device=cuda_device)
+        on_cpu = BatchAligner(sc, device="cpu")
+        for mode in ("global", "semiglobal", "local", "custom"):
+            fn = "global_" if mode == "global" else mode
+            assert [key(a) for a in getattr(on_card, fn)(xs, ys)] == [key(a) for a in getattr(on_cpu, fn)(xs, ys)], mode
+            np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
+        assert on_card.global_packed(xs, ys).cigars() == on_cpu.global_packed(xs, ys).cigars()
+        assert on_card.semiglobal_packed(xs, ys).cigars() == on_cpu.semiglobal_packed(xs, ys).cigars()

@@ -9,7 +9,8 @@ import pytest
 import torch
 
 from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
-from rust_bio_tpu_torch.alphabets import dna
+from rust_bio_tpu_torch import scores
+from rust_bio_tpu_torch.alphabets import dna, protein
 from rust_bio_tpu_torch.carry import fm_index_from_arrays
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
 from rust_bio_tpu_torch.pipelines import ReadMapper
@@ -47,6 +48,11 @@ def test_port_has_its_files():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "chip_smoke.py" in names
     assert "rust_bio_tpu_torch/carry.py" in names
+    assert "rust_bio_tpu_torch/scores/__init__.py" in names
+    # the port loads its own copy of the substitution matrices
+    assert Path(scores.__file__).parent == ROOT / "rust_bio_tpu_torch" / "scores"
+    assert (ROOT / "rust_bio_tpu_torch" / "scores" / "matrices.npz").is_file()
+    assert scores.blosum62(ord("W"), ord("W")) == 11 and protein.alphabet().is_word(b"MKV")
     csrc = ROOT / "rust_bio_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "sw_global.cu", "walk_global.cu", "fm_search.cu", "sw_semiglobal.cu", "walk_semiglobal.cu",
