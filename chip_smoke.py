@@ -45,11 +45,24 @@ NVIDIA GPU.
    every global alignment consume both sequences, ``scores`` agree with the
    alignments; 64 pairs of each mode, 256 pairs under PAM250 and 256
    random-byte pairs must equal the CPU path.
+3d. Drives long-sequence global alignment (the block-row engine, the wide
+   pack) with the counters at 0 again: 128 STR-bearing DNA pairs in the
+   geometry of rust-bio's pairwise bench (benches/pairwise.rs:140-158,
+   built as bench.py:601-614: a 4,600-5,600 bp backbone with six 200 bp
+   tracts of a 4 bp motif, y = x at 5% substitutions and 0.5% indels of
+   1-3 bp), 8 pairs whose x carries a 4,200-4,800 bp insertion into a
+   600-800 bp y (a structural-variant insertion), and 64 protein pairs of
+   4,200-5,000 residues (titin fragments, mucins) at 30% substitutions and
+   3% indels under BLOSUM62, through ``global_``,
+   ``global_packed(...).cigars()`` and ``scores(..., "global")``. Every
+   alignment must re-score to its score over both sequences, agree with
+   ``scores`` and its CIGAR; 4 pairs of each corpus must equal the CPU
+   path; every insertion pair must hold an Ins run of 4,096 or more.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
-   both with CUDA events.
+   both with CUDA events; times K1 against K13 on 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
-   delivered, for DNA and for protein.
+   delivered, for DNA and for protein, short and long.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -87,8 +100,10 @@ K3_OPS_PER_CELL = 12
 K5_OPS_PER_CELL = 39
 K7_OPS_PER_CELL = 44
 K9_OPS_PER_CELL = 49
-# the LUT-fed kernels (K11, K18, K12 and K7/K9 fed by the LUT) do the same
-# operations, the LUT read in place of the match/mismatch select
+# csrc/sw_global_rows.cu: K1's cell without the run counter and nibble
+K13_OPS_PER_CELL = 26
+# the LUT-fed kernels (K11, K18, K12, K7/K9 and K13 fed by the LUT) do the
+# same operations, the LUT read in place of the match/mismatch select
 
 DEVICE = "cuda"
 GO, GE, MA, MI = -5, -1, 2, -2
@@ -110,6 +125,13 @@ PROT_GO, PROT_GE = -11, -1
 B_PROT, PROT_LEN, DOMAIN_LEN = 8192, (250, 450), (80, 200)
 HOMOLOG_SUB, HOMOLOG_INDEL, DOMAIN_SUB = 0.30, 0.03, 0.20
 DOMAIN_XCLIP, DOMAIN_YCLIP = -10, 0
+# long global (3d): STR pairs as bench.py:601-614 builds them, insertion
+# pairs, long proteins; K1 against K13 at these x lengths
+B_STR, STR_LEN, STR_TRACTS, STR_MOTIF = 128, (4600, 5600), 6, 4
+STR_SUB, STR_INDEL = 0.05, 0.005
+B_SV, SV_WINDOW, SV_INSERT = 8, (600, 800), (4200, 4800)
+B_LPROT, LPROT_LEN = 64, (4200, 5000)
+T_ROWS_LENS = (1000, 2000)
 
 
 def fail(msg: str) -> None:
@@ -131,10 +153,12 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int) -> float:
+def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs,
-    after one warm-up run."""
-    fn()
+    after one warm-up run (``warm``; the long kernels are warm from their
+    check launch)."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -146,6 +170,18 @@ def cuda_ms(torch, fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def timed_once(torch, fn):
+    """(``fn()``, its milliseconds by CUDA events): one run."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def host_s(torch, fn, reps: int) -> float:
@@ -312,35 +348,113 @@ def protein_corpora(rng):
     other residues; an indel deletes the residue or inserts a random one
     after it, with equal odds."""
     aa = np.frombuffer(AA, np.uint8)
-    rank = np.zeros(256, np.int64)
-    rank[aa] = np.arange(20)
 
     def protein():
         return aa[rng.integers(0, 20, size=int(rng.integers(PROT_LEN[0], PROT_LEN[1] + 1)))]
 
-    def substitute(seq, rate):
-        mut = rng.random(seq.size) < rate
-        out = seq.copy()
-        out[mut] = aa[(rank[seq[mut]] + rng.integers(1, 20, size=int(mut.sum()))) % 20]
-        return out
-
     homolog, domain = ([], []), ([], [])
     for _ in range(B_PROT):
         x = protein()
-        y = substitute(x, HOMOLOG_SUB)
-        indel = rng.random(y.size) < HOMOLOG_INDEL
-        ins = indel & (rng.random(y.size) < 0.5)
-        # row-major: each kept residue, then the residue inserted after it
-        both = np.stack([y, aa[rng.integers(0, 20, size=y.size)]], axis=1)
-        y = both[np.stack([~indel | ins, ins], axis=1)]
         homolog[0].append(x.tobytes())
-        homolog[1].append(y.tobytes())
+        homolog[1].append(homolog_of(rng, x).tobytes())
         t = protein()
         m = int(rng.integers(DOMAIN_LEN[0], DOMAIN_LEN[1] + 1))
         s0 = int(rng.integers(0, t.size - m + 1))
-        domain[0].append(substitute(t[s0 : s0 + m], DOMAIN_SUB).tobytes())
+        domain[0].append(substitute(rng, t[s0 : s0 + m], DOMAIN_SUB).tobytes())
         domain[1].append(t.tobytes())
     return homolog, domain
+
+
+def substitute(rng, seq, rate):
+    """``seq`` with each residue at ``rate`` replaced by one of the 19 others."""
+    aa = np.frombuffer(AA, np.uint8)
+    rank = np.zeros(256, np.int64)
+    rank[aa] = np.arange(20)
+    mut = rng.random(seq.size) < rate
+    out = seq.copy()
+    out[mut] = aa[(rank[seq[mut]] + rng.integers(1, 20, size=int(mut.sum()))) % 20]
+    return out
+
+
+def homolog_of(rng, x):
+    """A homolog of protein ``x``: ``HOMOLOG_SUB`` substitutions, then
+    ``HOMOLOG_INDEL`` single-residue indels (deletion or insertion after
+    the residue, equal odds)."""
+    aa = np.frombuffer(AA, np.uint8)
+    y = substitute(rng, x, HOMOLOG_SUB)
+    indel = rng.random(y.size) < HOMOLOG_INDEL
+    ins = indel & (rng.random(y.size) < 0.5)
+    # row-major: each kept residue, then the residue inserted after it
+    both = np.stack([y, aa[rng.integers(0, 20, size=y.size)]], axis=1)
+    return both[np.stack([~indel | ins, ins], axis=1)]
+
+
+def long_corpora(rng):
+    """Phase 3d's three corpora as (x bytes, y bytes) lists: STR pairs,
+    insertion pairs, long protein homologs."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    aa = np.frombuffer(AA, np.uint8)
+    str_pairs, sv_pairs, prot_pairs = ([], []), ([], []), ([], [])
+    for _ in range(B_STR):
+        n = int(rng.integers(STR_LEN[0], STR_LEN[1] + 1))
+        x = acgt[rng.integers(0, 4, size=n)]
+        motif = acgt[rng.integers(0, 4, size=STR_MOTIF)]
+        for _ in range(STR_TRACTS):
+            s = int(rng.integers(0, n - 200))
+            x[s : s + 200] = np.tile(motif, 200 // STR_MOTIF)
+        y = x.copy()
+        sub = rng.random(n) < STR_SUB
+        y[sub] = acgt[rng.integers(0, 4, size=int(sub.sum()))]
+        # indels of 1-3 bp at STR_INDEL of the sites: a deletion or an
+        # insertion of random bases before the site, equal odds
+        pieces, prev = [], 0
+        for s in np.nonzero(rng.random(n) < STR_INDEL)[0]:
+            k = int(rng.integers(1, 4))
+            if s < prev:
+                continue
+            pieces.append(y[prev:s])
+            if rng.random() < 0.5:
+                prev = min(int(s) + k, n)
+            else:
+                pieces.append(acgt[rng.integers(0, 4, size=k)])
+                prev = int(s)
+        pieces.append(y[prev:])
+        str_pairs[0].append(x.tobytes())
+        str_pairs[1].append(np.concatenate(pieces).tobytes())
+    for _ in range(B_SV):
+        y = acgt[rng.integers(0, 4, size=int(rng.integers(SV_WINDOW[0], SV_WINDOW[1] + 1)))]
+        insert = acgt[rng.integers(0, 4, size=int(rng.integers(SV_INSERT[0], SV_INSERT[1] + 1)))]
+        at = int(rng.integers(1, y.size))
+        sv_pairs[0].append(np.concatenate([y[:at], insert, y[at:]]).tobytes())
+        sv_pairs[1].append(y.tobytes())
+    for _ in range(B_LPROT):
+        x = aa[rng.integers(0, 20, size=int(rng.integers(LPROT_LEN[0], LPROT_LEN[1] + 1)))]
+        prot_pairs[0].append(x.tobytes())
+        prot_pairs[1].append(homolog_of(rng, x).tobytes())
+    return str_pairs, sv_pairs, prot_pairs
+
+
+def longest_ins_run(ops) -> int:
+    best = run = 0
+    for op in ops:
+        run = run + 1 if op.kind == "Ins" else 0
+        best = max(best, run)
+    return best
+
+
+def rows_tb_err(torch, got, want, mlens, nlens, chunk: int = 256) -> int:
+    """Max abs difference of two (N, X, B) K13 tensors over the region K13
+    defines (columns < nlens[b], rows <= mlens[b]), a chunk of columns at a
+    time: a whole-tensor comparison would need a third multi-GB copy."""
+    N, X, _ = got.shape
+    rows_ok = torch.arange(X, device=got.device)[:, None] <= mlens[None, :]
+    err = 0
+    for c0 in range(0, N, chunk):
+        g = got[c0 : c0 + chunk].to(torch.int32)
+        w = want[c0 : c0 + chunk].to(torch.int32)
+        cols_ok = torch.arange(c0, c0 + g.shape[0], device=got.device)[:, None, None] < nlens[None, None, :]
+        err = max(err, int(torch.where(cols_ok & rows_ok[None], (g - w).abs(), 0).max()))
+    return err
 
 
 def host_profile(torch, fn, top: int = 14) -> dict:
@@ -418,6 +532,9 @@ def main() -> int:
         "sw_scan_semiglobal_lut": sw.SCAN_SEMIGLOBAL_LUT,
         "sw_scan_local_lut": sw.SCAN_LOCAL_LUT,
         "sw_scan_custom_lut": sw.SCAN_CUSTOM_LUT,
+        "sw_scan_global_rows": sw.SCAN_GLOBAL_ROWS,
+        "sw_scan_global_rows_lut": sw.SCAN_GLOBAL_ROWS_LUT,
+        "sweep_walk_global_seg": walk.SWEEP_WALK_GLOBAL_SEG,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -477,6 +594,7 @@ def main() -> int:
     custom_ys = [bytes(yb_ext[k, : nl_ext[k]]) for k in range(B_READS)]
     (hxs, hys), (dxs, dys) = protein_corpora(rng)
     rand_bytes = [rng.integers(0, 256, size=int(rng.integers(1, 81))).astype(np.uint8).tobytes() for _ in range(512)]
+    long_sets = long_corpora(rng)
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
@@ -699,6 +817,49 @@ def main() -> int:
         "seconds": time.perf_counter() - t_phase,
     }), flush=True)
     launches = {name: launches[name] + prot_launches[name] for name in counters}
+    del prot, prot_scores, cig_global, cig_semi
+
+    # ---- 3d. long-sequence global alignment, counted -------------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    long_runs = {}
+    for name, (xs, ys), al in zip(("str", "insertion", "protein"), long_sets, (ba, ba, bp)):
+        t0 = time.perf_counter()
+        alns = al.global_(xs, ys)
+        delivered_s = time.perf_counter() - t0
+        long_runs[name] = (alns, al.global_packed(xs, ys).cigars(), al.scores(xs, ys, "global"), delivered_s)
+    long_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("sw_scan_global_rows", "sw_scan_global_rows_lut", "sweep_walk_global_seg", "sw_scores_global", "sw_scores_global_lut")
+    check(all(long_launches[n] > 0 for n in path_kernels), f"a kernel of the long global path did not launch: {long_launches}")
+    long_summary = {}
+    for name, (xs, ys), (al, ref, pens_, lut_) in zip(
+        ("str", "insertion", "protein"), long_sets,
+        ((ba, cpu, (GO, GE, MA, MI), None), (ba, cpu, (GO, GE, MA, MI), None), (bp, cpu_p, ppens, lut_l)),
+    ):
+        alns, cigs, scs, _ = long_runs[name]
+        check(len(alns) == len(xs) and scs.shape == (len(xs),), f"long {name}: result count")
+        check(all(int(s) == a.score for s, a in zip(scs, alns)), f"long {name}: scores() != global_ scores")
+        for k, (a, x, y) in enumerate(zip(alns, xs, ys)):
+            got = rescore_ops([(op.kind, 0) for op in a.operations], x, y, pens_, lut=lut_)
+            check(got == (a.score, len(x), len(y)), f"long {name}: pair {k} does not re-score to {a.score} over both sequences")
+            check((a.xstart, a.ystart, a.xend, a.yend) == (0, 0, len(x), len(y)), f"long {name}: pair {k} coordinates")
+        check(cigs == [cigar_of(a.operations) for a in alns], f"long {name}: global_packed CIGARs != global_ operations")
+        want = ref.global_(xs[:4], ys[:4])
+        check([fields(a) for a in alns[:4]] == [fields(a) for a in want], f"long {name}: card != CPU plain path")
+        runs = [longest_ins_run(a.operations) for a in alns]
+        if name == "insertion":
+            check(min(runs) >= 4096, f"insertion pairs: longest Ins runs {runs}, each must be >= 4096")
+        long_summary[name] = {
+            "pairs": len(xs), "max_len": [max(map(len, xs)), max(map(len, ys))],
+            "mean_score": float(np.mean(scs)), "longest_ins_run": max(runs),
+        }
+    print(json.dumps({
+        "phase": "long_global", "launches": long_launches, **long_summary, "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + long_launches[name] for name in counters}
+    long_delivered_s = {name: run[3] for name, run in long_runs.items()}
+    del long_runs, alns, want
 
     # ---- 4. kernels against their plain versions, timed ---------------
     t_phase = time.perf_counter()
@@ -710,8 +871,9 @@ def main() -> int:
     pats_d, plens_d = tens(pats_np, np.full(B_FM, QLEN, np.int32))
     kernels = []
 
-    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops, **extra):
-        err = max_abs_err(got, want)
+    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops, err=None, **extra):
+        if err is None:
+            err = max_abs_err(got, want)
         check(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = nops / INT32_OPS_PER_S * 1e3
@@ -958,6 +1120,66 @@ def main() -> int:
         )
         del got, want
 
+    # K13 and K14 on the STR corpus, K13 fed by BLOSUM62 on the long
+    # proteins: one check launch against the plain version (a second
+    # multi-GB tb, compared a chunk of columns at a time), the plain version
+    # timed by that one run, the kernel by 3 more launches
+    def rows_kernel(name, args_d, ml_np, nl_np, scan, plain, replaces, table_bytes=0):
+        score, tb_ = scan()
+        torch.cuda.synchronize()
+        (pscore, ptb), plain_ms = timed_once(torch, plain)
+        err = max(max_abs_err([score], [pscore]), rows_tb_err(torch, tb_, ptb, args_d[2], args_d[3]))
+        del ptb, pscore
+        Bq = len(ml_np)
+        ml64 = ml_np.astype(np.int64)
+        report(
+            name, "rust_bio_tpu_torch/ops/csrc/sw_global_rows.cu", replaces, None, None,
+            cuda_ms(torch, scan, 3, warm=False), plain_ms,
+            args_d[0].numel() + args_d[1].numel() + 8 * Bq + table_bytes + 4 * Bq + 2 * int(((ml64 + 1) * nl_np).sum()),
+            K13_OPS_PER_CELL * int((ml64 * nl_np).sum()), err=err,
+        )
+        return tb_
+
+    sxb, syb, sml, snl = ba._pad(*long_sets[0])
+    sargs = tens(sxb, syb, sml, snl)
+    tb = rows_kernel(
+        "sw_scan_global_rows", sargs, sml, snl, lambda: sw.scan_global_rows(*sargs, *pens),
+        lambda: sw.scan_global_rows_plain(*sargs, *pens), "rust_bio_tpu/ops/sw_pallas.py:2260",
+    )
+    wgot = walk.sweep_walk_global_seg(tb, sargs[2], sargs[3])
+    torch.cuda.synchronize()
+    wwant, wplain_ms = timed_once(torch, lambda: walk.sweep_walk_global_seg_plain(tb, sargs[2], sargs[3]))
+    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_STR
+    report(
+        "sweep_walk_global_seg", "rust_bio_tpu_torch/ops/csrc/walk_global_seg.cu", "rust_bio_tpu/ops/walk_pallas.py:313",
+        wgot, wwant, cuda_ms(torch, lambda: walk.sweep_walk_global_seg(tb, sargs[2], sargs[3]), 3), wplain_ms,
+        2 * path_cells + 8 * B_STR + 2 * 2 * syb.shape[1] * B_STR + 2 * B_STR,
+        8 * path_cells,
+    )
+    del tb, wgot, wwant
+    lxb, lyb, lml, lnl = bp._pad(*long_sets[2])
+    largs = tens(lxb, lyb, lml, lnl)
+    tb = rows_kernel(
+        "sw_scan_global_rows_lut", largs, lml, lnl, lambda: sw.scan_global_rows_lut(*largs, PROT_GO, PROT_GE, lut_d),
+        lambda: sw.scan_global_rows_lut_plain(*largs, PROT_GO, PROT_GE, lut_d),
+        "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
+    )
+    del tb
+    # T_ROWS: K1 (its column state in device memory past M = 605) against
+    # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
+    # substitutions)
+    t_rows = {}
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for L in T_ROWS_LENS:
+        xq = acgt[rng.integers(0, 4, size=(B_STR, L))]
+        yq = xq.copy()
+        mut = rng.random(size=xq.shape) < STR_SUB
+        yq[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+        q = tens(xq, yq, np.full(B_STR, L, np.int32), np.full(B_STR, L, np.int32))
+        t_rows[f"k1_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global(*q, *pens), 2)
+        for rb in (64, sw.ROWS_RB, 256):
+            t_rows[f"k13_rb{rb}_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global_rows(*q, *pens, rb=rb), 2)
+    print(json.dumps({"phase": "t_rows", "pairs": B_STR, **t_rows, "card": smi}), flush=True)
     print(json.dumps({"phase": "kernel_checks", "seconds": time.perf_counter() - t_phase}), flush=True)
 
     # ---- 5. end-to-end rates --------------------------------------------
@@ -1008,6 +1230,14 @@ def main() -> int:
         torch, lambda: bp.semiglobal_packed_async_arrays(dxb, dyb, dml, dnl), 5
     )
     rates["protein_semiglobal_pairs_per_s_delivered"] = B_PROT / host_s(torch, lambda: bp.semiglobal(dxs, dys), 2)
+    # long global: device-only from one run of the packed path; delivered
+    # from phase 3d's counted global_ call
+    rates["global_long_device"] = B_STR / host_s(torch, lambda: ba.global_packed_async_arrays(sxb, syb, sml, snl), 1)
+    rates["global_long_delivered"] = B_STR / long_delivered_s["str"]
+    rates["protein_global_long_device"] = B_LPROT / host_s(
+        torch, lambda: bp.global_packed_async_arrays(lxb, lyb, lml, lnl), 1
+    )
+    rates["protein_global_long_delivered"] = B_LPROT / long_delivered_s["protein"]
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "seconds": time.perf_counter() - t_phase, "card": smi}), flush=True)
     print(json.dumps({"phase": "script", "seconds": time.perf_counter() - t_start}), flush=True)

@@ -16,7 +16,17 @@ tensor; K2 (``ops.walk.sweep_walk_global``) walks it into per-column
 run-length ops; ``_pack_rle`` packs those into one (10 + N, B) uint16
 tensor, the only device-to-host transfer; the host decodes it into
 reference-exact ``Alignment`` objects. ``scores(..., "global")`` runs K3
-(``ops.sw.scores_global``) instead.
+(``ops.sw.scores_global``) instead, at any M.
+
+Long x (M + 1 >= ``T_ROWS``, where K1's column state would leave shared
+memory) takes the block-row path instead: K13 (``ops.sw.scan_global_rows``,
+K13-LUT under a LUT) computes the DP in blocks of rows and writes
+``TB_REREAD`` i-cells at the block seams, K14
+(``ops.walk.sweep_walk_global_seg``) walks that tensor into K2's outputs.
+From M + 1 >= 4096 on, where an Ins run no longer fits ``_pack_rle``'s 12
+bits, the wide pack ``_pack_rle_wide`` (ins_cnt and exit_op in rows of
+their own) replaces it; the handles and ``PackedSemiglobal`` record which
+layout they hold. Its uint16 fields cap M at 65534 and N at 65535.
 
 The path of ``BatchAligner.semiglobal`` (and of the read mapper's
 extension, ``semiglobal_packed_*``): K5 (``ops.sw.scan_semiglobal``) with
@@ -35,9 +45,11 @@ stops after the fixups. Custom mode with the x-clips off takes this path
 too (the JAX package sends it through its semiglobal subs kernel; the
 results are the same).
 
-Results are bit-identical to the JAX package and to its scalar oracle.
-M + 1 >= 4096 raises ``NotImplementedError`` naming the ROADMAP item that
-ports the block-row engines.
+Results are bit-identical to the JAX package and to its scalar oracle
+(at M + 1 >= 4096 to the oracle: the JAX package's global path packs Ins
+runs in 12 bits there and wraps them). Semiglobal, local and custom mode
+at M + 1 >= 4096 raise ``NotImplementedError`` naming the ROADMAP item
+that ports their long-sequence engine.
 """
 
 from __future__ import annotations
@@ -78,6 +90,11 @@ from rust_bio_tpu_torch.alignment.types import (
 from rust_bio_tpu_torch.utils.text import to_bytes
 
 _MAX_ROWS = 4096  # _pack_rle keeps ins_cnt <= M + 1 in 12 bits
+# M + 1 >= T_ROWS runs K13 + K14: from M = 605 on, K1's column state
+# (3 * (M+1) * 32 * 4 bytes) leaves the 232,448 bytes of a block's shared
+# memory
+T_ROWS = 606
+_MAX_M, _MAX_N = 65534, 65535  # the uint16 fields of the packs
 _SENTINEL = -(2**31)  # int32 min: masked-out entries of the fixup maxima
 
 
@@ -89,22 +106,15 @@ def _pack_rle(
     (batched.py ``_pack_rle`` layout): the score split in two 16-bit rows,
     eight per-pair fields, then ``exit_op << 12 | ins_cnt`` per column."""
     i32 = torch.int32
-    small = torch.stack(
-        [
-            (score >> 16) & 0xFFFF,
-            score & 0xFFFF,
-            ins0.to(i32),
-            fix_ins,
-            fix_exit,
-            fix_ly,
-            xstart,
-            ystart,
-            xend,
-            yend,
-        ]
-    ).to(torch.uint16)
+    small = _pack_head(score, ins0, fix_ins, fix_exit, fix_ly, xstart, ystart, xend, yend)
     merged = ((exit_op.to(i32) << 12) | ins_cnt.to(i32)).to(torch.uint16)
     return torch.cat([small, merged], dim=0)
+
+
+def _pack_head(score, ins0, *fields):
+    """The ten per-pair rows of ``_pack_rle``: the score in two 16-bit
+    halves, ``ins0``, then the seven int32 fields."""
+    return torch.stack([(score >> 16) & 0xFFFF, score & 0xFFFF, ins0.to(torch.int32), *fields]).to(torch.uint16)
 
 
 def _unpack_rle(packed: np.ndarray):
@@ -125,6 +135,36 @@ def _unpack_rle(packed: np.ndarray):
         "ins_cnt": merged & 0xFFF,
         "exit_op": merged >> 12,
     }
+
+
+def _pack_rle_wide(
+    score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly,
+    xstart, ystart, xend, yend,
+):
+    """``_pack_rle`` for M + 1 >= 4096: one (10 + 2N, B) uint16 tensor, the
+    ten per-pair rows, then ``ins_cnt`` and ``exit_op`` in N rows each,
+    unmasked."""
+    small = _pack_head(score, ins0, fix_ins, fix_exit, fix_ly, xstart, ystart, xend, yend)
+    return torch.cat([small, ins_cnt.to(torch.uint16), exit_op.to(torch.uint16)], dim=0)
+
+
+def _unpack_rle_wide(packed: np.ndarray):
+    """Host-side inverse of ``_pack_rle_wide``: (score (B,), dict of arrays)."""
+    score, up = _unpack_rle(packed[:10])
+    N = (packed.shape[0] - 10) // 2
+    up["ins_cnt"] = packed[10 : 10 + N]
+    up["exit_op"] = packed[10 + N :]
+    return score, up
+
+
+def _wide(M: int) -> bool:
+    """Whether a global batch padded to M packs into ``_pack_rle_wide``."""
+    return M + 1 >= _MAX_ROWS
+
+
+def _unpack(packed: np.ndarray, wide: bool):
+    """The unpacker of the layout ``wide`` names."""
+    return (_unpack_rle_wide if wide else _unpack_rle)(packed)
 
 
 def _small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens):
@@ -517,17 +557,20 @@ def _format_cigar_strings(run_row, run_kind, run_len, B, xs_a, xe_a, m_a):
 class PackedSemiglobal:
     """Column-RLE batch result of the semiglobal (or global) path pulled to
     the host: scores and coordinates as arrays, whole-batch CIGARs, and
-    per-read ``Alignment`` decode on demand."""
+    per-read ``Alignment`` decode on demand. ``wide`` records whether it
+    was pulled from the ``_pack_rle_wide`` layout; the unpacked arrays are
+    the same for both."""
 
     def __init__(
         self, score, up, mlens, nlens,
-        mode: AlignmentMode = AlignmentMode.Semiglobal,
+        mode: AlignmentMode = AlignmentMode.Semiglobal, wide: bool = False,
     ) -> None:
         self.score = score
         self._up = up
         self.mlens = np.asarray(mlens)
         self.nlens = np.asarray(nlens)
         self.mode = mode
+        self.wide = wide
         self.xstart = up["xstart"]
         self.ystart = up["ystart"]
         self.xend = up["xend"]
@@ -636,26 +679,39 @@ class BatchAligner:
         )
 
     def _check_rows(self, M: int) -> None:
+        """Semiglobal, local and custom mode stop below M + 1 = 4096."""
         if M + 1 >= _MAX_ROWS:
             raise NotImplementedError(
-                f"M + 1 = {M + 1} >= {_MAX_ROWS}: the packed walk keeps "
-                "ins_cnt in 12 bits; the block-row engines are ROADMAP "
-                "Queue 1 item 6"
+                f"M + 1 = {M + 1} >= {_MAX_ROWS}: semiglobal, local and custom "
+                "mode at this length need the lane-major engine K15 and wide "
+                "clip-mode packs, ROADMAP Queue 2 item 15"
             )
 
     def global_packed_arrays(self, xb, yb, mlens, nlens) -> torch.Tensor:
-        """The device part of ``global_`` on padded arrays: K1 (K11 under a
-        LUT), K2 and the pack, returning the (10 + N, B) uint16 tensor on
-        the device."""
-        self._check_rows(xb.shape[1])
-        from rust_bio_tpu_torch.ops.walk import sweep_walk_global
+        """The device part of ``global_`` on padded arrays, returning the
+        packed uint16 tensor on the device: K1 (K11 under a LUT), K2 and
+        ``_pack_rle``; at M + 1 >= ``T_ROWS`` K13 (K13-LUT) and K14 in
+        their place, and from M + 1 >= 4096 on ``_pack_rle_wide``."""
+        from rust_bio_tpu_torch.ops import walk
 
+        M, N = xb.shape[1], yb.shape[1]
+        if M > _MAX_M or N > _MAX_N:
+            raise ValueError(
+                f"global alignment of M = {M}, N = {N}: the packed result keeps "
+                f"lengths in uint16 fields, so M <= {_MAX_M} and N <= {_MAX_N}"
+            )
         s = self.scoring
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
-        score, tb, _tbk = self._kernel("scan_global")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
-        ins_cnt, exit_op, ins0 = sweep_walk_global(tb, ml, nl)
+        if M + 1 >= T_ROWS:
+            score, tb = self._kernel("scan_global_rows")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
+            ins_cnt, exit_op, ins0 = walk.sweep_walk_global_seg(tb, ml, nl)
+        else:
+            score, tb, _tbk = self._kernel("scan_global")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
+            ins_cnt, exit_op, ins0 = walk.sweep_walk_global(tb, ml, nl)
+        del tb
         z = torch.zeros_like(ml)
-        return _pack_rle(score, ins_cnt, exit_op, ins0, z, z, z, z, z, ml, nl)
+        pack = _pack_rle_wide if _wide(M) else _pack_rle
+        return pack(score, ins_cnt, exit_op, ins0, z, z, z, z, z, ml, nl)
 
     def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True):
         """The semiglobal path on padded arrays (batched.py
@@ -684,7 +740,7 @@ class BatchAligner:
     def global_(self, xs, ys) -> List[Alignment]:
         xb, yb, mlens, nlens = self._pad(xs, ys)
         packed = self.global_packed_arrays(xb, yb, mlens, nlens)
-        score, up = _unpack_rle(packed.cpu().numpy())
+        score, up = _unpack(packed.cpu().numpy(), _wide(xb.shape[1]))
         results = []
         for k in range(len(mlens)):
             ops = _decode_ops_colrle(
@@ -866,19 +922,21 @@ class BatchAligner:
         return self.semiglobal_packed_finish(self.semiglobal_packed_async(xs, ys))
 
     def global_packed_async_arrays(self, xb, yb, mlens, nlens):
-        """``semiglobal_packed_async_arrays`` for global mode (K1 or K11, K2):
-        the fix/clip fields of the packed layout are 0."""
+        """``semiglobal_packed_async_arrays`` for global mode (the path of
+        ``global_packed_arrays``): the fix/clip fields of the packed layout
+        are 0, and the handle's last entry says whether it is the wide
+        layout."""
         mlens = np.asarray(mlens, np.int32)
         nlens = np.asarray(nlens, np.int32)
-        return self.global_packed_arrays(xb, yb, mlens, nlens), mlens, nlens
+        return self.global_packed_arrays(xb, yb, mlens, nlens), mlens, nlens, _wide(xb.shape[1])
 
     @staticmethod
     def global_packed_finish(handle) -> "PackedSemiglobal":
         """Pull a ``global_packed_async_arrays`` handle into a
         ``PackedSemiglobal`` in global mode."""
-        packed, mlens, nlens = handle
-        score, up = _unpack_rle(packed.cpu().numpy())
-        return PackedSemiglobal(score, up, mlens, nlens, mode=AlignmentMode.Global)
+        packed, mlens, nlens, wide = handle
+        score, up = _unpack(packed.cpu().numpy(), wide)
+        return PackedSemiglobal(score, up, mlens, nlens, mode=AlignmentMode.Global, wide=wide)
 
     def global_packed(self, xs, ys) -> "PackedSemiglobal":
         """Global batch without op-list objects (see ``semiglobal_packed``)."""

@@ -12,7 +12,8 @@ unchanged.
 
 A scoring needs no converter: it is a handful of integers plus, for
 substitution matrices, a (256, 256) int32 table (``Scoring.dense_lut``),
-which both packages take as they are.
+which both packages take as they are. The long-sequence global path
+(K13/K14) adds nothing to carry: its parameters are the scoring's.
 """
 
 from __future__ import annotations

@@ -2,27 +2,31 @@
 K3 (``scores_global``: score only), CUDA source ``csrc/sw_global.cu``; K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
-penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``.
+penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
+K13 (``scan_global_rows``: K1's DP in blocks of rows, for long x),
+``csrc/sw_global_rows.cu``.
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
 outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K12
-``scan_semiglobal_lut``, and ``scan_custom_lut`` / ``scan_local_lut`` (K9 and
-K7 fed by the LUT). The kernels read ``lut[x, y]`` per cell; the
-Match/Subst traceback bit is byte equality (``x == y``) whatever the LUT
-says.
+``scan_semiglobal_lut``, ``scan_custom_lut`` / ``scan_local_lut`` (K9 and
+K7 fed by the LUT), and ``scan_global_rows_lut`` (K13 fed by the LUT). The
+kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
+equality (``x == y``) whatever the LUT says.
 
 They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
 ``scan_semiglobal_pallas_mp``, ``scan_custom_pallas_mp`` and
 ``scan_local_pallas_mp`` (all ``runs="ins"``), ``sw_scores_global_matchparams``,
-``scan_global_pallas_subs``, ``scan_semiglobal_pallas_subs`` and
-``sw_scores_global``. The plain versions below follow the Pallas kernels'
-column formulation (rows vectorized, the insertion recurrence as a (max,+)
-prefix scan), one column core per kernel fed column by column with
-(substitution scores, equality bits): from the bytes for constant scores,
-and, for a LUT, from the (N, M, B) stream ``lut[x, y] * 2 | (x == y)``
-(``subs2_stream_plain``) that the JAX package's subs kernels read, or for
-K18 from the (B, M, N) tensor of ``sw_scores_global``
+``scan_global_pallas_subs``, ``scan_semiglobal_pallas_subs``,
+``sw_scores_global`` and ``scan_global_rows_pallas_mp``. The plain versions
+below follow the Pallas kernels' column formulation (rows vectorized, the
+insertion recurrence as a (max,+) prefix scan), one column core per kernel
+fed column by column with (substitution scores, equality bits): from the
+bytes for constant scores, and, for a LUT, by a gather per column on the
+wrappers' CPU path, or, in the ``*_lut_plain`` versions that the tests
+hold against the JAX subs kernels, from the (N, M, B) stream
+``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
+or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order.
 Both are exact in int32.
 
@@ -41,6 +45,7 @@ from rust_bio_tpu_torch.alignment.pairwise.scoring import MIN_SCORE
 from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_DEL,
     TB_INS,
+    TB_REREAD,
     TB_START,
     TB_SUBST,
     TB_XCLIP_PREFIX,
@@ -84,6 +89,12 @@ SCAN_SEMIGLOBAL_LUT = CudaKernel(
 )
 SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
+SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 8 + [PTR] * 3)
+SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 4)
+# K13's default rows a block: its S / D / s-bits layers then take exactly the
+# 48 KB a block gets without opting in (csrc/sw_global_rows.cu head note)
+ROWS_RB = 128
+_ROWS_RB_MAX = _SMEM_MAX // (3 * _PAIRS * 4)  # 605
 
 
 def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -111,11 +122,20 @@ def _subst(subst, dev) -> tuple:
 
 
 def _plain_feed(xb, yb, subst):
-    """The plain versions' column feeder of a substitution source: from the
-    bytes for ``(match, mismatch)``, from ``subs2_stream_plain`` for a LUT."""
-    if isinstance(subst, torch.Tensor):
-        return _stream_feed(subs2_stream_plain(xb, yb, subst))
-    return _mp_feed(xb, yb, *(int(v) for v in subst))
+    """The wrappers' column feeder of a substitution source on the CPU: from
+    the bytes for ``(match, mismatch)``; for a LUT one int32 gather per
+    column, as the kernels read it (the values of ``subs2_stream_plain``
+    without its (N, M, B) tensor or its ``* 2`` packing)."""
+    if not isinstance(subst, torch.Tensor):
+        return _mp_feed(xb, yb, *(int(v) for v in subst))
+    xt = xb.t().to(torch.int64)  # (M, B)
+    flat = subst.reshape(-1)
+
+    def feed(j):
+        yj = yb[:, j - 1].to(torch.int64)[None, :]
+        return flat[(xt << 8) | yj], (xt == yj).to(torch.int32)
+
+    return feed
 
 
 def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
@@ -165,6 +185,46 @@ def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
             _ptr(scratch),
         )
     return score, tb, tbk
+
+
+def scan_global_rows(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, rb=ROWS_RB):
+    """K13: K1's DP in blocks of ``rb`` rows. Returns (score (B,) int32, tb
+    (N, M+1, B) uint16).
+
+    ``tb`` is defined where K1's is and equals K1's there, but for two
+    things: no run nibble (bits 12-15 are 0), and at each first row of a
+    block ``r * rb`` (r >= 1) the i-bits are ``TB_INS`` where the extend
+    candidate won, else ``TB_REREAD`` (the s-bits of the cell above). Walk
+    it with ``ops.walk.sweep_walk_global_seg``."""
+    return _scan_global_rows(
+        SCAN_GLOBAL_ROWS, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), rb
+    )
+
+
+def scan_global_rows_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb=ROWS_RB):
+    """K13 with the substitution score ``lut[x, y]``; same outputs."""
+    return _scan_global_rows(SCAN_GLOBAL_ROWS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb)
+
+
+def _scan_global_rows(kernel, xb, yb, mlens, nlens, go, ge, subst, rb):
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    go, ge, rb = int(go), int(ge), int(rb)
+    if not 1 <= rb <= _ROWS_RB_MAX:
+        raise ValueError(f"rb = {rb}: a row block holds 1 to {_ROWS_RB_MAX} rows (shared memory)")
+    sub = _subst(subst, dev)
+    if dev.type == "cpu":
+        return _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, rb=rb)[:2]
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+    if B:
+        xt = xb.t().contiguous()
+        yt = yb.t().contiguous()
+        bnd = torch.empty((3, max(N, 1), B), dtype=torch.int32, device=dev)
+        kernel.launch(
+            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, M, N, rb, go, ge, *sub, score.data_ptr(), tb.data_ptr(), bnd.data_ptr(),
+        )
+    return score, tb
 
 
 def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
@@ -394,7 +454,24 @@ def scan_global_lut_plain(subs2, mlens, nlens, go, ge):
     return _scan_global_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge)
 
 
-def _scan_global_core(feed, M, N, mlens, nlens, go, ge):
+def scan_global_rows_plain(xb, yb, mlens, nlens, go, ge, ma, mi, rb=ROWS_RB):
+    """Plain version of K13 (sw_pallas.py ``_kernel_scan_global_rows_mp``):
+    K1's column core with the block seams rewritten. Returns (score, tb)."""
+    return _scan_global_core(_mp_feed(xb, yb, ma, mi), xb.shape[1], yb.shape[1], mlens, nlens, go, ge, rb=rb)[:2]
+
+
+def scan_global_rows_lut_plain(xb, yb, mlens, nlens, go, ge, lut, rb=ROWS_RB):
+    """Plain version of K13 fed by the LUT: the same core fed one gathered
+    column at a time (``_plain_feed``). Returns (score, tb)."""
+    return _scan_global_core(_plain_feed(xb, yb, lut), xb.shape[1], yb.shape[1], mlens, nlens, go, ge, rb=rb)[:2]
+
+
+def _scan_global_core(feed, M, N, mlens, nlens, go, ge, rb=None):
+    """K1's column core; with ``rb`` K13's cells instead: no run nibble, and
+    at every row ``r * rb`` (r >= 1) the open candidate points at
+    ``TB_REREAD`` where K1 copies the s-bits of the cell above (the
+    extend-vs-open decision ``i_ext > T`` is the one K13 carries across the
+    seam)."""
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
@@ -410,6 +487,7 @@ def _scan_global_core(feed, M, N, mlens, nlens, go, ge):
     ib0 = torch.where(rows <= 1, TB_START, TB_INS).to(i32)
     TBK = (ib0 | (TB_START << 4) | (SB << 8)).contiguous()
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+    seam = (rows % rb == 0) & (rows > 0) if rb else None
 
     for j in range(1, N + 1):
         subs, eq = feed(j)
@@ -438,9 +516,14 @@ def _scan_global_core(feed, M, N, mlens, nlens, go, ge):
         s_col = torch.where(row0, dj0, torch.where(take_d, best_d, s_col))
         s_bits = torch.where(row0, TB_DEL, torch.where(take_d, TB_DEL, s_bits))
 
-        i_bits = torch.where(i_ext > T, TB_INS, torch.cat([start_row, s_bits[:-1]]))
+        above = torch.cat([start_row, s_bits[:-1]])
+        if rb:
+            above = torch.where(seam, TB_REREAD, above)
+        i_bits = torch.where(i_ext > T, TB_INS, above)
         i_bits = torch.where(row0, TB_START, i_bits)
-        cell = i_bits | (d_bits << 4) | (s_bits << 8) | _ins_run_nib(i_bits, rows)
+        cell = i_bits | (d_bits << 4) | (s_bits << 8)
+        if not rb:
+            cell = cell | _ins_run_nib(i_bits, rows)
         tb[j - 1] = cell.to(torch.uint16)
 
         keep = (j <= nlens)[None, :]

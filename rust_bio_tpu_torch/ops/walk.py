@@ -1,9 +1,11 @@
 """Column-sweep traceback walks: kernel K2 (global mode, CUDA source
-``csrc/walk_global.cu``), kernel K6 (semiglobal family,
+``csrc/walk_global.cu``), kernel K14 (global mode on the block-row tb of
+K13, ``csrc/walk_global_seg.cu``), kernel K6 (semiglobal family,
 ``csrc/walk_semiglobal.cu``), and kernels K10 (general clips) and K8 (local
 mode), CUDA source ``csrc/walk_custom.cu``. They replace
 ``rust_bio_tpu/ops/walk_pallas.py`` ``sweep_walk_global``,
-``sweep_walk_semiglobal``, ``sweep_walk_custom`` and ``sweep_walk_local``.
+``_sweep_walk_global_seg``, ``sweep_walk_semiglobal``, ``sweep_walk_custom``
+and ``sweep_walk_local``.
 
 Input: the traceback tensor of K1 or K5 (``ops.sw``), ``tb`` (N, X, B) uint16
 with X = M + 1, and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
@@ -22,6 +24,7 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_DEL,
     TB_INS,
     TB_MATCH,
+    TB_REREAD,
     TB_START,
     TB_SUBST,
     TB_XCLIP_PREFIX,
@@ -41,6 +44,9 @@ from rust_bio_tpu_torch.ops._build import (
 SWEEP_WALK_GLOBAL = CudaKernel(
     "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR]
 )
+SWEEP_WALK_GLOBAL_SEG = CudaKernel(
+    "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR]
+)
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     "walk_semiglobal", "sweep_walk_semiglobal",
     [PTR] * 7 + [INT, INT, INT] + [PTR] * 4,
@@ -55,6 +61,16 @@ SWEEP_WALK_LOCAL = CudaKernel(
 
 def sweep_walk_global(tb, mlens, nlens):
     """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16."""
+    return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens)
+
+
+def sweep_walk_global_seg(tb, mlens, nlens):
+    """K14: K2's walk over K13's tb (no run nibble, ``TB_REREAD`` i-cells at
+    the row-block seams); K2's outputs."""
+    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens)
+
+
+def _global_walk(kernel, plain, tb, mlens, nlens):
     dev = same_device(tb, mlens, nlens)
     if tb.dim() != 3:
         raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
@@ -65,12 +81,12 @@ def sweep_walk_global(tb, mlens, nlens):
     check_lengths(mlens, "mlens", X - 1)
     check_lengths(nlens, "nlens", N)
     if dev.type == "cpu":
-        return sweep_walk_global_plain(tb, mlens, nlens)
+        return plain(tb, mlens, nlens)
     ins_cnt = torch.empty((N, B), dtype=torch.uint16, device=dev)
     exit_op = torch.empty((N, B), dtype=torch.uint16, device=dev)
     ins0 = torch.empty(B, dtype=torch.uint16, device=dev)
     if B:
-        SWEEP_WALK_GLOBAL.launch(
+        kernel.launch(
             dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N,
             ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(),
         )
@@ -84,6 +100,59 @@ def sweep_walk_global_plain(tb, mlens, nlens):
     ones = torch.ones(B, dtype=torch.bool, device=tb.device)
     ins_cnt, exit_op, ins0, _ = _sweep_plain(tb, mlens, nlens, start, ones, ~ones, torch.zeros_like(start))
     return ins_cnt, exit_op, ins0
+
+
+def sweep_walk_global_seg_plain(tb, mlens, nlens):
+    """Plain version of K14 (walk_pallas.py ``_make_seg_walk_kernel``):
+    pairs vectorized, columns j = N..1 in a Python loop, each column's rows
+    at once. The resolved i-layer of a cell is its i-bits, or the s-bits of
+    the cell above where they say ``TB_REREAD``; an Ins run ends at the
+    last row at or above that does not continue it (a cummax of those
+    rows); the exit is read at that chain-break row, with the d-bits of the
+    cell above it."""
+    N, X, B = tb.shape
+    dev = tb.device
+    i32 = torch.int32
+    rows = torch.arange(X, dtype=i32, device=dev)[:, None]
+    icur, jcur = mlens.clone(), nlens.clone()
+    carried = torch.full((B,), TB_START, dtype=i32, device=dev)
+    use_s = torch.ones(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    ins_out = torch.zeros((N, B), dtype=i32, device=dev)
+    exit_out = torch.zeros((N, B), dtype=i32, device=dev)
+    start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
+
+    def gather(a, idx):
+        return a.gather(0, idx.clamp(0, X - 1).long()[None, :])[0]
+
+    for j in range(N, 0, -1):
+        col = tb[j - 1].to(i32)  # (X, B)
+        ib, db, sb = col & 0xF, (col >> 4) & 0xF, (col >> 8) & 0xF
+        layer = torch.where(ib == TB_REREAD, torch.cat([start_row, sb[:-1]]), ib)
+        brk_rows = torch.cummax(torch.where(layer == TB_INS, -1, rows), dim=0).values
+
+        at = (jcur == j) & ~done
+        entry = torch.where(use_s, gather(sb, icur), carried)
+        is_ins = at & (entry == TB_INS)
+        brk = gather(brk_rows, icur)  # icur - (the Ins run above icur)
+        ins_out[j - 1] = torch.where(is_ins, icur - brk + 1, 0)
+        layer2 = torch.where(is_ins, gather(layer, brk), entry)
+        db2 = torch.where(is_ins, torch.where(brk > 0, gather(db, brk - 1), 0), gather(db, icur))
+        i2 = torch.where(is_ins, brk - 1, icur)
+        is_mm = (layer2 == TB_MATCH) | (layer2 == TB_SUBST)
+        is_del = layer2 == TB_DEL
+
+        exit_out[j - 1] = torch.where(at & (is_mm | is_del), layer2, 0)
+        icur = torch.where(at & is_mm, i2 - 1, torch.where(at & is_del, i2, icur))
+        jcur = torch.where(at & (is_mm | is_del), j - 1, jcur)
+        carried = torch.where(at & is_del, db2, carried)
+        use_s = torch.where(at, is_mm, use_s)
+        done = done | (at & (layer2 == TB_START))
+
+    # column 0 is the analytic init column: a live pair emits icur Ins
+    ins0 = torch.where(done, 0, icur)
+    u16 = torch.uint16
+    return ins_out.to(u16), exit_out.to(u16), ins0.to(u16)
 
 
 def _sweep_plain(tb, icur, jcur, carried, use_s, done, ystart):

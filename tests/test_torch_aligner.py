@@ -107,11 +107,14 @@ def test_pack_unpack_roundtrip():
 
 def test_unported_paths_raise():
     ba = BatchAligner(Scoring.from_scores(-5, -1, 2, -2), device="cpu")
-    for mode in (ba.global_, ba.semiglobal, ba.semiglobal_packed, ba.local, ba.custom):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mode in (ba.semiglobal, ba.semiglobal_packed, ba.local, ba.custom):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 15"):
             mode([b"A" * 4095], [b"A"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 15"):
         ba.scores([b"A" * 4095], [b"A"], "local")
+    # global mode at M + 1 = 4096 is ported (K13 + K14, the wide pack)
+    oracle = JaxScalarAligner.with_scoring(JaxScoring.from_scores(-5, -1, 2, -2))
+    assert _fields(ba.global_([b"A" * 4095], [b"A"])[0]) == _fields(oracle.global_(b"A" * 4095, b"A"))
     # LUT scorings (a callable here) are ported: the calls that raised
     # before return what the JAX package returns
     fn = lambda a, b: 1 if a == b else -1  # noqa: E731

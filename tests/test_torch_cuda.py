@@ -431,3 +431,73 @@ def test_lut_aligner_on_card_matches_cpu(cuda_device):
             np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
         assert on_card.global_packed(xs, ys).cigars() == on_cpu.global_packed(xs, ys).cigars()
         assert on_card.semiglobal_packed(xs, ys).cigars() == on_cpu.semiglobal_packed(xs, ys).cigars()
+
+
+# ---- long x: K13 (the block-row scan, and fed by the LUT), K14 ----
+
+
+@pytest.mark.parametrize("rb", [16, sw.ROWS_RB])
+def test_rows_scan_and_seg_walk_match_plain(cuda_device, rb):
+    """K13 at ragged lengths up to M = 1000 (1001 rows: not a multiple of
+    rb), then K14 on its tb."""
+    args, mlens, nlens = _pairs(np.random.default_rng(51), 70, 1000, 60, cuda_device)
+    for go, ge in PENS:
+        score, tb = sw.scan_global_rows(*args, go, ge, 2, -2, rb=rb)
+        torch.cuda.synchronize()
+        ps, ptb = sw.scan_global_rows_plain(*args, go, ge, 2, -2, rb=rb)
+        assert torch.equal(score, ps)
+        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+        got = walk.sweep_walk_global_seg(tb, args[2], args[3])
+        torch.cuda.synchronize()
+        for g, w in zip(got, walk.sweep_walk_global_seg_plain(tb, args[2], args[3])):
+            assert torch.equal(g, w)
+
+
+def test_rows_scan_lut_matches_plain(cuda_device):
+    """K13 fed by BLOSUM62 on protein pairs up to M = 700."""
+    args, mlens, nlens = _protein_pairs(np.random.default_rng(52), 64, 700, 50, cuda_device)
+    lut = _lut("blosum62", cuda_device)
+    for rb in (16, sw.ROWS_RB):
+        score, tb = sw.scan_global_rows_lut(*args, -11, -1, lut, rb=rb)
+        torch.cuda.synchronize()
+        ps, ptb = sw.scan_global_rows_lut_plain(*args, -11, -1, lut, rb=rb)
+        assert torch.equal(score, ps)
+        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+
+
+def test_rows_scan_at_one_block_equals_k1(cuda_device):
+    """With every row in one block K13 writes K1's cells without the run
+    nibble, and K1's score."""
+    args, mlens, nlens = _pairs(np.random.default_rng(53), 96, 150, 166, cuda_device)
+    ks, ktb, _ = sw.scan_global(*args, -5, -1, 2, -2)
+    score, tb = sw.scan_global_rows(*args, -5, -1, 2, -2, rb=151)
+    torch.cuda.synchronize()
+    assert torch.equal(score, ks)
+    assert torch.equal(_masked(tb, mlens, nlens), _masked(ktb.to(torch.int32) & 0xFFF, mlens, nlens))
+
+
+def test_long_aligner_on_card_matches_cpu(cuda_device):
+    """``global_``, ``global_packed`` and ``scores`` at M = 4,100-4,300 (the
+    wide pack; a 4,199-base insertion included) on the card through K13 and
+    K14, and on the CPU, under MatchParams and BLOSUM62."""
+    from rust_bio_tpu_torch.scores import blosum62
+
+    rng = np.random.default_rng(54)
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    for sc, alphabet in ((Scoring.from_scores(-5, -1, 2, -2), b"ACGT"), (Scoring.new(-11, -1, blosum62), b"ARNDCQEGHILKMFPSTWYV")):
+        syms = np.frombuffer(alphabet, np.uint8)
+        xs = [syms[rng.integers(0, len(syms), size=int(rng.integers(4100, 4301)))].tobytes() for _ in range(6)]
+        ys = [syms[rng.integers(0, len(syms), size=int(rng.integers(1, 41)))].tobytes() for _ in range(6)]
+        xs.append(b"A" + b"C" * 4199)
+        ys.append(b"A")
+        on_card = BatchAligner(sc, device=cuda_device)
+        on_cpu = BatchAligner(sc, device="cpu")
+        before = (sw.SCAN_GLOBAL_ROWS.launches + sw.SCAN_GLOBAL_ROWS_LUT.launches, walk.SWEEP_WALK_GLOBAL_SEG.launches)
+        got = on_card.global_(xs, ys)
+        assert (sw.SCAN_GLOBAL_ROWS.launches + sw.SCAN_GLOBAL_ROWS_LUT.launches, walk.SWEEP_WALK_GLOBAL_SEG.launches) == (
+            before[0] + 1, before[1] + 1
+        )
+        assert [key(a) for a in got] == [key(a) for a in on_cpu.global_(xs, ys)]
+        assert len(got[-1].operations) == 4200
+        np.testing.assert_array_equal(on_card.scores(xs, ys), on_cpu.scores(xs, ys))
+        assert on_card.global_packed(xs, ys).cigars() == on_cpu.global_packed(xs, ys).cigars()
