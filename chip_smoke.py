@@ -58,6 +58,18 @@ NVIDIA GPU.
    alignment must re-score to its score over both sequences, agree with
    ``scores`` and its CIGAR; 4 pairs of each corpus must equal the CPU
    path; every insertion pair must hold an Ins run of 4,096 or more.
+3e. Drives the clip modes at long x (K15, K15-LUT and K15-walk) with the
+   counters at 0 again, on phase 3d's STR backbones and long proteins:
+   ``semiglobal`` on 128 pairs (x the backbone, y the mutated backbone with
+   200-400 random bp on each side: a long read in its reference window),
+   ``local`` on 128 pairs (x the backbone with 200-400 bp random flanks, y
+   the mutated backbone), ``custom`` on those pairs under phase 3b's
+   BWA-MEM clips, and ``local`` under BLOSUM62 on 64 long proteins with
+   100-200 random residues on each side of x; each with ``scores``. Every
+   alignment must re-score to its score (clip ops at their penalties) and
+   agree with ``scores``; every semiglobal alignment consume all of x; the
+   local and custom alignments cover 90% of the core; 4 pairs of each
+   corpus equal the CPU path.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
    both with CUDA events; times K1 against K13 on 1 kb and 2 kb batches.
@@ -102,6 +114,8 @@ K7_OPS_PER_CELL = 44
 K9_OPS_PER_CELL = 49
 # csrc/sw_global_rows.cu: K1's cell without the run counter and nibble
 K13_OPS_PER_CELL = 26
+# csrc/sw_custom.cu K15: K9's cell without the run counter and nibble
+K15_OPS_PER_CELL = 45
 # the LUT-fed kernels (K11, K18, K12, K7/K9 and K13 fed by the LUT) do the
 # same operations, the LUT read in place of the match/mismatch select
 
@@ -132,6 +146,9 @@ STR_SUB, STR_INDEL = 0.05, 0.005
 B_SV, SV_WINDOW, SV_INSERT = 8, (600, 800), (4200, 4800)
 B_LPROT, LPROT_LEN = 64, (4200, 5000)
 T_ROWS_LENS = (1000, 2000)
+# long clip modes (3e): random flanks around phase 3d's sequences
+LONG_FLANK, LPROT_FLANK = (200, 400), (100, 200)
+SEMI_CLIPS = (-858_993_459, -858_993_459, 0, 0)  # MIN_SCORE: the x-clips off
 
 
 def fail(msg: str) -> None:
@@ -434,6 +451,28 @@ def long_corpora(rng):
     return str_pairs, sv_pairs, prot_pairs
 
 
+def long_clip_corpora(rng, long_sets):
+    """Phase 3e's corpora from phase 3d's STR backbones x, their mutated
+    copies y and the long protein homologs, as (x bytes, y bytes) lists:
+    semiglobal (x, flank + y + flank), local (flank + x + flank, y), protein
+    local (flank + x + flank, y); and for the two local corpora each pair's
+    (left flank, core) lengths in x."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    aa = np.frombuffer(AA, np.uint8)
+
+    def flank(syms, span):
+        return syms[rng.integers(0, len(syms), size=int(rng.integers(span[0], span[1] + 1)))].tobytes()
+
+    (sxs, sys_), _, (pxs, pys) = long_sets
+    semi = (list(sxs), [flank(acgt, LONG_FLANK) + y + flank(acgt, LONG_FLANK) for y in sys_])
+    lefts = [flank(acgt, LONG_FLANK) for _ in sxs]
+    local = ([fl + x + flank(acgt, LONG_FLANK) for fl, x in zip(lefts, sxs)], list(sys_))
+    plefts = [flank(aa, LPROT_FLANK) for _ in pxs]
+    prot = ([fl + x + flank(aa, LPROT_FLANK) for fl, x in zip(plefts, pxs)], list(pys))
+    cores = ([(len(fl), len(x)) for fl, x in zip(lefts, sxs)], [(len(fl), len(x)) for fl, x in zip(plefts, pxs)])
+    return semi, local, prot, cores
+
+
 def longest_ins_run(ops) -> int:
     best = run = 0
     for op in ops:
@@ -443,9 +482,10 @@ def longest_ins_run(ops) -> int:
 
 
 def rows_tb_err(torch, got, want, mlens, nlens, chunk: int = 256) -> int:
-    """Max abs difference of two (N, X, B) K13 tensors over the region K13
-    defines (columns < nlens[b], rows <= mlens[b]), a chunk of columns at a
-    time: a whole-tensor comparison would need a third multi-GB copy."""
+    """Max abs difference of two (N, X, B) tb tensors over the region the
+    kernel defines (columns < nlens[b], rows <= mlens[b]), a chunk of
+    columns at a time: a whole-tensor comparison would need a third
+    multi-GB copy."""
     N, X, _ = got.shape
     rows_ok = torch.arange(X, device=got.device)[:, None] <= mlens[None, :]
     err = 0
@@ -501,7 +541,7 @@ def main() -> int:
     check(Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(ROOT), "package outside this checkout")
 
     from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
-    from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _columns_fixups, _fixed_column
     from rust_bio_tpu_torch.alphabets import dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
@@ -535,6 +575,9 @@ def main() -> int:
         "sw_scan_global_rows": sw.SCAN_GLOBAL_ROWS,
         "sw_scan_global_rows_lut": sw.SCAN_GLOBAL_ROWS_LUT,
         "sweep_walk_global_seg": walk.SWEEP_WALK_GLOBAL_SEG,
+        "sw_scan_columns": sw.SCAN_COLUMNS,
+        "sw_scan_columns_lut": sw.SCAN_COLUMNS_LUT,
+        "walk_steps": walk.WALK_STEPS,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -595,6 +638,8 @@ def main() -> int:
     (hxs, hys), (dxs, dys) = protein_corpora(rng)
     rand_bytes = [rng.integers(0, 256, size=int(rng.integers(1, 81))).astype(np.uint8).tobytes() for _ in range(512)]
     long_sets = long_corpora(rng)
+    # 3e's flanks from a stream of their own, so the draws above stay as they were
+    clip_sets = long_clip_corpora(np.random.default_rng((args.seed, 3)), long_sets)
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
@@ -861,6 +906,62 @@ def main() -> int:
     long_delivered_s = {name: run[3] for name, run in long_runs.items()}
     del long_runs, alns, want
 
+    # ---- 3e. long-sequence clip modes, counted ------------------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    semi_set, local_set, prot_set, (dna_cores, prot_cores) = clip_sets
+    clip_names = ("semiglobal", "local", "custom", "protein_local")
+    clip_paths = ((ba, "semiglobal", semi_set), (ba, "local", local_set), (bac, "custom", local_set), (bp, "local", prot_set))
+    clip_runs = {}
+    for name, (al, mode, (xs, ys)) in zip(clip_names, clip_paths):
+        t0 = time.perf_counter()
+        alns = getattr(al, mode)(xs, ys)
+        delivered_s = time.perf_counter() - t0
+        clip_runs[name] = (alns, al.scores(xs, ys, mode), delivered_s)
+    clip_long_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("sw_scan_columns", "sw_scan_columns_lut", "walk_steps")
+    check(all(clip_long_launches[n] > 0 for n in path_kernels), f"a kernel of the long clip-mode path did not launch: {clip_long_launches}")
+    clip_summary = {}
+    for name, (al, mode, (xs, ys)), ref, cores in zip(
+        clip_names, clip_paths, (cpu, cpu, cpu_c, cpu_p), (None, dna_cores, dna_cores, prot_cores)
+    ):
+        alns, scs, _ = clip_runs[name]
+        check(len(alns) == len(xs) and scs.shape == (len(xs),), f"long {name}: result count")
+        check(all(int(s) == a.score for s, a in zip(scs, alns)), f"long {name}: scores() != alignment scores")
+        pens_, lut_ = (ppens, lut_l) if name == "protein_local" else ((CUSTOM_PENS if name == "custom" else (GO, GE, MA, MI)), None)
+        cover = []
+        for k, (a, x, y) in enumerate(zip(alns, xs, ys)):
+            ops = [(op.kind, op.len) for op in a.operations]
+            if name == "custom":
+                got = rescore_ops(ops, x, y, pens_, CUSTOM_XCLIP, CUSTOM_YCLIP)
+                want = (a.score, len(x), len(y))
+            else:
+                got = rescore_ops(ops, x[a.xstart : a.xend], y[a.ystart : a.yend], pens_, lut=lut_)
+                want = (a.score, a.xend - a.xstart, a.yend - a.ystart)
+            check(got == want, f"long {name}: pair {k} does not re-score to {a.score}: {got}")
+            if name == "semiglobal":
+                check((a.xstart, a.xend) == (0, len(x)), f"long semiglobal: pair {k} does not consume all of x")
+            else:
+                left, core = cores[k]
+                cover.append((min(a.xend, left + core) - max(a.xstart, left)) / core)
+        if cover:
+            check(min(cover) >= 0.9, f"long {name}: an alignment covers {min(cover):.3f} of its core")
+        t0 = time.perf_counter()
+        want = getattr(ref, mode)(xs[:4], ys[:4])
+        check([fields(a) for a in alns[:4]] == [fields(a) for a in want], f"long {name}: card != CPU plain path")
+        clip_summary[name] = {
+            "pairs": len(xs), "max_len": [max(map(len, xs)), max(map(len, ys))],
+            "mean_score": float(np.mean(scs)), "min_core_cover": min(cover) if cover else None,
+            "delivered_s": clip_runs[name][2], "cpu_path_s": time.perf_counter() - t0,
+        }
+    print(json.dumps({
+        "phase": "long_clip", "launches": clip_long_launches, **clip_summary, "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + clip_long_launches[name] for name in counters}
+    clip_delivered_s = {name: run[2] for name, run in clip_runs.items()}
+    del clip_runs, alns, want
+
     # ---- 4. kernels against their plain versions, timed ---------------
     t_phase = time.perf_counter()
     def tens(*arrays):
@@ -1123,7 +1224,7 @@ def main() -> int:
     # K13 and K14 on the STR corpus, K13 fed by BLOSUM62 on the long
     # proteins: one check launch against the plain version (a second
     # multi-GB tb, compared a chunk of columns at a time), the plain version
-    # timed by that one run, the kernel by 3 more launches
+    # timed by that one run, the kernel by 2 more launches
     def rows_kernel(name, args_d, ml_np, nl_np, scan, plain, replaces, table_bytes=0):
         score, tb_ = scan()
         torch.cuda.synchronize()
@@ -1134,7 +1235,7 @@ def main() -> int:
         ml64 = ml_np.astype(np.int64)
         report(
             name, "rust_bio_tpu_torch/ops/csrc/sw_global_rows.cu", replaces, None, None,
-            cuda_ms(torch, scan, 3, warm=False), plain_ms,
+            cuda_ms(torch, scan, 2, warm=False), plain_ms,
             args_d[0].numel() + args_d[1].numel() + 8 * Bq + table_bytes + 4 * Bq + 2 * int(((ml64 + 1) * nl_np).sum()),
             K13_OPS_PER_CELL * int((ml64 * nl_np).sum()), err=err,
         )
@@ -1165,6 +1266,62 @@ def main() -> int:
         "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
     )
     del tb
+
+    # K15 and K15-walk on the long semiglobal corpus, K15-LUT on the long
+    # protein local corpus: one check launch against the plain version (tb
+    # compared 256 columns at a time), the plain version timed by that one
+    # run, the kernel by one more launch
+    def columns_kernel(name, args_d, scan, plain, replaces, table_bytes=0):
+        got = scan()
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(torch, plain)
+        ml_d_, nl_d_ = args_d[2], args_d[3]
+        cols_ok = torch.arange(got[1].shape[0], device=dev)[:, None] <= nl_d_[None, :]
+        rows_ok = torch.arange(got[2].shape[1], device=dev)[None, :] <= ml_d_[:, None]
+        err = max(
+            rows_tb_err(torch, got[0], want[0], ml_d_, nl_d_ + 1),
+            max_abs_err([torch.where(cols_ok, got[1], 0)], [torch.where(cols_ok, want[1], 0)]),
+            max_abs_err([torch.where(rows_ok, g, 0) for g in got[2:]], [torch.where(rows_ok, w, 0) for w in want[2:]]),
+        )
+        del want
+        ml64, nl64 = ml_d_.long(), nl_d_.long()
+        Bq = ml_d_.shape[0]
+        report(
+            name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", replaces, None, None,
+            cuda_ms(torch, scan, 1, warm=False), plain_ms,
+            args_d[0].numel() + args_d[1].numel() + 8 * Bq + table_bytes + 2 * int(((ml64 + 1) * (nl64 + 1)).sum())
+            + 4 * int((nl64 + 1).sum()) + 5 * 4 * int((ml64 + 1).sum()),
+            K15_OPS_PER_CELL * int((ml64 * nl64).sum()), err=err,
+        )
+        return got
+
+    cargs = tens(*ba._pad(*semi_set))
+    scan = columns_kernel(
+        "sw_scan_columns", cargs, lambda: sw.scan_columns(*cargs, *pens, *SEMI_CLIPS),
+        lambda: sw.scan_columns_plain(*cargs, *pens, *SEMI_CLIPS), "rust_bio_tpu/ops/sw_pallas.py:313",
+    )
+    _columns_fixups(scan, cargs[2], cargs[3], (GO, GE, *SEMI_CLIPS))
+    winputs = (scan[0], scan[1], scan[5], cargs[2], cargs[3])
+    wgot = walk.walk_steps(*winputs)
+    torch.cuda.synchronize()
+    wwant, wplain_ms = timed_once(torch, lambda: walk.walk_steps_plain(*winputs))
+    # one cell a step plus the entry cell's; lx or Ly on each clip step
+    steps = int((wgot[0] > 0).sum())
+    clip_steps = int((wgot[0] >= 5).sum())
+    T, Bq = wgot[0].shape
+    report(
+        "walk_steps", "rust_bio_tpu_torch/ops/csrc/walk_steps.cu", "rust_bio_tpu/alignment/pairwise/batched.py:507",
+        wgot, wwant, cuda_ms(torch, lambda: walk.walk_steps(*winputs), 3), wplain_ms,
+        2 * (steps + Bq) + 4 * clip_steps + 8 * Bq + 3 * T * Bq + 16 * Bq,
+        8 * (steps + Bq),
+    )
+    del scan, winputs, wgot, wwant
+    pargs = tens(*bp._pad(*prot_set))
+    columns_kernel(
+        "sw_scan_columns_lut", pargs, lambda: sw.scan_columns_lut(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0),
+        lambda: sw.scan_columns_lut_plain(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0),
+        "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
+    )
     # T_ROWS: K1 (its column state in device memory past M = 605) against
     # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
     # substitutions)
@@ -1238,6 +1395,12 @@ def main() -> int:
         torch, lambda: bp.global_packed_async_arrays(lxb, lyb, lml, lnl), 1
     )
     rates["protein_global_long_delivered"] = B_LPROT / long_delivered_s["protein"]
+    # long clip modes: device-only from one run of the device path (K15,
+    # the fixups, K15-walk, the pack); delivered from phase 3e's counted call
+    for name, (al, mode, (xs, ys)) in zip(clip_names, clip_paths):
+        padded = al._pad(xs, ys)
+        rates[f"{name}_long_device"] = len(xs) / host_s(torch, lambda: al._columns_device(*padded, al._clips(mode)), 1)
+        rates[f"{name}_long_delivered"] = len(xs) / clip_delivered_s[name]
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "seconds": time.perf_counter() - t_phase, "card": smi}), flush=True)
     print(json.dumps({"phase": "script", "seconds": time.perf_counter() - t_start}), flush=True)

@@ -45,11 +45,23 @@ stops after the fixups. Custom mode with the x-clips off takes this path
 too (the JAX package sends it through its semiglobal subs kernel; the
 results are the same).
 
+Long x in the clip modes (M + 1 >= ``T_COLUMNS`` = 4096, where the
+column-RLE packs' 12-bit Ins counts end): ``semiglobal`` (clips (MIN, MIN,
+0, 0)), ``local`` and ``custom`` run the JAX package's general engine
+(batched.py ``_align_batch_device``): K15 (``ops.sw.scan_columns``, K15-LUT
+under a LUT) with the mode's four clips, ``_suffix_fixups``, the fixed
+column written into K15's traceback tensor, K15-walk
+(``ops.walk.walk_steps``, one op a step) and ``_pack_steps``; the host
+decodes each pair with ``_decode_ops``. ``scores`` in those modes stops
+after the fixups. ``semiglobal_packed*`` raises there (its layout holds
+12-bit Ins counts). Lengths are capped as for global mode.
+
 Results are bit-identical to the JAX package and to its scalar oracle
 (at M + 1 >= 4096 to the oracle: the JAX package's global path packs Ins
-runs in 12 bits there and wraps them). Semiglobal, local and custom mode
-at M + 1 >= 4096 raise ``NotImplementedError`` naming the ROADMAP item
-that ports their long-sequence engine.
+runs in 12 bits there and wraps them), but for a lane with an empty y in
+the clip modes, where the port follows the oracle: the JAX engines end
+column 0 with I = MIN_SCORE instead of I0, so their suffix fixups may
+rewrite column 0's i-bits.
 """
 
 from __future__ import annotations
@@ -94,6 +106,9 @@ _MAX_ROWS = 4096  # _pack_rle keeps ins_cnt <= M + 1 in 12 bits
 # (3 * (M+1) * 32 * 4 bytes) leaves the 232,448 bytes of a block's shared
 # memory
 T_ROWS = 606
+# M + 1 >= T_COLUMNS runs the clip modes on K15 and K15-walk (the packs of
+# the column-RLE walks keep Ins counts in 12 bits)
+T_COLUMNS = _MAX_ROWS
 _MAX_M, _MAX_N = 65534, 65535  # the uint16 fields of the packs
 _SENTINEL = -(2**31)  # int32 min: masked-out entries of the fixup maxima
 
@@ -162,16 +177,43 @@ def _wide(M: int) -> bool:
     return M + 1 >= _MAX_ROWS
 
 
+def _long(M: int) -> bool:
+    """Whether a clip-mode batch padded to M takes K15 and K15-walk."""
+    return M + 1 >= T_COLUMNS
+
+
+def _check_limits(what: str, M: int, N: int) -> None:
+    """The uint16 fields of the results cap M at 65534 and N at 65535."""
+    if M > _MAX_M or N > _MAX_N:
+        raise ValueError(
+            f"{what} alignment of M = {M}, N = {N}: the packed result keeps "
+            f"lengths in uint16 fields, so M <= {_MAX_M} and N <= {_MAX_N}"
+        )
+
+
 def _unpack(packed: np.ndarray, wide: bool):
     """The unpacker of the layout ``wide`` names."""
     return (_unpack_rle_wide if wide else _unpack_rle)(packed)
 
 
+def _score_coords(score, xstart, ystart, xend, yend):
+    """Six per-pair rows: the score in two 16-bit halves, the four
+    coordinates."""
+    return torch.stack([(score >> 16) & 0xFFFF, score & 0xFFFF, xstart, ystart, xend, yend])
+
+
 def _small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens):
-    """The 14 per-pair rows of the clip-mode packs: the score in two 16-bit
-    halves, the four coordinates, the four fix slots' codes and lengths."""
-    head = torch.stack([(score >> 16) & 0xFFFF, score & 0xFFFF, xstart, ystart, xend, yend])
+    """The 14 per-pair rows of the clip-mode packs: ``_score_coords``, then
+    the four fix slots' codes and lengths."""
+    head = _score_coords(score, xstart, ystart, xend, yend)
     return torch.cat([head, fix_codes.t(), fix_lens.t()]).to(torch.uint16)
+
+
+def _pack_steps(score, op_codes, op_lens, xstart, ystart, xend, yend):
+    """One (6 + 2T, B) uint16 tensor of the K15-walk for the single pull:
+    ``_score_coords``, then the walk's T op codes and T clip lengths."""
+    head = _score_coords(score, xstart, ystart, xend, yend).to(torch.uint16)
+    return torch.cat([head, op_codes.to(torch.uint16), op_lens])
 
 
 def _pack_rle_custom(
@@ -196,18 +238,28 @@ def _pack_rle_local(score, ins_cnt, exit_op, fix_codes, fix_lens, xstart, ystart
     return torch.cat([_small_rows(score, xstart, ystart, xend, yend, fix_codes, fix_lens), merged])
 
 
-def _unpack_small(packed: np.ndarray):
-    small = packed[:14].astype(np.int64)
+def _unpack_head(packed: np.ndarray):
+    """Host-side inverse of ``_score_coords``: (score (B,), dict of the
+    coordinates)."""
+    small = packed[:6].astype(np.int64)
     v = (small[0] << 16) | small[1]
     score = np.where(v >= 2**31, v - 2**32, v).astype(np.int64)
-    return score, {
-        "xstart": small[2],
-        "ystart": small[3],
-        "xend": small[4],
-        "yend": small[5],
-        "fix_codes": small[6:10],
-        "fix_lens": small[10:14],
-    }
+    return score, {"xstart": small[2], "ystart": small[3], "xend": small[4], "yend": small[5]}
+
+
+def _unpack_small(packed: np.ndarray):
+    score, out = _unpack_head(packed)
+    small = packed[6:14].astype(np.int64)
+    out.update(fix_codes=small[:4], fix_lens=small[4:])
+    return score, out
+
+
+def _unpack_steps(packed: np.ndarray):
+    """Host-side inverse of ``_pack_steps``: (score (B,), dict of arrays)."""
+    score, out = _unpack_head(packed)
+    T = (packed.shape[0] - 6) // 2
+    out.update(op_codes=packed[6 : 6 + T], op_lens=packed[6 + T :])
+    return score, out
 
 
 def _unpack_rle_local(packed: np.ndarray):
@@ -325,6 +377,26 @@ def _suffix_fixups(
     return take_m(S_fixed), tb_col_fixed, Lx_n.to(i32), lx_n_set
 
 
+def _columns_fixups(scan, mlens, nlens, pens):
+    """The suffix fixups on a K15 scan's finals (``pens`` = (go, ge, *clips))
+    and, where the scan kept its traceback, the fixed column and its x-suffix
+    clip length written into its tb and lx at column nlens[b] (batched.py
+    ``_postlude``), in place: the JAX package concatenates a second tb,
+    10 GB at 128 pairs of 6.4 kb. Returns the (B,) int32 scores."""
+    tb, lx, S_f, I_f, Sn_f, _Ly, tbk = scan
+    B, X = S_f.shape
+    rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, mlens)
+    score, tb_col_fixed, Lx_n, lx_n_set = _suffix_fixups(
+        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, mlens, mlens_c, is_row_m, pens
+    )
+    if tb is not None:
+        cols, bidx = nlens.long(), torch.arange(B, device=tb.device)
+        rows_idx = torch.arange(X, device=tb.device)[None, :]
+        tb.view(torch.int16)[cols[:, None], rows_idx, bidx[:, None]] = tb_col_fixed.view(torch.int16)
+        lx[cols, bidx] = torch.where(lx_n_set, Lx_n, lx[cols, bidx])  # where the fixups set one
+    return score
+
+
 def _fixed_column(S_f, I_f, Sn_f, Ly_f, tbk, mlens, go, ge):
     """(score (B,) int32, tbfix (B, M+1) int32): the suffix fixups on the
     finals of K5 run with the semiglobal penalties (x-clips off, y-clips 0),
@@ -343,6 +415,21 @@ _OP_BY_CODE = {TB_INS: Ins, TB_DEL: Del, TB_MATCH: Match, TB_SUBST: Subst}
 _OP_ARR = np.empty(16, object)
 for _c, _o in _OP_BY_CODE.items():
     _OP_ARR[_c] = _o
+
+
+def _decode_ops(codes: np.ndarray, lens: np.ndarray) -> List[AlignmentOperation]:
+    """One lane's K15-walk buffers (T,), end -> start, to the start -> end op
+    list (batched.py ``_decode_ops``): entries up to the first code 0, each
+    clip entry an Xclip / Yclip of its length."""
+    nz = np.nonzero(codes == 0)[0]
+    end = int(nz[0]) if nz.size else len(codes)
+    c = codes[:end].astype(np.intp)
+    ops = _OP_ARR[c].tolist()
+    for k in np.nonzero(c >= TB_XCLIP_PREFIX)[0]:
+        n = int(lens[k])
+        ops[k] = Xclip(n) if c[k] in (TB_XCLIP_PREFIX, TB_XCLIP_SUFFIX) else Yclip(n)
+    ops.reverse()
+    return ops
 
 
 def _decode_ops_colrle(
@@ -678,15 +765,6 @@ class BatchAligner:
             for a in (xb, yb, np.asarray(mlens, np.int32), np.asarray(nlens, np.int32))
         )
 
-    def _check_rows(self, M: int) -> None:
-        """Semiglobal, local and custom mode stop below M + 1 = 4096."""
-        if M + 1 >= _MAX_ROWS:
-            raise NotImplementedError(
-                f"M + 1 = {M + 1} >= {_MAX_ROWS}: semiglobal, local and custom "
-                "mode at this length need the lane-major engine K15 and wide "
-                "clip-mode packs, ROADMAP Queue 2 item 15"
-            )
-
     def global_packed_arrays(self, xb, yb, mlens, nlens) -> torch.Tensor:
         """The device part of ``global_`` on padded arrays, returning the
         packed uint16 tensor on the device: K1 (K11 under a LUT), K2 and
@@ -695,11 +773,7 @@ class BatchAligner:
         from rust_bio_tpu_torch.ops import walk
 
         M, N = xb.shape[1], yb.shape[1]
-        if M > _MAX_M or N > _MAX_N:
-            raise ValueError(
-                f"global alignment of M = {M}, N = {N}: the packed result keeps "
-                f"lengths in uint16 fields, so M <= {_MAX_M} and N <= {_MAX_N}"
-            )
+        _check_limits("global", M, N)
         s = self.scoring
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
         if M + 1 >= T_ROWS:
@@ -721,7 +795,6 @@ class BatchAligner:
         tensor, or the (B,) int32 scores without traceback; both stay on
         the device."""
         go, ge = self.scoring.gap_open, self.scoring.gap_extend
-        self._check_rows(xb.shape[1])
         from rust_bio_tpu_torch.ops.walk import sweep_walk_semiglobal
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
@@ -766,6 +839,8 @@ class BatchAligner:
         """Semiglobal alignments: x aligned whole, y's ends free; clip ops
         are dropped from the op lists (batched.py ``_run``)."""
         xb, yb, mlens, nlens = self._pad(xs, ys)
+        if _long(xb.shape[1]):
+            return self._columns_alignments(xb, yb, mlens, nlens, AlignmentMode.Semiglobal, True)
         score, up = _unpack_rle(self._semiglobal_device(xb, yb, mlens, nlens).cpu().numpy())
         ops = _decode_semi_batch(
             up["ins_cnt"], up["exit_op"], up["ins0"], up["fix_ins"], up["fix_exit"],
@@ -788,7 +863,10 @@ class BatchAligner:
 
     def _clips(self, mode: str) -> Tuple[int, int, int, int]:
         """(xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix) of a
-        clip mode: all 0 for local, the scoring's for custom."""
+        clip mode: the x-clips off and the y-clips 0 for semiglobal, all 0
+        for local, the scoring's for custom."""
+        if mode == "semiglobal":
+            return (MIN_SCORE, MIN_SCORE, 0, 0)
         if mode == "local":
             return (0, 0, 0, 0)
         s = self.scoring
@@ -807,7 +885,6 @@ class BatchAligner:
         scores without traceback; both stay on the device."""
         go, ge = self.scoring.gap_open, self.scoring.gap_extend
         B, M = xb.shape
-        self._check_rows(M)
         from rust_bio_tpu_torch.ops.walk import sweep_walk_custom, sweep_walk_local
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
@@ -832,10 +909,56 @@ class BatchAligner:
             return "local", _pack_rle_local(score, ins_cnt, exit_op, fix_codes, fix_lens, *coords)
         return "custom", _pack_rle_custom(score, *sweep_walk_custom(tb, tbfix, lx, lx_n, ml, nl))
 
+    def _columns_device(self, xb, yb, mlens, nlens, clips, with_traceback: bool = True):
+        """The clip-mode path of long x on padded arrays (batched.py
+        ``_align_batch_device`` and ``_postlude``): K15 (K15-LUT under a LUT)
+        with the four clips, the suffix fixups, then, with traceback, the
+        fixed column and its x-suffix clip length written into K15's tb and
+        lx at column nlens[b], K15-walk and ``_pack_steps``. Returns the
+        packed uint16 tensor, or the (B,) int32 scores without traceback;
+        both stay on the device."""
+        B, M = xb.shape
+        _check_limits("clip-mode", M, yb.shape[1])
+        go, ge = self.scoring.gap_open, self.scoring.gap_extend
+        from rust_bio_tpu_torch.ops.walk import walk_steps
+
+        xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
+        scan = self._kernel("scan_columns")(xt, yt, ml, nl, go, ge, *self._subst, *clips, traceback=with_traceback)
+        score = _columns_fixups(scan, ml, nl, (go, ge, *clips))
+        if not with_traceback:
+            return score
+        tb, lx, Ly_f = scan[0], scan[1], scan[5]
+        return _pack_steps(score, *walk_steps(tb, lx, Ly_f, ml, nl))
+
+    def _columns_alignments(self, xb, yb, mlens, nlens, mode: AlignmentMode, filter_clips: bool) -> List[Alignment]:
+        """The long route's ``Alignment`` list (batched.py ``_run``): one
+        pull, then ``_decode_ops`` per pair."""
+        packed = self._columns_device(xb, yb, mlens, nlens, self._clips(mode.value))
+        score, up = _unpack_steps(packed.cpu().numpy())
+        results = []
+        for k in range(len(mlens)):
+            aln = Alignment(
+                score=int(score[k]),
+                xstart=int(up["xstart"][k]),
+                ystart=int(up["ystart"][k]),
+                xend=int(up["xend"][k]),
+                yend=int(up["yend"][k]),
+                xlen=int(mlens[k]),
+                ylen=int(nlens[k]),
+                operations=_decode_ops(up["op_codes"][:, k], up["op_lens"][:, k]),
+                mode=mode,
+            )
+            if filter_clips:
+                aln.filter_clip_operations()
+            results.append(aln)
+        return results
+
     def _run_clips(self, xs, ys, mode: AlignmentMode, filter_clips: bool) -> List[Alignment]:
         """Local and custom alignments (batched.py ``_run`` for the two
         clip-mode packs): one pull, then a per-pair decode."""
         xb, yb, mlens, nlens = self._pad(xs, ys)
+        if _long(xb.shape[1]):
+            return self._columns_alignments(xb, yb, mlens, nlens, mode, filter_clips)
         kind, packed = self._custom_device(xb, yb, mlens, nlens, self._clips(mode.value))
         packed = packed.cpu().numpy()
         score, up = (_unpack_rle_local if kind == "local" else _unpack_rle_custom)(packed)
@@ -882,10 +1005,15 @@ class BatchAligner:
     def scores(self, xs, ys, mode: str = "global") -> np.ndarray:
         """Score-only path, no traceback: (B,) int32. Global runs K3 (K18
         under a LUT); semiglobal runs K5 (K12) and the suffix fixups; local
-        and custom run K7 or K9 (fed by the LUT) and the suffix fixups."""
+        and custom run K7 or K9 (fed by the LUT) and the suffix fixups; the
+        three clip modes at M + 1 >= ``T_COLUMNS`` run K15 (K15-LUT) and the
+        fixups."""
         if mode not in ("global", "semiglobal", "local", "custom"):
             raise ValueError(f"unknown mode {mode!r}")
         xb, yb, mlens, nlens = self._pad(xs, ys)
+        if mode != "global" and _long(xb.shape[1]):
+            clips = self._clips(mode)
+            return self._columns_device(xb, yb, mlens, nlens, clips, with_traceback=False).cpu().numpy()
         if mode == "semiglobal":
             return self._semiglobal_device(xb, yb, mlens, nlens, with_traceback=False).cpu().numpy()
         if mode in ("local", "custom"):
@@ -904,6 +1032,11 @@ class BatchAligner:
     def semiglobal_packed_async_arrays(self, xb, yb, mlens, nlens):
         """``semiglobal_packed_async`` on padded (B, M) / (B, N) uint8
         batches and their (B,) lengths."""
+        if _wide(xb.shape[1]):
+            raise ValueError(
+                f"semiglobal_packed at M + 1 = {xb.shape[1] + 1} >= {_MAX_ROWS}: the packed "
+                "layout holds each column's Ins count in 12 bits; semiglobal() serves this length"
+            )
         mlens = np.asarray(mlens, np.int32)
         nlens = np.asarray(nlens, np.int32)
         return self._semiglobal_device(xb, yb, mlens, nlens), mlens, nlens

@@ -18,8 +18,10 @@
 // Design: K5's (sw_semiglobal.cu). One thread per pair walks columns in
 // order and rows i = 0..mlens in order, so the insertion recurrence is a
 // scalar carry; the previous column's S, D, s-bits, Sn and Ly live in shared
-// memory as [row][pair], 32 pairs a block (96.6 KB at M = 150), or in a
-// (5, M+1, B) device scratch when they do not fit. What the TPU kernel does
+// memory as [row][pair], 32 pairs a block (96.6 KB at M = 150) or as many as
+// fit (one pair's layers take 20 * (M+1) bytes: one pair a block at
+// M = 11,000), or in a (5, M+1, B) device scratch when one pair's do not fit
+// (M >= 11,622). What the TPU kernel does
 // as a masked column reduction, the row-m replacement by the x-suffix clip,
 // is here a running maximum of S + xcs over rows 1..m-1 (strict '>', so the
 // first row that reaches it gives Lx), applied when the thread reaches row m.
@@ -33,6 +35,25 @@
 // Bound on this card: like K5, it writes (N+1) * (M+1) * B uint16 cells and
 // five (B, M+1) int32 finals, and the per-cell dependency chain (about 45
 // integer operations, one thread per pair) makes it latency-bound.
+//
+// K15 sw_scan_columns and K15-LUT sw_scan_columns_lut: the clip-mode column
+// scan of long x. Replace rust_bio_tpu/ops/sw_pallas.py scan_columns_pallas_mp
+// -> _kernel_scan_full_mp (which runs batched.py _column_body and packs each
+// column's Lx into the high nibbles of tb rows 0-2, hence M < 4096) and,
+// under a LUT, the XLA engine batched.py _align_batch_device (_scan_columns_xla
+// over the same _column_body), which the JAX package runs at M >= 4096.
+// _column_body is K9's recurrence for any four clips, so K15 is this kernel
+// with the run nibble dropped (template flag RUNS): 12-bit cells in tb and
+// tbk, and Lx in full in lx, so M is limited only by the uint16 clip lengths
+// of the walk (M <= 65534). At M = 5,600 a block holds two pairs' state in
+// shared memory, so 128 pairs run on 64 SMs. Bound on this card: the larger
+// of the tb bytes over HBM and about 45 integer operations a cell over the
+// int32 rate; one thread a pair keeps it latency-bound (the slowest pair's
+// cells in order).
+//
+// The final I of a lane with nlens = 0 is column 0's I0 (rows >= 1), as the
+// reference's column 0 holds it; the suffix fixups read it. Lanes with
+// nlens >= 1 overwrite it in column 1.
 //
 // Exactness (sw_pallas.py:1601-1881): int32 arithmetic wraps as in XLA; D
 // starts at MIN_I32 = -858993459; the running maximum starts at
@@ -61,8 +82,9 @@ constexpr int TB_YCLIP_PREFIX = 7;
 constexpr int TB_YCLIP_SUFFIX = 8;
 constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
 constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
-constexpr int PAIRS = 32;            // pairs (threads) per block
+constexpr int PAIRS = 32;            // most pairs (threads) per block
 constexpr int LAYERS = 5;            // S, D, s-bits, Sn, Ly
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 
 // int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
 __device__ __forceinline__ int add(int a, int b) {
@@ -101,7 +123,8 @@ struct Column {
   }
 };
 
-template <bool LOCAL, bool TB, class Subst>
+// LOCAL: clips 0 (K7); TB: store tb and lx; RUNS: the run nibble (K7, K9)
+template <bool LOCAL, bool TB, bool RUNS, class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
@@ -115,15 +138,17 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     int* __restrict__ ly_f,
     int* __restrict__ tbk,
     int* __restrict__ scratch) {  // (5, M + 1, B) or null
+  static_assert(TB || !RUNS, "the run nibble rides in tb cells");
   if constexpr (LOCAL) {
     xcp = xcs = ycp = ycs = 0;
   }
   extern __shared__ int smem[];
-  const int b = blockIdx.x * PAIRS + threadIdx.x;
+  const int pairs = blockDim.x;
+  const int b = blockIdx.x * pairs + threadIdx.x;
   if (b >= B) return;
   const int rows = M + 1;
   Column st;
-  st.stride = scratch ? static_cast<size_t>(B) : static_cast<size_t>(PAIRS);
+  st.stride = scratch ? static_cast<size_t>(B) : static_cast<size_t>(pairs);
   st.base = scratch ? scratch + b : smem + threadIdx.x;
   st.layer = static_cast<size_t>(rows) * st.stride;
   const int ml = mlens[b];
@@ -141,10 +166,11 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       int s0 = 0;
       int sb = TB_START;
       int ib = TB_START;
+      int i0 = MIN_I32;
       if (i >= 1) {
         const int gap_i = add(go, mul(ge, i - 1));
         const bool ins_wins = gap_i > clip_i;
-        const int i0 = i == 1 ? go : (ins_wins ? gap_i : clip_i);
+        i0 = i == 1 ? go : (ins_wins ? gap_i : clip_i);
         if (i >= 2) ib = ins_wins ? TB_INS : TB_XCLIP_PREFIX;
         if (i < ml) {
           s0 = MIN_I32;
@@ -164,8 +190,12 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       }
       const int cell = ib | (TB_START << 4) | (sb << 8);
       if constexpr (TB) {
-        run = ib == TB_INS ? run + 1 : 0;
-        tb[static_cast<size_t>(i) * B + b] = static_cast<uint16_t>(cell | (min(run, 15) << 12));
+        int word = cell;
+        if constexpr (RUNS) {
+          run = ib == TB_INS ? run + 1 : 0;
+          word |= min(run, 15) << 12;
+        }
+        tb[static_cast<size_t>(i) * B + b] = static_cast<uint16_t>(word);
       }
       st.at(0, i) = s0;
       st.at(1, i) = MIN_I32;
@@ -175,7 +205,7 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       st.at(3, i) = i == 0 ? ycs : (live ? sn : MIN_I32);
       st.at(4, i) = live ? nl : 0;
       if (nl == 0) {
-        i_f[fb + i] = MIN_I32;
+        i_f[fb + i] = i0;
         tbk[fb + i] = cell;
       }
     }
@@ -231,14 +261,24 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     int yclip = d_clip;  // ycp + go + ge*(i-1), row i
     int acc = SENT;      // running max of S + xcs over rows 1..m-1
     int first = 0;
+    // x's byte two rows ahead and the substitution score one row ahead: their
+    // loads (x and the LUT from L2; the shared memory leaves L1 small) then
+    // overlap a row's dependency chain
+    auto x_of = [&](int r) { return r <= ml ? static_cast<int>(xt[static_cast<size_t>(r - 1) * B + b]) : 0; };
+    const int x1 = x_of(1);
+    int x_ahead = x_of(2);
+    int sc_ahead = sub.score(x1, yj);
+    int eq_ahead = x1 == yj;
     for (int i = 1; i <= ml; ++i) {
       const int sp = st.at(0, i);
       const int dp = st.at(1, i);
       const int sbp = st.at(2, i);
       const int snp = st.at(3, i);
-      const int xi = xt[static_cast<size_t>(i - 1) * B + b];
-      const int eq = xi == yj;
-      const int m_val = add(s_up_old, sub.score(xi, yj));
+      const int eq = eq_ahead;
+      const int m_val = add(s_up_old, sc_ahead);
+      sc_ahead = sub.score(x_ahead, yj);  // row i + 1
+      eq_ahead = x_ahead == yj;
+      x_ahead = x_of(i + 2);
       const int m_bits = TB_SUBST + eq;  // TB_MATCH = TB_SUBST + 1
       const int d_ext = add(dp, ge);
       const int d_open = add(sp, go);
@@ -274,11 +314,11 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
         if constexpr (!LOCAL) take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
       }
       int cell = i_bits | (d_bits << 4) | (s_bits << 8);
-      if constexpr (TB) {  // the run nibble, in tbk too (as in the Pallas kernel)
+      if constexpr (RUNS) {  // the run nibble, in tbk too (as in the Pallas kernel)
         run = i_bits == TB_INS ? run + 1 : 0;
         cell |= min(run, 15) << 12;
-        tbcol[static_cast<size_t>(i) * B] = static_cast<uint16_t>(cell);
       }
+      if constexpr (TB) tbcol[static_cast<size_t>(i) * B] = static_cast<uint16_t>(cell);
       if (add(s_col, ycs) > snp) {
         st.at(3, i) = add(s_col, ycs);
         st.at(4, i) = nl - j;
@@ -305,21 +345,26 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
   }
 }
 
-template <bool LOCAL, bool TB, class Subst>
+template <bool LOCAL, bool TB, bool RUNS, class Subst>
 int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
            int B, int M, int go, int ge, Subst sub, int xcp, int xcs,
            int ycp, int ycs, void* tb, void* lx, void* s_f, void* i_f,
            void* sn_f, void* ly_f, void* tbk, void* scratch, void* stream) {
-  const size_t smem =
-      scratch ? 0 : static_cast<size_t>(LAYERS) * (M + 1) * PAIRS * sizeof(int);
+  // pairs a block: 32 with the state in the device scratch, else as many as
+  // the shared memory holds (the wrapper passes a scratch when not one fits)
+  const size_t per_pair = static_cast<size_t>(LAYERS) * (M + 1) * sizeof(int);
+  const size_t fit = SMEM_MAX / per_pair;
+  const int pairs = scratch ? PAIRS : static_cast<int>(fit < PAIRS ? fit : PAIRS);
+  if (pairs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = scratch ? 0 : per_pair * pairs;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        scan_clip_kernel<LOCAL, TB, Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scan_clip_kernel<LOCAL, TB, RUNS, Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  scan_clip_kernel<LOCAL, TB, Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                                       static_cast<cudaStream_t>(stream)>>>(
+  scan_clip_kernel<LOCAL, TB, RUNS, Subst><<<(B + pairs - 1) / pairs, pairs, smem,
+                                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
       ge, sub, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
@@ -338,8 +383,9 @@ const char* rbt_error_string(int code) {
 }
 
 // Entry points: tb/lx null for a score-only call; scratch null to keep the
-// column state in shared memory (5 * (M+1) * 32 * 4 bytes per block), else
-// a (5, M+1, B) int32 buffer; lut a (256, 256) int32 table on the device.
+// column state in shared memory (5 * (M+1) * 4 bytes a pair, up to 32 pairs
+// a block), else a (5, M+1, B) int32 buffer; lut a (256, 256) int32 table on
+// the device.
 
 // K9.
 int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
@@ -347,7 +393,7 @@ int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
                    void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
                    void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, MatchParams> : launch<false, false, MatchParams>;
+  auto fn = tb ? launch<false, true, true, MatchParams> : launch<false, false, false, MatchParams>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
             ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
@@ -358,7 +404,7 @@ int sw_scan_custom_lut(const void* xt, const void* yt, const void* mlens,
                        const void* lut, int xcp, int xcs, int ycp, int ycs,
                        void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
                        void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, Lut> : launch<false, false, Lut>;
+  auto fn = tb ? launch<false, true, true, Lut> : launch<false, false, false, Lut>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
             xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
             stream);
@@ -369,7 +415,7 @@ int sw_scan_local(const void* xt, const void* yt, const void* mlens,
                   const void* nlens, int B, int M, int go, int ge, int ma,
                   int mi, void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
                   void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<true, true, MatchParams> : launch<true, false, MatchParams>;
+  auto fn = tb ? launch<true, true, true, MatchParams> : launch<true, false, false, MatchParams>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, 0, 0, 0, 0,
             tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
@@ -380,9 +426,32 @@ int sw_scan_local_lut(const void* xt, const void* yt, const void* mlens,
                       const void* lut, void* tb, void* lx, void* s_f,
                       void* i_f, void* sn_f, void* ly_f, void* tbk,
                       void* scratch, void* stream) {
-  auto fn = tb ? launch<true, true, Lut> : launch<true, false, Lut>;
+  auto fn = tb ? launch<true, true, true, Lut> : launch<true, false, false, Lut>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
             0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K15: K9 without the run nibble (12-bit tb and tbk cells), any clips.
+int sw_scan_columns(const void* xt, const void* yt, const void* mlens,
+                    const void* nlens, int B, int M, int go, int ge, int ma,
+                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
+                    void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
+                    void* tbk, void* scratch, void* stream) {
+  auto fn = tb ? launch<false, true, false, MatchParams> : launch<false, false, false, MatchParams>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
+            ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K15-LUT: K15 fed by the LUT.
+int sw_scan_columns_lut(const void* xt, const void* yt, const void* mlens,
+                        const void* nlens, int B, int M, int go, int ge,
+                        const void* lut, int xcp, int xcs, int ycp, int ycs,
+                        void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
+                        void* ly_f, void* tbk, void* scratch, void* stream) {
+  auto fn = tb ? launch<false, true, false, Lut> : launch<false, false, false, Lut>;
+  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
+            xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
+            stream);
 }
 
 }  // extern "C"

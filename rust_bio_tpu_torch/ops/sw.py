@@ -4,13 +4,15 @@ K3 (``scores_global``: score only), CUDA source ``csrc/sw_global.cu``; K5
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
 penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
 K13 (``scan_global_rows``: K1's DP in blocks of rows, for long x),
-``csrc/sw_global_rows.cu``.
+``csrc/sw_global_rows.cu``; K15 (``scan_columns``: K9's DP without the
+run nibble, the clip-mode engine of long x), ``csrc/sw_custom.cu``.
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
 outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K12
 ``scan_semiglobal_lut``, ``scan_custom_lut`` / ``scan_local_lut`` (K9 and
-K7 fed by the LUT), and ``scan_global_rows_lut`` (K13 fed by the LUT). The
+K7 fed by the LUT), ``scan_global_rows_lut`` (K13 fed by the LUT) and
+``scan_columns_lut`` (K15-LUT). The
 kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
 equality (``x == y``) whatever the LUT says.
 
@@ -18,7 +20,9 @@ They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
 ``scan_semiglobal_pallas_mp``, ``scan_custom_pallas_mp`` and
 ``scan_local_pallas_mp`` (all ``runs="ins"``), ``sw_scores_global_matchparams``,
 ``scan_global_pallas_subs``, ``scan_semiglobal_pallas_subs``,
-``sw_scores_global`` and ``scan_global_rows_pallas_mp``. The plain versions
+``sw_scores_global``, ``scan_global_rows_pallas_mp`` and
+``scan_columns_pallas_mp`` (and, under a LUT, the XLA engine
+``batched._align_batch_device``). The plain versions
 below follow the Pallas kernels' column formulation (rows vectorized, the
 insertion recurrence as a (max,+) prefix scan), one column core per kernel
 fed column by column with (substitution scores, equality bits): from the
@@ -91,6 +95,8 @@ SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT
 SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 8 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 4)
+SCAN_COLUMNS = CudaKernel("sw_custom", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
+SCAN_COLUMNS_LUT = CudaKernel("sw_custom", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 # K13's default rows a block: its S / D / s-bits layers then take exactly the
 # 48 KB a block gets without opting in (csrc/sw_global_rows.cu head note)
 ROWS_RB = 128
@@ -138,10 +144,10 @@ def _plain_feed(xb, yb, subst):
     return feed
 
 
-def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
-    """None when the column state fits a block's shared memory, else a
-    device buffer for it."""
-    if n_layers * (M + 1) * _PAIRS * 4 <= _SMEM_MAX:
+def _scratch(n_layers: int, B: int, M: int, dev, pairs: int = _PAIRS) -> torch.Tensor | None:
+    """None when the column state of ``pairs`` pairs fits a block's shared
+    memory, else a device buffer for it."""
+    if n_layers * (M + 1) * pairs * 4 <= _SMEM_MAX:
         return None
     return torch.empty((n_layers, M + 1, B), dtype=torch.int32, device=dev)
 
@@ -340,6 +346,29 @@ def scan_local_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback=Tr
     return _scan_clip(SCAN_LOCAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, (0, 0, 0, 0), traceback)
 
 
+def scan_columns(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score,
+                 xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
+    """K15: the clip-mode column scan (sw_pallas.py ``scan_columns_pallas_mp``,
+    batched.py ``_column_body``) for any clips: semiglobal is clips (MIN,
+    MIN, 0, 0), local (0, 0, 0, 0), custom the scoring's. Outputs as
+    ``scan_custom``'s, with 12-bit cells: ``tb`` (N+1, M+1, B) uint16 holds
+    ``i | d << 4 | s << 8`` and no run nibble, ``tbk`` likewise; ``lx``
+    (N+1, B) int32 is each column's x-suffix clip length in full (the
+    Pallas kernel packs it in tb nibbles, which caps M below 4096)."""
+    clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
+    return _scan_clip(
+        SCAN_COLUMNS, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), clips, traceback
+    )
+
+
+def scan_columns_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
+                     xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
+    """K15-LUT: K15 with the substitution score ``lut[x, y]`` (in place of
+    the XLA engine batched.py ``_align_batch_device``); same outputs."""
+    clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
+    return _scan_clip(SCAN_COLUMNS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, clips, traceback)
+
+
 def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
     go, ge = int(go), int(ge)
@@ -348,16 +377,17 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
         raise ValueError("gap_open and gap_extend must be <= 0")
     sub = _subst(subst, dev)
     local = kernel in (SCAN_LOCAL, SCAN_LOCAL_LUT)
+    runs = kernel not in (SCAN_COLUMNS, SCAN_COLUMNS_LUT)
     if dev.type == "cpu":
         feed = _plain_feed(xb, yb, subst)
-        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, local=local, traceback=traceback)
+        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, local, traceback, runs)
     tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
-        scratch = _scratch(5, B, M, dev)
+        scratch = _scratch(5, B, M, dev, pairs=1)  # the kernel fits 1-32 pairs a block
         kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
             B, M, go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),
@@ -703,7 +733,29 @@ def scan_local_lut_plain(subs2, mlens, nlens, go, ge, traceback=True):
     return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, 0, 0, 0, 0, True, traceback)
 
 
-def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local, traceback):
+def scan_columns_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, traceback=True):
+    """Plain version of K15 (sw_pallas.py ``_kernel_scan_full_mp``): K9's
+    column core without the run nibble."""
+    feed = _mp_feed(xb, yb, ma, mi)
+    return _scan_clip_core(
+        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback, False
+    )
+
+
+def scan_columns_lut_plain(xb, yb, mlens, nlens, go, ge, lut, xcp, xcs, ycp, ycs, traceback=True):
+    """Plain version of K15-LUT (batched.py ``_scan_columns_xla``): the same
+    core fed one gathered column at a time (``_plain_feed``; the (N, M, B)
+    stream of ``subs2_stream_plain`` would not fit at long x)."""
+    feed = _plain_feed(xb, yb, lut)
+    return _scan_clip_core(
+        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback, False
+    )
+
+
+def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local, traceback, runs=True):
+    """K9's column core (K7's with ``local``); ``runs`` False drops the run
+    nibble (K15). The final I of a lane with nlens = 0 is column 0's I0, as
+    the reference's column 0 holds it (rows >= 1)."""
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
@@ -758,7 +810,7 @@ def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local,
     S = torch.where(row0, 0, S0)
     SB = torch.where(row0, TB_START, sb0)
     D = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
-    I = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    I = I0.contiguous()  # column 1 overwrites it in every lane with nlens >= 1
     TBK = ib0 | (TB_START << 4) | (SB << 8)
     sn_live = in_x & (S + ycs > MIN_SCORE)
     SN = torch.where(row0, ycs, torch.where(sn_live, S + ycs, MIN_SCORE))
@@ -767,7 +819,7 @@ def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local,
     if traceback:
         tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev)
         lx = torch.empty((N + 1, B), dtype=i32, device=dev)
-        tb[0] = (TBK | _ins_run_nib(ib0, rows)).to(torch.uint16)
+        tb[0] = (TBK | _ins_run_nib(ib0, rows) if runs else TBK).to(torch.uint16)
         lx[0] = lx0
 
     d_clip = ycp + go
@@ -832,7 +884,8 @@ def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local,
 
         cell = i_bits | (d_bits << 4) | (s_bits << 8)
         if traceback:  # the run nibble, in tbk too (as in the Pallas kernel)
-            cell = cell | _ins_run_nib(i_bits, rows)
+            if runs:
+                cell = cell | _ins_run_nib(i_bits, rows)
             tb[j] = cell.to(torch.uint16)
             lx[j] = torch.where(active[0], lx_j, 0)
         S = torch.where(active, s_col, S)

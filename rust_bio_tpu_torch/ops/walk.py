@@ -5,7 +5,10 @@ K13, ``csrc/walk_global_seg.cu``), kernel K6 (semiglobal family,
 mode), CUDA source ``csrc/walk_custom.cu``. They replace
 ``rust_bio_tpu/ops/walk_pallas.py`` ``sweep_walk_global``,
 ``_sweep_walk_global_seg``, ``sweep_walk_semiglobal``, ``sweep_walk_custom``
-and ``sweep_walk_local``.
+and ``sweep_walk_local``. Kernel K15-walk (``walk_steps``, the per-step walk
+of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
+``rust_bio_tpu/alignment/pairwise/batched.py`` ``_walk``; its section at the
+end of this module says what it reads and writes.
 
 Input: the traceback tensor of K1 or K5 (``ops.sw``), ``tb`` (N, X, B) uint16
 with X = M + 1, and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
@@ -57,6 +60,7 @@ SWEEP_WALK_CUSTOM = CudaKernel(
 SWEEP_WALK_LOCAL = CudaKernel(
     "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT] + [PTR] * 4
 )
+WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [PTR] * 6)
 
 
 def sweep_walk_global(tb, mlens, nlens):
@@ -667,3 +671,100 @@ def _sweep_clip_plain(tb, lx, icur, jcur, carried, us1, dn1, xs0=None, ys0=None,
     if local:
         return outs[1].to(u16), outs[2].to(u16), xs & 0xFFFF, ys & 0xFFFF
     return tuple(o.to(u16) for o in outs)
+
+
+# ---------------------------------------------------------------------------
+# the per-step walk of K15 (K15-walk)
+# ---------------------------------------------------------------------------
+#
+# Input: K15's ``tb`` (N+1, X, B) uint16 of 12-bit cells (column 0 at index
+# 0) with the suffix-fixed column written at column nlens[b], its ``lx``
+# (N+1, B) int32 with the fixed column's clip length, and ``ly`` (B, X) int32,
+# K15's final Ly. Output, one entry a step of T = M + N + 8, end -> start:
+# ``op_codes`` (T, B) uint8, the TB_* layer of the step (0 once the lane is
+# done), ``op_lens`` (T, B) uint16, a clip step's length; and xstart,
+# ystart, xend, yend (B,) int32. Decode with ``batched._decode_ops``.
+
+
+def _check_steps(tb, lx, ly, mlens, nlens):
+    dev = same_device(tb, lx, ly, mlens, nlens)
+    if tb.dim() != 3:
+        raise ValueError(f"tb: expected (N+1, X, B), got shape {tuple(tb.shape)}")
+    Nc, X, B = tb.shape
+    check(tb, "tb", torch.uint16, (Nc, X, B))
+    check(lx, "lx", torch.int32, (Nc, B))
+    check(ly, "ly", torch.int32, (B, X))
+    check(mlens, "mlens", torch.int32, (B,))
+    check(nlens, "nlens", torch.int32, (B,))
+    check_lengths(mlens, "mlens", X - 1)
+    check_lengths(nlens, "nlens", Nc - 1)
+    return dev
+
+
+def walk_steps(tb, lx, ly, mlens, nlens):
+    """K15-walk. Returns (op_codes (T, B) uint8, op_lens (T, B) uint16,
+    xstart, ystart, xend, yend (B,) int32)."""
+    if _check_steps(tb, lx, ly, mlens, nlens).type == "cpu":
+        return walk_steps_plain(tb, lx, ly, mlens, nlens)
+    Nc, X, B = tb.shape
+    T = (X - 1) + (Nc - 1) + 8
+    dev = tb.device
+    op_codes = torch.zeros((T, B), dtype=torch.uint8, device=dev)
+    op_lens = torch.zeros((T, B), dtype=torch.uint16, device=dev)
+    coords = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)]
+    if B:
+        WALK_STEPS.launch(
+            dev, tb.data_ptr(), lx.data_ptr(), ly.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, X - 1, Nc - 1, T, op_codes.data_ptr(), op_lens.data_ptr(), *(c.data_ptr() for c in coords),
+        )
+    return (op_codes, op_lens, *coords)
+
+
+def walk_steps_plain(tb, lx, ly, mlens, nlens):
+    """Plain version of K15-walk (batched.py ``_walk``, three-gather form):
+    pairs vectorized, steps in a Python loop with a gather each for the
+    cell, lx and Ly, until every lane is done."""
+    Nc, X, B = tb.shape
+    T = (X - 1) + (Nc - 1) + 8
+    dev = tb.device
+    i32 = torch.int32
+    flat = tb.reshape(-1).view(torch.int16)  # no uint16 indexing on CUDA
+    bidx = torch.arange(B, device=dev)
+    i, j = mlens.clone(), nlens.clone()
+    carried = torch.full((B,), TB_START, dtype=i32, device=dev)
+    use_s = torch.ones(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    xstart, ystart, xend, yend = torch.zeros_like(i), torch.zeros_like(i), mlens.clone(), nlens.clone()
+    op_codes = torch.zeros((T, B), dtype=i32, device=dev)
+    op_lens = torch.zeros((T, B), dtype=i32, device=dev)
+    for t in range(T):
+        if t % 32 == 0 and bool(done.all()):
+            break
+        ic, jc = i.clamp(0, X - 1).long(), j.clamp(0, Nc - 1).long()
+        cell = flat[(jc * X + ic) * B + bidx].to(i32) & 0xFFFF
+        lxj = lx[jc, bidx]
+        lyi = ly[bidx, ic]
+        layer = torch.where(use_s, (cell >> 8) & 0xF, carried)
+        done = done | (layer == TB_START)
+        live = ~done
+        is_ins = layer == TB_INS
+        is_del = layer == TB_DEL
+        is_mm = (layer == TB_MATCH) | (layer == TB_SUBST)
+        is_xp = live & (layer == TB_XCLIP_PREFIX)
+        is_xs = live & (layer == TB_XCLIP_SUFFIX)
+        is_yp = live & (layer == TB_YCLIP_PREFIX)
+        is_ys = live & (layer == TB_YCLIP_SUFFIX)
+        op_codes[t] = torch.where(live, layer, 0)
+        op_lens[t] = torch.where(is_xp, i, 0) + torch.where(is_xs, lxj, 0) + torch.where(is_yp, j, 0) + torch.where(
+            is_ys, lyi, 0
+        )
+        ni = torch.where(is_xp, 0, i - (live & (is_ins | is_mm)).to(i32) - torch.where(is_xs, lxj, 0))
+        nj = torch.where(is_yp, 0, j - (live & (is_del | is_mm)).to(i32) - torch.where(is_ys, lyi, 0))
+        xstart = torch.where(is_xp, i, xstart)
+        xend = torch.where(is_xs, ni, xend)
+        ystart = torch.where(is_yp, j, ystart)
+        yend = torch.where(is_ys, nj, yend)
+        carried = torch.where(is_ins, cell & 0xF, (cell >> 4) & 0xF)
+        use_s = ~(is_ins | is_del)
+        i, j = ni, nj
+    return op_codes.to(torch.uint8), op_lens.to(torch.uint16), xstart, ystart, xend, yend

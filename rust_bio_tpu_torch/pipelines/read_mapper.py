@@ -7,8 +7,11 @@ extension (port of ``rust_bio_tpu.pipelines.read_mapper.ReadMapper``).
    windows of ``seed_len`` spread over each oriented read, backward search
    on kernel K4), then the locate LF-walk of the first complete seed.
 3. Extension: the oriented read against the reference window around its
-   seed hit (``flank`` bases either side), through the semiglobal path
-   (kernels K5 and K6), giving scores and reference-exact CIGARs.
+   seed hit (``flank`` bases either side), through the packed semiglobal
+   path (kernels K5 and K6), giving scores and reference-exact CIGARs; a
+   batch padded to M + 1 >= ``batched.T_COLUMNS`` (reads of 4,095 bases or
+   more) goes through ``BatchAligner.semiglobal`` (K15 and K15-walk)
+   instead, as the JAX mapper's fallback does.
 
 Reads without an exact seed on either strand are reported with
 ``pos == -1``. Results equal the JAX mapper's read for read.
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from rust_bio_tpu_torch._device import resolve_device
+from rust_bio_tpu_torch.alignment.pairwise import batched
 from rust_bio_tpu_torch.alignment.pairwise.batched import BatchAligner
 from rust_bio_tpu_torch.alignment.pairwise.scoring import Scoring
 from rust_bio_tpu_torch.alignment.types import Alignment
@@ -48,6 +52,12 @@ class MappedRead:
         if callable(self._aln):
             self._aln = self._aln()
         return self._aln
+
+
+def _long_reads(M: int) -> bool:
+    """Whether an extension batch padded to M takes ``semiglobal`` (read at
+    call time: tests move ``batched.T_COLUMNS``)."""
+    return M + 1 >= batched.T_COLUMNS
 
 
 def _host(a) -> np.ndarray:
@@ -190,15 +200,19 @@ class ReadMapper:
     def _extend_dispatch(self, seqs, rcs, picks):
         """Start the extension of ``picks`` (read index -> (strand, window
         start, window end)) from the reads as byte strings. Returns
-        ``(metas, handle)`` for ``_extend_finish``."""
+        ``(metas, handle, pairs)`` for ``_extend_finish``: the packed
+        handle, or for a long batch the (xs, ys) that ``semiglobal``
+        aligns there."""
         xs, ys, metas = [], [], []
         for i, (strand, win_start, win_end) in sorted(picks.items()):
             xs.append(seqs[i] if strand == "+" else rcs[i])
             ys.append(self.genome[win_start:win_end])
             metas.append((i, strand, win_start))
         if not xs:
-            return metas, None
-        return metas, self.aligner.semiglobal_packed_async(xs, ys)
+            return metas, None, None
+        if _long_reads(max(map(len, xs))):
+            return metas, None, (xs, ys)
+        return metas, self.aligner.semiglobal_packed_async(xs, ys), None
 
     def _extend_dispatch_packed(self, pb, plens, rc_pb, picks):
         """``_extend_dispatch`` from the padded read batch ``pb`` (B, L) and
@@ -206,7 +220,7 @@ class ReadMapper:
         fancy indexing over the reads and the genome array."""
         items = sorted(picks.items())
         if not items:
-            return [], None
+            return [], None, None
         rows = np.array([i for i, _ in items], np.int64)
         neg = np.array([p[0] == "-" for _, p in items])
         ws = np.array([p[1] for _, p in items], np.int64)
@@ -219,11 +233,23 @@ class ReadMapper:
         g = self._genome_np
         win = g[np.minimum(ws[:, None] + np.arange(W)[None, :], len(g) - 1)]
         yb = np.where(np.arange(W)[None, :] < nlens[:, None], win, 0).astype(np.uint8)
-        return metas, self.aligner.semiglobal_packed_async_arrays(xb, yb, mlens, nlens)
+        if _long_reads(xb.shape[1]):
+            xs = [bytes(xb[r, : mlens[r]]) for r in range(len(rows))]
+            ys = [bytes(yb[r, : nlens[r]]) for r in range(len(rows))]
+            return metas, None, (xs, ys)
+        return metas, self.aligner.semiglobal_packed_async_arrays(xb, yb, mlens, nlens), None
 
-    def _extend_finish(self, out, ids, metas, handle) -> None:
-        """Pull the packed extension and put its ``MappedRead``s into
-        ``out`` at the read indices of ``metas``."""
+    def _extend_finish(self, out, ids, metas, handle, pairs) -> None:
+        """Pull the packed extension, or align the long batch's ``pairs``
+        with ``semiglobal``, and put the ``MappedRead``s into ``out`` at the
+        read indices of ``metas``."""
+        if pairs is not None:
+            for (i, strand, win_start), aln in zip(metas, self.aligner.semiglobal(*pairs)):
+                out[i] = MappedRead(
+                    read_id=ids[i], pos=win_start + aln.ystart, strand=strand,
+                    score=aln.score, cigar=aln.cigar(), _aln=aln,
+                )
+            return
         if handle is None:
             return
         packed = self.aligner.semiglobal_packed_finish(handle)

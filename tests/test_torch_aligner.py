@@ -105,16 +105,20 @@ def test_pack_unpack_roundtrip():
     assert [o.kind for o in ops] == ["Ins", "Match", "Subst", "Ins", "Ins", "Del"]
 
 
-def test_unported_paths_raise():
+def test_paths_at_4096_rows_match_the_oracle():
+    """At M + 1 = 4096 semiglobal, local and custom mode (K15 and K15-walk)
+    and ``scores(..., "local")`` equal the scalar oracle; ``semiglobal_packed``
+    raises, its layout holding 12-bit Ins counts."""
     ba = BatchAligner(Scoring.from_scores(-5, -1, 2, -2), device="cpu")
-    for mode in (ba.semiglobal, ba.semiglobal_packed, ba.local, ba.custom):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 15"):
-            mode([b"A" * 4095], [b"A"])
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2 item 15"):
-        ba.scores([b"A" * 4095], [b"A"], "local")
-    # global mode at M + 1 = 4096 is ported (K13 + K14, the wide pack)
     oracle = JaxScalarAligner.with_scoring(JaxScoring.from_scores(-5, -1, 2, -2))
-    assert _fields(ba.global_([b"A" * 4095], [b"A"])[0]) == _fields(oracle.global_(b"A" * 4095, b"A"))
+    x, y = b"A" * 4095, b"A"
+    for mode in ("semiglobal", "local", "custom"):
+        assert _fields(getattr(ba, mode)([x], [y])[0]) == _fields(getattr(oracle, mode)(x, y)), mode
+    assert ba.scores([x], [y], "local").tolist() == [oracle.local(x, y).score]
+    with pytest.raises(ValueError, match="12 bits"):
+        ba.semiglobal_packed([x], [y])
+    # global mode at M + 1 = 4096 is ported (K13 + K14, the wide pack)
+    assert _fields(ba.global_([x], [y])[0]) == _fields(oracle.global_(x, y))
     # LUT scorings (a callable here) are ported: the calls that raised
     # before return what the JAX package returns
     fn = lambda a, b: 1 if a == b else -1  # noqa: E731

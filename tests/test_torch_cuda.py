@@ -280,13 +280,15 @@ def test_clip_scans_and_walks_match_plain(cuda_device):
 
 
 def test_custom_scan_with_device_scratch_matches_plain(cuda_device):
-    """M = 400: the five column layers leave shared memory."""
+    """M = 400 (29 pairs' five column layers in a block's shared memory) and
+    M = 11,700 (not one pair's: the device scratch)."""
     rng = np.random.default_rng(32)
-    args, mlens, nlens = _pairs(rng, 40, 400, 30, cuda_device)
-    for clips in ((0, 0, 0, 0), (-3, -7, -2, -5)):
-        got = _clip_scan(args, -5, -1, clips)
-        torch.cuda.synchronize()
-        _clip_scans_match(got, _clip_scan(args, -5, -1, clips, plain=True), mlens, nlens)
+    for M in (400, 11_700):
+        args, mlens, nlens = _pairs(rng, 40, M, 30, cuda_device)
+        for clips in ((0, 0, 0, 0), (-3, -7, -2, -5)):
+            got = _clip_scan(args, -5, -1, clips)
+            torch.cuda.synchronize()
+            _clip_scans_match(got, _clip_scan(args, -5, -1, clips, plain=True), mlens, nlens)
 
 
 def test_local_and_custom_aligners_on_card_match_cpu(cuda_device):
@@ -393,8 +395,8 @@ def test_lut_kernels_equal_matchparams_kernels(cuda_device):
 
 
 def test_lut_semiglobal_and_local_scans_with_device_scratch_match_plain(cuda_device):
-    """M = 400: the five column layers of K12 and of K7/K9 fed by the LUT
-    leave shared memory for the device scratch."""
+    """M = 400: the five column layers of K12 leave shared memory for the
+    device scratch; K7 fed by the LUT keeps 29 pairs' layers there."""
     args, mlens, nlens = _protein_pairs(np.random.default_rng(44), 40, 400, 30, cuda_device)
     lut = _lut("pam250", cuda_device)
     subs2 = sw.subs2_stream_plain(args[0], args[1], lut)
@@ -501,3 +503,110 @@ def test_long_aligner_on_card_matches_cpu(cuda_device):
         assert len(got[-1].operations) == 4200
         np.testing.assert_array_equal(on_card.scores(xs, ys), on_cpu.scores(xs, ys))
         assert on_card.global_packed(xs, ys).cigars() == on_cpu.global_packed(xs, ys).cigars()
+
+
+# ---- the final I of nlens = 0 lanes (K7, K9) ----
+
+
+def test_clip_scans_seed_final_i_of_empty_y_lanes(cuda_device):
+    """K9 and K7 on lanes with nlens = 0 against their plain versions: the
+    final I is column 0's I0; and the smallest input that showed it, held to
+    the scalar oracle's [Xclip(1), Ins], xstart 1."""
+    rng = np.random.default_rng(33)
+    args, mlens, nlens = _pairs(rng, 64, 150, 166, cuda_device)
+    args[3][::3] = 0
+    nlens[::3] = 0
+    for go, ge, clips in ((-5, -1, (0, 0, 0, 0)), (0, 0, (0, 0, 0, 0)), (-4, -2, (-7, -1, 0, MIN)), (-2, -1, (MIN, -7, -1, 0))):
+        got = _clip_scan(args, go, ge, clips)
+        torch.cuda.synchronize()
+        _clip_scans_match(got, _clip_scan(args, go, ge, clips, plain=True), mlens, nlens)
+        i_f = got[3].cpu()
+        assert (i_f[torch.from_numpy((nlens == 0) & (mlens >= 1)), 1] == go).all()
+    sc = Scoring.from_scores(0, 0, 2, -5).xclip_prefix_(0)
+    got = BatchAligner(sc, device=cuda_device).custom([b"AA", b"ACG"], [b"", b"AC"])[0]
+    assert (got.score, got.xstart, [str(op) for op in got.operations]) == (0, 1, ["Xclip(1)", "Ins"])
+
+
+# ---- long x in the clip modes: K15, K15-LUT, K15-walk ----
+
+
+def _columns_scan(args, go, ge, clips, lut=None, plain=False, traceback=True):
+    if lut is None:
+        fn = sw.scan_columns_plain if plain else sw.scan_columns
+        return fn(*args, go, ge, 2, -2, *clips, traceback=traceback)
+    fn = sw.scan_columns_lut_plain if plain else sw.scan_columns_lut
+    return fn(*args, go, ge, lut, *clips, traceback=traceback)
+
+
+@pytest.mark.parametrize("M,N", [(150, 166), (500, 60)])
+def test_columns_scans_match_plain(cuda_device, M, N):
+    """K15 and K15-LUT (BLOSUM62) with traceback and score-only against
+    their plain versions, with shared-memory (M = 150) and device-scratch
+    (M = 500) column state; K15 equals K9 without the run nibble."""
+    rng = np.random.default_rng(34 + M)
+    lut = _lut("blosum62", cuda_device)
+    for go, ge, clips in ((-5, -1, (MIN, MIN, 0, 0)), (-5, -1, (0, 0, 0, 0)), (-6, -1, (-5, -5, 0, 0)), (-3, -3, (-1, MIN, -7, 0))):
+        args, mlens, nlens = _protein_pairs(rng, 40, M, N, cuda_device, alphabet=b"ACGT")
+        for table in (lut, None):
+            got = _columns_scan(args, go, ge, clips, table)
+            torch.cuda.synchronize()
+            _clip_scans_match(got, _columns_scan(args, go, ge, clips, table, plain=True), mlens, nlens)
+            only = _columns_scan(args, go, ge, clips, table, traceback=False)
+            assert only[0] is None and only[1] is None
+            for g, w in zip(only[2:], got[2:]):
+                assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+        k9 = sw.scan_custom(*args, go, ge, 2, -2, *clips)  # got: K15's, the last table
+        assert torch.equal(_masked(got[0], mlens, nlens + 1), _masked(k9[0].to(torch.int32) & 0xFFF, mlens, nlens + 1))
+
+
+def _walk_inputs(args, scan, go, ge, clips):
+    """K15-walk's inputs from a K15 scan: the fixed column and its clip
+    length written into its tb and lx (``BatchAligner._columns_device``)."""
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _columns_fixups
+
+    _columns_fixups(scan, args[2], args[3], (go, ge, *clips))
+    return scan[0], scan[1], scan[5], args[2], args[3]
+
+
+def test_walk_steps_matches_plain(cuda_device):
+    """K15-walk against its plain version on the plain K15 path's tensors,
+    in every clip mode, lanes with empty x or y included."""
+    rng = np.random.default_rng(35)
+    for go, ge, clips in ((-5, -1, (MIN, MIN, 0, 0)), (-5, -1, (0, 0, 0, 0)), (-6, -1, (-5, -5, 0, 0)), (-2, -2, (-7, -1, -1, -7))):
+        args, mlens, nlens = _pairs(rng, 96, 300, 200, cuda_device)
+        inputs = _walk_inputs(args, _columns_scan(args, go, ge, clips, plain=True), go, ge, clips)
+        got = walk.walk_steps(*inputs)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.uint8 and got[1].dtype == torch.uint16 and got[0].shape == (300 + 200 + 8, 96)
+        for g, w in zip(got, walk.walk_steps_plain(*inputs)):
+            assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+def test_long_clip_aligner_on_card_matches_cpu(cuda_device):
+    """``semiglobal``, ``local``, ``custom`` and ``scores`` in those modes at
+    M = 4,100-4,300 on the card (K15, K15-walk) and on the CPU, under
+    MatchParams with BWA-MEM's clips and under BLOSUM62; an empty y and a
+    4,199-base insertion included."""
+    from rust_bio_tpu_torch.scores import blosum62
+
+    rng = np.random.default_rng(55)
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    for sc, alphabet in (
+        (Scoring.from_scores(-6, -1, 1, -4).xclip(-5).yclip(0), b"ACGT"),
+        (Scoring.new(-11, -1, blosum62).xclip(-10), b"ARNDCQEGHILKMFPSTWYV"),
+    ):
+        syms = np.frombuffer(alphabet, np.uint8)
+        xs = [syms[rng.integers(0, len(syms), size=int(rng.integers(4100, 4301)))].tobytes() for _ in range(5)]
+        ys = [xs[0][200:240], xs[1][1000:1030] + b"A" * 5, b""]
+        ys += [syms[rng.integers(0, len(syms), size=int(rng.integers(1, 41)))].tobytes() for _ in range(2)]
+        xs.append(b"A" + b"C" * 4199)
+        ys.append(b"A")
+        on_card = BatchAligner(sc, device=cuda_device)
+        on_cpu = BatchAligner(sc, device="cpu")
+        for mode in ("semiglobal", "local", "custom"):
+            before = (sw.SCAN_COLUMNS.launches + sw.SCAN_COLUMNS_LUT.launches, walk.WALK_STEPS.launches)
+            got = getattr(on_card, mode)(xs, ys)
+            after = (sw.SCAN_COLUMNS.launches + sw.SCAN_COLUMNS_LUT.launches, walk.WALK_STEPS.launches)
+            assert after == (before[0] + 1, before[1] + 1), mode
+            assert [key(a) for a in got] == [key(a) for a in getattr(on_cpu, mode)(xs, ys)], mode
+            np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))

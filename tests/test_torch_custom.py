@@ -44,6 +44,7 @@ from rust_bio_tpu_torch.alignment.pairwise.batched import (
 )
 from rust_bio_tpu_torch.alignment.pairwise.scoring import MIN_SCORE, MatchParams
 from rust_bio_tpu_torch.alignment.pairwise.tb import TB_INS, TB_XCLIP_SUFFIX
+from rust_bio_tpu_torch.alignment.types import Ins, Xclip
 from rust_bio_tpu_torch.ops.sw import scan_custom, scan_local
 from rust_bio_tpu_torch.ops.walk import (
     resolve_fixed_column_custom,
@@ -151,27 +152,43 @@ def _port_scan(case):
     return scan_custom(*_torch(xb, yb, mlens, nlens), go, ge, MA, MI, *clips)
 
 
-def _assert_scans_equal(got, want, mlens, nlens, what):
+def column0_i(go, ge, xcp, X):
+    """Column 0's insertion scores I(i, 0), as the scalar oracle's init column
+    holds them: MIN_SCORE at row 0, gap_open at row 1, below it the better of
+    the gap and the x-prefix clip. (X,) int32."""
+    rows = np.arange(X, dtype=np.int64)
+    i0 = np.maximum(go + ge * (rows - 1), xcp + go)
+    i0[: min(X, 2)] = [MIN, go][: min(X, 2)]
+    return i0.astype(np.int32)
+
+
+def _assert_scans_equal(got, want, mlens, nlens, what, i0=None):
     """tb columns 0..nlens and rows 0..mlens, lx columns 0..nlens, the finals
-    rows 0..mlens: the region a kernel defines."""
+    rows 0..mlens: the region a kernel defines. With ``i0`` (column 0's I)
+    the final I of a lane with nlens = 0 is held to it: the port follows the
+    oracle there, where the Pallas kernels leave MIN_SCORE."""
     tb, lx, *finals = (t.to(torch.int32).numpy() if isinstance(t, torch.Tensor) else np.asarray(t) for t in got)
     for b in range(B):
         m, n = mlens[b], nlens[b]
         np.testing.assert_array_equal(tb[: n + 1, : m + 1, b], want[0][: n + 1, : m + 1, b], err_msg=f"{what} tb lane {b}")
         np.testing.assert_array_equal(lx[: n + 1, b], want[1][: n + 1, b], err_msg=f"{what} lx lane {b}")
         for k, (g, w) in enumerate(zip(finals, want[2:])):
-            np.testing.assert_array_equal(g[b, : m + 1], w[b, : m + 1], err_msg=f"{what} final {k} lane {b}")
+            w = i0 if k == 1 and n == 0 and i0 is not None else w[b]
+            np.testing.assert_array_equal(g[b, : m + 1], w[: m + 1], err_msg=f"{what} final {k} lane {b}")
 
 
 @pytest.mark.parametrize("case", STAGE_CASES, ids=_case_id)
 def test_scan_matches_jax(case):
-    """K9 (K7 at clips 0) against the Pallas custom (local) scan."""
+    """K9 (K7 at clips 0) against the Pallas custom (local) scan; the final I
+    of the nlens = 0 lanes against column 0's I."""
     jx = _jax_stages(case)
     got = _port_scan(case)
+    go, ge, clips = case
     _, _, mlens, nlens = jx["inputs"]
     assert got[0].shape == (N + 1, M + 1, B) and got[0].dtype == torch.uint16
     assert got[1].shape == (N + 1, B) and got[1].dtype == torch.int32
-    _assert_scans_equal(got, jx["scan"], mlens, nlens, _case_id(case))
+    assert (nlens == 0).any()
+    _assert_scans_equal(got, jx["scan"], mlens, nlens, _case_id(case), i0=column0_i(go, ge, clips[0], M + 1))
 
 
 @pytest.mark.parametrize("go,ge", [(-5, -1), (-2, -2), (-1, 0), (0, 0)])
@@ -477,3 +494,32 @@ def test_zero_gap_penalties_match_the_reference():
         got = getattr(port, mode)(xs, ys)
         assert [_fields(a) for a in got] == [_fields(getattr(oracle, mode)(x, y)) for x, y in zip(xs, ys)], mode
         np.testing.assert_array_equal(port.scores(xs, ys, mode), jax_ba.scores(xs, ys, mode))
+
+
+def test_empty_y_lane_follows_the_oracle():
+    """The smallest input of the nlens = 0 fault (ROADMAP Queue 3): with a
+    free x-prefix clip and go = ge = 0, column 0's final I must be I0, or
+    the suffix fixups rewrite its i-bits and the walk takes [Ins, Ins]."""
+    sc = _port_scoring(0, 0, 2, -5, (MIN, MIN, MIN, MIN)).xclip_prefix_(0)
+    got = BatchAligner(sc, device="cpu").custom([b"AA", b"ACG"], [b"", b"AC"])
+    oracle = JaxScalarAligner.with_scoring(_jax_scoring(0, 0, 2, -5, (MIN, MIN, MIN, MIN)).xclip_prefix_(0))
+    assert (got[0].score, got[0].xstart, got[0].operations) == (0, 1, [Xclip(1), Ins])
+    assert [_fields(a) for a in got] == [_fields(oracle.custom(x, y)) for x, y in ((b"AA", b""), (b"ACG", b"AC"))]
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_empty_y_lanes_under_random_clips_follow_the_oracle(seed):
+    """Lanes with nlens = 0 beside nonempty ones, clips drawn from
+    {MIN_SCORE, 0, -1, -7}: ``local``, ``custom`` and ``scores`` equal the
+    scalar oracle in every field."""
+    rng = np.random.default_rng(90 + seed)
+    go = int(rng.integers(-6, 1))
+    case = (go, int(rng.integers(go, 1)), MA, MI, tuple(int(c) for c in rng.choice([MIN, 0, -1, -7], size=4)))
+    xs = [rng.choice(list(b"ACGT"), size=int(rng.integers(0, 13))).astype(np.uint8).tobytes() for _ in range(8)]
+    ys = [b"" if k % 2 == 0 else rng.choice(list(b"ACGT"), size=int(rng.integers(1, 9))).astype(np.uint8).tobytes() for k in range(8)]
+    port = BatchAligner(_port_scoring(*case), device="cpu")
+    oracle = JaxScalarAligner.with_scoring(_jax_scoring(*case))
+    for mode in ("local", "custom"):
+        want = [getattr(oracle, mode)(x, y) for x, y in zip(xs, ys)]
+        assert [_fields(a) for a in getattr(port, mode)(xs, ys)] == [_fields(a) for a in want], (mode, case)
+        np.testing.assert_array_equal(port.scores(xs, ys, mode), [a.score for a in want])

@@ -1,7 +1,8 @@
 """The port's ``ReadMapper`` (``device="cpu"``: the kernels' plain PyTorch
 versions) against the JAX package's ``ReadMapper`` on the 5,000 bp genome
 of ``tests/test_read_mapper.py``: every field of every ``MappedRead``,
-including the decoded ``Alignment``, must be equal. Also the port's own
+including the decoded ``Alignment``, must be equal, through the packed
+extension and through ``semiglobal`` (long reads). Also the port's own
 copies of the DNA and alignment-type helpers the mapper uses."""
 
 import re
@@ -13,8 +14,11 @@ from rust_bio_tpu.alignment.types import Alignment as JaxAlignment
 from rust_bio_tpu.alignment.types import AlignmentMode as JaxAlignmentMode
 from rust_bio_tpu.alignment.types import Ins as JaxIns
 from rust_bio_tpu.alignment.types import Yclip as JaxYclip
+from rust_bio_tpu.alignment.pairwise.batched import BatchAligner as JaxBatchAligner
+from rust_bio_tpu.alignment.pairwise.scoring import Scoring as JaxScoring
 from rust_bio_tpu.alphabets import dna as jax_dna
 from rust_bio_tpu.pipelines import ReadMapper as JaxReadMapper
+from rust_bio_tpu_torch.alignment.pairwise import batched
 from rust_bio_tpu_torch.alignment.types import Alignment, AlignmentMode, Del, Ins, Match, Subst, Xclip, Yclip
 from rust_bio_tpu_torch.alphabets import dna
 from rust_bio_tpu_torch.pipelines import MappedRead, ReadMapper
@@ -189,3 +193,53 @@ def test_alignment_cigar_and_clip_ops_match_jax():
     assert port.operations == ref.operations == ops[1:-1]
     with pytest.raises(ValueError):
         Alignment(score=0, mode=AlignmentMode.Global).cigar()
+
+
+def _reads_150(genome):
+    """150 bp reads: forward, reverse-complemented, with a substitution past
+    the first seed window, plus a random read."""
+    rng = np.random.default_rng(17)
+    reads = []
+    for k, s in enumerate(rng.integers(0, len(genome) - 150, size=9)):
+        r = bytearray(genome[s : s + 150])
+        if k % 3 == 1:
+            _mutate(r, 40)
+        reads.append(dna.revcomp(bytes(r)) if k % 3 == 2 else bytes(r))
+    return reads + [rng.choice(list(b"ACGT"), size=150).astype("uint8").tobytes()]
+
+
+def test_long_route_matches_jax(monkeypatch, genome, mappers):
+    """``T_COLUMNS`` forced to 64: the port's mapper extends 150 bp reads
+    through ``semiglobal`` (K15, K15-walk), from the padded batch and from
+    byte strings, and equals the JAX mapper read for read."""
+    port, jax_mapper = mappers
+    reads = _reads_150(genome)
+    want = [_fields(m) for m in jax_mapper.map_batch(reads)]
+    seqs = [genome[1000:1150], dna.revcomp(genome[2000:2150])]
+    picks = {0: ("+", 992, 1158), 1: ("-", 1992, 2158)}
+    by_bytes = [_fields(m) for m in port._extend(seqs, [dna.revcomp(s) for s in seqs], ["a", "b"], picks)]
+    calls = []
+    semiglobal = port.aligner.semiglobal
+    monkeypatch.setattr(batched, "T_COLUMNS", 64)
+    monkeypatch.setattr(port.aligner, "semiglobal", lambda xs, ys: calls.append(len(xs)) or semiglobal(xs, ys))
+    assert [_fields(m) for m in port.map_batch(reads)] == want
+    assert [_fields(m) for m in port._extend(seqs, [dna.revcomp(s) for s in seqs], ["a", "b"], picks)] == by_bytes
+    assert calls == [sum(w[1] >= 0 for w in want), 2]
+
+
+def test_long_read_maps_as_jax_semiglobal_on_its_window():
+    """A 4,100 bp read (substitutions outside its first seed window) of a
+    6,000 bp genome maps through ``semiglobal`` at its own length, equal to
+    the JAX ``BatchAligner.semiglobal`` on the window the mapper picks."""
+    rng = np.random.default_rng(77)
+    genome = rng.choice(list(b"ACGT"), size=6000).astype("uint8").tobytes()
+    start = 1234
+    read = bytearray(genome[start : start + 4100])
+    for pos in rng.integers(100, 4000, size=40):
+        _mutate(read, int(pos))
+    got = ReadMapper(genome, device="cpu").map_batch([bytes(read)])[0]
+    ws, we = start - 8, start + 4100 + 8  # the seed at offset 0, flank 8
+    want = JaxBatchAligner(JaxScoring.from_scores(-5, -1, 2, -2)).semiglobal([bytes(read)], [genome[ws:we]])[0]
+    assert (got.pos, got.strand, got.score, got.cigar) == (ws + want.ystart, "+", want.score, want.cigar())
+    assert _aln_fields(got.alignment) == _aln_fields(want)
+    assert got.score > 0 and "X" in got.cigar
