@@ -5,7 +5,9 @@ NVIDIA GPU.
     python3 chip_smoke.py [--seed S]
 
 1. Builds the CUDA kernels from ``rust_bio_tpu_torch/ops/csrc`` with nvcc
-   (``sm_90a``) and prints the card's name and power limit.
+   (``sm_90a``) and, beside them, the host band builder
+   (``rust_bio_tpu_torch/csrc/band_build.cpp``) with the host compiler, and
+   prints the card's name and power limit.
 2. Drives the global path through its entry points with every launch
    counter at 0: ``BatchAligner.global_`` and ``.scores(..., "global")``
    on 8192 random 150 bp pairs and on 8192 pairs at 2% divergence, then a
@@ -70,11 +72,29 @@ NVIDIA GPU.
    agree with ``scores``; every semiglobal alignment consume all of x; the
    local and custom alignments cover 90% of the core; 4 pairs of each
    corpus equal the CPU path.
+3f. Drives the banded aligner (``BatchBandedAligner``, k = w = 8: the
+   host band build, K16 and K16-walk) with the counters at 0 again, in the
+   JAX package's bench geometries (bench.py:1138-1238): three batches of
+   2048 150 bp reads, each cut from its own random 20 kb target with 4
+   random substitutions, through ``semiglobal_async`` / ``semiglobal_finish``
+   on a one-thread executor and once through ``semiglobal``; 256 1 kb reads
+   at 20 substitutions in 20 kb targets through ``semiglobal``; phase 3d's
+   128 STR pairs through ``global_`` (a dense tb of about 8 GB); ``local``
+   on the first 512 reads; ``custom`` on phase 3b's 8192 clipped reads
+   under its BWA-MEM clips. Every alignment must re-score to its score (clip
+   ops at their penalties), every semiglobal and global one consume all of
+   x, every global one all of y; on 16 pairs of each corpus (8 of the 1 kb
+   and the STR corpora) the card must equal the port's host oracle
+   ``banded.Aligner`` and ``BatchBandedAligner(device="cpu")``; the
+   pipelined batches must equal the synchronous call (each run after an
+   untimed warm-up call, as ``bench.py:1169`` warms its aligner).
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0) and times
    both with CUDA events; times K1 against K13 on 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
-   delivered, for DNA and for protein, short and long.
+   delivered, for DNA and for protein, short and long; the banded
+   aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
+   band build's seconds a batch and a cProfile of one batch of reads.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -90,6 +110,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -116,6 +137,13 @@ K9_OPS_PER_CELL = 49
 K13_OPS_PER_CELL = 26
 # csrc/sw_custom.cu K15: K9's cell without the run counter and nibble
 K15_OPS_PER_CELL = 45
+# csrc/sw_banded.cu K16 per band cell, counted from its band loop: the
+# match compare and score select (4), the Del extend/open and its bits (7,
+# the previous s-bits' shift and mask among them), the y-prefix clip (3),
+# S~ (3), the three chain opens (5), the Ins maximum (4), the i-bits
+# decision (6), four takes (12), the x-suffix running maximum (5), the
+# Sn/Ly update (3) and the cell packing (4); carries are register moves
+K16_OPS_PER_CELL = 56
 # the LUT-fed kernels (K11, K18, K12, K7/K9 and K13 fed by the LUT) do the
 # same operations, the LUT read in place of the match/mismatch select
 
@@ -149,6 +177,11 @@ T_ROWS_LENS = (1000, 2000)
 # long clip modes (3e): random flanks around phase 3d's sequences
 LONG_FLANK, LPROT_FLANK = (200, 400), (100, 200)
 SEMI_CLIPS = (-858_993_459, -858_993_459, 0, 0)  # MIN_SCORE: the x-clips off
+# the banded aligner (3f): bench.py:1138-1238's geometries, k = w = 8
+BAND_K = BAND_W = 8
+B_BAND, BAND_READ, BAND_TARGET, BAND_SUBS, BAND_BATCHES = 2048, 150, 20_000, 4, 3
+B_KB, KB_READ, KB_SUBS = 256, 1000, 20
+B_BAND_LOCAL, BAND_ORACLE, BAND_ORACLE_LONG = 512, 16, 8
 
 
 def fail(msg: str) -> None:
@@ -497,6 +530,36 @@ def rows_tb_err(torch, got, want, mlens, nlens, chunk: int = 256) -> int:
     return err
 
 
+def band_corpora(rng):
+    """Phase 3f's read corpora as (x bytes, y bytes) lists: ``BAND_BATCHES``
+    batches of 150 bp reads and one of 1 kb reads, each cut at a random
+    offset from its own random 20 kb target, with random bases written at
+    ``BAND_SUBS`` / ``KB_SUBS`` random positions (bench.py:1157-1167)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def batch(n_pairs, m, subs):
+        ys = acgt[rng.integers(0, 4, size=(n_pairs, BAND_TARGET))]
+        at = rng.integers(0, BAND_TARGET - m, size=n_pairs)
+        xs = ys[np.arange(n_pairs)[:, None], at[:, None] + np.arange(m)[None, :]]
+        pos = rng.integers(0, m, size=(n_pairs, subs))
+        xs[np.arange(n_pairs)[:, None], pos] = acgt[rng.integers(0, 4, size=(n_pairs, subs))]
+        return [r.tobytes() for r in xs], [r.tobytes() for r in ys]
+
+    reads = [batch(B_BAND, BAND_READ, BAND_SUBS) for _ in range(BAND_BATCHES)]
+    return reads, batch(B_KB, KB_READ, KB_SUBS)
+
+
+def band_cells(arrays) -> int:
+    """The band cells K16 computes for a batch's device arrays (rows
+    [max(1, start), min(end, m + 1)) of columns 1..nlens)."""
+    _, _, ml, nl, st, en, _ = arrays
+    Nc = st.shape[1] - 1
+    cols = np.arange(1, Nc + 1)[None, :] <= nl[:, None]
+    lo = np.maximum(st[:, 1:], 1)
+    hi = np.minimum(en[:, 1:], ml[:, None].astype(np.int64) + 1)
+    return int(np.where(cols, np.maximum(hi - lo, 0), 0).sum())
+
+
 def host_profile(torch, fn, top: int = 14) -> dict:
     """cProfile of one ``fn()`` ending in a synchronize: its host seconds
     and the functions with the most time of their own (profiling adds a
@@ -540,8 +603,13 @@ def main() -> int:
         fail(f"rust_bio_tpu_torch not importable next to this script: {e}")
     check(Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(ROOT), "package outside this checkout")
 
-    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch import native
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, BatchBandedAligner, Scoring, banded
+    from rust_bio_tpu_torch.alignment.pairwise import banded_device
     from rust_bio_tpu_torch.alignment.pairwise.batched import _columns_fixups, _fixed_column
+    from rust_bio_tpu_torch.alignment.pairwise.tb import (
+        TB_DEL, TB_MATCH, TB_SUBST, TB_XCLIP_SUFFIX, TB_YCLIP_PREFIX, TB_YCLIP_SUFFIX,
+    )
     from rust_bio_tpu_torch.alphabets import dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
@@ -553,8 +621,13 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
 
     # ---- 1. build ------------------------------------------------------
+    # the host band builder compiles beside nvcc, so that phase 3f's timed
+    # calls do not include its first-use build
     t0 = time.perf_counter()
-    _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        host_lib = pool.submit(native.get_lib)
+        _build.build()
+        host_lib.result()
     print(json.dumps({"phase": "build", "seconds": time.perf_counter() - t0, "nvcc_flags": " ".join(_build.NVCC_FLAGS)}), flush=True)
     counters = {
         "sw_scan_global": sw.SCAN_GLOBAL,
@@ -578,6 +651,8 @@ def main() -> int:
         "sw_scan_columns": sw.SCAN_COLUMNS,
         "sw_scan_columns_lut": sw.SCAN_COLUMNS_LUT,
         "walk_steps": walk.WALK_STEPS,
+        "sw_scan_banded": sw.SCAN_BANDED,
+        "walk_banded": walk.WALK_BANDED,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -640,6 +715,7 @@ def main() -> int:
     long_sets = long_corpora(rng)
     # 3e's flanks from a stream of their own, so the draws above stay as they were
     clip_sets = long_clip_corpora(np.random.default_rng((args.seed, 3)), long_sets)
+    band_reads, kb_set = band_corpora(np.random.default_rng((args.seed, 4)))
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
@@ -961,6 +1037,104 @@ def main() -> int:
     launches = {name: launches[name] + clip_long_launches[name] for name in counters}
     clip_delivered_s = {name: run[2] for name, run in clip_runs.items()}
     del clip_runs, alns, want
+
+    # ---- 3f. the banded aligner, counted ---------------------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    band_build_s = []
+    real_build = native.band_build_batch
+
+    def timed_build(*a, **kw):
+        t0 = time.perf_counter()
+        out = real_build(*a, **kw)
+        band_build_s.append(time.perf_counter() - t0)
+        return out
+
+    bb = BatchBandedAligner(sc, BAND_K, BAND_W, device=dev)
+    bbc = BatchBandedAligner(csc, BAND_K, BAND_W, device=dev)
+
+    def band_pipeline():
+        """The read batches through bench.py:1176-1188's pipeline."""
+        with ThreadPoolExecutor(1) as pool:
+            fut = pool.submit(bb.semiglobal_async, *band_reads[0])
+            out = []
+            for nxt in range(1, BAND_BATCHES):
+                handle = fut.result()
+                fut = pool.submit(bb.semiglobal_async, *band_reads[nxt])
+                out.append(bb.semiglobal_finish(handle))
+            out.append(bb.semiglobal_finish(fut.result()))
+        return out
+
+    # untimed warm-up (bench.py:1169): the first pinned copies, launches and
+    # allocations stay out of the timed calls
+    bb.semiglobal(*band_reads[0])
+    native.band_build_batch = timed_build
+    t0 = time.perf_counter()
+    band_pipe = band_pipeline()
+    band_pipe_s = time.perf_counter() - t0
+    # each corpus: (aligner, mode, pairs, (go, ge, match, mismatch), the
+    # (x, y) clip penalties its ops re-score at, or None without clip ops)
+    band_sets = {
+        "reads": (bb, "semiglobal", band_reads[0], (GO, GE, MA, MI), None),
+        "kb": (bb, "semiglobal", kb_set, (GO, GE, MA, MI), None),
+        "str_global": (bb, "global_", long_sets[0], (GO, GE, MA, MI), None),
+        "local": (bb, "local", (band_reads[0][0][:B_BAND_LOCAL], band_reads[0][1][:B_BAND_LOCAL]), (GO, GE, MA, MI), None),
+        "custom": (bbc, "custom", (custom_xs, custom_ys), CUSTOM_PENS, (CUSTOM_XCLIP, CUSTOM_YCLIP)),
+    }
+    band_runs = {}
+    for name, (al, mode, (xs, ys), _, _) in band_sets.items():
+        t0 = time.perf_counter()
+        alns = getattr(al, mode)(xs, ys)
+        band_runs[name] = (alns, time.perf_counter() - t0)
+    native.band_build_batch = real_build
+    band_launches = {name: k.launches for name, k in counters.items()}
+    check(
+        all(band_launches[n] > 0 for n in ("sw_scan_banded", "walk_banded")),
+        f"a kernel of the banded path did not launch: {band_launches}",
+    )
+    check([fields(a) for a in band_pipe[0]] == [fields(a) for a in band_runs["reads"][0]], "banded: pipelined != semiglobal")
+    band_summary = {}
+    for name, (al, mode, (xs, ys), pens_, clips_) in band_sets.items():
+        alns = band_runs[name][0]
+        check(len(alns) == len(xs), f"banded {name}: result count")
+        for k, (a, x, y) in enumerate(zip(alns, xs, ys)):
+            ops = [(op.kind, op.len) for op in a.operations]
+            if clips_ is not None:
+                got, want = rescore_ops(ops, x, y, pens_, *clips_), (a.score, len(x), len(y))
+            else:
+                got = rescore_ops(ops, x[a.xstart : a.xend], y[a.ystart : a.yend], pens_)
+                want = (a.score, a.xend - a.xstart, a.yend - a.ystart)
+            check(got == want, f"banded {name}: pair {k} does not re-score to {a.score}: {got}")
+            if mode in ("semiglobal", "global_"):
+                check((a.xstart, a.xend) == (0, len(x)), f"banded {name}: pair {k} does not consume all of x")
+            if mode == "global_":
+                check((a.ystart, a.yend) == (0, len(y)), f"banded {name}: pair {k} does not consume all of y")
+        # small-input references: the host oracle and the CPU path
+        t0 = time.perf_counter()
+        n_ref = BAND_ORACLE_LONG if name in ("kb", "str_global") else BAND_ORACLE
+        oracle = banded.Aligner(al.scoring, BAND_K, BAND_W)
+        for k in range(n_ref):
+            want = getattr(oracle, mode)(xs[k], ys[k])
+            check(fields(alns[k]) == fields(want), f"banded {name}: pair {k} != the host oracle")
+        on_cpu = getattr(BatchBandedAligner(al.scoring, BAND_K, BAND_W, device="cpu"), mode)(xs[:n_ref], ys[:n_ref])
+        check([fields(a) for a in alns[:n_ref]] == [fields(a) for a in on_cpu], f"banded {name}: card != CPU plain path")
+        band_summary[name] = {
+            "pairs": len(xs), "max_len": [max(map(len, xs)), max(map(len, ys))],
+            "mean_score": float(np.mean([a.score for a in alns])), "delivered_s": band_runs[name][1],
+            "cpu_refs_s": time.perf_counter() - t0,
+        }
+    for b in range(1, BAND_BATCHES):
+        for k, (a, x, y) in enumerate(zip(band_pipe[b], *band_reads[b])):
+            got = rescore_ops([(op.kind, op.len) for op in a.operations], x, y[a.ystart : a.yend])
+            check(got == (a.score, len(x), a.yend - a.ystart), f"banded pipelined batch {b}: pair {k} does not re-score")
+    print(json.dumps({
+        "phase": "banded", "launches": band_launches, **band_summary, "pipelined_s": band_pipe_s,
+        "band_build_s": band_build_s, "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + band_launches[name] for name in counters}
+    band_delivered_s = {name: run[1] for name, run in band_runs.items()}
+    del band_runs, band_pipe, alns
 
     # ---- 4. kernels against their plain versions, timed ---------------
     t_phase = time.perf_counter()
@@ -1322,6 +1496,74 @@ def main() -> int:
         lambda: sw.scan_columns_lut_plain(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0),
         "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
     )
+    # K16 on the 1 kb corpus (its row) and the STR corpus (a dense tb of
+    # about 8 GB; compared 256 columns at a time), the plain version timed by
+    # one run, the kernel by 3 (wrapper with its tb zero-fill, lengths
+    # checked on the host as the aligner does); K16-walk on the 1 kb corpus
+    def banded_arrays(al, mode, xs, ys):
+        sc_ = {
+            "semiglobal": al.scoring.with_clips(*SEMI_CLIPS), "global_": al.scoring.with_clips(*SEMI_CLIPS[:1] * 4),
+            "local": al.scoring.with_clips(0, 0, 0, 0), "custom": al.scoring,
+        }[mode]
+        _out, run_idx, _crop, _c0s, arrays = al._band_batch(xs, ys, sc_, banded_device.AlignmentMode.Custom, False)
+        check(len(run_idx) == len(xs), f"banded kernel check: {len(xs) - len(run_idx)} pairs off the device")
+        return arrays
+
+    def banded_scan(arrays, plain=False):
+        t = tens(*arrays[:6])
+        if plain:
+            return sw.scan_banded_plain(*t[:4], arrays[6], *t[4:])
+        return sw.scan_banded(*t[:4], arrays[6], *t[4:])
+
+    band_k16 = {}
+    for name, arrays in (("kb", banded_arrays(bb, "semiglobal", *kb_set)), ("str_global", banded_arrays(bb, "global_", *long_sets[0]))):
+        got = banded_scan(arrays)
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(torch, lambda arrays=arrays: banded_scan(arrays, plain=True))
+        ml_d_, nl_d_ = tens(arrays[2], arrays[3])
+        err = max(rows_tb_err(torch, got[0], want[0], ml_d_, nl_d_), max_abs_err(got[1:], want[1:]))
+        del want
+        t = tens(*arrays[:6])
+        ms = cuda_ms(torch, lambda t=t, arrays=arrays: sw.scan_banded(*t[:4], arrays[6], *t[4:]), 3)
+        Bq, Mq = arrays[0].shape
+        Nq = arrays[1].shape[1]
+        cells_q = band_cells(arrays)
+        # the dense tb once (its band cells are in it), x and y, the
+        # lengths, the bands, lx and the five finals
+        nbytes = 2 * Nq * (Mq + 1) * Bq + Bq * (Mq + Nq) + 8 * Bq + 2 * 4 * Bq * (Nq + 1) + 4 * Nq * Bq + 5 * 4 * Bq * (Mq + 1)
+        band_k16[name] = (got, arrays, err, ms, plain_ms, nbytes, K16_OPS_PER_CELL * cells_q, cells_q)
+        del got
+    _, _, _, _, _, sbytes, sops, scells = band_k16["str_global"]
+    kgot, karrays, kerr, kms, kplain_ms, kbytes, kops, kcells = band_k16["kb"]
+    report(
+        "sw_scan_banded", "rust_bio_tpu_torch/ops/csrc/sw_banded.cu", "rust_bio_tpu/ops/sw_pallas.py:2514", None, None,
+        kms, kplain_ms, kbytes, kops, err=max(kerr, band_k16["str_global"][2]), band_cells=kcells,
+        str_global_ms=band_k16["str_global"][3], str_global_plain_ms=band_k16["str_global"][4],
+        str_global_bound_ms=max(sbytes / HBM_BYTES_PER_S, sops / INT32_OPS_PER_S) * 1e3, str_global_band_cells=scells,
+    )
+    del band_k16
+    kt = tens(*karrays[:6])
+    _, winputs = banded_device._walk_inputs(kgot, kt[2], kt[3], karrays[6], kt[4], kt[5])
+    wgot = walk.walk_banded(*winputs)
+    torch.cuda.synchronize()
+    wwant, wplain_ms = timed_once(torch, lambda: walk.walk_banded_plain(*winputs))
+    # one 2-byte tb cell a step plus the entry cell's; in column nlens (the
+    # steps before the first op that leaves it, and that op) the 4-byte
+    # tbfix cell in its place, which holds Ly; lx on x-suffix clip steps
+    codes = wgot[0].cpu().numpy().astype(np.int64)
+    lens = wgot[1].cpu().to(torch.int32).numpy()
+    steps = int((codes > 0).sum())
+    leaves = np.isin(codes, (TB_DEL, TB_SUBST, TB_MATCH, TB_YCLIP_PREFIX)) | ((codes == TB_YCLIP_SUFFIX) & (lens > 0))
+    fix_steps = int(np.where(leaves.any(0), leaves.argmax(0) + 1, (codes > 0).sum(0)).sum())
+    xsuffix_steps = int((codes == TB_XCLIP_SUFFIX).sum())
+    T, Bq = codes.shape
+    report(
+        "walk_banded", "rust_bio_tpu_torch/ops/csrc/walk_banded.cu", "rust_bio_tpu/alignment/pairwise/banded_device.py:231",
+        wgot, wwant, cuda_ms(torch, lambda: walk.walk_banded(*winputs), 5), wplain_ms,
+        2 * (steps + Bq) + 2 * fix_steps + 4 * xsuffix_steps + 8 * Bq + 3 * T * Bq + 16 * Bq,
+        8 * (steps + Bq),
+    )
+    del kgot, winputs, wgot, wwant
     # T_ROWS: K1 (its column state in device memory past M = 605) against
     # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
     # substitutions)
@@ -1401,6 +1643,24 @@ def main() -> int:
         padded = al._pad(xs, ys)
         rates[f"{name}_long_device"] = len(xs) / host_s(torch, lambda: al._columns_device(*padded, al._clips(mode)), 1)
         rates[f"{name}_long_delivered"] = len(xs) / clip_delivered_s[name]
+    # the banded aligner: reads/s for the 150 bp reads, pipelined (three
+    # batches) and synchronous, delivered, each the median of 3 warm runs
+    # taken back to back; pairs/s device-only (from the upload of one
+    # batch's band arrays to the packed tensor on the card) and delivered
+    # (phase 3f's counted calls); the host band build's seconds, one a batch
+    # in call order (phase 3f's)
+    rates["banded_reads_per_s_pipelined"] = BAND_BATCHES * B_BAND / host_s(torch, band_pipeline, 3)
+    rates["banded_reads_per_s_sync"] = B_BAND / host_s(torch, lambda: bb.semiglobal(*band_reads[0]), 3)
+    for name, (al, mode, (xs, ys), _, _) in band_sets.items():
+        arrays = banded_arrays(al, mode, xs, ys)
+        up = lambda arrays=arrays: banded_device._align_batch_device_banded_mp(  # noqa: E731
+            *[banded_device._upload(a, dev) for a in arrays[:4]], arrays[6],
+            *[banded_device._upload(a, dev) for a in arrays[4:6]],
+        )
+        rates[f"banded_{name}_pairs_per_s_device"] = len(xs) / host_s(torch, up, 2)
+        rates[f"banded_{name}_pairs_per_s_delivered"] = len(xs) / band_delivered_s[name]
+    rates["banded_band_build_s"] = band_build_s
+    print(json.dumps({"phase": "banded_profile", **host_profile(torch, lambda: bb.semiglobal(*band_reads[0]))}), flush=True)
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "seconds": time.perf_counter() - t_phase, "card": smi}), flush=True)
     print(json.dumps({"phase": "script", "seconds": time.perf_counter() - t_start}), flush=True)

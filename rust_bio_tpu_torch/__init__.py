@@ -13,7 +13,10 @@ path with hand-written CUDA kernels (``ops/csrc/*.cu``, built with nvcc for
   (:mod:`rust_bio_tpu_torch.data_structures.fm_device`), and loading of
   index files written by the JAX package (:mod:`rust_bio_tpu_torch.carry`);
 - the FM-seeded read mapper ``ReadMapper``
-  (:mod:`rust_bio_tpu_torch.pipelines`).
+  (:mod:`rust_bio_tpu_torch.pipelines`);
+- the banded aligner ``BatchBandedAligner`` (k-mer bands through long
+  targets; its band builder is host C++, ``csrc/band_build.cpp``, built
+  with the host compiler at first use by :mod:`rust_bio_tpu_torch.native`).
 
 Entry points take ``device=None``, which means the CUDA device; without one
 they raise ``RuntimeError``. Pass ``device="cpu"`` to run the plain PyTorch

@@ -14,6 +14,12 @@ A scoring needs no converter: it is a handful of integers plus, for
 substitution matrices, a (256, 256) int32 table (``Scoring.dense_lut``),
 which both packages take as they are. The long-sequence global path
 (K13/K14) adds nothing to carry: its parameters are the scoring's.
+
+The banded aligner carries its bands and penalties: ``banded_inputs``
+takes the JAX package's K16 inputs (``starts``/``ends`` (B, N+1) band
+rows, the ``pen8`` vector (gap_open, gap_extend, xclip_prefix,
+xclip_suffix, yclip_prefix, yclip_suffix, match, mismatch)) as numpy and
+gives the port's (``ops.sw.scan_banded``'s ``starts``, ``ends``, ``pens8``).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import hashlib
 import json
 
 import numpy as np
+import torch
 
 from rust_bio_tpu_torch._device import resolve_device
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
@@ -67,3 +74,17 @@ def load_fm_index(path, device=None, verify: bool = True) -> DeviceFMIndex:
         if got != meta["hash"]:
             raise ValueError(f"index file corrupted: hash {got} != {meta['hash']}")
     return fm_index_from_arrays(arrays, meta, device)
+
+
+def banded_inputs(starts, ends, pen8, device=None):
+    """(starts, ends (B, N+1) int32 tensors on ``device``, pens8 a tuple of
+    8 ints) from the JAX package's banded-kernel inputs as numpy arrays
+    (``device=None`` means CUDA)."""
+    dev = resolve_device(device)
+    st, en = (torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev) for a in (starts, ends))
+    if st.shape != en.shape or st.dim() != 2:
+        raise ValueError(f"starts {tuple(st.shape)} and ends {tuple(en.shape)}: expected equal (B, N+1) shapes")
+    pens8 = tuple(int(v) for v in np.asarray(pen8).reshape(-1))
+    if len(pens8) != 8:
+        raise ValueError(f"pen8: expected 8 penalties, got {len(pens8)}")
+    return st, en, pens8

@@ -32,6 +32,7 @@ NVCC_FLAGS = (
 SOURCES = (
     "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
     "sw_custom", "walk_custom", "sw_global_rows", "walk_global_seg", "walk_steps",
+    "sw_banded", "walk_banded",
 )
 
 PTR = ctypes.c_void_p

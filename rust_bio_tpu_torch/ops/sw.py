@@ -5,7 +5,9 @@ machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
 penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
 K13 (``scan_global_rows``: K1's DP in blocks of rows, for long x),
 ``csrc/sw_global_rows.cu``; K15 (``scan_columns``: K9's DP without the
-run nibble, the clip-mode engine of long x), ``csrc/sw_custom.cu``.
+run nibble, the clip-mode engine of long x), ``csrc/sw_custom.cu``; K16
+(``scan_banded``: the banded aligner's DP over per-column row bands),
+``csrc/sw_banded.cu``.
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
@@ -20,8 +22,9 @@ They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
 ``scan_semiglobal_pallas_mp``, ``scan_custom_pallas_mp`` and
 ``scan_local_pallas_mp`` (all ``runs="ins"``), ``sw_scores_global_matchparams``,
 ``scan_global_pallas_subs``, ``scan_semiglobal_pallas_subs``,
-``sw_scores_global``, ``scan_global_rows_pallas_mp`` and
-``scan_columns_pallas_mp`` (and, under a LUT, the XLA engine
+``sw_scores_global``, ``scan_global_rows_pallas_mp``,
+``scan_columns_pallas_mp`` and ``scan_banded_pallas_mp`` (and, under a LUT,
+the XLA engine
 ``batched._align_batch_device``). The plain versions
 below follow the Pallas kernels' column formulation (rows vectorized, the
 insertion recurrence as a (max,+) prefix scan), one column core per kernel
@@ -97,13 +100,20 @@ SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 4)
 SCAN_COLUMNS = CudaKernel("sw_custom", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
 SCAN_COLUMNS_LUT = CudaKernel("sw_custom", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
+SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 11 + [PTR] * 8)
+# K16's per-pair column state: S and D in two parity buffers, I, Sn, Ly and
+# column 0's s-bits (csrc/sw_banded.cu head note)
+BANDED_LAYERS = 8
+_BAND_SENT = -1_500_000_000  # K16's chain sentinel: below every reachable value, no int32 wrap
 # K13's default rows a block: its S / D / s-bits layers then take exactly the
 # 48 KB a block gets without opting in (csrc/sw_global_rows.cu head note)
 ROWS_RB = 128
 _ROWS_RB_MAX = _SMEM_MAX // (3 * _PAIRS * 4)  # 605
 
 
-def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
+def _check_shapes(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
+    """(B, M, N, device) of a batch; raises on a wrong dtype, shape or
+    device (reads nothing back from the card)."""
     dev = same_device(xb, yb, mlens, nlens)
     B, M = xb.shape
     N = yb.shape[1] if yb.dim() == 2 else -1
@@ -111,6 +121,12 @@ def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
     check(yb, "yb", torch.uint8, (B, N))
     check(mlens, "mlens", torch.int32, (B,))
     check(nlens, "nlens", torch.int32, (B,))
+    return B, M, N, dev
+
+
+def _check_pairs(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
+    """``_check_shapes``, then lengths outside [0, M] / [0, N] raise."""
+    B, M, N, dev = _check_shapes(xb, yb, mlens, nlens)
     check_lengths(mlens, "mlens", M)
     check_lengths(nlens, "nlens", N)
     return B, M, N, dev
@@ -367,6 +383,256 @@ def scan_columns_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
     the XLA engine batched.py ``_align_batch_device``); same outputs."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
     return _scan_clip(SCAN_COLUMNS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, clips, traceback)
+
+
+def scan_banded(xb, yb, mlens, nlens, pens8, starts, ends):
+    """K16: the banded clip-mode DP (sw_pallas.py ``scan_banded_pallas_mp``,
+    the host oracle banded.py ``compute_alignment``) over per-column row
+    bands. ``pens8`` is (gap_open, gap_extend, xclip_prefix, xclip_suffix,
+    yclip_prefix, yclip_suffix, match, mismatch) as ints; ``starts`` /
+    ``ends`` (B, N+1) int32 the band rows [start, end) of columns 0..N, with
+    ``starts <= mlens + 1`` and ``ends <= mlens + 1`` (``banded.Band``'s
+    rows); ``1 <= mlens``.
+
+    Returns (tb (N, M+1, B) uint16, lx (N, B) int32, S_f, I_f, Sn_f, Ly_f,
+    tbk (B, M+1) int32). ``tb[j-1]`` holds column j's 12-bit cells ``i | d
+    << 4 | s << 8``, 0 outside the cells the host writes; defined for
+    ``1 <= j <= nlens[b]`` (the plain version also fills later columns from
+    the frozen state, the kernel leaves them 0). ``lx[j-1]`` is column j's
+    x-suffix clip length (0 where none, and past nlens). The finals are the
+    state after column nlens[b]: S, I (one buffer, as in the Pallas
+    kernel), Sn, Ly and the cells ``tbk`` (column 0's own cells when nlens
+    is 0). The caller checks the lengths and the bands on the host: the
+    wrapper reads nothing back (no synchronizing call), and the kernel clamps
+    them into the tensors."""
+    B, M, N, dev = _check_shapes(xb, yb, mlens, nlens)
+    check(starts, "starts", torch.int32, (B, N + 1))
+    check(ends, "ends", torch.int32, (B, N + 1))
+    if starts.device != dev or ends.device != dev:
+        raise ValueError(f"starts/ends must lie on {dev}")
+    pens8 = tuple(int(v) for v in pens8)
+    if len(pens8) != 8 or pens8[0] > 0 or pens8[1] > 0:
+        raise ValueError("pens8: 8 ints, gap_open and gap_extend <= 0")
+    if dev.type == "cpu":
+        return scan_banded_plain(xb, yb, mlens, nlens, pens8, starts, ends)
+    tb = torch.zeros((N, M + 1, B), dtype=torch.uint16, device=dev)
+    lx = torch.zeros((N, B), dtype=torch.int32, device=dev)
+    finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
+    if B:
+        xt = xb.t().contiguous()
+        yt = yb.t().contiguous()
+        scratch = _scratch(BANDED_LAYERS, B, M, dev, pairs=1)
+        SCAN_BANDED.launch(
+            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), starts.data_ptr(),
+            ends.data_ptr(), B, M, N, *pens8, tb.data_ptr(), lx.data_ptr(), *(f.data_ptr() for f in finals),
+            _ptr(scratch),
+        )
+    return (tb, lx, *finals)
+
+
+def scan_banded_plain(xb, yb, mlens, nlens, pens8, starts, ends):
+    """Plain version of K16: the Pallas kernel's column recurrence
+    (sw_pallas.py ``_kernel_scan_banded_mp``), rows vectorized over (M+1,
+    B), the insertion chain a cummax, the host's two S and D parity
+    buffers carried as (current, stale) pairs. Same outputs as
+    ``scan_banded``."""
+    B, M = xb.shape
+    N = yb.shape[1]
+    dev = xb.device
+    i32 = torch.int32
+    go, ge, xcp, xcs, ycp, ycs, ma, mi = (torch.tensor(int(v), dtype=i32, device=dev) for v in pens8)
+    MIN = torch.tensor(MIN_SCORE, dtype=i32, device=dev)
+    SENT = torch.tensor(_SENT, dtype=i32, device=dev)
+    SENT2 = torch.tensor(_BAND_SENT, dtype=i32, device=dev)
+    rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
+    row0 = rows == 0
+    row_ge1 = rows >= 1
+    ml = mlens[None, :]
+    nl = nlens[None, :]
+    is_row_m = (rows == ml) & (ml >= 1)
+    xt = xb.t().to(i32)
+    rge = rows * ge
+    yclip_row = ycp + go + ge * (rows - 1)
+    neg_row = torch.full((1, B), MIN_SCORE, dtype=i32, device=dev)
+    start_row = torch.full((1, B), TB_START, dtype=i32, device=dev)
+
+    def take_m(a):
+        return torch.where(is_row_m, a, SENT).amax(dim=0, keepdim=True)
+
+    def take(s, bits, cand, cbits):
+        tk = cand > s
+        return torch.where(tk, cand, s), torch.where(tk, cbits, bits)
+
+    # column 0 (sw_pallas.py:2567-2638)
+    st0 = starts[:, 0][None, :]
+    en0 = ends[:, 0][None, :]
+    in_b0 = row_ge1 & (rows >= st0) & (rows < en0)
+    gap_i = go + ge * (rows - 1)
+    clip_i = xcp + go
+    ins_wins = gap_i > clip_i
+    I0v = torch.where(rows == 1, go, torch.where(ins_wins, gap_i, clip_i)).expand(M + 1, B)
+    ib0 = torch.where(rows == 1, TB_START, torch.where(ins_wins, TB_INS, TB_XCLIP_PREFIX)).to(i32).expand(M + 1, B)
+    S0 = torch.full((M + 1, B), MIN_SCORE, dtype=i32, device=dev)
+    sb0 = torch.full((M + 1, B), TB_START, dtype=i32, device=dev)
+    S0, sb0 = take(S0, sb0, I0v, TB_INS)
+    S0, sb0 = take(S0, sb0, xcp, TB_XCLIP_PREFIX)
+    vals = torch.where(in_b0 & (rows <= ml - 1), S0 + xcs, SENT)
+    A = vals.amax(dim=0, keepdim=True)
+    updA = A > MIN
+    m_in_b0 = (ml >= st0) & (ml < en0) & (ml >= 1)
+    S_m = torch.where(updA, A, MIN)
+    sb_m = torch.full((1, B), TB_XCLIP_SUFFIX, dtype=i32, device=dev)
+    S_m, sb_m = take(S_m, sb_m, take_m(torch.where(in_b0, I0v, MIN)), TB_INS)
+    S_m, sb_m = take(S_m, sb_m, xcp, TB_XCLIP_PREFIX)
+    S_m = torch.where(m_in_b0, S_m, MIN)
+    sb_m = torch.where(m_in_b0, sb_m, torch.where(updA, TB_XCLIP_SUFFIX, TB_START))
+    S0 = torch.where(in_b0, S0, MIN)
+    sb0 = torch.where(in_b0, sb0, TB_START)
+    S0 = torch.where(is_row_m, S_m, S0)
+    sb0 = torch.where(is_row_m, sb_m, sb0)
+    S0 = torch.where(row0, torch.where(st0 == 0, 0, MIN), S0)
+    sb0 = torch.where(row0, TB_START, sb0)
+    S, Ss = S0, torch.full_like(S0, MIN_SCORE)
+    D, Ds = torch.full_like(S0, MIN_SCORE), torch.full_like(S0, MIN_SCORE)
+    SB = sb0
+    I = torch.where(in_b0, I0v, MIN)
+    TBK = torch.where(in_b0, ib0, TB_START) | (TB_START << 4) | (sb0 << 8)
+    SN = torch.where(row0, torch.where(ycp > ycs, ycp, ycs), MIN).expand(M + 1, B)
+    LY = torch.where(row0 & ~(ycp > ycs), nl, 0).to(i32)
+
+    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+    lx = torch.empty((N, B), dtype=i32, device=dev)
+    ends_t = ends.t()  # (N+1, B)
+    bidx = torch.arange(B, device=dev)
+    for j in range(1, N + 1):
+        active = j <= nl
+        is_last = j == nl
+        stj = starts[:, j][None, :]
+        enj = ends[:, j][None, :]
+        enx = ends_t[torch.minimum(torch.full_like(nlens, j + 1), nlens).long(), bidx][None, :]
+        in_band = row_ge1 & (rows >= stj) & (rows < enj)
+        m_in_band = (ml >= stj) & (ml < enj) & (ml >= 1)
+        r0_comp = stj == 0
+
+        eq = (xt == yb[:, j - 1].to(i32)[None, :]).to(i32)
+        subs = mi + (ma - mi) * eq
+        m_val = torch.cat([neg_row, S[:-1] + subs])
+        m_bits = torch.cat([start_row, TB_SUBST + eq])
+        d_ext = D + ge
+        d_open = S + go
+        d_wins = d_ext > d_open
+        bestD = torch.where(d_wins, d_ext, d_open)
+        d_bits = torch.where(d_wins, TB_DEL, SB)
+
+        # row 0: computed iff the band starts at 0; no Sn merge into S
+        d_gap = go + ge * (j - 1)
+        d_clip = ycp + go
+        del_wins0 = d_gap > d_clip
+        Dj0 = go if j == 1 else torch.where(del_wins0, d_gap, d_clip)
+        db0 = torch.tensor(TB_START, dtype=i32, device=dev) if j == 1 else torch.where(del_wins0, TB_DEL, TB_YCLIP_PREFIX).to(i32)
+        d_gt = Dj0 > ycp
+        S0j = torch.where(d_gt, Dj0, ycp)
+        sb0j = torch.where(d_gt, TB_DEL, TB_YCLIP_PREFIX).to(i32)
+        sn0_old = SN[0:1]
+        upd_sn0 = (S0j + ycs > sn0_old) & active & r0_comp
+        sn0_new = torch.where(upd_sn0, S0j + ycs, sn0_old)
+        ly0_new = torch.where(upd_sn0, nl - j, LY[0:1])
+        bestD = torch.where(row0, torch.where(r0_comp, Dj0, MIN), bestD)
+        d_bits = torch.where(row0, torch.where(r0_comp, db0, TB_START), d_bits)
+
+        # xclip_score: at j == n the ycp term is max(ycp, Sn[0] after row 0)
+        yterm = torch.where(is_last, torch.maximum(ycp, sn0_new), ycp)
+        xclip_vec = xcp + torch.maximum(yterm, d_gap)  # (1, B)
+        s_tilde = torch.maximum(torch.maximum(m_val, bestD), yclip_row)
+        s_tilde = torch.maximum(s_tilde, xclip_vec)
+        s_tilde = torch.where(row0, torch.where(r0_comp, S0j, MIN), s_tilde)
+
+        # insertion chain: opens from S~(i-1) + go, at j == n also from
+        # Sn(i-1) + go; row st-1 is reset, rows above it feed nothing
+        sn_for_i = torch.cat([sn0_new, SN[1:]])
+        s_tilde_eff = torch.where(rows >= stj, s_tilde, torch.where(rows == stj - 1, MIN, SENT2))
+        T_s = torch.cat([neg_row, s_tilde_eff[:-1] + go])
+        T_sn = torch.cat([neg_row, sn_for_i[:-1] + go])
+        T_sn = torch.where(is_last, T_sn, SENT2)
+        T_seed = torch.where(rows == torch.clamp(stj, min=1), MIN + ge, SENT2)
+        T = torch.maximum(torch.maximum(T_s, T_sn), T_seed)
+        bestI = torch.cummax(T - rge, dim=0).values + rge
+        i_ext = torch.cat([neg_row, bestI[:-1] + ge])
+
+        # priority: M/S > I > D > XCLIP_PREFIX > YCLIP_PREFIX
+        cands = ((bestI, TB_INS), (bestD, TB_DEL), (xclip_vec, TB_XCLIP_PREFIX), (yclip_row, TB_YCLIP_PREFIX))
+        S_col, s_bits = m_val, m_bits
+        for cand, cbits in cands:
+            S_col, s_bits = take(S_col, s_bits, cand, cbits)
+        S_col = torch.where(row0, S0j, S_col)
+        s_bits = torch.where(row0, sb0j, s_bits)
+
+        # row m: the x-suffix accumulator over in-band rows < m, then the
+        # cell's own candidates when m is in band
+        vals = torch.where(in_band & (rows <= ml - 1), S_col + xcs, SENT)
+        A = vals.amax(dim=0, keepdim=True)
+        updA = A > MIN
+        first = torch.where(vals == A, rows, 2**30).amin(dim=0, keepdim=True)
+        Lx_j = torch.where(updA & active, ml - first, 0)
+        S_m = torch.where(updA, A, MIN)
+        sb_m = torch.full((1, B), TB_XCLIP_SUFFIX, dtype=i32, device=dev)
+        S_m, sb_m = take(S_m, sb_m, take_m(m_val), take_m(m_bits))
+        for cand, cbits in cands:
+            S_m, sb_m = take(S_m, sb_m, take_m(cand.expand(M + 1, B)), cbits)
+        S_col = torch.where(is_row_m & m_in_band, S_m, S_col)
+        s_bits = torch.where(is_row_m & m_in_band, sb_m, s_bits)
+
+        # i-bits: chained extend vs fresh open (the s-bits above) vs the
+        # j == n Sn open
+        prev_sbits = torch.cat([start_row, s_bits[:-1]])
+        i_score_eff = torch.maximum(i_ext, T_seed)
+        i_bits = torch.where(
+            T_sn > torch.maximum(i_score_eff, T_s),
+            TB_YCLIP_SUFFIX,
+            torch.where(i_score_eff > T_s, TB_INS, prev_sbits),
+        )
+        i_bits = torch.where(row0, TB_START, i_bits)
+
+        upd_sn = (S_col + ycs > SN) & in_band & active
+        Sn_new = torch.where(upd_sn, S_col + ycs, SN)
+        Ly_new = torch.where(upd_sn, nl - j, LY)
+        Sn_new = torch.where(row0, sn0_new, Sn_new)
+        Ly_new = torch.where(row0, ly0_new, Ly_new)
+
+        # after the rows: Sn[m] from the accumulated S[m], then the
+        # out-of-band row-m override (S[m] = MIN, s-bits x-suffix clip)
+        S_m_acc = torch.where(m_in_band, take_m(S_col), torch.where(updA, A, MIN))
+        upd_snm = (S_m_acc + ycs > take_m(Sn_new)) & active & (ml >= 1)
+        Sn_new = torch.where(is_row_m & upd_snm, S_m_acc + ycs, Sn_new)
+        Ly_new = torch.where(is_row_m & upd_snm, nl - j, Ly_new)
+        S_col = torch.where(is_row_m & ~m_in_band, MIN, S_col)
+        s_bits = torch.where(is_row_m & ~m_in_band, TB_XCLIP_SUFFIX, s_bits)
+
+        # the host's buffers: write mask and fringe resets on the stale base
+        W = in_band | (row0 & r0_comp) | is_row_m
+        R_pre = (rows == stj - 1) | is_row_m
+        R_post = (rows >= enj) & (rows < torch.minimum(ml + 1, enx))
+        S_full = torch.where(W, S_col, torch.where(R_pre | R_post, MIN, Ss))
+        W_id = in_band | (row0 & r0_comp)
+        R_id = (rows == stj - 1) | R_post
+        D_full = torch.where(W_id, bestD, torch.where(R_id, MIN, Ds))
+        I_col = torch.where(W_id, bestI, torch.where(R_id, MIN, I))
+        I_col = torch.where(row0 & r0_comp, MIN, I_col)
+        SB_col = torch.where(W, s_bits, TB_START)
+        cell = torch.where(W_id, i_bits, TB_START) | (torch.where(W_id, d_bits, TB_START) << 4) | (SB_col << 8)
+        tb[j - 1] = cell.to(torch.uint16)
+        lx[j - 1] = Lx_j[0]
+
+        S, Ss = torch.where(active, S_full, S), torch.where(active, S, Ss)
+        D, Ds = torch.where(active, D_full, D), torch.where(active, D, Ds)
+        SB = torch.where(active, SB_col, SB)
+        I = torch.where(active, I_col, I)
+        SN = torch.where(active, Sn_new, SN)
+        LY = torch.where(active, Ly_new, LY)
+        TBK = torch.where(active, cell, TBK)
+
+    finals = (S, I, SN, LY, TBK)
+    return (tb, lx, *(f.t().contiguous() for f in finals))
 
 
 def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):

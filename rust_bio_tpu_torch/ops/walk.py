@@ -7,8 +7,10 @@ mode), CUDA source ``csrc/walk_custom.cu``. They replace
 ``_sweep_walk_global_seg``, ``sweep_walk_semiglobal``, ``sweep_walk_custom``
 and ``sweep_walk_local``. Kernel K15-walk (``walk_steps``, the per-step walk
 of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
-``rust_bio_tpu/alignment/pairwise/batched.py`` ``_walk``; its section at the
-end of this module says what it reads and writes.
+``rust_bio_tpu/alignment/pairwise/batched.py`` ``_walk``, and K16-walk
+(``walk_banded``, the banded aligner's lockstep walk, ``csrc/walk_banded.cu``)
+the XLA walk ``banded_device.py`` ``_walk_banded``; their sections at the
+end of this module say what they read and write.
 
 Input: the traceback tensor of K1 or K5 (``ops.sw``), ``tb`` (N, X, B) uint16
 with X = M + 1, and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
@@ -767,4 +769,142 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
         carried = torch.where(is_ins, cell & 0xF, (cell >> 4) & 0xF)
         use_s = ~(is_ins | is_del)
         i, j = ni, nj
+    return op_codes.to(torch.uint8), op_lens.to(torch.uint16), xstart, ystart, xend, yend
+
+
+# ---------------------------------------------------------------------------
+# the lockstep walk of the banded aligner (K16-walk)
+# ---------------------------------------------------------------------------
+#
+# Input: K16's ``tb`` (N, X, B) uint16, columns 1..N; ``tb0`` (B, X) int32,
+# column 0's cells (``banded_device._init_column_banded``); ``tbfix`` (B, X)
+# int32, the suffix-fixed final column's 12-bit cells with Ly << 12, read in
+# place of column nlens[b]; ``lx`` (B, N + 1) int32, each column's x-suffix
+# clip length (the fixed one at nlens[b]); ``pens`` (gap_open, gap_extend,
+# xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix). Output as
+# K15-walk's, one entry a step of T = M + N + 8, end -> start: ``op_codes``
+# (T, B) uint8 (0 once the lane is done), ``op_lens`` (T, B) uint16; xstart,
+# ystart, xend, yend (B,) int32. The walk rewrites the s-bits of row 0 and
+# column 0 as it reads them (banded.py:595-620 writes them after the DP) and
+# ends a path that stops at TB_START away from the origin with two ops: Ins
+# x i or an x-prefix clip, then Del x j or a y-prefix clip (banded.rs:833-856).
+# Decode with ``banded_device._decode_ops_batch``.
+
+WALK_BANDED = CudaKernel("walk_banded", "walk_banded", [PTR] * 6 + [INT] * 10 + [PTR] * 6)
+
+
+def _check_banded_walk(tb, tb0, tbfix, lx, mlens, nlens):
+    dev = same_device(tb, tb0, tbfix, lx, mlens, nlens)
+    if tb.dim() != 3:
+        raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
+    N, X, B = tb.shape
+    check(tb, "tb", torch.uint16, (N, X, B))
+    check(tb0, "tb0", torch.int32, (B, X))
+    check(tbfix, "tbfix", torch.int32, (B, X))
+    check(lx, "lx", torch.int32, (B, N + 1))
+    check(mlens, "mlens", torch.int32, (B,))
+    check(nlens, "nlens", torch.int32, (B,))
+    return dev
+
+
+def walk_banded(tb, tb0, tbfix, lx, mlens, nlens, pens):
+    """K16-walk (banded_device.py ``_walk_banded``). Returns (op_codes (T, B)
+    uint8, op_lens (T, B) uint16, xstart, ystart, xend, yend (B,) int32).
+    ``0 <= mlens <= X - 1`` and ``0 <= nlens <= N`` are the caller's to keep
+    (the kernel clamps the cells it reads into the tensors)."""
+    dev = _check_banded_walk(tb, tb0, tbfix, lx, mlens, nlens)
+    pens = tuple(int(v) for v in pens)[:6]
+    if dev.type == "cpu":
+        return walk_banded_plain(tb, tb0, tbfix, lx, mlens, nlens, pens)
+    N, X, B = tb.shape
+    T = (X - 1) + N + 8
+    op_codes = torch.zeros((T, B), dtype=torch.uint8, device=dev)
+    op_lens = torch.zeros((T, B), dtype=torch.uint16, device=dev)
+    coords = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(4)]
+    if B:
+        WALK_BANDED.launch(
+            dev, tb.data_ptr(), tb0.data_ptr(), tbfix.data_ptr(), lx.data_ptr(), mlens.data_ptr(),
+            nlens.data_ptr(), B, X - 1, N, T, *pens, op_codes.data_ptr(), op_lens.data_ptr(),
+            *(c.data_ptr() for c in coords),
+        )
+    return (op_codes, op_lens, *coords)
+
+
+def walk_banded_plain(tb, tb0, tbfix, lx, mlens, nlens, pens):
+    """Plain version of K16-walk: ``_walk_banded``'s step, pairs vectorized,
+    steps in a Python loop until every lane is done."""
+    go, ge, xcp, xcs, ycp, ycs = (int(v) for v in pens[:6])
+    N, X, B = tb.shape
+    T = (X - 1) + N + 8
+    dev = tb.device
+    i32 = torch.int32
+    flat = tb.reshape(-1).view(torch.int16)  # no uint16 indexing on CUDA
+    bidx = torch.arange(B, device=dev)
+    i, j = mlens.clone(), nlens.clone()
+    carried = torch.full((B,), TB_START, dtype=i32, device=dev)
+    use_s = torch.ones(B, dtype=torch.bool, device=dev)
+    phase1 = torch.zeros(B, dtype=torch.bool, device=dev)
+    done = torch.zeros(B, dtype=torch.bool, device=dev)
+    xstart, ystart, xend, yend = torch.zeros_like(i), torch.zeros_like(i), mlens.clone(), nlens.clone()
+    op_codes = torch.zeros((T, B), dtype=i32, device=dev)
+    op_lens = torch.zeros((T, B), dtype=i32, device=dev)
+    for t in range(T):
+        if t % 32 == 0 and bool(done.all()):
+            break
+        ic, jc = i.clamp(0, X - 1).long(), j.clamp(0, N).long()
+        cm = flat[((jc - 1).clamp(min=0) * X + ic) * B + bidx].to(i32) & 0xFFFF
+        cm = torch.where(jc == 0, tb0[bidx, ic], cm)
+        cf = tbfix[bidx, ic]
+        use_fix = j == nlens
+        cell = torch.where(use_fix, cf, cm) & 0xFFF
+        ib, db, sb = cell & 0xF, (cell >> 4) & 0xF, (cell >> 8) & 0xF
+        # the row-0 and column-0 s-bit rewrites
+        rw0 = torch.where(go + ge * (j - 1) > ycp, TB_DEL, TB_YCLIP_PREFIX)
+        sb = torch.where((i == 0) & (j >= 1) & ~use_fix, rw0, sb)
+        c_i = go + ge * (i - 1)
+        rwc = torch.where(c_i > xcp, TB_INS, TB_XCLIP_PREFIX)
+        rwc = torch.where((i == mlens) & (xcs > torch.clamp(c_i, min=xcp)), TB_XCLIP_SUFFIX, rwc)
+        sb = torch.where((j == 0) & (i >= 1), rwc, sb)
+        ly = cf >> 12
+        lxj = lx[bidx, jc]
+        layer = torch.where(use_s, sb, carried)
+
+        hit_start = (layer == TB_START) & ~done
+        do_x = hit_start & ~phase1 & (i > 0)
+        do_y = hit_start & (j > 0) & (phase1 | (i == 0))
+        finish = hit_start & ~do_x & ~do_y
+        live = ~hit_start & ~done
+        is_ins = live & (layer == TB_INS)
+        is_del = live & (layer == TB_DEL)
+        is_mm = live & ((layer == TB_MATCH) | (layer == TB_SUBST))
+        is_xp = live & (layer == TB_XCLIP_PREFIX)
+        is_xs = live & (layer == TB_XCLIP_SUFFIX)
+        is_yp = live & (layer == TB_YCLIP_PREFIX)
+        is_ys = live & (layer == TB_YCLIP_SUFFIX)
+
+        # the ending fixups: Ins x i / Xclip(i), then Del x j / Yclip(j)
+        iw = go + ge * (i - 1) > xcp
+        dw = go + ge * (j - 1) > ycp
+        fix_code = torch.where(do_x, torch.where(iw, TB_INS, TB_XCLIP_PREFIX), torch.where(dw, TB_DEL, TB_YCLIP_PREFIX))
+        fixing = do_x | do_y
+        op_codes[t] = torch.where(done | finish, 0, torch.where(fixing, fix_code, layer))
+        step_len = is_mm.to(i32) + torch.where(is_xp, i, 0) + torch.where(is_xs, lxj, 0)
+        step_len = step_len + torch.where(is_yp, j, 0) + torch.where(is_ys, ly, 0)
+        op_lens[t] = torch.where(fixing, torch.where(do_x, i, j), step_len)
+
+        new_i = torch.where(do_x, 0, i - (is_ins | is_mm).to(i32) - torch.where(is_xs, lxj, 0) - torch.where(is_xp, i, 0))
+        new_j = torch.where(do_y, 0, j - (is_del | is_mm).to(i32) - torch.where(is_ys, ly, 0) - torch.where(is_yp, j, 0))
+        xstart = torch.where(is_xp, i, xstart)
+        xstart = torch.where(do_x, torch.where(iw, 0, i), xstart)
+        xend = torch.where(is_xs, new_i, xend)
+        ystart = torch.where(is_yp, j, ystart)
+        ystart = torch.where(do_y, torch.where(dw, 0, j), ystart)
+        yend = torch.where(is_ys, new_j, yend)
+
+        new_done = done | finish | (do_y & ~do_x)
+        phase1 = phase1 | do_x
+        next_carried = torch.where(is_ins, ib, db)
+        carried = torch.where(do_x | new_done, TB_START, next_carried)
+        use_s = ~(is_ins | is_del | do_x) | new_done
+        i, j, done = new_i, new_j, new_done
     return op_codes.to(torch.uint8), op_lens.to(torch.uint16), xstart, ystart, xend, yend

@@ -610,3 +610,187 @@ def test_long_clip_aligner_on_card_matches_cpu(cuda_device):
             assert after == (before[0] + 1, before[1] + 1), mode
             assert [key(a) for a in got] == [key(a) for a in getattr(on_cpu, mode)(xs, ys)], mode
             np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
+
+
+# ---- the banded aligner: K16, K16-walk ----
+
+BANDED_PENS = [
+    (-5, -1, MIN, MIN, 0, 0, 2, -2),
+    (-5, -1, 0, 0, 0, 0, 2, -2),
+    (-2, -2, -3, -7, -2, -5, 2, -2),
+    (-4, -2, MIN, MIN, MIN, MIN, 1, -1),
+    (-3, -1, -1, MIN, -7, 0, 2, -2),
+]
+
+
+def _band_batch(rng, B, M, N, alphabet=b"ACGT"):
+    """B pairs with per-column bands [starts, ends) of the kinds the
+    banded aligner meets and some it does not: a jittered diagonal (so not
+    monotone), empty columns, row 0 in and out of band, lanes whose band
+    never reaches row m, a full-matrix lane, short-y lanes. Numpy (xb, yb,
+    mlens, nlens, starts, ends); starts, ends <= mlens + 1."""
+    syms = np.frombuffer(alphabet, np.uint8)
+    xb = syms[rng.integers(0, len(syms), size=(B, M))]
+    yb = syms[rng.integers(0, len(syms), size=(B, N))]
+    mlens = rng.integers(2, M + 1, size=B).astype(np.int32)
+    nlens = rng.integers(1, N + 1, size=B).astype(np.int32)
+    mlens[:3] = [M, M, 2]
+    nlens[:3] = [N, max(1, N // 4), N]
+    xb[4:, 5:20] = yb[4:, 8:23]
+    starts = np.zeros((B, N + 1), np.int32)
+    ends = np.zeros((B, N + 1), np.int32)
+    for b in range(B):
+        m, n = int(mlens[b]), int(nlens[b])
+        if b == 1:  # the full matrix
+            ends[b] = m + 1
+            continue
+        for j in range(N + 1):
+            if rng.random() < 0.1:
+                starts[b, j], ends[b, j] = m + 1, 0
+                continue
+            c = j * m // max(n, 1)
+            w = int(rng.integers(1, 8))
+            starts[b, j] = min(max(0, c - w + int(rng.integers(-3, 4))), m + 1)
+            ends[b, j] = max(0, min(m + 1, c + w + int(rng.integers(-3, 4))))
+        if b % 3 == 0:
+            starts[b, 0] = 0
+        if b % 4 == 3:  # never reaches row m
+            ends[b] = np.minimum(ends[b], m - 1)
+    return xb, yb, mlens, nlens, starts, ends
+
+
+def _banded_scans_match(got, want, nlens):
+    """K16's outputs against the plain version's: tb over columns 1..nlens
+    (the kernel leaves later columns 0), lx and the finals whole."""
+    tb, ptb = got[0].cpu().to(torch.int32), want[0].cpu().to(torch.int32)
+    for b, n in enumerate(nlens):
+        assert torch.equal(tb[:n, :, b], ptb[:n, :, b]), b
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(g.cpu(), w.cpu())
+
+
+@pytest.mark.parametrize("pens8", BANDED_PENS)
+def test_banded_scan_matches_plain(cuda_device, pens8):
+    """K16 against its plain version on random bands: non-monotone, row 0
+    in and out of band, row m out of band, empty columns, short-y lanes."""
+    rng = np.random.default_rng(61 + pens8[0])
+    arrays = _band_batch(rng, 64, 80, 90)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    got = sw.scan_banded(*args[:4], pens8, *args[4:])
+    torch.cuda.synchronize()
+    _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
+
+
+@pytest.mark.parametrize("M", [5600, 7300])
+def test_banded_scan_long_x_matches_plain(cuda_device, M):
+    """K16 at M = 5,600 (one pair's state a block in shared memory) and M =
+    7,300 (the device scratch route)."""
+    rng = np.random.default_rng(M)
+    arrays = _band_batch(rng, 4, M, 40)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for pens8 in BANDED_PENS[:3]:
+        got = sw.scan_banded(*args[:4], pens8, *args[4:])
+        torch.cuda.synchronize()
+        _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
+
+
+def test_banded_scan_clamps_lengths(cuda_device):
+    """K16 reads no lengths back: lengths outside [0, M] / [0, N] are
+    clamped in the kernel (no fault), and the other lanes are unchanged."""
+    rng = np.random.default_rng(63)
+    arrays = _band_batch(rng, 40, 80, 90)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    want = sw.scan_banded_plain(*args[:4], BANDED_PENS[2], *args[4:])
+    bad_m, bad_n = arrays[2].copy(), arrays[3].copy()
+    bad_m[:2], bad_n[:2] = [200, -5], [500, -5]
+    got = sw.scan_banded(args[0], args[1], *(torch.from_numpy(a).to(cuda_device) for a in (bad_m, bad_n)),
+                         BANDED_PENS[2], *args[4:])
+    torch.cuda.synchronize()
+
+    def lanes(out):  # lanes 2.. of (tb, lx, the five finals)
+        return [out[0][..., 2:], out[1][:, 2:], *(f[2:] for f in out[2:])]
+
+    _banded_scans_match(lanes(got), lanes(want), arrays[3][2:])
+
+
+def test_banded_walk_matches_plain(cuda_device):
+    """K16-walk against its plain version on the plain path's tensors (the
+    plain K16, the fixups, column 0's twin)."""
+    from rust_bio_tpu_torch.alignment.pairwise import banded_device as bd
+
+    rng = np.random.default_rng(67)
+    for pens8 in BANDED_PENS:
+        arrays = _band_batch(rng, 96, 60, 70)
+        xb, yb, ml, nl, st, en = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+        B, M = xb.shape
+        _, inputs = bd._walk_inputs(sw.scan_banded_plain(xb, yb, ml, nl, pens8, st, en), ml, nl, pens8, st, en)
+        got = walk.walk_banded(*inputs)
+        torch.cuda.synchronize()
+        assert got[0].dtype == torch.uint8 and got[0].shape == (M + 70 + 8, B)
+        for g, w in zip(got, walk.walk_banded_plain(*inputs)):
+            assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+def _banded_pairs(rng, B, long_targets=False):
+    """Reads cut from targets with a few substitutions (some pairs without
+    a shared k-mer); with ``long_targets`` 30-120 bp reads in 400-1,600 bp
+    targets at every offset (the crop path)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    xs, ys = [], []
+    for t in range(B):
+        if long_targets:
+            n = int(rng.integers(400, 1600))
+            m = int(rng.integers(30, 120))
+        else:
+            n = int(rng.integers(20, 90))
+            m = int(rng.integers(10, min(n, 70)))
+        y = acgt[rng.integers(0, 4, size=n)]
+        s = [0, 1, n - m, n - m - 1][t % 4] if t < 4 else int(rng.integers(0, n - m + 1))
+        x = y[s : s + m].copy()
+        sub = rng.random(m) < 0.05
+        x[sub] = acgt[rng.integers(0, 4, size=int(sub.sum()))]
+        if t % 7 == 6:
+            x = acgt[rng.integers(0, 2, size=m)]
+            y = acgt[2 + rng.integers(0, 2, size=n)]
+        xs.append(x.tobytes())
+        ys.append(y.tobytes())
+    return xs, ys
+
+
+def test_banded_aligner_on_card_matches_cpu(cuda_device, monkeypatch):
+    """``BatchBandedAligner`` on the card (K16, K16-walk) equals its CPU
+    path in all four modes, on the crop path, and with the lanes split into
+    sub-batches of one lane."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchBandedAligner, banded_device
+
+    rng = np.random.default_rng(71)
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    sc = Scoring.from_scores(-5, -1, 2, -2).with_clips(-3, -7, -2, -5)
+    for long_targets in (False, True):
+        xs, ys = _banded_pairs(rng, 40, long_targets)
+        for mode in ("custom", "global_", "semiglobal", "local"):
+            before = (sw.SCAN_BANDED.launches, walk.WALK_BANDED.launches)
+            got = getattr(BatchBandedAligner(sc, 8, 6, device=cuda_device), mode)(xs, ys)
+            assert (sw.SCAN_BANDED.launches, walk.WALK_BANDED.launches) == (before[0] + 1, before[1] + 1), mode
+            want = getattr(BatchBandedAligner(sc, 8, 6, device="cpu"), mode)(xs, ys)
+            assert [key(a) for a in got] == [key(a) for a in want], (mode, long_targets)
+            with monkeypatch.context() as mp:
+                mp.setattr(banded_device, "TB_BUDGET_MAX", 1)
+                split = getattr(BatchBandedAligner(sc, 8, 6, device=cuda_device), mode)(xs, ys)
+            assert [key(a) for a in split] == [key(a) for a in want], (mode, long_targets, "split")
+
+
+def test_banded_aligner_keeps_pairs_beside_empty_ones_on_card(cuda_device):
+    """An empty x or y runs the host oracle for its own pair; the others
+    take one K16 launch, and the batch equals the CPU path."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchBandedAligner
+
+    rng = np.random.default_rng(73)
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    xs, ys = _banded_pairs(rng, 20)
+    xs, ys = [b""] + xs + [b"ACGTTGCA"], [b"ACGTAC"] + ys + [b""]
+    sc = Scoring.from_scores(-5, -1, 2, -2)
+    before = sw.SCAN_BANDED.launches
+    got = BatchBandedAligner(sc, 8, 6, device=cuda_device).global_(xs, ys)
+    assert sw.SCAN_BANDED.launches == before + 1
+    assert [key(a) for a in got] == [key(a) for a in BatchBandedAligner(sc, 8, 6, device="cpu").global_(xs, ys)]

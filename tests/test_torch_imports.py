@@ -8,10 +8,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+from rust_bio_tpu_torch import native
+from rust_bio_tpu_torch.alignment import sparse
+from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, BatchBandedAligner, Scoring, banded, banded_device
 from rust_bio_tpu_torch import scores
 from rust_bio_tpu_torch.alphabets import dna, protein
-from rust_bio_tpu_torch.carry import fm_index_from_arrays
+from rust_bio_tpu_torch.carry import banded_inputs, fm_index_from_arrays
+from rust_bio_tpu_torch.data_structures import bit_tree
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
 from rust_bio_tpu_torch.pipelines import ReadMapper
 
@@ -53,10 +56,20 @@ def test_port_has_its_files():
     assert Path(scores.__file__).parent == ROOT / "rust_bio_tpu_torch" / "scores"
     assert (ROOT / "rust_bio_tpu_torch" / "scores" / "matrices.npz").is_file()
     assert scores.blosum62(ord("W"), ord("W")) == 11 and protein.alphabet().is_word(b"MKV")
+    # the banded aligner's own copies: sparse chaining, the Fenwick tree,
+    # the band and host oracle, the host C++ band builder
+    for mod, rel in (
+        (sparse, "alignment/sparse.py"), (bit_tree, "data_structures/bit_tree.py"),
+        (banded, "alignment/pairwise/banded.py"), (banded_device, "alignment/pairwise/banded_device.py"),
+        (native, "native.py"),
+    ):
+        assert Path(mod.__file__) == ROOT / "rust_bio_tpu_torch" / rel
+    assert native.SOURCE == ROOT / "rust_bio_tpu_torch" / "csrc" / "band_build.cpp" and native.SOURCE.is_file()
     csrc = ROOT / "rust_bio_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
         "sw_global.cu", "walk_global.cu", "fm_search.cu", "sw_semiglobal.cu", "walk_semiglobal.cu",
         "sw_custom.cu", "walk_custom.cu", "sw_global_rows.cu", "walk_global_seg.cu", "walk_steps.cu",
+        "sw_banded.cu", "walk_banded.cu",
     }
 
 
@@ -73,4 +86,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
         fm_index_from_arrays({}, {"n": 1, "s": 1, "sentinel": 36, "symbols": []})
     with pytest.raises(RuntimeError, match="CUDA"):
         ReadMapper(b"ACGTACGTTGCA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchBandedAligner(sc, 8, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        banded_inputs([[0]], [[1]], range(8))
+    assert BatchBandedAligner(sc, 8, 8, device="cpu").device.type == "cpu"
     assert BatchAligner(sc, device="cpu").device.type == "cpu"
