@@ -88,13 +88,33 @@ NVIDIA GPU.
    ``banded.Aligner`` and ``BatchBandedAligner(device="cpu")``; the
    pipelined batches must equal the synchronous call (each run after an
    untimed warm-up call, as ``bench.py:1169`` warms its aligner).
+3g. Drives the PairHMM family with the counters at 0 again: 4096 pairs in
+   the reference bench's geometry (benches/pairhmm.rs:9-19, built as
+   bench.py:225-248: x a 207 bp haplotype, y a 54 bp substring with 2
+   random bases written, gap probabilities 2.8e-6 and 5.1e-6 without
+   extension) through ``BatchPairHMMLinear`` (K17) semiglobal, 256 of them
+   global; 8192 GATK-like pairs (HaplotypeCaller's PairHMM on 2x150 bp
+   Illumina data: 150 bp reads at 1% substitutions in 300-500 bp haplotypes,
+   gap open phred 45, continuation phred 10) with shared Q30 emissions and
+   with per-lane ones from a per-read mean quality, and 64 of them with
+   the read as x, which underflow K17 and re-run on K17-log; 1024 bench
+   pairs through ``BatchPairHMMExact`` (K17-exact) unbanded and at
+   ``max_edit_dist`` 4; 2048 bench haplotypes with their error-free reads
+   through ``BatchHomopolyPairHMM`` (K17-homopoly, bench.py:423-460's hop
+   parameters). No bench lane may fall back, every read-as-x lane must,
+   every result must be finite; 16 pairs a corpus (4 homopoly) must agree
+   with the host oracles (run in worker processes beside the card; the
+   exact path within 1e-12 relative, the f32 classes within the JAX
+   suites' rel 2e-3, abs 2e-3) and 64 with the CPU path.
 4. Holds each kernel against its plain PyTorch version on the card at the
-   main-path shapes (bit for bit: integer outputs, tolerance 0) and times
-   both with CUDA events; times K1 against K13 on 1 kb and 2 kb batches.
+   main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
+   kernels within their stated tolerances) and times both with CUDA
+   events; times K1 against K13 on 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
-   band build's seconds a batch and a cProfile of one batch of reads.
+   band build's seconds a batch and a cProfile of one batch of reads; the
+   PairHMM pairs/s of each 3g corpus.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -106,11 +126,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
+import multiprocessing
+import os
 import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -182,6 +205,53 @@ BAND_K = BAND_W = 8
 B_BAND, BAND_READ, BAND_TARGET, BAND_SUBS, BAND_BATCHES = 2048, 150, 20_000, 4, 3
 B_KB, KB_READ, KB_SUBS = 256, 1000, 20
 B_BAND_LOCAL, BAND_ORACLE, BAND_ORACLE_LONG = 512, 16, 8
+# PairHMM (3g): the reference bench's pairs (benches/pairhmm.rs:9-19, built
+# as bench.py:225-286: x a 207 bp haplotype, y a 54 bp substring of it with
+# 2 random bases written, Illumina gap and substitution rates) and GATK
+# HaplotypeCaller's PairHMM calls on 2x150 bp Illumina data: 150 bp reads at
+# 1% substitutions in haplotypes of a 300 bp active region with up to 100 bp
+# of padding a side, gap open phred 45, gap continuation phred 10, base
+# qualities Q30 shared or a per-read mean of Q20-Q40
+HMM_INS, HMM_DEL, HMM_SUBST = 2.8e-6, 5.1e-6, 0.0021
+B_HMM, HMM_HAP, HMM_READ, HMM_ERRORS, B_HMM_GLOBAL = 4096, 207, 54, 2, 256
+B_GATK, GATK_READ, GATK_REGION, GATK_PAD, GATK_SUB = 8192, 150, 300, 100, 0.01
+GATK_GAP_OPEN, GATK_GAP_CONT, GATK_Q, GATK_Q_RANGE, B_GATK_SWAP = 10**-4.5, 0.1, 30.0, (20.0, 40.0), 64
+B_HMM_EXACT, HMM_MED, B_HOMOPOLY, HOP, HOP_EXTEND = 1024, 4, 2048, 1e-4, 0.5
+# pairs held to the host oracle (16 a corpus, 4 homopoly: the Python
+# oracles take 0.1-7 s a pair; they run in worker processes beside the card)
+# and to the port's CPU path
+HMM_ORACLE = {
+    "bench": 12, "bench_global": 4, "gatk": 6, "gatk_per_lane": 6, "gatk_read_as_x": 4,
+    "exact": 8, "exact_banded": 8, "homopoly": 4,
+}
+HMM_CPU = 64
+# the f32 classes on the card against the CPU path: the same plain
+# arithmetic, but the host's exp and log differ from the card's by an ulp,
+# and over 300-500 rows of f32 the two part by up to 4.0e-5 of max(1, |p|)
+# (K17 on the card equals its plain version there bit for bit); the
+# kernels against their plain versions on the card are held to 1e-5
+CPU_PATH_F32_TOL = 1e-4
+# H100 SXM published peaks outside the tensor cores: 67 TFLOP/s f32, 34
+# TFLOP/s f64, an FMA counted as two; the PairHMM kernels are built with
+# -fmad=false, so each counted operation is one instruction: 33.5 T and
+# 17 T a second
+F32_OPS_PER_S = 67e12 / 2
+F64_OPS_PER_S = 34e12 / 2
+# operations a DP cell, counted from the inner loops of csrc/pairhmm_*.cu
+# (an exp or a log1p counted as one; loads, stores, addresses not counted):
+# K17: 3 rescaling products, m_in's 3 products and 2 sums, the emission's
+# compare and select, 1 product for fm, 4 for fx, 3 for fy, 3 max, the ylen
+# compare; a logaddexp is 10 (compare, 2 selects, the surrogate test, a
+# difference, the clamp's compare and select, exp, log1p, the sum); K17-log:
+# 4 logaddexps, 9 sums, the emission select, the first-column test;
+# K17-homopoly: 29 logaddexps, 33 sums, 20 compares and selects; K17-exact:
+# the 10-nat shortcut's path (3 sums, the partial sort's 6 and the shortcut
+# test's 2, the emission's 3, 4 sums and 2 tests for the gap states), a lower
+# bound: the data decide how often the full sum runs
+K17_OPS_PER_CELL = 22
+K17_LOG_OPS_PER_CELL = 52
+K17_HOMOPOLY_OPS_PER_CELL = 343
+K17_EXACT_OPS_PER_CELL = 20
 
 
 def fail(msg: str) -> None:
@@ -582,6 +652,147 @@ def host_profile(torch, fn, top: int = 14) -> dict:
     }
 
 
+def pairhmm_corpora(rng):
+    """Phase 3g's inputs as numpy arrays: the bench pairs (x, y) with their
+    first ``B_HOMOPOLY`` haplotypes' exact read substrings for the homopoly
+    corpus (bench.py:423-460), and the GATK-like pairs (x, y, xlens, ylens,
+    per-lane emissions)."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    rows = np.arange(B_HMM)[:, None]
+    bx = acgt[rng.integers(0, 4, size=(B_HMM, HMM_HAP))]
+    at = rng.integers(0, HMM_HAP - HMM_READ, size=B_HMM)[:, None] + np.arange(HMM_READ)[None, :]
+    by = bx[rows, at]
+    homo = (bx[:B_HOMOPOLY].copy(), by[:B_HOMOPOLY].copy())
+    for _ in range(HMM_ERRORS):
+        by[np.arange(B_HMM), rng.integers(0, HMM_READ, size=B_HMM)] = acgt[rng.integers(0, 4, size=B_HMM)]
+    M = GATK_REGION + 2 * GATK_PAD
+    gxl = (GATK_REGION + rng.integers(0, GATK_PAD + 1, size=(B_GATK, 2)).sum(1)).astype(np.int32)
+    gx = acgt[rng.integers(0, 4, size=(B_GATK, M))]
+    gx[np.arange(M)[None, :] >= gxl[:, None]] = 0
+    off = rng.integers(0, gxl - GATK_READ + 1)[:, None] + np.arange(GATK_READ)[None, :]
+    gy = gx[np.arange(B_GATK)[:, None], off]
+    mut = rng.random(size=gy.shape) < GATK_SUB
+    gy[mut] = acgt[(np.searchsorted(acgt, gy[mut]) + rng.integers(1, 4, size=int(mut.sum()))) % 4]
+    gyl = np.full(B_GATK, GATK_READ, np.int32)
+    err = 10.0 ** (-rng.uniform(*GATK_Q_RANGE, size=B_GATK) / 10.0)
+    gep = np.stack([np.log1p(-err), np.log(err / 3.0), np.log1p(-err)], 1)
+    return (bx, by), homo, (gx, gy, gxl, gyl, gep)
+
+
+def hmm_lens(xs, ys, xlens, ylens):
+    """The lengths of a PairHMM batch, full where not given."""
+    B = len(xs)
+    return (
+        np.full(B, xs.shape[1], np.int32) if xlens is None else xlens,
+        np.full(B, ys.shape[1], np.int32) if ylens is None else ylens,
+    )
+
+
+def hmm_emit(err: float, n: int = 3):
+    """[ln p_match, ln p_mismatch, ln p_gap_emit (, ln p_emit_y)] of a base
+    error probability."""
+    return np.array([math.log1p(-err), math.log(err / 3.0)] + [math.log1p(-err)] * (n - 2))
+
+
+def hmm_oracle(kind, gaps, hops, x: bytes, y: bytes, ep, semiglobal: bool, med=None, match_any=None) -> float:
+    """The port's host oracle (``PairHMM`` or ``HomopolyPairHMM``) on one
+    pair under the sequencing emission model ``ep``; ``match_any``, when
+    given, replaces the homopoly oracle's match-to-match transitions (the
+    JAX package's class derives them with ln 4 where the oracle subtracts
+    4.0: ROADMAP Queue 3)."""
+    from rust_bio_tpu_torch.stats.pairhmm import (
+        EmissionParameters, GapParameters, Global, PairHMM, Semiglobal, XYEmission,
+    )
+    from rust_bio_tpu_torch.stats.pairhmm.homopolypairhmm import MATCH_STATES, Emission, HomopolyPairHMM, HopParameters
+
+    class Em(EmissionParameters, Emission):
+        def prob_emit_xy(self, i, j):
+            return XYEmission.match_(ep[0]) if x[i] == y[j] else XYEmission.mismatch(ep[1])
+
+        def prob_emit_x(self, i):
+            return ep[2]
+
+        def prob_emit_y(self, j):
+            return ep[-1]
+
+        def len_x(self):
+            return len(x)
+
+        def len_y(self):
+            return len(y)
+
+        def emission_x(self, i):
+            return x[i]
+
+        def emission_y(self, j):
+            return y[j]
+
+    class Gaps(GapParameters):
+        def prob_gap_x(self):
+            return gaps[0]
+
+        def prob_gap_y(self):
+            return gaps[1]
+
+        def prob_gap_x_extend(self):
+            return gaps[2]
+
+        def prob_gap_y_extend(self):
+            return gaps[3]
+
+    class Hops(HopParameters):
+        def prob_hop_x(self):
+            return hops[0]
+
+        def prob_hop_y(self):
+            return hops[1]
+
+        def prob_hop_x_extend(self):
+            return hops[2]
+
+        def prob_hop_y_extend(self):
+            return hops[3]
+
+    mode = Semiglobal() if semiglobal else Global()
+    if kind == "homopoly":
+        oracle = HomopolyPairHMM(Gaps(), Hops())
+        if match_any is not None:
+            for m1 in MATCH_STATES:
+                for m2 in MATCH_STATES:
+                    oracle.transition_probs[(m1, m2)] = match_any
+        return float(oracle.prob_related(Em(), mode, med))
+    return float(PairHMM(Gaps()).prob_related(Em(), mode, med))
+
+
+def f32_err(got, want) -> float:
+    """Max |got - want| / max(1, |want|) over the lanes both hold finite
+    (the -3e38 lanes must be the same set); the f32 kernels' tolerance is
+    1e-5."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    check(np.array_equal(got <= -1.5e38, want <= -1.5e38), "a lane underflowed on one side only")
+    ok = want > -1.5e38
+    return float((np.abs(got - want)[ok] / np.maximum(1.0, np.abs(want[ok]))).max()) if ok.any() else 0.0
+
+
+def rel_err(got, want) -> float:
+    """Max relative error (to max(1, |want|)) over finite lanes; the
+    non-finite lanes must be equal."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    check(np.array_equal(np.isfinite(got), fin) and np.array_equal(got[~fin], want[~fin]), "non-finite lanes differ")
+    return float((np.abs(got - want)[fin] / np.maximum(1.0, np.abs(want[fin]))).max()) if fin.any() else 0.0
+
+
+def oracle_ok(got, want) -> bool:
+    """The JAX suites' rule for the f32 classes against the f64 oracle: a
+    lane at -inf or under -80 there is under -75 here, the rest within rel
+    2e-3, abs 2e-3."""
+    return all(
+        (g < -75) if (w == float("-inf") or w < -80) else abs(g - w) <= max(2e-3, 2e-3 * abs(w))
+        for g, w in zip(got, want)
+    )
+
+
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
 
@@ -612,9 +823,12 @@ def main() -> int:
     )
     from rust_bio_tpu_torch.alphabets import dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
-    from rust_bio_tpu_torch.ops import _build, fm, sw, walk
+    from rust_bio_tpu_torch.ops import _build, fm, pairhmm, sw, walk
     from rust_bio_tpu_torch.pipelines import ReadMapper
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix, pam250
+    from rust_bio_tpu_torch.stats.pairhmm import (
+        BatchHomopolyPairHMM, BatchPairHMM, BatchPairHMMExact, BatchPairHMMLinear,
+    )
 
     dev = torch.device(DEVICE)
     smi = nvidia_smi_line()
@@ -653,6 +867,10 @@ def main() -> int:
         "walk_steps": walk.WALK_STEPS,
         "sw_scan_banded": sw.SCAN_BANDED,
         "walk_banded": walk.WALK_BANDED,
+        "pairhmm_fwd_scaled": pairhmm.PAIRHMM_FWD_SCALED,
+        "pairhmm_fwd_log": pairhmm.PAIRHMM_FWD_LOG,
+        "pairhmm_fwd_exact": pairhmm.PAIRHMM_FWD_EXACT,
+        "pairhmm_fwd_homopoly": pairhmm.PAIRHMM_FWD_HOMOPOLY,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -716,6 +934,7 @@ def main() -> int:
     # 3e's flanks from a stream of their own, so the draws above stay as they were
     clip_sets = long_clip_corpora(np.random.default_rng((args.seed, 3)), long_sets)
     band_reads, kb_set = band_corpora(np.random.default_rng((args.seed, 4)))
+    (hbx, hby), (hox, hoy), (gx, gy, gxl, gyl, gep) = pairhmm_corpora(np.random.default_rng((args.seed, 5)))
 
     # ---- 2. the global path, counted ----------------------------------
     for k in counters.values():
@@ -1135,6 +1354,118 @@ def main() -> int:
     launches = {name: launches[name] + band_launches[name] for name in counters}
     band_delivered_s = {name: run[1] for name, run in band_runs.items()}
     del band_runs, band_pipe, alns
+
+    # ---- 3g. the PairHMM family, counted -------------------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    neg_inf = float("-inf")
+    bench_gaps = (math.log(HMM_INS), math.log(HMM_DEL), neg_inf, neg_inf)
+    gatk_gaps = (math.log(GATK_GAP_OPEN), math.log(GATK_GAP_OPEN), math.log(GATK_GAP_CONT), math.log(GATK_GAP_CONT))
+    hops = (math.log(HOP), math.log(HOP), math.log(HOP_EXTEND), math.log(HOP_EXTEND))
+    bench_emit, gatk_emit = hmm_emit(HMM_SUBST), hmm_emit(10.0 ** (-GATK_Q / 10.0))
+    homo_emit = hmm_emit(HMM_SUBST, 4)
+    # the read as x: GATK's first B_GATK_SWAP pairs the other way round
+    sx, sy = gy[:B_GATK_SWAP].copy(), gx[:B_GATK_SWAP].copy()
+    sxl, syl = gyl[:B_GATK_SWAP].copy(), gxl[:B_GATK_SWAP].copy()
+    lin = BatchPairHMMLinear(*bench_gaps, device=dev)
+    glin = BatchPairHMMLinear(*gatk_gaps, device=dev)
+    exact = BatchPairHMMExact(*bench_gaps, device=dev)
+    homo = BatchHomopolyPairHMM(*bench_gaps, *hops, device=dev)
+    ex_x, ex_y = hbx[:B_HMM_EXACT], hby[:B_HMM_EXACT]
+    # each corpus: (class, its call's arguments between the pairs and the
+    # lengths, (x, y, xlens, ylens))
+    hmm_sets = {
+        "bench": (lin, (bench_emit, True), (hbx, hby, None, None)),
+        "bench_global": (lin, (bench_emit, False), (hbx[:B_HMM_GLOBAL], hby[:B_HMM_GLOBAL], None, None)),
+        "gatk": (glin, (gatk_emit, True), (gx, gy, gxl, gyl)),
+        "gatk_per_lane": (glin, (gep, True), (gx, gy, gxl, gyl)),
+        "gatk_read_as_x": (glin, (gatk_emit, True), (sx, sy, sxl, syl)),
+        "exact": (exact, (bench_emit, True, None), (ex_x, ex_y, None, None)),
+        "exact_banded": (exact, (bench_emit, True, HMM_MED), (ex_x, ex_y, None, None)),
+        "homopoly": (homo, (homo_emit, True), (hox, hoy, None, None)),
+    }
+    def oracle_args(name, b):
+        hmm, extra, (xs_, ys_, xl_, yl_) = hmm_sets[name]
+        xl_, yl_ = hmm_lens(xs_, ys_, xl_, yl_)
+        ep_ = extra[0] if extra[0].ndim == 1 else extra[0][b]
+        return (
+            "homopoly" if hmm is homo else "pairhmm", gatk_gaps if hmm is glin else bench_gaps, hops,
+            xs_[b, : xl_[b]].tobytes(), ys_[b, : yl_[b]].tobytes(), ep_, extra[1], extra[2] if hmm is exact else None,
+            float(homo.p["match_any"]) if hmm is homo else None,
+        )
+
+    # the host oracles run in worker processes while the card works
+    oracle_pool = ProcessPoolExecutor(min(8, os.cpu_count() or 1), mp_context=multiprocessing.get_context("spawn"))
+    oracle_jobs = {
+        name: [oracle_pool.submit(hmm_oracle, *oracle_args(name, b)) for b in range(n)]
+        for name, n in HMM_ORACLE.items()
+    }
+    hmm_runs = {}
+    for name, (hmm, extra, (xs_, ys_, xl_, yl_)) in hmm_sets.items():
+        log_before = pairhmm.PAIRHMM_FWD_LOG.launches
+        t0 = time.perf_counter()
+        out = hmm.prob_related_batch(xs_, ys_, *extra, xl_, yl_)
+        hmm_runs[name] = (out, time.perf_counter() - t0, pairhmm.PAIRHMM_FWD_LOG.launches - log_before)
+    hmm_launches = {name: k.launches for name, k in counters.items()}
+    check(
+        all(hmm_launches[n] > 0 for n in ("pairhmm_fwd_scaled", "pairhmm_fwd_log", "pairhmm_fwd_exact", "pairhmm_fwd_homopoly")),
+        f"a kernel of the PairHMM path did not launch: {hmm_launches}",
+    )
+    # no bench lane falls back (bench.py:262); every read-as-x lane does
+    check(hmm_runs["bench"][2] == 0 and bool((hmm_runs["bench"][0] > -1.5e38).all()), "pairhmm bench: a lane fell back")
+    check(hmm_runs["gatk_read_as_x"][2] > 0, "pairhmm read as x: K17-log did not launch")
+    hmm_summary = {}
+    for name, (hmm, extra, (xs_, ys_, xl_, yl_)) in hmm_sets.items():
+        out, secs, fell = hmm_runs[name]
+        B_ = len(xs_)
+        xl_, yl_ = hmm_lens(xs_, ys_, xl_, yl_)
+        check(out.shape == (B_,) and bool(np.isfinite(out).all()) and bool((out <= 0).all()), f"pairhmm {name}: not finite or > 0")
+        # global mode without gap extension has no path through 207 x 54:
+        # 153 gaps, at most one between two matches (the oracle's -inf)
+        no_path = int((out <= -1.5e38).sum())
+        check(no_path == (B_ if name == "bench_global" else 0), f"pairhmm {name}: {no_path} lanes without a path")
+        # references: the host oracle on a few pairs, the CPU path on 64
+        t0 = time.perf_counter()
+        gaps = gatk_gaps if hmm is glin else bench_gaps
+        ep_, semi = extra[0], extra[1]
+        med = extra[2] if hmm is exact else None
+        n_or = HMM_ORACLE[name]
+        want = [job.result() for job in oracle_jobs[name]]
+        if hmm is exact:
+            oracle_err = rel_err(out[:n_or], want)
+            check(oracle_err <= 1e-12, f"pairhmm {name}: {oracle_err} from the host oracle")
+        else:
+            oracle_err = None
+            check(oracle_ok(out[:n_or], want), f"pairhmm {name}: the host oracle differs")
+        oracle_wait_s = time.perf_counter() - t0
+        sub = (xs_[:HMM_CPU], ys_[:HMM_CPU], ep_ if ep_.ndim == 1 else ep_[:HMM_CPU], semi)
+        if hmm is exact:
+            cpu_out = BatchPairHMMExact(*gaps, device="cpu").prob_related_batch(*sub, med, xl_[:HMM_CPU], yl_[:HMM_CPU])
+            cpu_err = rel_err(out[:HMM_CPU], cpu_out)
+            check(cpu_err <= 1e-12, f"pairhmm {name}: card != CPU path ({cpu_err})")
+        else:
+            on_cpu = (
+                BatchHomopolyPairHMM(*gaps, *hops, device="cpu") if hmm is homo else BatchPairHMMLinear(*gaps, device="cpu")
+            )
+            cpu_err = f32_err(out[:HMM_CPU], on_cpu.prob_related_batch(*sub, xl_[:HMM_CPU], yl_[:HMM_CPU]))
+            check(cpu_err <= CPU_PATH_F32_TOL, f"pairhmm {name}: card != CPU path ({cpu_err})")
+        hmm_summary[name] = {
+            "pairs": B_, "max_len": [int(xl_.max()), int(yl_.max())], "mean_loglik": float(out[out > -1.5e38].mean()) if not no_path else None,
+            "no_path": no_path,
+            "fell_back": int(fell), "call_s": secs, "oracle_rel_err": oracle_err, "cpu_err": cpu_err,
+            "refs_s": time.perf_counter() - t0, "oracle_wait_s": oracle_wait_s,
+        }
+    # the read-as-x lanes, re-run in log space, against the f64 forward
+    f64_out = BatchPairHMM(*gatk_gaps, dtype=torch.float64, device=dev).prob_related_batch(sx, sy, gatk_emit, True, sxl, syl)
+    hmm_summary["gatk_read_as_x"]["f64_err"] = f32_err(hmm_runs["gatk_read_as_x"][0], f64_out)
+    check(hmm_summary["gatk_read_as_x"]["f64_err"] <= 1e-5, "pairhmm read as x: the f32 re-run != the f64 forward")
+    oracle_pool.shutdown()
+    print(json.dumps({
+        "phase": "pairhmm", "launches": hmm_launches, **hmm_summary, "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + hmm_launches[name] for name in counters}
+    del hmm_runs
 
     # ---- 4. kernels against their plain versions, timed ---------------
     t_phase = time.perf_counter()
@@ -1564,6 +1895,136 @@ def main() -> int:
         8 * (steps + Bq),
     )
     del kgot, winputs, wgot, wwant
+
+    # the PairHMM kernels on 3g's corpora; floats, each within its stated
+    # tolerance of its plain version on the same inputs (f32: 1e-5 of
+    # max(1, |p|) and the same -3e38 lanes; f64 log space and homopoly
+    # 1e-12 relative; K17-exact 1e-14 relative); bounds: operations over
+    # the f32 or f64 peak, or bytes when larger
+    def report_float(name, source, replaces, err, tol, ms, plain_ms, nbytes, nops, ops_per_s, **extra):
+        check(err <= tol, f"{name}: {err} from its plain version (tolerance {tol})")
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = nops / ops_per_s * 1e3
+        row = {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": None,
+        }
+        kernels.append(row)
+        print(json.dumps({"phase": "kernel", **row, "tolerance": tol, "bytes": nbytes, "ops": nops, **extra, "card": smi}), flush=True)
+
+    def hmm_inputs(xs_, ys_, xl_=None, yl_=None):
+        xl_, yl_ = hmm_lens(xs_, ys_, xl_, yl_)
+        return tens(xs_, ys_, xl_, yl_), xl_.astype(np.int64), yl_.astype(np.int64)
+
+    def hmm_bytes(xs_, ys_, out_bytes, emit_bytes):
+        # x and y, the lengths, the emissions and the output, once
+        return xs_.size + ys_.size + 8 * len(xs_) + emit_bytes + out_bytes * len(xs_)
+
+    def hmm_check(fn, plain_fn, err_fn, reps):
+        """(max error, kernel ms, plain ms, lanes bit-identical) of a kernel
+        and its plain version on the same inputs."""
+        got = fn()
+        torch.cuda.synchronize()
+        want, plain_ms = timed_once(torch, plain_fn)
+        same = int((got == want).sum())
+        return err_fn(got.cpu().numpy(), want.cpu().numpy()), cuda_ms(torch, fn, reps), plain_ms, same
+
+    lin_emit = torch.from_numpy(np.exp(bench_emit).astype(np.float32)).to(dev)
+    bargs, bxl, byl = hmm_inputs(hbx, hby)
+    err, ms, plain_ms, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_scaled(*bargs, lin._lin_params, lin_emit, True),
+        lambda: pairhmm.pairhmm_fwd_scaled_plain(*bargs, lin._lin_params, lin_emit, True), f32_err, 10,
+    )
+    # GATK-like pairs, per-lane emissions: every column of the padded width
+    g_args, g_xl, _ = hmm_inputs(gx, gy, gxl, gyl)
+    g_emit = torch.from_numpy(np.exp(gep).astype(np.float32)).to(dev)
+    g_err, g_ms, g_plain_ms, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_scaled(*g_args, glin._lin_params, g_emit, True),
+        lambda: pairhmm.pairhmm_fwd_scaled_plain(*g_args, glin._lin_params, g_emit, True), f32_err, 5,
+    )
+    g_ops = K17_OPS_PER_CELL * int(g_xl.sum()) * gy.shape[1]
+    report_float(
+        "pairhmm_fwd_scaled", "rust_bio_tpu_torch/ops/csrc/pairhmm_scaled.cu", "rust_bio_tpu/ops/pairhmm_pallas.py:48",
+        max(err, g_err), 1e-5, ms, plain_ms, hmm_bytes(hbx, hby, 4, 12), K17_OPS_PER_CELL * int(bxl.sum()) * hby.shape[1],
+        F32_OPS_PER_S, peak="f32 67 TFLOP/s", gatk_ms=g_ms, gatk_plain_ms=g_plain_ms, gatk_err=g_err,
+        gatk_bound_ms=max(hmm_bytes(gx, gy, 4, 12 * B_GATK) / HBM_BYTES_PER_S, g_ops / F32_OPS_PER_S) * 1e3,
+    )
+    # K17-log on the read-as-x lanes (its main-path inputs), f32 and f64; on
+    # the bench pairs too, beside K17
+    s_args, s_xl, s_yl = hmm_inputs(sx, sy, sxl, syl)
+    s_cells = int((s_xl * s_yl).sum())
+    log_f32 = torch.from_numpy(gatk_emit).float().to(dev)
+    err, ms, plain_ms, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_log(*s_args, glin._log_params, log_f32, True),
+        lambda: pairhmm.pairhmm_fwd_log_plain(*s_args, glin._log_params, log_f32, True), f32_err, 5,
+    )
+    g64 = BatchPairHMM(*gatk_gaps, dtype=torch.float64, device=dev)
+    log_f64 = torch.from_numpy(gatk_emit).to(dev)
+    err64, ms64, plain_ms64, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_log(*s_args, g64._log_params, log_f64, True),
+        lambda: pairhmm.pairhmm_fwd_log_plain(*s_args, g64._log_params, log_f64, True), rel_err, 5,
+    )
+    check(err64 <= 1e-12, f"pairhmm_fwd_log f64: {err64} from its plain version")
+    b_log = torch.from_numpy(bench_emit).float().to(dev)
+    report_float(
+        "pairhmm_fwd_log", "rust_bio_tpu_torch/ops/csrc/pairhmm_log.cu", "rust_bio_tpu/stats/pairhmm/device.py:85",
+        err, 1e-5, ms, plain_ms, hmm_bytes(sx, sy, 4, 12), K17_LOG_OPS_PER_CELL * s_cells, F32_OPS_PER_S,
+        peak="f32 67 TFLOP/s", cells=s_cells, f64_ms=ms64, f64_plain_ms=plain_ms64, f64_rel_err=err64,
+        f64_bound_ms=max(hmm_bytes(sx, sy, 8, 24) / HBM_BYTES_PER_S, K17_LOG_OPS_PER_CELL * s_cells / F64_OPS_PER_S) * 1e3,
+        bench_ms=cuda_ms(torch, lambda: pairhmm.pairhmm_fwd_log(*bargs, lin._log_params, b_log, True), 5),
+        bench_bound_ms=K17_LOG_OPS_PER_CELL * int((bxl * byl).sum()) / F32_OPS_PER_S * 1e3,
+    )
+    # K17-exact on the exact corpus, banded at 4 (the reference bench's
+    # setting) and unbanded; the skip masks bit for bit
+    e_args, e_xl, e_yl = hmm_inputs(ex_x, ex_y)
+    e_emit = torch.from_numpy(bench_emit).to(dev)
+    got, skip = pairhmm.pairhmm_fwd_exact(*e_args, exact._params, e_emit, True, HMM_MED, True)
+    torch.cuda.synchronize()
+    (want, wskip), plain_ms = timed_once(
+        torch, lambda: pairhmm.pairhmm_fwd_exact_plain(*e_args, exact._params, e_emit, True, HMM_MED, True)
+    )
+    check(torch.equal(skip, wskip), "pairhmm_fwd_exact: the skip mask differs from its plain version")
+    err = rel_err(got.cpu().numpy(), want.cpu().numpy())
+    bit_equal = int((got == want).sum())
+    e_cells = int((e_xl * e_yl).sum()) - int(skip.sum())
+    ms = cuda_ms(torch, lambda: pairhmm.pairhmm_fwd_exact(*e_args, exact._params, e_emit, True, HMM_MED), 5)
+    del skip, wskip
+    u_err, u_ms, u_plain_ms, u_same = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_exact(*e_args, exact._params, e_emit, True),
+        lambda: pairhmm.pairhmm_fwd_exact_plain(*e_args, exact._params, e_emit, True), rel_err, 5,
+    )
+    u_cells = int((e_xl * e_yl).sum())
+    report_float(
+        "pairhmm_fwd_exact", "rust_bio_tpu_torch/ops/csrc/pairhmm_exact.cu", "rust_bio_tpu/stats/pairhmm/exact.py:150",
+        max(err, u_err), 1e-14, ms, plain_ms, hmm_bytes(ex_x, ex_y, 8, 24), K17_EXACT_OPS_PER_CELL * e_cells,
+        F64_OPS_PER_S, peak="f64 34 TFLOP/s", banded_cells=e_cells, bit_identical_lanes=bit_equal, lanes=B_HMM_EXACT,
+        unbanded_ms=u_ms, unbanded_plain_ms=u_plain_ms, unbanded_bit_identical_lanes=u_same,
+        unbanded_bound_ms=K17_EXACT_OPS_PER_CELL * u_cells / F64_OPS_PER_S * 1e3,
+    )
+    # K17-homopoly on the homopoly corpus, f32 (the main path's) and f64
+    h_args, h_xl, h_yl = hmm_inputs(hox, hoy)
+    h_cells = int((h_xl * h_yl).sum())
+    h_emit = torch.from_numpy(homo_emit).float().to(dev)
+    err, ms, plain_ms, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_homopoly(*h_args, homo._params, h_emit, True),
+        lambda: pairhmm.pairhmm_fwd_homopoly_plain(*h_args, homo._params, h_emit, True), f32_err, 5,
+    )
+    homo64 = BatchHomopolyPairHMM(*bench_gaps, *hops, dtype=torch.float64, device=dev)
+    h_emit64 = torch.from_numpy(homo_emit).to(dev)
+    err64, ms64, plain_ms64, _ = hmm_check(
+        lambda: pairhmm.pairhmm_fwd_homopoly(*h_args, homo64._params, h_emit64, True),
+        lambda: pairhmm.pairhmm_fwd_homopoly_plain(*h_args, homo64._params, h_emit64, True), rel_err, 3,
+    )
+    check(err64 <= 1e-12, f"pairhmm_fwd_homopoly f64: {err64} from its plain version")
+    report_float(
+        "pairhmm_fwd_homopoly", "rust_bio_tpu_torch/ops/csrc/pairhmm_homopoly.cu",
+        "rust_bio_tpu/stats/pairhmm/homopoly_device.py:114",
+        err, 1e-5, ms, plain_ms, hmm_bytes(hox, hoy, 4, 16), K17_HOMOPOLY_OPS_PER_CELL * h_cells, F32_OPS_PER_S,
+        peak="f32 67 TFLOP/s", cells=h_cells, f64_ms=ms64, f64_plain_ms=plain_ms64, f64_rel_err=err64,
+        f64_bound_ms=max(hmm_bytes(hox, hoy, 8, 32) / HBM_BYTES_PER_S, K17_HOMOPOLY_OPS_PER_CELL * h_cells / F64_OPS_PER_S) * 1e3,
+    )
     # T_ROWS: K1 (its column state in device memory past M = 605) against
     # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
     # substitutions)
@@ -1660,6 +2121,30 @@ def main() -> int:
         rates[f"banded_{name}_pairs_per_s_device"] = len(xs) / host_s(torch, up, 2)
         rates[f"banded_{name}_pairs_per_s_delivered"] = len(xs) / band_delivered_s[name]
     rates["banded_band_build_s"] = band_build_s
+    # PairHMM pairs/s: device-only from the device-resident inputs through
+    # the class's forward (K17 then, on the two corpora whose every lane
+    # falls back, the log-space re-run of every lane), delivered through
+    # prob_related_batch from numpy (warm, the median of 3)
+    for name, (hmm, extra, (xs_, ys_, xl_, yl_)) in hmm_sets.items():
+        args_, _, _ = hmm_inputs(xs_, ys_, xl_, yl_)
+        if hmm is exact:
+            fwd = lambda hmm=hmm, a=args_, e=torch.from_numpy(extra[0]).to(dev), x=extra: hmm._forward(*a, e, x[1], x[2])  # noqa: E731
+        elif hmm is homo:
+            fwd = lambda hmm=hmm, a=args_, e=torch.from_numpy(extra[0]).float().to(dev), x=extra: hmm._forward(*a, e, x[1])  # noqa: E731
+        else:
+            e_lin = torch.from_numpy(np.exp(extra[0]).astype(np.float32)).to(dev)
+            e_log = torch.from_numpy(extra[0]).float().to(dev)
+
+            def fwd(hmm=hmm, a=args_, e=e_lin, el=e_log, x=extra, name=name):
+                out = hmm._forward(*a, e, x[1])
+                if name in ("bench_global", "gatk_read_as_x"):
+                    out = BatchPairHMM._forward(hmm, *a, el, x[1])
+                return out
+
+        rates[f"pairhmm_{name}_pairs_per_s_device"] = len(xs_) / host_s(torch, fwd, 3)
+        rates[f"pairhmm_{name}_pairs_per_s_delivered"] = len(xs_) / host_s(
+            torch, lambda hmm=hmm, x=extra, a=(xs_, ys_, xl_, yl_): hmm.prob_related_batch(a[0], a[1], *x, a[2], a[3]), 3
+        )
     print(json.dumps({"phase": "banded_profile", **host_profile(torch, lambda: bb.semiglobal(*band_reads[0]))}), flush=True)
     print(json.dumps({"phase": "mapper_profile", **host_profile(torch, lambda: mapper.map_batch(main_reads))}), flush=True)
     print(json.dumps({"phase": "rates", **rates, "seconds": time.perf_counter() - t_phase, "card": smi}), flush=True)

@@ -16,7 +16,10 @@ path with hand-written CUDA kernels (``ops/csrc/*.cu``, built with nvcc for
   (:mod:`rust_bio_tpu_torch.pipelines`);
 - the banded aligner ``BatchBandedAligner`` (k-mer bands through long
   targets; its band builder is host C++, ``csrc/band_build.cpp``, built
-  with the host compiler at first use by :mod:`rust_bio_tpu_torch.native`).
+  with the host compiler at first use by :mod:`rust_bio_tpu_torch.native`);
+- the PairHMM family ``BatchPairHMMLinear``, ``BatchPairHMM``,
+  ``BatchPairHMMExact`` and ``BatchHomopolyPairHMM`` with their host
+  oracles (:mod:`rust_bio_tpu_torch.stats.pairhmm`).
 
 Entry points take ``device=None``, which means the CUDA device; without one
 they raise ``RuntimeError``. Pass ``device="cpu"`` to run the plain PyTorch

@@ -20,6 +20,11 @@ takes the JAX package's K16 inputs (``starts``/``ends`` (B, N+1) band
 rows, the ``pen8`` vector (gap_open, gap_extend, xclip_prefix,
 xclip_suffix, yclip_prefix, yclip_suffix, match, mismatch)) as numpy and
 gives the port's (``ops.sw.scan_banded``'s ``starts``, ``ends``, ``pens8``).
+
+The PairHMM family carries its derived parameters: ``pairhmm_from_params``
+builds the port's class from those of a JAX object, as plain floats and
+numpy arrays (``BatchPairHMM.g``, the fields of ``BatchPairHMMExact.g``,
+``BatchHomopolyPairHMM.p``); both packages then compute the same thing.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from rust_bio_tpu_torch._device import resolve_device
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.stats import pairhmm
 
 FORMAT_VERSION = 1
 
@@ -88,3 +94,25 @@ def banded_inputs(starts, ends, pen8, device=None):
     if len(pens8) != 8:
         raise ValueError(f"pen8: expected 8 penalties, got {len(pens8)}")
     return st, en, pens8
+
+
+def pairhmm_from_params(kind: str, params: dict, device=None, dtype=torch.float32):
+    """The port's PairHMM class ``kind`` from a JAX object's derived
+    parameters (``device=None`` means CUDA):
+
+    - ``"BatchPairHMM"`` / ``"BatchPairHMMLinear"``: ``params`` is its ``g``,
+      seven floats; ``dtype`` as the JAX object's (the log-space kernel's);
+    - ``"BatchPairHMMExact"``: the fields of its ``g`` as a dict
+      (``vars(obj.g)``);
+    - ``"BatchHomopolyPairHMM"``: its ``p``, floats and length-4 arrays, and
+      ``dtype`` as the JAX object's (its -inf surrogate follows the dtype).
+    """
+    if kind in ("BatchPairHMM", "BatchPairHMMLinear"):
+        return getattr(pairhmm, kind).from_g(params, dtype, device)
+    if kind == "BatchPairHMMExact":
+        return pairhmm.BatchPairHMMExact.from_fields(params, device)
+    if kind == "BatchHomopolyPairHMM":
+        return pairhmm.BatchHomopolyPairHMM.from_p(params, dtype, device)
+    raise ValueError(
+        f"kind {kind!r}: expected BatchPairHMM, BatchPairHMMLinear, BatchPairHMMExact or BatchHomopolyPairHMM"
+    )

@@ -4,11 +4,12 @@ Each source is compiled on its own into ``_build/<name>-<hash>.so`` with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
 
-where ``<hash>`` covers the source and the flags, so an edited source is
-rebuilt and an unchanged one is reused. ``build()`` starts one nvcc per
-missing library, all at once. Every C entry point takes raw pointers, plain
-ints and the CUDA stream last, and returns ``cudaGetLastError()`` after its
-launch; ``CudaKernel.launch`` raises on anything but 0.
+and the source's ``EXTRA_FLAGS``, where ``<hash>`` covers the source and
+the flags, so an edited source is rebuilt and an unchanged one is reused.
+``build()`` starts one nvcc per missing library, all at once. Every C
+entry point takes raw pointers, plain ints and the CUDA stream last, and
+returns ``cudaGetLastError()`` after its launch; ``CudaKernel.launch``
+raises on anything but 0.
 """
 
 from __future__ import annotations
@@ -32,8 +33,18 @@ NVCC_FLAGS = (
 SOURCES = (
     "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
     "sw_custom", "walk_custom", "sw_global_rows", "walk_global_seg", "walk_steps",
-    "sw_banded", "walk_banded",
+    "sw_banded", "walk_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
+    "pairhmm_homopoly",
 )
+# per-source flags after NVCC_FLAGS: the PairHMM forwards keep every product
+# and sum unfused, so they round as their plain versions and the host
+# oracle; K17 also flushes f32 subnormals to zero, as the TPU does
+EXTRA_FLAGS = {
+    "pairhmm_scaled": ("-fmad=false", "-ftz=true"),
+    "pairhmm_log": ("-fmad=false",),
+    "pairhmm_exact": ("-fmad=false",),
+    "pairhmm_homopoly": ("-fmad=false",),
+}
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
@@ -53,9 +64,13 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _target(name: str) -> Path:
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
+        (CSRC / f"{name}.cu").read_bytes() + " ".join(_flags(name)).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
@@ -70,7 +85,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             continue
         BUILD_DIR.mkdir(exist_ok=True)
         tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )

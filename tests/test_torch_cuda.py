@@ -9,6 +9,8 @@ JAX, so they run on a machine that has only the port's requirements:
 compared exactly.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +20,7 @@ from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 from rust_bio_tpu_torch.alphabets import dna
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
 from rust_bio_tpu_torch.ops import fm, sw, walk
+from rust_bio_tpu_torch.ops import pairhmm as pairhmm_ops
 from rust_bio_tpu_torch.pipelines import ReadMapper
 
 pytestmark = pytest.mark.cuda
@@ -794,3 +797,212 @@ def test_banded_aligner_keeps_pairs_beside_empty_ones_on_card(cuda_device):
     got = BatchBandedAligner(sc, 8, 6, device=cuda_device).global_(xs, ys)
     assert sw.SCAN_BANDED.launches == before + 1
     assert [key(a) for a in got] == [key(a) for a in BatchBandedAligner(sc, 8, 6, device="cpu").global_(xs, ys)]
+
+
+# ---------------------------------------------------------------------------
+# the PairHMM family: K17, K17-log, K17-exact, K17-homopoly
+# ---------------------------------------------------------------------------
+# Tolerances: K17, K17-log f32 and K17-homopoly f32 within 1e-5 * max(1, |p|)
+# of their plain versions (the same -3e38 lanes); the f64 log-space and
+# homopoly kernels within 1e-12 relative; K17-exact within 1e-14 relative
+# and its skip mask bit for bit.
+
+HMM_GAPS = {
+    "bench": (math.log(2.8e-6), math.log(5.1e-6), float("-inf"), float("-inf")),
+    "extend": (math.log(2.8e-6), math.log(5.1e-6), math.log(0.3), math.log(0.2)),
+}
+HMM_EMIT = np.array([math.log(1 - 0.0021), math.log(0.0021 / 3), math.log(1 - 0.0021)])
+HOPS = (math.log(1e-4), math.log(1e-4), math.log(0.5), math.log(0.5))
+
+
+def _hmm_pairs(rng, B, M, N, ymax=None):
+    """x a haplotype, y a substring with 2 errors; ragged lengths (ylen up to
+    ``ymax``, N by default) with xlen 0 and ylen 0 lanes; per-lane
+    emissions from a mean base quality."""
+    xs = rng.choice(list(b"ACGT"), size=(B, M)).astype(np.uint8)
+    ys = np.zeros((B, N), np.uint8)
+    for i in range(B):
+        s = int(rng.integers(0, max(1, M - N)))
+        seg = xs[i, s : s + N]
+        ys[i, : len(seg)] = seg
+        ys[i, rng.integers(0, N, size=2)] = rng.choice(list(b"ACGT"), size=2)
+    xl = rng.integers(0, M + 1, size=B).astype(np.int32)
+    ymax = N if ymax is None else ymax
+    yl = rng.integers(0, ymax + 1, size=B).astype(np.int32)
+    xl[:4] = [M, 0, M, 1]
+    yl[:4] = [ymax, ymax, 0, 1]
+    q = 10.0 ** (-rng.uniform(15, 40, size=B) / 10.0)
+    ep = np.stack([np.log1p(-q), np.log(q / 3), np.log1p(-q)], 1)
+    return xs, ys, xl, yl, ep
+
+
+def _on(dev, *arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+
+def _f32_close(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    fell = want <= pairhmm_ops.NEG_F32 / 2
+    assert torch.equal(got <= pairhmm_ops.NEG_F32 / 2, fell)
+    err = (got - want).abs()[~fell]
+    assert bool((err <= 1e-5 * want.abs()[~fell].clamp_min(1.0)).all()), float(err.max())
+
+
+def _rel_close(got, want, rel):
+    got, want = got.double().cpu(), want.double().cpu()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin) and torch.equal(got[~fin], want[~fin])
+    assert bool(((got - want).abs()[fin] <= rel * want.abs()[fin].clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("N", [54, 150, 19_400])
+def test_pairhmm_scaled_matches_plain(cuda_device, N):
+    """K17 in shared memory (N 54, 150) and with its rows in the device
+    scratch (N 19,400: 3 * 4 * (N + 1) bytes over 227 KB)."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMMLinear
+
+    B, M = (300, 207) if N < 1000 else (6, 12)
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N), B, M, N)
+    for gaps in HMM_GAPS:
+        hmm = BatchPairHMMLinear(*HMM_GAPS[gaps], device=cuda_device)
+        args = _on(cuda_device, xs, ys, xl, yl)
+        for emit in (HMM_EMIT, ep):
+            e = torch.from_numpy(np.exp(emit).astype(np.float32)).to(cuda_device)
+            for semi in (False, True):
+                got = pairhmm_ops.pairhmm_fwd_scaled(*args, hmm._lin_params, e, semi)
+                torch.cuda.synchronize()
+                _f32_close(got, pairhmm_ops.pairhmm_fwd_scaled_plain(*args, hmm._lin_params, e, semi))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [54, 20_000])
+def test_pairhmm_log_matches_plain(cuda_device, N, dtype):
+    """K17-log in shared memory and in the device scratch (3 * 4 * (N + 1)
+    bytes over 227 KB at N 20,000)."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM
+
+    # the long rows hold lanes of up to 60 columns: a sum over 20,000
+    # columns in f32 parts the sequential and log-step orders past 1e-5
+    B, M = (300, 207) if N < 1000 else (6, 10)
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 1), B, M, N, None if N < 1000 else 60)
+    for gaps in HMM_GAPS:
+        hmm = BatchPairHMM(*HMM_GAPS[gaps], dtype=dtype, device=cuda_device)
+        args = _on(cuda_device, xs, ys, xl, yl)
+        for emit in (HMM_EMIT, ep):
+            e = torch.from_numpy(emit).to(dtype).to(cuda_device)
+            for semi in (False, True):
+                got = pairhmm_ops.pairhmm_fwd_log(*args, hmm._log_params, e, semi)
+                torch.cuda.synchronize()
+                want = pairhmm_ops.pairhmm_fwd_log_plain(*args, hmm._log_params, e, semi)
+                if dtype == torch.float32:
+                    _f32_close(got, want)
+                else:
+                    _rel_close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("N", [54, 5_000])
+def test_pairhmm_exact_matches_plain(cuda_device, N):
+    """K17-exact in shared memory and in the device scratch (6 or 8 layers
+    of 8 * (N + 1) bytes over 227 KB at N 5,000), with its skip mask."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMMExact
+
+    small = N < 1000
+    B, M = (64, 60) if small else (4, 3)
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 2), B, M, N)
+    bit_equal = total = 0
+    # the plain version loops over j for a band or an extended Y state:
+    # the long rows take the bench gaps, unbanded and at 4
+    for gaps in HMM_GAPS if small else ("bench",):
+        hmm = BatchPairHMMExact(*HMM_GAPS[gaps], device=cuda_device)
+        args = _on(cuda_device, xs, ys, xl, yl, ep if gaps == "extend" else HMM_EMIT)
+        for semi in (False, True):
+            for med in (None, 2, 4) if small else (None, 4):
+                got, skip = hmm._forward(*args, semi, med, True)
+                torch.cuda.synchronize()
+                want, wskip = pairhmm_ops.pairhmm_fwd_exact_plain(*args[:4], hmm._params, args[4], semi, med, True)
+                _rel_close(got, want, 1e-14)
+                assert torch.equal(skip, wskip)
+                bit_equal += int((got == want).sum())
+                total += B
+    print(f"K17-exact: {bit_equal} of {total} lanes bit-identical to the plain version")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [54, 4_200])
+def test_pairhmm_homopoly_matches_plain(cuda_device, N, dtype):
+    """K17-homopoly, f32 and f64, in shared memory and in the device scratch
+    (14 * 4 * (N + 1) bytes over 227 KB at N 4,200)."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM
+
+    B, M = (128, 207) if N < 1000 else (4, 6)
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 3), B, M, N, None if N < 1000 else 60)
+    ep4 = np.concatenate([ep, ep[:, 2:]], 1)
+    hmm = BatchHomopolyPairHMM(*HMM_GAPS["extend"], *HOPS, dtype=dtype, device=cuda_device)
+    args = _on(cuda_device, xs, ys, xl, yl)
+    for emit in (np.append(HMM_EMIT, HMM_EMIT[2]), ep4):
+        e = torch.from_numpy(emit).to(dtype).to(cuda_device)
+        for semi in (False, True):
+            got = pairhmm_ops.pairhmm_fwd_homopoly(*args, hmm._params, e, semi)
+            torch.cuda.synchronize()
+            want = pairhmm_ops.pairhmm_fwd_homopoly_plain(*args, hmm._params, e, semi)
+            if dtype == torch.float32:
+                _f32_close(got, want)
+            else:
+                _rel_close(got, want, 1e-12)
+
+
+def test_pairhmm_classes_on_card_match_cpu(cuda_device):
+    from rust_bio_tpu_torch.stats.pairhmm import (
+        BatchHomopolyPairHMM,
+        BatchPairHMM,
+        BatchPairHMMExact,
+        BatchPairHMMLinear,
+    )
+
+    rng = np.random.default_rng(81)
+    xs, ys, xl, yl, ep = _hmm_pairs(rng, 200, 120, 40)
+    for semi in (False, True):
+        for emit in (HMM_EMIT, ep):
+            for cls, kw in ((BatchPairHMMLinear, {}), (BatchPairHMM, {}), (BatchPairHMM, {"dtype": torch.float64})):
+                before = (pairhmm_ops.PAIRHMM_FWD_SCALED.launches, pairhmm_ops.PAIRHMM_FWD_LOG.launches)
+                got = cls(*HMM_GAPS["extend"], **kw, device=cuda_device).prob_related_batch(xs, ys, emit, semi, xl, yl)
+                after = (pairhmm_ops.PAIRHMM_FWD_SCALED.launches, pairhmm_ops.PAIRHMM_FWD_LOG.launches)
+                assert after != before
+                want = cls(*HMM_GAPS["extend"], **kw, device="cpu").prob_related_batch(xs, ys, emit, semi, xl, yl)
+                if kw:
+                    _rel_close(torch.from_numpy(got), torch.from_numpy(want), 1e-12)
+                else:
+                    _f32_close(torch.from_numpy(got), torch.from_numpy(want))
+            got = BatchPairHMMExact(*HMM_GAPS["extend"], device=cuda_device).prob_related_batch(xs, ys, emit, semi, 4, xl, yl)
+            want = BatchPairHMMExact(*HMM_GAPS["extend"], device="cpu").prob_related_batch(xs, ys, emit, semi, 4, xl, yl)
+            _rel_close(torch.from_numpy(got), torch.from_numpy(want), 1e-14)
+        ep4 = np.concatenate([ep, ep[:, 2:]], 1)
+        hmm = BatchHomopolyPairHMM(*HMM_GAPS["bench"], *HOPS, device=cuda_device)
+        got = hmm.prob_related_batch(xs[:64], ys[:64], ep4[:64], semi, xl[:64], yl[:64])
+        want = BatchHomopolyPairHMM(*HMM_GAPS["bench"], *HOPS, device="cpu").prob_related_batch(
+            xs[:64], ys[:64], ep4[:64], semi, xl[:64], yl[:64]
+        )
+        _f32_close(torch.from_numpy(got), torch.from_numpy(want))
+
+
+def test_pairhmm_linear_fallback_on_card(cuda_device):
+    """x = y[10:64] against y of 64 and 207 bp, semiglobal, gap extends of
+    0.5: the two 207 bp lanes underflow K17 and take K17-log, each with its
+    own emission row."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM, BatchPairHMMLinear
+
+    rng = np.random.default_rng(82)
+    y = rng.choice(list(b"ACGT"), size=207).astype(np.uint8)
+    xs, ys = np.tile(y[10:64], (4, 1)), np.tile(y, (4, 1))
+    xl, yl = np.full(4, 54, np.int32), np.array([64, 64, 207, 207], np.int32)
+    gaps = (math.log(2.8e-6), math.log(5.1e-6), math.log(0.5), math.log(0.5))
+    q = 10.0 ** (-np.array([20.0, 30.0, 25.0, 35.0]) / 10.0)
+    ep = np.stack([np.log1p(-q), np.log(q / 3), np.log1p(-q)], 1)
+    hmm = BatchPairHMMLinear(*gaps, device=cuda_device)
+    before = pairhmm_ops.PAIRHMM_FWD_LOG.launches
+    got = hmm.prob_related_batch(xs, ys, ep, True, xl, yl)
+    assert pairhmm_ops.PAIRHMM_FWD_LOG.launches == before + 1
+    want = BatchPairHMMLinear(*gaps, device="cpu").prob_related_batch(xs, ys, ep, True, xl, yl)
+    _f32_close(torch.from_numpy(got), torch.from_numpy(want))
+    f64 = BatchPairHMM(*gaps, dtype=torch.float64, device=cuda_device).prob_related_batch(xs, ys, ep, True, xl, yl)
+    _f32_close(torch.from_numpy(got), torch.from_numpy(f64))

@@ -13,10 +13,23 @@ from rust_bio_tpu_torch.alignment import sparse
 from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, BatchBandedAligner, Scoring, banded, banded_device
 from rust_bio_tpu_torch import scores
 from rust_bio_tpu_torch.alphabets import dna, protein
-from rust_bio_tpu_torch.carry import banded_inputs, fm_index_from_arrays
+from rust_bio_tpu_torch.carry import banded_inputs, fm_index_from_arrays, pairhmm_from_params
 from rust_bio_tpu_torch.data_structures import bit_tree
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.ops import pairhmm as pairhmm_ops
 from rust_bio_tpu_torch.pipelines import ReadMapper
+from rust_bio_tpu_torch.stats import pairhmm, probs
+from rust_bio_tpu_torch.stats.pairhmm import (
+    BatchHomopolyPairHMM,
+    BatchPairHMM,
+    BatchPairHMMExact,
+    BatchPairHMMLinear,
+    device as pairhmm_device,
+    exact as pairhmm_exact,
+    homopoly_device,
+    homopolypairhmm,
+)
+from rust_bio_tpu_torch.utils import fastexp
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "rust_bio_tpu")
@@ -62,6 +75,12 @@ def test_port_has_its_files():
         (sparse, "alignment/sparse.py"), (bit_tree, "data_structures/bit_tree.py"),
         (banded, "alignment/pairwise/banded.py"), (banded_device, "alignment/pairwise/banded_device.py"),
         (native, "native.py"),
+        # the PairHMM family's: fastexp, LogProb, the host oracles, the
+        # batched forwards and their kernels' wrappers
+        (fastexp, "utils/fastexp.py"), (probs, "stats/probs/__init__.py"),
+        (pairhmm, "stats/pairhmm/__init__.py"), (homopolypairhmm, "stats/pairhmm/homopolypairhmm.py"),
+        (pairhmm_device, "stats/pairhmm/device.py"), (pairhmm_exact, "stats/pairhmm/exact.py"),
+        (homopoly_device, "stats/pairhmm/homopoly_device.py"), (pairhmm_ops, "ops/pairhmm.py"),
     ):
         assert Path(mod.__file__) == ROOT / "rust_bio_tpu_torch" / rel
     assert native.SOURCE == ROOT / "rust_bio_tpu_torch" / "csrc" / "band_build.cpp" and native.SOURCE.is_file()
@@ -69,7 +88,8 @@ def test_port_has_its_files():
     assert {p.name for p in csrc.glob("*.cu")} == {
         "sw_global.cu", "walk_global.cu", "fm_search.cu", "sw_semiglobal.cu", "walk_semiglobal.cu",
         "sw_custom.cu", "walk_custom.cu", "sw_global_rows.cu", "walk_global_seg.cu", "walk_steps.cu",
-        "sw_banded.cu", "walk_banded.cu",
+        "sw_banded.cu", "walk_banded.cu", "pairhmm_scaled.cu", "pairhmm_log.cu", "pairhmm_exact.cu",
+        "pairhmm_homopoly.cu",
     }
 
 
@@ -90,5 +110,16 @@ def test_default_device_raises_without_cuda(monkeypatch):
         BatchBandedAligner(sc, 8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
         banded_inputs([[0]], [[1]], range(8))
+    gaps = (-12.8, -12.2, float("-inf"), float("-inf"))
+    hops = (-9.2, -9.2, -0.7, -0.7)
+    for make in (
+        lambda **kw: BatchPairHMM(*gaps, **kw), lambda **kw: BatchPairHMMLinear(*gaps, **kw),
+        lambda **kw: BatchPairHMMExact(*gaps, **kw), lambda **kw: BatchHomopolyPairHMM(*gaps, *hops, **kw),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pairhmm_from_params("BatchPairHMM", BatchPairHMM(*gaps, device="cpu").g)
     assert BatchBandedAligner(sc, 8, 8, device="cpu").device.type == "cpu"
     assert BatchAligner(sc, device="cpu").device.type == "cpu"
