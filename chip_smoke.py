@@ -109,7 +109,8 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events; times K1 against K13 on 1 kb and 2 kb batches.
+   events (K15 and K15-LUT also without traceback); times K1 against K13
+   and K9 against K15 on 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
@@ -158,7 +159,7 @@ K7_OPS_PER_CELL = 44
 K9_OPS_PER_CELL = 49
 # csrc/sw_global_rows.cu: K1's cell without the run counter and nibble
 K13_OPS_PER_CELL = 26
-# csrc/sw_custom.cu K15: K9's cell without the run counter and nibble
+# csrc/sw_columns.cu K15: K9's cell without the run counter and nibble
 K15_OPS_PER_CELL = 45
 # csrc/sw_banded.cu K16 per band cell, counted from its band loop: the
 # match compare and score select (4), the Del extend/open and its bits (7,
@@ -1775,7 +1776,8 @@ def main() -> int:
     # K15 and K15-walk on the long semiglobal corpus, K15-LUT on the long
     # protein local corpus: one check launch against the plain version (tb
     # compared 256 columns at a time), the plain version timed by that one
-    # run, the kernel by one more launch
+    # run, the kernel by 5 warm launches, and by 5 more without traceback
+    # (scores_only_ms: the same launch without the tb and lx stores)
     def columns_kernel(name, args_d, scan, plain, replaces, table_bytes=0):
         got = scan()
         torch.cuda.synchronize()
@@ -1792,17 +1794,18 @@ def main() -> int:
         ml64, nl64 = ml_d_.long(), nl_d_.long()
         Bq = ml_d_.shape[0]
         report(
-            name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", replaces, None, None,
-            cuda_ms(torch, scan, 1, warm=False), plain_ms,
+            name, "rust_bio_tpu_torch/ops/csrc/sw_columns.cu", replaces, None, None,
+            cuda_ms(torch, scan, 5), plain_ms,
             args_d[0].numel() + args_d[1].numel() + 8 * Bq + table_bytes + 2 * int(((ml64 + 1) * (nl64 + 1)).sum())
             + 4 * int((nl64 + 1).sum()) + 5 * 4 * int((ml64 + 1).sum()),
             K15_OPS_PER_CELL * int((ml64 * nl64).sum()), err=err,
+            scores_only_ms=cuda_ms(torch, lambda: scan(traceback=False), 5),
         )
         return got
 
     cargs = tens(*ba._pad(*semi_set))
     scan = columns_kernel(
-        "sw_scan_columns", cargs, lambda: sw.scan_columns(*cargs, *pens, *SEMI_CLIPS),
+        "sw_scan_columns", cargs, lambda traceback=True: sw.scan_columns(*cargs, *pens, *SEMI_CLIPS, traceback=traceback),
         lambda: sw.scan_columns_plain(*cargs, *pens, *SEMI_CLIPS), "rust_bio_tpu/ops/sw_pallas.py:313",
     )
     _columns_fixups(scan, cargs[2], cargs[3], (GO, GE, *SEMI_CLIPS))
@@ -1823,7 +1826,8 @@ def main() -> int:
     del scan, winputs, wgot, wwant
     pargs = tens(*bp._pad(*prot_set))
     columns_kernel(
-        "sw_scan_columns_lut", pargs, lambda: sw.scan_columns_lut(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0),
+        "sw_scan_columns_lut", pargs,
+        lambda traceback=True: sw.scan_columns_lut(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0, traceback=traceback),
         lambda: sw.scan_columns_lut_plain(*pargs, PROT_GO, PROT_GE, lut_d, 0, 0, 0, 0),
         "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
     )
@@ -2027,8 +2031,9 @@ def main() -> int:
     )
     # T_ROWS: K1 (its column state in device memory past M = 605) against
     # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
-    # substitutions)
-    t_rows = {}
+    # substitutions); T_COLUMNS: K9 (one thread a pair) against K15 (one
+    # block a pair) on the same pairs in semiglobal mode
+    t_rows, t_columns = {}, {}
     acgt = np.frombuffer(b"ACGT", np.uint8)
     for L in T_ROWS_LENS:
         xq = acgt[rng.integers(0, 4, size=(B_STR, L))]
@@ -2039,7 +2044,10 @@ def main() -> int:
         t_rows[f"k1_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global(*q, *pens), 2)
         for rb in (64, sw.ROWS_RB, 256):
             t_rows[f"k13_rb{rb}_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global_rows(*q, *pens, rb=rb), 2)
+        t_columns[f"k9_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_custom(*q, *pens, *SEMI_CLIPS), 2)
+        t_columns[f"k15_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_columns(*q, *pens, *SEMI_CLIPS), 2)
     print(json.dumps({"phase": "t_rows", "pairs": B_STR, **t_rows, "card": smi}), flush=True)
+    print(json.dumps({"phase": "t_columns", "pairs": B_STR, **t_columns, "card": smi}), flush=True)
     print(json.dumps({"phase": "kernel_checks", "seconds": time.perf_counter() - t_phase}), flush=True)
 
     # ---- 5. end-to-end rates --------------------------------------------

@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 SOURCES = (
     "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
     "sw_custom", "walk_custom", "sw_global_rows", "walk_global_seg", "walk_steps",
-    "sw_banded", "walk_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
+    "sw_columns", "sw_banded", "walk_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
     "pairhmm_homopoly",
 )
 # per-source flags after NVCC_FLAGS: the PairHMM forwards keep every product

@@ -36,21 +36,6 @@
 // five (B, M+1) int32 finals, and the per-cell dependency chain (about 45
 // integer operations, one thread per pair) makes it latency-bound.
 //
-// K15 sw_scan_columns and K15-LUT sw_scan_columns_lut: the clip-mode column
-// scan of long x. Replace rust_bio_tpu/ops/sw_pallas.py scan_columns_pallas_mp
-// -> _kernel_scan_full_mp (which runs batched.py _column_body and packs each
-// column's Lx into the high nibbles of tb rows 0-2, hence M < 4096) and,
-// under a LUT, the XLA engine batched.py _align_batch_device (_scan_columns_xla
-// over the same _column_body), which the JAX package runs at M >= 4096.
-// _column_body is K9's recurrence for any four clips, so K15 is this kernel
-// with the run nibble dropped (template flag RUNS): 12-bit cells in tb and
-// tbk, and Lx in full in lx, so M is limited only by the uint16 clip lengths
-// of the walk (M <= 65534). At M = 5,600 a block holds two pairs' state in
-// shared memory, so 128 pairs run on 64 SMs. Bound on this card: the larger
-// of the tb bytes over HBM and about 45 integer operations a cell over the
-// int32 rate; one thread a pair keeps it latency-bound (the slowest pair's
-// cells in order).
-//
 // The final I of a lane with nlens = 0 is column 0's I0 (rows >= 1), as the
 // reference's column 0 holds it; the suffix fixups read it. Lanes with
 // nlens >= 1 overwrite it in column 1.
@@ -429,29 +414,6 @@ int sw_scan_local_lut(const void* xt, const void* yt, const void* mlens,
   auto fn = tb ? launch<true, true, true, Lut> : launch<true, false, false, Lut>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
             0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K15: K9 without the run nibble (12-bit tb and tbk cells), any clips.
-int sw_scan_columns(const void* xt, const void* yt, const void* mlens,
-                    const void* nlens, int B, int M, int go, int ge, int ma,
-                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
-                    void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
-                    void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, false, MatchParams> : launch<false, false, false, MatchParams>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
-            ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K15-LUT: K15 fed by the LUT.
-int sw_scan_columns_lut(const void* xt, const void* yt, const void* mlens,
-                        const void* nlens, int B, int M, int go, int ge,
-                        const void* lut, int xcp, int xcs, int ycp, int ycs,
-                        void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
-                        void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, false, Lut> : launch<false, false, false, Lut>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
-            xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
-            stream);
 }
 
 }  // extern "C"

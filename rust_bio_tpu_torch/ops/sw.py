@@ -5,7 +5,8 @@ machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
 penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
 K13 (``scan_global_rows``: K1's DP in blocks of rows, for long x),
 ``csrc/sw_global_rows.cu``; K15 (``scan_columns``: K9's DP without the
-run nibble, the clip-mode engine of long x), ``csrc/sw_custom.cu``; K16
+run nibble, the clip-mode engine of long x, a row-stripe wavefront over one
+pair a block), ``csrc/sw_columns.cu``; K16
 (``scan_banded``: the banded aligner's DP over per-column row bands),
 ``csrc/sw_banded.cu``.
 
@@ -34,8 +35,10 @@ wrappers' CPU path, or, in the ``*_lut_plain`` versions that the tests
 hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
-(``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order.
-Both are exact in int32.
+(``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
+one thread a pair, except K15, where one block sweeps a pair's columns as
+a wavefront over stripes of its rows (``columns_geometry``). Both are
+exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
@@ -98,8 +101,8 @@ SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT
 SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 8 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 4)
-SCAN_COLUMNS = CudaKernel("sw_custom", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
-SCAN_COLUMNS_LUT = CudaKernel("sw_custom", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
+SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
+SCAN_COLUMNS_LUT = CudaKernel("sw_columns", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 11 + [PTR] * 8)
 # K16's per-pair column state: S and D in two parity buffers, I, Sn, Ly and
 # column 0's s-bits (csrc/sw_banded.cu head note)
@@ -109,6 +112,16 @@ _BAND_SENT = -1_500_000_000  # K16's chain sentinel: below every reachable value
 # 48 KB a block gets without opting in (csrc/sw_global_rows.cu head note)
 ROWS_RB = 128
 _ROWS_RB_MAX = _SMEM_MAX // (3 * _PAIRS * 4)  # 605
+# K15's launch (csrc/sw_columns.cu): one block a pair, at most this many
+# threads, each over a stripe of rows; six int32 carries a thread in two
+# shared buffers; five int32 layers of row state a row
+_COLUMNS_STRIPES = 512
+_COLUMNS_CARRIES = 6
+_COLUMNS_LAYERS = 5
+# the largest M at which K15 keeps its row state in shared memory (beside
+# the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
+# above it the state goes to a (B, 5, R, T) device scratch
+COLUMNS_SHARED_MAX_M = 9727
 
 
 def _check_shapes(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -166,6 +179,22 @@ def _scratch(n_layers: int, B: int, M: int, dev, pairs: int = _PAIRS) -> torch.T
     if n_layers * (M + 1) * pairs * 4 <= _SMEM_MAX:
         return None
     return torch.empty((n_layers, M + 1, B), dtype=torch.int32, device=dev)
+
+
+def columns_geometry(M: int) -> Tuple[int, int, str, int]:
+    """K15's launch at x length ``M``, as csrc/sw_columns.cu computes it:
+    (T threads a block, R rows a thread, where the row state lives:
+    ``"shared"`` or ``"scratch"``, dynamic shared bytes). Thread t owns rows
+    [t * R, t * R + R); T is a multiple of 32."""
+    rows = M + 1
+    R = -(-rows // _COLUMNS_STRIPES)
+    stripes = -(-rows // R)
+    T = -(-stripes // 32) * 32
+    placement = "shared" if M <= COLUMNS_SHARED_MAX_M else "scratch"
+    smem = 2 * _COLUMNS_CARRIES * T * 4 + R * T
+    if placement == "shared":
+        smem += _COLUMNS_LAYERS * R * T * 4
+    return T, R, placement, smem
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -653,7 +682,13 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
-        scratch = _scratch(5, B, M, dev, pairs=1)  # the kernel fits 1-32 pairs a block
+        if runs:
+            scratch = _scratch(5, B, M, dev, pairs=1)  # the kernel fits 1-32 pairs a block
+        else:
+            T, R, placement, _ = columns_geometry(M)
+            scratch = None if placement == "shared" else torch.empty(
+                (B, _COLUMNS_LAYERS, R, T), dtype=torch.int32, device=dev
+            )
         kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
             B, M, go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),

@@ -541,19 +541,46 @@ def _columns_scan(args, go, ge, clips, lut=None, plain=False, traceback=True):
     return fn(*args, go, ge, lut, *clips, traceback=traceback)
 
 
-@pytest.mark.parametrize("M,N", [(150, 166), (500, 60)])
-def test_columns_scans_match_plain(cuda_device, M, N):
+@pytest.mark.parametrize(
+    "M,N,B,placement",
+    [(150, 166, 40, "shared"), (150, 166, 40, "scratch"), (1300, 60, 40, "shared"), (1300, 60, 40, "scratch"),
+     (11_700, 40, 4, "scratch")],
+)
+def test_columns_scans_match_plain(cuda_device, monkeypatch, M, N, B, placement):
     """K15 and K15-LUT (BLOSUM62) with traceback and score-only against
-    their plain versions, with shared-memory (M = 150) and device-scratch
-    (M = 500) column state; K15 equals K9 without the run nibble."""
+    their plain versions, in four clip settings, with the row state in
+    shared memory and in the device scratch (``COLUMNS_SHARED_MAX_M`` set
+    below M forces it), one row a thread (M = 150), three (M = 1,300) and
+    23 (M = 11,700, past where the state fits shared memory); row mlens at
+    the first, the last and a middle row of a stripe, mlens 0 and 1, lanes
+    with nlens = 0 (their final I is column 0's I0); K15 equals K9 without
+    the run nibble."""
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "COLUMNS_SHARED_MAX_M", min(sw.COLUMNS_SHARED_MAX_M, M - 1))
+    T, R, where, _ = sw.columns_geometry(M)
+    assert where == placement
     rng = np.random.default_rng(34 + M)
     lut = _lut("blosum62", cuda_device)
     for go, ge, clips in ((-5, -1, (MIN, MIN, 0, 0)), (-5, -1, (0, 0, 0, 0)), (-6, -1, (-5, -5, 0, 0)), (-3, -3, (-1, MIN, -7, 0))):
-        args, mlens, nlens = _protein_pairs(rng, 40, M, N, cuda_device, alphabet=b"ACGT")
+        args, mlens, nlens = _protein_pairs(rng, B, M, N, cuda_device, alphabet=b"ACGT")
+        # row mlens at a stripe's first, last and middle rows: lanes 4-7
+        # beside _protein_pairs' (M, N), (0, N), (M, 0), (1, 1), or lanes
+        # 1-3 of a small batch, lane 1 with nlens = 0
+        stripe_rows = [R * 2, R * 3 - 1, R * 2 + R // 2, R * (T // 2) - 1]
+        if B > 8:
+            mlens[4:8] = stripe_rows
+            nlens[5::4] = 0
+        else:
+            mlens[1:B] = stripe_rows[: B - 1]
+            nlens[1] = 0
+        args[2].copy_(torch.from_numpy(mlens))
+        args[3].copy_(torch.from_numpy(nlens))
         for table in (lut, None):
             got = _columns_scan(args, go, ge, clips, table)
             torch.cuda.synchronize()
             _clip_scans_match(got, _columns_scan(args, go, ge, clips, table, plain=True), mlens, nlens)
+            i_f = got[3].cpu()
+            assert (i_f[torch.from_numpy((nlens == 0) & (mlens >= 1)), 1] == go).all()
             only = _columns_scan(args, go, ge, clips, table, traceback=False)
             assert only[0] is None and only[1] is None
             for g, w in zip(only[2:], got[2:]):

@@ -168,6 +168,35 @@ def test_scan_columns_plain_matches_pallas_k15(case, subst):
     _assert_scan_matches(got, jx, case)
 
 
+@pytest.mark.parametrize("m", [0, 1, 150, 4095, 5588, 11621, 11622, 16383, 65534])
+def test_columns_geometry_covers_every_row_once(m):
+    """K15's launch (csrc/sw_columns.cu): the stripes [t * R, t * R + R) of
+    T threads own each row 0..M exactly once, T is a multiple of 32 within
+    the 1,024 threads of a block, and the dynamic shared memory fits a
+    block's 232,448 bytes; the row state leaves it above
+    ``COLUMNS_SHARED_MAX_M``."""
+    T, R, placement, smem = sw.columns_geometry(m)
+    owned = np.zeros(m + 1, np.int64)
+    for t in range(T):
+        owned[t * R : t * R + R] += 1
+    assert (owned == 1).all()
+    assert T % 32 == 0 and 32 <= T <= 1024 and R >= 1
+    assert smem <= 232_448
+    assert placement == ("shared" if m <= sw.COLUMNS_SHARED_MAX_M else "scratch")
+    # shared: the carries, x's bytes and five int32 layers of row state
+    state = 5 * R * T * 4 if placement == "shared" else 0
+    assert smem == 2 * 6 * T * 4 + R * T + state
+
+
+def test_columns_shared_max_m_is_the_largest_that_fits(monkeypatch):
+    """At ``COLUMNS_SHARED_MAX_M`` the row state fits shared memory; one
+    more row, and it would not."""
+    assert sw.columns_geometry(sw.COLUMNS_SHARED_MAX_M)[2:] == ("shared", 228_864)
+    limit = sw.COLUMNS_SHARED_MAX_M + 1
+    monkeypatch.setattr(sw, "COLUMNS_SHARED_MAX_M", limit)
+    assert sw.columns_geometry(limit)[3] > 232_448
+
+
 @pytest.mark.parametrize("case", CASES[:5], ids=_case_id)
 def test_scan_columns_lut_plain_matches_xla_engine(case):
     """K15-LUT under BLOSUM62 against ``_scan_columns_xla``; the score-only
