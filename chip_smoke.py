@@ -109,8 +109,8 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events (K15 and K15-LUT also without traceback); times K1 against K13
-   and K9 against K15 on 1 kb and 2 kb batches.
+   events (K13, K13-LUT, K15 and K15-LUT also without traceback); times K1
+   against K13 and K9 against K15 on 600 bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
@@ -192,12 +192,13 @@ B_PROT, PROT_LEN, DOMAIN_LEN = 8192, (250, 450), (80, 200)
 HOMOLOG_SUB, HOMOLOG_INDEL, DOMAIN_SUB = 0.30, 0.03, 0.20
 DOMAIN_XCLIP, DOMAIN_YCLIP = -10, 0
 # long global (3d): STR pairs as bench.py:601-614 builds them, insertion
-# pairs, long proteins; K1 against K13 at these x lengths
+# pairs, long proteins; K1 against K13 (and K9 against K15) at these x
+# lengths
 B_STR, STR_LEN, STR_TRACTS, STR_MOTIF = 128, (4600, 5600), 6, 4
 STR_SUB, STR_INDEL = 0.05, 0.005
 B_SV, SV_WINDOW, SV_INSERT = 8, (600, 800), (4200, 4800)
 B_LPROT, LPROT_LEN = 64, (4200, 5000)
-T_ROWS_LENS = (1000, 2000)
+T_ROWS_LENS = (600, 1000, 2000)
 # long clip modes (3e): random flanks around phase 3d's sequences
 LONG_FLANK, LPROT_FLANK = (200, 400), (100, 200)
 SEMI_CLIPS = (-858_993_459, -858_993_459, 0, 0)  # MIN_SCORE: the x-clips off
@@ -1729,28 +1730,35 @@ def main() -> int:
 
     # K13 and K14 on the STR corpus, K13 fed by BLOSUM62 on the long
     # proteins: one check launch against the plain version (a second
-    # multi-GB tb, compared a chunk of columns at a time), the plain version
-    # timed by that one run, the kernel by 2 more launches
+    # multi-GB tb, compared a chunk of columns at a time; the score-only
+    # call's scores too), the plain version timed by that one run, the
+    # kernel by 5 warm launches, and by 5 more without traceback
+    # (scores_only_ms: the same launch without the tb stores)
     def rows_kernel(name, args_d, ml_np, nl_np, scan, plain, replaces, table_bytes=0):
         score, tb_ = scan()
         torch.cuda.synchronize()
         (pscore, ptb), plain_ms = timed_once(torch, plain)
-        err = max(max_abs_err([score], [pscore]), rows_tb_err(torch, tb_, ptb, args_d[2], args_d[3]))
+        err = max(
+            max_abs_err([score], [pscore]), max_abs_err([scan(traceback=False)[0]], [pscore]),
+            rows_tb_err(torch, tb_, ptb, args_d[2], args_d[3]),
+        )
         del ptb, pscore
         Bq = len(ml_np)
         ml64 = ml_np.astype(np.int64)
         report(
             name, "rust_bio_tpu_torch/ops/csrc/sw_global_rows.cu", replaces, None, None,
-            cuda_ms(torch, scan, 2, warm=False), plain_ms,
+            cuda_ms(torch, scan, 5), plain_ms,
             args_d[0].numel() + args_d[1].numel() + 8 * Bq + table_bytes + 4 * Bq + 2 * int(((ml64 + 1) * nl_np).sum()),
             K13_OPS_PER_CELL * int((ml64 * nl_np).sum()), err=err,
+            scores_only_ms=cuda_ms(torch, lambda: scan(traceback=False), 5),
         )
         return tb_
 
     sxb, syb, sml, snl = ba._pad(*long_sets[0])
     sargs = tens(sxb, syb, sml, snl)
     tb = rows_kernel(
-        "sw_scan_global_rows", sargs, sml, snl, lambda: sw.scan_global_rows(*sargs, *pens),
+        "sw_scan_global_rows", sargs, sml, snl,
+        lambda traceback=True: sw.scan_global_rows(*sargs, *pens, traceback=traceback),
         lambda: sw.scan_global_rows_plain(*sargs, *pens), "rust_bio_tpu/ops/sw_pallas.py:2260",
     )
     wgot = walk.sweep_walk_global_seg(tb, sargs[2], sargs[3])
@@ -1759,7 +1767,7 @@ def main() -> int:
     path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_STR
     report(
         "sweep_walk_global_seg", "rust_bio_tpu_torch/ops/csrc/walk_global_seg.cu", "rust_bio_tpu/ops/walk_pallas.py:313",
-        wgot, wwant, cuda_ms(torch, lambda: walk.sweep_walk_global_seg(tb, sargs[2], sargs[3]), 3), wplain_ms,
+        wgot, wwant, cuda_ms(torch, lambda: walk.sweep_walk_global_seg(tb, sargs[2], sargs[3]), 5), wplain_ms,
         2 * path_cells + 8 * B_STR + 2 * 2 * syb.shape[1] * B_STR + 2 * B_STR,
         8 * path_cells,
     )
@@ -1767,7 +1775,8 @@ def main() -> int:
     lxb, lyb, lml, lnl = bp._pad(*long_sets[2])
     largs = tens(lxb, lyb, lml, lnl)
     tb = rows_kernel(
-        "sw_scan_global_rows_lut", largs, lml, lnl, lambda: sw.scan_global_rows_lut(*largs, PROT_GO, PROT_GE, lut_d),
+        "sw_scan_global_rows_lut", largs, lml, lnl,
+        lambda traceback=True: sw.scan_global_rows_lut(*largs, PROT_GO, PROT_GE, lut_d, traceback=traceback),
         lambda: sw.scan_global_rows_lut_plain(*largs, PROT_GO, PROT_GE, lut_d),
         "rust_bio_tpu/alignment/pairwise/batched.py:948", 256 * 256 * 4,
     )
@@ -2030,9 +2039,10 @@ def main() -> int:
         f64_bound_ms=max(hmm_bytes(hox, hoy, 8, 32) / HBM_BYTES_PER_S, K17_HOMOPOLY_OPS_PER_CELL * h_cells / F64_OPS_PER_S) * 1e3,
     )
     # T_ROWS: K1 (its column state in device memory past M = 605) against
-    # K13 at three block sizes, on 128 pairs at 1 kb and 2 kb (y = x at 5%
-    # substitutions); T_COLUMNS: K9 (one thread a pair) against K15 (one
-    # block a pair) on the same pairs in semiglobal mode
+    # K13 (one block a pair; its speed does not depend on rb), on 128 pairs
+    # at 600 bp, 1 kb and 2 kb (y = x at 5% substitutions); T_COLUMNS: K9
+    # (one thread a pair) against K15 (one block a pair) on the same pairs
+    # in semiglobal mode
     t_rows, t_columns = {}, {}
     acgt = np.frombuffer(b"ACGT", np.uint8)
     for L in T_ROWS_LENS:
@@ -2042,8 +2052,7 @@ def main() -> int:
         yq[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
         q = tens(xq, yq, np.full(B_STR, L, np.int32), np.full(B_STR, L, np.int32))
         t_rows[f"k1_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global(*q, *pens), 2)
-        for rb in (64, sw.ROWS_RB, 256):
-            t_rows[f"k13_rb{rb}_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global_rows(*q, *pens, rb=rb), 2)
+        t_rows[f"k13_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_global_rows(*q, *pens), 2)
         t_columns[f"k9_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_custom(*q, *pens, *SEMI_CLIPS), 2)
         t_columns[f"k15_ms_{L}"] = cuda_ms(torch, lambda: sw.scan_columns(*q, *pens, *SEMI_CLIPS), 2)
     print(json.dumps({"phase": "t_rows", "pairs": B_STR, **t_rows, "card": smi}), flush=True)

@@ -48,6 +48,7 @@ EXTRA_FLAGS = {
 
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+I64 = ctypes.c_longlong
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

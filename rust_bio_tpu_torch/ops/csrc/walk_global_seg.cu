@@ -1,7 +1,13 @@
 // K14 sweep_walk_global_seg: the global-mode traceback walk over the
-// block-row traceback tensor of K13 (csrc/sw_global_rows.cu). Replaces
+// traceback tensor of K13 (csrc/sw_global_rows.cu). Replaces
 // rust_bio_tpu/ops/walk_pallas.py _sweep_walk_global_seg ->
 // _make_seg_walk_kernel.
+//
+// Layouts: it reads the cell of DP cell (i, j) of pair b at
+// tb[(j - 1) * sj + i * si + b * sb], element strides it is given: K13's
+// pair-major (B, N, Xp) tensor (sj = Xp, si = 1, sb = N * Xp), or a
+// contiguous (N, X, B) one (sj = X * B, si = B, sb = 1), as K1's and the
+// plain versions' are; ops/walk.py takes those two and raises on others.
 //
 // Output is K2's (csrc/walk_global.cu): per DP column j and pair,
 // ins_cnt[j-1] Ins ops then one exit op exit_op[j-1] (TB_MATCH / TB_SUBST /
@@ -14,7 +20,8 @@
 // rows that break an Ins chain, two passes a column). Design here: K2's
 // state machine, one thread a pair in lockstep over the columns j = N..1
 // (a warp's ins_cnt / exit_op stores are 64 contiguous bytes); inside a
-// column the thread walks its Ins run up cell by cell, resolving each
+// column the thread walks its Ins run up cell by cell (contiguous addresses
+// in the pair-major layout), resolving each
 // i-layer from the cell itself or, where it reads TB_REREAD, from the cell
 // above. The exit is read at the row that breaks the chain, with the
 // d-bits of the cell above it, as in K2.
@@ -40,9 +47,9 @@ constexpr int TB_REREAD = 9;
 constexpr int THREADS = 64;
 
 __global__ void __launch_bounds__(THREADS) sweep_walk_global_seg_kernel(
-    const uint16_t* __restrict__ tb,  // (N, X, B)
+    const uint16_t* __restrict__ tb,  // (N, X, B) through the strides
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int X,
-    int N,
+    int N, long long sj, long long si, long long sb,
     uint16_t* __restrict__ ins_cnt,   // (N, B)
     uint16_t* __restrict__ exit_op,   // (N, B)
     uint16_t* __restrict__ ins0) {    // (B,)
@@ -58,10 +65,10 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_global_seg_kernel(
     int cnt = 0;
     int code = 0;
     if (jcur == j && !done) {
-      const uint16_t* col = tb + static_cast<size_t>(j - 1) * X * B + b;
+      const uint16_t* col = tb + (j - 1) * sj + b * sb;
       // cell (i, j), or -1 outside the column
       auto cell = [&](int i) -> int {
-        return (i >= 0 && i < X) ? static_cast<int>(col[static_cast<size_t>(i) * B]) : -1;
+        return (i >= 0 && i < X) ? static_cast<int>(col[i * si]) : -1;
       };
       // the i-layer of cell i, TB_REREAD resolved to the s-bits above
       auto layer = [&](int i) -> int {
@@ -111,13 +118,15 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// tb's element strides: sj between columns, si between rows, sb between pairs
 int sweep_walk_global_seg(const void* tb, const void* mlens, const void* nlens,
-                          int B, int X, int N, void* ins_cnt, void* exit_op,
-                          void* ins0, void* stream) {
+                          int B, int X, int N, long long sj, long long si,
+                          long long sb, void* ins_cnt, void* exit_op, void* ins0,
+                          void* stream) {
   sweep_walk_global_seg_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(mlens),
-      static_cast<const int*>(nlens), B, X, N, static_cast<uint16_t*>(ins_cnt),
+      static_cast<const int*>(nlens), B, X, N, sj, si, sb, static_cast<uint16_t*>(ins_cnt),
       static_cast<uint16_t*>(exit_op), static_cast<uint16_t*>(ins0));
   return static_cast<int>(cudaGetLastError());
 }

@@ -3,10 +3,11 @@ K3 (``scores_global``: score only), CUDA source ``csrc/sw_global.cu``; K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
 penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
-K13 (``scan_global_rows``: K1's DP in blocks of rows, for long x),
-``csrc/sw_global_rows.cu``; K15 (``scan_columns``: K9's DP without the
-run nibble, the clip-mode engine of long x, a row-stripe wavefront over one
-pair a block), ``csrc/sw_columns.cu``; K16
+K13 (``scan_global_rows``: K1's DP for long x, a row-stripe wavefront
+over one pair a block, with a pair-major tb), ``csrc/sw_global_rows.cu``;
+K15 (``scan_columns``: K9's DP without the run nibble, the clip-mode engine
+of long x, a row-stripe wavefront over one pair a block),
+``csrc/sw_columns.cu``; K16
 (``scan_banded``: the banded aligner's DP over per-column row bands),
 ``csrc/sw_banded.cu``.
 
@@ -36,9 +37,9 @@ hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
-one thread a pair, except K15, where one block sweeps a pair's columns as
-a wavefront over stripes of its rows (``columns_geometry``). Both are
-exact in int32.
+one thread a pair, except K13 and K15, where one block sweeps a pair's
+columns as a wavefront over stripes of its rows (``rows_geometry``,
+``columns_geometry``). All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
@@ -99,8 +100,8 @@ SCAN_SEMIGLOBAL_LUT = CudaKernel(
 )
 SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
-SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 8 + [PTR] * 3)
-SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 4)
+SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 9 + [PTR] * 3)
+SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 7 + [PTR] * 4)
 SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
 SCAN_COLUMNS_LUT = CudaKernel("sw_columns", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 11 + [PTR] * 8)
@@ -108,10 +109,24 @@ SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 11 +
 # column 0's s-bits (csrc/sw_banded.cu head note)
 BANDED_LAYERS = 8
 _BAND_SENT = -1_500_000_000  # K16's chain sentinel: below every reachable value, no int32 wrap
-# K13's default rows a block: its S / D / s-bits layers then take exactly the
-# 48 KB a block gets without opting in (csrc/sw_global_rows.cu head note)
+# K13's seam period rb: its tb marks the rows r * rb (r >= 1) where a
+# block-row engine's blocks meet (csrc/sw_global_rows.cu head note); the
+# default and the range 1..605 are those of the port's first K13, whose row
+# blocks they were
 ROWS_RB = 128
-_ROWS_RB_MAX = _SMEM_MAX // (3 * _PAIRS * 4)  # 605
+_ROWS_RB_MAX = 605
+# K13's launch (csrc/sw_global_rows.cu): one block a pair, at most this many
+# threads, each over a stripe of R rows, R a multiple of 8 (a thread stores
+# 8 cells at once); four int32 carries a thread in two shared buffers; three
+# int32 layers of row state a row
+_ROWS_STRIPES = 256
+_ROWS_GROUP = 8
+_ROWS_CARRIES = 4
+_ROWS_LAYERS = 3
+# the largest M at which K13 keeps its row state in shared memory (beside
+# the carries and x's bytes: 221,184 bytes at M = 16,383, R = 64, T = 256);
+# above it the state goes to a (B, 3, R, T) device scratch
+ROWS_SHARED_MAX_M = 16383
 # K15's launch (csrc/sw_columns.cu): one block a pair, at most this many
 # threads, each over a stripe of rows; six int32 carries a thread in two
 # shared buffers; five int32 layers of row state a row
@@ -197,6 +212,22 @@ def columns_geometry(M: int) -> Tuple[int, int, str, int]:
     return T, R, placement, smem
 
 
+def rows_geometry(M: int) -> Tuple[int, int, str, int]:
+    """K13's launch at x length ``M``, as csrc/sw_global_rows.cu computes it:
+    (T threads a block, R rows a thread, where the row state lives:
+    ``"shared"`` or ``"scratch"``, dynamic shared bytes). Thread t owns rows
+    [t * R, t * R + R); T is a multiple of 32, R of 8."""
+    rows = M + 1
+    R = -(-rows // (_ROWS_GROUP * _ROWS_STRIPES)) * _ROWS_GROUP
+    stripes = -(-rows // R)
+    T = -(-stripes // 32) * 32
+    placement = "shared" if M <= ROWS_SHARED_MAX_M else "scratch"
+    smem = 2 * _ROWS_CARRIES * T * 4 + R * T
+    if placement == "shared":
+        smem += _ROWS_LAYERS * R * T * 4
+    return T, R, placement, smem
+
+
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -238,44 +269,50 @@ def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
     return score, tb, tbk
 
 
-def scan_global_rows(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, rb=ROWS_RB):
-    """K13: K1's DP in blocks of ``rb`` rows. Returns (score (B,) int32, tb
-    (N, M+1, B) uint16).
+def scan_global_rows(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, rb=ROWS_RB,
+                     traceback=True):
+    """K13: K1's DP for long x. Returns (score (B,) int32, tb (N, M+1, B)
+    uint16), tb None with ``traceback=False`` (score only).
 
-    ``tb`` is defined where K1's is and equals K1's there, but for two
-    things: no run nibble (bits 12-15 are 0), and at each first row of a
-    block ``r * rb`` (r >= 1) the i-bits are ``TB_INS`` where the extend
-    candidate won, else ``TB_REREAD`` (the s-bits of the cell above). Walk
-    it with ``ops.walk.sweep_walk_global_seg``."""
+    ``tb[j-1, i, b]`` is defined where K1's is and equals K1's there, but
+    for two things: no run nibble (bits 12-15 are 0), and at each row
+    ``r * rb`` (r >= 1) the i-bits are ``TB_INS`` where the extend candidate
+    won, else ``TB_REREAD`` (the s-bits of the cell above). On the card it
+    is a view of a pair-major (B, N, Xp) tensor, Xp = M + 1 rounded up to a
+    multiple of 8. Walk it with ``ops.walk.sweep_walk_global_seg``."""
     return _scan_global_rows(
-        SCAN_GLOBAL_ROWS, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), rb
+        SCAN_GLOBAL_ROWS, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), rb,
+        traceback,
     )
 
 
-def scan_global_rows_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb=ROWS_RB):
+def scan_global_rows_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb=ROWS_RB, traceback=True):
     """K13 with the substitution score ``lut[x, y]``; same outputs."""
-    return _scan_global_rows(SCAN_GLOBAL_ROWS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb)
+    return _scan_global_rows(SCAN_GLOBAL_ROWS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, rb, traceback)
 
 
-def _scan_global_rows(kernel, xb, yb, mlens, nlens, go, ge, subst, rb):
+def _scan_global_rows(kernel, xb, yb, mlens, nlens, go, ge, subst, rb, traceback):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
     go, ge, rb = int(go), int(ge), int(rb)
     if not 1 <= rb <= _ROWS_RB_MAX:
-        raise ValueError(f"rb = {rb}: a row block holds 1 to {_ROWS_RB_MAX} rows (shared memory)")
+        raise ValueError(f"rb = {rb}: the seam period lies in 1..{_ROWS_RB_MAX}")
     sub = _subst(subst, dev)
     if dev.type == "cpu":
-        return _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, rb=rb)[:2]
+        score, tb, _ = _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, rb=rb)
+        return score, tb if traceback else None
     score = torch.empty(B, dtype=torch.int32, device=dev)
-    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
+    Xp = -(-(M + 1) // _ROWS_GROUP) * _ROWS_GROUP
+    tb = torch.empty((B, N, Xp), dtype=torch.uint16, device=dev) if traceback else None
     if B:
-        xt = xb.t().contiguous()
-        yt = yb.t().contiguous()
-        bnd = torch.empty((3, max(N, 1), B), dtype=torch.int32, device=dev)
-        kernel.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, N, rb, go, ge, *sub, score.data_ptr(), tb.data_ptr(), bnd.data_ptr(),
+        T, R, placement, _ = rows_geometry(M)
+        scratch = None if placement == "shared" else torch.empty(
+            (B, _ROWS_LAYERS, R, T), dtype=torch.int32, device=dev
         )
-    return score, tb
+        kernel.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, M, N, Xp, rb, go, ge, *sub, score.data_ptr(), _ptr(tb), _ptr(scratch),
+        )
+    return score, tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None
 
 
 def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):

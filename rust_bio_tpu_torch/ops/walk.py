@@ -38,6 +38,7 @@ from rust_bio_tpu_torch.alignment.pairwise.tb import (
     TB_YCLIP_SUFFIX,
 )
 from rust_bio_tpu_torch.ops._build import (
+    I64,
     INT,
     PTR,
     CudaKernel,
@@ -50,7 +51,7 @@ SWEEP_WALK_GLOBAL = CudaKernel(
     "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR]
 )
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
-    "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR]
+    "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
 )
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     "walk_semiglobal", "sweep_walk_semiglobal",
@@ -72,16 +73,41 @@ def sweep_walk_global(tb, mlens, nlens):
 
 def sweep_walk_global_seg(tb, mlens, nlens):
     """K14: K2's walk over K13's tb (no run nibble, ``TB_REREAD`` i-cells at
-    the row-block seams); K2's outputs."""
-    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens)
+    the row-block seams); K2's outputs. ``tb`` is a contiguous (N, X, B)
+    tensor or, as K13 returns it, an (N, X, B) view whose X axis has stride
+    1 and whose B axis the largest stride (a pair-major tensor, permuted):
+    read in place, never copied. Other layouts raise ``ValueError``."""
+    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens, strided=True)
 
 
-def _global_walk(kernel, plain, tb, mlens, nlens):
+def _walk_strides(tb) -> tuple:
+    """(column, row, pair) element strides of an (N, X, B) tb that K14
+    reads: contiguous, or rows of stride 1 inside columns inside pairs,
+    none overlapping. Raises ``ValueError`` on any other layout."""
+    N, X, B = tb.shape
+    if tb.is_contiguous() or tb.numel() == 0:
+        return X * B, B, 1
+    sj, si, sb = tb.stride()
+    if si == 1 and (N == 1 or sj >= X) and (B == 1 or sb >= (N - 1) * sj + X):
+        return sj, si, sb
+    raise ValueError(
+        f"tb: strides {tuple(tb.stride())} of shape {tuple(tb.shape)} are neither contiguous (N, X, B) "
+        "nor a pair-major view (rows of stride 1, pairs the largest stride)"
+    )
+
+
+def _global_walk(kernel, plain, tb, mlens, nlens, strided=False):
     dev = same_device(tb, mlens, nlens)
     if tb.dim() != 3:
         raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
     N, X, B = tb.shape
-    check(tb, "tb", torch.uint16, (N, X, B))
+    if strided:
+        if tb.dtype != torch.uint16:
+            raise TypeError(f"tb: expected {torch.uint16}, got {tb.dtype}")
+        strides = _walk_strides(tb)
+    else:
+        check(tb, "tb", torch.uint16, (N, X, B))
+        strides = ()
     check(mlens, "mlens", torch.int32, (B,))
     check(nlens, "nlens", torch.int32, (B,))
     check_lengths(mlens, "mlens", X - 1)
@@ -93,7 +119,7 @@ def _global_walk(kernel, plain, tb, mlens, nlens):
     ins0 = torch.empty(B, dtype=torch.uint16, device=dev)
     if B:
         kernel.launch(
-            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N,
+            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *strides,
             ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(),
         )
     return ins_cnt, exit_op, ins0

@@ -441,33 +441,101 @@ def test_lut_aligner_on_card_matches_cpu(cuda_device):
 # ---- long x: K13 (the block-row scan, and fed by the LUT), K14 ----
 
 
-@pytest.mark.parametrize("rb", [16, sw.ROWS_RB])
-def test_rows_scan_and_seg_walk_match_plain(cuda_device, rb):
-    """K13 at ragged lengths up to M = 1000 (1001 rows: not a multiple of
-    rb), then K14 on its tb."""
-    args, mlens, nlens = _pairs(np.random.default_rng(51), 70, 1000, 60, cuda_device)
-    for go, ge in PENS:
-        score, tb = sw.scan_global_rows(*args, go, ge, 2, -2, rb=rb)
-        torch.cuda.synchronize()
-        ps, ptb = sw.scan_global_rows_plain(*args, go, ge, 2, -2, rb=rb)
-        assert torch.equal(score, ps)
-        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
-        got = walk.sweep_walk_global_seg(tb, args[2], args[3])
-        torch.cuda.synchronize()
-        for g, w in zip(got, walk.sweep_walk_global_seg_plain(tb, args[2], args[3])):
-            assert torch.equal(g, w)
+def _rows_edges(mlens, nlens, M, R, T, rb):
+    """Row mlens on a stripe's first, last and middle rows and on a seam
+    row, after ``_pairs``' lanes (M, N), (0, N), (M, 0), (1, 1); in a batch
+    of 4, lanes 1-3, lane 1 with nlens = 0."""
+    rows = [min(M, v) for v in (R * 2, R * 3 - 1, R * 2 + R // 2, rb * 3, R * (T // 2) - 1)]
+    if len(mlens) > 9:
+        mlens[4:9] = rows
+        nlens[5::4] = 0
+    else:
+        mlens[1 : len(mlens)] = [rows[0], rows[1], rows[3]][: len(mlens) - 1]
+        nlens[1] = 0
 
 
-def test_rows_scan_lut_matches_plain(cuda_device):
-    """K13 fed by BLOSUM62 on protein pairs up to M = 700."""
-    args, mlens, nlens = _protein_pairs(np.random.default_rng(52), 64, 700, 50, cuda_device)
+def _insertion_pairs(rng, xb, yb, mlens, nlens, lanes):
+    """Lanes whose x carries a 4.2-4.8 kb insertion into a 600-800 bp y (as
+    chip_smoke.py's insertion corpus): their Ins runs cross many stripes and
+    seams."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for b in lanes:
+        y = acgt[rng.integers(0, 4, size=int(rng.integers(600, 801)))]
+        insert = acgt[rng.integers(0, 4, size=int(rng.integers(4200, 4801)))]
+        at = int(rng.integers(1, y.size))
+        x = np.concatenate([y[:at], insert, y[at:]])
+        xb[b, : x.size], yb[b, : y.size] = x, y
+        mlens[b], nlens[b] = x.size, y.size
+
+
+def _rows_match_plain(args, mlens, nlens, go, ge, subst, rb):
+    """K13 (or K13-LUT) with traceback and score-only, then K14 on its
+    pair-major view, against their plain versions."""
+    lut = isinstance(subst, torch.Tensor)
+    scan = sw.scan_global_rows_lut if lut else sw.scan_global_rows
+    plain = sw.scan_global_rows_lut_plain if lut else sw.scan_global_rows_plain
+    pens = (subst,) if lut else subst
+    score, tb = scan(*args, go, ge, *pens, rb=rb)
+    torch.cuda.synchronize()
+    ps, ptb = plain(*args, go, ge, *pens, rb=rb)
+    assert torch.equal(score, ps)
+    assert tb.shape == ptb.shape and tb.stride()[1] == 1  # the pair-major view
+    assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+    only, none = scan(*args, go, ge, *pens, rb=rb, traceback=False)
+    assert none is None and torch.equal(only, ps)
+    got = walk.sweep_walk_global_seg(tb, args[2], args[3])
+    torch.cuda.synchronize()
+    for g, w in zip(got, walk.sweep_walk_global_seg_plain(tb, args[2], args[3])):
+        assert torch.equal(g, w)
+    return got
+
+
+@pytest.mark.parametrize(
+    "M,N,B,placement",
+    [(1000, 60, 70, "shared"), (1000, 60, 70, "scratch"), (5600, 800, 12, "shared"), (11_700, 30, 4, "shared"),
+     (11_700, 30, 4, "scratch")],
+)
+def test_rows_scan_and_seg_walk_match_plain(cuda_device, monkeypatch, M, N, B, placement):
+    """K13 with traceback and score-only, and K14 on its pair-major view,
+    against their plain versions at seam periods 16 and ``ROWS_RB``: the
+    row state in shared memory and in the device scratch
+    (``ROWS_SHARED_MAX_M`` set below M forces it), R = 8 (M = 1,000), 24
+    (5,600) and 48 (11,700); row mlens at a stripe's first, last and middle
+    rows and on a seam row, mlens 0 and 1, lanes with nlens = 0; at M =
+    5,600 two lanes from the insertion corpus (Ins runs of 4.2-4.8 kb)."""
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "ROWS_SHARED_MAX_M", min(sw.ROWS_SHARED_MAX_M, M - 1))
+    T, R, where, _ = sw.rows_geometry(M)
+    assert where == placement
+    rng = np.random.default_rng(51 + M)
+    for rb in (16, sw.ROWS_RB):
+        xb, yb, mlens, nlens = _protein_pairs(rng, B, M, N, "cpu", alphabet=b"ACGT")[0]
+        xb, yb, mlens, nlens = (a.numpy().copy() for a in (xb, yb, mlens, nlens))
+        _rows_edges(mlens, nlens, M, R, T, rb)
+        if N >= 800:
+            _insertion_pairs(rng, xb, yb, mlens, nlens, (9, 10))
+        args = [torch.from_numpy(a).to(cuda_device) for a in (xb, yb, mlens, nlens)]
+        for go, ge in PENS:
+            ins_cnt = _rows_match_plain(args, mlens, nlens, go, ge, (2, -2), rb)[0]
+            if N >= 800 and (go, ge) == (-5, -1):
+                assert int(ins_cnt[:, 9:11].to(torch.int32).max()) >= 4096
+
+
+@pytest.mark.parametrize("M,N,B,placement", [(700, 50, 64, "shared"), (700, 50, 64, "scratch"), (11_700, 30, 4, "scratch")])
+def test_rows_scan_lut_matches_plain(cuda_device, monkeypatch, M, N, B, placement):
+    """K13 fed by BLOSUM62 on protein pairs, in both placements, with the
+    edge lengths of ``test_rows_scan_and_seg_walk_match_plain``."""
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "ROWS_SHARED_MAX_M", min(sw.ROWS_SHARED_MAX_M, M - 1))
+    T, R, where, _ = sw.rows_geometry(M)
+    assert where == placement
+    rng = np.random.default_rng(52 + M)
     lut = _lut("blosum62", cuda_device)
     for rb in (16, sw.ROWS_RB):
-        score, tb = sw.scan_global_rows_lut(*args, -11, -1, lut, rb=rb)
-        torch.cuda.synchronize()
-        ps, ptb = sw.scan_global_rows_lut_plain(*args, -11, -1, lut, rb=rb)
-        assert torch.equal(score, ps)
-        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+        xb, yb, mlens, nlens = (a.numpy().copy() for a in _protein_pairs(rng, B, M, N, "cpu")[0])
+        _rows_edges(mlens, nlens, M, R, T, rb)
+        args = [torch.from_numpy(a).to(cuda_device) for a in (xb, yb, mlens, nlens)]
+        _rows_match_plain(args, mlens, nlens, -11, -1, lut, rb)
 
 
 def test_rows_scan_at_one_block_equals_k1(cuda_device):

@@ -152,6 +152,92 @@ def test_seg_walk_on_k1_tb_equals_k2():
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize(
+    "m", sorted({605, 606, 4095, 5588, sw.ROWS_SHARED_MAX_M, sw.ROWS_SHARED_MAX_M + 1, 16383, 65534})
+)
+def test_rows_geometry_covers_every_row_once(m):
+    """K13's launch (csrc/sw_global_rows.cu): the stripes [t * R, t * R + R)
+    of T threads own each row 0..M exactly once, T is a multiple of 32
+    within the 1,024 threads of a block, R a multiple of 8 (a thread's
+    16-byte tb stores), and the dynamic shared memory fits a block's
+    232,448 bytes; the row state leaves it above ``ROWS_SHARED_MAX_M``."""
+    T, R, placement, smem = sw.rows_geometry(m)
+    owned = np.zeros(m + 1, np.int64)
+    for t in range(T):
+        owned[t * R : t * R + R] += 1
+    assert (owned == 1).all()
+    assert T % 32 == 0 and 32 <= T <= 1024 and R % 8 == 0 and R >= 8
+    assert smem <= 232_448
+    assert placement == ("shared" if m <= sw.ROWS_SHARED_MAX_M else "scratch")
+    # shared: the carries, x's bytes and three int32 layers of row state
+    state = 3 * R * T * 4 if placement == "shared" else 0
+    assert smem == 2 * 4 * T * 4 + R * T + state
+
+
+def test_rows_shared_max_m_is_the_largest_that_fits(monkeypatch):
+    """At ``ROWS_SHARED_MAX_M`` K13's row state fits shared memory; one more
+    row, and it would not."""
+    assert sw.rows_geometry(sw.ROWS_SHARED_MAX_M)[2:] == ("shared", 221_184)
+    limit = sw.ROWS_SHARED_MAX_M + 1
+    monkeypatch.setattr(sw, "ROWS_SHARED_MAX_M", limit)
+    assert sw.rows_geometry(limit)[3] > 232_448
+
+
+def _pair_major(tb, pad):
+    """The cells of a contiguous (N, X, B) tb held as K13 holds them on the
+    card: a (B, N, X + pad) tensor, the pad filled with junk, returned as
+    its (N, X, B) view."""
+    N, X, B = tb.shape
+    store = torch.full((B, N, X + pad), 0x7A5C, dtype=torch.uint16)
+    store[:, :, :X] = tb.permute(2, 0, 1)
+    return store[:, :, :X].permute(1, 2, 0)
+
+
+@pytest.mark.parametrize("pad", [0, 3, 8])
+def test_seg_walk_reads_the_pair_major_view(pad):
+    """K14 on the cells of K13's tb (seams every 16 rows) held contiguous
+    (N, X, B) and as the pair-major (B, N, Xp) tensor's view, with Xp = X
+    and padded past it: the same outputs, the view read in place."""
+    xb, yb, mlens, nlens = _batch(60 + pad)
+    args = _torch(xb, yb, mlens, nlens)
+    _, tb = sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB)
+    view = _pair_major(tb, pad)
+    assert view.stride() == ((M + 1 + pad), 1, N * (M + 1 + pad)) and not view.is_contiguous()
+    assert walk._walk_strides(view) == view.stride()
+    want = walk.sweep_walk_global_seg(tb, args[2], args[3])
+    for g, w in zip(walk.sweep_walk_global_seg(view, args[2], args[3]), want):
+        assert torch.equal(g, w)
+
+
+def test_global_walks_raise_on_layouts_they_do_not_take():
+    """K14 takes a contiguous (N, X, B) tb or a pair-major view; a view with
+    the pairs inside the columns, rows of stride > 1, or columns that
+    overlap raises, as does K2 (contiguous only) on the pair-major view."""
+    xb, yb, mlens, nlens = _batch(70)
+    args = _torch(xb, yb, mlens, nlens)
+    _, tb = sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB)
+    pairs_inside_columns = tb.permute(0, 2, 1).contiguous().permute(0, 2, 1)  # (N, B, X) storage
+    rows_strided = torch.zeros((N, 2 * (M + 1), B), dtype=torch.uint16)[:, ::2]
+    overlapping = torch.zeros(B * N * (M + 1), dtype=torch.uint16).as_strided((N, M + 1, B), (4, 1, N * (M + 1)))
+    for bad in (pairs_inside_columns, rows_strided, overlapping):
+        with pytest.raises(ValueError, match="strides"):
+            walk.sweep_walk_global_seg(bad, args[2][: bad.shape[2]], args[3][: bad.shape[2]])
+    with pytest.raises(ValueError, match="contiguous"):
+        walk.sweep_walk_global(_pair_major(tb, 8), args[2], args[3])
+
+
+def test_scan_global_rows_score_only():
+    """``traceback=False`` gives the score and no tb, under MatchParams and
+    a LUT."""
+    xb, yb, mlens, nlens = _batch(80)
+    args = _torch(xb, yb, mlens, nlens)
+    score, _ = sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB)
+    assert sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB, traceback=False)[1] is None
+    assert torch.equal(sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB, traceback=False)[0], score)
+    only = sw.scan_global_rows_lut(*args, -5, -1, _mp_lut(), traceback=False)
+    assert only[1] is None and torch.equal(only[0], score)
+
+
 # ---- end to end ----
 
 
