@@ -109,8 +109,10 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events (K13, K13-LUT, K15 and K15-LUT also without traceback); times K1
-   against K13 and K9 against K15 on 600 bp, 1 kb and 2 kb batches.
+   events (K11, K7-LUT, K13, K13-LUT, K15 and K15-LUT also without
+   traceback); holds K2, K8 and K10 on K11's and K7-LUT's pair-major views
+   of the homolog corpus too; times K13-LUT on that corpus beside K11, and
+   K1 against K13 and K9 against K15 on 600 bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
@@ -1479,7 +1481,10 @@ def main() -> int:
     pats_d, plens_d = tens(pats_np, np.full(B_FM, QLEN, np.int32))
     kernels = []
 
-    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops, err=None, **extra):
+    def report(name, source, replaces, got, want, ms, plain_ms, nbytes, nops, err=None, n_launches=None, **extra):
+        """One kernel row; ``n_launches`` in place of the main path's count
+        of ``name`` where the row is a second input of a kernel that has a
+        row of its own (its count in the phase that runs that input)."""
         if err is None:
             err = max_abs_err(got, want)
         check(err == 0, f"{name}: kernel differs from its plain version (max abs err {err})")
@@ -1487,7 +1492,8 @@ def main() -> int:
         op_ms = nops / INT32_OPS_PER_S * 1e3
         row = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "launches": launches[name] if n_launches is None else n_launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms,
             "bound_ms": max(byte_ms, op_ms), "bound_by": "bytes" if byte_ms >= op_ms else "operations",
             "library_ms": None,
         }
@@ -1603,8 +1609,16 @@ def main() -> int:
             ops_per_cell * cells_q,
         )
         del want
-        tb_q, lx_q = got[0], got[1]
-        tbfix, lx_n = clip_walk_inputs(torch, got, ml_d_, nl_d_, pens, clips)
+        clip_walk(walk_name, walk_name, got, ml_d_, nl_d_, pens, clips, replaces[1])
+        del got
+
+    def clip_walk(row, walk_name, scan, ml_d_, nl_d_, pens, clips, replaces, n_launches=None):
+        """K8 or K10 (``walk_name``) on a K7 / K9 / K7-LUT scan's tb, in the
+        row ``row``: the launch alone timed (``ms``), and with its prolog
+        (``wrapper_ms``)."""
+        tb_q, lx_q = scan[0], scan[1]
+        Nq, _, Bq = tb_q.shape
+        tbfix, lx_n = clip_walk_inputs(torch, scan, ml_d_, nl_d_, pens, clips)
         winputs = (tb_q, tbfix, lx_q, lx_n, ml_d_, nl_d_)
         if walk_name == "sweep_walk_local":
             wrapper, plain = walk.sweep_walk_local, walk.sweep_walk_local_plain
@@ -1622,14 +1636,14 @@ def main() -> int:
         # the walk reads one cell per emitted op plus the entry cell
         path_cells = int(wgot[ins_at].long().sum() + (wgot[ins_at + 1].long() > 0).sum()) + Bq
         report(
-            walk_name, "rust_bio_tpu_torch/ops/csrc/walk_custom.cu", replaces[1],
+            row, "rust_bio_tpu_torch/ops/csrc/walk_custom.cu", replaces,
             wgot, wwant,
             cuda_ms(torch, launch, 10), cuda_ms(torch, lambda: plain(*winputs), 2),
-            2 * path_cells + 4 * 8 * Bq + 2 * n_out * (Nq + 1) * Bq + 8 * Bq,
-            8 * path_cells,
-            wrapper_ms=cuda_ms(torch, lambda: wrapper(*winputs), 10),
+            2 * path_cells + 4 * 8 * Bq + 2 * n_out * Nq * Bq + 8 * Bq,
+            8 * path_cells, n_launches=n_launches,
+            wrapper_ms=cuda_ms(torch, lambda: wrapper(*winputs), 10), tb_strides=list(tb_q.stride()),
         )
-        del got, wgot, wwant
+        del wgot, wwant
 
     clip_kernels(
         "sw_scan_local", "sweep_walk_local", (xb_d, yb_d, ml_d, nl_d), pens, (0, 0, 0, 0),
@@ -1665,14 +1679,38 @@ def main() -> int:
     got = sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d)
     torch.cuda.synchronize()
     want = plain_k11()
+    k11_ms = cuda_ms(torch, lambda: sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d), 5)
     report(
-        "sw_scan_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:1129",
+        "sw_scan_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_warp.cu", "rust_bio_tpu/ops/sw_pallas.py:1129",
         [got[0]] + defined(got[1:], hom[2], hom[3]), [want[0]] + defined(want[1:], hom[2], hom[3]),
-        cuda_ms(torch, lambda: sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d), 5), cuda_ms(torch, plain_k11, 1),
+        k11_ms, cuda_ms(torch, plain_k11, 1),
         lut_bytes(hxb, hyb, hml, hnl, 4 * B_PROT + h_tb + 4 * h_rows),
         K1_OPS_PER_CELL * hcells,
+        scores_only_ms=cuda_ms(torch, lambda: sw.scan_global_lut(*hom, PROT_GO, PROT_GE, lut_d, traceback=False), 5),
+        stripe_rows=sw.warp_geometry(hxb.shape[1], sw.GLOBAL_WARP_LAYERS)[0],
     )
-    del got, want
+    del want
+    # K2 on K11's pair-major view (the protein path's launches)
+    tb = got[1]
+    wgot = walk.sweep_walk_global(tb, hom[2], hom[3])
+    torch.cuda.synchronize()
+    wwant = walk.sweep_walk_global_plain(tb, hom[2], hom[3])
+    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_PROT
+    report(
+        "sweep_walk_global_homolog", "rust_bio_tpu_torch/ops/csrc/walk_global.cu", "rust_bio_tpu/ops/walk_pallas.py:74",
+        wgot, wwant,
+        cuda_ms(torch, lambda: walk.sweep_walk_global(tb, hom[2], hom[3]), 10),
+        cuda_ms(torch, lambda: walk.sweep_walk_global_plain(tb, hom[2], hom[3]), 2),
+        2 * path_cells + 8 * B_PROT + 2 * 2 * hyb.shape[1] * B_PROT + 2 * B_PROT,
+        8 * path_cells, n_launches=prot_launches["sweep_walk_global"], tb_strides=list(tb.stride()),
+    )
+    del got, tb, wgot, wwant
+    # for comparison, not a route: the block-a-pair design (K13-LUT, with
+    # traceback) on the same homolog corpus
+    print(json.dumps({
+        "phase": "k13_lut_homolog", "ms": cuda_ms(torch, lambda: sw.scan_global_rows_lut(*hom, PROT_GO, PROT_GE, lut_d), 3),
+        "k11_ms": k11_ms, "pairs": B_PROT, "M": int(hxb.shape[1]), "N": int(hyb.shape[1]), "card": smi,
+    }), flush=True)
     plain_k18 = lambda: sw.scores_global_lut_plain(sw.subs_tensor_plain(hom[0], hom[1], lut_d), hom[2], hom[3], PROT_GO, PROT_GE)  # noqa: E731
     sgot = sw.scores_global_lut(*hom, PROT_GO, PROT_GE, lut_d)
     torch.cuda.synchronize()
@@ -1719,14 +1757,32 @@ def main() -> int:
         torch.cuda.synchronize()
         want = scan_fn(plain=True)
         rows_ = int((ml_.astype(np.int64) + 1).sum())
+        extra = {}
+        if local:
+            extra = {
+                "scores_only_ms": cuda_ms(torch, lambda: sw.scan_local_lut(*args_d, PROT_GO, PROT_GE, lut_d, traceback=False), 5),
+                "stripe_rows": sw.warp_geometry(xb_.shape[1], sw.LOCAL_WARP_LAYERS)[0],
+            }
         report(
-            name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", "rust_bio_tpu/alignment/pairwise/batched.py:948",
+            name, f"rust_bio_tpu_torch/ops/csrc/{'sw_warp' if local else 'sw_custom'}.cu",
+            "rust_bio_tpu/alignment/pairwise/batched.py:948",
             defined_clip(got, args_d[2], args_d[3]), defined_clip(want, args_d[2], args_d[3]),
             cuda_ms(torch, scan_fn, 5), cuda_ms(torch, lambda: scan_fn(plain=True), 1),
             lut_bytes(xb_, yb_, ml_, nl_, 2 * int(((ml_.astype(np.int64) + 1) * (nl_ + 1)).sum()) + 4 * int((nl_ + 1).sum()) + 5 * 4 * rows_),
-            ops_per_cell * int((ml_.astype(np.int64) * nl_).sum()),
+            ops_per_cell * int((ml_.astype(np.int64) * nl_).sum()), **extra,
         )
-        del got, want
+        del want
+        if local:
+            # K8 (the protein path's walk) and K10 on K7-LUT's pair-major view
+            for walk_name, replaces in (
+                ("sweep_walk_local", "rust_bio_tpu/ops/walk_pallas.py:916"),
+                ("sweep_walk_custom", "rust_bio_tpu/ops/walk_pallas.py:1128"),
+            ):
+                clip_walk(
+                    f"{walk_name}_homolog", walk_name, got, args_d[2], args_d[3], (PROT_GO, PROT_GE), clips, replaces,
+                    n_launches=prot_launches[walk_name],
+                )
+        del got
 
     # K13 and K14 on the STR corpus, K13 fed by BLOSUM62 on the long
     # proteins: one check launch against the plain version (a second

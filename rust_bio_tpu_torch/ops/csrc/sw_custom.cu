@@ -2,11 +2,11 @@
 // clip penalties, for constant match/mismatch scoring. Replace
 // rust_bio_tpu/ops/sw_pallas.py scan_custom_pallas_mp -> _kernel_scan_custom_mp
 // and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins").
-// sw_scan_custom_lut and sw_scan_local_lut: the same two kernels with the
-// substitution score read from a (256, 256) LUT. They take the place of the
-// JAX package's XLA general engine (alignment/pairwise/batched.py
-// _align_batch_device, which aligns local and custom mode under a LUT
-// scoring, with K9's semantics); no Pallas kernel serves those modes there.
+// sw_scan_custom_lut: K9 with the substitution score read from a (256, 256)
+// LUT. It takes the place of the JAX package's XLA general engine
+// (alignment/pairwise/batched.py _align_batch_device, which aligns custom
+// mode under a LUT scoring, with K9's semantics); no Pallas kernel serves
+// that mode there. K7 fed by the LUT is csrc/sw_warp.cu's.
 //
 // Outputs: the traceback cells of columns j = 0..nlens (column 0, the init
 // column, at index 0) for rows i = 0..mlens, 12 bits plus the vertical
@@ -403,17 +403,6 @@ int sw_scan_local(const void* xt, const void* yt, const void* mlens,
   auto fn = tb ? launch<true, true, true, MatchParams> : launch<true, false, false, MatchParams>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, 0, 0, 0, 0,
             tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K7 fed by the LUT.
-int sw_scan_local_lut(const void* xt, const void* yt, const void* mlens,
-                      const void* nlens, int B, int M, int go, int ge,
-                      const void* lut, void* tb, void* lx, void* s_f,
-                      void* i_f, void* sn_f, void* ly_f, void* tbk,
-                      void* scratch, void* stream) {
-  auto fn = tb ? launch<true, true, true, Lut> : launch<true, false, false, Lut>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
-            0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

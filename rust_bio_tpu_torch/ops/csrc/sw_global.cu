@@ -1,16 +1,11 @@
-// Global affine-gap DP, four kernels from two templates:
+// Global affine-gap DP, three kernels from two templates (K11, K1 fed by a
+// LUT, is csrc/sw_warp.cu's):
 //
 //   K1  sw_scan_global       replaces rust_bio_tpu/ops/sw_pallas.py
 //                            scan_global_pallas_mp -> _kernel_scan_global_mp
 //                            (runs="ins"): score, 12-bit traceback cells plus
 //                            the vertical insertion-run nibble, and the cells
 //                            frozen at j = nlens (tbk).
-//   K11 sw_scan_global_lut   replaces scan_global_pallas_subs ->
-//                            _kernel_scan_global_subs (runs="ins"): K1 with
-//                            the substitution score read from a (256, 256)
-//                            LUT, composed with its feeder (the JAX package
-//                            streams lut[x, y] * 2 | (x == y) in; this
-//                            kernel reads the LUT itself).
 //   K3  sw_scores_global     replaces sw_scores_global_matchparams ->
 //                            _kernel_mp: the score only.
 //   K18 sw_scores_global_lut replaces sw_scores_global -> _kernel: K3 fed by
@@ -28,8 +23,8 @@
 // reads one 32-byte line per row. The substitution source is a template
 // parameter: MatchParams (ma / mi by byte equality) or Lut (lut[x][y] read
 // through the read-only path; a column's live entries are a few hundred
-// words and stay in L1, while shared memory holds the column state: 173 KB
-// at M = 450). The Match/Subst bit is byte equality under either source.
+// words and stay in L1). The Match/Subst bit is byte equality under either
+// source.
 //
 // Bound on this card: K1 writes N * (M+1) * B uint16 cells (371 MB at
 // 8192 x 150 x 150): a warp stores 64 contiguous bytes per cell row, so the
@@ -39,7 +34,7 @@
 //
 // Exactness (sw_pallas.py:597-721, 1129-1272, 79-136): int32 arithmetic
 // wraps as in XLA, LUT entries included; D and the row-0 match value start
-// at MIN_SCORE = -858993459 in K1 / K11, at NEG = -2^30 in K3 / K18; every
+// at MIN_SCORE = -858993459 in K1, at NEG = -2^30 in K3 / K18; every
 // selection is a strict '>' with priority Match/Subst > Ins > Del; the
 // I-open candidate uses S~ = max(m, D), not S; an I-cell whose extend does
 // not strictly win points at the s-bits of the cell above in the same
@@ -284,16 +279,6 @@ int sw_scan_global(const void* xt, const void* yt, const void* mlens,
                    void* stream) {
   return launch_scan(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
                      score, tb, tbk, scratch, stream);
-}
-
-// K11. lut: (256, 256) int32 on the device.
-int sw_scan_global_lut(const void* xt, const void* yt, const void* mlens,
-                       const void* nlens, int B, int M, int go, int ge,
-                       const void* lut, void* score, void* tb, void* tbk,
-                       void* scratch, void* stream) {
-  return launch_scan(xt, yt, mlens, nlens, B, M, go, ge,
-                     Lut{static_cast<const int*>(lut)}, score, tb, tbk,
-                     scratch, stream);
 }
 
 // K3.

@@ -1,0 +1,617 @@
+// K11 sw_scan_global_lut and K7-LUT sw_scan_local_lut: the global and the
+// local affine-gap DP under a (256, 256) substitution LUT at protein
+// lengths, one warp a pair over row stripes held by its lanes.
+//
+// Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
+// (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
+// lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves) and,
+// in local mode under a LUT, the XLA engine
+// alignment/pairwise/batched.py:948 _align_batch_device, which the JAX
+// package runs there.
+//
+// What they compute:
+//  K11: csrc/sw_global.cu's K1 fed by the LUT: the score, S at (mlens,
+//   nlens) clamped at NEG; the traceback cells
+//   i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12 of columns
+//   j = 1..nlens and rows i = 0..mlens; tbk (B, M+1), the cells of column
+//   nlens (column 0's when nlens = 0).
+//  K7-LUT: csrc/sw_custom.cu's K7 fed by the LUT (K9 at clips 0): the cells
+//   of columns j = 0..nlens (column 0, the init column, at index 0) with the
+//   run nibble; lx (N+1, B), the x-suffix clip length of each column's row
+//   mlens; the finals S, I, Sn, Ly and tbk (B, M+1) at column nlens. A lane
+//   with nlens = 0 takes column 0's I and cells as its finals. Without a tb
+//   (score only) it skips the cells, lx and the run nibble, as K7 does.
+//
+// Design: the row-stripe wavefront of csrc/sw_global_rows.cu, shrunk to one
+// warp a pair, WARPS warps a block (the pairs are independent). Lane t owns
+// the rows [t * R, t * R + R), R = 8 * ceil((M + 1) / 256), and at step s
+// computes column j = s - t; a pair takes nlens + ceil((mlens + 1) / R) - 1
+// steps (K7-LUT one more: its column 0 is a step of the wavefront, since
+// row mlens of column 0 reads a maximum over the rows above). Lanes past
+// row mlens only take part in the shuffles. Down a column, lane t hands
+// lane t + 1 the values of its stripe's last row with __shfl_up_sync, and
+// lane t + 1 uses them one step later in the same column: S, which one
+// step later still is the next stripe's diagonal; I; S~ = max(m, D) (local:
+// max(m, D, 0)); the s-bits and the Ins run, capped at 15, in one word;
+// K7-LUT also the running maximum of S over rows 1..m-1 and its first row,
+// which decide row m's x-suffix replacement and lx (the row's first is
+// packed in the s-bits' word). No barrier in the column loop: a warp's
+// lanes read and write only their own rows. Along a row, the state stays
+// with the row's owner as [layer][R][32], lane innermost (conflict-free):
+// S, D, s-bits for K11 (6 KB a warp at M = 450), and Sn, Ly besides for
+// K7-LUT (10 KB), in the warp's slice of shared memory, or, where the
+// wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
+// budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
+// stripe's x bytes are staged in shared memory once; y_j is read a step
+// ahead; the LUT through the read-only path (its live entries stay in L1).
+// A lane computes its rows 8 at a time and stores their cells with one
+// 16-byte store into the pair-major tb, (B, N, Xp) for K11 and (B, N+1, Xp)
+// for K7-LUT, Xp = M + 1 rounded up to 8 (ops/sw.py returns the (N, M+1, B)
+// or (N+1, M+1, B) view, which K2, K8 and K10 read through their strides);
+// the lane that holds row mlens stops after the group of 8 that holds it.
+//
+// Bound on this card: the cells' integer operations (about 31 a cell for
+// K11, 44 for K7-LUT: 1.0 G cells of the homolog corpus take 0.9-1.4 ms at
+// the int32 peak) or the tb's 2 bytes a cell (2.0 GB there: 0.6 ms), the
+// larger. The one-thread-a-pair kernels before these kept a pair's column
+// in shared memory and fit one warp an SM (K11: 32 pairs in 173 KB) or less
+// (K7-LUT: 25 pairs), 60-100x off that bound; here a warp needs 6-11 KB.
+//
+// Exactness as K1 and K7 (sw_global.cu, sw_custom.cu): int32 arithmetic
+// wraps, LUT entries included; D starts at MIN_I32 = -858993459; the
+// running maximum starts at -2^31 + 1 and counts only above MIN_I32; every
+// choice is a strict '>' with priority Match/Subst > Ins > Del (> the
+// x-prefix clip of score 0 in local mode); the I-open candidate uses S~;
+// the Match/Subst bit is byte equality.
+
+#include <cstddef>
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int TB_START = 0;
+constexpr int TB_INS = 1;
+constexpr int TB_DEL = 2;
+constexpr int TB_SUBST = 3;
+constexpr int TB_XCLIP_PREFIX = 5;
+constexpr int TB_XCLIP_SUFFIX = 6;
+constexpr int TB_YCLIP_PREFIX = 7;
+constexpr int TB_YCLIP_SUFFIX = 8;
+constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
+constexpr int NEG = -(1 << 30);      // final-reduction sentinel
+constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
+constexpr int LANES = 32;            // stripes a pair
+constexpr int WARPS = 4;             // pairs a block
+constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
+constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
+constexpr int LOCAL_LAYERS = 5;      // K7-LUT: S, D, s-bits, Sn, Ly
+constexpr unsigned FULL = 0xffffffffu;
+constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
+
+// int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
+__device__ __forceinline__ int add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// s, bits <- cand, cbits when cand is strictly greater
+__device__ __forceinline__ void take(int& s, int& bits, int cand, int cbits) {
+  if (cand > s) {
+    s = cand;
+    bits = cbits;
+  }
+}
+
+// S of DP cell (i, 0) in global mode: the init column
+__device__ __forceinline__ int init_s(int i, int go, int ge) {
+  return i == 0 ? 0 : add(go, mul(ge, i - 1));
+}
+
+// byte k of the 8 x bytes of a group
+__device__ __forceinline__ int byte_of(uint2 w, int k) {
+  return ((k < 4 ? w.x : w.y) >> (8 * (k & 3))) & 0xFF;
+}
+
+// the ints of a warp's slice of shared memory: its row state when ONCHIP,
+// then its lanes' x bytes
+__host__ __device__ __forceinline__ size_t warp_ints(int layers, int R, bool onchip) {
+  return (onchip ? static_cast<size_t>(layers) * R * LANES : 0) + static_cast<size_t>(R) * LANES / 4;
+}
+
+// This lane's rows: the state layers (row r of layer k at at(k, r)), its x
+// bytes, and the stripe's place in the pair.
+struct Stripe {
+  int* base;     // layer 0, row 0 of this lane
+  int R;
+  uint8_t* x;    // x_i of row i0 + r at x[r] (0 at row 0 and past mlens)
+  int i0;        // first row
+  int t_act;     // lanes that hold a row <= mlens
+  int groups;    // groups of 8 rows this lane computes: through row mlens
+  __device__ int& at(int k, int r) const { return base[(k * R + r) * LANES]; }
+};
+
+template <int LAYERS, bool ONCHIP>
+__device__ __forceinline__ Stripe stripe_of(int* scratch, const uint8_t* __restrict__ xb, int b,
+                                            int M, int R, int ml) {
+  extern __shared__ int smem[];
+  const int lane = threadIdx.x % LANES;
+  const int w = threadIdx.x / LANES;
+  const size_t state_ints = static_cast<size_t>(LAYERS) * R * LANES;
+  int* wsm = smem + w * warp_ints(LAYERS, R, ONCHIP);
+  Stripe st;
+  st.base = (ONCHIP ? wsm : scratch + static_cast<size_t>(b) * state_ints) + lane;
+  st.R = R;
+  st.x = reinterpret_cast<uint8_t*>(wsm + (ONCHIP ? state_ints : 0)) + static_cast<size_t>(lane) * R;
+  st.i0 = lane * R;
+  st.t_act = ml / R + 1;
+  st.groups = lane < st.t_act ? min(R, ml - st.i0 + GROUP) / GROUP : 0;
+  for (int r = 0; r < R && lane < st.t_act; ++r) {
+    const int i = st.i0 + r;
+    st.x[r] = (i >= 1 && i <= ml) ? xb[static_cast<size_t>(b) * M + i - 1] : 0;
+  }
+  return st;
+}
+
+// K11. TB: store the cells (else score only; tbk is written either way)
+template <bool TB, bool ONCHIP>
+__global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
+    const uint8_t* __restrict__ xb,  // (B, M)
+    const uint8_t* __restrict__ yb,  // (B, N)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
+    int Xp, int R, int go, int ge,
+    const int* __restrict__ lut,  // (256, 256), row x
+    int* __restrict__ score,      // (B,)
+    uint16_t* __restrict__ tb,    // (B, N, Xp), or null
+    int* __restrict__ tbk,        // (B, M + 1)
+    int* __restrict__ scratch) {  // (B, 3, R, 32), or null when ONCHIP
+  const int lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * WARPS + threadIdx.x / LANES;
+  if (b >= B) return;  // the whole warp
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const Stripe st = stripe_of<GLOBAL_LAYERS, ONCHIP>(scratch, xb, b, M, R, ml);
+  int* tbk_b = tbk + static_cast<size_t>(b) * (M + 1);
+
+  // column 0: S[i] = go + ge*(i-1), s-bits Ins (i >= 1); i-bits Start at i <= 1
+  for (int r = 0; r < R && lane < st.t_act; ++r) {
+    const int i = st.i0 + r;
+    st.at(0, r) = init_s(i, go, ge);
+    st.at(1, r) = MIN_I32;
+    st.at(2, r) = i == 0 ? TB_START : TB_INS;
+    if (nl == 0 && i <= ml)
+      tbk_b[i] = (i <= 1 ? TB_START : TB_INS) | ((i == 0 ? TB_START : TB_INS) << 8);
+  }
+
+  int s_up_prev = lane > 0 ? init_s(st.i0 - 1, go, ge) : 0;  // previous column's S, row i0 - 1
+  int in_s = 0, in_i = 0, in_st = 0, in_pk = 0;  // lane - 1's last row, from the last shuffle
+  int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
+  const int steps = nl > 0 ? nl + st.t_act - 1 : 0;
+  for (int s = 1; s <= steps; ++s) {
+    const int j = s - lane;
+    int c_s = 0, c_i = 0, c_st = 0, c_pk = 0;  // this stripe's last row, for lane + 1
+    if (st.groups > 0 && j >= 1 && j <= nl) {
+      const int yj = y_next;
+      if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
+      const int* lut_y = lut + yj;
+      const bool last = j == nl;
+      // row 0: delete y_1..y_j
+      const int dj0 = add(go, mul(ge, j - 1));
+      const int cell0 = TB_START | ((j == 1 ? TB_START : TB_DEL) << 4) | (TB_DEL << 8);
+      int s_up_old = 0;  // previous column's S, row i - 1
+      int bi_up = 0;     // this column's I, row i - 1
+      int st_up = 0;     // this column's S~, row i - 1
+      int sbits_up = 0;  // this column's s-bits, row i - 1
+      int run = 0;       // Ins i-bits run ending at row i - 1, capped at 15
+      if (lane > 0) {
+        s_up_old = s_up_prev;
+        s_up_prev = in_s;
+        bi_up = in_i;
+        st_up = in_st;
+        sbits_up = in_pk & 0xF;
+        run = in_pk >> 4;
+      }
+      uint16_t* tbcol = TB ? tb + (static_cast<size_t>(b) * N + (j - 1)) * Xp + st.i0 : nullptr;
+      for (int g = 0; g < st.groups; ++g) {
+        const uint2 xw = *reinterpret_cast<const uint2*>(st.x + g * GROUP);
+        uint32_t w[GROUP / 2];
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int r = g * GROUP + k;
+          const int i = st.i0 + r;
+          const int xi = byte_of(xw, k);
+          const int sp = st.at(0, r);
+          const int dp = st.at(1, r);
+          const int sbp = st.at(2, r);
+          const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+          const int d_ext = add(dp, ge);
+          const int d_open = add(sp, go);
+          const bool d_wins = d_ext > d_open;
+          int best_d = d_wins ? d_ext : d_open;
+          const int d_bits = d_wins ? TB_DEL : sbp;
+          const int t_open = add(st_up, go);
+          const int i_ext = add(bi_up, ge);
+          int best_i = max(i_ext, t_open);
+          const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
+          int s_col = m_val;
+          int s_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
+          if (best_i > s_col) {
+            s_col = best_i;
+            s_bits = TB_INS;
+          }
+          if (best_d > s_col) {
+            s_col = best_d;
+            s_bits = TB_DEL;
+          }
+          run = i_bits == TB_INS ? min(run + 1, 15) : 0;
+          int cell = i_bits | (d_bits << 4) | (s_bits << 8) | (run << 12);
+          int st_col = max(m_val, best_d);
+          if (k == 0 && i == 0) {  // row 0, in lane 0's first group
+            cell = cell0;
+            s_col = best_d = st_col = dj0;
+            s_bits = TB_DEL;
+            best_i = MIN_I32;
+            run = 0;
+          }
+          if (k & 1) {
+            w[k / 2] |= static_cast<uint32_t>(cell) << 16;
+          } else {
+            w[k / 2] = static_cast<uint32_t>(cell);
+          }
+          s_up_old = sp;
+          bi_up = best_i;
+          st_up = st_col;
+          sbits_up = s_bits;
+          st.at(0, r) = s_col;
+          st.at(1, r) = best_d;
+          st.at(2, r) = s_bits;
+          if (last && i <= ml) tbk_b[i] = cell;
+          c_s = s_col;
+        }
+        if constexpr (TB) {
+          *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      c_i = bi_up;
+      c_st = st_up;
+      c_pk = sbits_up | (run << 4);
+    }
+    in_s = __shfl_up_sync(FULL, c_s, 1);
+    in_i = __shfl_up_sync(FULL, c_i, 1);
+    in_st = __shfl_up_sync(FULL, c_st, 1);
+    in_pk = __shfl_up_sync(FULL, c_pk, 1);
+  }
+  if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
+}
+
+// K7-LUT. TB: store the cells with the run nibble, and lx (else score only)
+template <bool TB, bool ONCHIP>
+__global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
+    const uint8_t* __restrict__ xb,  // (B, M)
+    const uint8_t* __restrict__ yb,  // (B, N)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
+    int Xp, int R, int go, int ge,
+    const int* __restrict__ lut,  // (256, 256), row x
+    uint16_t* __restrict__ tb,    // (B, N + 1, Xp), or null
+    int* __restrict__ lx,         // (N + 1, B), or null
+    int* __restrict__ s_f,        // (B, M + 1) each
+    int* __restrict__ i_f,
+    int* __restrict__ sn_f,
+    int* __restrict__ ly_f,
+    int* __restrict__ tbk,
+    int* __restrict__ scratch) {  // (B, 5, R, 32), or null when ONCHIP
+  const int lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * WARPS + threadIdx.x / LANES;
+  if (b >= B) return;  // the whole warp
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const Stripe st = stripe_of<LOCAL_LAYERS, ONCHIP>(scratch, xb, b, M, R, ml);
+  const size_t fb = static_cast<size_t>(b) * (M + 1);
+  const bool holds_m = lane == st.t_act - 1;  // the lane of row mlens
+
+  int s_up_prev = 0;  // previous column's S, row i0 - 1 (from column 0 on)
+  int in_s = 0, in_i = 0, in_st = 0, in_acc = 0, in_pk = 0;  // lane - 1's, from the last shuffle
+  int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
+  const int steps = nl + st.t_act;  // columns 0..nlens
+  for (int s = 0; s < steps; ++s) {
+    const int j = s - lane;
+    int c_s = 0, c_i = 0, c_st = 0, c_acc = 0, c_pk = 0;  // for lane + 1
+    if (st.groups > 0 && j >= 0 && j <= nl) {
+      int s_up_old = 0;    // previous column's S, row i - 1
+      int bi_up = 0;       // this column's I, row i - 1
+      int st_up = 0;       // this column's S~, row i - 1
+      int sbits_up = 0;    // this column's s-bits, row i - 1
+      int run = 0;         // Ins i-bits run ending at row i - 1, capped at 15
+      int acc = SENT;      // running max of S over rows 1..m-1
+      int first = 0;       // its first row
+      if (lane > 0) {
+        s_up_old = s_up_prev;
+        s_up_prev = in_s;
+        bi_up = in_i;
+        st_up = in_st;
+        acc = in_acc;
+        sbits_up = in_pk & 0xF;
+        run = (in_pk >> 4) & 0xF;
+        first = in_pk >> 8;
+      }
+      uint16_t* tbcol = TB ? tb + (static_cast<size_t>(b) * (N + 1) + j) * Xp + st.i0 : nullptr;
+      if (j == 0) {
+        // column 0 (sw_custom.cu:136-185 at clips 0): I0 takes a gap or the
+        // x-prefix clip, S the better of I0 and the clip, row m the
+        // x-suffix replacement
+        for (int g = 0; g < st.groups; ++g) {
+          uint32_t w[GROUP / 2];
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            const int r = g * GROUP + k;
+            const int i = st.i0 + r;
+            int s0 = 0;
+            int sb = TB_START;
+            int ib = TB_START;
+            int i0v = MIN_I32;
+            if (i >= 1) {
+              const int gap_i = add(go, mul(ge, i - 1));
+              const bool ins_wins = gap_i > go;  // the clip candidate: 0 + go
+              i0v = i == 1 ? go : (ins_wins ? gap_i : go);
+              if (i >= 2) ib = ins_wins ? TB_INS : TB_XCLIP_PREFIX;
+              if (i < ml) {
+                s0 = MIN_I32;
+                take(s0, sb, i0v, TB_INS);
+                take(s0, sb, 0, TB_XCLIP_PREFIX);
+                if (s0 > acc) {
+                  acc = s0;
+                  first = i;
+                }
+              } else {
+                s0 = acc > MIN_I32 ? acc : MIN_I32;
+                sb = TB_XCLIP_SUFFIX;
+                take(s0, sb, i0v, TB_INS);
+                take(s0, sb, 0, TB_XCLIP_PREFIX);
+              }
+            }
+            const int cell = ib | (TB_START << 4) | (sb << 8);
+            run = ib == TB_INS ? min(run + 1, 15) : 0;
+            const int word = TB ? cell | (run << 12) : cell;
+            if (k & 1) {
+              w[k / 2] |= static_cast<uint32_t>(word) << 16;
+            } else {
+              w[k / 2] = static_cast<uint32_t>(word);
+            }
+            st.at(0, r) = s0;
+            st.at(1, r) = MIN_I32;
+            st.at(2, r) = sb;
+            const bool live = i == 0 || s0 > MIN_I32;
+            st.at(3, r) = i == 0 ? 0 : (live ? s0 : MIN_I32);
+            st.at(4, r) = live ? nl : 0;
+            if (nl == 0 && i <= ml) {
+              i_f[fb + i] = i0v;
+              tbk[fb + i] = cell;
+            }
+            c_s = s0;
+          }
+          if constexpr (TB) {
+            *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+        }
+      } else {
+        const int yj = y_next;
+        if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
+        const int* lut_y = lut + yj;
+        const bool last = j == nl;
+        for (int g = 0; g < st.groups; ++g) {
+          const uint2 xw = *reinterpret_cast<const uint2*>(st.x + g * GROUP);
+          uint32_t w[GROUP / 2];
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            const int r = g * GROUP + k;
+            const int i = st.i0 + r;
+            int cell;
+            int s_col;
+            if (k == 0 && i == 0) {
+              // row 0 (lane 0): Del against the y-prefix clip (score 0 + go),
+              // then the y-suffix takeover
+              const int d_gap = add(go, mul(ge, j - 1));
+              int dj0, db0;
+              if (j == 1) {
+                dj0 = go;
+                db0 = TB_START;
+              } else if (d_gap > go) {
+                dj0 = d_gap;
+                db0 = TB_DEL;
+              } else {
+                dj0 = go;
+                db0 = TB_YCLIP_PREFIX;
+              }
+              s_col = dj0 > 0 ? dj0 : 0;
+              int sb0 = dj0 > 0 ? TB_DEL : TB_YCLIP_PREFIX;
+              const int sn0 = st.at(3, 0);
+              if (last && sn0 > s_col) {
+                s_col = sn0;
+                sb0 = TB_YCLIP_SUFFIX;
+              } else if (s_col > sn0) {
+                st.at(3, 0) = s_col;
+                st.at(4, 0) = nl - j;
+              }
+              cell = TB_START | (db0 << 4) | (sb0 << 8);
+              s_up_old = st.at(0, 0);
+              st_up = s_col;
+              bi_up = MIN_I32;
+              sbits_up = sb0;
+              run = 0;
+              st.at(0, 0) = s_col;
+              st.at(1, 0) = dj0;
+              st.at(2, 0) = sb0;
+              if (last) {
+                i_f[fb] = MIN_I32;
+                tbk[fb] = cell;
+              }
+            } else {
+              const int xi = byte_of(xw, k);
+              const int sp = st.at(0, r);
+              const int dp = st.at(1, r);
+              const int sbp = st.at(2, r);
+              const int snp = st.at(3, r);
+              const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+              const int m_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
+              const int d_ext = add(dp, ge);
+              const int d_open = add(sp, go);
+              const bool d_wins = d_ext > d_open;
+              const int best_d = d_wins ? d_ext : d_open;
+              const int d_bits = d_wins ? TB_DEL : sbp;
+              const int t_open = add(st_up, go);
+              const int i_ext = add(bi_up, ge);
+              const int best_i = max(i_ext, t_open);
+              const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
+              s_col = m_val;
+              int s_bits = m_bits;
+              take(s_col, s_bits, best_i, TB_INS);
+              take(s_col, s_bits, best_d, TB_DEL);
+              take(s_col, s_bits, 0, TB_XCLIP_PREFIX);
+              if (i < ml) {
+                if (s_col > acc) {
+                  acc = s_col;
+                  first = i;
+                }
+              } else {
+                // row m: the x-suffix clip seeds the chain, the cell's own
+                // candidates take it over only where strictly greater
+                s_col = acc > MIN_I32 ? acc : MIN_I32;
+                s_bits = TB_XCLIP_SUFFIX;
+                take(s_col, s_bits, m_val, m_bits);
+                take(s_col, s_bits, best_i, TB_INS);
+                take(s_col, s_bits, best_d, TB_DEL);
+                take(s_col, s_bits, 0, TB_XCLIP_PREFIX);
+              }
+              cell = i_bits | (d_bits << 4) | (s_bits << 8);
+              if constexpr (TB) {  // the run nibble, in tbk too (as K7)
+                run = i_bits == TB_INS ? min(run + 1, 15) : 0;
+                cell |= run << 12;
+              }
+              if (s_col > snp) {
+                st.at(3, r) = s_col;
+                st.at(4, r) = nl - j;
+              }
+              s_up_old = sp;
+              st_up = max(max(m_val, best_d), 0);
+              bi_up = best_i;
+              sbits_up = s_bits;
+              st.at(0, r) = s_col;
+              st.at(1, r) = best_d;
+              st.at(2, r) = s_bits;
+              if (last && i <= ml) {
+                i_f[fb + i] = best_i;
+                tbk[fb + i] = cell;
+              }
+            }
+            if (k & 1) {
+              w[k / 2] |= static_cast<uint32_t>(cell) << 16;
+            } else {
+              w[k / 2] = static_cast<uint32_t>(cell);
+            }
+            c_s = s_col;
+          }
+          if constexpr (TB) {
+            *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
+          }
+        }
+      }
+      if (TB && holds_m) lx[static_cast<size_t>(j) * B + b] = acc > MIN_I32 ? ml - first : 0;
+      c_i = bi_up;
+      c_st = st_up;
+      c_acc = acc;
+      c_pk = sbits_up | (run << 4) | (first << 8);
+    }
+    in_s = __shfl_up_sync(FULL, c_s, 1);
+    in_i = __shfl_up_sync(FULL, c_i, 1);
+    in_st = __shfl_up_sync(FULL, c_st, 1);
+    in_acc = __shfl_up_sync(FULL, c_acc, 1);
+    in_pk = __shfl_up_sync(FULL, c_pk, 1);
+  }
+  for (int r = 0; r < R && lane < st.t_act && st.i0 + r <= ml; ++r) {
+    const size_t o = fb + st.i0 + r;
+    s_f[o] = st.at(0, r);
+    sn_f[o] = st.at(3, r);
+    ly_f[o] = st.at(4, r);
+  }
+}
+
+// Stripe rows and dynamic shared bytes of a launch (ops/sw.py warp_geometry
+// computes the same); 0 rows when it cannot launch.
+int geometry(int M, int layers, bool onchip, size_t* smem) {
+  const int R = (M + 1 + GROUP * LANES - 1) / (GROUP * LANES) * GROUP;
+  *smem = WARPS * warp_ints(layers, R, onchip) * sizeof(int);
+  return *smem <= SMEM_MAX ? R : 0;
+}
+
+template <class Kernel>
+int opt_in(Kernel* kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
+}
+
+int blocks(int B) { return (B + WARPS - 1) / WARPS; }
+
+}  // namespace
+
+extern "C" {
+
+const char* rbt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
+// int32 table on the device; tb null for a score-only call, else the
+// pair-major (B, N, Xp) (K11) or (B, N+1, Xp) (K7-LUT) uint16 tensor with
+// Xp >= M + 1 a multiple of 8; scratch null to keep the row state in
+// shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
+// above (layers 3 for K11, 5 for K7-LUT).
+
+// K11.
+int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
+                       const void* nlens, int B, int M, int N, int Xp, int go,
+                       int ge, const void* lut, void* score, void* tb, void* tbk,
+                       void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, GLOBAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_global_warp_kernel<true, false> : scan_global_warp_kernel<true, true>)
+                   : (scratch ? scan_global_warp_kernel<false, false> : scan_global_warp_kernel<false, true>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
+      static_cast<const int*>(lut), static_cast<int*>(score), static_cast<uint16_t*>(tb),
+      static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7-LUT: K7 fed by the LUT; needs gap_open, gap_extend <= 0. lx null with tb.
+int sw_scan_local_lut(const void* xb, const void* yb, const void* mlens,
+                      const void* nlens, int B, int M, int N, int Xp, int go,
+                      int ge, const void* lut, void* tb, void* lx, void* s_f,
+                      void* i_f, void* sn_f, void* ly_f, void* tbk,
+                      void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || !tb != !lx || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_local_warp_kernel<true, false> : scan_local_warp_kernel<true, true>)
+                   : (scratch ? scan_local_warp_kernel<false, false> : scan_local_warp_kernel<false, true>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
+      static_cast<const int*>(lut), static_cast<uint16_t*>(tb), static_cast<int*>(lx),
+      static_cast<int*>(s_f), static_cast<int*>(i_f), static_cast<int*>(sn_f),
+      static_cast<int*>(ly_f), static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,7 +1,15 @@
 // K10 sweep_walk_custom and K8 sweep_walk_local: the traceback walks of the
-// general-clip family over the traceback tensor of K9 / K7 (sw_custom.cu).
-// Replace rust_bio_tpu/ops/walk_pallas.py sweep_walk_custom ->
-// _kernel_sweep_walk_custom and sweep_walk_local -> _kernel_sweep_walk_local.
+// general-clip family over the traceback tensor of K9 / K7 (sw_custom.cu)
+// or K7-LUT (sw_warp.cu). Replace rust_bio_tpu/ops/walk_pallas.py
+// sweep_walk_custom -> _kernel_sweep_walk_custom and sweep_walk_local ->
+// _kernel_sweep_walk_local.
+//
+// Layouts: they read the cell of DP cell (i, j) of pair b at
+// tb[j * sj + i * si + b * sb], element strides they are given: a
+// contiguous (N+1, X, B) tensor (sj = X * B, si = B, sb = 1), as K7's and
+// K9's, or K7-LUT's pair-major (B, N+1, Xp) one (sj = Xp, si = 1,
+// sb = (N+1) * Xp), read in place; ops/walk.py takes those two and raises
+// on others.
 //
 // The walk's steps inside the suffix-fixed final column (j = nlens) are
 // resolved before the launch, in plain torch (ops/walk.py
@@ -51,10 +59,10 @@ constexpr int THREADS = 64;  // 8192 pairs -> 128 blocks: one per SM
 struct Col {
   const uint16_t* base;  // cell (0, j) of this pair
   int X;
-  int B;
+  long long si;          // the row stride
   // cell (i, j), or -1 outside the column (as the Pallas row gather)
   __device__ int operator()(int i) const {
-    return (i >= 0 && i < X) ? static_cast<int>(base[static_cast<size_t>(i) * B]) : -1;
+    return (i >= 0 && i < X) ? static_cast<int>(base[i * si]) : -1;
   }
 };
 
@@ -72,11 +80,12 @@ __device__ __forceinline__ int ins_run(const Col& col, int i, int g) {
 }
 
 __global__ void __launch_bounds__(THREADS) sweep_walk_custom_kernel(
-    const uint16_t* __restrict__ tb,  // (N + 1, X, B)
+    const uint16_t* __restrict__ tb,  // (N + 1, X, B) through the strides
     const int* __restrict__ lx,       // (N + 1, B)
     const int* __restrict__ i1, const int* __restrict__ j1,
     const int* __restrict__ ca1, const int* __restrict__ us1,
-    const int* __restrict__ dn1, int B, int X, int N,
+    const int* __restrict__ dn1, int B, int X, int N, long long sj,
+    long long si, long long sb,
     uint16_t* __restrict__ pre_out,   // (N + 1, B) each
     uint16_t* __restrict__ ins_out,
     uint16_t* __restrict__ exit_out,
@@ -93,7 +102,7 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_custom_kernel(
   for (int j = N; j >= 0; --j) {
     int pre = 0, cnt = 0, code = 0, elen = 0, post = 0;
     if (jcur == j && !done) {
-      const Col col{tb + static_cast<size_t>(j) * X * B + b, X, B};
+      const Col col{tb + j * sj + b * sb, X, si};
       int g = col(icur);
       int entry = use_s ? (g >> 8) & 0xF : carried;
       int ip = icur;
@@ -154,11 +163,12 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_custom_kernel(
 }
 
 __global__ void __launch_bounds__(THREADS) sweep_walk_local_kernel(
-    const uint16_t* __restrict__ tb,  // (N + 1, X, B)
+    const uint16_t* __restrict__ tb,  // (N + 1, X, B) through the strides
     const int* __restrict__ i1, const int* __restrict__ j1,
     const int* __restrict__ ca1, const int* __restrict__ us1,
     const int* __restrict__ dn1, const int* __restrict__ xs0,
-    const int* __restrict__ ys0, int B, int X, int N,
+    const int* __restrict__ ys0, int B, int X, int N, long long sj,
+    long long si, long long sb,
     uint16_t* __restrict__ ins_out,   // (N + 1, B) each
     uint16_t* __restrict__ exit_out,
     int* __restrict__ xstart,         // (B,) each
@@ -176,7 +186,7 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_local_kernel(
   for (int j = N; j >= 0; --j) {
     int cnt = 0, code = 0;
     if (jcur == j && !done) {
-      const Col col{tb + static_cast<size_t>(j) * X * B + b, X, B};
+      const Col col{tb + j * sj + b * sb, X, si};
       const int g = col(icur);
       const int entry = use_s ? (g >> 8) & 0xF : carried;
       int layer2, db2, i2;
@@ -227,15 +237,15 @@ const char* rbt_error_string(int code) {
 
 int sweep_walk_custom(const void* tb, const void* lx, const void* i1,
                       const void* j1, const void* ca1, const void* us1,
-                      const void* dn1, int B, int X, int N, void* pre,
-                      void* ins_cnt, void* exit_op, void* exit_len, void* post,
-                      void* stream) {
+                      const void* dn1, int B, int X, int N, long long sj,
+                      long long si, long long sb, void* pre, void* ins_cnt,
+                      void* exit_op, void* exit_len, void* post, void* stream) {
   sweep_walk_custom_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(lx),
       static_cast<const int*>(i1), static_cast<const int*>(j1),
       static_cast<const int*>(ca1), static_cast<const int*>(us1),
-      static_cast<const int*>(dn1), B, X, N, static_cast<uint16_t*>(pre),
+      static_cast<const int*>(dn1), B, X, N, sj, si, sb, static_cast<uint16_t*>(pre),
       static_cast<uint16_t*>(ins_cnt), static_cast<uint16_t*>(exit_op),
       static_cast<uint16_t*>(exit_len), static_cast<uint16_t*>(post));
   return static_cast<int>(cudaGetLastError());
@@ -244,14 +254,14 @@ int sweep_walk_custom(const void* tb, const void* lx, const void* i1,
 int sweep_walk_local(const void* tb, const void* i1, const void* j1,
                      const void* ca1, const void* us1, const void* dn1,
                      const void* xs0, const void* ys0, int B, int X, int N,
-                     void* ins_cnt, void* exit_op, void* xstart, void* ystart,
-                     void* stream) {
+                     long long sj, long long si, long long sb, void* ins_cnt,
+                     void* exit_op, void* xstart, void* ystart, void* stream) {
   sweep_walk_local_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(i1),
       static_cast<const int*>(j1), static_cast<const int*>(ca1),
       static_cast<const int*>(us1), static_cast<const int*>(dn1),
-      static_cast<const int*>(xs0), static_cast<const int*>(ys0), B, X, N,
+      static_cast<const int*>(xs0), static_cast<const int*>(ys0), B, X, N, sj, si, sb,
       static_cast<uint16_t*>(ins_cnt), static_cast<uint16_t*>(exit_op),
       static_cast<int*>(xstart), static_cast<int*>(ystart));
   return static_cast<int>(cudaGetLastError());

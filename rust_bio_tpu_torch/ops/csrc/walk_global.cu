@@ -1,6 +1,13 @@
 // K2 sweep_walk_global: global-mode traceback walk over the traceback tensor
-// of K1 (sw_global.cu). Replaces rust_bio_tpu/ops/walk_pallas.py
-// sweep_walk_global -> _kernel_sweep_walk_global.
+// of K1 (sw_global.cu) or K11 (sw_warp.cu). Replaces
+// rust_bio_tpu/ops/walk_pallas.py sweep_walk_global ->
+// _kernel_sweep_walk_global.
+//
+// Layouts: it reads the cell of DP cell (i, j) of pair b at
+// tb[(j - 1) * sj + i * si + b * sb], element strides it is given: a
+// contiguous (N, X, B) tensor (sj = X * B, si = B, sb = 1), as K1's, or
+// K11's pair-major (B, N, Xp) one (sj = Xp, si = 1, sb = N * Xp), read in
+// place; ops/walk.py takes those two and raises on others.
 //
 // Output is the column-RLE form of the path, walked end -> start: per DP
 // column j and pair, ins_cnt[j-1] Ins ops then one exit op
@@ -10,7 +17,8 @@
 // Design: one thread per pair keeps the Pallas kernel's state machine
 // (icur, jcur, carried, use_s, done) and steps j = N..1 in lockstep with
 // its warp, so the ins_cnt / exit_op stores of a warp are 64 contiguous
-// bytes. Inside a column the thread reads its own cells: the TPU kernel
+// bytes. Inside a column the thread reads its own cells (contiguous
+// addresses in the pair-major layout): the TPU kernel
 // reads the capped run nibble (bits 12-15) and re-gathers runs of 15 or
 // more; a thread instead follows an Ins run cell by cell, which gives the
 // same run length.
@@ -35,9 +43,9 @@ constexpr int TB_MATCH = 4;
 constexpr int THREADS = 64;  // 8192 pairs -> 128 blocks: one per SM
 
 __global__ void __launch_bounds__(THREADS) sweep_walk_global_kernel(
-    const uint16_t* __restrict__ tb,  // (N, X, B)
+    const uint16_t* __restrict__ tb,  // (N, X, B) through the strides
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int X,
-    int N,
+    int N, long long sj, long long si, long long sb,
     uint16_t* __restrict__ ins_cnt,   // (N, B)
     uint16_t* __restrict__ exit_op,   // (N, B)
     uint16_t* __restrict__ ins0) {    // (B,)
@@ -53,10 +61,10 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_global_kernel(
     int cnt = 0;
     int code = 0;
     if (jcur == j && !done) {
-      const uint16_t* col = tb + static_cast<size_t>(j - 1) * X * B + b;
+      const uint16_t* col = tb + (j - 1) * sj + b * sb;
       // cell (i, j), or -1 outside the column (as the Pallas row gather)
       auto cell = [&](int i) -> int {
-        return (i >= 0 && i < X) ? static_cast<int>(col[static_cast<size_t>(i) * B]) : -1;
+        return (i >= 0 && i < X) ? static_cast<int>(col[i * si]) : -1;
       };
       const int g1 = cell(icur);
       const int entry = use_s ? (g1 >> 8) & 0xF : carried;
@@ -102,12 +110,13 @@ const char* rbt_error_string(int code) {
 }
 
 int sweep_walk_global(const void* tb, const void* mlens, const void* nlens,
-                      int B, int X, int N, void* ins_cnt, void* exit_op,
-                      void* ins0, void* stream) {
+                      int B, int X, int N, long long sj, long long si,
+                      long long sb, void* ins_cnt, void* exit_op, void* ins0,
+                      void* stream) {
   sweep_walk_global_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(mlens),
-      static_cast<const int*>(nlens), B, X, N, static_cast<uint16_t*>(ins_cnt),
+      static_cast<const int*>(nlens), B, X, N, sj, si, sb, static_cast<uint16_t*>(ins_cnt),
       static_cast<uint16_t*>(exit_op), static_cast<uint16_t*>(ins0));
   return static_cast<int>(cudaGetLastError());
 }

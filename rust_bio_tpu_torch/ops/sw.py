@@ -13,10 +13,12 @@ of long x, a row-stripe wavefront over one pair a block),
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
-outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K12
-``scan_semiglobal_lut``, ``scan_custom_lut`` / ``scan_local_lut`` (K9 and
-K7 fed by the LUT), ``scan_global_rows_lut`` (K13 fed by the LUT) and
-``scan_columns_lut`` (K15-LUT). The
+outputs: K11 ``scan_global_lut`` and K7-LUT ``scan_local_lut`` (K1 and K7
+fed by the LUT, one warp a pair over row stripes with a pair-major tb,
+``csrc/sw_warp.cu``), K18 ``scores_global_lut``, K12
+``scan_semiglobal_lut``, ``scan_custom_lut`` (K9 fed by the LUT),
+``scan_global_rows_lut`` (K13 fed by the LUT) and ``scan_columns_lut``
+(K15-LUT). The
 kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
 equality (``x == y``) whatever the LUT says.
 
@@ -39,7 +41,8 @@ or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
 one thread a pair, except K13 and K15, where one block sweeps a pair's
 columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``). All are exact in int32.
+``columns_geometry``), and K11 and K7-LUT, where one warp does
+(``warp_geometry``). All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
@@ -93,13 +96,13 @@ SCAN_SEMIGLOBAL = CudaKernel(
 SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
 SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [PTR] * 8)
 # the LUT twins: the table's pointer in place of (match, mismatch)
-SCAN_GLOBAL_LUT = CudaKernel("sw_global", "sw_scan_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 5)
+SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
 SCORES_GLOBAL_LUT = CudaKernel("sw_global", "sw_scores_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 3)
 SCAN_SEMIGLOBAL_LUT = CudaKernel(
     "sw_semiglobal", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 4 + [PTR, INT, INT] + [PTR] * 7
 )
 SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
-SCAN_LOCAL_LUT = CudaKernel("sw_custom", "sw_scan_local_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 9)
+SCAN_LOCAL_LUT = CudaKernel("sw_warp", "sw_scan_local_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 9 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 7 + [PTR] * 4)
 SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
@@ -137,6 +140,19 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9727
+# K11's and K7-LUT's launch (csrc/sw_warp.cu): one warp a pair, 4 pairs a
+# block; lane t over a stripe of R rows, R a multiple of 8 (a lane stores 8
+# cells at once) with 32 * R >= M + 1; the x bytes of a warp's stripes in
+# its slice of shared memory, beside its row state (three int32 layers a
+# row for K11, five for K7-LUT) while that slice stays within
+# WARP_SHARED_MAX bytes (two blocks an SM at least), else the state in a
+# (B, layers, R, 32) device scratch
+_WARP_LANES = 32
+_WARP_PAIRS = 4
+_WARP_GROUP = 8
+GLOBAL_WARP_LAYERS = 3
+LOCAL_WARP_LAYERS = 5
+WARP_SHARED_MAX = 28_672
 
 
 def _check_shapes(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -228,6 +244,37 @@ def rows_geometry(M: int) -> Tuple[int, int, str, int]:
     return T, R, placement, smem
 
 
+def warp_geometry(M: int, layers: int) -> Tuple[int, str, int]:
+    """K11's (``layers`` 3) or K7-LUT's (5) launch at x length ``M``, as
+    csrc/sw_warp.cu computes it: (R rows a lane, where the row state lives:
+    ``"shared"`` or ``"scratch"``, dynamic shared bytes a warp). Lane t owns
+    rows [t * R, t * R + R); R is a multiple of 8."""
+    R = -(-(M + 1) // (_WARP_GROUP * _WARP_LANES)) * _WARP_GROUP
+    x_bytes = R * _WARP_LANES
+    state = layers * R * _WARP_LANES * 4
+    if x_bytes + state <= WARP_SHARED_MAX:
+        return R, "shared", x_bytes + state
+    if _WARP_PAIRS * x_bytes > _SMEM_MAX:
+        raise ValueError(f"M = {M}: a block's x bytes exceed its shared memory")
+    return R, "scratch", x_bytes
+
+
+def _warp_scratch(layers: int, B: int, M: int, dev) -> torch.Tensor | None:
+    """None when a warp's row state fits its share of shared memory, else
+    the (B, layers, R, 32) device scratch of csrc/sw_warp.cu."""
+    R, placement, _ = warp_geometry(M, layers)
+    if placement == "shared":
+        return None
+    return torch.empty((B, layers, R, _WARP_LANES), dtype=torch.int32, device=dev)
+
+
+def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
+    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT, Xp = M + 1
+    rounded up to a multiple of 8."""
+    Xp = -(-(M + 1) // _WARP_GROUP) * _WARP_GROUP
+    return torch.empty((B, cols, Xp), dtype=torch.uint16, device=dev)
+
+
 def _ptr(t: torch.Tensor | None) -> int | None:
     return None if t is None else t.data_ptr()
 
@@ -240,20 +287,10 @@ def scan_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
     ``i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12``; only
     ``1 <= j <= nlens[b]``, ``0 <= i <= mlens[b]`` is defined. ``tbk[b]``
     holds the cells of column ``nlens[b]`` (rows ``<= mlens[b]``)."""
-    return _scan_global(SCAN_GLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score))
-
-
-def scan_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
-    """K11: K1 with the substitution score ``lut[x, y]``; same outputs."""
-    return _scan_global(SCAN_GLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut)
-
-
-def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge = int(go), int(ge)
-    sub = _subst(subst, dev)
+    go, ge, ma, mi = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score))
     if dev.type == "cpu":
-        return _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge)
+        return _scan_global_core(_mp_feed(xb, yb, ma, mi), M, N, mlens, nlens, go, ge)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
     tbk = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
@@ -261,12 +298,36 @@ def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(3, B, M, dev)
-        kernel.launch(
+        SCAN_GLOBAL.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, *sub, score.data_ptr(), tb.data_ptr(), tbk.data_ptr(),
-            _ptr(scratch),
+            B, M, go, ge, ma, mi, score.data_ptr(), tb.data_ptr(), tbk.data_ptr(), _ptr(scratch),
         )
     return score, tb, tbk
+
+
+def scan_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback=True):
+    """K11: K1 with the substitution score ``lut[x, y]``; same outputs, tb
+    None with ``traceback=False`` (score only). On the card ``tb`` is the
+    (N, M+1, B) view of a pair-major (B, N, Xp) tensor, Xp = M + 1 rounded
+    up to a multiple of 8, which ``ops.walk.sweep_walk_global`` reads in
+    place."""
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    go, ge = int(gap_open), int(gap_extend)
+    sub = _subst(lut, dev)
+    if dev.type == "cpu":
+        score, tb, tbk = _scan_global_core(_plain_feed(xb, yb, lut), M, N, mlens, nlens, go, ge)
+        return score, tb if traceback else None, tbk
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    tb = _pair_major(B, N, M, dev) if traceback else None
+    tbk = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
+    if B:
+        scratch = _warp_scratch(GLOBAL_WARP_LAYERS, B, M, dev)
+        SCAN_GLOBAL_LUT.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
+            0 if tb is None else tb.shape[2], go, ge, *sub, score.data_ptr(), _ptr(tb), tbk.data_ptr(),
+            _ptr(scratch),
+        )
+    return score, tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, tbk
 
 
 def scan_global_rows(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, rb=ROWS_RB,
@@ -424,7 +485,10 @@ def scan_local(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch
 
 
 def scan_local_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback=True):
-    """K7 with the substitution score ``lut[x, y]``; same outputs."""
+    """K7-LUT: K7 with the substitution score ``lut[x, y]``; same outputs.
+    On the card ``tb`` is the (N+1, M+1, B) view of a pair-major (B, N+1,
+    Xp) tensor, Xp = M + 1 rounded up to a multiple of 8, which
+    ``ops.walk.sweep_walk_local`` and ``sweep_walk_custom`` read in place."""
     return _scan_clip(SCAN_LOCAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, (0, 0, 0, 0), traceback)
 
 
@@ -713,9 +777,19 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
     if dev.type == "cpu":
         feed = _plain_feed(xb, yb, subst)
         return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, local, traceback, runs)
-    tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
+    if kernel is SCAN_LOCAL_LUT:
+        tb = _pair_major(B, N + 1, M, dev) if traceback else None
+        if B:
+            scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
+            kernel.launch(
+                dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
+                0 if tb is None else tb.shape[2], go, ge, *sub, _ptr(tb), _ptr(lx),
+                *(f.data_ptr() for f in finals), _ptr(scratch),
+            )
+        return (tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, lx, *finals)
+    tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()

@@ -12,8 +12,9 @@ of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
 the XLA walk ``banded_device.py`` ``_walk_banded``; their sections at the
 end of this module say what they read and write.
 
-Input: the traceback tensor of K1 or K5 (``ops.sw``), ``tb`` (N, X, B) uint16
-with X = M + 1, and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
+Input: the traceback tensor of K1, K11 or K5 (``ops.sw``), ``tb`` (N, X, B)
+uint16 with X = M + 1 (K11's, K13's and K7-LUT's are views of pair-major
+tensors, which K2, K14, K8 and K10 read in place through their strides), and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
 (row j - 1) and pair: ``ins_cnt`` Ins ops, then one exit op ``exit_op``
 (TB_MATCH / TB_SUBST / TB_DEL, in K6 also TB_YCLIP_PREFIX; 0 where the pair
 is not), walking end -> start; plus ``ins0``, the Ins run in column 0. All
@@ -48,7 +49,7 @@ from rust_bio_tpu_torch.ops._build import (
 )
 
 SWEEP_WALK_GLOBAL = CudaKernel(
-    "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, PTR, PTR, PTR]
+    "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
 )
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
     "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
@@ -58,17 +59,19 @@ SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     [PTR] * 7 + [INT, INT, INT] + [PTR] * 4,
 )
 SWEEP_WALK_CUSTOM = CudaKernel(
-    "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT] + [PTR] * 5
+    "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 5
 )
 SWEEP_WALK_LOCAL = CudaKernel(
-    "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT] + [PTR] * 4
+    "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4
 )
 WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [PTR] * 6)
 
 
 def sweep_walk_global(tb, mlens, nlens):
-    """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16."""
-    return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens)
+    """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16.
+    ``tb`` is a contiguous (N, X, B) tensor (K1's) or, as K11 returns it, a
+    pair-major view (``_walk_strides``): read in place, never copied."""
+    return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens, strided=True)
 
 
 def sweep_walk_global_seg(tb, mlens, nlens):
@@ -81,9 +84,10 @@ def sweep_walk_global_seg(tb, mlens, nlens):
 
 
 def _walk_strides(tb) -> tuple:
-    """(column, row, pair) element strides of an (N, X, B) tb that K14
-    reads: contiguous, or rows of stride 1 inside columns inside pairs,
-    none overlapping. Raises ``ValueError`` on any other layout."""
+    """(column, row, pair) element strides of an (N, X, B) tb that K2, K8,
+    K10 and K14 read: contiguous, or rows of stride 1 inside columns inside
+    pairs, none overlapping (the view of K11's, K7-LUT's or K13's
+    pair-major tensor). Raises ``ValueError`` on any other layout."""
     N, X, B = tb.shape
     if tb.is_contiguous() or tb.numel() == 0:
         return X * B, B, 1
@@ -486,7 +490,9 @@ def _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens):
     if tb.dim() != 3:
         raise ValueError(f"tb: expected (N+1, X, B), got shape {tuple(tb.shape)}")
     Nc, X, B = tb.shape
-    check(tb, "tb", torch.uint16, (Nc, X, B))
+    if tb.dtype != torch.uint16:
+        raise TypeError(f"tb: expected {torch.uint16}, got {tb.dtype}")
+    _walk_strides(tb)
     check(tbfix, "tbfix", torch.int32, (B, X))
     check(lx, "lx", torch.int32, (Nc, B))
     check(lx_n, "lx_n", torch.int32, (B,))
@@ -498,8 +504,9 @@ def _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens):
 
 
 def sweep_walk_custom(tb, tbfix, lx, lx_n, mlens, nlens):
-    """K10. ``tb`` (N+1, X, B) uint16 and ``lx`` (N+1, B) int32 of K9 or K7,
-    ``tbfix`` (B, X) int32 the fixed final column with Ly << 12, ``lx_n``
+    """K10. ``tb`` (N+1, X, B) uint16 and ``lx`` (N+1, B) int32 of K9, K7 or
+    K7-LUT (a contiguous tb or a pair-major view, ``_walk_strides``: read in
+    place, never copied), ``tbfix`` (B, X) int32 the fixed final column with Ly << 12, ``lx_n``
     (B,) its x-suffix clip length (``batched._custom_device``). Returns
     (pre, ins_cnt, exit_op, exit_len, post (N+1, B) uint16, fix_codes,
     fix_lens (B, 4), xstart, ystart, xend, yend (B,)) int32."""
@@ -538,7 +545,7 @@ def sweep_walk_custom_launch(tb, lx, i1, j1, ca1, us1, dn1):
     if B:
         SWEEP_WALK_CUSTOM.launch(
             dev, tb.data_ptr(), lx.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(),
-            us1.data_ptr(), dn1.data_ptr(), B, X, Nc - 1, *(o.data_ptr() for o in outs),
+            us1.data_ptr(), dn1.data_ptr(), B, X, Nc - 1, *_walk_strides(tb), *(o.data_ptr() for o in outs),
         )
     return outs
 
@@ -581,7 +588,7 @@ def local_entry(tb, lx, tbfix, lx_n, mlens, nlens):
 
 
 def sweep_walk_local(tb, tbfix, lx, lx_n, mlens, nlens):
-    """K8: the local-mode walk, for K7's output with gap_open + gap_extend
+    """K8: the local-mode walk, for K7's (or K7-LUT's) output with gap_open + gap_extend
     < 0 (a Del run past a free x-suffix clip would tie it otherwise, which
     only K10 resolves). Inputs as ``sweep_walk_custom``. Returns (ins_cnt,
     exit_op (N+1, B) uint16, fix_codes, fix_lens (B, 4), xstart, ystart,
@@ -607,7 +614,7 @@ def sweep_walk_local_launch(tb, i1, j1, ca1, us1, dn1, xs0, ys0):
     if B:
         SWEEP_WALK_LOCAL.launch(
             dev, tb.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(), us1.data_ptr(),
-            dn1.data_ptr(), xs0.data_ptr(), ys0.data_ptr(), B, X, Nc - 1,
+            dn1.data_ptr(), xs0.data_ptr(), ys0.data_ptr(), B, X, Nc - 1, *_walk_strides(tb),
             ins_cnt.data_ptr(), exit_op.data_ptr(), xstart.data_ptr(), ystart.data_ptr(),
         )
     return ins_cnt, exit_op, xstart, ystart

@@ -1,0 +1,170 @@
+#!/usr/bin/env python3
+"""Time K11 (``sw.scan_global_lut``) and K7-LUT (``sw.scan_local_lut``) on one
+NVIDIA GPU, on the homolog corpus of chip_smoke.py phase 3c: 8192 protein
+pairs, x of 250-450 residues, y x at 30% substitutions and 3%
+single-residue indels, under BLOSUM62 with gap costs (-11, -1).
+
+    python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S]
+
+``--root`` names the checkout whose ``rust_bio_tpu_torch`` is timed (default:
+the one holding this script), so that two trees can be compared on one card
+in one call; the inputs come from this checkout's chip_smoke.py generator
+either way. For each kernel it prints one JSON line: the median of ``--reps``
+CUDA-event-timed launches after one warm-up, with traceback and, where the
+timed tree's wrapper takes ``traceback=False``, without it
+(``scores_only_ms``, else null); the rows a lane where the tree has
+``warp_geometry``; a checksum of the outputs the kernel defines (the score
+or the finals, and the tb cells read as ``tb[j, i, b]`` whatever the tb's
+layout; equal checksums from two trees: equal outputs); and the card's name
+and power limit as nvidia-smi reports them. Then it times the launches of
+the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
+contiguous tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA
+pairs (10 x ``--reps`` launches, a checksum of their outputs). Exits
+non-zero without a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import inspect
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+
+
+def _sums(torch, t, weights) -> list:
+    t = t.to(torch.int64)
+    return [int(t.sum()), int((t * weights).sum())]
+
+
+def checksum(torch, outs, ml, nl, first_col: int) -> list:
+    """Int64 sums, plain and weighted by place, of the outputs a scan
+    defines: ``outs`` is (tb, then per-pair tensors (B,) or (B, M+1), rows
+    past mlens ignored, or lx (N+1, B), columns past nlens ignored). tb
+    column c holds DP column c + first_col; the cells of columns
+    first_col..nlens and rows 0..mlens count, 128 columns at a time."""
+    tb, *rest = outs
+    total = [0, 0]
+    rows = torch.arange(tb.shape[1], device=ml.device)
+    for c0 in range(0, tb.shape[0], 128):
+        cols = torch.arange(c0, min(c0 + 128, tb.shape[0]), device=ml.device)
+        keep = (cols[:, None, None] + first_col <= nl[None, None, :]) & (rows[None, :, None] <= ml[None, None, :])
+        cells = torch.where(keep, tb[c0 : c0 + 128].to(torch.int64), 0)
+        total = [a + b for a, b in zip(total, _sums(torch, cells, cols[:, None, None] * 65537 + rows[None, :, None] + 1))]
+    for t in rest:
+        if t.dim() == 1:
+            w = torch.arange(1, t.numel() + 1, device=t.device)
+        elif t.shape[0] == ml.shape[0]:  # (B, M+1) finals
+            cols = torch.arange(t.shape[1], device=t.device)
+            t = torch.where(cols[None, :] <= ml[:, None], t, 0)
+            w = cols[None, :] * 7 + 1
+        else:  # lx (N+1, B)
+            cols = torch.arange(t.shape[0], device=t.device)
+            t = torch.where(cols[:, None] <= nl[None, :], t, 0)
+            w = cols[:, None] * 7 + 1
+        total = [a + b for a, b in zip(total, _sums(torch, t, w))]
+    return total
+
+
+def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
+    """Time K11 and K7-LUT on the homolog corpus; one JSON line each, with
+    ``fields``."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch.scores import blosum62, dense_matrix
+
+    dev = torch.device("cuda")
+    (hxs, hys), _ = chip_smoke.protein_corpora(np.random.default_rng(seed))
+    bp = BatchAligner(Scoring.new(chip_smoke.PROT_GO, chip_smoke.PROT_GE, blosum62), device=dev)
+    a = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(hxs, hys)]
+    lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
+    card = chip_smoke.nvidia_smi_line()
+    pens = (chip_smoke.PROT_GO, chip_smoke.PROT_GE, lut)
+    cases = (
+        ("sw_scan_global_lut", sw.scan_global_lut, 1, (3, lambda out: [out[1], out[0], out[2]])),
+        ("sw_scan_local_lut", sw.scan_local_lut, 0, (5, lambda out: [out[0], out[1], *out[2:]])),
+    )
+    for name, fn, first_col, (layers, order) in cases:
+        scan = lambda fn=fn, **kw: fn(*a, *pens, **kw)  # noqa: E731
+        out = scan()
+        torch.cuda.synchronize()
+        total = checksum(torch, order(out), a[2], a[3], first_col)
+        del out
+        ms = chip_smoke.cuda_ms(torch, scan, reps, warm=False)
+        score_only = "traceback" in inspect.signature(fn).parameters
+        only = chip_smoke.cuda_ms(torch, lambda: scan(traceback=False), reps) if score_only else None
+        M = int(a[0].shape[1])
+        rows = {"stripe_rows": sw.warp_geometry(M, layers)[0]} if hasattr(sw, "warp_geometry") else {}
+        print(json.dumps({
+            "kernel": name, **fields, "pairs": int(a[0].shape[0]), "M": M, "N": int(a[1].shape[1]), **rows,
+            "reps": reps, "ms": ms, "scores_only_ms": only, "checksum": total, "card": card,
+        }), flush=True)
+
+
+def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
+    """Time the launches of K2 and K8, which read a pair-major tb through
+    its strides, on the contiguous tbs of K1 and K7 over chip_smoke.py's
+    8192 random 150 bp DNA pairs under (-5, -1, 2, -2); one JSON line
+    each, with a checksum of the walk's outputs."""
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    B, L = chip_smoke.B_ALN, chip_smoke.LEN
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    a = [torch.from_numpy(v).to(dev) for v in (
+        acgt[rng.integers(0, 4, size=(B, L))], acgt[rng.integers(0, 4, size=(B, L))],
+        np.full(B, L, np.int32), np.full(B, L, np.int32),
+    )]
+    pens = (chip_smoke.GO, chip_smoke.GE, chip_smoke.MA, chip_smoke.MI)
+    card = chip_smoke.nvidia_smi_line()
+    tb = sw.scan_global(*a, *pens)[1]
+    k2 = lambda: walk.sweep_walk_global(tb, a[2], a[3])  # noqa: E731
+    scan = sw.scan_local(*a, *pens)
+    tbfix, lx_n = chip_smoke.clip_walk_inputs(torch, scan, a[2], a[3], pens, (0, 0, 0, 0))
+    entry = walk.local_entry(scan[0], scan[1], tbfix, lx_n, a[2], a[3])[2:9]
+    k8 = lambda: walk.sweep_walk_local_launch(scan[0], *entry)  # noqa: E731
+    for name, fn in (("sweep_walk_global", k2), ("sweep_walk_local", k8)):
+        out = fn()
+        torch.cuda.synchronize()
+        total = [0, 0]
+        for t in out:
+            w = torch.arange(1, t.numel() + 1, device=dev).reshape(t.shape)
+            total = [x + y for x, y in zip(total, _sums(torch, t, w))]
+        print(json.dumps({
+            "kernel": name, **fields, "input": "150 bp DNA, contiguous tb", "pairs": B, "reps": reps,
+            "ms": chip_smoke.cuda_ms(torch, fn, reps), "checksum": total, "card": card,
+        }), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("time_lut: no CUDA device", file=sys.stderr)
+        return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(HERE))
+    import chip_smoke
+
+    sys.path.insert(0, str(root))
+    import rust_bio_tpu_torch
+    from rust_bio_tpu_torch.ops import sw, walk
+
+    if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
+        print(f"time_lut: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
+        return 1
+    time_scans(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
+    time_dna_walks(torch, chip_smoke, sw, walk, args.seed, 10 * args.reps, root=str(root))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

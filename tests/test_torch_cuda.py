@@ -438,6 +438,159 @@ def test_lut_aligner_on_card_matches_cpu(cuda_device):
         assert on_card.semiglobal_packed(xs, ys).cigars() == on_cpu.semiglobal_packed(xs, ys).cigars()
 
 
+# ---- K11 and K7-LUT (one warp a pair, a pair-major tb) and the walks on it ----
+
+WARP_PENS = [(0, 0), (-11, -1), (-5, -3)]
+
+
+def _warp_pairs(rng, B, M, N, device, alphabet):
+    """``_protein_pairs``' batch over ``alphabet`` with row mlens on a
+    stripe's first and last rows, lane 31's rows and a homolog lane (y a
+    copy of x: long diagonals); lanes with nlens = 0 every fifth."""
+    xb, yb, mlens, nlens = (a.numpy().copy() for a in _protein_pairs(rng, B, M, N, "cpu", alphabet=alphabet)[0])
+    R = sw.warp_geometry(M, sw.GLOBAL_WARP_LAYERS)[0]
+    for k, v in enumerate((R - 1, R, 2 * R - 1, 31 * R, M - 1)):
+        mlens[4 + k] = max(0, min(M, v))
+    nlens[9::5] = 0
+    n = min(M, N)
+    xb[10, :n], mlens[10], nlens[10] = yb[10, :n], n, n
+    return [torch.from_numpy(a).to(device) for a in (xb, yb, mlens, nlens)], mlens, nlens
+
+
+def _warp_luts(device):
+    """(LUT, gap costs) cases: BLOSUM62's dense LUT at each of
+    ``WARP_PENS``; a LUT near +-2^30, whose sums of a few entries wrap
+    int32, at gap extension 0 (the plain versions take the insertion
+    recurrence as a (max,+) prefix scan, cummax(T - i * ge) + i * ge, which
+    equals the kernels' sequential max(I + ge, T) under wrapping only where
+    i * ge does not move T across the wrap: always at ge = 0)."""
+    rng = np.random.default_rng(61)
+    vals = rng.integers(2**30 - 2**20, 2**30, size=(256, 256)) * rng.choice([-1, 1], size=(256, 256))
+    wrap = torch.from_numpy(vals.astype(np.int32)).to(device)
+    blosum = _lut("blosum62", device)
+    return [(blosum, pens) for pens in WARP_PENS] + [(wrap, (0, 0)), (wrap, (-11, 0))]
+
+
+def _warp_cases(M, placement, monkeypatch, layers):
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "WARP_SHARED_MAX", 0)
+    assert sw.warp_geometry(M, layers)[1] == placement
+
+
+def _walks_on_both_layouts(tb, fns):
+    """Each walk on ``tb`` (the pair-major view) and on its contiguous copy
+    against its plain version, and the two equal."""
+    for fn, plain, inputs in fns:
+        for t in (tb, tb.contiguous()):
+            got = fn(t, *inputs)
+            torch.cuda.synchronize()
+            for g, w in zip(got, plain(t, *inputs)):
+                assert torch.equal(g, w), fn.__name__
+
+
+@pytest.mark.parametrize("placement", ["shared", "scratch"])
+@pytest.mark.parametrize("M", [1, 7, 31, 32, 33, 255, 256, 450, 511, 604])
+def test_warp_global_lut_scan_and_walk_match_plain(cuda_device, monkeypatch, M, placement):
+    """K11 with traceback and score-only against its plain version bit for
+    bit: all 256 bytes under ``_warp_luts``' LUTs and gap costs, the row
+    state in shared memory and in the device scratch; then K2 on its
+    pair-major view and on a contiguous copy against the plain K2."""
+    _warp_cases(M, placement, monkeypatch, sw.GLOBAL_WARP_LAYERS)
+    rng = np.random.default_rng(60 + M)
+    args, mlens, nlens = _warp_pairs(rng, 40, M, 48, cuda_device, bytes(range(256)))
+    ml, nl = args[2], args[3]
+    for lut, (go, ge) in _warp_luts(cuda_device):
+        score, tb, tbk = sw.scan_global_lut(*args, go, ge, lut)
+        torch.cuda.synchronize()
+        ps, ptb, ptbk = sw.scan_global_lut_plain(sw.subs2_stream_plain(args[0], args[1], lut), ml, nl, go, ge)
+        assert torch.equal(score, ps)
+        assert tb.shape == ptb.shape and tb.stride()[1] == 1  # the pair-major view
+        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+        assert torch.equal(_masked(tbk, mlens), _masked(ptbk, mlens))
+        only, none, otbk = sw.scan_global_lut(*args, go, ge, lut, traceback=False)
+        assert none is None and torch.equal(only, ps) and torch.equal(_masked(otbk, mlens), _masked(ptbk, mlens))
+        _walks_on_both_layouts(tb, [(walk.sweep_walk_global, walk.sweep_walk_global_plain, (ml, nl))])
+
+
+def _local_walk_inputs(scan, ml, nl, go, ge):
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fixups
+
+    tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
+    B, X = S_f.shape
+    rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, ml)
+    _, tb_fixed, Lx_n, lx_set = _suffix_fixups(
+        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, 0, 0, 0, 0)
+    )
+    tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+    return tbfix, lx, torch.where(lx_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
+
+
+@pytest.mark.parametrize(
+    "M,placement",
+    [(m, p) for m in (1, 7, 31, 32, 33, 255, 256, 450, 511, 604, 1000) for p in ("shared", "scratch")] + [(4094, "scratch")],
+)
+def test_warp_local_lut_scan_and_walks_match_plain(cuda_device, monkeypatch, M, placement):
+    """K7-LUT with traceback and score-only against its plain version bit
+    for bit, as the K11 test holds K11 (M up to 4,094, where its state
+    leaves shared memory; lx and the finals too); then K8 (where go + ge <
+    0) and K10, and
+    ``local_entry``, on its pair-major view and on a contiguous copy against
+    their plain versions."""
+    _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+    rng = np.random.default_rng(70 + M)
+    B, N = (40, 48) if M <= 604 else (12, 24)
+    args, mlens, nlens = _warp_pairs(rng, B, M, N, cuda_device, bytes(range(256)))
+    ml, nl = args[2], args[3]
+    for lut, (go, ge) in _warp_luts(cuda_device):
+        got = sw.scan_local_lut(*args, go, ge, lut)
+        torch.cuda.synchronize()
+        want = sw.scan_local_lut_plain(sw.subs2_stream_plain(args[0], args[1], lut), ml, nl, go, ge)
+        assert got[0].shape == want[0].shape and got[0].stride()[1] == 1  # the pair-major view
+        _clip_scans_match(got, want, mlens, nlens)
+        only = sw.scan_local_lut(*args, go, ge, lut, traceback=False)
+        assert only[0] is None and only[1] is None
+        for g, w in zip(only[2:6], got[2:6]):
+            assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+        assert torch.equal(_masked(only[6], mlens), _masked(got[6] & 0xFFF, mlens))
+        tbfix, lx, lx_n = _local_walk_inputs(got, ml, nl, go, ge)
+        inputs = (tbfix, lx, lx_n, ml, nl)
+        fns = [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain, inputs)]
+        if go + ge < 0:
+            fns.append((walk.sweep_walk_local, walk.sweep_walk_local_plain, inputs))
+        _walks_on_both_layouts(got[0], fns)
+        for g, w in zip(walk.local_entry(got[0], lx, tbfix, lx_n, ml, nl),
+                        walk.local_entry(got[0].contiguous(), lx, tbfix, lx_n, ml, nl)):
+            assert torch.equal(g, w)
+
+
+def test_warp_protein_aligners_on_card_match_cpu(cuda_device):
+    """``global_``, ``local`` and ``scores`` under BLOSUM62 on homologs of
+    250-450 residues (chip_smoke.py's corpus, 48 pairs) at gap costs
+    (-11, -1) and (0, 0) (local mode then walks K7-LUT's tb with K10), on
+    the card and on the CPU."""
+    from rust_bio_tpu_torch.scores import blosum62
+
+    rng = np.random.default_rng(62)
+    aa = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    xs, ys = [], []
+    for _ in range(48):
+        x = aa[rng.integers(0, 20, size=int(rng.integers(250, 451)))]
+        y = x.copy()
+        mut = rng.random(y.size) < 0.3
+        y[mut] = aa[rng.integers(0, 20, size=int(mut.sum()))]
+        y = y[rng.random(y.size) >= 0.03]
+        xs.append(x.tobytes())
+        ys.append(y.tobytes())
+    key = lambda a: (a.score, a.xstart, a.xend, a.ystart, a.yend, a.operations)  # noqa: E731
+    for go, ge in ((-11, -1), (0, 0)):
+        sc = Scoring.new(go, ge, blosum62)
+        on_card = BatchAligner(sc, device=cuda_device)
+        on_cpu = BatchAligner(sc, device="cpu")
+        for fn, mode in (("global_", "global"), ("local", "local")):
+            assert [key(a) for a in getattr(on_card, fn)(xs, ys)] == [key(a) for a in getattr(on_cpu, fn)(xs, ys)], mode
+            np.testing.assert_array_equal(on_card.scores(xs, ys, mode), on_cpu.scores(xs, ys, mode))
+
+
 # ---- long x: K13 (the block-row scan, and fed by the LUT), K14 ----
 
 

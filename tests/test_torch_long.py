@@ -210,20 +210,22 @@ def test_seg_walk_reads_the_pair_major_view(pad):
 
 
 def test_global_walks_raise_on_layouts_they_do_not_take():
-    """K14 takes a contiguous (N, X, B) tb or a pair-major view; a view with
-    the pairs inside the columns, rows of stride > 1, or columns that
-    overlap raises, as does K2 (contiguous only) on the pair-major view."""
+    """K14 and K2 take a contiguous (N, X, B) tb or a pair-major view (K2
+    since K11 writes one); a view with the pairs inside the columns, rows of
+    stride > 1, or columns that overlap raises."""
     xb, yb, mlens, nlens = _batch(70)
     args = _torch(xb, yb, mlens, nlens)
     _, tb = sw.scan_global_rows(*args, -5, -1, MA, MI, rb=RB)
     pairs_inside_columns = tb.permute(0, 2, 1).contiguous().permute(0, 2, 1)  # (N, B, X) storage
     rows_strided = torch.zeros((N, 2 * (M + 1), B), dtype=torch.uint16)[:, ::2]
     overlapping = torch.zeros(B * N * (M + 1), dtype=torch.uint16).as_strided((N, M + 1, B), (4, 1, N * (M + 1)))
-    for bad in (pairs_inside_columns, rows_strided, overlapping):
-        with pytest.raises(ValueError, match="strides"):
-            walk.sweep_walk_global_seg(bad, args[2][: bad.shape[2]], args[3][: bad.shape[2]])
-    with pytest.raises(ValueError, match="contiguous"):
-        walk.sweep_walk_global(_pair_major(tb, 8), args[2], args[3])
+    for fn in (walk.sweep_walk_global_seg, walk.sweep_walk_global):
+        for bad in (pairs_inside_columns, rows_strided, overlapping):
+            with pytest.raises(ValueError, match="strides"):
+                fn(bad, args[2][: bad.shape[2]], args[3][: bad.shape[2]])
+    _, k1_tb, _ = sw.scan_global(*args, -5, -1, MA, MI)
+    for g, w in zip(walk.sweep_walk_global(_pair_major(k1_tb, 8), args[2], args[3]), walk.sweep_walk_global(k1_tb, args[2], args[3])):
+        assert torch.equal(g, w)
 
 
 def test_scan_global_rows_score_only():
