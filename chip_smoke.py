@@ -109,10 +109,12 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events (K11, K7-LUT, K13, K13-LUT, K15 and K15-LUT also without
-   traceback); holds K2, K8 and K10 on K11's and K7-LUT's pair-major views
-   of the homolog corpus too; times K13-LUT on that corpus beside K11, and
-   K1 against K13 and K9 against K15 on 600 bp, 1 kb and 2 kb batches.
+   events (K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also without
+   traceback; K16 also without its tb's zero-fill); holds K2, K8 and K10 on
+   K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
+   the domain corpus and K16-walk on K16's too; times K13-LUT on the
+   homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
+   bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
@@ -163,12 +165,14 @@ K9_OPS_PER_CELL = 49
 K13_OPS_PER_CELL = 26
 # csrc/sw_columns.cu K15: K9's cell without the run counter and nibble
 K15_OPS_PER_CELL = 45
-# csrc/sw_banded.cu K16 per band cell, counted from its band loop: the
+# csrc/sw_banded.cu K16 per band cell, counted from its band rows: the
 # match compare and score select (4), the Del extend/open and its bits (7,
 # the previous s-bits' shift and mask among them), the y-prefix clip (3),
 # S~ (3), the three chain opens (5), the Ins maximum (4), the i-bits
 # decision (6), four takes (12), the x-suffix running maximum (5), the
-# Sn/Ly update (3) and the cell packing (4); carries are register moves
+# Sn/Ly update (3) and the cell packing (4); the shuffles and the scan that
+# spread a column over a warp are not counted (the recurrence in order needs
+# none)
 K16_OPS_PER_CELL = 56
 # the LUT-fed kernels (K11, K18, K12, K7/K9 and K13 fed by the LUT) do the
 # same operations, the LUT read in place of the match/mismatch select
@@ -621,6 +625,13 @@ def band_corpora(rng):
 
     reads = [batch(B_BAND, BAND_READ, BAND_SUBS) for _ in range(BAND_BATCHES)]
     return reads, batch(B_KB, KB_READ, KB_SUBS)
+
+
+def pair_major_base(view):
+    """The (B, N, Xp) tensor under a pair-major (N, X, B) tb view."""
+    N, _, B = view.shape
+    Xp = view.stride(0)
+    return view.as_strided((B, N, Xp), (N * Xp, Xp, 1))
 
 
 def band_cells(arrays) -> int:
@@ -1728,14 +1739,38 @@ def main() -> int:
     got = sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0)
     torch.cuda.synchronize()
     want = plain_k12()
+    only = sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0, traceback=False)
     report(
-        "sw_scan_semiglobal_lut", "rust_bio_tpu_torch/ops/csrc/sw_semiglobal.cu", "rust_bio_tpu/ops/sw_pallas.py:1328",
-        defined(got, dom[2], dom[3]), defined(want, dom[2], dom[3]),
+        "sw_scan_semiglobal_lut", "rust_bio_tpu_torch/ops/csrc/sw_warp.cu", "rust_bio_tpu/ops/sw_pallas.py:1328",
+        defined(got, dom[2], dom[3]) + defined([want[0]] + list(only[1:]), dom[2], dom[3])[1:],
+        defined(want, dom[2], dom[3]) + defined(want, dom[2], dom[3])[1:],
         cuda_ms(torch, lambda: sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0), 5), cuda_ms(torch, plain_k12, 1),
         lut_bytes(dxb, dyb, dml, dnl, d_tb + 5 * 4 * d_rows),
         K5_OPS_PER_CELL * dcells,
+        scores_only_ms=cuda_ms(torch, lambda: sw.scan_semiglobal_lut(*dom, PROT_GO, PROT_GE, lut_d, 0, 0, traceback=False), 5),
+        stripe_rows=sw.warp_geometry(dxb.shape[1], sw.LOCAL_WARP_LAYERS)[0],
     )
-    del got, want
+    del want, only
+    # K6 on K12's pair-major view (the protein path's semiglobal walk)
+    tb = got[0]
+    _, tbfix = _fixed_column(*got[1:], dom[2], PROT_GO, PROT_GE)
+    wgot = walk.sweep_walk_semiglobal(tb, tbfix, dom[2], dom[3])
+    torch.cuda.synchronize()
+    wwant = walk.sweep_walk_semiglobal_plain(tb, tbfix, dom[2], dom[3])
+    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum()) + B_PROT
+    entry = walk.resolve_fixed_column(tbfix, dom[2], dom[3])[3:9]
+    report(
+        "sweep_walk_semiglobal_domain", "rust_bio_tpu_torch/ops/csrc/walk_semiglobal.cu",
+        "rust_bio_tpu/ops/walk_pallas.py:609",
+        wgot, wwant,
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb, *entry), 10),
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_plain(tb, tbfix, dom[2], dom[3]), 2),
+        2 * path_cells + 4 * 7 * B_PROT + 2 * 2 * dyb.shape[1] * B_PROT + 6 * B_PROT,
+        8 * path_cells, n_launches=prot_launches["sweep_walk_semiglobal"],
+        wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_semiglobal(tb, tbfix, dom[2], dom[3]), 10),
+        tb_strides=list(tb.stride()),
+    )
+    del got, tb, wgot, wwant
     clip_cases = (
         ("sw_scan_local_lut", hom, (hxb, hyb, hml, hnl), (0, 0, 0, 0), K7_OPS_PER_CELL),
         ("sw_scan_custom_lut", dom, (dxb, dyb, dml, dnl), (DOMAIN_XCLIP, DOMAIN_XCLIP, DOMAIN_YCLIP, DOMAIN_YCLIP), K9_OPS_PER_CELL),
@@ -1898,8 +1933,10 @@ def main() -> int:
     )
     # K16 on the 1 kb corpus (its row) and the STR corpus (a dense tb of
     # about 8 GB; compared 256 columns at a time), the plain version timed by
-    # one run, the kernel by 3 (wrapper with its tb zero-fill, lengths
-    # checked on the host as the aligner does); K16-walk on the 1 kb corpus
+    # one run, the kernel by 3 (ms: the wrapper with its tb zero-fill,
+    # lengths checked on the host as the aligner does; kernel_ms: the launch
+    # alone into the outputs of the checked call); K16-walk on the 1 kb
+    # corpus, on K16's pair-major view
     def banded_arrays(al, mode, xs, ys):
         sc_ = {
             "semiglobal": al.scoring.with_clips(*SEMI_CLIPS), "global_": al.scoring.with_clips(*SEMI_CLIPS[:1] * 4),
@@ -1922,23 +1959,34 @@ def main() -> int:
         want, plain_ms = timed_once(torch, lambda arrays=arrays: banded_scan(arrays, plain=True))
         ml_d_, nl_d_ = tens(arrays[2], arrays[3])
         err = max(rows_tb_err(torch, got[0], want[0], ml_d_, nl_d_), max_abs_err(got[1:], want[1:]))
+        want_finals = [w.clone() for w in want[1:]]
         del want
         t = tens(*arrays[:6])
         ms = cuda_ms(torch, lambda t=t, arrays=arrays: sw.scan_banded(*t[:4], arrays[6], *t[4:]), 3)
+        outs = (pair_major_base(got[0]), *got[1:])
+        kernel_ms = cuda_ms(torch, lambda t=t, arrays=arrays, outs=outs: sw.scan_banded_launch(outs, *t[:4], arrays[6], *t[4:]), 3)
+        check(max_abs_err(got[1:], want_finals) == 0, f"K16 {name}: a repeated launch changed the finals")
         Bq, Mq = arrays[0].shape
         Nq = arrays[1].shape[1]
         cells_q = band_cells(arrays)
-        # the dense tb once (its band cells are in it), x and y, the
-        # lengths, the bands, lx and the five finals
-        nbytes = 2 * Nq * (Mq + 1) * Bq + Bq * (Mq + Nq) + 8 * Bq + 2 * 4 * Bq * (Nq + 1) + 4 * Nq * Bq + 5 * 4 * Bq * (Mq + 1)
-        band_k16[name] = (got, arrays, err, ms, plain_ms, nbytes, K16_OPS_PER_CELL * cells_q, cells_q)
-        del got
-    _, _, _, _, _, sbytes, sops, scells = band_k16["str_global"]
-    kgot, karrays, kerr, kms, kplain_ms, kbytes, kops, kcells = band_k16["kb"]
+        # the dense pair-major tb once (its band cells and its rows' padding
+        # to Xp are in it), x and y, the lengths, the bands, lx and the
+        # five finals
+        nbytes = (
+            2 * Nq * sw.pair_major_pitch(Mq) * Bq + Bq * (Mq + Nq) + 8 * Bq + 2 * 4 * Bq * (Nq + 1) + 4 * Nq * Bq
+            + 5 * 4 * Bq * (Mq + 1)
+        )
+        warps = sw.banded_geometry(Mq, Bq, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
+        band_k16[name] = (got, arrays, err, ms, plain_ms, nbytes, K16_OPS_PER_CELL * cells_q, cells_q, kernel_ms, warps)
+        del got, outs
+    _, _, _, _, _, sbytes, sops, scells, skernel_ms, swarps = band_k16["str_global"]
+    kgot, karrays, kerr, kms, kplain_ms, kbytes, kops, kcells, kkernel_ms, kwarps = band_k16["kb"]
     report(
         "sw_scan_banded", "rust_bio_tpu_torch/ops/csrc/sw_banded.cu", "rust_bio_tpu/ops/sw_pallas.py:2514", None, None,
         kms, kplain_ms, kbytes, kops, err=max(kerr, band_k16["str_global"][2]), band_cells=kcells,
-        str_global_ms=band_k16["str_global"][3], str_global_plain_ms=band_k16["str_global"][4],
+        kernel_ms=kkernel_ms, warps_a_block=kwarps,
+        str_global_ms=band_k16["str_global"][3], str_global_kernel_ms=skernel_ms, str_global_warps_a_block=swarps,
+        str_global_plain_ms=band_k16["str_global"][4],
         str_global_bound_ms=max(sbytes / HBM_BYTES_PER_S, sops / INT32_OPS_PER_S) * 1e3, str_global_band_cells=scells,
     )
     del band_k16
@@ -1961,7 +2009,7 @@ def main() -> int:
         "walk_banded", "rust_bio_tpu_torch/ops/csrc/walk_banded.cu", "rust_bio_tpu/alignment/pairwise/banded_device.py:231",
         wgot, wwant, cuda_ms(torch, lambda: walk.walk_banded(*winputs), 5), wplain_ms,
         2 * (steps + Bq) + 2 * fix_steps + 4 * xsuffix_steps + 8 * Bq + 3 * T * Bq + 16 * Bq,
-        8 * (steps + Bq),
+        8 * (steps + Bq), tb_strides=list(winputs[0].stride()),
     )
     del kgot, winputs, wgot, wwant
 

@@ -512,8 +512,9 @@ class BatchBandedAligner:
         *host, pens8 = arrays
         nb, M = host[0].shape
         Nc = host[1].shape[1]
-        # sub-batches whose dense tb fits the budget, each in flight
-        lanes = max(1, self._budget() // (Nc * (M + 1) * 2))
+        # sub-batches whose dense tb (K16's pair-major rows of Xp = M + 1
+        # rounded up to 8) fits the budget, each in flight
+        lanes = max(1, self._budget() // (Nc * sw.pair_major_pitch(M) * 2))
         parts = []
         for lo in range(0, nb, lanes):
             hi = min(nb, lo + lanes)

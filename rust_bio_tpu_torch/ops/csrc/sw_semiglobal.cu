@@ -1,11 +1,8 @@
 // K5 sw_scan_semiglobal: affine-gap DP of the semiglobal family for constant
 // match/mismatch scoring. Replaces rust_bio_tpu/ops/sw_pallas.py
 // scan_semiglobal_pallas_mp -> _kernel_scan_semiglobal_mp (runs="ins").
-// K12 sw_scan_semiglobal_lut: the same DP with the substitution score read
-// from a (256, 256) LUT. Replaces scan_semiglobal_pallas_subs ->
-// _kernel_scan_semiglobal_subs (runs="ins"), composed with its feeder (the
-// JAX package streams lut[x, y] * 2 | (x == y) in; this kernel reads the
-// LUT itself). The two Pallas kernels differ only in that source.
+// Its LUT twin K12 (sw_scan_semiglobal_lut, the same DP with the score read
+// from a (256, 256) LUT) is one warp a pair in sw_warp.cu.
 //
 // The x-clips are disabled (MIN_SCORE by contract); the y-clip penalties
 // ycp (prefix) and ycs (suffix) are live arguments, 0/0 for semiglobal mode.
@@ -22,9 +19,8 @@
 // (5, M+1, B) device scratch when they do not fit. The I layer is not part
 // of the recurrence: I_f and tbk are written from column nlens (from the
 // init column when nlens == 0). The substitution source is a template
-// parameter, as in sw_global.cu: MatchParams or Lut (read through the
-// read-only path, so the LUT stays out of the shared memory the column
-// state needs). The Match/Subst bit is byte equality under either source.
+// parameter, as in sw_global.cu (here only MatchParams). The Match/Subst
+// bit is byte equality.
 //
 // Bound on this card: it writes N * (M+1) * B uint16 cells (coalesced: a
 // warp stores 64 contiguous bytes per cell row) and five (B, M+1) int32
@@ -67,10 +63,6 @@ __device__ __forceinline__ int mul(int a, int b) {
 struct MatchParams {
   int ma, mi;
   __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
-};
-struct Lut {
-  const int* __restrict__ lut;  // (256, 256) int32, row x
-  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
 };
 
 // Column state of this thread's pair: row i of layer k is at
@@ -270,17 +262,6 @@ int sw_scan_semiglobal(const void* xt, const void* yt, const void* mlens,
                        void* stream) {
   return launch(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, ycp,
                 ycs, tb, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K12. lut: (256, 256) int32 on the device.
-int sw_scan_semiglobal_lut(const void* xt, const void* yt, const void* mlens,
-                           const void* nlens, int B, int M, int go, int ge,
-                           const void* lut, int ycp, int ycs, void* tb,
-                           void* s_f, void* i_f, void* sn_f, void* ly_f,
-                           void* tbk, void* scratch, void* stream) {
-  return launch(xt, yt, mlens, nlens, B, M, go, ge,
-                Lut{static_cast<const int*>(lut)}, ycp, ycs, tb, s_f, i_f,
-                sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

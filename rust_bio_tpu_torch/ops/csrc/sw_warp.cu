@@ -1,11 +1,13 @@
-// K11 sw_scan_global_lut and K7-LUT sw_scan_local_lut: the global and the
-// local affine-gap DP under a (256, 256) substitution LUT at protein
-// lengths, one warp a pair over row stripes held by its lanes.
+// K11 sw_scan_global_lut, K7-LUT sw_scan_local_lut and K12
+// sw_scan_semiglobal_lut: the global, the local and the semiglobal
+// affine-gap DP under a (256, 256) substitution LUT at protein lengths, one
+// warp a pair over row stripes held by its lanes.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
-// lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves) and,
-// in local mode under a LUT, the XLA engine
+// lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
+// :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
+// runs="ins") and, in local mode under a LUT, the XLA engine
 // alignment/pairwise/batched.py:948 _align_batch_device, which the JAX
 // package runs there.
 //
@@ -21,6 +23,11 @@
 //   mlens; the finals S, I, Sn, Ly and tbk (B, M+1) at column nlens. A lane
 //   with nlens = 0 takes column 0's I and cells as its finals. Without a tb
 //   (score only) it skips the cells, lx and the run nibble, as K7 does.
+//  K12: csrc/sw_semiglobal.cu's K5 fed by the LUT: the cells of columns
+//   j = 1..nlens and rows 0..mlens with the run nibble; the finals S, I,
+//   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
+//   nlens = 0). Without a tb it skips the cells' stores only: its finals
+//   are the full call's.
 //
 // Design: the row-stripe wavefront of csrc/sw_global_rows.cu, shrunk to one
 // warp a pair, WARPS warps a block (the pairs are independent). Lane t owns
@@ -35,29 +42,32 @@
 // max(m, D, 0)); the s-bits and the Ins run, capped at 15, in one word;
 // K7-LUT also the running maximum of S over rows 1..m-1 and its first row,
 // which decide row m's x-suffix replacement and lx (the row's first is
-// packed in the s-bits' word). No barrier in the column loop: a warp's
+// packed in the s-bits' word); K12 hands S~ = max(m, D, the row's y-prefix
+// clip) down, as K5 does. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
 // S, D, s-bits for K11 (6 KB a warp at M = 450), and Sn, Ly besides for
-// K7-LUT (10 KB), in the warp's slice of shared memory, or, where the
+// K7-LUT and K12 (10 KB), in the warp's slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
 // stripe's x bytes are staged in shared memory once; y_j is read a step
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
-// 16-byte store into the pair-major tb, (B, N, Xp) for K11 and (B, N+1, Xp)
-// for K7-LUT, Xp = M + 1 rounded up to 8 (ops/sw.py returns the (N, M+1, B)
-// or (N+1, M+1, B) view, which K2, K8 and K10 read through their strides);
+// 16-byte store into the pair-major tb, (B, N, Xp) for K11 and K12 and
+// (B, N+1, Xp) for K7-LUT, Xp = M + 1 rounded up to 8 (ops/sw.py returns the
+// (N, M+1, B) or (N+1, M+1, B) view, which K2, K6, K8 and K10 read through
+// their strides);
 // the lane that holds row mlens stops after the group of 8 that holds it.
 //
 // Bound on this card: the cells' integer operations (about 31 a cell for
 // K11, 44 for K7-LUT: 1.0 G cells of the homolog corpus take 0.9-1.4 ms at
 // the int32 peak) or the tb's 2 bytes a cell (2.0 GB there: 0.6 ms), the
-// larger. The one-thread-a-pair kernels before these kept a pair's column
-// in shared memory and fit one warp an SM (K11: 32 pairs in 173 KB) or less
-// (K7-LUT: 25 pairs), 60-100x off that bound; here a warp needs 6-11 KB.
+// larger (K12: about 39 a cell, K5's). The one-thread-a-pair kernels before
+// these kept a pair's column in shared memory and fit one warp an SM (K11:
+// 32 pairs in 173 KB; K12: 32 pairs in 129 KB at M = 200) or less (K7-LUT:
+// 25 pairs), 50-100x off that bound; here a warp needs 6-11 KB.
 //
-// Exactness as K1 and K7 (sw_global.cu, sw_custom.cu): int32 arithmetic
+// Exactness as K1, K7 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu): int32 arithmetic
 // wraps, LUT entries included; D starts at MIN_I32 = -858993459; the
 // running maximum starts at -2^31 + 1 and counts only above MIN_I32; every
 // choice is a strict '>' with priority Match/Subst > Ins > Del (> the
@@ -86,7 +96,7 @@ constexpr int LANES = 32;            // stripes a pair
 constexpr int WARPS = 4;             // pairs a block
 constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
 constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
-constexpr int LOCAL_LAYERS = 5;      // K7-LUT: S, D, s-bits, Sn, Ly
+constexpr int LOCAL_LAYERS = 5;      // K7-LUT and K12: S, D, s-bits, Sn, Ly
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 
@@ -538,6 +548,188 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
   }
 }
 
+// K12. TB: store the cells (the run nibble is in tbk either way)
+template <bool TB, bool ONCHIP>
+__global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
+    const uint8_t* __restrict__ xb,  // (B, M)
+    const uint8_t* __restrict__ yb,  // (B, N)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
+    int Xp, int R, int go, int ge,
+    const int* __restrict__ lut,  // (256, 256), row x
+    int ycp, int ycs,
+    uint16_t* __restrict__ tb,    // (B, N, Xp), or null
+    int* __restrict__ s_f,        // (B, M + 1) each
+    int* __restrict__ i_f,
+    int* __restrict__ sn_f,
+    int* __restrict__ ly_f,
+    int* __restrict__ tbk,
+    int* __restrict__ scratch) {  // (B, 5, R, 32), or null when ONCHIP
+  const int lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * WARPS + threadIdx.x / LANES;
+  if (b >= B) return;  // the whole warp
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const Stripe st = stripe_of<LOCAL_LAYERS, ONCHIP>(scratch, xb, b, M, R, ml);
+  const size_t fb = static_cast<size_t>(b) * (M + 1);
+
+  // column 0: S[i] = go + ge*(i-1), s-bits Ins (i >= 1); i-bits Start at
+  // i <= 1; Sn/Ly = (ycs, nl) at row 0 and (S + ycs, nl) below
+  for (int r = 0; r < R && lane < st.t_act; ++r) {
+    const int i = st.i0 + r;
+    const int s0 = init_s(i, go, ge);
+    st.at(0, r) = s0;
+    st.at(1, r) = MIN_I32;
+    st.at(2, r) = i == 0 ? TB_START : TB_INS;
+    st.at(3, r) = i == 0 ? ycs : add(s0, ycs);
+    st.at(4, r) = nl;
+    if (nl == 0 && i <= ml) {
+      i_f[fb + i] = MIN_I32;
+      tbk[fb + i] = (i <= 1 ? TB_START : TB_INS) | ((i == 0 ? TB_START : TB_INS) << 8);
+    }
+  }
+
+  const int d_clip = add(ycp, go);
+  int s_up_prev = lane > 0 ? init_s(st.i0 - 1, go, ge) : 0;  // previous column's S, row i0 - 1
+  int in_s = 0, in_i = 0, in_st = 0, in_pk = 0;  // lane - 1's last row, from the last shuffle
+  int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
+  const int steps = nl > 0 ? nl + st.t_act - 1 : 0;
+  for (int s = 1; s <= steps; ++s) {
+    const int j = s - lane;
+    int c_s = 0, c_i = 0, c_st = 0, c_pk = 0;  // this stripe's last row, for lane + 1
+    if (st.groups > 0 && j >= 1 && j <= nl) {
+      const int yj = y_next;
+      if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
+      const int* lut_y = lut + yj;
+      const bool last = j == nl;
+      int s_up_old = 0;  // previous column's S, row i - 1
+      int bi_up = 0;     // this column's I, row i - 1
+      int st_up = 0;     // this column's S~, row i - 1
+      int sbits_up = 0;  // this column's s-bits, row i - 1
+      int run = 0;       // Ins i-bits run ending at row i - 1, capped at 15
+      if (lane > 0) {
+        s_up_old = s_up_prev;
+        s_up_prev = in_s;
+        bi_up = in_i;
+        st_up = in_st;
+        sbits_up = in_pk & 0xF;
+        run = in_pk >> 4;
+      }
+      uint16_t* tbcol = TB ? tb + (static_cast<size_t>(b) * N + (j - 1)) * Xp + st.i0 : nullptr;
+      for (int g = 0; g < st.groups; ++g) {
+        const uint2 xw = *reinterpret_cast<const uint2*>(st.x + g * GROUP);
+        uint32_t w[GROUP / 2];
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int r = g * GROUP + k;
+          const int i = st.i0 + r;
+          int cell;
+          int s_col;
+          if (k == 0 && i == 0) {
+            // row 0 (lane 0): Del against the y-prefix clip, then, in the
+            // last column, the y-suffix takeover
+            const int d_gap = add(go, mul(ge, j - 1));
+            int dj0, db0;
+            if (j == 1) {
+              dj0 = go;
+              db0 = TB_START;
+            } else if (d_gap > d_clip) {
+              dj0 = d_gap;
+              db0 = TB_DEL;
+            } else {
+              dj0 = d_clip;
+              db0 = TB_YCLIP_PREFIX;
+            }
+            s_col = dj0 > ycp ? dj0 : ycp;
+            int sb0 = dj0 > ycp ? TB_DEL : TB_YCLIP_PREFIX;
+            const int sn0 = st.at(3, 0);
+            if (last && sn0 > s_col) {
+              s_col = sn0;
+              sb0 = TB_YCLIP_SUFFIX;
+            } else if (add(s_col, ycs) > sn0) {
+              st.at(3, 0) = add(s_col, ycs);
+              st.at(4, 0) = nl - j;
+            }
+            cell = TB_START | (db0 << 4) | (sb0 << 8);
+            s_up_old = st.at(0, 0);
+            st_up = s_col;
+            bi_up = MIN_I32;
+            sbits_up = sb0;
+            run = 0;
+            st.at(0, 0) = s_col;
+            st.at(1, 0) = dj0;
+            st.at(2, 0) = sb0;
+            if (last) {
+              i_f[fb] = MIN_I32;
+              tbk[fb] = cell;
+            }
+          } else {
+            const int xi = byte_of(xw, k);
+            const int sp = st.at(0, r);
+            const int dp = st.at(1, r);
+            const int sbp = st.at(2, r);
+            const int snp = st.at(3, r);
+            const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+            const int d_ext = add(dp, ge);
+            const int d_open = add(sp, go);
+            const bool d_wins = d_ext > d_open;
+            const int best_d = d_wins ? d_ext : d_open;
+            const int d_bits = d_wins ? TB_DEL : sbp;
+            const int t_open = add(st_up, go);
+            const int i_ext = add(bi_up, ge);
+            const int best_i = max(i_ext, t_open);
+            const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
+            const int yclip = add(d_clip, mul(ge, i - 1));  // the y-prefix clip of row i
+            s_col = m_val;
+            int s_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
+            take(s_col, s_bits, best_i, TB_INS);
+            take(s_col, s_bits, best_d, TB_DEL);
+            take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
+            run = i_bits == TB_INS ? min(run + 1, 15) : 0;
+            cell = i_bits | (d_bits << 4) | (s_bits << 8) | (run << 12);
+            if (add(s_col, ycs) > snp) {  // against the row's Sn before this column
+              st.at(3, r) = add(s_col, ycs);
+              st.at(4, r) = nl - j;
+            }
+            s_up_old = sp;
+            st_up = max(max(m_val, best_d), yclip);
+            bi_up = best_i;
+            sbits_up = s_bits;
+            st.at(0, r) = s_col;
+            st.at(1, r) = best_d;
+            st.at(2, r) = s_bits;
+            if (last && i <= ml) {
+              i_f[fb + i] = best_i;
+              tbk[fb + i] = cell;
+            }
+          }
+          if (k & 1) {
+            w[k / 2] |= static_cast<uint32_t>(cell) << 16;
+          } else {
+            w[k / 2] = static_cast<uint32_t>(cell);
+          }
+          c_s = s_col;
+        }
+        if constexpr (TB) {
+          *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
+        }
+      }
+      c_i = bi_up;
+      c_st = st_up;
+      c_pk = sbits_up | (run << 4);
+    }
+    in_s = __shfl_up_sync(FULL, c_s, 1);
+    in_i = __shfl_up_sync(FULL, c_i, 1);
+    in_st = __shfl_up_sync(FULL, c_st, 1);
+    in_pk = __shfl_up_sync(FULL, c_pk, 1);
+  }
+  for (int r = 0; r < R && lane < st.t_act && st.i0 + r <= ml; ++r) {
+    const size_t o = fb + st.i0 + r;
+    s_f[o] = st.at(0, r);
+    sn_f[o] = st.at(3, r);
+    ly_f[o] = st.at(4, r);
+  }
+}
+
 // Stripe rows and dynamic shared bytes of a launch (ops/sw.py warp_geometry
 // computes the same); 0 rows when it cannot launch.
 int geometry(int M, int layers, bool onchip, size_t* smem) {
@@ -568,7 +760,7 @@ const char* rbt_error_string(int code) {
 // pair-major (B, N, Xp) (K11) or (B, N+1, Xp) (K7-LUT) uint16 tensor with
 // Xp >= M + 1 a multiple of 8; scratch null to keep the row state in
 // shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 5 for K7-LUT).
+// above (layers 3 for K11, 5 for K7-LUT and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -611,6 +803,30 @@ int sw_scan_local_lut(const void* xb, const void* yb, const void* mlens,
       static_cast<const int*>(lut), static_cast<uint16_t*>(tb), static_cast<int*>(lx),
       static_cast<int*>(s_f), static_cast<int*>(i_f), static_cast<int*>(sn_f),
       static_cast<int*>(ly_f), static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12: K5 fed by the LUT; ycp and ycs the y-clip penalties (0 / 0 in
+// semiglobal mode).
+int sw_scan_semiglobal_lut(const void* xb, const void* yb, const void* mlens,
+                           const void* nlens, int B, int M, int N, int Xp, int go,
+                           int ge, const void* lut, int ycp, int ycs, void* tb,
+                           void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
+                           void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_semiglobal_warp_kernel<true, false> : scan_semiglobal_warp_kernel<true, true>)
+                   : (scratch ? scan_semiglobal_warp_kernel<false, false> : scan_semiglobal_warp_kernel<false, true>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
+      static_cast<const int*>(lut), ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(s_f),
+      static_cast<int*>(i_f), static_cast<int*>(sn_f), static_cast<int*>(ly_f),
+      static_cast<int*>(tbk), static_cast<int*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 

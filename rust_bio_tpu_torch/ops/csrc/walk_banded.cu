@@ -2,7 +2,9 @@
 // Replaces rust_bio_tpu/alignment/pairwise/banded_device.py _walk_banded (XLA
 // device code, a lax.while_loop of M + N + 8 steps over the whole batch).
 //
-// Inputs: K16's tb (N, M + 1, B) uint16 (columns 1..N); tb0 (B, M + 1) int32,
+// Inputs: K16's tb (N, M + 1, B) uint16 (columns 1..N), read through its
+// element strides (K16 returns the view of a pair-major tensor, a pair's
+// column contiguous); tb0 (B, M + 1) int32,
 // column 0's cells; tbfix (B, M + 1) int32, the suffix-fixed final column's
 // 12-bit cells with Ly << 12, read in place of column nlens[b] (and its Ly
 // on y-suffix clip steps); lx (B, N + 1) int32, each column's x-suffix clip
@@ -49,12 +51,13 @@ __device__ __forceinline__ int mul(int a, int b) {
 }
 
 __global__ void __launch_bounds__(THREADS) walk_banded_kernel(
-    const uint16_t* __restrict__ tb,  // (N, M + 1, B)
+    const uint16_t* __restrict__ tb,  // (N, M + 1, B) through the strides
     const int* __restrict__ tb0,      // (B, M + 1)
     const int* __restrict__ tbfix,    // (B, M + 1)
     const int* __restrict__ lx,       // (B, N + 1)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
     int N, int T, int go, int ge, int xcp, int xcs, int ycp, int ycs,
+    long long sj, long long si, long long sb,
     uint8_t* __restrict__ op_codes,   // (T, B), zeroed
     uint16_t* __restrict__ op_lens,   // (T, B), zeroed
     int* __restrict__ xstart, int* __restrict__ ystart, int* __restrict__ xend,
@@ -77,7 +80,7 @@ __global__ void __launch_bounds__(THREADS) walk_banded_kernel(
     const int jc = min(max(j, 0), N);
     const bool use_fix = j == nl;
     const int cf = fix[ic];
-    int cell = use_fix ? cf : (jc == 0 ? col0[ic] : tb[(static_cast<size_t>(jc - 1) * rows + ic) * B + b]);
+    int cell = use_fix ? cf : (jc == 0 ? col0[ic] : tb[(jc - 1) * sj + ic * si + b * sb]);
     cell &= 0xFFF;
     int sb = (cell >> 8) & 0xF;
     if (i == 0 && j >= 1 && !use_fix) sb = add(go, mul(ge, j - 1)) > ycp ? TB_DEL : TB_YCLIP_PREFIX;
@@ -168,16 +171,18 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// K16-walk. op_codes / op_lens must be zeroed by the caller.
+// K16-walk. op_codes / op_lens must be zeroed by the caller; sj, si, sb
+// are tb's element strides (column, row, pair).
 int walk_banded(const void* tb, const void* tb0, const void* tbfix, const void* lx,
                 const void* mlens, const void* nlens, int B, int M, int N, int T, int go,
-                int ge, int xcp, int xcs, int ycp, int ycs, void* op_codes, void* op_lens,
-                void* xstart, void* ystart, void* xend, void* yend, void* stream) {
+                int ge, int xcp, int xcs, int ycp, int ycs, long long sj, long long si,
+                long long sb, void* op_codes, void* op_lens, void* xstart, void* ystart,
+                void* xend, void* yend, void* stream) {
   walk_banded_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(tb0),
       static_cast<const int*>(tbfix), static_cast<const int*>(lx),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, T, go, ge, xcp,
-      xcs, ycp, ycs, static_cast<uint8_t*>(op_codes), static_cast<uint16_t*>(op_lens),
+      xcs, ycp, ycs, sj, si, sb, static_cast<uint8_t*>(op_codes), static_cast<uint16_t*>(op_lens),
       static_cast<int*>(xstart), static_cast<int*>(ystart), static_cast<int*>(xend),
       static_cast<int*>(yend));
   return static_cast<int>(cudaGetLastError());

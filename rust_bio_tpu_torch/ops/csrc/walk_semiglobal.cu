@@ -1,5 +1,7 @@
 // K6 sweep_walk_semiglobal: the traceback walk of the semiglobal family
-// over the traceback tensor of K5 (sw_semiglobal.cu). Replaces
+// over the traceback tensor of K5 (sw_semiglobal.cu, contiguous (N, X, B))
+// or K12 (sw_warp.cu, the (N, X, B) view of a pair-major tensor), read
+// through its element strides. Replaces
 // rust_bio_tpu/ops/walk_pallas.py sweep_walk_semiglobal ->
 // _kernel_sweep_walk_semi.
 //
@@ -23,8 +25,10 @@
 // pair emits the column-0 Ins run of its row.
 //
 // Bound on this card: per pair it reads the cells of its path (about
-// M + N, scattered: one 32-byte sector each) and writes 2 * N uint16; each
-// step waits on a dependent load, so it is latency-bound, as K2 is.
+// M + N, scattered on K5's tb: one 32-byte sector each; on K12's view a
+// column's cells are contiguous, so an Ins run shares sectors) and writes
+// 2 * N uint16; each step waits on a dependent load, so it is
+// latency-bound, as K2 is.
 
 #include <cstddef>
 #include <cstdint>
@@ -42,11 +46,11 @@ constexpr int TB_YCLIP_PREFIX = 7;
 constexpr int THREADS = 64;  // 8192 pairs -> 128 blocks: one per SM
 
 __global__ void __launch_bounds__(THREADS) sweep_walk_semiglobal_kernel(
-    const uint16_t* __restrict__ tb,  // (N, X, B)
+    const uint16_t* __restrict__ tb,  // (N, X, B) through the strides
     const int* __restrict__ i1, const int* __restrict__ j1,
     const int* __restrict__ ca1, const int* __restrict__ us1,
     const int* __restrict__ dn1, const int* __restrict__ ystart0, int B,
-    int X, int N,
+    int X, int N, long long sj, long long si, long long sb,
     uint16_t* __restrict__ ins_cnt,   // (N, B)
     uint16_t* __restrict__ exit_op,   // (N, B)
     uint16_t* __restrict__ ins0,      // (B,)
@@ -64,10 +68,10 @@ __global__ void __launch_bounds__(THREADS) sweep_walk_semiglobal_kernel(
     int cnt = 0;
     int code = 0;
     if (jcur == j && !done) {
-      const uint16_t* col = tb + static_cast<size_t>(j - 1) * X * B + b;
+      const uint16_t* col = tb + (j - 1) * sj + b * sb;
       // cell (i, j), or -1 outside the column (as the Pallas row gather)
       auto cell = [&](int i) -> int {
-        return (i >= 0 && i < X) ? static_cast<int>(col[static_cast<size_t>(i) * B]) : -1;
+        return (i >= 0 && i < X) ? static_cast<int>(col[i * si]) : -1;
       };
       const int g1 = cell(icur);
       const int entry = use_s ? (g1 >> 8) & 0xF : carried;
@@ -115,17 +119,19 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
+// tb's element strides (column, row, pair): X * B, B, 1 for K5's
+// contiguous tensor, 1 for rows in K12's pair-major view.
 int sweep_walk_semiglobal(const void* tb, const void* i1, const void* j1,
                           const void* ca1, const void* us1, const void* dn1,
-                          const void* ystart0, int B, int X, int N,
-                          void* ins_cnt, void* exit_op, void* ins0,
-                          void* ystart, void* stream) {
+                          const void* ystart0, int B, int X, int N, long long sj,
+                          long long si, long long sb, void* ins_cnt,
+                          void* exit_op, void* ins0, void* ystart, void* stream) {
   sweep_walk_semiglobal_kernel<<<(B + THREADS - 1) / THREADS, THREADS, 0,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint16_t*>(tb), static_cast<const int*>(i1),
       static_cast<const int*>(j1), static_cast<const int*>(ca1),
       static_cast<const int*>(us1), static_cast<const int*>(dn1),
-      static_cast<const int*>(ystart0), B, X, N,
+      static_cast<const int*>(ystart0), B, X, N, sj, si, sb,
       static_cast<uint16_t*>(ins_cnt), static_cast<uint16_t*>(exit_op),
       static_cast<uint16_t*>(ins0), static_cast<int*>(ystart));
   return static_cast<int>(cudaGetLastError());

@@ -8,15 +8,16 @@ over one pair a block, with a pair-major tb), ``csrc/sw_global_rows.cu``;
 K15 (``scan_columns``: K9's DP without the run nibble, the clip-mode engine
 of long x, a row-stripe wavefront over one pair a block),
 ``csrc/sw_columns.cu``; K16
-(``scan_banded``: the banded aligner's DP over per-column row bands),
+(``scan_banded``: the banded aligner's DP over per-column row bands, one
+warp a pair over a column's band rows, with a pair-major tb),
 ``csrc/sw_banded.cu``.
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
-outputs: K11 ``scan_global_lut`` and K7-LUT ``scan_local_lut`` (K1 and K7
-fed by the LUT, one warp a pair over row stripes with a pair-major tb,
-``csrc/sw_warp.cu``), K18 ``scores_global_lut``, K12
-``scan_semiglobal_lut``, ``scan_custom_lut`` (K9 fed by the LUT),
+outputs: K11 ``scan_global_lut``, K7-LUT ``scan_local_lut`` and K12
+``scan_semiglobal_lut`` (K1, K7 and K5 fed by the LUT, one warp a pair over
+row stripes with a pair-major tb, ``csrc/sw_warp.cu``), K18
+``scores_global_lut``, ``scan_custom_lut`` (K9 fed by the LUT),
 ``scan_global_rows_lut`` (K13 fed by the LUT) and ``scan_columns_lut``
 (K15-LUT). The
 kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
@@ -41,8 +42,9 @@ or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
 one thread a pair, except K13 and K15, where one block sweeps a pair's
 columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), and K11 and K7-LUT, where one warp does
-(``warp_geometry``). All are exact in int32.
+``columns_geometry``), K11, K7-LUT and K12, where one warp does
+(``warp_geometry``), and K16, where one warp computes each column's band
+rows (``banded_geometry``). All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
@@ -98,19 +100,22 @@ SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [P
 # the LUT twins: the table's pointer in place of (match, mismatch)
 SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
 SCORES_GLOBAL_LUT = CudaKernel("sw_global", "sw_scores_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 3)
-SCAN_SEMIGLOBAL_LUT = CudaKernel(
-    "sw_semiglobal", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 4 + [PTR, INT, INT] + [PTR] * 7
-)
+SCAN_SEMIGLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 6 + [PTR, INT, INT] + [PTR] * 7)
 SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_LOCAL_LUT = CudaKernel("sw_warp", "sw_scan_local_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 9 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 7 + [PTR] * 4)
 SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
 SCAN_COLUMNS_LUT = CudaKernel("sw_columns", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
-SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 11 + [PTR] * 8)
+SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 13 + [PTR] * 8)
 # K16's per-pair column state: S and D in two parity buffers, I, Sn, Ly and
-# column 0's s-bits (csrc/sw_banded.cu head note)
+# the s-bits stamped with their column (csrc/sw_banded.cu head note); one
+# warp a pair, at most 8 pairs a block; the state stays in the warp's slice
+# of shared memory up to this M (8 * 7,264 * 4 = 232,448 bytes, one pair a
+# block), else in a (B, 8, M + 1) device scratch
 BANDED_LAYERS = 8
+_BANDED_WARPS_MAX = 8
+BANDED_SHARED_MAX_M = 7263
 _BAND_SENT = -1_500_000_000  # K16's chain sentinel: below every reachable value, no int32 wrap
 # K13's seam period rb: its tb marks the rows r * rb (r >= 1) where a
 # block-row engine's blocks meet (csrc/sw_global_rows.cu head note); the
@@ -259,6 +264,30 @@ def warp_geometry(M: int, layers: int) -> Tuple[int, str, int]:
     return R, "scratch", x_bytes
 
 
+def banded_geometry(M: int, B: int, sms: int = 132) -> Tuple[int, str, int]:
+    """K16's launch at x length ``M`` and ``B`` pairs on a card of ``sms``
+    SMs, as ops/csrc/sw_banded.cu takes it: (warps, that is pairs, a block,
+    where the state lives: ``"shared"`` or ``"scratch"``, dynamic shared
+    bytes a block). One warp a block while a card holds every pair at 32
+    blocks an SM (the blocks spread evenly over the SMs), more up to what
+    the shared memory and 8 warps allow beyond that."""
+    per_pair = BANDED_LAYERS * (M + 1) * 4
+    shared = M <= BANDED_SHARED_MAX_M
+    fit = _SMEM_MAX // per_pair if shared else _BANDED_WARPS_MAX
+    warps = max(1, min(fit, _BANDED_WARPS_MAX, -(-B // (32 * sms))))
+    return warps, "shared" if shared else "scratch", warps * per_pair if shared else 0
+
+
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def pair_major_pitch(M: int) -> int:
+    """Xp: M + 1 rounded up to a multiple of 8, the row pitch of a
+    pair-major tb."""
+    return -(-(M + 1) // _WARP_GROUP) * _WARP_GROUP
+
+
 def _warp_scratch(layers: int, B: int, M: int, dev) -> torch.Tensor | None:
     """None when a warp's row state fits its share of shared memory, else
     the (B, layers, R, 32) device scratch of csrc/sw_warp.cu."""
@@ -269,10 +298,9 @@ def _warp_scratch(layers: int, B: int, M: int, dev) -> torch.Tensor | None:
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT, Xp = M + 1
-    rounded up to a multiple of 8."""
-    Xp = -(-(M + 1) // _WARP_GROUP) * _WARP_GROUP
-    return torch.empty((B, cols, Xp), dtype=torch.uint16, device=dev)
+    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT / K12, Xp =
+    M + 1 rounded up to a multiple of 8."""
+    return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -418,36 +446,47 @@ def scan_semiglobal(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mis
     Sn/Ly (best y-suffix-clip score per row and its clip length) and the
     cells ``tbk``. Defined for rows ``<= mlens[b]`` and, in ``tb``, columns
     ``1 <= j <= nlens[b]``."""
-    return _scan_semiglobal(
-        SCAN_SEMIGLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score),
-        yclip_prefix, yclip_suffix,
-    )
-
-
-def scan_semiglobal_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix):
-    """K12: K5 with the substitution score ``lut[x, y]``; same outputs."""
-    return _scan_semiglobal(
-        SCAN_SEMIGLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix
-    )
-
-
-def _scan_semiglobal(kernel, xb, yb, mlens, nlens, go, ge, subst, ycp, ycs):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge, ycp, ycs = (int(v) for v in (go, ge, ycp, ycs))
-    sub = _subst(subst, dev)
+    go, ge, ma, mi, ycp, ycs = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score,
+                                                 yclip_prefix, yclip_suffix))
     if dev.type == "cpu":
-        return _scan_semiglobal_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, ycp, ycs)
+        return _scan_semiglobal_core(_mp_feed(xb, yb, ma, mi), M, N, mlens, nlens, go, ge, ycp, ycs)
     tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(5, B, M, dev)
-        kernel.launch(
+        SCAN_SEMIGLOBAL.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, *sub, ycp, ycs, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
+            B, M, go, ge, ma, mi, ycp, ycs, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
         )
     return (tb, *finals)
+
+
+def scan_semiglobal_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix,
+                        traceback=True):
+    """K12: K5 with the substitution score ``lut[x, y]``; same outputs, tb
+    None with ``traceback=False`` (the finals are the full call's). On the
+    card ``tb`` is the (N, M+1, B) view of a pair-major (B, N, Xp) tensor,
+    Xp = M + 1 rounded up to a multiple of 8, which
+    ``ops.walk.sweep_walk_semiglobal`` reads in place."""
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    go, ge, ycp, ycs = (int(v) for v in (gap_open, gap_extend, yclip_prefix, yclip_suffix))
+    sub = _subst(lut, dev)
+    if dev.type == "cpu":
+        tb, *finals = _scan_semiglobal_core(_plain_feed(xb, yb, lut), M, N, mlens, nlens, go, ge, ycp, ycs)
+        return (tb if traceback else None, *finals)
+    tb = _pair_major(B, N, M, dev) if traceback else None
+    finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
+    if B:
+        scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
+        SCAN_SEMIGLOBAL_LUT.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
+            0 if tb is None else tb.shape[2], go, ge, *sub, ycp, ycs, _ptr(tb), *(f.data_ptr() for f in finals),
+            _ptr(scratch),
+        )
+    return (tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, *finals)
 
 
 def scan_custom(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score,
@@ -526,7 +565,10 @@ def scan_banded(xb, yb, mlens, nlens, pens8, starts, ends):
 
     Returns (tb (N, M+1, B) uint16, lx (N, B) int32, S_f, I_f, Sn_f, Ly_f,
     tbk (B, M+1) int32). ``tb[j-1]`` holds column j's 12-bit cells ``i | d
-    << 4 | s << 8``, 0 outside the cells the host writes; defined for
+    << 4 | s << 8``, 0 outside the cells the host writes (on the card the
+    (N, M+1, B) view of a zero-filled pair-major (B, N, Xp) tensor, Xp = M
+    + 1 rounded up to a multiple of 8, which ``ops.walk.walk_banded`` reads
+    in place); defined for
     ``1 <= j <= nlens[b]`` (the plain version also fills later columns from
     the frozen state, the kernel leaves them 0). ``lx[j-1]`` is column j's
     x-suffix clip length (0 where none, and past nlens). The finals are the
@@ -545,19 +587,30 @@ def scan_banded(xb, yb, mlens, nlens, pens8, starts, ends):
         raise ValueError("pens8: 8 ints, gap_open and gap_extend <= 0")
     if dev.type == "cpu":
         return scan_banded_plain(xb, yb, mlens, nlens, pens8, starts, ends)
-    tb = torch.zeros((N, M + 1, B), dtype=torch.uint16, device=dev)
+    tb = torch.zeros((B, N, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
     lx = torch.zeros((N, B), dtype=torch.int32, device=dev)
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
     if B:
-        xt = xb.t().contiguous()
-        yt = yb.t().contiguous()
-        scratch = _scratch(BANDED_LAYERS, B, M, dev, pairs=1)
-        SCAN_BANDED.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), starts.data_ptr(),
-            ends.data_ptr(), B, M, N, *pens8, tb.data_ptr(), lx.data_ptr(), *(f.data_ptr() for f in finals),
-            _ptr(scratch),
-        )
-    return (tb, lx, *finals)
+        scan_banded_launch((tb, lx, *finals), xb, yb, mlens, nlens, pens8, starts, ends)
+    return (tb[:, :, : M + 1].permute(1, 2, 0), lx, *finals)
+
+
+def scan_banded_launch(outs, xb, yb, mlens, nlens, pens8, starts, ends):
+    """The launch of K16 alone, on CUDA tensors ``scan_banded`` has checked,
+    into ``outs``: the pair-major (B, N, Xp) tb and lx, zeroed (or as an
+    earlier launch on the same inputs left them: it writes the same cells),
+    and the five finals."""
+    tb, lx, *finals = outs
+    B, M = xb.shape
+    N = yb.shape[1]
+    dev = xb.device
+    warps, placement, _ = banded_geometry(M, B, _sm_count(dev))
+    scratch = None if placement == "shared" else torch.empty((B, BANDED_LAYERS, M + 1), dtype=torch.int32, device=dev)
+    SCAN_BANDED.launch(
+        dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), starts.data_ptr(),
+        ends.data_ptr(), B, M, N, tb.shape[2], warps, *(int(v) for v in pens8), tb.data_ptr(), lx.data_ptr(),
+        *(f.data_ptr() for f in finals), _ptr(scratch),
+    )
 
 
 def scan_banded_plain(xb, yb, mlens, nlens, pens8, starts, ends):

@@ -12,9 +12,10 @@ of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
 the XLA walk ``banded_device.py`` ``_walk_banded``; their sections at the
 end of this module say what they read and write.
 
-Input: the traceback tensor of K1, K11 or K5 (``ops.sw``), ``tb`` (N, X, B)
-uint16 with X = M + 1 (K11's, K13's and K7-LUT's are views of pair-major
-tensors, which K2, K14, K8 and K10 read in place through their strides), and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
+Input: the traceback tensor of K1, K11, K5 or K12 (``ops.sw``), ``tb`` (N,
+X, B) uint16 with X = M + 1 (K11's, K12's, K13's, K7-LUT's and K16's are
+views of pair-major tensors, which K2, K6, K14, K8, K10 and K16-walk read
+in place through their strides), and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
 (row j - 1) and pair: ``ins_cnt`` Ins ops, then one exit op ``exit_op``
 (TB_MATCH / TB_SUBST / TB_DEL, in K6 also TB_YCLIP_PREFIX; 0 where the pair
 is not), walking end -> start; plus ``ins0``, the Ins run in column 0. All
@@ -56,7 +57,7 @@ SWEEP_WALK_GLOBAL_SEG = CudaKernel(
 )
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     "walk_semiglobal", "sweep_walk_semiglobal",
-    [PTR] * 7 + [INT, INT, INT] + [PTR] * 4,
+    [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4,
 )
 SWEEP_WALK_CUSTOM = CudaKernel(
     "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 5
@@ -71,7 +72,7 @@ def sweep_walk_global(tb, mlens, nlens):
     """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16.
     ``tb`` is a contiguous (N, X, B) tensor (K1's) or, as K11 returns it, a
     pair-major view (``_walk_strides``): read in place, never copied."""
-    return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens, strided=True)
+    return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens)
 
 
 def sweep_walk_global_seg(tb, mlens, nlens):
@@ -80,14 +81,15 @@ def sweep_walk_global_seg(tb, mlens, nlens):
     tensor or, as K13 returns it, an (N, X, B) view whose X axis has stride
     1 and whose B axis the largest stride (a pair-major tensor, permuted):
     read in place, never copied. Other layouts raise ``ValueError``."""
-    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens, strided=True)
+    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens)
 
 
 def _walk_strides(tb) -> tuple:
-    """(column, row, pair) element strides of an (N, X, B) tb that K2, K8,
-    K10 and K14 read: contiguous, or rows of stride 1 inside columns inside
-    pairs, none overlapping (the view of K11's, K7-LUT's or K13's
-    pair-major tensor). Raises ``ValueError`` on any other layout."""
+    """(column, row, pair) element strides of an (N, X, B) tb that K2, K6,
+    K8, K10, K14 and K16-walk read: contiguous, or rows of stride 1 inside
+    columns inside pairs, none overlapping (the view of K11's, K12's,
+    K7-LUT's, K13's or K16's pair-major tensor). Raises ``ValueError`` on
+    any other layout."""
     N, X, B = tb.shape
     if tb.is_contiguous() or tb.numel() == 0:
         return X * B, B, 1
@@ -100,18 +102,20 @@ def _walk_strides(tb) -> tuple:
     )
 
 
-def _global_walk(kernel, plain, tb, mlens, nlens, strided=False):
-    dev = same_device(tb, mlens, nlens)
+def _check_tb(tb) -> tuple:
+    """(N, X, B) of a uint16 tb in a layout ``_walk_strides`` takes;
+    raises ``TypeError`` / ``ValueError`` otherwise."""
     if tb.dim() != 3:
         raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
-    N, X, B = tb.shape
-    if strided:
-        if tb.dtype != torch.uint16:
-            raise TypeError(f"tb: expected {torch.uint16}, got {tb.dtype}")
-        strides = _walk_strides(tb)
-    else:
-        check(tb, "tb", torch.uint16, (N, X, B))
-        strides = ()
+    if tb.dtype != torch.uint16:
+        raise TypeError(f"tb: expected {torch.uint16}, got {tb.dtype}")
+    _walk_strides(tb)
+    return tuple(tb.shape)
+
+
+def _global_walk(kernel, plain, tb, mlens, nlens):
+    dev = same_device(tb, mlens, nlens)
+    N, X, B = _check_tb(tb)
     check(mlens, "mlens", torch.int32, (B,))
     check(nlens, "nlens", torch.int32, (B,))
     check_lengths(mlens, "mlens", X - 1)
@@ -123,7 +127,7 @@ def _global_walk(kernel, plain, tb, mlens, nlens, strided=False):
     ins0 = torch.empty(B, dtype=torch.uint16, device=dev)
     if B:
         kernel.launch(
-            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *strides,
+            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *_walk_strides(tb),
             ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(),
         )
     return ins_cnt, exit_op, ins0
@@ -313,10 +317,7 @@ def resolve_fixed_column(tbfix, mlens, nlens):
 
 def _check_semi_walk(tb, tbfix, mlens, nlens):
     dev = same_device(tb, tbfix, mlens, nlens)
-    if tb.dim() != 3:
-        raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
-    N, X, B = tb.shape
-    check(tb, "tb", torch.uint16, (N, X, B))
+    N, X, B = _check_tb(tb)
     check(tbfix, "tbfix", torch.int32, (B, X))
     check(mlens, "mlens", torch.int32, (B,))
     check(nlens, "nlens", torch.int32, (B,))
@@ -327,7 +328,9 @@ def _check_semi_walk(tb, tbfix, mlens, nlens):
 
 def sweep_walk_semiglobal(tb, tbfix, mlens, nlens):
     """K6. Returns (ins_cnt (N, B) uint16, exit_op (N, B) uint16, ins0 (B,)
-    uint16, fix_ins, fix_exit, fix_ly, ystart, yend (B,) int32).
+    uint16, fix_ins, fix_exit, fix_ly, ystart, yend (B,) int32). ``tb`` is a
+    contiguous (N, X, B) tensor (K5's) or, as K12 returns it, a pair-major
+    view (``_walk_strides``): read in place, never copied.
 
     ``tbfix`` (B, X) int32 is the suffix-fixed final column with Ly << 12
     (``batched._semiglobal_device``). The walk enters the sweep from
@@ -357,7 +360,7 @@ def sweep_walk_semiglobal_launch(tb, i1, j1, ca1, us1, dn1, ystart0):
     if B:
         SWEEP_WALK_SEMIGLOBAL.launch(
             dev, tb.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(),
-            us1.data_ptr(), dn1.data_ptr(), ystart0.data_ptr(), B, X, N,
+            us1.data_ptr(), dn1.data_ptr(), ystart0.data_ptr(), B, X, N, *_walk_strides(tb),
             ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(), ystart.data_ptr(),
         )
     return ins_cnt, exit_op, ins0, ystart
@@ -487,12 +490,7 @@ def resolve_fixed_column_custom(tbfix, lx_n, mlens, nlens):
 
 def _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens):
     dev = same_device(tb, tbfix, lx, lx_n, mlens, nlens)
-    if tb.dim() != 3:
-        raise ValueError(f"tb: expected (N+1, X, B), got shape {tuple(tb.shape)}")
-    Nc, X, B = tb.shape
-    if tb.dtype != torch.uint16:
-        raise TypeError(f"tb: expected {torch.uint16}, got {tb.dtype}")
-    _walk_strides(tb)
+    Nc, X, B = _check_tb(tb)
     check(tbfix, "tbfix", torch.int32, (B, X))
     check(lx, "lx", torch.int32, (Nc, B))
     check(lx_n, "lx_n", torch.int32, (B,))
@@ -809,7 +807,8 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
 # the lockstep walk of the banded aligner (K16-walk)
 # ---------------------------------------------------------------------------
 #
-# Input: K16's ``tb`` (N, X, B) uint16, columns 1..N; ``tb0`` (B, X) int32,
+# Input: K16's ``tb`` (N, X, B) uint16, columns 1..N, contiguous or the
+# pair-major view K16 returns (``_walk_strides``); ``tb0`` (B, X) int32,
 # column 0's cells (``banded_device._init_column_banded``); ``tbfix`` (B, X)
 # int32, the suffix-fixed final column's 12-bit cells with Ly << 12, read in
 # place of column nlens[b]; ``lx`` (B, N + 1) int32, each column's x-suffix
@@ -823,15 +822,12 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
 # x i or an x-prefix clip, then Del x j or a y-prefix clip (banded.rs:833-856).
 # Decode with ``banded_device._decode_ops_batch``.
 
-WALK_BANDED = CudaKernel("walk_banded", "walk_banded", [PTR] * 6 + [INT] * 10 + [PTR] * 6)
+WALK_BANDED = CudaKernel("walk_banded", "walk_banded", [PTR] * 6 + [INT] * 10 + [I64] * 3 + [PTR] * 6)
 
 
 def _check_banded_walk(tb, tb0, tbfix, lx, mlens, nlens):
     dev = same_device(tb, tb0, tbfix, lx, mlens, nlens)
-    if tb.dim() != 3:
-        raise ValueError(f"tb: expected (N, X, B), got shape {tuple(tb.shape)}")
-    N, X, B = tb.shape
-    check(tb, "tb", torch.uint16, (N, X, B))
+    N, X, B = _check_tb(tb)
     check(tb0, "tb0", torch.int32, (B, X))
     check(tbfix, "tbfix", torch.int32, (B, X))
     check(lx, "lx", torch.int32, (B, N + 1))
@@ -857,7 +853,7 @@ def walk_banded(tb, tb0, tbfix, lx, mlens, nlens, pens):
     if B:
         WALK_BANDED.launch(
             dev, tb.data_ptr(), tb0.data_ptr(), tbfix.data_ptr(), lx.data_ptr(), mlens.data_ptr(),
-            nlens.data_ptr(), B, X - 1, N, T, *pens, op_codes.data_ptr(), op_lens.data_ptr(),
+            nlens.data_ptr(), B, X - 1, N, T, *pens, *_walk_strides(tb), op_codes.data_ptr(), op_lens.data_ptr(),
             *(c.data_ptr() for c in coords),
         )
     return (op_codes, op_lens, *coords)

@@ -2,7 +2,9 @@
 """Time K11 (``sw.scan_global_lut``) and K7-LUT (``sw.scan_local_lut``) on one
 NVIDIA GPU, on the homolog corpus of chip_smoke.py phase 3c: 8192 protein
 pairs, x of 250-450 residues, y x at 30% substitutions and 3%
-single-residue indels, under BLOSUM62 with gap costs (-11, -1).
+single-residue indels, and K12 (``sw.scan_semiglobal_lut``, y-clips 0) on
+its domain corpus: 8192 domains of 80-200 residues at 20% substitutions in
+proteins of 250-450, all under BLOSUM62 with gap costs (-11, -1).
 
     python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S]
 
@@ -19,6 +21,7 @@ layout; equal checksums from two trees: equal outputs); and the card's name
 and power limit as nvidia-smi reports them. Then it times the launches of
 the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
 contiguous tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA
+pairs, and of K6, which reads K12's, on K5's contiguous tb of the same
 pairs (10 x ``--reps`` launches, a checksum of their outputs). Exits
 non-zero without a CUDA device.
 """
@@ -71,24 +74,26 @@ def checksum(torch, outs, ml, nl, first_col: int) -> list:
 
 
 def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
-    """Time K11 and K7-LUT on the homolog corpus; one JSON line each, with
-    ``fields``."""
+    """Time K11 and K7-LUT on the homolog corpus and K12 on the domain
+    corpus; one JSON line each, with ``fields``."""
     from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix
 
     dev = torch.device("cuda")
-    (hxs, hys), _ = chip_smoke.protein_corpora(np.random.default_rng(seed))
+    (hxs, hys), (dxs, dys) = chip_smoke.protein_corpora(np.random.default_rng(seed))
     bp = BatchAligner(Scoring.new(chip_smoke.PROT_GO, chip_smoke.PROT_GE, blosum62), device=dev)
-    a = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(hxs, hys)]
+    hom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(hxs, hys)]
+    dom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(dxs, dys)]
     lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
     card = chip_smoke.nvidia_smi_line()
     pens = (chip_smoke.PROT_GO, chip_smoke.PROT_GE, lut)
     cases = (
-        ("sw_scan_global_lut", sw.scan_global_lut, 1, (3, lambda out: [out[1], out[0], out[2]])),
-        ("sw_scan_local_lut", sw.scan_local_lut, 0, (5, lambda out: [out[0], out[1], *out[2:]])),
+        ("sw_scan_global_lut", sw.scan_global_lut, hom, (), 1, (3, lambda out: [out[1], out[0], out[2]])),
+        ("sw_scan_local_lut", sw.scan_local_lut, hom, (), 0, (5, lambda out: [out[0], out[1], *out[2:]])),
+        ("sw_scan_semiglobal_lut", sw.scan_semiglobal_lut, dom, (0, 0), 1, (5, list)),
     )
-    for name, fn, first_col, (layers, order) in cases:
-        scan = lambda fn=fn, **kw: fn(*a, *pens, **kw)  # noqa: E731
+    for name, fn, a, clips, first_col, (layers, order) in cases:
+        scan = lambda fn=fn, a=a, clips=clips, **kw: fn(*a, *pens, *clips, **kw)  # noqa: E731
         out = scan()
         torch.cuda.synchronize()
         total = checksum(torch, order(out), a[2], a[3], first_col)
@@ -105,10 +110,13 @@ def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
 
 
 def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
-    """Time the launches of K2 and K8, which read a pair-major tb through
-    its strides, on the contiguous tbs of K1 and K7 over chip_smoke.py's
-    8192 random 150 bp DNA pairs under (-5, -1, 2, -2); one JSON line
-    each, with a checksum of the walk's outputs."""
+    """Time the launches of K2, K8 and K6, which read a pair-major tb
+    through its strides, on the contiguous tbs of K1, K7 and K5 over
+    chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2) (K5
+    with y-clips 0); one JSON line each, with a checksum of the walk's
+    outputs."""
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
+
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
     B, L = chip_smoke.B_ALN, chip_smoke.LEN
@@ -125,7 +133,11 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
     tbfix, lx_n = chip_smoke.clip_walk_inputs(torch, scan, a[2], a[3], pens, (0, 0, 0, 0))
     entry = walk.local_entry(scan[0], scan[1], tbfix, lx_n, a[2], a[3])[2:9]
     k8 = lambda: walk.sweep_walk_local_launch(scan[0], *entry)  # noqa: E731
-    for name, fn in (("sweep_walk_global", k2), ("sweep_walk_local", k8)):
+    semi = sw.scan_semiglobal(*a, *pens, 0, 0)
+    _, tbfix5 = _fixed_column(*semi[1:], a[2], chip_smoke.GO, chip_smoke.GE)
+    entry5 = walk.resolve_fixed_column(tbfix5, a[2], a[3])[3:9]
+    k6 = lambda: walk.sweep_walk_semiglobal_launch(semi[0], *entry5)  # noqa: E731
+    for name, fn in (("sweep_walk_global", k2), ("sweep_walk_local", k8), ("sweep_walk_semiglobal", k6)):
         out = fn()
         torch.cuda.synchronize()
         total = [0, 0]

@@ -563,6 +563,56 @@ def test_warp_local_lut_scan_and_walks_match_plain(cuda_device, monkeypatch, M, 
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize(
+    "M,placement",
+    [(m, p) for m in (1, 7, 31, 32, 33, 255, 256, 450, 511, 604, 1000) for p in ("shared", "scratch")] + [(4094, "scratch")],
+)
+def test_warp_semiglobal_lut_scan_and_walk_match_plain(cuda_device, monkeypatch, M, placement):
+    """K12 with traceback and score-only against its plain version bit for
+    bit, as the K11 test holds K11 (M up to 4,094, both placements, y-clips
+    0/0 and (-5, -3)); then K6 on its pair-major view and on a contiguous
+    copy against the plain K6."""
+    _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+    rng = np.random.default_rng(80 + M)
+    B, N = (40, 48) if M <= 604 else (12, 24)
+    args, mlens, nlens = _warp_pairs(rng, B, M, N, cuda_device, bytes(range(256)))
+    ml, nl = args[2], args[3]
+    for lut, (go, ge) in _warp_luts(cuda_device):
+        for ycp, ycs in ((0, 0), (-5, -3)):
+            got = sw.scan_semiglobal_lut(*args, go, ge, lut, ycp, ycs)
+            torch.cuda.synchronize()
+            want = sw.scan_semiglobal_lut_plain(sw.subs2_stream_plain(args[0], args[1], lut), ml, nl, go, ge, ycp, ycs)
+            assert got[0].shape == want[0].shape and got[0].stride()[1] == 1  # the pair-major view
+            _semi_finals_match(got, want, mlens, nlens)
+            only = sw.scan_semiglobal_lut(*args, go, ge, lut, ycp, ycs, traceback=False)
+            assert only[0] is None
+            for g, w in zip(only[1:], got[1:]):
+                assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+            _, tbfix = _fixed_column(*got[1:], ml, go, ge)
+            _walks_on_both_layouts(
+                got[0], [(walk.sweep_walk_semiglobal, walk.sweep_walk_semiglobal_plain, (tbfix, ml, nl))]
+            )
+
+
+def test_semiglobal_walk_on_k5_tb_matches_plain(cuda_device):
+    """K6 on K5's contiguous tb (the mapper's layout) against the plain K6,
+    beside K12's pair-major view of the same scores."""
+    args, mlens, nlens = _pairs(np.random.default_rng(23), 300, 150, 166, cuda_device)
+    ml, nl = args[2], args[3]
+    got = sw.scan_semiglobal(*args, -5, -1, 2, -2, 0, 0)
+    torch.cuda.synchronize()
+    assert got[0].is_contiguous()
+    _, tbfix = _fixed_column(*got[1:], ml, -5, -1)
+    want = walk.sweep_walk_semiglobal_plain(got[0], tbfix, ml, nl)
+    for g, w in zip(walk.sweep_walk_semiglobal(got[0], tbfix, ml, nl), want):
+        assert torch.equal(g, w)
+    lut = torch.full((256, 256), -2, dtype=torch.int32, device=cuda_device)
+    lut.fill_diagonal_(2)
+    view = sw.scan_semiglobal_lut(*args, -5, -1, lut, 0, 0)[0]
+    for g, w in zip(walk.sweep_walk_semiglobal(view, tbfix, ml, nl), want):
+        assert torch.equal(g, w)
+
+
 def test_warp_protein_aligners_on_card_match_cpu(cuda_device):
     """``global_``, ``local`` and ``scores`` under BLOSUM62 on homologs of
     250-450 residues (chip_smoke.py's corpus, 48 pairs) at gap costs
@@ -874,12 +924,13 @@ BANDED_PENS = [
 ]
 
 
-def _band_batch(rng, B, M, N, alphabet=b"ACGT"):
+def _band_batch(rng, B, M, N, alphabet=b"ACGT", width=(1, 8)):
     """B pairs with per-column bands [starts, ends) of the kinds the
     banded aligner meets and some it does not: a jittered diagonal (so not
-    monotone), empty columns, row 0 in and out of band, lanes whose band
-    never reaches row m, a full-matrix lane, short-y lanes. Numpy (xb, yb,
-    mlens, nlens, starts, ends); starts, ends <= mlens + 1."""
+    monotone) of half-width drawn from ``width``, empty columns, row 0 in
+    and out of band, lanes whose band never reaches row m, a full-matrix
+    lane, short-y lanes. Numpy (xb, yb, mlens, nlens, starts, ends); starts,
+    ends <= mlens + 1."""
     syms = np.frombuffer(alphabet, np.uint8)
     xb = syms[rng.integers(0, len(syms), size=(B, M))]
     yb = syms[rng.integers(0, len(syms), size=(B, N))]
@@ -900,7 +951,7 @@ def _band_batch(rng, B, M, N, alphabet=b"ACGT"):
                 starts[b, j], ends[b, j] = m + 1, 0
                 continue
             c = j * m // max(n, 1)
-            w = int(rng.integers(1, 8))
+            w = int(rng.integers(*width))
             starts[b, j] = min(max(0, c - w + int(rng.integers(-3, 4))), m + 1)
             ends[b, j] = max(0, min(m + 1, c + w + int(rng.integers(-3, 4))))
         if b % 3 == 0:
@@ -945,6 +996,63 @@ def test_banded_scan_long_x_matches_plain(cuda_device, M):
         _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
 
 
+@pytest.mark.parametrize("pens8", BANDED_PENS)
+def test_banded_scan_wide_bands_match_plain(cuda_device, monkeypatch, pens8):
+    """K16 on bands of 20-240 rows (up to 8 chunks of 32 a column, the
+    insertion chain carried from chunk to chunk) with empty columns, and
+    two pairs a block (the SM count lowered so that 64 pairs fill a card at
+    one warp a block)."""
+    rng = np.random.default_rng(64 - pens8[0])
+    arrays = _band_batch(rng, 64, 300, 60, width=(10, 120))
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    monkeypatch.setattr(sw, "_sm_count", lambda dev: 1)
+    assert sw.banded_geometry(300, 64, 1)[0] == 2
+    got = sw.scan_banded(*args[:4], pens8, *args[4:])
+    torch.cuda.synchronize()
+    _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
+
+
+@pytest.mark.parametrize("pens8", BANDED_PENS)
+def test_banded_scan_band_edges_match_plain(cuda_device, pens8):
+    """K16 with the band starting at row 0 over a pair's first columns, row
+    m in band over its last columns (the x-suffix clip and row m's own
+    candidates in the band's last lane) and out of band elsewhere, the last
+    column's band far below row 1 (its insertion chain opens from Sn over
+    every row above the band), and columns with st >= en."""
+    rng = np.random.default_rng(65 - pens8[0])
+    xb, yb, ml, nl, st, en = _band_batch(rng, 48, 120, 70, width=(3, 40))
+    for b in range(48):
+        m, n = int(ml[b]), int(nl[b])
+        k = int(rng.integers(1, 6))
+        st[b, :k] = 0
+        if b % 2:
+            en[b, n - k : n + 1] = m + 1
+        if b % 5 == 4:
+            st[b, n] = min(m + 1, 40 + b)
+            en[b, n] = m + 1
+        if b % 7 == 6:
+            st[b, 1 : n : 3], en[b, 1 : n : 3] = en[b, 1 : n : 3], st[b, 1 : n : 3]
+    arrays = (xb, yb, ml, nl, st, en)
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    got = sw.scan_banded(*args[:4], pens8, *args[4:])
+    torch.cuda.synchronize()
+    _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
+
+
+@pytest.mark.parametrize("M", [600, 5600])
+def test_banded_scan_in_scratch_matches_plain(cuda_device, monkeypatch, M):
+    """K16 with its state forced into the (B, 8, M + 1) device scratch."""
+    monkeypatch.setattr(sw, "BANDED_SHARED_MAX_M", 0)
+    assert sw.banded_geometry(M, 4)[1] == "scratch"
+    rng = np.random.default_rng(M + 1)
+    arrays = _band_batch(rng, 6, M, 40, width=(1, 40))
+    args = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    for pens8 in BANDED_PENS[:3]:
+        got = sw.scan_banded(*args[:4], pens8, *args[4:])
+        torch.cuda.synchronize()
+        _banded_scans_match(got, sw.scan_banded_plain(*args[:4], pens8, *args[4:]), arrays[3])
+
+
 def test_banded_scan_clamps_lengths(cuda_device):
     """K16 reads no lengths back: lengths outside [0, M] / [0, N] are
     clamped in the kernel (no fault), and the other lanes are unchanged."""
@@ -980,6 +1088,26 @@ def test_banded_walk_matches_plain(cuda_device):
         assert got[0].dtype == torch.uint8 and got[0].shape == (M + 70 + 8, B)
         for g, w in zip(got, walk.walk_banded_plain(*inputs)):
             assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+def test_banded_walk_on_kernel_view_matches_plain(cuda_device):
+    """K16-walk on K16's pair-major view (read in place) and on a contiguous
+    copy of it against the plain walk, over every penalty set."""
+    from rust_bio_tpu_torch.alignment.pairwise import banded_device as bd
+
+    rng = np.random.default_rng(68)
+    for pens8 in BANDED_PENS:
+        arrays = _band_batch(rng, 96, 60, 70)
+        xb, yb, ml, nl, st, en = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+        scan = sw.scan_banded(xb, yb, ml, nl, pens8, st, en)
+        assert scan[0].stride()[1] == 1  # the pair-major view
+        _, inputs = bd._walk_inputs(scan, ml, nl, pens8, st, en)
+        want = walk.walk_banded_plain(*inputs)
+        for tb in (inputs[0], inputs[0].contiguous()):
+            got = walk.walk_banded(tb, *inputs[1:])
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.to(torch.int32), w.to(torch.int32))
 
 
 def _banded_pairs(rng, B, long_targets=False):
