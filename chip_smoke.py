@@ -110,7 +110,8 @@ NVIDIA GPU.
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
    events (K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also without
-   traceback; K16 also without its tb's zero-fill); holds K2, K8 and K10 on
+   traceback; K16 also without its tb's zero-fill; K18 also on phase 3d's
+   long proteins); holds K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's too; times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
@@ -1725,13 +1726,36 @@ def main() -> int:
     plain_k18 = lambda: sw.scores_global_lut_plain(sw.subs_tensor_plain(hom[0], hom[1], lut_d), hom[2], hom[3], PROT_GO, PROT_GE)  # noqa: E731
     sgot = sw.scores_global_lut(*hom, PROT_GO, PROT_GE, lut_d)
     torch.cuda.synchronize()
+    # K18's other main-path input: phase 3d's long proteins (M = 4,978,
+    # 46 KB of state a warp); the plain version 16 pairs at a time
+    # (a (16, M, N) substitution tensor each)
+    k18_lxb, k18_lyb, k18_lml, k18_lnl = bp._pad(*long_sets[2])
+    k18_long = tens(k18_lxb, k18_lyb, k18_lml, k18_lnl)
+    lgot = sw.scores_global_lut(*k18_long, PROT_GO, PROT_GE, lut_d)
+    torch.cuda.synchronize()
+    lwant = torch.cat([
+        sw.scores_global_lut_plain(
+            sw.subs_tensor_plain(k18_long[0][k : k + 16], k18_long[1][k : k + 16], lut_d),
+            k18_long[2][k : k + 16], k18_long[3][k : k + 16], PROT_GO, PROT_GE,
+        )
+        for k in range(0, B_LPROT, 16)
+    ])
+    long_bound = max(
+        lut_bytes(k18_lxb, k18_lyb, k18_lml, k18_lnl, 4 * B_LPROT) / HBM_BYTES_PER_S,
+        K3_OPS_PER_CELL * int((k18_lml.astype(np.int64) * k18_lnl).sum()) / INT32_OPS_PER_S,
+    ) * 1e3
     report(
-        "sw_scores_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:79",
-        [sgot], [plain_k18()],
+        "sw_scores_global_lut", "rust_bio_tpu_torch/ops/csrc/sw_warp.cu", "rust_bio_tpu/ops/sw_pallas.py:79",
+        [sgot, lgot], [plain_k18(), lwant],
         cuda_ms(torch, lambda: sw.scores_global_lut(*hom, PROT_GO, PROT_GE, lut_d), 5), cuda_ms(torch, plain_k18, 1),
         lut_bytes(hxb, hyb, hml, hnl, 4 * B_PROT),
         K3_OPS_PER_CELL * hcells,
+        stripe_rows=sw.warp_geometry(hxb.shape[1], sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)[0],
+        long_ms=cuda_ms(torch, lambda: sw.scores_global_lut(*k18_long, PROT_GO, PROT_GE, lut_d), 3),
+        long_bound_ms=long_bound, long_M=int(k18_lxb.shape[1]), long_N=int(k18_lyb.shape[1]),
+        long_geometry=sw.warp_geometry(k18_lxb.shape[1], sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)[:2],
     )
+    del lgot, lwant, k18_long
     dcells = int((dml.astype(np.int64) * dnl).sum())
     d_tb = 2 * int(((dml.astype(np.int64) + 1) * dnl).sum())
     d_rows = int((dml.astype(np.int64) + 1).sum())
@@ -2085,6 +2109,9 @@ def main() -> int:
     )
     check(err64 <= 1e-12, f"pairhmm_fwd_log f64: {err64} from its plain version")
     b_log = torch.from_numpy(bench_emit).float().to(dev)
+    sms = sw._sm_count(dev)
+    s_geom = pairhmm.pairhmm_log_geometry(sy.shape[1], B_GATK_SWAP, torch.float32, sms)
+    s_geom64 = pairhmm.pairhmm_log_geometry(sy.shape[1], B_GATK_SWAP, torch.float64, sms)
     report_float(
         "pairhmm_fwd_log", "rust_bio_tpu_torch/ops/csrc/pairhmm_log.cu", "rust_bio_tpu/stats/pairhmm/device.py:85",
         err, 1e-5, ms, plain_ms, hmm_bytes(sx, sy, 4, 12), K17_LOG_OPS_PER_CELL * s_cells, F32_OPS_PER_S,
@@ -2092,6 +2119,7 @@ def main() -> int:
         f64_bound_ms=max(hmm_bytes(sx, sy, 8, 24) / HBM_BYTES_PER_S, K17_LOG_OPS_PER_CELL * s_cells / F64_OPS_PER_S) * 1e3,
         bench_ms=cuda_ms(torch, lambda: pairhmm.pairhmm_fwd_log(*bargs, lin._log_params, b_log, True), 5),
         bench_bound_ms=K17_LOG_OPS_PER_CELL * int((bxl * byl).sum()) / F32_OPS_PER_S * 1e3,
+        stripe_cols=s_geom[0], warps_per_block=s_geom[1], placement=s_geom[2], f64_placement=s_geom64[2],
     )
     # K17-exact on the exact corpus, banded at 4 (the reference bench's
     # setting) and unbanded; the skip masks bit for bit

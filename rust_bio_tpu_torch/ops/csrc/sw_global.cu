@@ -1,5 +1,5 @@
-// Global affine-gap DP, three kernels from two templates (K11, K1 fed by a
-// LUT, is csrc/sw_warp.cu's):
+// Global affine-gap DP, two kernels (K11 and K18, K1 and K3 fed by a LUT,
+// are csrc/sw_warp.cu's):
 //
 //   K1  sw_scan_global       replaces rust_bio_tpu/ops/sw_pallas.py
 //                            scan_global_pallas_mp -> _kernel_scan_global_mp
@@ -8,9 +8,6 @@
 //                            frozen at j = nlens (tbk).
 //   K3  sw_scores_global     replaces sw_scores_global_matchparams ->
 //                            _kernel_mp: the score only.
-//   K18 sw_scores_global_lut replaces sw_scores_global -> _kernel: K3 fed by
-//                            the LUT (the JAX kernel reads a (B, M, N)
-//                            substitution tensor).
 //
 // Design: one thread per pair walks DP columns j = 1..nlens and rows
 // i = 0..mlens in order, so the insertion recurrence I[i] = max(I[i-1] + ge,
@@ -20,11 +17,8 @@
 // pairs per block, so a warp's accesses are conflict-free; columns longer
 // than the shared-memory budget use a (layers, M+1, B) scratch in device
 // memory instead. Sequences arrive transposed ((M, B), (N, B)) so a warp
-// reads one 32-byte line per row. The substitution source is a template
-// parameter: MatchParams (ma / mi by byte equality) or Lut (lut[x][y] read
-// through the read-only path; a column's live entries are a few hundred
-// words and stay in L1). The Match/Subst bit is byte equality under either
-// source.
+// reads one 32-byte line per row. The substitution score is ma or mi by
+// byte equality (MatchParams), as the Match/Subst bit.
 //
 // Bound on this card: K1 writes N * (M+1) * B uint16 cells (371 MB at
 // 8192 x 150 x 150): a warp stores 64 contiguous bytes per cell row, so the
@@ -32,9 +26,9 @@
 // per cell, one thread per pair) makes both kernels latency-bound at 8192
 // pairs (2 warps per SM), which the design accepts for a first version.
 //
-// Exactness (sw_pallas.py:597-721, 1129-1272, 79-136): int32 arithmetic
-// wraps as in XLA, LUT entries included; D and the row-0 match value start
-// at MIN_SCORE = -858993459 in K1, at NEG = -2^30 in K3 / K18; every
+// Exactness (sw_pallas.py:597-721, 199-256): int32 arithmetic
+// wraps as in XLA; D and the row-0 match value start
+// at MIN_SCORE = -858993459 in K1, at NEG = -2^30 in K3; every
 // selection is a strict '>' with priority Match/Subst > Ins > Del; the
 // I-open candidate uses S~ = max(m, D), not S; an I-cell whose extend does
 // not strictly win points at the s-bits of the cell above in the same
@@ -74,14 +68,10 @@ struct Column {
   }
 };
 
-// Substitution sources: the score of DP cell (x_i, y_j) from their bytes.
+// The score of DP cell (x_i, y_j) from their bytes.
 struct MatchParams {
   int ma, mi;
   __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
-};
-struct Lut {
-  const int* __restrict__ lut;  // (256, 256) int32, row x
-  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
 };
 
 __device__ __forceinline__ Column column_state(int* scratch, int B, int rows,
@@ -94,12 +84,11 @@ __device__ __forceinline__ Column column_state(int* scratch, int B, int rows,
   return c;
 }
 
-template <class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, Subst sub,
+    int go, int ge, MatchParams sub,
     int* __restrict__ score,      // (B,)
     uint16_t* __restrict__ tb,    // (N, M + 1, B)
     int* __restrict__ tbk,        // (B, M + 1)
@@ -182,11 +171,10 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
   score[b] = max(st.at(0, ml), NEG);
 }
 
-template <class Subst>
 __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
     const uint8_t* __restrict__ xt, const uint8_t* __restrict__ yt,
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, Subst sub, int* __restrict__ score,
+    int go, int ge, MatchParams sub, int* __restrict__ score,
     int* __restrict__ scratch) {  // (2, M + 1, B) or null
   const int b = blockIdx.x * PAIRS + threadIdx.x;
   if (b >= B) return;
@@ -231,15 +219,14 @@ int set_smem(Kernel* kernel, size_t smem) {
 
 // scratch: null to keep the column state in shared memory
 // (3 * (M+1) * 32 * 4 bytes per block), else a (3, M+1, B) int32 buffer.
-template <class Subst>
 int launch_scan(const void* xt, const void* yt, const void* mlens,
-                const void* nlens, int B, int M, int go, int ge, Subst sub,
+                const void* nlens, int B, int M, int go, int ge, MatchParams sub,
                 void* score, void* tb, void* tbk, void* scratch, void* stream) {
   const size_t smem = scratch ? 0 : static_cast<size_t>(3) * (M + 1) * PAIRS * sizeof(int);
-  int rc = set_smem(scan_global_kernel<Subst>, smem);
+  int rc = set_smem(scan_global_kernel, smem);
   if (rc) return rc;
-  scan_global_kernel<Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
+  scan_global_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
       ge, sub, static_cast<int*>(score), static_cast<uint16_t*>(tb),
@@ -249,15 +236,14 @@ int launch_scan(const void* xt, const void* yt, const void* mlens,
 
 // scratch: null for shared memory (2 * (M+1) * 32 * 4 bytes per block),
 // else a (2, M+1, B) int32 buffer.
-template <class Subst>
 int launch_scores(const void* xt, const void* yt, const void* mlens,
-                  const void* nlens, int B, int M, int go, int ge, Subst sub,
+                  const void* nlens, int B, int M, int go, int ge, MatchParams sub,
                   void* score, void* scratch, void* stream) {
   const size_t smem = scratch ? 0 : static_cast<size_t>(2) * (M + 1) * PAIRS * sizeof(int);
-  int rc = set_smem(scores_global_kernel<Subst>, smem);
+  int rc = set_smem(scores_global_kernel, smem);
   if (rc) return rc;
-  scores_global_kernel<Subst><<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                                static_cast<cudaStream_t>(stream)>>>(
+  scores_global_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
       ge, sub, static_cast<int*>(score), static_cast<int*>(scratch));
@@ -287,16 +273,6 @@ int sw_scores_global(const void* xt, const void* yt, const void* mlens,
                      int mi, void* score, void* scratch, void* stream) {
   return launch_scores(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
                        score, scratch, stream);
-}
-
-// K18. lut: (256, 256) int32 on the device.
-int sw_scores_global_lut(const void* xt, const void* yt, const void* mlens,
-                         const void* nlens, int B, int M, int go, int ge,
-                         const void* lut, void* score, void* scratch,
-                         void* stream) {
-  return launch_scores(xt, yt, mlens, nlens, B, M, go, ge,
-                       Lut{static_cast<const int*>(lut)}, score, scratch,
-                       stream);
 }
 
 }  // extern "C"

@@ -1,13 +1,15 @@
-// K11 sw_scan_global_lut, K7-LUT sw_scan_local_lut and K12
-// sw_scan_semiglobal_lut: the global, the local and the semiglobal
-// affine-gap DP under a (256, 256) substitution LUT at protein lengths, one
-// warp a pair over row stripes held by its lanes.
+// K11 sw_scan_global_lut, K18 sw_scores_global_lut, K7-LUT
+// sw_scan_local_lut and K12 sw_scan_semiglobal_lut: the global (with its
+// traceback, and score only), the local and the semiglobal affine-gap DP
+// under a (256, 256) substitution LUT at protein lengths, one warp a pair
+// over row stripes held by its lanes.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
 // lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
-// :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
-// runs="ins") and, in local mode under a LUT, the XLA engine
+// :79 _kernel (sw_scores_global :140, which reads a (B, M, N) substitution
+// tensor), :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs
+// :1529, runs="ins") and, in local mode under a LUT, the XLA engine
 // alignment/pairwise/batched.py:948 _align_batch_device, which the JAX
 // package runs there.
 //
@@ -28,6 +30,15 @@
 //   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
 //   nlens = 0). Without a tb it skips the cells' stores only: its finals
 //   are the full call's.
+//  K18: csrc/sw_global.cu's K3 fed by the LUT, K11's DP without tb, tbk or
+//   s-bits: the score, S at (mlens, nlens) clamped at NEG. Its D and row
+//   0's I start at NEG = -2^30, K3's and the JAX kernel's sentinel, not at
+//   K11's MIN_I32: under large tables int32 wraparound tells the two
+//   apart. It carries the insertion chain as the
+//   JAX kernel's prefix maximum of T - i * ge, where the other kernels
+//   take max(I + ge, T) a row: the two agree until a sum wraps int32 (a
+//   random table of +-2^23 at M = 4,978 does), and then K18 still equals
+//   its plain version and the JAX kernel.
 //
 // Design: the row-stripe wavefront of csrc/sw_global_rows.cu, shrunk to one
 // warp a pair, WARPS warps a block (the pairs are independent). Lane t owns
@@ -46,8 +57,9 @@
 // clip) down, as K5 does. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
-// S, D, s-bits for K11 (6 KB a warp at M = 450), and Sn, Ly besides for
-// K7-LUT and K12 (10 KB), in the warp's slice of shared memory, or, where the
+// S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 (4 KB),
+// and Sn, Ly besides for K7-LUT and K12 (10 KB), in the warp's slice of
+// shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
 // stripe's x bytes are staged in shared memory once; y_j is read a step
@@ -64,8 +76,9 @@
 // the int32 peak) or the tb's 2 bytes a cell (2.0 GB there: 0.6 ms), the
 // larger (K12: about 39 a cell, K5's). The one-thread-a-pair kernels before
 // these kept a pair's column in shared memory and fit one warp an SM (K11:
-// 32 pairs in 173 KB; K12: 32 pairs in 129 KB at M = 200) or less (K7-LUT:
-// 25 pairs), 50-100x off that bound; here a warp needs 6-11 KB.
+// 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
+// M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound; here a warp
+// needs 4-11 KB. K18's bound: about 12 operations a cell (K3's).
 //
 // Exactness as K1, K7 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu): int32 arithmetic
 // wraps, LUT entries included; D starts at MIN_I32 = -858993459; the
@@ -96,6 +109,7 @@ constexpr int LANES = 32;            // stripes a pair
 constexpr int WARPS = 4;             // pairs a block
 constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
 constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
+constexpr int SCORE_LAYERS = 2;      // K18: S, D
 constexpr int LOCAL_LAYERS = 5;      // K7-LUT and K12: S, D, s-bits, Sn, Ly
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
@@ -106,6 +120,9 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int sub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // s, bits <- cand, cbits when cand is strictly greater
@@ -293,6 +310,111 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
     in_i = __shfl_up_sync(FULL, c_i, 1);
     in_st = __shfl_up_sync(FULL, c_st, 1);
     in_pk = __shfl_up_sync(FULL, c_pk, 1);
+  }
+  if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
+}
+
+// K18. D and row 0's running maximum start at NEG, as in K3
+template <bool ONCHIP>
+__global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
+    const uint8_t* __restrict__ xb,  // (B, M)
+    const uint8_t* __restrict__ yb,  // (B, N)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N, int R,
+    int go, int ge,
+    const int* __restrict__ lut,  // (256, 256), row x
+    int* __restrict__ score,      // (B,)
+    int* __restrict__ scratch) {  // (B, 2, R, 32), or null when ONCHIP
+  const int lane = threadIdx.x % LANES;
+  const int b = blockIdx.x * WARPS + threadIdx.x / LANES;
+  if (b >= B) return;  // the whole warp
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const Stripe st = stripe_of<SCORE_LAYERS, ONCHIP>(scratch, xb, b, M, R, ml);
+
+  // column 0: S[i] = go + ge*(i-1)
+  for (int r = 0; r < R && lane < st.t_act; ++r) {
+    st.at(0, r) = init_s(st.i0 + r, go, ge);
+    st.at(1, r) = NEG;
+  }
+
+  int s_up_prev = lane > 0 ? init_s(st.i0 - 1, go, ge) : 0;  // previous column's S, row i0 - 1
+  int in_s = 0, in_i = 0, in_st = 0;  // lane - 1's last row, from the last shuffle
+  int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
+  const int steps = nl > 0 ? nl + st.t_act - 1 : 0;
+  for (int s = 1; s <= steps; ++s) {
+    const int j = s - lane;
+    int c_s = 0, c_i = 0, c_st = 0;  // this stripe's last row, for lane + 1
+    if (st.groups > 0 && j >= 1 && j <= nl) {
+      const int yj = y_next;
+      if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
+      const int* lut_y = lut + yj;
+      const int s0j = add(go, mul(ge, j - 1));  // row 0: delete y_1..y_j
+      int s_up_old = 0;  // previous column's S, row i - 1
+      int mx_up = 0;     // this column's running max of T - k * ge, rows k <= i - 1
+      int st_up = 0;     // this column's S~ = max(m, D), row i - 1
+      if (lane > 0) {
+        s_up_old = s_up_prev;
+        s_up_prev = in_s;
+        mx_up = in_i;
+        st_up = in_st;
+      }
+      // a group's S and D of the previous column, loaded before its stores
+      // and the next group's ahead of them (the compiler cannot tell the
+      // rows apart, so it would load each row after the row above's stores)
+      int sp_g[GROUP], dp_g[GROUP];
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        sp_g[k] = st.at(0, k);
+        dp_g[k] = st.at(1, k);
+      }
+      for (int g = 0; g < st.groups; ++g) {
+        const uint2 xw = *reinterpret_cast<const uint2*>(st.x + g * GROUP);
+        int sp_n[GROUP] = {}, dp_n[GROUP] = {};
+        if (g + 1 < st.groups) {
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            sp_n[k] = st.at(0, (g + 1) * GROUP + k);
+            dp_n[k] = st.at(1, (g + 1) * GROUP + k);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int r = g * GROUP + k;
+          const int i = st.i0 + r;
+          const int sp = sp_g[k];
+          const int dp = dp_g[k];
+          const int m_val = add(s_up_old, __ldg(lut_y + (byte_of(xw, k) << 8)));
+          const int best_d = max(add(dp, ge), add(sp, go));
+          // I = max_k (T_k + (i - k) * ge), T_k = S~[k-1] + go, as the
+          // prefix maximum of T_k - k * ge plus i * ge (the JAX kernel's
+          // scan; equal to max(I[i-1] + ge, T_i) until int32 wraps)
+          const int rge = mul(i, ge);
+          int mx = max(mx_up, sub(add(st_up, go), rge));
+          int s_col = max(max(m_val, add(mx, rge)), best_d);
+          int st_col = max(m_val, best_d);
+          if (k == 0 && i == 0) {  // row 0, in lane 0's first group
+            s_col = st_col = s0j;
+            mx = NEG;
+          }
+          s_up_old = sp;
+          mx_up = mx;
+          st_up = st_col;
+          st.at(0, r) = s_col;
+          st.at(1, r) = best_d;
+          c_s = s_col;
+        }
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          sp_g[k] = sp_n[k];
+          dp_g[k] = dp_n[k];
+        }
+      }
+      c_i = mx_up;
+      c_st = st_up;
+    }
+    in_s = __shfl_up_sync(FULL, c_s, 1);
+    in_i = __shfl_up_sync(FULL, c_i, 1);
+    in_st = __shfl_up_sync(FULL, c_st, 1);
   }
   if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
 }
@@ -760,7 +882,7 @@ const char* rbt_error_string(int code) {
 // pair-major (B, N, Xp) (K11) or (B, N+1, Xp) (K7-LUT) uint16 tensor with
 // Xp >= M + 1 a multiple of 8; scratch null to keep the row state in
 // shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 5 for K7-LUT and K12).
+// above (layers 3 for K11, 2 for K18, 5 for K7-LUT and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -780,6 +902,23 @@ int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
       static_cast<const int*>(lut), static_cast<int*>(score), static_cast<uint16_t*>(tb),
       static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K18: K3 fed by the LUT, score only.
+int sw_scores_global_lut(const void* xb, const void* yb, const void* mlens,
+                         const void* nlens, int B, int M, int N, int go, int ge,
+                         const void* lut, void* score, void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, SCORE_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = scratch ? scores_global_warp_kernel<false> : scores_global_warp_kernel<true>;
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, R, go, ge,
+      static_cast<const int*>(lut), static_cast<int*>(score), static_cast<int*>(scratch));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,7 +7,8 @@
   scaled linear-space forward.
 - K17-log ``pairhmm_fwd_log`` (``csrc/pairhmm_log.cu``, f32 or f64)
   replaces the XLA engine ``stats/pairhmm/device.py``
-  ``BatchPairHMM._forward``: the log-space forward.
+  ``BatchPairHMM._forward``: the log-space forward, one warp a pair over
+  lane column stripes (``pairhmm_log_geometry``).
 - K17-exact ``pairhmm_fwd_exact`` (``csrc/pairhmm_exact.cu``, f64) replaces
   the XLA engine ``stats/pairhmm/exact.py`` ``BatchPairHMMExact._forward``:
   the host oracle's loop, operation for operation.
@@ -33,7 +34,7 @@ from typing import Optional
 import torch
 
 from rust_bio_tpu_torch.ops._build import INT, PTR, CudaKernel, check, same_device
-from rust_bio_tpu_torch.ops.sw import _SMEM_MAX, _ptr
+from rust_bio_tpu_torch.ops.sw import _SMEM_MAX, _ptr, _sm_count
 from rust_bio_tpu_torch.utils.fastexp import fastexp_torch
 
 # the surrogates of -inf (device.py NEG_INF, NEG_INF64): in log space, and
@@ -42,11 +43,18 @@ NEG_F32 = -3.0e38
 NEG_F64 = -1.0e308
 MED_SENT = 1 << 62  # the plain exact version's usize::MAX (exact.py MED_SENT)
 HOMOPOLY_NPAR = 34  # csrc/pairhmm_homopoly.cu's parameter vector
+# K17-log's launch (csrc/pairhmm_log.cu): one warp a pair, lane t over the
+# columns [t * C + 1, t * C + C] of y, 32 * C >= N; a lane's state (three
+# values a column) in registers up to LOG_REG_BYTES a lane (C then a power
+# of two: 16 float columns, 8 double), else in a (B, 3, C, 32) device
+# scratch; at most 8 warps a block
+LOG_REG_BYTES = 192
+_LOG_WARPS_MAX = 8
 
 PAIRHMM_FWD_SCALED = CudaKernel(
     "pairhmm_scaled", "pairhmm_fwd_scaled", [PTR] * 6 + [INT] * 5 + [PTR] * 2
 )
-PAIRHMM_FWD_LOG = CudaKernel("pairhmm_log", "pairhmm_fwd_log", [PTR] * 6 + [INT] * 6 + [PTR] * 2)
+PAIRHMM_FWD_LOG = CudaKernel("pairhmm_log", "pairhmm_fwd_log", [PTR] * 6 + [INT] * 8 + [PTR] * 2)
 PAIRHMM_FWD_EXACT = CudaKernel(
     "pairhmm_exact", "pairhmm_fwd_exact", [PTR] * 6 + [INT] * 6 + [ctypes.c_longlong] + [PTR] * 4
 )
@@ -233,6 +241,21 @@ def _scan_log(A, Bc, neg: float, clamp: float):
     return A
 
 
+def pairhmm_log_geometry(N: int, B: int, dtype, sms: int = 132):
+    """K17-log's launch at y width ``N`` and ``B`` pairs of ``dtype``
+    (float32 or float64) on a card of ``sms`` SMs: (C columns a lane, warps
+    (that is pairs) a block, where the state lives: ``"registers"`` or
+    ``"scratch"``). Lane t owns the columns [t * C + 1, t * C + C]. One warp
+    a block while the card holds every pair at 32 blocks an SM (the pairs
+    spread over the SMs), more, up to 8, beyond that."""
+    C = max(1, -(-N // 32))
+    pow2 = 1 << (C - 1).bit_length()
+    placement = "scratch"
+    if 3 * pow2 * (8 if dtype == torch.float64 else 4) <= LOG_REG_BYTES:
+        C, placement = pow2, "registers"
+    return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
+
+
 def pairhmm_fwd_log(xs, ys, xlens, ylens, params, emit, semiglobal: bool):
     """K17-log. (B,) log-likelihoods in ``params.dtype`` (float32 or
     float64), at most 0, the surrogate -3e38 / -1e308 for no path.
@@ -246,14 +269,14 @@ def pairhmm_fwd_log(xs, ys, xlens, ylens, params, emit, semiglobal: bool):
     )
     if dev.type == "cpu":
         return pairhmm_fwd_log_plain(xs, ys, xlens, ylens, params, emit, semiglobal)
-    f64 = params.dtype == torch.float64
     out = torch.empty(B, dtype=params.dtype, device=dev)
     if B:
-        scratch = _scratch(3, 8 if f64 else 4, B, N, params.dtype, dev)
+        C, warps, placement = pairhmm_log_geometry(N, B, params.dtype, _sm_count(dev))
+        scratch = torch.empty((B, 3, C, 32), dtype=params.dtype, device=dev) if placement == "scratch" else None
         PAIRHMM_FWD_LOG.launch(
             dev, xs.data_ptr(), ys.data_ptr(), xlens.data_ptr(), ylens.data_ptr(),
-            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)), int(f64),
-            out.data_ptr(), _ptr(scratch),
+            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)),
+            int(params.dtype == torch.float64), C, warps, out.data_ptr(), _ptr(scratch),
         )
     return out
 

@@ -14,10 +14,11 @@ warp a pair over a column's band rows, with a pair-major tb),
 
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
-outputs: K11 ``scan_global_lut``, K7-LUT ``scan_local_lut`` and K12
-``scan_semiglobal_lut`` (K1, K7 and K5 fed by the LUT, one warp a pair over
-row stripes with a pair-major tb, ``csrc/sw_warp.cu``), K18
-``scores_global_lut``, ``scan_custom_lut`` (K9 fed by the LUT),
+outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K7-LUT
+``scan_local_lut`` and K12 ``scan_semiglobal_lut`` (K1, K3, K7 and K5 fed
+by the LUT, one warp a pair over row stripes, K11's, K7-LUT's and K12's
+with a pair-major tb, ``csrc/sw_warp.cu``), ``scan_custom_lut`` (K9 fed by
+the LUT),
 ``scan_global_rows_lut`` (K13 fed by the LUT) and ``scan_columns_lut``
 (K15-LUT). The
 kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
@@ -42,7 +43,7 @@ or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
 one thread a pair, except K13 and K15, where one block sweeps a pair's
 columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K7-LUT and K12, where one warp does
+``columns_geometry``), K11, K18, K7-LUT and K12, where one warp does
 (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
@@ -99,7 +100,7 @@ SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 +
 SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [PTR] * 8)
 # the LUT twins: the table's pointer in place of (match, mismatch)
 SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
-SCORES_GLOBAL_LUT = CudaKernel("sw_global", "sw_scores_global_lut", [PTR] * 4 + [INT] * 4 + [PTR] * 3)
+SCORES_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scores_global_lut", [PTR] * 4 + [INT] * 5 + [PTR] * 3)
 SCAN_SEMIGLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 6 + [PTR, INT, INT] + [PTR] * 7)
 SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_LOCAL_LUT = CudaKernel("sw_warp", "sw_scan_local_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 9)
@@ -145,19 +146,25 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9727
-# K11's and K7-LUT's launch (csrc/sw_warp.cu): one warp a pair, 4 pairs a
-# block; lane t over a stripe of R rows, R a multiple of 8 (a lane stores 8
-# cells at once) with 32 * R >= M + 1; the x bytes of a warp's stripes in
-# its slice of shared memory, beside its row state (three int32 layers a
-# row for K11, five for K7-LUT) while that slice stays within
-# WARP_SHARED_MAX bytes (two blocks an SM at least), else the state in a
-# (B, layers, R, 32) device scratch
+# K11's, K18's, K7-LUT's and K12's launch (csrc/sw_warp.cu): one warp a
+# pair, 4 pairs a block; lane t over a stripe of R rows, R a multiple of 8
+# (a lane stores 8 cells at once) with 32 * R >= M + 1; the x bytes of a
+# warp's stripes in its slice of shared memory, beside its row state (three
+# int32 layers a row for K11, two for K18, five for K7-LUT and K12) while
+# that slice stays within WARP_SHARED_MAX bytes (two blocks an SM at least),
+# else the state in a (B, layers, R, 32) device scratch
 _WARP_LANES = 32
 _WARP_PAIRS = 4
 _WARP_GROUP = 8
 GLOBAL_WARP_LAYERS = 3
+SCORE_WARP_LAYERS = 2
 LOCAL_WARP_LAYERS = 5
 WARP_SHARED_MAX = 28_672
+# K18 has no tb to store and keeps its slice in shared memory up to a
+# quarter of a block's (one block of four warps an SM): at the long
+# proteins' M = 4,978 that is 46,080 bytes a warp, 28.9 ms against 45.8 in
+# the scratch (scripts/placement_trial.py, H100)
+SCORE_WARP_SHARED_MAX = _SMEM_MAX // _WARP_PAIRS
 
 
 def _check_shapes(xb, yb, mlens, nlens) -> Tuple[int, int, int, torch.device]:
@@ -249,15 +256,19 @@ def rows_geometry(M: int) -> Tuple[int, int, str, int]:
     return T, R, placement, smem
 
 
-def warp_geometry(M: int, layers: int) -> Tuple[int, str, int]:
-    """K11's (``layers`` 3) or K7-LUT's (5) launch at x length ``M``, as
-    csrc/sw_warp.cu computes it: (R rows a lane, where the row state lives:
-    ``"shared"`` or ``"scratch"``, dynamic shared bytes a warp). Lane t owns
-    rows [t * R, t * R + R); R is a multiple of 8."""
+def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
+    """K11's (``layers`` 3), K18's (2) or K7-LUT's and K12's (5) launch at x
+    length ``M``, as csrc/sw_warp.cu computes it: (R rows a lane, where the
+    row state lives: ``"shared"`` or ``"scratch"``, dynamic shared bytes a
+    warp). Lane t owns rows [t * R, t * R + R); R is a multiple of 8. The
+    state stays in shared memory while a warp's slice fits ``budget``
+    bytes (``WARP_SHARED_MAX`` when None; K18 passes
+    ``SCORE_WARP_SHARED_MAX``)."""
+    budget = WARP_SHARED_MAX if budget is None else budget
     R = -(-(M + 1) // (_WARP_GROUP * _WARP_LANES)) * _WARP_GROUP
     x_bytes = R * _WARP_LANES
     state = layers * R * _WARP_LANES * 4
-    if x_bytes + state <= WARP_SHARED_MAX:
+    if x_bytes + state <= budget:
         return R, "shared", x_bytes + state
     if _WARP_PAIRS * x_bytes > _SMEM_MAX:
         raise ValueError(f"M = {M}: a block's x bytes exceed its shared memory")
@@ -288,10 +299,10 @@ def pair_major_pitch(M: int) -> int:
     return -(-(M + 1) // _WARP_GROUP) * _WARP_GROUP
 
 
-def _warp_scratch(layers: int, B: int, M: int, dev) -> torch.Tensor | None:
+def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -> torch.Tensor | None:
     """None when a warp's row state fits its share of shared memory, else
     the (B, layers, R, 32) device scratch of csrc/sw_warp.cu."""
-    R, placement, _ = warp_geometry(M, layers)
+    R, placement, _ = warp_geometry(M, layers, budget)
     if placement == "shared":
         return None
     return torch.empty((B, layers, R, _WARP_LANES), dtype=torch.int32, device=dev)
@@ -406,30 +417,36 @@ def _scan_global_rows(kernel, xb, yb, mlens, nlens, go, ge, subst, rb, traceback
 
 def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
     """K3. Global alignment scores (B,) int32."""
-    return _scores_global(SCORES_GLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score))
-
-
-def scores_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
-    """K18: K3 with the substitution score ``lut[x, y]``."""
-    return _scores_global(SCORES_GLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut)
-
-
-def _scores_global(kernel, xb, yb, mlens, nlens, go, ge, subst):
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge = int(go), int(ge)
-    sub = _subst(subst, dev)
+    go, ge, ma, mi = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score))
     if dev.type == "cpu":
-        if isinstance(subst, torch.Tensor):
-            return scores_global_lut_plain(subs_tensor_plain(xb, yb, subst), mlens, nlens, go, ge)
-        return scores_global_plain(xb, yb, mlens, nlens, go, ge, *sub)
+        return scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
         scratch = _scratch(2, B, M, dev)
-        kernel.launch(
+        SCORES_GLOBAL.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, *sub, score.data_ptr(), _ptr(scratch),
+            B, M, go, ge, ma, mi, score.data_ptr(), _ptr(scratch),
+        )
+    return score
+
+
+def scores_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
+    """K18: K3 with the substitution score ``lut[x, y]``, one warp a pair
+    over row stripes (``warp_geometry(M, 2, SCORE_WARP_SHARED_MAX)``)."""
+    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
+    go, ge = int(gap_open), int(gap_extend)
+    sub = _subst(lut, dev)
+    if dev.type == "cpu":
+        return scores_global_lut_plain(subs_tensor_plain(xb, yb, lut), mlens, nlens, go, ge)
+    score = torch.empty(B, dtype=torch.int32, device=dev)
+    if B:
+        scratch = _warp_scratch(SCORE_WARP_LAYERS, B, M, dev, SCORE_WARP_SHARED_MAX)
+        SCORES_GLOBAL_LUT.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N, go, ge, *sub,
+            score.data_ptr(), _ptr(scratch),
         )
     return score
 

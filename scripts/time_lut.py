@@ -4,7 +4,9 @@ NVIDIA GPU, on the homolog corpus of chip_smoke.py phase 3c: 8192 protein
 pairs, x of 250-450 residues, y x at 30% substitutions and 3%
 single-residue indels, and K12 (``sw.scan_semiglobal_lut``, y-clips 0) on
 its domain corpus: 8192 domains of 80-200 residues at 20% substitutions in
-proteins of 250-450, all under BLOSUM62 with gap costs (-11, -1).
+proteins of 250-450, all under BLOSUM62 with gap costs (-11, -1); K18
+(``sw.scores_global_lut``) on the homolog corpus and on phase 3d's 64 long
+protein pairs (4,200-5,000 residues, 30% substitutions, 3% indels).
 
     python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S]
 
@@ -15,15 +17,17 @@ either way. For each kernel it prints one JSON line: the median of ``--reps``
 CUDA-event-timed launches after one warm-up, with traceback and, where the
 timed tree's wrapper takes ``traceback=False``, without it
 (``scores_only_ms``, else null); the rows a lane where the tree has
-``warp_geometry``; a checksum of the outputs the kernel defines (the score
+``warp_geometry`` (for K18, where it has K18's shared budget); a checksum
+of the outputs the kernel defines (the score
 or the finals, and the tb cells read as ``tb[j, i, b]`` whatever the tb's
 layout; equal checksums from two trees: equal outputs); and the card's name
 and power limit as nvidia-smi reports them. Then it times the launches of
 the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
 contiguous tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA
 pairs, and of K6, which reads K12's, on K5's contiguous tb of the same
-pairs (10 x ``--reps`` launches, a checksum of their outputs). Exits
-non-zero without a CUDA device.
+pairs, and K3 (``sw.scores_global``) on those pairs, as chip_smoke.py
+phase 2 times it (10 x ``--reps`` launches, a checksum of their outputs).
+Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -109,12 +113,41 @@ def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
         }), flush=True)
 
 
+def time_k18(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
+    """Time K18 on the homolog corpus and the long proteins; one JSON line
+    each, with ``fields`` and a checksum of the scores."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch.scores import blosum62, dense_matrix
+
+    dev = torch.device("cuda")
+    (hxs, hys), _ = chip_smoke.protein_corpora(np.random.default_rng(seed))
+    _, _, (lxs, lys) = chip_smoke.long_corpora(np.random.default_rng(seed))
+    bp = BatchAligner(Scoring.new(chip_smoke.PROT_GO, chip_smoke.PROT_GE, blosum62), device=dev)
+    lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
+    card = chip_smoke.nvidia_smi_line()
+    for name, (xs, ys) in (("homolog", (hxs, hys)), ("long_protein", (lxs, lys))):
+        a = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(xs, ys)]
+        fn = lambda a=a: sw.scores_global_lut(*a, chip_smoke.PROT_GO, chip_smoke.PROT_GE, lut)  # noqa: E731
+        out = fn()
+        torch.cuda.synchronize()
+        M = int(a[0].shape[1])
+        rows = (
+            {"stripe_rows": sw.warp_geometry(M, 2, sw.SCORE_WARP_SHARED_MAX)[:2]}
+            if hasattr(sw, "SCORE_WARP_SHARED_MAX") else {}
+        )
+        print(json.dumps({
+            "kernel": "sw_scores_global_lut", "input": name, **fields, "pairs": int(a[0].shape[0]), "M": M,
+            "N": int(a[1].shape[1]), **rows, "reps": reps, "ms": chip_smoke.cuda_ms(torch, fn, reps, warm=False),
+            "checksum": _sums(torch, out, torch.arange(1, out.numel() + 1, device=dev)), "card": card,
+        }), flush=True)
+
+
 def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
     """Time the launches of K2, K8 and K6, which read a pair-major tb
     through its strides, on the contiguous tbs of K1, K7 and K5 over
     chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2) (K5
-    with y-clips 0); one JSON line each, with a checksum of the walk's
-    outputs."""
+    with y-clips 0), and K3 on those pairs; one JSON line each, with a
+    checksum of the outputs."""
     from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 
     dev = torch.device("cuda")
@@ -137,7 +170,10 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
     _, tbfix5 = _fixed_column(*semi[1:], a[2], chip_smoke.GO, chip_smoke.GE)
     entry5 = walk.resolve_fixed_column(tbfix5, a[2], a[3])[3:9]
     k6 = lambda: walk.sweep_walk_semiglobal_launch(semi[0], *entry5)  # noqa: E731
-    for name, fn in (("sweep_walk_global", k2), ("sweep_walk_local", k8), ("sweep_walk_semiglobal", k6)):
+    k3 = lambda: (sw.scores_global(*a, *pens),)  # noqa: E731
+    for name, fn in (
+        ("sweep_walk_global", k2), ("sweep_walk_local", k8), ("sweep_walk_semiglobal", k6), ("sw_scores_global", k3),
+    ):
         out = fn()
         torch.cuda.synchronize()
         total = [0, 0]
@@ -145,7 +181,8 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
             w = torch.arange(1, t.numel() + 1, device=dev).reshape(t.shape)
             total = [x + y for x, y in zip(total, _sums(torch, t, w))]
         print(json.dumps({
-            "kernel": name, **fields, "input": "150 bp DNA, contiguous tb", "pairs": B, "reps": reps,
+            "kernel": name, **fields, "input": "150 bp DNA" + ("" if fn is k3 else ", contiguous tb"), "pairs": B,
+            "reps": reps,
             "ms": chip_smoke.cuda_ms(torch, fn, reps), "checksum": total, "card": card,
         }), flush=True)
 
@@ -174,6 +211,7 @@ def main() -> int:
         print(f"time_lut: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
     time_scans(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
+    time_k18(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
     time_dna_walks(torch, chip_smoke, sw, walk, args.seed, 10 * args.reps, root=str(root))
     return 0
 

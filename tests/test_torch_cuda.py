@@ -411,6 +411,27 @@ def test_lut_semiglobal_and_local_scans_with_device_scratch_match_plain(cuda_dev
     _clip_scans_match(got, sw.scan_local_lut_plain(subs2, args[2], args[3], -11, -1), mlens, nlens)
 
 
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
+@pytest.mark.parametrize("M,N,B", [(1, 40, 8), (150, 166, 48), (450, 457, 24), (4978, 300, 6)])
+def test_k18_on_large_tables_matches_plain(cuda_device, monkeypatch, M, N, B, placement):
+    """K18 (one warp a pair, ``warp_geometry(M, 2, SCORE_WARP_SHARED_MAX)``)
+    on a random table inside +-2^23 and BLOSUM62, gap costs that wrap int32
+    among them, with mlens = 0 and nlens = 0 lanes: in the geometry's
+    placement (shared memory, 46,080 bytes a warp at M = 4,978) and with
+    the scratch forced (``SCORE_WARP_SHARED_MAX`` 0)."""
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "SCORE_WARP_SHARED_MAX", 0)
+    geometry = sw.warp_geometry(M, sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)
+    assert geometry[1] == ("scratch" if placement == "scratch" else "shared")
+    args, _, _ = _protein_pairs(np.random.default_rng(M + 7), B, M, N, cuda_device, alphabet=bytes(range(256)))
+    big = np.random.default_rng(9).integers(-(2**23), 2**23, size=(256, 256)).astype(np.int32)
+    for lut in (torch.from_numpy(big).to(cuda_device), _lut("blosum62", cuda_device)):
+        for go, ge in ((-11, -1), (0, 0), (-(2**22), -(2**21))):
+            got = sw.scores_global_lut(*args, go, ge, lut)
+            torch.cuda.synchronize()
+            assert torch.equal(got, sw.scores_global_lut_plain(sw.subs_tensor_plain(args[0], args[1], lut), args[2], args[3], go, ge))
+
+
 def test_lut_aligner_on_card_matches_cpu(cuda_device):
     """``BatchAligner`` under BLOSUM62 and a callable scorer, every mode and
     ``scores``, on the card and on the CPU."""
@@ -1253,8 +1274,9 @@ def test_pairhmm_scaled_matches_plain(cuda_device, N):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N", [54, 20_000])
 def test_pairhmm_log_matches_plain(cuda_device, N, dtype):
-    """K17-log in shared memory and in the device scratch (3 * 4 * (N + 1)
-    bytes over 227 KB at N 20,000)."""
+    """K17-log with its state in registers (N 54: two columns a lane) and
+    in the device scratch (N 20,000: 625 columns a lane, over
+    ``pairhmm.LOG_REG_BYTES``)."""
     from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM
 
     # the long rows hold lanes of up to 60 columns: a sum over 20,000
@@ -1274,6 +1296,40 @@ def test_pairhmm_log_matches_plain(cuda_device, N, dtype):
                     _f32_close(got, want)
                 else:
                     _rel_close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("N", [54, 150, 500, 700])
+def test_pairhmm_log_warp_placements_match_plain(cuda_device, monkeypatch, N, dtype, placement):
+    """K17-log's lane stripes at ylen 0, 1, 31, 32, 33 and N and xlen 0 and
+    1, semiglobal and global, shared and per-lane emissions: in the
+    geometry's placement (registers up to N = 512 in f32 and 256 in f64,
+    the device scratch above) and in the scratch at every N (the register
+    budget lowered to 0)."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM
+
+    if placement == "scratch":
+        monkeypatch.setattr(pairhmm_ops, "LOG_REG_BYTES", 0)
+    B, M = 40, 60
+    in_registers = placement == "geometry" and N <= (512 if dtype == torch.float32 else 256)
+    want_placement = "registers" if in_registers else "scratch"
+    assert pairhmm_ops.pairhmm_log_geometry(N, B, dtype, sw._sm_count(cuda_device))[2] == want_placement
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 5), B, M, N)
+    yl[4:10] = [0, 1, 31, 32, 33, N]
+    xl[10:12] = [0, 1]
+    hmm = BatchPairHMM(*HMM_GAPS["extend"], dtype=dtype, device=cuda_device)
+    args = _on(cuda_device, xs, ys, xl, yl)
+    for emit in (HMM_EMIT, ep):
+        e = torch.from_numpy(emit).to(dtype).to(cuda_device)
+        for semi in (False, True):
+            got = pairhmm_ops.pairhmm_fwd_log(*args, hmm._log_params, e, semi)
+            torch.cuda.synchronize()
+            want = pairhmm_ops.pairhmm_fwd_log_plain(*args, hmm._log_params, e, semi)
+            if dtype == torch.float32:
+                _f32_close(got, want)
+            else:
+                _rel_close(got, want, 1e-12)
 
 
 @pytest.mark.parametrize("N", [54, 5_000])

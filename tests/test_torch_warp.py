@@ -1,7 +1,8 @@
 """K11 and K7-LUT (``ops/csrc/sw_warp.cu``: one warp a pair over row
 stripes, a pair-major tb) and the walks that read that tb, on the CPU.
 
-``warp_geometry``, the launch the wrappers size their scratch with; the
+``warp_geometry``, the launch the wrappers size their scratch with (K18's
+two layers too); the
 plain K2, K8, K10 and ``local_entry`` on a pair-major view of the CPU scan's
 tb against the same on the contiguous tb, for global and local protein
 pairs of 0-40 residues under BLOSUM62 (mlens = 0 and nlens = 0 lanes, and
@@ -28,8 +29,8 @@ B, M, N = 12, 40, 36
 PENS = [(-11, -1), (0, 0), (-5, -3)]
 
 
-@pytest.mark.parametrize("layers", [sw.GLOBAL_WARP_LAYERS, sw.LOCAL_WARP_LAYERS])
-@pytest.mark.parametrize("m", [0, 1, 255, 256, 450, 604, 4094])
+@pytest.mark.parametrize("layers", [sw.SCORE_WARP_LAYERS, sw.GLOBAL_WARP_LAYERS, sw.LOCAL_WARP_LAYERS])
+@pytest.mark.parametrize("m", [0, 1, 255, 256, 450, 604, 4094, 4978])
 def test_warp_geometry_covers_every_row_once(m, layers):
     """32 stripes of R rows cover rows 0..M, R a multiple of 8 and the
     least such; the state stays in shared memory while the warp's slice
@@ -50,6 +51,24 @@ def test_warp_geometry_at_the_homolog_corpus_and_the_longest_x():
     assert sw.warp_geometry(604, 3) == (24, "shared", 9984)
     assert sw.warp_geometry(4094, 5) == (128, "scratch", 4096)
     assert sw._warp_scratch(5, 3, 450, "cpu") is None
+
+
+def test_k18_warp_geometry_at_the_homolog_corpus_and_the_long_proteins():
+    """K18's two layers (S, D): R = 16 at M = 450, 4,608 bytes a warp in
+    shared memory; R = 160 at the long proteins' M = 4,978, 46,080 bytes a
+    warp, within K18's budget (a quarter of a block's shared memory) and
+    over K11's, under which the 40,960 bytes of state go to the (B, 2,
+    160, 32) scratch and x's 5,120 bytes stay; K18's shared slice ends at
+    R = 200 (M = 6,399)."""
+    k18 = (sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)
+    assert sw.SCORE_WARP_SHARED_MAX == 58_112
+    assert sw.warp_geometry(450, *k18) == (16, "shared", 4608)
+    assert sw._warp_scratch(k18[0], 5, 450, "cpu", k18[1]) is None
+    assert sw.warp_geometry(4978, *k18) == (160, "shared", 46_080)
+    assert sw._warp_scratch(k18[0], 5, 4978, "cpu", k18[1]) is None
+    assert sw.warp_geometry(6399, *k18)[1] == "shared" and sw.warp_geometry(6400, *k18) == (208, "scratch", 6656)
+    assert sw.warp_geometry(4978, sw.SCORE_WARP_LAYERS) == (160, "scratch", 5120)
+    assert tuple(sw._warp_scratch(sw.SCORE_WARP_LAYERS, 5, 4978, "cpu").shape) == (5, 2, 160, 32)
 
 
 def test_lowered_budget_moves_the_state_to_the_scratch(monkeypatch):
