@@ -156,16 +156,20 @@ INT32_OPS_PER_S = 67e12 / 2
 # csrc/sw_semiglobal.cu and csrc/sw_custom.cu (compares, selects, adds, max,
 # the run counter, the cell packing and, in K5, K7 and K9, the clip
 # candidates and the Sn/Ly update; K7 and K9 add the running x-suffix
-# maximum; loads, stores and address arithmetic not counted)
-K1_OPS_PER_CELL = 31
-K3_OPS_PER_CELL = 12
-K5_OPS_PER_CELL = 39
-K7_OPS_PER_CELL = 44
-K9_OPS_PER_CELL = 49
-# csrc/sw_global_rows.cu: K1's cell without the run counter and nibble
-K13_OPS_PER_CELL = 26
-# csrc/sw_columns.cu K15: K9's cell without the run counter and nibble
-K15_OPS_PER_CELL = 45
+# maximum; loads, stores and address arithmetic not counted), the
+# insertion chain as the prefix maximum: i * ge, T - i * ge, the maximum,
+# P + i * ge and I[i-1] + ge (K3: the first four). K7 computes K9's cell
+K1_OPS_PER_CELL = 34
+K3_OPS_PER_CELL = 14
+K5_OPS_PER_CELL = 42
+K9_OPS_PER_CELL = 52
+K7_OPS_PER_CELL = K9_OPS_PER_CELL
+# csrc/sw_global_rows.cu: K1's cell without the run counter and nibble, the
+# seam's select of the chain (2)
+K13_OPS_PER_CELL = 31
+# csrc/sw_columns.cu K15: K9's cell without the run counter and nibble, S
+# chosen from MIN_SCORE up (one take more)
+K15_OPS_PER_CELL = 50
 # csrc/sw_banded.cu K16 per band cell, counted from its band rows: the
 # match compare and score select (4), the Del extend/open and its bits (7,
 # the previous s-bits' shift and mask among them), the y-prefix clip (3),
@@ -1802,28 +1806,27 @@ def main() -> int:
     for name, args_d, (xb_, yb_, ml_, nl_), clips, ops_per_cell in clip_cases:
         local = name == "sw_scan_local_lut"
 
-        def scan_fn(plain=False, args_d=args_d, clips=clips, local=local):
+        def scan_fn(plain=False, traceback=True, args_d=args_d, clips=clips, local=local):
             if plain:
                 subs2 = sw.subs2_stream_plain(args_d[0], args_d[1], lut_d)
                 if local:
                     return sw.scan_local_lut_plain(subs2, args_d[2], args_d[3], PROT_GO, PROT_GE)
                 return sw.scan_custom_lut_plain(subs2, args_d[2], args_d[3], PROT_GO, PROT_GE, *clips)
             if local:
-                return sw.scan_local_lut(*args_d, PROT_GO, PROT_GE, lut_d)
-            return sw.scan_custom_lut(*args_d, PROT_GO, PROT_GE, lut_d, *clips)
+                return sw.scan_local_lut(*args_d, PROT_GO, PROT_GE, lut_d, traceback=traceback)
+            return sw.scan_custom_lut(*args_d, PROT_GO, PROT_GE, lut_d, *clips, traceback=traceback)
 
         got = scan_fn()
         torch.cuda.synchronize()
         want = scan_fn(plain=True)
         rows_ = int((ml_.astype(np.int64) + 1).sum())
-        extra = {}
-        if local:
-            extra = {
-                "scores_only_ms": cuda_ms(torch, lambda: sw.scan_local_lut(*args_d, PROT_GO, PROT_GE, lut_d, traceback=False), 5),
-                "stripe_rows": sw.warp_geometry(xb_.shape[1], sw.LOCAL_WARP_LAYERS)[0],
-            }
+        R_, placement_, _ = sw.warp_geometry(xb_.shape[1], sw.LOCAL_WARP_LAYERS)
+        extra = {
+            "scores_only_ms": cuda_ms(torch, lambda: scan_fn(traceback=False), 5),
+            "stripe_rows": R_, "placement": placement_,
+        }
         report(
-            name, f"rust_bio_tpu_torch/ops/csrc/{'sw_warp' if local else 'sw_custom'}.cu",
+            name, "rust_bio_tpu_torch/ops/csrc/sw_warp.cu",
             "rust_bio_tpu/alignment/pairwise/batched.py:948",
             defined_clip(got, args_d[2], args_d[3]), defined_clip(want, args_d[2], args_d[3]),
             cuda_ms(torch, scan_fn, 5), cuda_ms(torch, lambda: scan_fn(plain=True), 1),
@@ -2169,6 +2172,8 @@ def main() -> int:
         err, 1e-5, ms, plain_ms, hmm_bytes(hox, hoy, 4, 16), K17_HOMOPOLY_OPS_PER_CELL * h_cells, F32_OPS_PER_S,
         peak="f32 67 TFLOP/s", cells=h_cells, f64_ms=ms64, f64_plain_ms=plain_ms64, f64_rel_err=err64,
         f64_bound_ms=max(hmm_bytes(hox, hoy, 8, 32) / HBM_BYTES_PER_S, K17_HOMOPOLY_OPS_PER_CELL * h_cells / F64_OPS_PER_S) * 1e3,
+        geometry=[list(pairhmm.pairhmm_log_geometry(hoy.shape[1], hoy.shape[0], dt, sw._sm_count(dev), pairhmm.HOMOPOLY_STATES))
+                  for dt in (torch.float32, torch.float64)],
     )
     # T_ROWS: K1 (its column state in device memory past M = 605) against
     # K13 (one block a pair; its speed does not depend on rb), on 128 pairs

@@ -1,5 +1,5 @@
 // K17-homopoly pairhmm_fwd_homopoly: batched 14-state HomopolyPairHMM
-// forward, one thread a pair, on float and double. Replaces the XLA engine
+// forward, one warp a pair over lane column stripes, on float and double. Replaces the XLA engine
 // rust_bio_tpu/stats/pairhmm/homopoly_device.py
 // BatchHomopolyPairHMM._forward (:114-286). The JAX package has no Pallas
 // kernel for it.
@@ -28,18 +28,48 @@
 // the reference's per-cell accumulation, :250-263; ln(ylen - 1) is NEG when
 // ylen <= 1). out = min(acc, 0). Lanes stop at their xlen; the JAX twin's
 // frozen lanes reset vm to NEG (:218-228), which no later value reads.
-// Only columns up to ylen are computed. The two in-row recurrences run in
-// sequence over j (the XLA engine uses an associative scan). The quarter
+// Only columns up to ylen feed the result. The two in-row recurrences run
+// in sequence over j (the XLA engine uses an associative scan). The quarter
 // initial mass sits on the four match states of column 0. Built with
 // -fmad=false (ops/_build.py).
 //
-// Layout: the 14 state rows as [column][pair] words in shared memory,
-// then y's bytes; up to 32 pairs a block; a (14, N+1, B) device scratch
-// when one pair's rows do not fit (y then read from device memory).
+// Design: csrc/pairhmm_log.cu's, with 14 states a column. One warp a pair;
+// lane t owns the columns [t * C + 1, t * C + C] of y, C the wrapper's
+// stripe width (ops/pairhmm.py pairhmm_log_geometry with 14 states, 32 * C
+// >= N), and at step s computes row i = s - t: a pair takes xlen + t_end
+// steps, t_end the lane of column ylen (lane 0 when ylen <= C). At the end
+// of a step lane t hands the 14 states of its last column to lane t + 1
+// with __shfl_up_sync (a double as two 32-bit shuffles): one step later
+// vm', vgx' and vhx' are the left neighbours of lane t + 1's first column,
+// and one step after that all 14 are its diagonal. No barrier in the row
+// loop. Lane 0 stands in for column 0 as the one-thread kernel before this
+// one did: the diagonal vm is the quarter mass on row 0 and NEG after
+// (semiglobal: lae(., -ln 4) of it), the other diagonal states and the left
+// neighbours NEG, and vgx'[1], vhx'[k][1] take their first terms. Lane
+// t_end keeps column ylen's 14 values and folds each row into acc itself,
+// in row order, with the two rows of history the semiglobal stale term
+// reads. Every cell evaluates the one-thread kernel's expressions in its
+// order on the same operands, so the outputs are that kernel's bits
+// whatever C and wherever the state lives. Lanes whose stripe starts past
+// ylen only take part in the shuffles.
+//
+// State: a lane's 14 states of each of its columns from the previous row.
+// In registers while 14 * C values take at most ops/pairhmm.py's
+// HOMOPOLY_REG_BYTES a lane (C a power of two; every column computed,
+// those past ylen feeding nothing, so that no branch parts the columns,
+// and lae branch-free, as in pairhmm_log.cu: with an early return the
+// columns ran one after another); else in the pair's slice of a (B, 14, C, 32) device
+// scratch as [state][C][32], lane innermost, the columns up to ylen only,
+// y's bytes read per cell through the read-only path. The 34 parameters
+// sit in registers. x_i is read a step ahead. Warps a block: the
+// wrapper's.
 //
 // Bound on this card: operations. A cell is 34 logaddexps (an exp and a
-// log1p each) and about 40 adds and compares. One thread a pair: far off
-// the bound (see pairhmm_scaled.cu).
+// log1p each) and about 40 adds and compares. A step is a chain of C
+// cells' in-row recurrences (vgx', vhx') beside the stripe's pre, vm',
+// vgy' and vhy', which depend on the row above only. The one-thread-a-pair
+// kernel before this one ran the 2048 bench pairs on 64 warps of the
+// card's 132 SMs, each cell's 34 exp/log1p in order.
 
 #include <cstdint>
 
@@ -47,10 +77,10 @@
 
 namespace {
 
-constexpr int PAIRS = 32;
-constexpr int SMEM_MAX = 232448;
-constexpr int LAYERS = 14;
-constexpr int NPAR = 34;
+constexpr int LANES = 32;
+constexpr int MAX_WARPS = 8;  // warps (pairs) a block
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int S = 14;         // states a column: vm 0-3, vgx 4, vgy 5, vhx 6-9, vhy 10-13
 
 template <typename T>
 struct Lim;
@@ -72,13 +102,15 @@ __device__ __forceinline__ double log1p_(double v) { return log1p(v); }
 __device__ __forceinline__ float log_(float v) { return logf(v); }
 __device__ __forceinline__ double log_(double v) { return log(v); }
 
+// Branch-free (pairhmm_log.cu): the sum is computed for every operand pair
+// and the surrogate test selects hi, the bits of the early-return form.
 template <typename T>
 __device__ __forceinline__ T lae(T a, T b) {
   const T hi = a > b ? a : b;
   const T lo = a > b ? b : a;
-  if (lo <= Lim<T>::NEG / 2) return hi;
   const T d = lo - hi;
-  return hi + log1p_(exp_(d > Lim<T>::CLAMP ? d : Lim<T>::CLAMP));
+  const T sum = hi + log1p_(exp_(d > Lim<T>::CLAMP ? d : Lim<T>::CLAMP));
+  return lo <= Lim<T>::NEG / 2 ? hi : sum;
 }
 
 template <typename T>
@@ -86,57 +118,46 @@ __device__ __forceinline__ T lse4(const T* v) {
   return lae(lae(lae(v[0], v[1]), v[2]), v[3]);
 }
 
-template <typename T>
-__host__ __device__ inline size_t per_pair_bytes(int N) {
-  return static_cast<size_t>(LAYERS) * (N + 1) * sizeof(T) + static_cast<size_t>(N);
-}
-
 // par: 0 match_any, 1 pgx, 2 pgy, 3 pgxe, 4 pgye, 5 from_gx, 6 from_gy,
 // 7-10 hx, 11-14 hy, 15-18 hxe, 19-22 hye, 23-26 from_hx, 27-30 from_hy,
-// 31 ln 2, 32 ln 0.25, 33 -ln 4
-template <typename T, bool SEMI>
-__global__ void __launch_bounds__(PAIRS) pairhmm_homopoly_kernel(
+// 31 ln 2, 32 ln 0.25, 33 -ln 4.
+// CR > 0: the state in registers, C = CR; CR = 0: in the scratch, C = C_rt.
+template <typename T, int CR, bool SEMI>
+__global__ void __launch_bounds__(MAX_WARPS * LANES) pairhmm_homopoly_warp_kernel(
     const uint8_t* __restrict__ xs, const uint8_t* __restrict__ ys,
     const int* __restrict__ xlens, const int* __restrict__ ylens,
-    const T* __restrict__ par,   // (NPAR,)
+    const T* __restrict__ par,   // (34,)
     const T* __restrict__ emit,  // (4,) or (B, 4): pm, pmm, pe_x, pe_y
-    int emit_stride, int B, int M, int N, T* __restrict__ out,
-    T* __restrict__ scratch) {   // (14, N + 1, B) or null
-  extern __shared__ __align__(16) unsigned char smem[];
+    int emit_stride, int B, int M, int N, int C_rt, T* __restrict__ out,
+    T* __restrict__ scratch) {   // (B, 14, C, 32), or null when CR > 0
+  constexpr bool REGS = CR > 0;
+  const int C = REGS ? CR : C_rt;
   const T NEG = Lim<T>::NEG;
-  const int pairs = blockDim.x;
-  const int t = threadIdx.x;
-  const int b = blockIdx.x * pairs + t;
-  if (b >= B) return;
+  const int lane = threadIdx.x % LANES;
+  const int w = threadIdx.x / LANES;
+  const int b = blockIdx.x * (blockDim.x / LANES) + w;
+  if (b >= B) return;  // the whole warp
 
   int xlen = xlens[b];
   int ylen = ylens[b];
   xlen = xlen < 0 ? 0 : (xlen > M ? M : xlen);
   ylen = ylen < 0 ? 0 : (ylen > N ? N : ylen);
-  T* base;
-  size_t stride;
-  const uint8_t* yrow;
-  size_t ystride;
-  const uint8_t* ysrc = ys + static_cast<size_t>(b) * N;
-  if (scratch) {
-    base = scratch + b;
-    stride = static_cast<size_t>(B);
-    yrow = ysrc;
-    ystride = 1;
-  } else {
-    base = reinterpret_cast<T*>(smem) + t;
-    stride = static_cast<size_t>(pairs);
-    uint8_t* ysm = smem + static_cast<size_t>(LAYERS) * (N + 1) * pairs * sizeof(T) + t;
-    for (int j = 0; j < ylen; ++j) ysm[static_cast<size_t>(j) * pairs] = ysrc[j];
-    yrow = ysm;
-    ystride = static_cast<size_t>(pairs);
-  }
-  // layer s holds state s in the order of a column: vm 0-3, vgx 4, vgy 5,
-  // vhx 6-9, vhy 10-13
-  const size_t layer = static_cast<size_t>(N + 1) * stride;
+  const int j0 = lane * C;                          // columns j0 + 1 .. j0 + C
+  const int t_end = ylen > 0 ? (ylen - 1) / C : 0;  // the lane of column ylen
+  const int kn = ylen - j0 < 0 ? 0 : (ylen - j0 > C ? C : ylen - j0);  // columns up to ylen
 
   const T match_any = par[0], pgx = par[1], pgy = par[2], pgxe = par[3], pgye = par[4];
   const T from_gx = par[5], from_gy = par[6];
+  T hx[4], hy[4], hxe[4], hye[4], from_hx[4], from_hy[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    hx[k] = par[7 + k];
+    hy[k] = par[11 + k];
+    hxe[k] = par[15 + k];
+    hye[k] = par[19 + k];
+    from_hx[k] = par[23 + k];
+    from_hy[k] = par[27 + k];
+  }
   const T ln2 = par[31], quarter = par[32], neg_ln4 = par[33];
   const T* e = emit + static_cast<size_t>(b) * emit_stride;
   const T pm = e[0], pmm = e[1], pe_x = e[2], pe_y = e[3];
@@ -144,137 +165,231 @@ __global__ void __launch_bounds__(PAIRS) pairhmm_homopoly_kernel(
   const T a_gx = pe_y + pgy;
   const T b_gx = pe_y + pgye;
   const uint8_t* xrow = xs + static_cast<size_t>(b) * M;
-  const uint8_t bases[4] = {'A', 'C', 'G', 'T'};
+  const uint8_t* ystripe = ys + static_cast<size_t>(b) * N + j0;
+  const int bases[4] = {'A', 'C', 'G', 'T'};
 
-  for (int s = 0; s < LAYERS; ++s) {
-    for (int j = 0; j <= ylen; ++j) {
-      base[s * layer + static_cast<size_t>(j) * stride] = (s < 4 && j == 0) ? quarter : NEG;
+  // the previous row's 14 states of this lane's columns (row -1: NEG)
+  T reg[REGS ? S : 1][REGS ? CR : 1];
+  uint32_t yw[REGS ? (CR + 3) / 4 : 1];  // y's bytes of the stripe, packed
+  T* mem = nullptr;                      // else state q, column k at mem[(q * C + k) * 32]
+  if constexpr (REGS) {
+#pragma unroll
+    for (int q = 0; q < (CR + 3) / 4; ++q) yw[q] = 0;
+#pragma unroll
+    for (int k = 0; k < CR; ++k) {
+#pragma unroll
+      for (int q = 0; q < S; ++q) reg[q][k] = NEG;
+      if (k < kn) yw[k / 4] |= static_cast<uint32_t>(ystripe[k]) << (8 * (k % 4));
+    }
+  } else {
+    mem = scratch + static_cast<size_t>(b) * S * C * LANES + lane;
+    for (int k = 0; k < kn; ++k) {
+      for (int q = 0; q < S; ++q) mem[(q * C + k) * LANES] = NEG;
     }
   }
-  T col1[LAYERS];
-  T col2[LAYERS];
-  for (int s = 0; s < LAYERS; ++s) {
-    col1[s] = NEG;
-    col2[s] = NEG;
-  }
+
+  T dg[S];  // lane t - 1's last column, row i - 1 (row -1: NEG)
+  T in[S];  // lane t - 1's last column, from the last shuffle
+#pragma unroll
+  for (int q = 0; q < S; ++q) dg[q] = in[q] = NEG;
+  // lane t_end: the rows i - 1 and i - 2 at column ylen, states 4-13 (the
+  // stale term reads no match state)
+  T col1[S], col2[S];
+#pragma unroll
+  for (int q = 0; q < S; ++q) col1[q] = col2[q] = NEG;
   T acc = NEG;
   // ln(ylen - 1) of the stale copies, NEG without any
   const T ln_nstale = ylen - 1 > 0 ? log_(static_cast<T>(ylen - 1)) : NEG;
-
-  for (int i = 0; i < xlen; ++i) {
-    const uint8_t xi = xrow[i];
-    bool exg[4];
-    for (int k = 0; k < 4; ++k) exg[k] = xi == bases[k];
-    // the previous row at column j - 1 (diagonal) and this row at j - 1 (left)
-    T dvm[4], dhx[4], dhy[4], lvm[4], lhx[4];
-    for (int k = 0; k < 4; ++k) {
-      T v = base[k * layer];
-      if (SEMI) v = lae(v, neg_ln4);
-      dvm[k] = v;
-      dhx[k] = base[(6 + k) * layer];
-      dhy[k] = base[(10 + k) * layer];
-      lvm[k] = NEG;
-      lhx[k] = NEG;
-    }
-    T dgx = base[4 * layer];
-    T dgy = base[5 * layer];
-    T lgx = NEG;
-    for (int s = 0; s < LAYERS; ++s) base[s * layer] = NEG;
-    T fresh[LAYERS];
-    for (int s = 0; s < LAYERS; ++s) fresh[s] = NEG;
-
-    for (int j = 1; j <= ylen; ++j) {
-      const size_t o = static_cast<size_t>(j) * stride;
-      const uint8_t yj = yrow[static_cast<size_t>(j - 1) * ystride];
-      T uvm[4], uhx[4], uhy[4];
-      for (int k = 0; k < 4; ++k) {
-        uvm[k] = base[k * layer + o];
-        uhx[k] = base[(6 + k) * layer + o];
-        uhy[k] = base[(10 + k) * layer + o];
-      }
-      const T ugx = base[4 * layer + o];
-      const T ugy = base[5 * layer + o];
-
-      T pre = match_any + lse4(dvm);
-      pre = lae(pre, from_gx + dgx);
-      pre = lae(pre, from_gy + dgy);
-      for (int k = 0; k < 4; ++k) pre = lae(pre, par[23 + k] + dhx[k]);
-      for (int k = 0; k < 4; ++k) pre = lae(pre, par[27 + k] + dhy[k]);
-      const T v = (xi == yj ? pm : pmm_half) + pre;
-      T vm[4], vhx[4], vhy[4];
-      for (int k = 0; k < 4; ++k) vm[k] = (exg[k] || yj == bases[k]) ? v : NEG;
-      const T vgy = pe_x + lae(pgx + lse4(uvm), pgxe + ugy);
-      for (int k = 0; k < 4; ++k) vhy[k] = lae(par[11 + k] + uvm[k], par[19 + k] + uhy[k]);
-      const T agx = a_gx + lse4(lvm);
-      const T vgx = j == 1 ? agx : lae(agx, b_gx + lgx);
-      for (int k = 0; k < 4; ++k) {
-        const T a = par[7 + k] + lvm[k];
-        vhx[k] = j == 1 ? a : lae(a, par[15 + k] + lhx[k]);
-      }
-      for (int k = 0; k < 4; ++k) {
-        base[k * layer + o] = vm[k];
-        base[(6 + k) * layer + o] = vhx[k];
-        base[(10 + k) * layer + o] = vhy[k];
-      }
-      base[4 * layer + o] = vgx;
-      base[5 * layer + o] = vgy;
-      if (j == ylen) {
+  int x_next = xlen > 0 ? xrow[0] : 0;  // x_i, read a step ahead
+  const int steps = xlen > 0 ? xlen + t_end : 0;
+  for (int s = 0; s < steps; ++s) {
+    const int i = s - lane;
+    T c[S];  // this lane's last column, row i, for lane + 1
+#pragma unroll
+    for (int q = 0; q < S; ++q) c[q] = NEG;
+    if (lane <= t_end && i >= 0 && i < xlen) {
+      const int xi = x_next;
+      if (i + 1 < xlen) x_next = xrow[i + 1];
+      bool exg[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) exg[k] = xi == bases[k];
+      // the diagonal (row i - 1, column j - 1) and the left neighbour (row
+      // i, column j - 1) of the stripe's first column
+      T dvm[4], dhx[4], dhy[4], lvm[4], lhx[4];
+      T dgx, dgy, lgx;
+      if (lane == 0) {
+#pragma unroll
         for (int k = 0; k < 4; ++k) {
-          fresh[k] = vm[k];
-          fresh[6 + k] = vhx[k];
-          fresh[10 + k] = vhy[k];
+          T v = i == 0 ? quarter : NEG;
+          if (SEMI) v = lae(v, neg_ln4);
+          dvm[k] = v;
+          dhx[k] = dhy[k] = lvm[k] = lhx[k] = NEG;
         }
-        fresh[4] = vgx;
-        fresh[5] = vgy;
+        dgx = dgy = lgx = NEG;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          dvm[k] = dg[k];
+          dhx[k] = dg[6 + k];
+          dhy[k] = dg[10 + k];
+          lvm[k] = in[k];
+          lhx[k] = in[6 + k];
+        }
+        dgx = dg[4];
+        dgy = dg[5];
+        lgx = in[4];
+#pragma unroll
+        for (int q = 0; q < S; ++q) dg[q] = in[q];
       }
-      for (int k = 0; k < 4; ++k) {
-        dvm[k] = uvm[k];
-        dhx[k] = uhx[k];
-        dhy[k] = uhy[k];
-        lvm[k] = vm[k];
-        lhx[k] = vhx[k];
+      T lgy = NEG, lhy[4] = {NEG, NEG, NEG, NEG};  // the last column's vgy', vhy'
+      T fresh[S];  // column ylen of row i (lane t_end; NEG when ylen = 0)
+#pragma unroll
+      for (int q = 0; q < S; ++q) fresh[q] = NEG;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        // in registers every column, those past ylen too (they feed
+        // nothing): no branch between the columns; in memory the columns
+        // up to ylen
+        if (!REGS && k >= kn) break;
+        T uvm[4], uhx[4], uhy[4], ugx, ugy;
+        int yk;
+        if constexpr (REGS) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            uvm[q] = reg[q][k];
+            uhx[q] = reg[6 + q][k];
+            uhy[q] = reg[10 + q][k];
+          }
+          ugx = reg[4][k];
+          ugy = reg[5][k];
+          yk = (yw[k / 4] >> (8 * (k % 4))) & 0xFF;
+        } else {
+          for (int q = 0; q < 4; ++q) {
+            uvm[q] = mem[(q * C + k) * LANES];
+            uhx[q] = mem[((6 + q) * C + k) * LANES];
+            uhy[q] = mem[((10 + q) * C + k) * LANES];
+          }
+          ugx = mem[(4 * C + k) * LANES];
+          ugy = mem[(5 * C + k) * LANES];
+          yk = __ldg(ystripe + k);
+        }
+        const bool first = lane == 0 && k == 0;  // column 1
+        T pre = match_any + lse4(dvm);
+        pre = lae(pre, from_gx + dgx);
+        pre = lae(pre, from_gy + dgy);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pre = lae(pre, from_hx[q] + dhx[q]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) pre = lae(pre, from_hy[q] + dhy[q]);
+        const T v = (xi == yk ? pm : pmm_half) + pre;
+        T vm[4], vhx[4], vhy[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) vm[q] = (exg[q] || yk == bases[q]) ? v : NEG;
+        const T vgy = pe_x + lae(pgx + lse4(uvm), pgxe + ugy);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) vhy[q] = lae(hy[q] + uvm[q], hye[q] + uhy[q]);
+        const T agx = a_gx + lse4(lvm);
+        const T vgx = first ? agx : lae(agx, b_gx + lgx);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const T a = hx[q] + lvm[q];
+          vhx[q] = first ? a : lae(a, hxe[q] + lhx[q]);
+        }
+        if constexpr (REGS) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            reg[q][k] = vm[q];
+            reg[6 + q][k] = vhx[q];
+            reg[10 + q][k] = vhy[q];
+          }
+          reg[4][k] = vgx;
+          reg[5][k] = vgy;
+        } else {
+          for (int q = 0; q < 4; ++q) {
+            mem[(q * C + k) * LANES] = vm[q];
+            mem[((6 + q) * C + k) * LANES] = vhx[q];
+            mem[((10 + q) * C + k) * LANES] = vhy[q];
+          }
+          mem[(4 * C + k) * LANES] = vgx;
+          mem[(5 * C + k) * LANES] = vgy;
+        }
+        if (k == kn - 1) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            fresh[q] = vm[q];
+            fresh[6 + q] = vhx[q];
+            fresh[10 + q] = vhy[q];
+          }
+          fresh[4] = vgx;
+          fresh[5] = vgy;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          dvm[q] = uvm[q];
+          dhx[q] = uhx[q];
+          dhy[q] = uhy[q];
+          lvm[q] = vm[q];
+          lhx[q] = vhx[q];
+          lhy[q] = vhy[q];
+        }
+        dgx = ugx;
+        dgy = ugy;
+        lgx = vgx;
+        lgy = vgy;
       }
-      dgx = ugx;
-      dgy = ugy;
-      lgx = vgx;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        c[q] = lvm[q];
+        c[6 + q] = lhx[q];
+        c[10 + q] = lhy[q];
+      }
+      c[4] = lgx;
+      c[5] = lgy;
+      if (lane == t_end) {
+        T row_mass = fresh[0];
+#pragma unroll
+        for (int q = 1; q < S; ++q) row_mass = lae(row_mass, fresh[q]);
+        if (SEMI) {
+          T stale = NEG + ln_nstale;  // the match entries of the stale column are NEG
+#pragma unroll
+          for (int q = 1; q < S; ++q) stale = lae(stale, (q < 4 ? NEG : col2[q]) + ln_nstale);
+          acc = lae(acc, lae(stale, row_mass));
+        } else {
+          acc = row_mass;
+        }
+#pragma unroll
+        for (int q = 4; q < S; ++q) {
+          col2[q] = col1[q];
+          col1[q] = fresh[q];
+        }
+      }
     }
-
-    T row_mass = fresh[0];
-    for (int s = 1; s < LAYERS; ++s) row_mass = lae(row_mass, fresh[s]);
-    if (SEMI) {
-      T stale = NEG + ln_nstale;  // the match entries of the stale column are NEG
-      for (int s = 1; s < LAYERS; ++s) stale = lae(stale, (s < 4 ? NEG : col2[s]) + ln_nstale);
-      acc = lae(acc, lae(stale, row_mass));
-    } else {
-      acc = row_mass;
-    }
-    for (int s = 0; s < LAYERS; ++s) {
-      col2[s] = col1[s];
-      col1[s] = fresh[s];
-    }
+#pragma unroll
+    for (int q = 0; q < S; ++q) in[q] = __shfl_up_sync(FULL, c[q], 1);
   }
-  out[b] = acc < T(0) ? acc : T(0);
+  if (lane == t_end) out[b] = acc < T(0) ? acc : T(0);
 }
 
 template <typename T, bool SEMI>
 cudaError_t launch(const void* xs, const void* ys, const void* xlens, const void* ylens,
-                   const void* par, const void* emit, int emit_stride, int B, int M, int N,
-                   void* out, void* scratch, cudaStream_t stream) {
-  const size_t per_pair = per_pair_bytes<T>(N);
-  const size_t fit = SMEM_MAX / per_pair;
-  const int pairs = scratch ? PAIRS : static_cast<int>(fit < PAIRS ? fit : PAIRS);
-  if (pairs < 1) return cudaErrorInvalidValue;
-  const size_t smem = scratch ? 0 : per_pair * pairs;
-  if (smem > 48 * 1024) {
-    const cudaError_t rc = cudaFuncSetAttribute(
-        pairhmm_homopoly_kernel<T, SEMI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (rc != cudaSuccess) return rc;
+                   const void* par, const void* emit, int emit_stride, int B, int M, int N, int C,
+                   int warps, void* out, void* scratch, cudaStream_t stream) {
+  if (B < 1 || M < 0 || N < 0 || C < 1 || static_cast<long long>(C) * LANES < N || warps < 1 ||
+      warps > MAX_WARPS)
+    return cudaErrorInvalidValue;
+  auto kernel = pairhmm_homopoly_warp_kernel<T, 0, SEMI>;
+  if (!scratch) {
+    switch (C) {
+      case 1: kernel = pairhmm_homopoly_warp_kernel<T, 1, SEMI>; break;
+      case 2: kernel = pairhmm_homopoly_warp_kernel<T, 2, SEMI>; break;
+      case 4: kernel = pairhmm_homopoly_warp_kernel<T, 4, SEMI>; break;
+      default: return cudaErrorInvalidValue;
+    }
   }
-  pairhmm_homopoly_kernel<T, SEMI><<<(B + pairs - 1) / pairs, pairs, smem, stream>>>(
+  kernel<<<(B + warps - 1) / warps, warps * LANES, 0, stream>>>(
       static_cast<const uint8_t*>(xs), static_cast<const uint8_t*>(ys),
       static_cast<const int*>(xlens), static_cast<const int*>(ylens),
-      static_cast<const T*>(par), static_cast<const T*>(emit), emit_stride, B, M, N,
+      static_cast<const T*>(par), static_cast<const T*>(emit), emit_stride, B, M, N, C,
       static_cast<T*>(out), static_cast<T*>(scratch));
   return cudaGetLastError();
 }
@@ -288,22 +403,25 @@ const char* rbt_error_string(int code) {
 }
 
 // f64 selects the double instantiation (par, emit, out and scratch double).
+// C and warps are ops/pairhmm.py pairhmm_log_geometry's at 14 states,
+// 32 * C >= N; scratch null keeps the state in registers (C 1, 2 or 4),
+// else a (B, 14, C, 32) buffer holds it.
 int pairhmm_fwd_homopoly(const void* xs, const void* ys, const void* xlens,
                          const void* ylens, const void* par, const void* emit, int emit_stride,
-                         int B, int M, int N, int semiglobal, int f64, void* out, void* scratch,
-                         void* stream) {
+                         int B, int M, int N, int semiglobal, int f64, int C, int warps, void* out,
+                         void* scratch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t rc;
   if (f64) {
-    rc = semiglobal ? launch<double, true>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M,
-                                           N, out, scratch, s)
-                    : launch<double, false>(xs, ys, xlens, ylens, par, emit, emit_stride, B,
-                                            M, N, out, scratch, s);
+    rc = semiglobal ? launch<double, true>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M, N,
+                                           C, warps, out, scratch, s)
+                    : launch<double, false>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M,
+                                            N, C, warps, out, scratch, s);
   } else {
-    rc = semiglobal ? launch<float, true>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M,
-                                          N, out, scratch, s)
-                    : launch<float, false>(xs, ys, xlens, ylens, par, emit, emit_stride, B,
-                                           M, N, out, scratch, s);
+    rc = semiglobal ? launch<float, true>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M, N,
+                                          C, warps, out, scratch, s)
+                    : launch<float, false>(xs, ys, xlens, ylens, par, emit, emit_stride, B, M,
+                                           N, C, warps, out, scratch, s);
   }
   return static_cast<int>(rc);
 }

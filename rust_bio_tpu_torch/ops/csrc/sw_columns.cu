@@ -29,7 +29,7 @@
 // a skewed wavefront: at step s thread t computes column j = s - t of its
 // rows, for 0 <= j <= nlens, so a pair takes nlens + ceil((mlens + 1) / R)
 // steps, one __syncthreads() each. Within a column the only sequential
-// dependencies run down the rows: the insertion carry I, the S~ and s-bits
+// dependencies run down the rows: the insertion carry P, the S~ and s-bits
 // of the row above, the previous column's S of the row above (the
 // diagonal), and the x-suffix running maximum with its first row. Thread t
 // hands those six words of its last row to thread t + 1 through a
@@ -63,7 +63,11 @@
 // selection is a strict '>' with priority Match/Subst > Ins > Del >
 // Xclip-prefix > Yclip-prefix; the per-row y-prefix clip ycp + go + ge*(i-1)
 // and the per-column x-prefix clip xcp + max(ycp, go + ge*(j-1)) enter
-// S~ = max(m, D, yclip, xclip), hence the I-open candidate; row 0 takes Del
+// S~ = max(m, D, yclip, xclip), hence the I-open candidate; I is the prefix
+// maximum of the JAX scan (csrc/sw_global.cu), a stripe hands its P down; S
+// is chosen from MIN_I32 up (Xclip-suffix bits), as batched.py _column_body
+// does, which parts from K9's choice only where every candidate wrapped
+// below MIN_I32; row 0 takes Del
 // or the y-prefix clip, and in the last column the y-suffix accumulator may
 // take row 0 over; row mlens takes the x-suffix clip as the seed of its
 // chain, its own candidates replacing it only where strictly greater, and
@@ -90,7 +94,7 @@ constexpr int TB_YCLIP_SUFFIX = 8;
 constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
 constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
 constexpr int T_STRIPES = 512;       // most threads (stripes) a block
-constexpr int CARRIES = 6;           // S, S~, I, s-bits, running max, its first row
+constexpr int CARRIES = 6;           // S, S~, P, s-bits, running max, its first row
 constexpr int LAYERS = 5;            // S, D, s-bits, Sn, Ly
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 
@@ -100,6 +104,9 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int minus(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // s, bits <- cand, cbits when cand is strictly greater
@@ -242,7 +249,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
         const int xclip = add(xcp, max(ycp, d_gap));
         int s_up_old;  // previous column's S, row i - 1
         int st_up;     // this column's S~, row i - 1
-        int bi_up;     // this column's I, row i - 1
+        int p_up;      // this column's P, row i - 1
         int sbits_up;  // this column's s-bits, row i - 1
         int r = 0;
         if (t == 0) {
@@ -272,7 +279,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           if constexpr (TB) tbcol[0] = static_cast<uint16_t>(cell0);
           s_up_old = at(0, 0);
           st_up = s0j;
-          bi_up = MIN_I32;
+          p_up = MIN_I32;
           sbits_up = sb0;
           at(0, 0) = s0j;
           at(1, 0) = dj0;
@@ -287,7 +294,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           s_up_old = s_up_prev;
           s_up_prev = in[0];
           st_up = in[T];
-          bi_up = in[2 * T];
+          p_up = in[2 * T];
           sbits_up = in[3 * T];
           acc = in[4 * T];
           first = in[5 * T];
@@ -297,6 +304,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
         int x_ahead = r < R ? xs[r * T + t] : 0;
         int sc_ahead = sub.score(x_ahead, yj);
         int eq_ahead = x_ahead == yj;
+        int rge = mul(ge, i0 + r - 1);  // i * ge, row i - 1
         for (; r < R; ++r) {
           const int i = i0 + r;
           if (i > ml) break;
@@ -318,12 +326,16 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           const bool d_wins = d_ext > d_open;
           const int best_d = d_wins ? d_ext : d_open;
           const int d_bits = d_wins ? TB_DEL : sbp;
+          rge = add(rge, ge);
           const int t_open = add(st_up, go);
-          const int i_ext = add(bi_up, ge);
-          const int best_i = max(i_ext, t_open);
+          const int i_ext = add(p_up, rge);  // I[i-1] + ge
+          const int p = max(p_up, minus(t_open, rge));
+          const int best_i = add(p, rge);
           const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
-          int s_col = m_val;
-          int s_bits = m_bits;
+          // S from MIN_I32 up, as the JAX column body chooses it
+          int s_col = MIN_I32;
+          int s_bits = TB_XCLIP_SUFFIX;
+          take(s_col, s_bits, m_val, m_bits);
           take(s_col, s_bits, best_i, TB_INS);
           take(s_col, s_bits, best_d, TB_DEL);
           take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
@@ -353,7 +365,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           }
           s_up_old = sp;
           st_up = max(max(max(m_val, best_d), yclip), xclip);
-          bi_up = best_i;
+          p_up = p;
           sbits_up = s_bits;
           at(0, r) = s_col;
           at(1, r) = best_d;
@@ -366,7 +378,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
         }
         out[0] = s_new;
         out[T] = st_up;
-        out[2 * T] = bi_up;
+        out[2 * T] = p_up;
         out[3 * T] = sbits_up;
         out[4 * T] = acc;
         out[5 * T] = first;

@@ -1,12 +1,8 @@
 // K9 sw_scan_custom and K7 sw_scan_local: the affine-gap DP with all four
 // clip penalties, for constant match/mismatch scoring. Replace
 // rust_bio_tpu/ops/sw_pallas.py scan_custom_pallas_mp -> _kernel_scan_custom_mp
-// and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins").
-// sw_scan_custom_lut: K9 with the substitution score read from a (256, 256)
-// LUT. It takes the place of the JAX package's XLA general engine
-// (alignment/pairwise/batched.py _align_batch_device, which aligns custom
-// mode under a LUT scoring, with K9's semantics); no Pallas kernel serves
-// that mode there. K7 fed by the LUT is csrc/sw_warp.cu's.
+// and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins"). K7 and
+// K9 fed by a LUT (K7-LUT, K9-LUT) are csrc/sw_warp.cu's.
 //
 // Outputs: the traceback cells of columns j = 0..nlens (column 0, the init
 // column, at index 0) for rows i = 0..mlens, 12 bits plus the vertical
@@ -16,8 +12,9 @@
 // (score-only calls).
 //
 // Design: K5's (sw_semiglobal.cu). One thread per pair walks columns in
-// order and rows i = 0..mlens in order, so the insertion recurrence is a
-// scalar carry; the previous column's S, D, s-bits, Sn and Ly live in shared
+// order and rows i = 0..mlens in order, so the insertion score is a scalar
+// carry, the prefix maximum P[i] = max(P[i-1], T[i] - i * ge), I = P + i * ge,
+// of the Pallas kernels' scan (sw_global.cu); the previous column's S, D, s-bits, Sn and Ly live in shared
 // memory as [row][pair], 32 pairs a block (96.6 KB at M = 150) or as many as
 // fit (one pair's layers take 20 * (M+1) bytes: one pair a block at
 // M = 11,000), or in a (5, M+1, B) device scratch when one pair's do not fit
@@ -25,12 +22,13 @@
 // as a masked column reduction, the row-m replacement by the x-suffix clip,
 // is here a running maximum of S + xcs over rows 1..m-1 (strict '>', so the
 // first row that reaches it gives Lx), applied when the thread reaches row m.
-// K7 is the same kernel at clips 0 with the branches that clip 0 makes dead
-// removed at compile time (the y-prefix clip candidate, the x-prefix clip
-// score), so it gives K9's outputs byte for byte and needs no packing. The
-// substitution source is a third template parameter, as in sw_global.cu:
-// MatchParams or Lut (read through the read-only path); the Match/Subst bit
-// is byte equality under either source.
+// K7 is the same kernel with the clips zero at compile time, so it gives
+// K9's outputs at clips 0 byte for byte and needs no packing; the terms that
+// clip 0 leaves dead while no sum wraps (the y-prefix clip candidate, the
+// x-prefix clip's gap) stay, since a wrapped gap sum makes them live (the
+// Pallas custom kernel keeps them; the Pallas local kernel drops them). The
+// substitution source is a template parameter, as in sw_global.cu (here
+// only MatchParams); the Match/Subst bit is byte equality.
 //
 // Bound on this card: like K5, it writes (N+1) * (M+1) * B uint16 cells and
 // five (B, M+1) int32 finals, and the per-cell dependency chain (about 45
@@ -78,6 +76,9 @@ __device__ __forceinline__ int add(int a, int b) {
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
 }
+__device__ __forceinline__ int minus(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
 
 // s, bits <- cand, cbits when cand is strictly greater
 __device__ __forceinline__ void take(int& s, int& bits, int cand, int cbits) {
@@ -91,10 +92,6 @@ __device__ __forceinline__ void take(int& s, int& bits, int cand, int cbits) {
 struct MatchParams {
   int ma, mi;
   __device__ __forceinline__ int score(int x, int y) const { return x == y ? ma : mi; }
-};
-struct Lut {
-  const int* __restrict__ lut;  // (256, 256) int32, row x
-  __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
 };
 
 // Column state of this thread's pair: row i of layer k is at
@@ -230,7 +227,8 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     if constexpr (TB) tbcol[0] = static_cast<uint16_t>(cell0);
     int s_up_old = st.at(0, 0);  // previous column's S, row i - 1
     int st_up = s0j;             // this column's S~, row i - 1
-    int bi_up = MIN_I32;         // this column's I, row i - 1
+    int p_up = MIN_I32;          // this column's P, row i - 1
+    int rge = 0;                 // i * ge
     int sbits_up = sb0;          // this column's s-bits, row i - 1
     int run = 0;                 // Ins i-bits run ending at row i - 1
     st.at(0, 0) = s0j;
@@ -241,14 +239,15 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       tbk[fb] = cell0;
     }
 
-    // the column's x-prefix clip score (0 at clips 0: go + ge*(j-1) <= 0)
-    const int xclip = LOCAL ? 0 : add(xcp, max(ycp, d_gap));
+    // the column's x-prefix clip score (0 at clips 0 while go + ge*(j-1)
+    // does not wrap)
+    const int xclip = add(xcp, max(ycp, d_gap));
     int yclip = d_clip;  // ycp + go + ge*(i-1), row i
     int acc = SENT;      // running max of S + xcs over rows 1..m-1
     int first = 0;
     // x's byte two rows ahead and the substitution score one row ahead: their
-    // loads (x and the LUT from L2; the shared memory leaves L1 small) then
-    // overlap a row's dependency chain
+    // loads (x from L2; the shared memory leaves L1 small) then overlap a
+    // row's dependency chain
     auto x_of = [&](int r) { return r <= ml ? static_cast<int>(xt[static_cast<size_t>(r - 1) * B + b]) : 0; };
     const int x1 = x_of(1);
     int x_ahead = x_of(2);
@@ -270,17 +269,18 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
       const bool d_wins = d_ext > d_open;
       const int best_d = d_wins ? d_ext : d_open;
       const int d_bits = d_wins ? TB_DEL : sbp;
+      rge = add(rge, ge);
       const int t_open = add(st_up, go);
-      const int i_ext = add(bi_up, ge);
-      const int best_i = max(i_ext, t_open);
+      const int i_ext = add(p_up, rge);  // I[i-1] + ge
+      const int p = max(p_up, minus(t_open, rge));
+      const int best_i = add(p, rge);
       const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
       int s_col = m_val;
       int s_bits = m_bits;
       take(s_col, s_bits, best_i, TB_INS);
       take(s_col, s_bits, best_d, TB_DEL);
       take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
-      // at clips 0, S >= 0 from here on and the y-prefix clip is <= 0
-      if constexpr (!LOCAL) take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
+      take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
       if (i < ml) {
         const int v = add(s_col, xcs);
         if (v > acc) {
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
         take(s_col, s_bits, best_i, TB_INS);
         take(s_col, s_bits, best_d, TB_DEL);
         take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
-        if constexpr (!LOCAL) take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
+        take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
       }
       int cell = i_bits | (d_bits << 4) | (s_bits << 8);
       if constexpr (RUNS) {  // the run nibble, in tbk too (as in the Pallas kernel)
@@ -309,8 +309,8 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
         st.at(4, i) = nl - j;
       }
       s_up_old = sp;
-      st_up = LOCAL ? max(max(m_val, best_d), 0) : max(max(max(m_val, best_d), yclip), xclip);
-      bi_up = best_i;
+      st_up = max(max(max(m_val, best_d), yclip), xclip);
+      p_up = p;
       sbits_up = s_bits;
       st.at(0, i) = s_col;
       st.at(1, i) = best_d;
@@ -319,7 +319,7 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
         i_f[fb + i] = best_i;
         tbk[fb + i] = cell;
       }
-      if constexpr (!LOCAL) yclip = add(yclip, ge);
+      yclip = add(yclip, ge);
     }
     if constexpr (TB) lx[static_cast<size_t>(j) * B + b] = acc > MIN_I32 ? ml - first : 0;
   }
@@ -369,8 +369,7 @@ const char* rbt_error_string(int code) {
 
 // Entry points: tb/lx null for a score-only call; scratch null to keep the
 // column state in shared memory (5 * (M+1) * 4 bytes a pair, up to 32 pairs
-// a block), else a (5, M+1, B) int32 buffer; lut a (256, 256) int32 table on
-// the device.
+// a block), else a (5, M+1, B) int32 buffer.
 
 // K9.
 int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
@@ -381,18 +380,6 @@ int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
   auto fn = tb ? launch<false, true, true, MatchParams> : launch<false, false, false, MatchParams>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
             ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K9 fed by the LUT.
-int sw_scan_custom_lut(const void* xt, const void* yt, const void* mlens,
-                       const void* nlens, int B, int M, int go, int ge,
-                       const void* lut, int xcp, int xcs, int ycp, int ycs,
-                       void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
-                       void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, true, Lut> : launch<false, false, false, Lut>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
-            xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
-            stream);
 }
 
 // K7: K9 at clips (0, 0, 0, 0); needs gap_open, gap_extend <= 0.

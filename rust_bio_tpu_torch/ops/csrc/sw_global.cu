@@ -10,9 +10,10 @@
 //                            _kernel_mp: the score only.
 //
 // Design: one thread per pair walks DP columns j = 1..nlens and rows
-// i = 0..mlens in order, so the insertion recurrence I[i] = max(I[i-1] + ge,
-// S~[i-1] + go) is a scalar carry (the TPU kernels evaluate it as a (max,+)
-// prefix scan over sublanes; both give the same values). The previous
+// i = 0..mlens in order, so the insertion score is a scalar carry: as the
+// TPU kernels' (max,+) prefix scan computes it, I[i] = P[i] + i * ge with
+// P[i] = max(P[i-1], T[i] - i * ge), T[i] = S~[i-1] + go, in wrapping int32
+// (equal to the recurrence max(I[i-1] + ge, T[i]) until a sum wraps). The previous
 // column's S / D / s-bits live in shared memory laid out [row][pair], 32
 // pairs per block, so a warp's accesses are conflict-free; columns longer
 // than the shared-memory budget use a (layers, M+1, B) scratch in device
@@ -55,6 +56,9 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int minus(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // Column state of this thread's pair: row i of layer k is at
@@ -121,7 +125,8 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
     tbcol[0] = static_cast<uint16_t>(cell0);
     int s_up_old = st.at(0, 0);  // previous column's S, row i - 1
     int st_up = dj0;             // this column's S~ = max(m, D), row i - 1
-    int bi_up = MIN_I32;         // this column's I, row i - 1
+    int p_up = MIN_I32;          // this column's P, row i - 1
+    int rge = 0;                 // i * ge
     int sbits_up = TB_DEL;       // this column's s-bits, row i - 1
     int run = 0;                 // Ins i-bits run ending at row i - 1
     st.at(0, 0) = dj0;
@@ -141,9 +146,11 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
       const bool d_wins = d_ext > d_open;
       const int best_d = d_wins ? d_ext : d_open;
       const int d_bits = d_wins ? TB_DEL : sbp;
+      rge = add(rge, ge);
       const int t_open = add(st_up, go);
-      const int i_ext = add(bi_up, ge);
-      const int best_i = max(i_ext, t_open);
+      const int i_ext = add(p_up, rge);  // I[i-1] + ge
+      const int p = max(p_up, minus(t_open, rge));
+      const int best_i = add(p, rge);
       const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
       int s_col = m_val;
       int s_bits = TB_SUBST + eq;  // TB_MATCH = TB_SUBST + 1
@@ -160,7 +167,7 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
       tbcol[static_cast<size_t>(i) * B] = static_cast<uint16_t>(cell);
       s_up_old = sp;
       st_up = max(m_val, best_d);
-      bi_up = best_i;
+      p_up = p;
       sbits_up = s_bits;
       st.at(0, i) = s_col;
       st.at(1, i) = best_d;
@@ -191,7 +198,8 @@ __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
     const int s0j = add(go, mul(ge, j - 1));
     int s_up_old = st.at(0, 0);
     int st_up = s0j;
-    int bi_up = NEG;
+    int p_up = NEG;  // P, row i - 1
+    int rge = 0;     // i * ge
     st.at(1, 0) = max(add(st.at(1, 0), ge), add(s_up_old, go));
     st.at(0, 0) = s0j;
     for (int i = 1; i <= ml; ++i) {
@@ -199,10 +207,11 @@ __global__ void __launch_bounds__(PAIRS) scores_global_kernel(
       const int dp = st.at(1, i);
       const int m_val = add(s_up_old, sub.score(xt[static_cast<size_t>(i - 1) * B + b], yj));
       const int best_d = max(add(dp, ge), add(sp, go));
-      const int best_i = max(add(bi_up, ge), add(st_up, go));
+      rge = add(rge, ge);
+      p_up = max(p_up, minus(add(st_up, go), rge));
+      const int best_i = add(p_up, rge);
       s_up_old = sp;
       st_up = max(m_val, best_d);
-      bi_up = best_i;
       st.at(0, i) = max(max(m_val, best_i), best_d);
       st.at(1, i) = best_d;
     }

@@ -40,10 +40,11 @@
 // t + 1 four words of its last row through a double-buffered shared slot
 // [2][4][T], written at step s into buffer s & 1 and read at step s + 1: S,
 // which one step later is the next stripe's diagonal and is kept in a
-// register; I; S~; the s-bits. Along a row, S, D and the s-bits stay with
-// the row's owner: three int32 layers [3][R][T], lane innermost (a warp's
-// accesses are conflict-free), in shared memory up to ROWS_SHARED_MAX_M of
-// ops/sw.py, else in the block's own slice of a (B, 3, R, T) device
+// register; P (the insertion chain, below); S~; the s-bits. Along a row,
+// S, D and the s-bits stay with the row's owner: three int32 layers
+// [3][R][T], lane innermost (a warp's accesses are conflict-free), in
+// shared memory up to ROWS_SHARED_MAX_M of ops/sw.py, else in the block's
+// own slice of a (B, 3, R, T) device
 // scratch. The stripe's x bytes are staged in shared memory once; y_j is
 // read a step ahead. R is a multiple of 8: a thread computes its rows 8 at
 // a time and stores their cells with one 16-byte store, so a stripe's cells
@@ -65,7 +66,13 @@
 //
 // Exactness as K1 (sw_global.cu:40-46): int32 arithmetic wraps, D starts at
 // MIN_I32 = -858993459, strict '>' with priority Match/Subst > Ins > Del,
-// the I-open candidate uses S~.
+// the I-open candidate uses S~. The insertion chain is the JAX kernel's: in
+// each seam-to-seam block of rows, a prefix maximum P of T[i] - k * ge over
+// the block's rows (k counted from the block's first row), seeded by that
+// row and floored at NEG (the fill of its scan), I = P + k * ge; the first
+// row's I is NEG in the first block, else max(I[i-1] + ge, T[i], NEG), the
+// boundary value the block above hands down. A stripe hands P down. Equal
+// to K1's chain while no sum wraps int32.
 
 #include <cstddef>
 #include <cstdint>
@@ -83,7 +90,7 @@ constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
 constexpr int NEG = -(1 << 30);      // final-reduction sentinel
 constexpr int T_STRIPES = 256;       // most threads (stripes) a block
 constexpr int GROUP = 8;             // rows a thread computes, then stores, at once
-constexpr int CARRIES = 4;           // S, I, S~, s-bits
+constexpr int CARRIES = 4;           // S, P, S~, s-bits
 constexpr int LAYERS = 3;            // S, D, s-bits
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 
@@ -93,6 +100,9 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int minus(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // S of DP cell (i, 0): the init column
@@ -156,6 +166,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
     SB_[r * T] = i == 0 ? TB_START : TB_INS;
   }
   const int seam0 = i0 <= rb ? rb : (i0 + rb - 1) / rb * rb;  // first seam row >= i0
+  const int lge0 = t > 0 ? mul(ge, (i0 - 1) % rb) : 0;        // k * ge of row i0 - 1
 
   int s_up_prev = t > 0 ? init_s(i0 - 1, go, ge) : 0;  // previous column's S, row i0 - 1
   int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
@@ -171,13 +182,14 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
       const int dj0 = add(go, mul(ge, j - 1));
       const int cell0 = TB_START | ((j == 1 ? TB_START : TB_DEL) << 4) | (TB_DEL << 8);
       int s_up_old = 0;  // previous column's S, row i - 1
-      int bi_up = 0;     // this column's I, row i - 1
+      int p_up = 0;      // this column's P, row i - 1
+      int lge_up = lge0; // k * ge, row i - 1
       int st_up = 0;     // this column's S~, row i - 1
       int sbits_up = 0;  // this column's s-bits, row i - 1
       if (t > 0) {
         s_up_old = s_up_prev;
         s_up_prev = in[0];
-        bi_up = in[T];
+        p_up = in[T];
         st_up = in[2 * T];
         sbits_up = in[3 * T];
       }
@@ -202,10 +214,14 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
           int best_d = d_wins ? d_ext : d_open;
           const int d_bits = d_wins ? TB_DEL : sbp;
           const int t_open = add(st_up, go);
-          const int i_ext = add(bi_up, ge);
-          int best_i = max(i_ext, t_open);
           const bool at_seam = i == seam;
           if (at_seam) seam += rb;
+          // the block's first row takes the carried I, the rows below the
+          // block's prefix maximum
+          int lge = at_seam ? 0 : add(lge_up, ge);
+          const int i_ext = add(p_up, add(lge_up, ge));  // I[i-1] + ge
+          int p = at_seam ? max(max(i_ext, t_open), NEG) : max(p_up, minus(t_open, lge));
+          int best_i = add(p, lge);
           const int i_bits = i_ext > t_open ? TB_INS : (at_seam ? TB_REREAD : sbits_up);
           int s_col = m_val;
           int s_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
@@ -223,7 +239,8 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
             cell = cell0;
             s_col = best_d = st = dj0;
             s_bits = TB_DEL;
-            best_i = MIN_I32;
+            best_i = p = NEG;
+            lge = 0;
           }
           if (k & 1) {
             w[k / 2] |= static_cast<uint32_t>(cell) << 16;
@@ -231,7 +248,8 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
             w[k / 2] = static_cast<uint32_t>(cell);
           }
           s_up_old = sp;
-          bi_up = best_i;
+          p_up = p;
+          lge_up = lge;
           st_up = st;
           sbits_up = s_bits;
           S_[r * T] = s_col;
@@ -245,7 +263,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
       }
       // the stripe's last row, for the next stripe (the holder's goes unread)
       out[0] = s_last;
-      out[T] = bi_up;
+      out[T] = p_up;
       out[2 * T] = st_up;
       out[3 * T] = sbits_up;
     }

@@ -12,8 +12,10 @@
 // per row), Ly (its clip length) and the cells tbk, each (B, M+1).
 //
 // Design: K1's (sw_global.cu). One thread per pair walks columns
-// j = 1..nlens and rows i = 0..mlens in order, so the insertion recurrence
-// I[i] = max(I[i-1] + ge, S~[i-1] + go) is a scalar carry. The previous
+// j = 1..nlens and rows i = 0..mlens in order, so the insertion score is a
+// scalar carry, K1's prefix maximum P[i] = max(P[i-1], S~[i-1] + go - i * ge),
+// I = P + i * ge (equal to max(I[i-1] + ge, S~[i-1] + go) until a sum
+// wraps int32). The previous
 // column's S, D, s-bits, Sn and Ly live in shared memory as [row][pair],
 // 32 pairs a block (5 * 151 * 32 * 4 = 96.6 KB at M = 150), or in a
 // (5, M+1, B) device scratch when they do not fit. The I layer is not part
@@ -57,6 +59,9 @@ __device__ __forceinline__ int add(int a, int b) {
 }
 __device__ __forceinline__ int mul(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int minus(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // Substitution sources: the score of DP cell (x_i, y_j) from their bytes.
@@ -150,7 +155,8 @@ __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
     tbcol[0] = static_cast<uint16_t>(cell0);
     int s_up_old = st.at(0, 0);  // previous column's S, row i - 1
     int st_up = s0j;             // this column's S~ = max(m, D, yclip), row i - 1
-    int bi_up = MIN_I32;         // this column's I, row i - 1
+    int p_up = MIN_I32;          // this column's P, row i - 1
+    int rge = 0;                 // i * ge
     int sbits_up = sb0;          // this column's s-bits, row i - 1
     int run = 0;                 // Ins i-bits run ending at row i - 1
     st.at(0, 0) = s0j;
@@ -175,9 +181,11 @@ __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
       const bool d_wins = d_ext > d_open;
       const int best_d = d_wins ? d_ext : d_open;
       const int d_bits = d_wins ? TB_DEL : sbp;
+      rge = add(rge, ge);
       const int t_open = add(st_up, go);
-      const int i_ext = add(bi_up, ge);
-      const int best_i = max(i_ext, t_open);
+      const int i_ext = add(p_up, rge);  // I[i-1] + ge
+      const int p = max(p_up, minus(t_open, rge));
+      const int best_i = add(p, rge);
       const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
       int s_col = m_val;
       int s_bits = TB_SUBST + eq;  // TB_MATCH = TB_SUBST + 1
@@ -202,7 +210,7 @@ __global__ void __launch_bounds__(PAIRS) scan_semiglobal_kernel(
       }
       s_up_old = sp;
       st_up = max(max(m_val, best_d), yclip);
-      bi_up = best_i;
+      p_up = p;
       sbits_up = s_bits;
       st.at(0, i) = s_col;
       st.at(1, i) = best_d;

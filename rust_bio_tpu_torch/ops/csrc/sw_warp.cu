@@ -1,17 +1,18 @@
 // K11 sw_scan_global_lut, K18 sw_scores_global_lut, K7-LUT
-// sw_scan_local_lut and K12 sw_scan_semiglobal_lut: the global (with its
-// traceback, and score only), the local and the semiglobal affine-gap DP
-// under a (256, 256) substitution LUT at protein lengths, one warp a pair
-// over row stripes held by its lanes.
+// sw_scan_local_lut, K9-LUT sw_scan_custom_lut and K12
+// sw_scan_semiglobal_lut: the global (with its traceback, and score only),
+// the local, the custom-clip and the semiglobal affine-gap DP under a
+// (256, 256) substitution LUT at protein lengths, one warp a pair over row
+// stripes held by its lanes.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
 // lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
 // :79 _kernel (sw_scores_global :140, which reads a (B, M, N) substitution
 // tensor), :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs
-// :1529, runs="ins") and, in local mode under a LUT, the XLA engine
-// alignment/pairwise/batched.py:948 _align_batch_device, which the JAX
-// package runs there.
+// :1529, runs="ins") and, in local and custom mode under a LUT, the XLA
+// engine alignment/pairwise/batched.py:948 _align_batch_device, which the
+// JAX package runs there.
 //
 // What they compute:
 //  K11: csrc/sw_global.cu's K1 fed by the LUT: the score, S at (mlens,
@@ -19,12 +20,14 @@
 //   i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12 of columns
 //   j = 1..nlens and rows i = 0..mlens; tbk (B, M+1), the cells of column
 //   nlens (column 0's when nlens = 0).
-//  K7-LUT: csrc/sw_custom.cu's K7 fed by the LUT (K9 at clips 0): the cells
-//   of columns j = 0..nlens (column 0, the init column, at index 0) with the
-//   run nibble; lx (N+1, B), the x-suffix clip length of each column's row
-//   mlens; the finals S, I, Sn, Ly and tbk (B, M+1) at column nlens. A lane
-//   with nlens = 0 takes column 0's I and cells as its finals. Without a tb
-//   (score only) it skips the cells, lx and the run nibble, as K7 does.
+//  K9-LUT: csrc/sw_custom.cu's K9 fed by the LUT, all four clips live: the
+//   cells of columns j = 0..nlens (column 0, the init column, at index 0)
+//   with the run nibble; lx (N+1, B), the x-suffix clip length of each
+//   column's row mlens; the finals S, I, Sn, Ly and tbk (B, M+1) at column
+//   nlens. A lane with nlens = 0 takes column 0's I and cells as its
+//   finals. Without a tb (score only) it skips the cells, lx and the run
+//   nibble, as K9 does. K7-LUT: K7 fed by the LUT, the same kernel with the
+//   clips zero at compile time (K9's cell at clips 0, as K7).
 //  K12: csrc/sw_semiglobal.cu's K5 fed by the LUT: the cells of columns
 //   j = 1..nlens and rows 0..mlens with the run nibble; the finals S, I,
 //   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
@@ -34,57 +37,61 @@
 //   s-bits: the score, S at (mlens, nlens) clamped at NEG. Its D and row
 //   0's I start at NEG = -2^30, K3's and the JAX kernel's sentinel, not at
 //   K11's MIN_I32: under large tables int32 wraparound tells the two
-//   apart. It carries the insertion chain as the
-//   JAX kernel's prefix maximum of T - i * ge, where the other kernels
-//   take max(I + ge, T) a row: the two agree until a sum wraps int32 (a
-//   random table of +-2^23 at M = 4,978 does), and then K18 still equals
-//   its plain version and the JAX kernel.
+//   apart.
+//  All of them carry the insertion chain as the JAX kernels' prefix
+//  maximum, P = max(P, T - i * ge) down the rows and I = P + i * ge, a
+//  lane handing P down (sw_global.cu): equal to max(I + ge, T) a row until
+//  a sum wraps int32, and then still equal to the plain versions and the
+//  JAX kernels.
 //
 // Design: the row-stripe wavefront of csrc/sw_global_rows.cu, shrunk to one
 // warp a pair, WARPS warps a block (the pairs are independent). Lane t owns
 // the rows [t * R, t * R + R), R = 8 * ceil((M + 1) / 256), and at step s
 // computes column j = s - t; a pair takes nlens + ceil((mlens + 1) / R) - 1
-// steps (K7-LUT one more: its column 0 is a step of the wavefront, since
-// row mlens of column 0 reads a maximum over the rows above). Lanes past
+// steps (K7-LUT and K9-LUT one more: column 0 is a step of the
+// wavefront, since row mlens of column 0 reads a maximum over the rows
+// above). Lanes past
 // row mlens only take part in the shuffles. Down a column, lane t hands
 // lane t + 1 the values of its stripe's last row with __shfl_up_sync, and
 // lane t + 1 uses them one step later in the same column: S, which one
-// step later still is the next stripe's diagonal; I; S~ = max(m, D) (local:
-// max(m, D, 0)); the s-bits and the Ins run, capped at 15, in one word;
-// K7-LUT also the running maximum of S over rows 1..m-1 and its first row,
-// which decide row m's x-suffix replacement and lx (the row's first is
-// packed in the s-bits' word); K12 hands S~ = max(m, D, the row's y-prefix
-// clip) down, as K5 does. No barrier in the column loop: a warp's
+// step later still is the next stripe's diagonal; P; S~ = max(m, D)
+// (K9-LUT: max(m, D, the row's y-prefix clip, the column's x-prefix clip));
+// the s-bits and the Ins run, capped at 15, in one word; K9-LUT also the
+// running maximum of S + xcs over rows 1..m-1 and its first row, which
+// decide row m's x-suffix replacement and lx (the row's first is packed in
+// the s-bits' word); K12 hands S~ = max(m, D, the row's y-prefix clip)
+// down, as K5 does. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
 // S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 (4 KB),
-// and Sn, Ly besides for K7-LUT and K12 (10 KB), in the warp's slice of
-// shared memory, or, where the
+// and Sn, Ly besides for K7-LUT, K9-LUT and K12 (10 KB), in the warp's
+// slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
 // stripe's x bytes are staged in shared memory once; y_j is read a step
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
 // 16-byte store into the pair-major tb, (B, N, Xp) for K11 and K12 and
-// (B, N+1, Xp) for K7-LUT, Xp = M + 1 rounded up to 8 (ops/sw.py returns the
-// (N, M+1, B) or (N+1, M+1, B) view, which K2, K6, K8 and K10 read through
-// their strides);
+// (B, N+1, Xp) for K7-LUT and K9-LUT, Xp = M + 1 rounded up to 8
+// (ops/sw.py returns the (N, M+1, B) or (N+1, M+1, B) view, which K2, K6,
+// K8 and K10 read through their strides);
 // the lane that holds row mlens stops after the group of 8 that holds it.
 //
-// Bound on this card: the cells' integer operations (about 31 a cell for
-// K11, 44 for K7-LUT: 1.0 G cells of the homolog corpus take 0.9-1.4 ms at
-// the int32 peak) or the tb's 2 bytes a cell (2.0 GB there: 0.6 ms), the
-// larger (K12: about 39 a cell, K5's). The one-thread-a-pair kernels before
+// Bound on this card: the cells' integer operations (about 34 a cell for
+// K11, 52 for K7-LUT and K9-LUT: 1.0 G cells of the homolog corpus take
+// 1.0-1.6 ms at the int32 peak) or the tb's 2 bytes a cell (2.0 GB there:
+// 0.6 ms), the larger (K12: about 42 a cell, K5's). The one-thread-a-pair kernels before
 // these kept a pair's column in shared memory and fit one warp an SM (K11:
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
-// M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound; here a warp
+// M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
+// 27.2 ms on the domain corpus, 47x); here a warp
 // needs 4-11 KB. K18's bound: about 12 operations a cell (K3's).
 //
-// Exactness as K1, K7 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu): int32 arithmetic
-// wraps, LUT entries included; D starts at MIN_I32 = -858993459; the
-// running maximum starts at -2^31 + 1 and counts only above MIN_I32; every
-// choice is a strict '>' with priority Match/Subst > Ins > Del (> the
-// x-prefix clip of score 0 in local mode); the I-open candidate uses S~;
+// Exactness as K1, K9 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu):
+// int32 arithmetic wraps, LUT entries included; D starts at MIN_I32 =
+// -858993459; the running maximum starts at -2^31 + 1 and counts only
+// above MIN_I32; every choice is a strict '>' with priority Match/Subst >
+// Ins > Del > Xclip-prefix > Yclip-prefix; the I-open candidate uses S~;
 // the Match/Subst bit is byte equality.
 
 #include <cstddef>
@@ -110,7 +117,7 @@ constexpr int WARPS = 4;             // pairs a block
 constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
 constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
 constexpr int SCORE_LAYERS = 2;      // K18: S, D
-constexpr int LOCAL_LAYERS = 5;      // K7-LUT and K12: S, D, s-bits, Sn, Ly
+constexpr int LOCAL_LAYERS = 5;      // K7-LUT, K9-LUT, K12: S, D, s-bits, Sn, Ly
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
 
@@ -229,14 +236,14 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
       const int dj0 = add(go, mul(ge, j - 1));
       const int cell0 = TB_START | ((j == 1 ? TB_START : TB_DEL) << 4) | (TB_DEL << 8);
       int s_up_old = 0;  // previous column's S, row i - 1
-      int bi_up = 0;     // this column's I, row i - 1
+      int p_up = 0;      // this column's P, row i - 1
       int st_up = 0;     // this column's S~, row i - 1
       int sbits_up = 0;  // this column's s-bits, row i - 1
       int run = 0;       // Ins i-bits run ending at row i - 1, capped at 15
       if (lane > 0) {
         s_up_old = s_up_prev;
         s_up_prev = in_s;
-        bi_up = in_i;
+        p_up = in_i;
         st_up = in_st;
         sbits_up = in_pk & 0xF;
         run = in_pk >> 4;
@@ -259,9 +266,11 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
           const bool d_wins = d_ext > d_open;
           int best_d = d_wins ? d_ext : d_open;
           const int d_bits = d_wins ? TB_DEL : sbp;
+          const int rge = mul(i, ge);
           const int t_open = add(st_up, go);
-          const int i_ext = add(bi_up, ge);
-          int best_i = max(i_ext, t_open);
+          const int i_ext = add(p_up, rge);  // I[i-1] + ge
+          int p = max(p_up, sub(t_open, rge));
+          int best_i = add(p, rge);
           const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
           int s_col = m_val;
           int s_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
@@ -280,7 +289,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
             cell = cell0;
             s_col = best_d = st_col = dj0;
             s_bits = TB_DEL;
-            best_i = MIN_I32;
+            best_i = p = MIN_I32;
             run = 0;
           }
           if (k & 1) {
@@ -289,7 +298,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
             w[k / 2] = static_cast<uint32_t>(cell);
           }
           s_up_old = sp;
-          bi_up = best_i;
+          p_up = p;
           st_up = st_col;
           sbits_up = s_bits;
           st.at(0, r) = s_col;
@@ -302,7 +311,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
           *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
         }
       }
-      c_i = bi_up;
+      c_i = p_up;
       c_st = st_up;
       c_pk = sbits_up | (run << 4);
     }
@@ -419,14 +428,16 @@ __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
   if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
 }
 
-// K7-LUT. TB: store the cells with the run nibble, and lx (else score only)
-template <bool TB, bool ONCHIP>
-__global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
+// K9-LUT, and K7-LUT at LOCAL (the clips zero at compile time). TB: store
+// the cells with the run nibble, and lx (else score only)
+template <bool TB, bool ONCHIP, bool LOCAL>
+__global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
     const uint8_t* __restrict__ xb,  // (B, M)
     const uint8_t* __restrict__ yb,  // (B, N)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
     int Xp, int R, int go, int ge,
     const int* __restrict__ lut,  // (256, 256), row x
+    int xcp, int xcs, int ycp, int ycs,
     uint16_t* __restrict__ tb,    // (B, N + 1, Xp), or null
     int* __restrict__ lx,         // (N + 1, B), or null
     int* __restrict__ s_f,        // (B, M + 1) each
@@ -435,6 +446,9 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
     int* __restrict__ ly_f,
     int* __restrict__ tbk,
     int* __restrict__ scratch) {  // (B, 5, R, 32), or null when ONCHIP
+  if constexpr (LOCAL) {
+    xcp = xcs = ycp = ycs = 0;
+  }
   const int lane = threadIdx.x % LANES;
   const int b = blockIdx.x * WARPS + threadIdx.x / LANES;
   if (b >= B) return;  // the whole warp
@@ -443,6 +457,9 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
   const Stripe st = stripe_of<LOCAL_LAYERS, ONCHIP>(scratch, xb, b, M, R, ml);
   const size_t fb = static_cast<size_t>(b) * (M + 1);
   const bool holds_m = lane == st.t_act - 1;  // the lane of row mlens
+  const int clip_i = add(xcp, go);            // column 0's x-prefix clip I
+  const int d_clip = add(ycp, go);            // the y-prefix clip of row 1
+  const int yclip0 = sub(d_clip, ge);         // ycp + go - ge: the y-prefix clip is yclip0 + i * ge
 
   int s_up_prev = 0;  // previous column's S, row i0 - 1 (from column 0 on)
   int in_s = 0, in_i = 0, in_st = 0, in_acc = 0, in_pk = 0;  // lane - 1's, from the last shuffle
@@ -453,16 +470,16 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
     int c_s = 0, c_i = 0, c_st = 0, c_acc = 0, c_pk = 0;  // for lane + 1
     if (st.groups > 0 && j >= 0 && j <= nl) {
       int s_up_old = 0;    // previous column's S, row i - 1
-      int bi_up = 0;       // this column's I, row i - 1
+      int p_up = 0;        // this column's P, row i - 1
       int st_up = 0;       // this column's S~, row i - 1
       int sbits_up = 0;    // this column's s-bits, row i - 1
       int run = 0;         // Ins i-bits run ending at row i - 1, capped at 15
-      int acc = SENT;      // running max of S over rows 1..m-1
+      int acc = SENT;      // running max of S + xcs over rows 1..m-1
       int first = 0;       // its first row
       if (lane > 0) {
         s_up_old = s_up_prev;
         s_up_prev = in_s;
-        bi_up = in_i;
+        p_up = in_i;
         st_up = in_st;
         acc = in_acc;
         sbits_up = in_pk & 0xF;
@@ -471,9 +488,9 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
       }
       uint16_t* tbcol = TB ? tb + (static_cast<size_t>(b) * (N + 1) + j) * Xp + st.i0 : nullptr;
       if (j == 0) {
-        // column 0 (sw_custom.cu:136-185 at clips 0): I0 takes a gap or the
-        // x-prefix clip, S the better of I0 and the clip, row m the
-        // x-suffix replacement
+        // column 0 (sw_custom.cu column 0): I0 takes a gap or the x-prefix
+        // clip, S the better of I0 and the clip, row m the x-suffix
+        // replacement
         for (int g = 0; g < st.groups; ++g) {
           uint32_t w[GROUP / 2];
 #pragma unroll
@@ -486,22 +503,23 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
             int i0v = MIN_I32;
             if (i >= 1) {
               const int gap_i = add(go, mul(ge, i - 1));
-              const bool ins_wins = gap_i > go;  // the clip candidate: 0 + go
-              i0v = i == 1 ? go : (ins_wins ? gap_i : go);
+              const bool ins_wins = gap_i > clip_i;
+              i0v = i == 1 ? go : (ins_wins ? gap_i : clip_i);
               if (i >= 2) ib = ins_wins ? TB_INS : TB_XCLIP_PREFIX;
               if (i < ml) {
                 s0 = MIN_I32;
                 take(s0, sb, i0v, TB_INS);
-                take(s0, sb, 0, TB_XCLIP_PREFIX);
-                if (s0 > acc) {
-                  acc = s0;
+                take(s0, sb, xcp, TB_XCLIP_PREFIX);
+                const int v = add(s0, xcs);
+                if (v > acc) {
+                  acc = v;
                   first = i;
                 }
               } else {
                 s0 = acc > MIN_I32 ? acc : MIN_I32;
                 sb = TB_XCLIP_SUFFIX;
                 take(s0, sb, i0v, TB_INS);
-                take(s0, sb, 0, TB_XCLIP_PREFIX);
+                take(s0, sb, xcp, TB_XCLIP_PREFIX);
               }
             }
             const int cell = ib | (TB_START << 4) | (sb << 8);
@@ -515,8 +533,9 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
             st.at(0, r) = s0;
             st.at(1, r) = MIN_I32;
             st.at(2, r) = sb;
-            const bool live = i == 0 || s0 > MIN_I32;
-            st.at(3, r) = i == 0 ? 0 : (live ? s0 : MIN_I32);
+            const int sn = add(s0, ycs);
+            const bool live = i == 0 || sn > MIN_I32;
+            st.at(3, r) = i == 0 ? ycs : (live ? sn : MIN_I32);
             st.at(4, r) = live ? nl : 0;
             if (nl == 0 && i <= ml) {
               i_f[fb + i] = i0v;
@@ -533,6 +552,8 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
         if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
         const int* lut_y = lut + yj;
         const bool last = j == nl;
+        const int d_gap = add(go, mul(ge, j - 1));
+        const int xclip = add(xcp, max(ycp, d_gap));  // the column's x-prefix clip
         for (int g = 0; g < st.groups; ++g) {
           const uint2 xw = *reinterpret_cast<const uint2*>(st.x + g * GROUP);
           uint32_t w[GROUP / 2];
@@ -543,34 +564,33 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
             int cell;
             int s_col;
             if (k == 0 && i == 0) {
-              // row 0 (lane 0): Del against the y-prefix clip (score 0 + go),
-              // then the y-suffix takeover
-              const int d_gap = add(go, mul(ge, j - 1));
+              // row 0 (lane 0): Del against the y-prefix clip, then, in the
+              // last column, the y-suffix takeover
               int dj0, db0;
               if (j == 1) {
                 dj0 = go;
                 db0 = TB_START;
-              } else if (d_gap > go) {
+              } else if (d_gap > d_clip) {
                 dj0 = d_gap;
                 db0 = TB_DEL;
               } else {
-                dj0 = go;
+                dj0 = d_clip;
                 db0 = TB_YCLIP_PREFIX;
               }
-              s_col = dj0 > 0 ? dj0 : 0;
-              int sb0 = dj0 > 0 ? TB_DEL : TB_YCLIP_PREFIX;
+              s_col = dj0 > ycp ? dj0 : ycp;
+              int sb0 = dj0 > ycp ? TB_DEL : TB_YCLIP_PREFIX;
               const int sn0 = st.at(3, 0);
               if (last && sn0 > s_col) {
                 s_col = sn0;
                 sb0 = TB_YCLIP_SUFFIX;
-              } else if (s_col > sn0) {
-                st.at(3, 0) = s_col;
+              } else if (add(s_col, ycs) > sn0) {
+                st.at(3, 0) = add(s_col, ycs);
                 st.at(4, 0) = nl - j;
               }
               cell = TB_START | (db0 << 4) | (sb0 << 8);
               s_up_old = st.at(0, 0);
               st_up = s_col;
-              bi_up = MIN_I32;
+              p_up = MIN_I32;
               sbits_up = sb0;
               run = 0;
               st.at(0, 0) = s_col;
@@ -593,18 +613,23 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
               const bool d_wins = d_ext > d_open;
               const int best_d = d_wins ? d_ext : d_open;
               const int d_bits = d_wins ? TB_DEL : sbp;
+              const int rge = mul(i, ge);
               const int t_open = add(st_up, go);
-              const int i_ext = add(bi_up, ge);
-              const int best_i = max(i_ext, t_open);
+              const int i_ext = add(p_up, rge);  // I[i-1] + ge
+              const int p = max(p_up, sub(t_open, rge));
+              const int best_i = add(p, rge);
               const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
+              const int yclip = add(yclip0, rge);  // the y-prefix clip of row i
               s_col = m_val;
               int s_bits = m_bits;
               take(s_col, s_bits, best_i, TB_INS);
               take(s_col, s_bits, best_d, TB_DEL);
-              take(s_col, s_bits, 0, TB_XCLIP_PREFIX);
+              take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
+              take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
               if (i < ml) {
-                if (s_col > acc) {
-                  acc = s_col;
+                const int v = add(s_col, xcs);
+                if (v > acc) {
+                  acc = v;
                   first = i;
                 }
               } else {
@@ -615,20 +640,21 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
                 take(s_col, s_bits, m_val, m_bits);
                 take(s_col, s_bits, best_i, TB_INS);
                 take(s_col, s_bits, best_d, TB_DEL);
-                take(s_col, s_bits, 0, TB_XCLIP_PREFIX);
+                take(s_col, s_bits, xclip, TB_XCLIP_PREFIX);
+                take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
               }
               cell = i_bits | (d_bits << 4) | (s_bits << 8);
-              if constexpr (TB) {  // the run nibble, in tbk too (as K7)
+              if constexpr (TB) {  // the run nibble, in tbk too (as K7 and K9)
                 run = i_bits == TB_INS ? min(run + 1, 15) : 0;
                 cell |= run << 12;
               }
-              if (s_col > snp) {
-                st.at(3, r) = s_col;
+              if (add(s_col, ycs) > snp) {
+                st.at(3, r) = add(s_col, ycs);
                 st.at(4, r) = nl - j;
               }
               s_up_old = sp;
-              st_up = max(max(m_val, best_d), 0);
-              bi_up = best_i;
+              st_up = max(max(max(m_val, best_d), yclip), xclip);
+              p_up = p;
               sbits_up = s_bits;
               st.at(0, r) = s_col;
               st.at(1, r) = best_d;
@@ -651,7 +677,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_local_warp_kernel(
         }
       }
       if (TB && holds_m) lx[static_cast<size_t>(j) * B + b] = acc > MIN_I32 ? ml - first : 0;
-      c_i = bi_up;
+      c_i = p_up;
       c_st = st_up;
       c_acc = acc;
       c_pk = sbits_up | (run << 4) | (first << 8);
@@ -724,14 +750,14 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
       const int* lut_y = lut + yj;
       const bool last = j == nl;
       int s_up_old = 0;  // previous column's S, row i - 1
-      int bi_up = 0;     // this column's I, row i - 1
+      int p_up = 0;      // this column's P, row i - 1
       int st_up = 0;     // this column's S~, row i - 1
       int sbits_up = 0;  // this column's s-bits, row i - 1
       int run = 0;       // Ins i-bits run ending at row i - 1, capped at 15
       if (lane > 0) {
         s_up_old = s_up_prev;
         s_up_prev = in_s;
-        bi_up = in_i;
+        p_up = in_i;
         st_up = in_st;
         sbits_up = in_pk & 0xF;
         run = in_pk >> 4;
@@ -774,7 +800,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
             cell = TB_START | (db0 << 4) | (sb0 << 8);
             s_up_old = st.at(0, 0);
             st_up = s_col;
-            bi_up = MIN_I32;
+            p_up = MIN_I32;
             sbits_up = sb0;
             run = 0;
             st.at(0, 0) = s_col;
@@ -796,9 +822,11 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
             const bool d_wins = d_ext > d_open;
             const int best_d = d_wins ? d_ext : d_open;
             const int d_bits = d_wins ? TB_DEL : sbp;
+            const int rge = mul(i, ge);
             const int t_open = add(st_up, go);
-            const int i_ext = add(bi_up, ge);
-            const int best_i = max(i_ext, t_open);
+            const int i_ext = add(p_up, rge);  // I[i-1] + ge
+            const int p = max(p_up, sub(t_open, rge));
+            const int best_i = add(p, rge);
             const int i_bits = i_ext > t_open ? TB_INS : sbits_up;
             const int yclip = add(d_clip, mul(ge, i - 1));  // the y-prefix clip of row i
             s_col = m_val;
@@ -814,7 +842,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
             }
             s_up_old = sp;
             st_up = max(max(m_val, best_d), yclip);
-            bi_up = best_i;
+            p_up = p;
             sbits_up = s_bits;
             st.at(0, r) = s_col;
             st.at(1, r) = best_d;
@@ -835,7 +863,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
           *reinterpret_cast<uint4*>(tbcol + g * GROUP) = make_uint4(w[0], w[1], w[2], w[3]);
         }
       }
-      c_i = bi_up;
+      c_i = p_up;
       c_st = st_up;
       c_pk = sbits_up | (run << 4);
     }
@@ -869,6 +897,28 @@ int opt_in(Kernel* kernel, size_t smem) {
 
 int blocks(int B) { return (B + WARPS - 1) / WARPS; }
 
+template <bool LOCAL>
+int launch_clip(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
+                int N, int Xp, int go, int ge, const void* lut, int xcp, int xcs, int ycp, int ycs,
+                void* tb, void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
+                void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || !tb != !lx || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_clip_warp_kernel<true, false, LOCAL> : scan_clip_warp_kernel<true, true, LOCAL>)
+                   : (scratch ? scan_clip_warp_kernel<false, false, LOCAL> : scan_clip_warp_kernel<false, true, LOCAL>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
+      static_cast<const int*>(lut), xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(lx),
+      static_cast<int*>(s_f), static_cast<int*>(i_f), static_cast<int*>(sn_f),
+      static_cast<int*>(ly_f), static_cast<int*>(tbk), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -879,10 +929,10 @@ const char* rbt_error_string(int code) {
 
 // Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
 // int32 table on the device; tb null for a score-only call, else the
-// pair-major (B, N, Xp) (K11) or (B, N+1, Xp) (K7-LUT) uint16 tensor with
-// Xp >= M + 1 a multiple of 8; scratch null to keep the row state in
-// shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 2 for K18, 5 for K7-LUT and K12).
+// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7-LUT, K9-LUT)
+// uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
+// row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
+// above (layers 3 for K11, 2 for K18, 5 for K7-LUT, K9-LUT and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -928,21 +978,19 @@ int sw_scan_local_lut(const void* xb, const void* yb, const void* mlens,
                       int ge, const void* lut, void* tb, void* lx, void* s_f,
                       void* i_f, void* sn_f, void* ly_f, void* tbk,
                       void* scratch, void* stream) {
-  size_t smem = 0;
-  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
-  if (B < 1 || M < 0 || N < 0 || R == 0 || !tb != !lx || (tb && (Xp < M + 1 || Xp % GROUP)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tb ? (scratch ? scan_local_warp_kernel<true, false> : scan_local_warp_kernel<true, true>)
-                   : (scratch ? scan_local_warp_kernel<false, false> : scan_local_warp_kernel<false, true>);
-  const int rc = opt_in(kernel, smem);
-  if (rc) return rc;
-  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
-      static_cast<const int*>(lut), static_cast<uint16_t*>(tb), static_cast<int*>(lx),
-      static_cast<int*>(s_f), static_cast<int*>(i_f), static_cast<int*>(sn_f),
-      static_cast<int*>(ly_f), static_cast<int*>(tbk), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_clip<true>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, lut, 0, 0, 0, 0, tb, lx, s_f,
+                           i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K9-LUT: K9 fed by the LUT, the four clip penalties live; needs gap_open,
+// gap_extend <= 0. lx null with tb.
+int sw_scan_custom_lut(const void* xb, const void* yb, const void* mlens,
+                       const void* nlens, int B, int M, int N, int Xp, int go,
+                       int ge, const void* lut, int xcp, int xcs, int ycp, int ycs,
+                       void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
+                       void* ly_f, void* tbk, void* scratch, void* stream) {
+  return launch_clip<false>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, lut, xcp, xcs, ycp, ycs, tb,
+                            lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 // K12: K5 fed by the LUT; ycp and ycs the y-clip penalties (0 / 0 in

@@ -14,7 +14,8 @@
   the host oracle's loop, operation for operation.
 - K17-homopoly ``pairhmm_fwd_homopoly`` (``csrc/pairhmm_homopoly.cu``, f32
   or f64) replaces the XLA engine ``stats/pairhmm/homopoly_device.py``
-  ``BatchHomopolyPairHMM._forward``: the 14-state forward.
+  ``BatchHomopolyPairHMM._forward``: the 14-state forward, K17-log's warp
+  over lane column stripes (``pairhmm_log_geometry`` at 14 states).
 
 Common inputs: ``xs`` (B, M) and ``ys`` (B, N) uint8, ``xlens`` / ``ylens``
 (B,) int32 (clamped into [0, M] / [0, N], by the kernels and the plain
@@ -43,13 +44,21 @@ NEG_F32 = -3.0e38
 NEG_F64 = -1.0e308
 MED_SENT = 1 << 62  # the plain exact version's usize::MAX (exact.py MED_SENT)
 HOMOPOLY_NPAR = 34  # csrc/pairhmm_homopoly.cu's parameter vector
-# K17-log's launch (csrc/pairhmm_log.cu): one warp a pair, lane t over the
-# columns [t * C + 1, t * C + C] of y, 32 * C >= N; a lane's state (three
-# values a column) in registers up to LOG_REG_BYTES a lane (C then a power
-# of two: 16 float columns, 8 double), else in a (B, 3, C, 32) device
-# scratch; at most 8 warps a block
+HOMOPOLY_STATES = 14  # its states a column
+# K17-log's and K17-homopoly's launch (csrc/pairhmm_log.cu,
+# pairhmm_homopoly.cu): one warp a pair, lane t over the columns
+# [t * C + 1, t * C + C] of y, 32 * C >= N; a lane's state (three values a
+# column, fourteen for K17-homopoly) in registers up to LOG_REG_BYTES /
+# HOMOPOLY_REG_BYTES a lane (C then a power of two up to the largest the
+# kernel instantiates: K17-log 16 float columns, 8 double; K17-homopoly 4
+# float, 2 double), else in a (B, states, C, 32) device scratch; at most 8
+# warps a block. HOMOPOLY_REG_BYTES holds double at C = 2: on the 2048
+# homopoly pairs (N = 54) registers took 27.45-27.71 ms against the
+# scratch's 28.29-28.47 (scripts/placement_trial.py, H100, three runs)
 LOG_REG_BYTES = 192
+HOMOPOLY_REG_BYTES = 224
 _LOG_WARPS_MAX = 8
+_REG_C_MAX = {3: 16, HOMOPOLY_STATES: 4}
 
 PAIRHMM_FWD_SCALED = CudaKernel(
     "pairhmm_scaled", "pairhmm_fwd_scaled", [PTR] * 6 + [INT] * 5 + [PTR] * 2
@@ -59,7 +68,7 @@ PAIRHMM_FWD_EXACT = CudaKernel(
     "pairhmm_exact", "pairhmm_fwd_exact", [PTR] * 6 + [INT] * 6 + [ctypes.c_longlong] + [PTR] * 4
 )
 PAIRHMM_FWD_HOMOPOLY = CudaKernel(
-    "pairhmm_homopoly", "pairhmm_fwd_homopoly", [PTR] * 6 + [INT] * 6 + [PTR] * 2
+    "pairhmm_homopoly", "pairhmm_fwd_homopoly", [PTR] * 6 + [INT] * 8 + [PTR] * 2
 )
 
 
@@ -241,17 +250,19 @@ def _scan_log(A, Bc, neg: float, clamp: float):
     return A
 
 
-def pairhmm_log_geometry(N: int, B: int, dtype, sms: int = 132):
-    """K17-log's launch at y width ``N`` and ``B`` pairs of ``dtype``
-    (float32 or float64) on a card of ``sms`` SMs: (C columns a lane, warps
-    (that is pairs) a block, where the state lives: ``"registers"`` or
-    ``"scratch"``). Lane t owns the columns [t * C + 1, t * C + C]. One warp
-    a block while the card holds every pair at 32 blocks an SM (the pairs
-    spread over the SMs), more, up to 8, beyond that."""
+def pairhmm_log_geometry(N: int, B: int, dtype, sms: int = 132, states: int = 3):
+    """K17-log's launch (``states`` 3), or K17-homopoly's (14), at y width
+    ``N`` and ``B`` pairs of ``dtype`` (float32 or float64) on a card of
+    ``sms`` SMs: (C columns a lane, warps (that is pairs) a block, where the
+    state lives: ``"registers"`` or ``"scratch"``). Lane t owns the columns
+    [t * C + 1, t * C + C]. One warp a block while the card holds every pair
+    at 32 blocks an SM (the pairs spread over the SMs), more, up to 8,
+    beyond that."""
     C = max(1, -(-N // 32))
     pow2 = 1 << (C - 1).bit_length()
     placement = "scratch"
-    if 3 * pow2 * (8 if dtype == torch.float64 else 4) <= LOG_REG_BYTES:
+    budget = LOG_REG_BYTES if states == 3 else HOMOPOLY_REG_BYTES
+    if states * pow2 * (8 if dtype == torch.float64 else 4) <= budget and pow2 <= _REG_C_MAX[states]:
         C, placement = pow2, "registers"
     return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
 
@@ -533,14 +544,16 @@ def pairhmm_fwd_homopoly(xs, ys, xlens, ylens, params, emit, semiglobal: bool):
     )
     if dev.type == "cpu":
         return pairhmm_fwd_homopoly_plain(xs, ys, xlens, ylens, params, emit, semiglobal)
-    f64 = params.dtype == torch.float64
     out = torch.empty(B, dtype=params.dtype, device=dev)
     if B:
-        scratch = _scratch(14, 8 if f64 else 4, B, N, params.dtype, dev)
+        C, warps, placement = pairhmm_log_geometry(N, B, params.dtype, _sm_count(dev), HOMOPOLY_STATES)
+        scratch = None
+        if placement == "scratch":
+            scratch = torch.empty((B, HOMOPOLY_STATES, C, 32), dtype=params.dtype, device=dev)
         PAIRHMM_FWD_HOMOPOLY.launch(
             dev, xs.data_ptr(), ys.data_ptr(), xlens.data_ptr(), ylens.data_ptr(),
-            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)), int(f64),
-            out.data_ptr(), _ptr(scratch),
+            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)),
+            int(params.dtype == torch.float64), C, warps, out.data_ptr(), _ptr(scratch),
         )
     return out
 

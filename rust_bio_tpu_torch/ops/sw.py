@@ -15,12 +15,11 @@ warp a pair over a column's band rows, with a pair-major tb),
 Each takes constant match/mismatch scores. Its ``*_lut`` twin takes a
 (256, 256) int32 substitution LUT in their place and gives the same
 outputs: K11 ``scan_global_lut``, K18 ``scores_global_lut``, K7-LUT
-``scan_local_lut`` and K12 ``scan_semiglobal_lut`` (K1, K3, K7 and K5 fed
-by the LUT, one warp a pair over row stripes, K11's, K7-LUT's and K12's
-with a pair-major tb, ``csrc/sw_warp.cu``), ``scan_custom_lut`` (K9 fed by
-the LUT),
-``scan_global_rows_lut`` (K13 fed by the LUT) and ``scan_columns_lut``
-(K15-LUT). The
+``scan_local_lut``, K9-LUT ``scan_custom_lut`` and K12
+``scan_semiglobal_lut`` (K1, K3, K7, K9 and K5 fed by the LUT, one warp a
+pair over row stripes, all but K18 with a pair-major tb,
+``csrc/sw_warp.cu``), ``scan_global_rows_lut`` (K13 fed by the LUT) and
+``scan_columns_lut`` (K15-LUT). The
 kernels read ``lut[x, y]`` per cell; the Match/Subst traceback bit is byte
 equality (``x == y``) whatever the LUT says.
 
@@ -33,7 +32,9 @@ They replace ``rust_bio_tpu/ops/sw_pallas.py`` ``scan_global_pallas_mp``,
 the XLA engine
 ``batched._align_batch_device``). The plain versions
 below follow the Pallas kernels' column formulation (rows vectorized, the
-insertion recurrence as a (max,+) prefix scan), one column core per kernel
+insertion recurrence as a (max,+) prefix scan, in wrapping int32 like every
+sum: the CUDA kernels carry the same prefix maximum, so they agree where a
+sum passes 2^31 too), one column core per kernel
 fed column by column with (substitution scores, equality bits): from the
 bytes for constant scores, and, for a LUT, by a gather per column on the
 wrappers' CPU path, or, in the ``*_lut_plain`` versions that the tests
@@ -43,7 +44,7 @@ or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
 one thread a pair, except K13 and K15, where one block sweeps a pair's
 columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K18, K7-LUT and K12, where one warp does
+``columns_geometry``), K11, K18, K7-LUT, K9-LUT and K12, where one warp does
 (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
@@ -102,7 +103,7 @@ SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [P
 SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
 SCORES_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scores_global_lut", [PTR] * 4 + [INT] * 5 + [PTR] * 3)
 SCAN_SEMIGLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_semiglobal_lut", [PTR] * 4 + [INT] * 6 + [PTR, INT, INT] + [PTR] * 7)
-SCAN_CUSTOM_LUT = CudaKernel("sw_custom", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
+SCAN_CUSTOM_LUT = CudaKernel("sw_warp", "sw_scan_custom_lut", [PTR] * 4 + [INT] * 6 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_LOCAL_LUT = CudaKernel("sw_warp", "sw_scan_local_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 9 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 7 + [PTR] * 4)
@@ -146,11 +147,11 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9727
-# K11's, K18's, K7-LUT's and K12's launch (csrc/sw_warp.cu): one warp a
+# K11's, K18's, K7-LUT's, K9-LUT's and K12's launch (csrc/sw_warp.cu): one warp a
 # pair, 4 pairs a block; lane t over a stripe of R rows, R a multiple of 8
 # (a lane stores 8 cells at once) with 32 * R >= M + 1; the x bytes of a
 # warp's stripes in its slice of shared memory, beside its row state (three
-# int32 layers a row for K11, two for K18, five for K7-LUT and K12) while
+# int32 layers a row for K11, two for K18, five for K7-LUT, K9-LUT and K12) while
 # that slice stays within WARP_SHARED_MAX bytes (two blocks an SM at least),
 # else the state in a (B, layers, R, 32) device scratch
 _WARP_LANES = 32
@@ -257,7 +258,7 @@ def rows_geometry(M: int) -> Tuple[int, int, str, int]:
 
 
 def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
-    """K11's (``layers`` 3), K18's (2) or K7-LUT's and K12's (5) launch at x
+    """K11's (``layers`` 3), K18's (2) or K7-LUT's, K9-LUT's and K12's (5) launch at x
     length ``M``, as csrc/sw_warp.cu computes it: (R rows a lane, where the
     row state lives: ``"shared"`` or ``"scratch"``, dynamic shared bytes a
     warp). Lane t owns rows [t * R, t * R + R); R is a multiple of 8. The
@@ -309,7 +310,7 @@ def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT / K12, Xp =
+    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT / K9-LUT / K12, Xp =
     M + 1 rounded up to a multiple of 8."""
     return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
@@ -526,7 +527,10 @@ def scan_custom(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
 
 def scan_custom_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
                     xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
-    """K9 with the substitution score ``lut[x, y]``; same outputs."""
+    """K9-LUT: K9 with the substitution score ``lut[x, y]``; same outputs.
+    On the card ``tb`` is the (N+1, M+1, B) view of a pair-major (B, N+1,
+    Xp) tensor, as K7-LUT's, which ``ops.walk.sweep_walk_custom`` reads in
+    place."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
     return _scan_clip(SCAN_CUSTOM_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, clips, traceback)
 
@@ -846,16 +850,16 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
     runs = kernel not in (SCAN_COLUMNS, SCAN_COLUMNS_LUT)
     if dev.type == "cpu":
         feed = _plain_feed(xb, yb, subst)
-        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, local, traceback, runs)
+        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, traceback, runs)
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
-    if kernel is SCAN_LOCAL_LUT:
+    if kernel in (SCAN_LOCAL_LUT, SCAN_CUSTOM_LUT):
         tb = _pair_major(B, N + 1, M, dev) if traceback else None
         if B:
             scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
             kernel.launch(
                 dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
-                0 if tb is None else tb.shape[2], go, ge, *sub, _ptr(tb), _ptr(lx),
+                0 if tb is None else tb.shape[2], go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),
                 *(f.data_ptr() for f in finals), _ptr(scratch),
             )
         return (tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, lx, *finals)
@@ -898,6 +902,12 @@ def _ins_run_nib(i_bits: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
         if k < z.shape[0]:
             z = torch.maximum(z, _shift_down(z, NEG, k))
     return torch.where(is_ins, torch.clamp(rows - z, max=15), 0) << 12
+
+
+def _wrapping(dev, *penalties):
+    """The penalties as 0-dim int32 tensors: their sums and products wrap in
+    int32, as in the kernels (Python ints would grow, or fail to convert)."""
+    return tuple(torch.as_tensor(v, dtype=torch.int32, device=dev) for v in penalties)
 
 
 def _mp_feed(xb, yb, ma, mi):
@@ -983,10 +993,11 @@ def _scan_global_core(feed, M, N, mlens, nlens, go, ge, rb=None):
     at every row ``r * rb`` (r >= 1) the open candidate points at
     ``TB_REREAD`` where K1 copies the s-bits of the cell above (the
     extend-vs-open decision ``i_ext > T`` is the one K13 carries across the
-    seam)."""
+    seam); and K13's insertion chain (``_block_prefix``)."""
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
+    go, ge = _wrapping(dev, go, ge)
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
     rge = rows * ge
@@ -1017,7 +1028,7 @@ def _scan_global_core(feed, M, N, mlens, nlens, go, ge, rb=None):
 
         # I via (max,+) prefix scan; T is also the open candidate
         T = torch.cat([neg_row, s_tilde[:-1] + go])
-        best_i = torch.cummax(T - rge, dim=0).values + rge
+        best_i = _block_prefix(T, ge, rb) if rb else torch.cummax(T - rge, dim=0).values + rge
         i_ext = torch.cat([neg_row, best_i[:-1] + ge])
 
         # S selection, priority Match/Subst > Ins > Del (strict >)
@@ -1048,6 +1059,29 @@ def _scan_global_core(feed, M, N, mlens, nlens, go, ge, rb=None):
     return score, tb, TBK.t().contiguous()
 
 
+def _block_prefix(T, ge, rb):
+    """K13's insertion scores from the open candidates T (M+1, B), as the
+    JAX block-row kernel (sw_pallas.py ``_kernel_scan_global_rows_mp``)
+    computes them: in each block of ``rb`` rows a prefix maximum of
+    T[k] - k * ge over the block's rows k >= 1 (k counted from the block's
+    first row), seeded by the block's first row and floored at NEG (its
+    scan's fill), plus k * ge; the seed is NEG in the first block, else the
+    carried I = max(I[i-1] + ge, T[i]) of the seam row i. Equal to K1's
+    prefix maximum while no sum wraps int32."""
+    X, B = T.shape
+    nb = -(-X // rb)
+    local = torch.arange(nb * rb, dtype=torch.int32, device=T.device).view(nb, rb, 1) % rb
+    lge = local * ge
+    U = torch.cat([T, torch.full((nb * rb - X, B), NEG, dtype=T.dtype, device=T.device)]).view(nb, rb, B)
+    Q = torch.cummax(torch.where(local == 0, NEG, U - lge), dim=1).values
+    seeds = [torch.full((B,), NEG, dtype=T.dtype, device=T.device)]
+    for r in range(1, nb):
+        i_prev = torch.maximum(seeds[-1], Q[r - 1, rb - 1]) + lge[0, rb - 1]
+        seeds.append(torch.clamp(torch.maximum(i_prev + ge, U[r, 0]), min=NEG))
+    P = torch.maximum(torch.stack(seeds)[:, None, :], Q)
+    return (P + lge).view(nb * rb, B)[:X]
+
+
 def scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi):
     """Plain version of K3 (sw_pallas.py ``_kernel_mp``)."""
     return _scores_global_core(_mp_feed(xb, yb, ma, mi), xb.shape[1], yb.shape[1], mlens, nlens, go, ge)
@@ -1064,6 +1098,7 @@ def _scores_global_core(feed, M, N, mlens, nlens, go, ge):
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
+    go, ge = _wrapping(dev, go, ge)
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]
     row0 = rows == 0
     rge = rows * ge
@@ -1103,6 +1138,7 @@ def _scan_semiglobal_core(feed, M, N, mlens, nlens, go, ge, ycp, ycs):
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
+    go, ge, ycp, ycs = _wrapping(dev, go, ge, ycp, ycs)
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
     rge = rows * ge
@@ -1192,27 +1228,28 @@ def _scan_semiglobal_core(feed, M, N, mlens, nlens, go, ge, ycp, ycs):
 def scan_custom_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, traceback=True):
     """Plain version of K9 (sw_pallas.py ``_kernel_scan_custom_mp``)."""
     feed = _mp_feed(xb, yb, ma, mi)
-    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback)
+    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback)
 
 
 def scan_local_plain(xb, yb, mlens, nlens, go, ge, ma, mi, traceback=True):
-    """Plain version of K7: the K9 recurrence at clips 0 with the terms
-    clip 0 makes dead left out (the y-prefix clip, the x-prefix clip score
-    0), as the kernel leaves them out."""
+    """Plain version of K7: the K9 recurrence at clips 0. The terms that
+    clip 0 leaves dead while no sum wraps (the y-prefix clip, the x-prefix
+    clip's gap) stay in: where a gap sum wraps int32 they are live, as in
+    the Pallas custom kernel (the Pallas local kernel drops them)."""
     feed = _mp_feed(xb, yb, ma, mi)
-    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, 0, 0, 0, 0, True, traceback)
+    return _scan_clip_core(feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, 0, 0, 0, 0, traceback)
 
 
 def scan_custom_lut_plain(subs2, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback=True):
     """Plain version of K9 fed by the LUT, on its (N, M, B) stream."""
     N, M, _ = subs2.shape
-    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback)
+    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback)
 
 
 def scan_local_lut_plain(subs2, mlens, nlens, go, ge, traceback=True):
     """Plain version of K7 fed by the LUT, on its (N, M, B) stream."""
     N, M, _ = subs2.shape
-    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, 0, 0, 0, 0, True, traceback)
+    return _scan_clip_core(_stream_feed(subs2), M, N, mlens, nlens, go, ge, 0, 0, 0, 0, traceback)
 
 
 def scan_columns_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs, traceback=True):
@@ -1220,7 +1257,7 @@ def scan_columns_plain(xb, yb, mlens, nlens, go, ge, ma, mi, xcp, xcs, ycp, ycs,
     column core without the run nibble."""
     feed = _mp_feed(xb, yb, ma, mi)
     return _scan_clip_core(
-        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback, False
+        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback, False
     )
 
 
@@ -1230,21 +1267,21 @@ def scan_columns_lut_plain(xb, yb, mlens, nlens, go, ge, lut, xcp, xcs, ycp, ycs
     stream of ``subs2_stream_plain`` would not fit at long x)."""
     feed = _plain_feed(xb, yb, lut)
     return _scan_clip_core(
-        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, False, traceback, False
+        feed, xb.shape[1], yb.shape[1], mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback, False
     )
 
 
-def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local, traceback, runs=True):
-    """K9's column core (K7's with ``local``); ``runs`` False drops the run
-    nibble (K15). The final I of a lane with nlens = 0 is column 0's I0, as
-    the reference's column 0 holds it (rows >= 1)."""
+def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, traceback, runs=True):
+    """K9's column core (K7's at clips 0); ``runs`` False gives K15's: no
+    run nibble, and S chosen from MIN_SCORE (Xclip-suffix bits) up, as the
+    JAX column body (batched.py ``_column_body``) chooses it, where K9 starts
+    from the substitution candidate (the two differ only where every
+    candidate wrapped below MIN_SCORE). The final I of a lane with nlens = 0
+    is column 0's I0, as the reference's column 0 holds it (rows >= 1)."""
     B = mlens.shape[0]
     dev = mlens.device
     i32 = torch.int32
-    # 0-dim int32 penalties: sums of clips wrap in int32, as in the kernels
-    go, ge, xcp, xcs, ycp, ycs = (
-        torch.tensor(v, dtype=i32, device=dev) for v in (go, ge, xcp, xcs, ycp, ycs)
-    )
+    go, ge, xcp, xcs, ycp, ycs = _wrapping(dev, go, ge, xcp, xcs, ycp, ycs)
     rows = torch.arange(M + 1, dtype=i32, device=dev)[:, None]  # (M+1, 1)
     row0 = rows == 0
     row_ge1 = rows >= 1
@@ -1337,21 +1374,19 @@ def _scan_clip_core(feed, M, N, mlens, nlens, go, ge, xcp, xcs, ycp, ycs, local,
         best_d = torch.where(row0, dj0, best_d)
         d_bits = torch.where(row0, db0, d_bits)
 
-        # the column's x-prefix clip score (0 at clips 0)
-        xclip = torch.zeros_like(go) if local else xcp + torch.maximum(ycp, d_gap)
-        s_tilde = torch.maximum(torch.maximum(m_val, best_d), xclip)
-        if not local:
-            s_tilde = torch.maximum(s_tilde, yclip_row)
+        # the column's x-prefix clip score
+        xclip = xcp + torch.maximum(ycp, d_gap)
+        s_tilde = torch.maximum(torch.maximum(torch.maximum(m_val, best_d), xclip), yclip_row)
         s_tilde = torch.where(row0, s0j, s_tilde)
         T = torch.cat([neg_row, s_tilde[:-1] + go])
         best_i = torch.cummax(T - rge, dim=0).values + rge
         i_ext = torch.cat([neg_row, best_i[:-1] + ge])
 
         # priority Match/Subst > Ins > Del > Xclip-prefix > Yclip-prefix
-        cands = [(best_i, TB_INS), (best_d, TB_DEL), (xclip, TB_XCLIP_PREFIX)]
-        if not local:  # at clips 0, S >= 0 here and the y-prefix clip <= 0
-            cands.append((yclip_row, TB_YCLIP_PREFIX))
+        cands = [(best_i, TB_INS), (best_d, TB_DEL), (xclip, TB_XCLIP_PREFIX), (yclip_row, TB_YCLIP_PREFIX)]
         s_col, s_bits = m_val, m_bits
+        if not runs:
+            s_col, s_bits = take(torch.full_like(m_val, MIN_SCORE), torch.full_like(m_bits, TB_XCLIP_SUFFIX), m_val, m_bits)
         for cand, cbits in cands:
             s_col, s_bits = take(s_col, s_bits, cand, cbits)
         s_col = torch.where(row0, s0j, s_col)

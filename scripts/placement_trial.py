@@ -11,7 +11,11 @@ setting the module budgets their wrappers read:
   the same with y cut to its first 256 bases (eight columns a lane), and
   its 4096 bench pairs (N = 54), its state where the geometry puts it
   (registers up to ``LOG_REG_BYTES`` a lane, else the device scratch) and
-  in the device scratch (``LOG_REG_BYTES`` 0).
+  in the device scratch (``LOG_REG_BYTES`` 0);
+- K17-homopoly (``pairhmm.pairhmm_fwd_homopoly``) on phase 3g's 2048
+  homopoly pairs (N = 54, C = 2), float32 and float64, semiglobal, in
+  registers (``HOMOPOLY_REG_BYTES`` at 14 * 2 * 8 bytes, so float64 too)
+  and in the device scratch (``HOMOPOLY_REG_BYTES`` 0).
 
     python3 scripts/placement_trial.py [--root DIR] [--reps N] [--seed S]
 
@@ -64,7 +68,7 @@ def main() -> int:
     from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
     from rust_bio_tpu_torch.ops import pairhmm, sw
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix
-    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM
+    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM
 
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"placement_trial: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
@@ -100,7 +104,7 @@ def main() -> int:
     sw.SCORE_WARP_SHARED_MAX = default_budget
 
     # K17-log
-    (hbx, hby), _, (gx, gy, gxl, gyl, _) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
+    (hbx, hby), (hox, hoy), (gx, gy, gxl, gyl, _) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
     k = cs.B_GATK_SWAP
     neg_inf = float("-inf")
     gatk = (math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_CONT), math.log(cs.GATK_GAP_CONT))
@@ -130,6 +134,26 @@ def main() -> int:
                     geometry=list(pairhmm.pairhmm_log_geometry(N, B, dtype, sms)),
                     ms=cs.cuda_ms(torch, fn, args.reps, warm=False), checksum=checksum(torch, out),
                 )
+    # K17-homopoly
+    if hasattr(pairhmm, "HOMOPOLY_REG_BYTES"):
+        a = tens(hox, hoy, full(hox), full(hoy))
+        B, N = a[1].shape
+        hops = (math.log(cs.HOP), math.log(cs.HOP), math.log(cs.HOP_EXTEND), math.log(cs.HOP_EXTEND))
+        homopoly_bytes = pairhmm.HOMOPOLY_REG_BYTES
+        for dtype in (torch.float32, torch.float64):
+            params = BatchHomopolyPairHMM(*bench, *hops, dtype=dtype, device=dev)._params
+            e = torch.from_numpy(cs.hmm_emit(cs.HMM_SUBST, 4)).to(dtype).to(dev)
+            for place, rbytes in (("registers", pairhmm.HOMOPOLY_STATES * 2 * 8), ("scratch", 0)):
+                pairhmm.HOMOPOLY_REG_BYTES = rbytes
+                fn = lambda a=a, params=params, e=e: pairhmm.pairhmm_fwd_homopoly(*a, params, e, True)  # noqa: E731
+                out = fn()
+                torch.cuda.synchronize()
+                line(
+                    kernel="pairhmm_fwd_homopoly", input="homopoly", dtype=str(dtype).split(".")[1], placement=place,
+                    geometry=list(pairhmm.pairhmm_log_geometry(N, B, dtype, sms, pairhmm.HOMOPOLY_STATES)),
+                    ms=cs.cuda_ms(torch, fn, args.reps, warm=False), checksum=checksum(torch, out),
+                )
+        pairhmm.HOMOPOLY_REG_BYTES = homopoly_bytes
     pairhmm.LOG_REG_BYTES = reg_bytes
     return 0
 

@@ -2,9 +2,10 @@
 """Time K11 (``sw.scan_global_lut``) and K7-LUT (``sw.scan_local_lut``) on one
 NVIDIA GPU, on the homolog corpus of chip_smoke.py phase 3c: 8192 protein
 pairs, x of 250-450 residues, y x at 30% substitutions and 3%
-single-residue indels, and K12 (``sw.scan_semiglobal_lut``, y-clips 0) on
-its domain corpus: 8192 domains of 80-200 residues at 20% substitutions in
-proteins of 250-450, all under BLOSUM62 with gap costs (-11, -1); K18
+single-residue indels, and K12 (``sw.scan_semiglobal_lut``, y-clips 0) and
+K9-LUT (``sw.scan_custom_lut``, the domain's clips) on its domain corpus:
+8192 domains of 80-200 residues at 20% substitutions in proteins of
+250-450, all under BLOSUM62 with gap costs (-11, -1); K18
 (``sw.scores_global_lut``) on the homolog corpus and on phase 3d's 64 long
 protein pairs (4,200-5,000 residues, 30% substitutions, 3% indels).
 
@@ -16,8 +17,9 @@ in one call; the inputs come from this checkout's chip_smoke.py generator
 either way. For each kernel it prints one JSON line: the median of ``--reps``
 CUDA-event-timed launches after one warm-up, with traceback and, where the
 timed tree's wrapper takes ``traceback=False``, without it
-(``scores_only_ms``, else null); the rows a lane where the tree has
-``warp_geometry`` (for K18, where it has K18's shared budget); a checksum
+(``scores_only_ms``, else null); the source the tree builds it from, and
+the rows a lane where that is ``sw_warp`` (for K18, where the tree has
+K18's shared budget); a checksum
 of the outputs the kernel defines (the score
 or the finals, and the tb cells read as ``tb[j, i, b]`` whatever the tb's
 layout; equal checksums from two trees: equal outputs); and the card's name
@@ -26,7 +28,9 @@ the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
 contiguous tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA
 pairs, and of K6, which reads K12's, on K5's contiguous tb of the same
 pairs, and K3 (``sw.scores_global``) on those pairs, as chip_smoke.py
-phase 2 times it (10 x ``--reps`` launches, a checksum of their outputs).
+phase 2 times it (10 x ``--reps`` launches, a checksum of their outputs);
+then K1, K5 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties
+and clips) on the same pairs, with checksums as the protein scans'.
 Exits non-zero without a CUDA device.
 """
 
@@ -91,11 +95,14 @@ def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
     lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
     card = chip_smoke.nvidia_smi_line()
     pens = (chip_smoke.PROT_GO, chip_smoke.PROT_GE, lut)
+    dclips = (chip_smoke.DOMAIN_XCLIP, chip_smoke.DOMAIN_XCLIP, chip_smoke.DOMAIN_YCLIP, chip_smoke.DOMAIN_YCLIP)
     cases = (
         ("sw_scan_global_lut", sw.scan_global_lut, hom, (), 1, (3, lambda out: [out[1], out[0], out[2]])),
-        ("sw_scan_local_lut", sw.scan_local_lut, hom, (), 0, (5, lambda out: [out[0], out[1], *out[2:]])),
+        ("sw_scan_local_lut", sw.scan_local_lut, hom, (), 0, (5, list)),
         ("sw_scan_semiglobal_lut", sw.scan_semiglobal_lut, dom, (0, 0), 1, (5, list)),
+        ("sw_scan_custom_lut", sw.scan_custom_lut, dom, dclips, 0, (5, list)),
     )
+    kernels = {k.symbol: k for k in vars(sw).values() if isinstance(k, type(sw.SCAN_GLOBAL_LUT))}
     for name, fn, a, clips, first_col, (layers, order) in cases:
         scan = lambda fn=fn, a=a, clips=clips, **kw: fn(*a, *pens, *clips, **kw)  # noqa: E731
         out = scan()
@@ -106,9 +113,10 @@ def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
         score_only = "traceback" in inspect.signature(fn).parameters
         only = chip_smoke.cuda_ms(torch, lambda: scan(traceback=False), reps) if score_only else None
         M = int(a[0].shape[1])
-        rows = {"stripe_rows": sw.warp_geometry(M, layers)[0]} if hasattr(sw, "warp_geometry") else {}
+        source = kernels[name].source
+        rows = {"stripe_rows": sw.warp_geometry(M, layers)[0]} if source == "sw_warp" else {}
         print(json.dumps({
-            "kernel": name, **fields, "pairs": int(a[0].shape[0]), "M": M, "N": int(a[1].shape[1]), **rows,
+            "kernel": name, **fields, "source": source, "pairs": int(a[0].shape[0]), "M": M, "N": int(a[1].shape[1]), **rows,
             "reps": reps, "ms": ms, "scores_only_ms": only, "checksum": total, "card": card,
         }), flush=True)
 
@@ -184,6 +192,23 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
             "kernel": name, **fields, "input": "150 bp DNA" + ("" if fn is k3 else ", contiguous tb"), "pairs": B,
             "reps": reps,
             "ms": chip_smoke.cuda_ms(torch, fn, reps), "checksum": total, "card": card,
+        }), flush=True)
+    cpens = chip_smoke.CUSTOM_PENS
+    cclips = (chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_YCLIP, chip_smoke.CUSTOM_YCLIP)
+    for name, fn, first_col in (
+        ("sw_scan_global", lambda: sw.scan_global(*a, *pens), 1),
+        ("sw_scan_semiglobal", lambda: sw.scan_semiglobal(*a, *pens, 0, 0), 1),
+        ("sw_scan_local", lambda: sw.scan_local(*a, *pens), 0),
+        ("sw_scan_custom", lambda: sw.scan_custom(*a, *cpens, *cclips), 0),
+    ):
+        out = fn()
+        torch.cuda.synchronize()
+        outs = [out[1], out[0], out[2]] if name == "sw_scan_global" else list(out)
+        total = checksum(torch, outs, a[2], a[3], first_col)
+        del out, outs
+        print(json.dumps({
+            "kernel": name, **fields, "input": "150 bp DNA", "pairs": B, "reps": reps // 10,
+            "ms": chip_smoke.cuda_ms(torch, fn, max(1, reps // 10)), "checksum": total, "card": card,
         }), flush=True)
 
 

@@ -5,7 +5,11 @@ pairs with the 150 bp read as x and the 300-500 bp haplotype as y
 (HaplotypeCaller's gap open phred 45, continuation phred 10, shared Q30
 emissions), semiglobal, in float32 and float64; and the 4096 bench pairs
 (x a 207 bp haplotype, y a 54 bp read, benches/pairhmm.rs:9-19), semiglobal,
-and 256 of them global, in float32.
+and 256 of them global, in float32; and K17-homopoly
+(``pairhmm.pairhmm_fwd_homopoly``) on phase 3g's 2048 homopoly pairs (the
+bench pairs' first 2048 haplotypes and their exact read substrings, hop
+open 1e-4, extension 0.5), semiglobal (the main path's) and global, in
+float32 and float64.
 
     python3 scripts/time_pairhmm.py [--root DIR] [--reps N] [--seed S]
 
@@ -59,45 +63,55 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import rust_bio_tpu_torch
     from rust_bio_tpu_torch.ops import pairhmm
-    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMM
+    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM
 
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_pairhmm: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = cs.nvidia_smi_line()
-    (hbx, hby), _, (gx, gy, gxl, gyl, _) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
+    (hbx, hby), (hox, hoy), (gx, gy, gxl, gyl, _) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
     neg_inf = float("-inf")
     bench_gaps = (math.log(cs.HMM_INS), math.log(cs.HMM_DEL), neg_inf, neg_inf)
     gatk_gaps = (math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_CONT), math.log(cs.GATK_GAP_CONT))
     bench_emit, gatk_emit = cs.hmm_emit(cs.HMM_SUBST), cs.hmm_emit(10.0 ** (-cs.GATK_Q / 10.0))
+    hops = (math.log(cs.HOP), math.log(cs.HOP), math.log(cs.HOP_EXTEND), math.log(cs.HOP_EXTEND))
     sx, sy, sxl, syl = gy[: cs.B_GATK_SWAP], gx[: cs.B_GATK_SWAP], gyl[: cs.B_GATK_SWAP], gxl[: cs.B_GATK_SWAP]
 
     def tens(*arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
 
     full = lambda xs_: np.full(len(xs_), xs_.shape[1], np.int32)  # noqa: E731
+    homo = (hox, hoy, full(hox), full(hoy))
     cases = (
-        ("gatk_read_as_x", (sx, sy, sxl, syl), gatk_gaps, gatk_emit, torch.float32, True),
-        ("gatk_read_as_x", (sx, sy, sxl, syl), gatk_gaps, gatk_emit, torch.float64, True),
-        ("bench", (hbx, hby, full(hbx), full(hby)), bench_gaps, bench_emit, torch.float32, True),
-        ("bench_global", (hbx[: cs.B_HMM_GLOBAL], hby[: cs.B_HMM_GLOBAL], full(hbx[: cs.B_HMM_GLOBAL]),
-                          full(hby[: cs.B_HMM_GLOBAL])), bench_gaps, bench_emit, torch.float32, False),
+        ("pairhmm_fwd_log", "gatk_read_as_x", (sx, sy, sxl, syl), gatk_gaps, gatk_emit, torch.float32, True),
+        ("pairhmm_fwd_log", "gatk_read_as_x", (sx, sy, sxl, syl), gatk_gaps, gatk_emit, torch.float64, True),
+        ("pairhmm_fwd_log", "bench", (hbx, hby, full(hbx), full(hby)), bench_gaps, bench_emit, torch.float32, True),
+        ("pairhmm_fwd_log", "bench_global", (hbx[: cs.B_HMM_GLOBAL], hby[: cs.B_HMM_GLOBAL], full(hbx[: cs.B_HMM_GLOBAL]),
+                                             full(hby[: cs.B_HMM_GLOBAL])), bench_gaps, bench_emit, torch.float32, False),
+        *(("pairhmm_fwd_homopoly", "homopoly", homo, bench_gaps, cs.hmm_emit(cs.HMM_SUBST, 4), dtype, semi)
+          for dtype in (torch.float32, torch.float64) for semi in (True, False)),
     )
-    for name, arrays, gaps, emit, dtype, semi in cases:
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for kernel, name, arrays, gaps, emit, dtype, semi in cases:
         a = tens(*arrays)
-        params = BatchPairHMM(*gaps, dtype=dtype, device=dev)._log_params
         e = torch.from_numpy(emit).to(dtype).to(dev)
-        fn = lambda a=a, params=params, e=e, semi=semi: pairhmm.pairhmm_fwd_log(*a, params, e, semi)  # noqa: E731
+        if kernel == "pairhmm_fwd_log":
+            params = BatchPairHMM(*gaps, dtype=dtype, device=dev)._log_params
+            fwd, states = pairhmm.pairhmm_fwd_log, 3
+        else:
+            params = BatchHomopolyPairHMM(*gaps, *hops, dtype=dtype, device=dev)._params
+            fwd, states = pairhmm.pairhmm_fwd_homopoly, getattr(pairhmm, "HOMOPOLY_STATES", None)
+        fn = lambda a=a, params=params, e=e, semi=semi, fwd=fwd: fwd(*a, params, e, semi)  # noqa: E731
         out = fn()
         torch.cuda.synchronize()
         B, N = a[1].shape
-        geometry = (
-            {"geometry": list(pairhmm.pairhmm_log_geometry(N, B, dtype, torch.cuda.get_device_properties(dev).multi_processor_count))}
-            if hasattr(pairhmm, "pairhmm_log_geometry") else {}
-        )
+        geometry = {}
+        if hasattr(pairhmm, "pairhmm_log_geometry") and states is not None:
+            geo = pairhmm.pairhmm_log_geometry(N, B, dtype, sms) if states == 3 else pairhmm.pairhmm_log_geometry(N, B, dtype, sms, states)
+            geometry = {"geometry": list(geo)}
         print(json.dumps({
-            "kernel": "pairhmm_fwd_log", "input": name, "dtype": str(dtype).split(".")[1], "semiglobal": semi,
+            "kernel": kernel, "input": name, "dtype": str(dtype).split(".")[1], "semiglobal": semi,
             "root": str(root), "pairs": B, "M": int(a[0].shape[1]), "N": N,
             "cells": int((arrays[2].astype(np.int64) * arrays[3]).sum()), **geometry, "reps": args.reps,
             "ms": cs.cuda_ms(torch, fn, args.reps, warm=False), "checksum": checksum(torch, out), "card": card,

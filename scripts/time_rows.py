@@ -3,7 +3,9 @@
 on one NVIDIA GPU, on the inputs of chip_smoke.py phase 3d: 128 STR pairs
 (4.6-5.6 kb, y at 5% substitutions and 0.5% indels) under (-5, -1, 2, -2),
 and 64 long proteins (4.2-5.0 k residues, homologs at 30% substitutions and
-3% indels) under BLOSUM62 with gap costs (-11, -1).
+3% indels) under BLOSUM62 with gap costs (-11, -1); and K3
+(``sw.scores_global``, one thread a pair) on the STR pairs, the launch of
+phase 3d's ``scores(..., "global")``.
 
     python3 scripts/time_rows.py [--root DIR] [--reps N] [--seed S]
 
@@ -91,6 +93,15 @@ def time_scans(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
             "kernel": name, **fields, "pairs": int(a[0].shape[0]), "M": M, "N": int(a[1].shape[1]), **geometry,
             "reps": reps, "ms": ms, "scores_only_ms": only, "checksum": total, "card": card,
         }), flush=True)
+    k3 = lambda: sw.scores_global(*sargs, *pens)  # noqa: E731
+    score = k3()
+    torch.cuda.synchronize()
+    w = torch.arange(1, score.numel() + 1, device=score.device)
+    print(json.dumps({
+        "kernel": "sw_scores_global", **fields, "pairs": int(sargs[0].shape[0]), "M": int(sargs[0].shape[1]),
+        "N": int(sargs[1].shape[1]), "reps": reps, "ms": chip_smoke.cuda_ms(torch, k3, reps, warm=False),
+        "checksum": [int(score.to(torch.int64).sum()), int((score.to(torch.int64) * w).sum())], "card": card,
+    }), flush=True)
 
 
 def main() -> int:

@@ -9,6 +9,8 @@ JAX, so they run on a machine that has only the port's requirements:
 compared exactly.
 """
 
+import functools
+import itertools
 import math
 
 import numpy as np
@@ -26,6 +28,7 @@ from rust_bio_tpu_torch.pipelines import ReadMapper
 pytestmark = pytest.mark.cuda
 
 PENS = [(-5, -1), (-2, -2), (-1, -1)]
+MIN = -858_993_459  # MIN_SCORE: a clip switched off
 
 
 @pytest.fixture
@@ -208,7 +211,6 @@ def test_read_mapper_on_card_matches_cpu(cuda_device):
 
 # ---- local and custom: K7, K9 (scans), K8, K10 (walks) ----
 
-MIN = -858_993_459  # MIN_SCORE: a clip switched off
 
 
 def _clip_pens(rng):
@@ -432,6 +434,109 @@ def test_k18_on_large_tables_matches_plain(cuda_device, monkeypatch, M, N, B, pl
             assert torch.equal(got, sw.scores_global_lut_plain(sw.subs_tensor_plain(args[0], args[1], lut), args[2], args[3], go, ge))
 
 
+# ---- the insertion chain where int32 wraps: every DP scan ----
+
+W24 = 2**24  # at 150 rows, 150 * W24 passes 2^31
+# MatchParams kernels: (go, ge, match, mismatch) whose sums pass 2^31 at
+# M = 150, and clip sets whose sums with the gap costs wrap
+WRAP_MP = [(-W24, -W24, 2 * W24, -2 * W24), (-(2**30), -(2**29), 2**30, -(2**30))]
+WRAP_CLIPS = [(MIN, MIN, 0, 0), (-4 * W24, -W24, -2 * W24, -8 * W24), (-(2**30) - 2**28, -(2**29), MIN, -(2**30))]
+# LUT kernels: K18's large-table inputs (a random table inside +-2^23 and
+# BLOSUM62 at gap costs (-11, -1), (0, 0), (-2^22, -2^21)) and BLOSUM62 at
+# (-2^26, -2^25)
+WRAP_LUT_GAPS = [(-11, -1), (0, 0), (-(2**22), -(2**21))]
+
+
+def _wrap_cases(kernel, dev):
+    """(call, plain call, kind) triples of one kernel at inputs where int32
+    wraps, with mlens = 0 and nlens = 0 lanes (``_pairs`` / ``_protein_pairs``
+    lanes 1 and 2)."""
+    P = functools.partial
+    rng = np.random.default_rng(91)
+    cases = []
+    if kernel in ("K1", "K3", "K5", "K7", "K9", "K13", "K15"):
+        args, ml, nl = _pairs(rng, 48, 150, 166, dev)
+        for k in range(4, 48, 2):  # long diagonals: S grows by the match score
+            n = int(min(ml[k], nl[k]))
+            args[0][k, :n] = args[1][k, :n]
+        for go, ge, ma, mi in WRAP_MP:
+            pens = (*args, go, ge, ma, mi)
+            if kernel == "K1":
+                cases.append((P(sw.scan_global, *pens), P(sw.scan_global_plain, *pens), "global"))
+            elif kernel == "K3":
+                cases.append((P(sw.scores_global, *pens), P(sw.scores_global_plain, *pens), "score"))
+            elif kernel == "K5":
+                for yc in ((0, 0), (-W24, -3 * W24)):
+                    cases.append((P(sw.scan_semiglobal, *pens, *yc), P(sw.scan_semiglobal_plain, *pens, *yc), "semi"))
+            elif kernel == "K7":
+                cases.append((P(sw.scan_local, *pens), P(sw.scan_local_plain, *pens), "clip"))
+            elif kernel == "K13":
+                cases.append((P(sw.scan_global_rows, *pens, rb=32), P(sw.scan_global_rows_plain, *pens, rb=32), "rows"))
+            else:
+                scan, plain = (sw.scan_custom, sw.scan_custom_plain) if kernel == "K9" else (sw.scan_columns, sw.scan_columns_plain)
+                for clips in WRAP_CLIPS:
+                    cases.append((P(scan, *pens, *clips), P(plain, *pens, *clips), "clip"))
+        return cases, ml, nl
+    args, ml, nl = _protein_pairs(rng, 24, 300, 310, dev, alphabet=bytes(range(256)))
+    big = torch.from_numpy(np.random.default_rng(9).integers(-(2**23), 2**23, size=(256, 256)).astype(np.int32)).to(dev)
+    blosum = _lut("blosum62", dev)
+    for lut, (go, ge) in [(big, g) for g in WRAP_LUT_GAPS] + [(blosum, g) for g in WRAP_LUT_GAPS + [(-(2**26), -(2**25))]]:
+        subs2 = sw.subs2_stream_plain(args[0], args[1], lut)
+        on_card, on_stream = (*args, go, ge, lut), (subs2, args[2], args[3], go, ge)
+        if kernel == "K11":
+            cases.append((P(sw.scan_global_lut, *on_card), P(sw.scan_global_lut_plain, *on_stream), "global"))
+        elif kernel == "K12":
+            yc = (-(2**22), -(2**23))
+            cases.append((P(sw.scan_semiglobal_lut, *on_card, *yc), P(sw.scan_semiglobal_lut_plain, *on_stream, *yc), "semi"))
+        elif kernel == "K7-LUT":
+            cases.append((P(sw.scan_local_lut, *on_card), P(sw.scan_local_lut_plain, *on_stream), "clip"))
+        elif kernel == "K13-LUT":
+            cases.append((P(sw.scan_global_rows_lut, *on_card, rb=32), P(sw.scan_global_rows_lut_plain, *on_card, rb=32), "rows"))
+        elif kernel == "K9-LUT":
+            for clips in WRAP_CLIPS:
+                cases.append((P(sw.scan_custom_lut, *on_card, *clips), P(sw.scan_custom_lut_plain, *on_stream, *clips), "clip"))
+        else:
+            for clips in WRAP_CLIPS:
+                cases.append((P(sw.scan_columns_lut, *on_card, *clips), P(sw.scan_columns_lut_plain, *on_card, *clips), "clip"))
+    return cases, ml, nl
+
+
+WRAP_KERNELS = ["K1", "K3", "K5", "K7", "K9", "K11", "K7-LUT", "K9-LUT", "K12", "K13", "K13-LUT", "K15", "K15-LUT"]
+
+
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
+@pytest.mark.parametrize("kernel", WRAP_KERNELS)
+def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, placement):
+    """Each of the 13 DP scans against its plain version bit for bit at
+    gap costs, scores, tables and clips whose sums pass 2^31 (K13 with
+    seams every 32 rows): the kernels carry the insertion chain as the JAX
+    kernels' prefix maximum of T - i * ge, K13 block by block from its
+    seams, where the recurrence max(I + ge, T) they carried before parts
+    from it; in the kernel's own placement and with its state forced into
+    the device scratch."""
+    if placement == "scratch":
+        for name, value in (("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1)):
+            if kernel in ("K1", "K3", "K5", "K7", "K9") or name != "_SMEM_MAX":
+                monkeypatch.setattr(sw, name, value)
+    cases, ml, nl = _wrap_cases(kernel, cuda_device)
+    assert cases
+    for call, plain, kind in cases:
+        got = call()
+        torch.cuda.synchronize()
+        want = plain()
+        if kind == "score":
+            assert torch.equal(got, want)
+        elif kind in ("global", "rows"):
+            assert torch.equal(got[0], want[0])
+            assert torch.equal(_masked(got[1], ml, nl), _masked(want[1], ml, nl))
+            if kind == "global":
+                assert torch.equal(_masked(got[2], ml), _masked(want[2], ml))
+        elif kind == "semi":
+            _semi_finals_match(got, want, ml, nl)
+        else:
+            _clip_scans_match(got, want, ml, nl)
+
+
 def test_lut_aligner_on_card_matches_cpu(cuda_device):
     """``BatchAligner`` under BLOSUM62 and a callable scorer, every mode and
     ``scores``, on the card and on the CPU."""
@@ -481,10 +586,8 @@ def _warp_pairs(rng, B, M, N, device, alphabet):
 def _warp_luts(device):
     """(LUT, gap costs) cases: BLOSUM62's dense LUT at each of
     ``WARP_PENS``; a LUT near +-2^30, whose sums of a few entries wrap
-    int32, at gap extension 0 (the plain versions take the insertion
-    recurrence as a (max,+) prefix scan, cummax(T - i * ge) + i * ge, which
-    equals the kernels' sequential max(I + ge, T) under wrapping only where
-    i * ge does not move T across the wrap: always at ge = 0)."""
+    int32, at gap extension 0 (``test_scans_match_plain_where_int32_wraps``
+    holds the chain where i * ge wraps too)."""
     rng = np.random.default_rng(61)
     vals = rng.integers(2**30 - 2**20, 2**30, size=(256, 256)) * rng.choice([-1, 1], size=(256, 256))
     wrap = torch.from_numpy(vals.astype(np.int32)).to(device)
@@ -582,6 +685,52 @@ def test_warp_local_lut_scan_and_walks_match_plain(cuda_device, monkeypatch, M, 
         for g, w in zip(walk.local_entry(got[0], lx, tbfix, lx_n, ml, nl),
                         walk.local_entry(got[0].contiguous(), lx, tbfix, lx_n, ml, nl)):
             assert torch.equal(g, w)
+
+
+CLIP_CHOICES = (MIN, 0, -7)
+
+
+@pytest.mark.parametrize(
+    "M,placement",
+    [(m, p) for m in (1, 7, 31, 32, 33, 255, 256, 450, 511, 604, 1000) for p in ("shared", "scratch")] + [(4094, "scratch")],
+)
+def test_custom_warp_lut_scan_and_walk_match_plain(cuda_device, monkeypatch, M, placement):
+    """K9-LUT with traceback and score-only against its plain version bit
+    for bit, as the K7-LUT test holds K7-LUT: every combination of the four
+    clips over {MIN_SCORE, 0, -7}, the LUTs and gap costs of ``_warp_luts``
+    in turn, M up to 4,094, both placements, mlens = 0 and nlens = 0 lanes;
+    then K10 on its pair-major view and on a contiguous copy against the
+    plain K10."""
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fixups
+
+    _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+    rng = np.random.default_rng(90 + M)
+    B, N = (40, 48) if M <= 604 else (12, 24)
+    args, mlens, nlens = _warp_pairs(rng, B, M, N, cuda_device, bytes(range(256)))
+    ml, nl = args[2], args[3]
+    luts = _warp_luts(cuda_device)
+    for k, clips in enumerate(itertools.product(CLIP_CHOICES, repeat=4)):
+        lut, (go, ge) = luts[k % len(luts)]
+        got = sw.scan_custom_lut(*args, go, ge, lut, *clips)
+        torch.cuda.synchronize()
+        want = sw.scan_custom_lut_plain(sw.subs2_stream_plain(args[0], args[1], lut), ml, nl, go, ge, *clips)
+        assert got[0].shape == want[0].shape and got[0].stride()[1] == 1  # the pair-major view
+        _clip_scans_match(got, want, mlens, nlens)
+        only = sw.scan_custom_lut(*args, go, ge, lut, *clips, traceback=False)
+        assert only[0] is None and only[1] is None
+        for g, w in zip(only[2:6], got[2:6]):
+            assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+        assert torch.equal(_masked(only[6], mlens), _masked(got[6] & 0xFFF, mlens))
+        if k % 9 == 0:
+            tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = got
+            Bq, X = S_f.shape
+            rows, row_ge1, mlens_c, is_row_m = _geometry(Bq, X - 1, ml)
+            _, tb_fixed, Lx_n, lx_set = _suffix_fixups(
+                S_f, I_f, Sn_f, tbk, Bq, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, *clips)
+            )
+            tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
+            lx_n = torch.where(lx_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
+            _walks_on_both_layouts(tb, [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain, (tbfix, lx, lx_n, ml, nl))])
 
 
 @pytest.mark.parametrize(
@@ -1359,12 +1508,21 @@ def test_pairhmm_exact_matches_plain(cuda_device, N):
     print(f"K17-exact: {bit_equal} of {total} lanes bit-identical to the plain version")
 
 
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("N", [54, 4_200])
-def test_pairhmm_homopoly_matches_plain(cuda_device, N, dtype):
-    """K17-homopoly, f32 and f64, in shared memory and in the device scratch
-    (14 * 4 * (N + 1) bytes over 227 KB at N 4,200)."""
+def test_pairhmm_homopoly_matches_plain(cuda_device, monkeypatch, N, dtype, placement):
+    """K17-homopoly (one warp a pair, ``pairhmm_log_geometry`` at 14 states),
+    f32 and f64, global and semiglobal, shared and per-lane emissions: in
+    the geometry's placement (registers at N = 54, C = 2; the scratch at
+    N = 4,200, C = 132) and with the scratch forced (``HOMOPOLY_REG_BYTES``
+    0)."""
     from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM
+
+    if placement == "scratch":
+        monkeypatch.setattr(pairhmm_ops, "HOMOPOLY_REG_BYTES", 0)
+    where = pairhmm_ops.pairhmm_log_geometry(N, 128, dtype, 132, pairhmm_ops.HOMOPOLY_STATES)[2]
+    assert where == ("registers" if (N, placement) == (54, "geometry") else "scratch")
 
     B, M = (128, 207) if N < 1000 else (4, 6)
     xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 3), B, M, N, None if N < 1000 else 60)

@@ -1,8 +1,10 @@
-"""K17-log's launch geometry (``ops/pairhmm.py`` ``pairhmm_log_geometry``,
-which ``ops/csrc/pairhmm_log.cu`` takes from the wrapper): one warp a pair,
-lane t over the columns [t * C + 1, t * C + C] of y; the state in
-registers or in the device scratch; warps a block. Pure Python: the kernel itself runs in ``test_torch_cuda.py``, its
-plain version against the JAX package in ``test_torch_pairhmm.py``.
+"""K17-log's and K17-homopoly's launch geometry (``ops/pairhmm.py``
+``pairhmm_log_geometry``, which ``ops/csrc/pairhmm_log.cu`` and
+``pairhmm_homopoly.cu`` take from the wrapper): one warp a pair, lane t
+over the columns [t * C + 1, t * C + C] of y; the state (3 or 14 values a
+column) in registers or in the device scratch; warps a block. Pure Python:
+the kernels themselves run in ``test_torch_cuda.py``, their plain versions
+against the JAX package in ``test_torch_pairhmm.py``.
 """
 
 import pytest
@@ -79,3 +81,56 @@ def test_lowered_budget_moves_the_placement_early(monkeypatch):
     monkeypatch.setattr(pairhmm, "LOG_REG_BYTES", 0)
     assert pairhmm.pairhmm_log_geometry(54, 64, torch.float32) == (2, 1, "scratch")
     assert pairhmm.pairhmm_log_geometry(0, 64, torch.float32) == (1, 1, "scratch")
+
+
+# ---- K17-homopoly: 14 states a column ----
+
+HOMOPOLY = pairhmm.HOMOPOLY_STATES
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_homopoly_geometry_covers_every_column_for_every_width(dtype):
+    """N = 1-5,000: the 32 stripes own each column 1..N once; registers up
+    to C = 4 in f32 (14 * 4 * 4 = 224 bytes) and C = 2 in f64 (224 bytes),
+    the least C in the scratch beyond."""
+    reg_c = 4 if dtype == torch.float32 else 2
+    for n in range(1, 5001):
+        C, warps, placement = pairhmm.pairhmm_log_geometry(n, 64, dtype, 132, HOMOPOLY)
+        owned = [0] * (32 * C + 1)
+        for stripe in _stripes(C):
+            for j in stripe:
+                owned[j] += 1
+        assert all(owned[j] == 1 for j in range(1, n + 1)), n
+        assert placement == ("registers" if n <= 32 * reg_c else "scratch"), n
+        assert C == (1 << (C - 1).bit_length() if placement == "registers" else -(-n // 32))
+        assert HOMOPOLY * C * dtype.itemsize <= pairhmm.HOMOPOLY_REG_BYTES or placement == "scratch"
+        assert warps == 1
+
+
+def test_homopoly_geometry_of_the_main_path():
+    """The 2048 bench pairs (y 54): C = 2, one warp a block, in registers in
+    f32 (112 bytes a lane) and in f64 (224 bytes: the budget, which the
+    placement trial set above K17-log's 192); N = 4,200 in the scratch at
+    C = 132."""
+    assert pairhmm.pairhmm_log_geometry(54, 2048, torch.float32, 132, HOMOPOLY) == (2, 1, "registers")
+    assert pairhmm.pairhmm_log_geometry(54, 2048, torch.float64, 132, HOMOPOLY) == (2, 1, "registers")
+    assert pairhmm.pairhmm_log_geometry(65, 2048, torch.float64, 132, HOMOPOLY) == (3, 1, "scratch")
+    assert pairhmm.pairhmm_log_geometry(4200, 4, torch.float32, 132, HOMOPOLY) == (132, 1, "scratch")
+    assert pairhmm.pairhmm_log_geometry(54, 10**6, torch.float32, 132, HOMOPOLY)[1] == 8
+
+
+def test_homopoly_lowered_budget_moves_the_placement_early(monkeypatch):
+    """A budget of one f32 column (56 bytes) keeps C = 1 in registers and
+    moves N = 33 to the scratch; at 0 every width goes there; a raised one
+    keeps C = 4 in registers (the kernel's largest register stripe) and no
+    more. K17-log's budget is its own."""
+    monkeypatch.setattr(pairhmm, "HOMOPOLY_REG_BYTES", HOMOPOLY * 4)
+    assert pairhmm.pairhmm_log_geometry(32, 64, torch.float32, 132, HOMOPOLY) == (1, 1, "registers")
+    assert pairhmm.pairhmm_log_geometry(33, 64, torch.float32, 132, HOMOPOLY) == (2, 1, "scratch")
+    assert pairhmm.pairhmm_log_geometry(32, 64, torch.float64, 132, HOMOPOLY) == (1, 1, "scratch")
+    assert pairhmm.pairhmm_log_geometry(128, 64, torch.float32) == (4, 1, "registers")
+    monkeypatch.setattr(pairhmm, "HOMOPOLY_REG_BYTES", 0)
+    assert pairhmm.pairhmm_log_geometry(54, 64, torch.float32, 132, HOMOPOLY) == (2, 1, "scratch")
+    monkeypatch.setattr(pairhmm, "HOMOPOLY_REG_BYTES", 10**6)
+    assert pairhmm.pairhmm_log_geometry(128, 64, torch.float64, 132, HOMOPOLY) == (4, 1, "registers")
+    assert pairhmm.pairhmm_log_geometry(129, 64, torch.float64, 132, HOMOPOLY) == (5, 1, "scratch")

@@ -1,14 +1,15 @@
-"""K11 and K7-LUT (``ops/csrc/sw_warp.cu``: one warp a pair over row
-stripes, a pair-major tb) and the walks that read that tb, on the CPU.
+"""K11, K7-LUT and K9-LUT (``ops/csrc/sw_warp.cu``: one warp a pair over
+row stripes, a pair-major tb) and the walks that read that tb, on the CPU.
 
 ``warp_geometry``, the launch the wrappers size their scratch with (K18's
 two layers too); the
 plain K2, K8, K10 and ``local_entry`` on a pair-major view of the CPU scan's
 tb against the same on the contiguous tb, for global and local protein
 pairs of 0-40 residues under BLOSUM62 (mlens = 0 and nlens = 0 lanes, and
-go + ge = 0, which walks K7-LUT's tb with K10); the layout check the walks
-share; and ``BatchAligner(device="cpu")`` under BLOSUM62 against the JAX
-``BatchAligner``. Integers throughout: every comparison is exact
+go + ge = 0, which walks K7-LUT's tb with K10), and K10 on K9-LUT's tb under
+custom clips; the layout check the walks share; and
+``BatchAligner(device="cpu")`` under BLOSUM62 (global, local, custom)
+against the JAX ``BatchAligner``. Integers throughout: every comparison is exact
 (tolerance 0). The kernels themselves run in ``test_torch_cuda.py``.
 """
 
@@ -18,6 +19,7 @@ import torch
 
 from rust_bio_tpu import scores as jax_scores
 from rust_bio_tpu.alignment.pairwise.batched import BatchAligner as JaxBatchAligner
+from rust_bio_tpu.alignment.pairwise.scoring import MIN_SCORE as JAX_MIN
 from rust_bio_tpu.alignment.pairwise.scoring import Scoring as JaxScoring
 from rust_bio_tpu_torch import scores
 from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
@@ -27,6 +29,11 @@ from rust_bio_tpu_torch.ops import sw, walk
 AA = b"ARNDCQEGHILKMFPSTWYV"
 B, M, N = 12, 40, 36
 PENS = [(-11, -1), (0, 0), (-5, -3)]
+MIN = JAX_MIN
+# (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix): semiglobal,
+# BWA-MEM's soft clips with y's ends free, and MIN_SCORE, 0 and negative
+# clips mixed
+CLIPS = [(MIN, MIN, 0, 0), (-5, -5, 0, 0), (MIN, 0, -1, MIN), (-7, -1, -3, -7), (0, MIN, -20, 0)]
 
 
 @pytest.mark.parametrize("layers", [sw.SCORE_WARP_LAYERS, sw.GLOBAL_WARP_LAYERS, sw.LOCAL_WARP_LAYERS])
@@ -126,14 +133,14 @@ def test_global_walk_reads_the_pair_major_view(go, ge, pad):
         assert torch.equal(g, w)
 
 
-def _clip_walk_inputs(scan, ml, nl, go, ge):
-    """The fixed final column and x-suffix clip length of a local scan
-    (``BatchAligner._custom_device``'s steps)."""
+def _clip_walk_inputs(scan, ml, nl, go, ge, clips=(0, 0, 0, 0)):
+    """The fixed final column and x-suffix clip length of a local or custom
+    scan (``BatchAligner._custom_device``'s steps)."""
     tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
     Bq, X = S_f.shape
     rows, row_ge1, mlens_c, is_row_m = _geometry(Bq, X - 1, ml)
     _, tb_fixed, Lx_n, lx_set = _suffix_fixups(
-        S_f, I_f, Sn_f, tbk, Bq, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, 0, 0, 0, 0)
+        S_f, I_f, Sn_f, tbk, Bq, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, *clips)
     )
     tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
     return tbfix, torch.where(lx_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
@@ -156,6 +163,23 @@ def test_clip_walks_read_the_pair_major_view(go, ge, pad):
     for fn in fns:
         for g, w in zip(fn(view, tbfix, lx, lx_n, ml, nl), fn(tb, tbfix, lx, lx_n, ml, nl)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("pad", [0, 8])
+@pytest.mark.parametrize("clips", CLIPS)
+def test_custom_walk_reads_the_k9_lut_pair_major_view(clips, pad):
+    """K10 (plain) on K9-LUT's cells (the plain scan under BLOSUM62) as the
+    pair-major view equals K10 on the contiguous tb, under custom clips."""
+    go, ge = -11, -1
+    args = _batch(50 + pad + clips[2] % 7)
+    ml, nl = args[2], args[3]
+    scan = sw.scan_custom_lut(*args, go, ge, _lut(), *clips)
+    tb, lx = scan[0], scan[1]
+    tbfix, lx_n = _clip_walk_inputs(scan, ml, nl, go, ge, clips)
+    view = _pair_major(tb, pad)
+    got = walk.sweep_walk_custom(view, tbfix, lx, lx_n, ml, nl)
+    for g, w in zip(got, walk.sweep_walk_custom(tb, tbfix, lx, lx_n, ml, nl)):
+        assert torch.equal(g, w)
 
 
 def test_walks_raise_on_layouts_they_do_not_take():
@@ -215,3 +239,19 @@ def test_blosum62_global_and_local_match_jax(go, ge):
         got_s = port.scores(xs, ys, mode)
         np.testing.assert_array_equal(got_s, ref.scores(xs, ys, mode))
         np.testing.assert_array_equal(got_s, [a.score for a in got])
+
+
+@pytest.mark.parametrize("clips", CLIPS)
+def test_blosum62_custom_matches_jax(clips):
+    """``custom`` and ``scores(..., "custom")`` under BLOSUM62 and custom
+    clips: the port's CPU path (K9-LUT's plain version, the suffix fixups,
+    K10) against the JAX ``BatchAligner``."""
+    go, ge = -11, -1
+    xs, ys = _homologs(60 + clips[3] % 11, 9)
+    port = BatchAligner(Scoring(go, ge, scores.blosum62, None, *clips), device="cpu")
+    ref = JaxBatchAligner(JaxScoring(go, ge, jax_scores.blosum62, None, *clips))
+    got = port.custom(xs, ys)
+    assert [_fields(a) for a in got] == [_fields(a) for a in ref.custom(xs, ys)]
+    got_s = port.scores(xs, ys, "custom")
+    np.testing.assert_array_equal(got_s, ref.scores(xs, ys, "custom"))
+    np.testing.assert_array_equal(got_s, [a.score for a in got])
