@@ -111,7 +111,8 @@ NVIDIA GPU.
    kernels within their stated tolerances) and times both with CUDA
    events (K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also without
    traceback; K16 also without its tb's zero-fill; K18 also on phase 3d's
-   long proteins); holds K2, K8 and K10 on
+   long proteins, K3 also on its STR pairs, K3's block launch; K14 with
+   its tile geometry and path steps); holds K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's too; times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
@@ -866,7 +867,8 @@ def main() -> int:
     counters = {
         "sw_scan_global": sw.SCAN_GLOBAL,
         "sweep_walk_global": walk.SWEEP_WALK_GLOBAL,
-        "sw_scores_global": sw.SCORES_GLOBAL,
+        "sw_scores_global": sw.SCORES_GLOBAL_WARP,
+        "sw_scores_global_rows": sw.SCORES_GLOBAL_ROWS,
         "fm_backward_search": fm.FM_BACKWARD_SEARCH,
         "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
         "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
@@ -1190,7 +1192,7 @@ def main() -> int:
         delivered_s = time.perf_counter() - t0
         long_runs[name] = (alns, al.global_packed(xs, ys).cigars(), al.scores(xs, ys, "global"), delivered_s)
     long_launches = {name: k.launches for name, k in counters.items()}
-    path_kernels = ("sw_scan_global_rows", "sw_scan_global_rows_lut", "sweep_walk_global_seg", "sw_scores_global", "sw_scores_global_lut")
+    path_kernels = ("sw_scan_global_rows", "sw_scan_global_rows_lut", "sweep_walk_global_seg", "sw_scores_global_rows", "sw_scores_global_lut")
     check(all(long_launches[n] > 0 for n in path_kernels), f"a kernel of the long global path did not launch: {long_launches}")
     long_summary = {}
     for name, (xs, ys), (al, ref, pens_, lut_) in zip(
@@ -1543,17 +1545,38 @@ def main() -> int:
         8 * path_cells,
     )
     del got, want, tb, wwant
+    # K3: its warp launch on the 150 bp pairs (phase 2) and its block launch
+    # on phase 3d's STR pairs (M = 5,588), the row's launches both routes'
     sgot = sw.scores_global(xb_d, yb_d, ml_d, nl_d, *pens)
     torch.cuda.synchronize()
     swant = sw.scores_global_plain(xb_d, yb_d, ml_d, nl_d, *pens)
+    k3_long = tens(*ba._pad(*long_sets[0]))
+    k3_M, k3_N = int(k3_long[0].shape[1]), int(k3_long[1].shape[1])
+    check(sw.scores_route(LEN, B_ALN) == "warp" and sw.scores_route(k3_M, B_STR) == "rows", "K3's routes at 150 bp and 5.6 kb")
+    lgot = sw.scores_global(*k3_long, *pens)
+    torch.cuda.synchronize()
+    lwant = sw.scores_global_plain(*k3_long, *pens)
+    k3_ml, k3_nl = (t.cpu().numpy().astype(np.int64) for t in k3_long[2:])
+    k3_long_bound = max(
+        (k3_long[0].numel() + k3_long[1].numel() + 12 * len(k3_ml)) / HBM_BYTES_PER_S,
+        K3_OPS_PER_CELL * int((k3_ml * k3_nl).sum()) / INT32_OPS_PER_S,
+    ) * 1e3
     report(
-        "sw_scores_global", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:199",
-        [sgot], [swant],
+        "sw_scores_global", "rust_bio_tpu_torch/ops/csrc/sw_warp.cu", "rust_bio_tpu/ops/sw_pallas.py:199",
+        [sgot, lgot], [swant, lwant],
         cuda_ms(torch, lambda: sw.scores_global(xb_d, yb_d, ml_d, nl_d, *pens), 10),
         cuda_ms(torch, lambda: sw.scores_global_plain(xb_d, yb_d, ml_d, nl_d, *pens), 2),
         2 * B_ALN * LEN + 8 * B_ALN + 4 * B_ALN,
         K3_OPS_PER_CELL * cells,
+        n_launches=launches["sw_scores_global"] + launches["sw_scores_global_rows"],
+        route_launches={"warp": launches["sw_scores_global"], "rows": launches["sw_scores_global_rows"]},
+        stripe_rows=sw.warp_geometry(LEN, sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)[0],
+        long_source="rust_bio_tpu_torch/ops/csrc/sw_global_rows.cu",
+        long_ms=cuda_ms(torch, lambda: sw.scores_global(*k3_long, *pens), 3),
+        long_bound_ms=k3_long_bound, long_M=k3_M, long_N=k3_N,
+        long_geometry=sw.rows_geometry(k3_M, score_only=True)[:3],
     )
+    del k3_long, lgot, lwant
     fgot = index.search_arrays(pats_d, plens_d)
     torch.cuda.synchronize()
     fwant = fm.backward_search_plain(index._fused, index._less256, index.sym_of, pats_d, plens_d, index.n)
@@ -1888,6 +1911,8 @@ def main() -> int:
         wgot, wwant, cuda_ms(torch, lambda: walk.sweep_walk_global_seg(tb, sargs[2], sargs[3]), 5), wplain_ms,
         2 * path_cells + 8 * B_STR + 2 * 2 * syb.shape[1] * B_STR + 2 * B_STR,
         8 * path_cells,
+        tile=walk.seg_walk_geometry(), vector_rows=walk._vector_rows(tb), path_steps=path_cells,
+        path_steps_max=int((wgot[0].long().sum(0) + (wgot[1].long() > 0).sum(0) + wgot[2].long()).max()) + 1,
     )
     del tb, wgot, wwant
     lxb, lyb, lml, lnl = bp._pad(*long_sets[2])

@@ -1,13 +1,13 @@
-// Global affine-gap DP, two kernels (K11 and K18, K1 and K3 fed by a LUT,
-// are csrc/sw_warp.cu's):
+// K1 sw_scan_global, the global affine-gap DP with its traceback (K11, K1
+// fed by a LUT, is csrc/sw_warp.cu's; K3, the score only, is
+// csrc/sw_warp.cu's sw_scores_global_warp at short x and
+// csrc/sw_global_rows.cu's sw_scores_global_rows at long x):
 //
 //   K1  sw_scan_global       replaces rust_bio_tpu/ops/sw_pallas.py
 //                            scan_global_pallas_mp -> _kernel_scan_global_mp
 //                            (runs="ins"): score, 12-bit traceback cells plus
 //                            the vertical insertion-run nibble, and the cells
 //                            frozen at j = nlens (tbk).
-//   K3  sw_scores_global     replaces sw_scores_global_matchparams ->
-//                            _kernel_mp: the score only.
 //
 // Design: one thread per pair walks DP columns j = 1..nlens and rows
 // i = 0..mlens in order, so the insertion score is a scalar carry: as the
@@ -24,12 +24,11 @@
 // Bound on this card: K1 writes N * (M+1) * B uint16 cells (371 MB at
 // 8192 x 150 x 150): a warp stores 64 contiguous bytes per cell row, so the
 // stream is coalesced; the per-cell dependency chain (about 25 integer ops
-// per cell, one thread per pair) makes both kernels latency-bound at 8192
+// per cell, one thread per pair) makes it latency-bound at 8192
 // pairs (2 warps per SM), which the design accepts for a first version.
 //
-// Exactness (sw_pallas.py:597-721, 199-256): int32 arithmetic
-// wraps as in XLA; D and the row-0 match value start
-// at MIN_SCORE = -858993459 in K1, at NEG = -2^30 in K3; every
+// Exactness (sw_pallas.py:597-721): int32 arithmetic wraps as in XLA; D
+// and the row-0 match value start at MIN_SCORE = -858993459; every
 // selection is a strict '>' with priority Match/Subst > Ins > Del; the
 // I-open candidate uses S~ = max(m, D), not S; an I-cell whose extend does
 // not strictly win points at the s-bits of the cell above in the same
@@ -47,7 +46,7 @@ constexpr int TB_INS = 1;
 constexpr int TB_DEL = 2;
 constexpr int TB_SUBST = 3;
 constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
-constexpr int NEG = -(1 << 30);      // final-reduction and K3 sentinel
+constexpr int NEG = -(1 << 30);      // final-reduction sentinel
 constexpr int PAIRS = 32;            // pairs (threads) per block
 
 // int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
@@ -178,47 +177,6 @@ __global__ void __launch_bounds__(PAIRS) scan_global_kernel(
   score[b] = max(st.at(0, ml), NEG);
 }
 
-__global__ void __launch_bounds__(PAIRS) scores_global_kernel(
-    const uint8_t* __restrict__ xt, const uint8_t* __restrict__ yt,
-    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int go, int ge, MatchParams sub, int* __restrict__ score,
-    int* __restrict__ scratch) {  // (2, M + 1, B) or null
-  const int b = blockIdx.x * PAIRS + threadIdx.x;
-  if (b >= B) return;
-  const Column st = column_state(scratch, B, M + 1, b);
-  const int ml = mlens[b];
-  const int nl = nlens[b];
-
-  for (int i = 0; i <= ml; ++i) {
-    st.at(0, i) = i == 0 ? 0 : add(go, mul(ge, i - 1));
-    st.at(1, i) = NEG;
-  }
-  for (int j = 1; j <= nl; ++j) {
-    const int yj = yt[static_cast<size_t>(j - 1) * B + b];
-    const int s0j = add(go, mul(ge, j - 1));
-    int s_up_old = st.at(0, 0);
-    int st_up = s0j;
-    int p_up = NEG;  // P, row i - 1
-    int rge = 0;     // i * ge
-    st.at(1, 0) = max(add(st.at(1, 0), ge), add(s_up_old, go));
-    st.at(0, 0) = s0j;
-    for (int i = 1; i <= ml; ++i) {
-      const int sp = st.at(0, i);
-      const int dp = st.at(1, i);
-      const int m_val = add(s_up_old, sub.score(xt[static_cast<size_t>(i - 1) * B + b], yj));
-      const int best_d = max(add(dp, ge), add(sp, go));
-      rge = add(rge, ge);
-      p_up = max(p_up, minus(add(st_up, go), rge));
-      const int best_i = add(p_up, rge);
-      s_up_old = sp;
-      st_up = max(m_val, best_d);
-      st.at(0, i) = max(max(m_val, best_i), best_d);
-      st.at(1, i) = best_d;
-    }
-  }
-  score[b] = max(st.at(0, ml), NEG);
-}
-
 template <class Kernel>
 int set_smem(Kernel* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -243,22 +201,6 @@ int launch_scan(const void* xt, const void* yt, const void* mlens,
   return static_cast<int>(cudaGetLastError());
 }
 
-// scratch: null for shared memory (2 * (M+1) * 32 * 4 bytes per block),
-// else a (2, M+1, B) int32 buffer.
-int launch_scores(const void* xt, const void* yt, const void* mlens,
-                  const void* nlens, int B, int M, int go, int ge, MatchParams sub,
-                  void* score, void* scratch, void* stream) {
-  const size_t smem = scratch ? 0 : static_cast<size_t>(2) * (M + 1) * PAIRS * sizeof(int);
-  int rc = set_smem(scores_global_kernel, smem);
-  if (rc) return rc;
-  scores_global_kernel<<<(B + PAIRS - 1) / PAIRS, PAIRS, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
-      ge, sub, static_cast<int*>(score), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -274,14 +216,6 @@ int sw_scan_global(const void* xt, const void* yt, const void* mlens,
                    void* stream) {
   return launch_scan(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
                      score, tb, tbk, scratch, stream);
-}
-
-// K3.
-int sw_scores_global(const void* xt, const void* yt, const void* mlens,
-                     const void* nlens, int B, int M, int go, int ge, int ma,
-                     int mi, void* score, void* scratch, void* stream) {
-  return launch_scores(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi},
-                       score, scratch, stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,12 @@
 // K13 sw_scan_global_rows and K13-LUT sw_scan_global_rows_lut: the global
-// affine-gap DP of long x, as a row-stripe wavefront over one pair a block.
+// affine-gap DP of long x, as a row-stripe wavefront over one pair a block;
+// and K3's launch at long x, sw_scores_global_rows, the score only.
 //
 // Replaces rust_bio_tpu/ops/sw_pallas.py:2260 _kernel_scan_global_rows_mp
 // (scan_global_rows_pallas_mp :2434) and, under a LUT, the XLA engine
-// batched.py:948 _align_batch_device, which the JAX package runs there.
+// batched.py:948 _align_batch_device, which the JAX package runs there;
+// K3's launch replaces :199 _kernel_mp (sw_scores_global_matchparams :258)
+// where ops/sw.py scores_route picks it.
 //
 // What it computes: K1's DP (csrc/sw_global.cu): S; D, the deletion score
 // carried along a row; I, the insertion score carried down a column; S~ =
@@ -73,6 +76,19 @@
 // row's I is NEG in the first block, else max(I[i-1] + ge, T[i], NEG), the
 // boundary value the block above hands down. A stripe hands P down. Equal
 // to K1's chain while no sum wraps int32.
+//
+// K3 at long x (scores_global_rows_kernel): this wavefront without tb or
+// s-bits, two int32 layers a row (S, D; [2][R][T] in shared memory up to
+// ops/sw.py SCORES_ROWS_SHARED_MAX_M, 24,575, else a (B, 2, R, T) scratch)
+// and three carries (S, P, S~), with K3's chain and sentinels, not K13's:
+// D and row 0 at NEG = -2^30, one prefix maximum P of T[i] - i * ge from
+// row 0 down the whole column (no seams, no floor beyond row 0's NEG),
+// I = P + i * ge, and the score max(S[mlens], NEG), as sw_pallas.py
+// _kernel_mp and csrc/sw_warp.cu's K18. K13's chain parts from it where
+// int32 wraps, so K13's score-only launch is not K3. Bound: about 14
+// integer operations a cell (1.38 ms for phase 3d's 128 STR pairs, 31 M
+// cells a pair); the one-thread kernel before it took 5.35 s there (4
+// warps on 132 SMs).
 
 #include <cstddef>
 #include <cstdint>
@@ -93,6 +109,8 @@ constexpr int GROUP = 8;             // rows a thread computes, then stores, at 
 constexpr int CARRIES = 4;           // S, P, S~, s-bits
 constexpr int LAYERS = 3;            // S, D, s-bits
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
+constexpr int SCORE_CARRIES = 3;     // K3: S, P, S~
+constexpr int SCORE_LAYERS = 2;      // K3: S, D
 
 // int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
 __device__ __forceinline__ int add(int a, int b) {
@@ -272,6 +290,126 @@ __global__ void __launch_bounds__(T_STRIPES) scan_global_rows_kernel(
   if (holds_m) score[b] = max(S_[(ml - i0) * T], NEG);
 }
 
+// K3 at long x: the global score only, in K13's shape with K3's chain (the
+// head note). Two int32 layers a row (S, D), three carries a stripe (S, P,
+// S~). ONCHIP: the row state in shared memory, else in the device scratch
+template <bool ONCHIP>
+__global__ void __launch_bounds__(T_STRIPES) scores_global_rows_kernel(
+    const uint8_t* __restrict__ xb,  // (B, M)
+    const uint8_t* __restrict__ yb,  // (B, N)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int M, int N, int R,
+    int go, int ge, MatchParams sub,
+    int* __restrict__ score,      // (B,)
+    int* __restrict__ scratch) {  // (B, 2, R, T), or null when ONCHIP
+  extern __shared__ int smem[];
+  const int T = blockDim.x;
+  const int t = threadIdx.x;
+  const int b = blockIdx.x;
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+
+  int* carry = smem;  // [2][SCORE_CARRIES][T]
+  int* state;         // [SCORE_LAYERS][R][T]
+  if constexpr (ONCHIP) {
+    state = smem + 2 * SCORE_CARRIES * T;
+  } else {
+    state = scratch + static_cast<size_t>(b) * SCORE_LAYERS * R * T;
+  }
+  int* S_ = state + t;  // row r of this stripe: S_[r * T], D_[r * T]
+  int* D_ = S_ + R * T;
+  uint8_t* xr = reinterpret_cast<uint8_t*>(smem + 2 * SCORE_CARRIES * T + (ONCHIP ? SCORE_LAYERS * R * T : 0))
+                + static_cast<size_t>(t) * R;
+
+  const int i0 = t * R;
+  const int t_act = ml / R + 1;
+  const bool owner = t < t_act;
+  const int groups = owner ? min(R, ml - i0 + GROUP) / GROUP : 0;
+  for (int r = 0; r < R && owner; ++r) {
+    const int i = i0 + r;
+    xr[r] = (i >= 1 && i <= ml) ? xb[static_cast<size_t>(b) * M + i - 1] : 0;
+    S_[r * T] = init_s(i, go, ge);
+    D_[r * T] = NEG;
+  }
+
+  int s_up_prev = t > 0 ? init_s(i0 - 1, go, ge) : 0;  // previous column's S, row i0 - 1
+  int y_next = nl > 0 ? yb[static_cast<size_t>(b) * N] : 0;  // y_j, read a step ahead
+  const int steps = nl > 0 ? nl + t_act - 1 : 0;
+  for (int s = 1; s <= steps; ++s) {
+    const int j = s - t;
+    if (owner && j >= 1 && j <= nl) {
+      const int* in = carry + ((s + 1) & 1) * SCORE_CARRIES * T + (t > 0 ? t - 1 : 0);  // t - 1, step s - 1
+      int* out = carry + (s & 1) * SCORE_CARRIES * T + t;
+      const int yj = y_next;
+      if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
+      const int s0j = add(go, mul(ge, j - 1));  // row 0: delete y_1..y_j
+      int s_up_old = 0;  // previous column's S, row i - 1
+      int mx_up = 0;     // this column's running max of T - k * ge, rows k <= i - 1
+      int st_up = 0;     // this column's S~ = max(m, D), row i - 1
+      if (t > 0) {
+        s_up_old = s_up_prev;
+        s_up_prev = in[0];
+        mx_up = in[T];
+        st_up = in[2 * T];
+      }
+      // a group's S and D of the previous column, loaded before its stores,
+      // and the next group's ahead of them (as csrc/sw_warp.cu's K18)
+      int sp_g[GROUP], dp_g[GROUP];
+#pragma unroll
+      for (int k = 0; k < GROUP; ++k) {
+        sp_g[k] = S_[k * T];
+        dp_g[k] = D_[k * T];
+      }
+      int s_last = 0;
+      for (int g = 0; g < groups; ++g) {
+        const uint2 xw = *reinterpret_cast<const uint2*>(xr + g * GROUP);
+        int sp_n[GROUP] = {}, dp_n[GROUP] = {};
+        if (g + 1 < groups) {
+#pragma unroll
+          for (int k = 0; k < GROUP; ++k) {
+            sp_n[k] = S_[((g + 1) * GROUP + k) * T];
+            dp_n[k] = D_[((g + 1) * GROUP + k) * T];
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          const int r = g * GROUP + k;
+          const int i = i0 + r;
+          const int xi = ((k < 4 ? xw.x : xw.y) >> (8 * (k & 3))) & 0xFF;
+          const int m_val = add(s_up_old, sub.score(xi, yj));
+          const int best_d = max(add(dp_g[k], ge), add(sp_g[k], go));
+          // I = max_k (T_k + (i - k) * ge), T_k = S~[k-1] + go: the prefix
+          // maximum of T_k - k * ge from row 0 down, plus i * ge
+          const int rge = mul(i, ge);
+          int mx = max(mx_up, minus(add(st_up, go), rge));
+          int s_col = max(max(m_val, add(mx, rge)), best_d);
+          int st = max(m_val, best_d);
+          if (k == 0 && i == 0) {  // row 0, in thread 0's first group
+            s_col = st = s0j;
+            mx = NEG;
+          }
+          s_up_old = sp_g[k];
+          mx_up = mx;
+          st_up = st;
+          S_[r * T] = s_col;
+          D_[r * T] = best_d;
+          s_last = s_col;
+        }
+#pragma unroll
+        for (int k = 0; k < GROUP; ++k) {
+          sp_g[k] = sp_n[k];
+          dp_g[k] = dp_n[k];
+        }
+      }
+      // the stripe's last row, for the next stripe (the holder's goes unread)
+      out[0] = s_last;
+      out[T] = mx_up;
+      out[2 * T] = st_up;
+    }
+    __syncthreads();
+  }
+  if (t == t_act - 1) score[b] = max(S_[(ml - i0) * T], NEG);
+}
+
 template <bool TB, bool ONCHIP, class Subst>
 int launch_on(int B, int M, int N, int Xp, int R, int T, size_t smem, int rb,
               const void* xb, const void* yb, const void* mlens, const void* nlens,
@@ -315,6 +453,31 @@ int launch(const void* xb, const void* yb, const void* mlens, const void* nlens,
             tb, scratch, stream);
 }
 
+// K3's launch at long x, in the geometry of ops/sw.py rows_geometry(M, True)
+int launch_scores(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
+                  int M, int N, int go, int ge, MatchParams sub, void* score, void* scratch,
+                  void* stream) {
+  if (B < 1 || M < 0 || M > 65534 || N < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = M + 1;
+  const int R = (rows + GROUP * T_STRIPES - 1) / (GROUP * T_STRIPES) * GROUP;
+  const int T = ((rows + R - 1) / R + 31) / 32 * 32;
+  const size_t onchip = static_cast<size_t>(SCORE_LAYERS) * R * T * sizeof(int);
+  const size_t smem = static_cast<size_t>(2 * SCORE_CARRIES) * T * sizeof(int)
+                      + static_cast<size_t>(R) * T + (scratch ? 0 : onchip);
+  if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = scratch ? scores_global_rows_kernel<false> : scores_global_rows_kernel<true>;
+  if (smem > 48 * 1024) {
+    const cudaError_t rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (rc != cudaSuccess) return static_cast<int>(rc);
+  }
+  kernel<<<B, T, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), M, N, R, go, ge, sub,
+      static_cast<int*>(score), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -345,6 +508,16 @@ int sw_scan_global_rows_lut(const void* xb, const void* yb, const void* mlens,
                             void* scratch, void* stream) {
   return launch(xb, yb, mlens, nlens, B, M, N, Xp, rb, go, ge,
                 Lut{static_cast<const int*>(lut)}, score, tb, scratch, stream);
+}
+
+// K3 at long x: the global score, match / mismatch scores ma / mi; scratch
+// null to keep the row state in shared memory, else a (B, 2, R, T) int32
+// buffer in the geometry of rows_geometry(M, True).
+int sw_scores_global_rows(const void* xb, const void* yb, const void* mlens,
+                          const void* nlens, int B, int M, int N, int go, int ge,
+                          int ma, int mi, void* score, void* scratch, void* stream) {
+  return launch_scores(xb, yb, mlens, nlens, B, M, N, go, ge, MatchParams{ma, mi}, score, scratch,
+                       stream);
 }
 
 }  // extern "C"

@@ -3,13 +3,14 @@
 // sw_scan_semiglobal_lut: the global (with its traceback, and score only),
 // the local, the custom-clip and the semiglobal affine-gap DP under a
 // (256, 256) substitution LUT at protein lengths, one warp a pair over row
-// stripes held by its lanes.
+// stripes held by its lanes; and K3 at short x, sw_scores_global_warp,
+// K18's kernel under match / mismatch scores.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
 // lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
 // :79 _kernel (sw_scores_global :140, which reads a (B, M, N) substitution
-// tensor), :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs
+// tensor), :199 _kernel_mp (sw_scores_global_matchparams :258, K3), :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs
 // :1529, runs="ins") and, in local and custom mode under a LUT, the XLA
 // engine alignment/pairwise/batched.py:948 _align_batch_device, which the
 // JAX package runs there.
@@ -33,11 +34,13 @@
 //   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
 //   nlens = 0). Without a tb it skips the cells' stores only: its finals
 //   are the full call's.
-//  K18: csrc/sw_global.cu's K3 fed by the LUT, K11's DP without tb, tbk or
-//   s-bits: the score, S at (mlens, nlens) clamped at NEG. Its D and row
-//   0's I start at NEG = -2^30, K3's and the JAX kernel's sentinel, not at
-//   K11's MIN_I32: under large tables int32 wraparound tells the two
-//   apart.
+//  K18: K3 fed by the LUT, K11's DP without tb, tbk or s-bits: the
+//   score, S at (mlens, nlens) clamped at NEG. Its D and row 0's I start
+//   at NEG = -2^30, K3's and the JAX kernel's sentinel, not at K11's
+//   MIN_I32: under large tables int32 wraparound tells the two apart. K3
+//   is the same kernel with the score ma or mi by byte equality (the
+//   template's substitution source); csrc/sw_global_rows.cu holds its
+//   launch at long x.
 //  All of them carry the insertion chain as the JAX kernels' prefix
 //  maximum, P = max(P, T - i * ge) down the rows and I = P + i * ge, a
 //  lane handing P down (sw_global.cu): equal to max(I + ge, T) a row until
@@ -63,7 +66,7 @@
 // down, as K5 does. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
-// S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 (4 KB),
+// S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
 // and Sn, Ly besides for K7-LUT, K9-LUT and K12 (10 KB), in the warp's
 // slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
@@ -85,7 +88,10 @@
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
 // M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
 // 27.2 ms on the domain corpus, 47x); here a warp
-// needs 4-11 KB. K18's bound: about 12 operations a cell (K3's).
+// needs 4-11 KB. K18's and K3's bound: about 14 operations a cell (at
+// M = 150 K3's lanes hold R = 8 rows, 19 of 32 lanes live, 2.3 KB a warp;
+// the one-thread K3 before it ran 1.0-1.2 ms on 8192 pairs, 13x that
+// bound).
 //
 // Exactness as K1, K9 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu):
 // int32 arithmetic wraps, LUT entries included; D starts at MIN_I32 =
@@ -116,7 +122,7 @@ constexpr int LANES = 32;            // stripes a pair
 constexpr int WARPS = 4;             // pairs a block
 constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
 constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
-constexpr int SCORE_LAYERS = 2;      // K18: S, D
+constexpr int SCORE_LAYERS = 2;      // K18, K3: S, D
 constexpr int LOCAL_LAYERS = 5;      // K7-LUT, K9-LUT, K12: S, D, s-bits, Sn, Ly
 constexpr unsigned FULL = 0xffffffffu;
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
@@ -323,14 +329,34 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
   if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
 }
 
-// K18. D and row 0's running maximum start at NEG, as in K3
-template <bool ONCHIP>
+// Substitution sources of K3 and K18, read a column at a time: the score
+// of x against the column's y. Param is the kernel's argument.
+struct MatchParams {  // K3: ma where the bytes are equal, else mi
+  using Param = int2;  // (ma, mi)
+  struct Column {
+    int y, ma, mi;
+    __device__ __forceinline__ int score(int x) const { return x == y ? ma : mi; }
+  };
+  static __device__ __forceinline__ Column column(Param p, int y) { return Column{y, p.x, p.y}; }
+};
+struct Lut {  // K18: a (256, 256) int32 table, row x, through the read-only path
+  using Param = const int* __restrict__;
+  struct Column {
+    const int* p;
+    __device__ __forceinline__ int score(int x) const { return __ldg(p + (x << 8)); }
+  };
+  static __device__ __forceinline__ Column column(Param lut, int y) { return Column{lut + y}; }
+};
+
+// K3 (Subst = MatchParams) and K18 (Lut). D and row 0's running maximum
+// start at NEG
+template <bool ONCHIP, class Subst>
 __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
     const uint8_t* __restrict__ xb,  // (B, M)
     const uint8_t* __restrict__ yb,  // (B, N)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N, int R,
     int go, int ge,
-    const int* __restrict__ lut,  // (256, 256), row x
+    typename Subst::Param subst,  // MatchParams: (ma, mi); Lut: the (256, 256) table, row x
     int* __restrict__ score,      // (B,)
     int* __restrict__ scratch) {  // (B, 2, R, 32), or null when ONCHIP
   const int lane = threadIdx.x % LANES;
@@ -356,7 +382,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
     if (st.groups > 0 && j >= 1 && j <= nl) {
       const int yj = y_next;
       if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
-      const int* lut_y = lut + yj;
+      const auto col = Subst::column(subst, yj);
       const int s0j = add(go, mul(ge, j - 1));  // row 0: delete y_1..y_j
       int s_up_old = 0;  // previous column's S, row i - 1
       int mx_up = 0;     // this column's running max of T - k * ge, rows k <= i - 1
@@ -392,7 +418,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
           const int i = st.i0 + r;
           const int sp = sp_g[k];
           const int dp = dp_g[k];
-          const int m_val = add(s_up_old, __ldg(lut_y + (byte_of(xw, k) << 8)));
+          const int m_val = add(s_up_old, col.score(byte_of(xw, k)));
           const int best_d = max(add(dp, ge), add(sp, go));
           // I = max_k (T_k + (i - k) * ge), T_k = S~[k-1] + go, as the
           // prefix maximum of T_k - k * ge plus i * ge (the JAX kernel's
@@ -897,6 +923,23 @@ int opt_in(Kernel* kernel, size_t smem) {
 
 int blocks(int B) { return (B + WARPS - 1) / WARPS; }
 
+template <class Subst>
+int launch_scores(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
+                  int N, int go, int ge, typename Subst::Param subst, void* score, void* scratch,
+                  void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, SCORE_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = scratch ? scores_global_warp_kernel<false, Subst> : scores_global_warp_kernel<true, Subst>;
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, R, go, ge, subst,
+      static_cast<int*>(score), static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool LOCAL>
 int launch_clip(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
                 int N, int Xp, int go, int ge, const void* lut, int xcp, int xcs, int ycp, int ycs,
@@ -932,7 +975,7 @@ const char* rbt_error_string(int code) {
 // pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7-LUT, K9-LUT)
 // uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
 // row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 2 for K18, 5 for K7-LUT, K9-LUT and K12).
+// above (layers 3 for K11, 2 for K18 and K3, 5 for K7-LUT, K9-LUT and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -955,21 +998,20 @@ int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K3 at short x: the global score, match / mismatch scores ma / mi.
+int sw_scores_global_warp(const void* xb, const void* yb, const void* mlens,
+                          const void* nlens, int B, int M, int N, int go, int ge,
+                          int ma, int mi, void* score, void* scratch, void* stream) {
+  return launch_scores<MatchParams>(xb, yb, mlens, nlens, B, M, N, go, ge, make_int2(ma, mi), score,
+                                    scratch, stream);
+}
+
 // K18: K3 fed by the LUT, score only.
 int sw_scores_global_lut(const void* xb, const void* yb, const void* mlens,
                          const void* nlens, int B, int M, int N, int go, int ge,
                          const void* lut, void* score, void* scratch, void* stream) {
-  size_t smem = 0;
-  const int R = geometry(M, SCORE_LAYERS, !scratch, &smem);
-  if (B < 1 || M < 0 || N < 0 || R == 0) return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = scratch ? scores_global_warp_kernel<false> : scores_global_warp_kernel<true>;
-  const int rc = opt_in(kernel, smem);
-  if (rc) return rc;
-  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, R, go, ge,
-      static_cast<const int*>(lut), static_cast<int*>(score), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_scores<Lut>(xb, yb, mlens, nlens, B, M, N, go, ge, static_cast<const int*>(lut), score,
+                            scratch, stream);
 }
 
 // K7-LUT: K7 fed by the LUT; needs gap_open, gap_extend <= 0. lx null with tb.

@@ -1,5 +1,7 @@
-"""Affine-gap DP kernels: K1 (``scan_global``: score + traceback cells) and
-K3 (``scores_global``: score only), CUDA source ``csrc/sw_global.cu``; K5
+"""Affine-gap DP kernels: K1 (``scan_global``: score + traceback cells),
+CUDA source ``csrc/sw_global.cu``; K3 (``scores_global``: score only, one
+warp a pair over row stripes at short x, ``csrc/sw_warp.cu``, one block a
+pair at long x, ``csrc/sw_global_rows.cu``; ``scores_route`` picks); K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
 penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
@@ -42,10 +44,10 @@ hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
-one thread a pair, except K13 and K15, where one block sweeps a pair's
-columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K18, K7-LUT, K9-LUT and K12, where one warp does
-(``warp_geometry``), and K16, where one warp computes each column's band
+one thread a pair, except K13, K15 and K3 at long x, where one block sweeps
+a pair's columns as a wavefront over stripes of its rows (``rows_geometry``,
+``columns_geometry``), K11, K18, K3 at short x, K7-LUT, K9-LUT and K12, where
+one warp does (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
@@ -89,10 +91,9 @@ SCAN_GLOBAL = CudaKernel(
     "sw_global", "sw_scan_global",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR, PTR, PTR, PTR],
 )
-SCORES_GLOBAL = CudaKernel(
-    "sw_global", "sw_scores_global",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR, PTR],
-)
+# K3's two launches: K18's lanes (short x) and K13's blocks (long x)
+SCORES_GLOBAL_WARP = CudaKernel("sw_warp", "sw_scores_global_warp", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
+SCORES_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scores_global_rows", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
 SCAN_SEMIGLOBAL = CudaKernel(
     "sw_semiglobal", "sw_scan_semiglobal",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
@@ -137,6 +138,24 @@ _ROWS_LAYERS = 3
 # the carries and x's bytes: 221,184 bytes at M = 16,383, R = 64, T = 256);
 # above it the state goes to a (B, 3, R, T) device scratch
 ROWS_SHARED_MAX_M = 16383
+# K3's launch at long x (csrc/sw_global_rows.cu scores_global_rows_kernel):
+# K13's stripes with three carries (S, P, S~) and two layers (S, D); in
+# shared memory up to this M (227,328 bytes at M = 24,575, R = 96, T =
+# 256), else a (B, 2, R, T) device scratch
+_SCORES_ROWS_CARRIES = 3
+_SCORES_ROWS_LAYERS = 2
+SCORES_ROWS_SHARED_MAX_M = 24575
+# K3's route (scores_route): the warp launch below M + 1 = SCORES_ROWS_MIN
+# (K13's limit T_ROWS); from there on the block launch, unless the batch
+# holds SCORES_WARP_PAIRS pairs or more (the warp launch then fills the
+# card) and M + 1 <= SCORES_WARP_MAX_ROWS (two of its blocks still fit an
+# SM). On an H100 (scripts/time_rows.py --routes, PERF.md) the block launch
+# took 0.28-0.67x the warp launch's time at 128 pairs of 600 bp-5.6 kb and
+# 0.82-0.95x at 512, 1.27-1.52x at 2048 and 8192 pairs of 300 bp-2 kb, and
+# 0.77-0.81x at 3.5 and 5.6 kb
+SCORES_ROWS_MIN = 606
+SCORES_WARP_PAIRS = 1024
+SCORES_WARP_MAX_ROWS = 3072
 # K15's launch (csrc/sw_columns.cu): one block a pair, at most this many
 # threads, each over a stripe of rows; six int32 carries a thread in two
 # shared buffers; five int32 layers of row state a row
@@ -241,20 +260,35 @@ def columns_geometry(M: int) -> Tuple[int, int, str, int]:
     return T, R, placement, smem
 
 
-def rows_geometry(M: int) -> Tuple[int, int, str, int]:
-    """K13's launch at x length ``M``, as csrc/sw_global_rows.cu computes it:
-    (T threads a block, R rows a thread, where the row state lives:
-    ``"shared"`` or ``"scratch"``, dynamic shared bytes). Thread t owns rows
-    [t * R, t * R + R); T is a multiple of 32, R of 8."""
+def rows_geometry(M: int, score_only: bool = False) -> Tuple[int, int, str, int]:
+    """K13's launch at x length ``M`` (``score_only``: K3's at long x), as
+    csrc/sw_global_rows.cu computes it: (T threads a block, R rows a
+    thread, where the row state lives: ``"shared"`` or ``"scratch"``,
+    dynamic shared bytes). Thread t owns rows [t * R, t * R + R); T is a
+    multiple of 32, R of 8."""
     rows = M + 1
     R = -(-rows // (_ROWS_GROUP * _ROWS_STRIPES)) * _ROWS_GROUP
     stripes = -(-rows // R)
     T = -(-stripes // 32) * 32
-    placement = "shared" if M <= ROWS_SHARED_MAX_M else "scratch"
-    smem = 2 * _ROWS_CARRIES * T * 4 + R * T
+    carries, layers, shared_max = (
+        (_SCORES_ROWS_CARRIES, _SCORES_ROWS_LAYERS, SCORES_ROWS_SHARED_MAX_M) if score_only
+        else (_ROWS_CARRIES, _ROWS_LAYERS, ROWS_SHARED_MAX_M)
+    )
+    placement = "shared" if M <= shared_max else "scratch"
+    smem = 2 * carries * T * 4 + R * T
     if placement == "shared":
-        smem += _ROWS_LAYERS * R * T * 4
+        smem += layers * R * T * 4
     return T, R, placement, smem
+
+
+def scores_route(M: int, B: int) -> str:
+    """K3's launch for ``B`` pairs at x length ``M``: ``"warp"`` (K18's
+    lanes, ``warp_geometry(M, SCORE_WARP_LAYERS, SCORE_WARP_SHARED_MAX)``)
+    or ``"rows"`` (one block a pair, ``rows_geometry(M, True)``), by the
+    limits above."""
+    if M + 1 < SCORES_ROWS_MIN:
+        return "warp"
+    return "warp" if B >= SCORES_WARP_PAIRS and M + 1 <= SCORES_WARP_MAX_ROWS else "rows"
 
 
 def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
@@ -417,19 +451,42 @@ def _scan_global_rows(kernel, xb, yb, mlens, nlens, go, ge, subst, rb, traceback
 
 
 def scores_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
-    """K3. Global alignment scores (B,) int32."""
+    """K3. Global alignment scores (B,) int32: on the card the launch
+    ``scores_route(M, B)`` names (``scores_global_warp`` or
+    ``scores_global_rows``)."""
+    return _scores_global(None, xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score)
+
+
+def scores_global_warp(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
+    """K3's launch at short x: K18's kernel, one warp a pair over row
+    stripes, under match / mismatch scores."""
+    return _scores_global("warp", xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score)
+
+
+def scores_global_rows(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score):
+    """K3's launch at long x: one block a pair, a wavefront over row
+    stripes (``rows_geometry(M, True)``), K3's insertion chain."""
+    return _scores_global("rows", xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score)
+
+
+def _scores_global(route, xb, yb, mlens, nlens, go, ge, ma, mi):
+    """K3 on the launch ``route`` names, ``scores_route``'s where None."""
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge, ma, mi = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score))
+    go, ge, ma, mi = (int(v) for v in (go, ge, ma, mi))
     if dev.type == "cpu":
         return scores_global_plain(xb, yb, mlens, nlens, go, ge, ma, mi)
     score = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
-        xt = xb.t().contiguous()
-        yt = yb.t().contiguous()
-        scratch = _scratch(2, B, M, dev)
-        SCORES_GLOBAL.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, ma, mi, score.data_ptr(), _ptr(scratch),
+        if (route or scores_route(M, B)) == "warp":
+            kernel, scratch = SCORES_GLOBAL_WARP, _warp_scratch(SCORE_WARP_LAYERS, B, M, dev, SCORE_WARP_SHARED_MAX)
+        else:
+            T, R, placement, _ = rows_geometry(M, score_only=True)
+            kernel, scratch = SCORES_GLOBAL_ROWS, None if placement == "shared" else torch.empty(
+                (B, _SCORES_ROWS_LAYERS, R, T), dtype=torch.int32, device=dev
+            )
+        kernel.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N, go, ge, ma, mi,
+            score.data_ptr(), _ptr(scratch),
         )
     return score
 

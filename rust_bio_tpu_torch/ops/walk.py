@@ -53,8 +53,18 @@ SWEEP_WALK_GLOBAL = CudaKernel(
     "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
 )
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
-    "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
+    "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, INT, PTR, PTR, PTR]
 )
+# K14's launch (csrc/walk_global_seg.cu): one warp a pair, SEG_WARPS pairs a
+# block; a warp's two tiles (the one it walks, the one fetched ahead, whose
+# last row lies SEG_AHEAD rows above the row the first was fetched for)
+# hold SEG_TILE_COLUMNS DP columns (one a lane) of SEG_TILE_ROWS rows each,
+# SEG_TILE_PITCH uint16 apart in shared memory
+SEG_WARPS = 2
+SEG_TILE_COLUMNS = 32
+SEG_TILE_ROWS = 96
+SEG_TILE_PITCH = SEG_TILE_ROWS + 8
+SEG_AHEAD = 16
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
     "walk_semiglobal", "sweep_walk_semiglobal",
     [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4,
@@ -80,8 +90,38 @@ def sweep_walk_global_seg(tb, mlens, nlens):
     the row-block seams); K2's outputs. ``tb`` is a contiguous (N, X, B)
     tensor or, as K13 returns it, an (N, X, B) view whose X axis has stride
     1 and whose B axis the largest stride (a pair-major tensor, permuted):
-    read in place, never copied. Other layouts raise ``ValueError``."""
-    return _global_walk(SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens)
+    read in place, never copied. Other layouts raise ``ValueError``. On
+    the card one warp a pair walks tiles of the tb staged in shared memory
+    (``seg_walk_geometry``), 8 rows a load where ``_vector_rows`` allows."""
+    return _global_walk(
+        SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens, lambda: (int(_vector_rows(tb)),)
+    )
+
+
+def seg_walk_geometry() -> dict:
+    """K14's launch, as csrc/walk_global_seg.cu sets it: pairs (warps) a
+    block, a tile's columns and rows, the rows between the bottoms of a
+    tile and the one fetched ahead, the bytes between tile columns and a
+    block's static shared bytes (two tiles a warp)."""
+    return {
+        "warps": SEG_WARPS, "tile_columns": SEG_TILE_COLUMNS, "tile_rows": SEG_TILE_ROWS, "ahead_rows": SEG_AHEAD,
+        "pitch_bytes": 2 * SEG_TILE_PITCH, "shared_bytes": SEG_WARPS * 2 * SEG_TILE_COLUMNS * SEG_TILE_PITCH * 2,
+    }
+
+
+def _vector_rows(tb) -> bool:
+    """Whether K14 may read a column's rows 8 at a time with aligned 16-byte
+    loads: rows of stride 1, columns (and pairs, where B > 1) 8 elements
+    apart, the data 16-byte aligned, and the storage holding each column's
+    rows up to X rounded up to 8 (the last group of 8 may pass row X - 1)."""
+    N, X, B = tb.shape
+    if tb.numel() == 0:
+        return False
+    sj, si, sb = _walk_strides(tb)
+    if si != 1 or sj % 8 or (B > 1 and sb % 8) or tb.data_ptr() % 16:
+        return False
+    end = (N - 1) * sj + (B - 1) * sb + -(-X // 8) * 8
+    return tb.storage_offset() + end <= tb.untyped_storage().nbytes() // tb.element_size()
 
 
 def _walk_strides(tb) -> tuple:
@@ -113,7 +153,9 @@ def _check_tb(tb) -> tuple:
     return tuple(tb.shape)
 
 
-def _global_walk(kernel, plain, tb, mlens, nlens):
+def _global_walk(kernel, plain, tb, mlens, nlens, extra=tuple):
+    """K2's or K14's wrapper; ``extra()`` gives the C arguments after the
+    strides (K14: the vector-load flag)."""
     dev = same_device(tb, mlens, nlens)
     N, X, B = _check_tb(tb)
     check(mlens, "mlens", torch.int32, (B,))
@@ -127,7 +169,7 @@ def _global_walk(kernel, plain, tb, mlens, nlens):
     ins0 = torch.empty(B, dtype=torch.uint16, device=dev)
     if B:
         kernel.launch(
-            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *_walk_strides(tb),
+            dev, tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *_walk_strides(tb), *extra(),
             ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(),
         )
     return ins_cnt, exit_op, ins0

@@ -434,6 +434,139 @@ def test_k18_on_large_tables_matches_plain(cuda_device, monkeypatch, M, N, B, pl
             assert torch.equal(got, sw.scores_global_lut_plain(sw.subs_tensor_plain(args[0], args[1], lut), args[2], args[3], go, ge))
 
 
+K3_MS = [1, 2, 7, 8, 31, 32, 150, 255, 256, 300, 604, 605, 606, 700]
+
+
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
+@pytest.mark.parametrize("route", ["warp", "rows"])
+def test_k3_routes_match_plain(cuda_device, monkeypatch, route, placement):
+    """K3's two launches, ``scores_global_warp`` (K18's lanes) and
+    ``scores_global_rows`` (one block a pair), against
+    ``scores_global_plain`` at M = 1-700 and the three gap costs, with
+    related lanes (long diagonals), mlens = 0 and nlens = 0 lanes: in each
+    route's own placement and with its state forced into the device
+    scratch (``SCORE_WARP_SHARED_MAX`` 0, ``SCORES_ROWS_SHARED_MAX_M``
+    -1)."""
+    if placement == "scratch":
+        monkeypatch.setattr(sw, "SCORE_WARP_SHARED_MAX", 0)
+        monkeypatch.setattr(sw, "SCORES_ROWS_SHARED_MAX_M", -1)
+    call = sw.scores_global_warp if route == "warp" else sw.scores_global_rows
+    rng = np.random.default_rng(61)
+    for M in K3_MS:
+        where = (sw.warp_geometry(M, sw.SCORE_WARP_LAYERS, sw.SCORE_WARP_SHARED_MAX)[1] if route == "warp"
+                 else sw.rows_geometry(M, score_only=True)[2])
+        assert where == ("scratch" if placement == "scratch" else "shared")
+        args, ml, nl = _pairs(rng, 24, M, M + 9, cuda_device)
+        for k in range(4, 24, 2):
+            n = int(min(ml[k], nl[k]))
+            args[0][k, :n] = args[1][k, :n]
+        for go, ge in PENS:
+            got = call(*args, go, ge, 2, -2)
+            torch.cuda.synchronize()
+            assert torch.equal(got, sw.scores_global_plain(*args, go, ge, 2, -2)), (M, go, ge)
+
+
+@pytest.mark.parametrize("limit", [2, 151, 10_000])
+def test_k3_dispatch_across_route_limit(cuda_device, monkeypatch, limit):
+    """``scores_global`` on 40 pairs at M = 149-151 and 605-607 with the
+    route limit ``SCORES_ROWS_MIN`` forced low, into that range and high:
+    each call launches the route ``scores_route`` names, once, and equals
+    the plain version."""
+    monkeypatch.setattr(sw, "SCORES_ROWS_MIN", limit)
+    rng = np.random.default_rng(62)
+    for M in (149, 150, 151, 605, 606, 607):
+        args, _, _ = _pairs(rng, 40, M, 160, cuda_device)
+        route = sw.scores_route(M, 40)
+        assert route == ("rows" if M + 1 >= limit else "warp")
+        before = sw.SCORES_GLOBAL_WARP.launches, sw.SCORES_GLOBAL_ROWS.launches
+        got = sw.scores_global(*args, -5, -1, 2, -2)
+        torch.cuda.synchronize()
+        after = sw.SCORES_GLOBAL_WARP.launches, sw.SCORES_GLOBAL_ROWS.launches
+        assert (after[0] - before[0], after[1] - before[1]) == ((0, 1) if route == "rows" else (1, 0))
+        assert torch.equal(got, sw.scores_global_plain(*args, -5, -1, 2, -2))
+
+
+def _pair_major(tb):
+    """An (N, X, B) tb as the (N, X, B) view of a zero-padded pair-major
+    (B, N, Xp) copy, Xp = X rounded up to 8 (K13's layout)."""
+    N, X, B = tb.shape
+    pm = torch.zeros((B, N, -(-X // 8) * 8), dtype=torch.uint16, device=tb.device)
+    pm[:, :, :X] = tb.permute(2, 0, 1)
+    return pm.permute(1, 2, 0)[:, :X, :]
+
+
+def _seg_walk_matches_plain(tb, ml, nl):
+    """K14 on ``tb`` against its plain version; returns ins_cnt."""
+    got = walk.sweep_walk_global_seg(tb, ml, nl)
+    torch.cuda.synchronize()
+    for g, w in zip(got, walk.sweep_walk_global_seg_plain(tb, ml, nl)):
+        assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+    return got[0]
+
+
+@pytest.mark.parametrize("layout", ["pair-major", "contiguous"])
+@pytest.mark.parametrize("rb", [16, 128])
+def test_seg_walk_tiles_match_plain(cuda_device, layout, rb):
+    """K14 (one warp a pair over tb tiles in shared memory, Ins runs past a
+    tile followed 256 rows a load) against its plain version on K13's tb:
+    its pair-major view (16-byte row loads) and a contiguous (N, X, B)
+    copy (a cell a load), at seams every 16 and 128 rows; x carrying
+    insertions of 255 to 4,100 rows into 30-120 bp y, related pairs (paths
+    near the diagonal), random pairs, and lanes with mlens = 0 or
+    nlens = 0."""
+    rng = np.random.default_rng(63 + rb)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    inserts = [255, 256, 257, 300, 700, 1500, 2900, 4100]
+    xs, ys = [], []
+    for ins in inserts:
+        y = acgt[rng.integers(0, 4, size=int(rng.integers(30, 121)))]
+        at = int(rng.integers(0, y.size + 1))
+        xs.append(np.concatenate([y[:at], acgt[rng.integers(0, 4, size=ins)], y[at:]]))
+        ys.append(y)
+    for _ in range(6):
+        y = acgt[rng.integers(0, 4, size=int(rng.integers(100, 400)))]
+        x = y.copy()
+        x[rng.random(x.size) < 0.05] = acgt[rng.integers(0, 4)]
+        xs.append(np.delete(x, rng.integers(0, x.size, size=3)))
+        ys.append(y)
+    xs += [acgt[rng.integers(0, 4, size=200)], acgt[:0], acgt[rng.integers(0, 4, size=50)]]
+    ys += [acgt[rng.integers(0, 4, size=90)], acgt[rng.integers(0, 4, size=40)], acgt[:0]]
+    M, N = max(map(len, xs)), max(map(len, ys))
+    xb, yb = np.zeros((len(xs), M), np.uint8), np.zeros((len(xs), N), np.uint8)
+    for b, (x, y) in enumerate(zip(xs, ys)):
+        xb[b, : x.size], yb[b, : y.size] = x, y
+    ml = np.array([len(x) for x in xs], np.int32)
+    nl = np.array([len(y) for y in ys], np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (xb, yb, ml, nl)]
+    for go, ge in PENS:
+        _, tb = sw.scan_global_rows(*args, go, ge, 2, -2, rb=rb)
+        torch.cuda.synchronize()
+        if layout == "contiguous":
+            tb = tb.contiguous()
+        assert walk._vector_rows(tb) == (layout == "pair-major")
+        ins = _seg_walk_matches_plain(tb, args[2], args[3])
+        if (go, ge) == (-5, -1):
+            assert int(ins[:, 7].to(torch.int32).max()) >= 4100
+
+
+def test_seg_walk_single_pairs_match_plain(cuda_device):
+    """K14 at B = 1 (a contiguous tb whose rows have stride 1: 16-byte
+    loads where X is a multiple of 8), mlens = 0, nlens = 0 and both, on
+    the plain K13's tb and its pair-major copy."""
+    rng = np.random.default_rng(64)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    for ml, nl in [(0, 5), (7, 0), (0, 0), (7, 5), (15, 9), (700, 60)]:
+        M = max(ml, 15)
+        args = [torch.from_numpy(a).to(cuda_device) for a in (
+            acgt[rng.integers(0, 4, size=(1, M))], acgt[rng.integers(0, 4, size=(1, max(nl, 9)))],
+            np.array([ml], np.int32), np.array([nl], np.int32),
+        )]
+        _, tb = sw.scan_global_rows_plain(*args, -5, -1, 2, -2, rb=4)
+        for t in (tb, _pair_major(tb)):
+            assert walk._vector_rows(t) == (t.shape[1] % 8 == 0 or t is not tb)
+            _seg_walk_matches_plain(t, args[2], args[3])
+
+
 # ---- the insertion chain where int32 wraps: every DP scan ----
 
 W24 = 2**24  # at 150 rows, 150 * W24 passes 2^31
@@ -454,7 +587,7 @@ def _wrap_cases(kernel, dev):
     P = functools.partial
     rng = np.random.default_rng(91)
     cases = []
-    if kernel in ("K1", "K3", "K5", "K7", "K9", "K13", "K15"):
+    if kernel in ("K1", "K3", "K3-rows", "K5", "K7", "K9", "K13", "K15"):
         args, ml, nl = _pairs(rng, 48, 150, 166, dev)
         for k in range(4, 48, 2):  # long diagonals: S grows by the match score
             n = int(min(ml[k], nl[k]))
@@ -465,6 +598,8 @@ def _wrap_cases(kernel, dev):
                 cases.append((P(sw.scan_global, *pens), P(sw.scan_global_plain, *pens), "global"))
             elif kernel == "K3":
                 cases.append((P(sw.scores_global, *pens), P(sw.scores_global_plain, *pens), "score"))
+            elif kernel == "K3-rows":
+                cases.append((P(sw.scores_global_rows, *pens), P(sw.scores_global_plain, *pens), "score"))
             elif kernel == "K5":
                 for yc in ((0, 0), (-W24, -3 * W24)):
                     cases.append((P(sw.scan_semiglobal, *pens, *yc), P(sw.scan_semiglobal_plain, *pens, *yc), "semi"))
@@ -501,22 +636,26 @@ def _wrap_cases(kernel, dev):
     return cases, ml, nl
 
 
-WRAP_KERNELS = ["K1", "K3", "K5", "K7", "K9", "K11", "K7-LUT", "K9-LUT", "K12", "K13", "K13-LUT", "K15", "K15-LUT"]
+WRAP_KERNELS = ["K1", "K3", "K3-rows", "K5", "K7", "K9", "K11", "K7-LUT", "K9-LUT", "K12", "K13", "K13-LUT", "K15", "K15-LUT"]
 
 
 @pytest.mark.parametrize("placement", ["geometry", "scratch"])
 @pytest.mark.parametrize("kernel", WRAP_KERNELS)
 def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, placement):
-    """Each of the 13 DP scans against its plain version bit for bit at
-    gap costs, scores, tables and clips whose sums pass 2^31 (K13 with
-    seams every 32 rows): the kernels carry the insertion chain as the JAX
-    kernels' prefix maximum of T - i * ge, K13 block by block from its
-    seams, where the recurrence max(I + ge, T) they carried before parts
-    from it; in the kernel's own placement and with its state forced into
-    the device scratch."""
+    """Each of the 13 DP scans (K3 in both its launches: the dispatch at M
+    = 150 takes K18's lanes, ``scores_global_rows`` is its long-x launch)
+    against its plain version bit for bit at gap costs, scores, tables and
+    clips whose sums pass 2^31 (K13 with seams every 32 rows): the kernels
+    carry the insertion chain as the JAX kernels' prefix maximum of T - i
+    * ge, K13 block by block from its seams, where the recurrence max(I +
+    ge, T) they carried before parts from it; in the kernel's own
+    placement and with its state forced into the device scratch."""
     if placement == "scratch":
-        for name, value in (("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1)):
-            if kernel in ("K1", "K3", "K5", "K7", "K9") or name != "_SMEM_MAX":
+        for name, value in (
+            ("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
+            ("SCORES_ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1),
+        ):
+            if kernel in ("K1", "K5", "K7", "K9") or name != "_SMEM_MAX":
                 monkeypatch.setattr(sw, name, value)
     cases, ml, nl = _wrap_cases(kernel, cuda_device)
     assert cases
