@@ -109,10 +109,11 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events (K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also without
-   traceback; K16 also without its tb's zero-fill; K18 also on phase 3d's
-   long proteins, K3 also on its STR pairs, K3's block launch; K14 with
-   its tile geometry and path steps); holds K2, K8 and K10 on
+   events (K7, K9, K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also
+   without traceback; K16 also without its tb's zero-fill; K18 also on
+   phase 3d's long proteins, K3 also on its STR pairs, K3's block launch;
+   K14 with its tile geometry and path steps; K7 and K17-exact with their
+   lane geometry); holds K8 on K7's pair-major view, K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's too; times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
@@ -1630,9 +1631,12 @@ def main() -> int:
     # custom corpus; the plain versions run on the same inputs
     def clip_kernels(scan_name, walk_name, args, pens, clips, nlens_np, ops_per_cell, replaces):
         local = all(c == 0 for c in clips)
-        scan_fn = (lambda plain=False: (sw.scan_local_plain if plain else sw.scan_local)(*args, *pens)) if local else (
-            lambda plain=False: (sw.scan_custom_plain if plain else sw.scan_custom)(*args, *pens, *clips)
-        )
+
+        def scan_fn(plain=False, traceback=True):
+            if local:
+                return (sw.scan_local_plain if plain else sw.scan_local)(*args, *pens, traceback=traceback)
+            return (sw.scan_custom_plain if plain else sw.scan_custom)(*args, *pens, *clips, traceback=traceback)
+
         got = scan_fn()
         torch.cuda.synchronize()
         want = scan_fn(plain=True)
@@ -1640,12 +1644,18 @@ def main() -> int:
         Bq, Mq = args[0].shape
         Nq = args[1].shape[1]
         cells_q = Mq * int(nlens_np.sum())
+        # K7 runs one warp a pair in sw_warp.cu (K7-LUT's lanes), K9 one
+        # thread a pair in sw_custom.cu
+        extra = {"scores_only_ms": cuda_ms(torch, lambda: scan_fn(traceback=False), 10)}
+        if local:
+            R_, placement_, _ = sw.warp_geometry(Mq, sw.LOCAL_WARP_LAYERS)
+            extra.update(stripe_rows=R_, placement=placement_, live_lanes=-(-(Mq + 1) // R_), tb_strides=list(got[0].stride()))
         report(
-            scan_name, "rust_bio_tpu_torch/ops/csrc/sw_custom.cu", replaces[0],
-            defined_clip(got, ml_d_, nl_d_), defined_clip(want, ml_d_, nl_d_),
+            scan_name, f"rust_bio_tpu_torch/ops/csrc/{sw.SCAN_LOCAL.source if local else sw.SCAN_CUSTOM.source}.cu",
+            replaces[0], defined_clip(got, ml_d_, nl_d_), defined_clip(want, ml_d_, nl_d_),
             cuda_ms(torch, scan_fn, 10), cuda_ms(torch, lambda: scan_fn(plain=True), 2),
             Bq * (Mq + Nq) + 8 * Bq + 2 * (Mq + 1) * int((nlens_np + 1).sum()) + 4 * (Nq + 1) * Bq + 5 * 4 * Bq * (Mq + 1),
-            ops_per_cell * cells_q,
+            ops_per_cell * cells_q, **extra,
         )
         del want
         clip_walk(walk_name, walk_name, got, ml_d_, nl_d_, pens, clips, replaces[1])
@@ -2160,7 +2170,8 @@ def main() -> int:
     )
     check(torch.equal(skip, wskip), "pairhmm_fwd_exact: the skip mask differs from its plain version")
     err = rel_err(got.cpu().numpy(), want.cpu().numpy())
-    bit_equal = int((got == want).sum())
+    bit_equal = int((got.view(torch.int64) == want.view(torch.int64)).sum())
+    check(bit_equal == B_HMM_EXACT, f"pairhmm_fwd_exact: {B_HMM_EXACT - bit_equal} banded lanes differ in their bits")
     e_cells = int((e_xl * e_yl).sum()) - int(skip.sum())
     ms = cuda_ms(torch, lambda: pairhmm.pairhmm_fwd_exact(*e_args, exact._params, e_emit, True, HMM_MED), 5)
     del skip, wskip
@@ -2168,13 +2179,18 @@ def main() -> int:
         lambda: pairhmm.pairhmm_fwd_exact(*e_args, exact._params, e_emit, True),
         lambda: pairhmm.pairhmm_fwd_exact_plain(*e_args, exact._params, e_emit, True), rel_err, 5,
     )
+    check(u_same == B_HMM_EXACT, f"pairhmm_fwd_exact: {B_HMM_EXACT - u_same} unbanded lanes differ in their bits")
     u_cells = int((e_xl * e_yl).sum())
+    e_geometry = {
+        name: pairhmm.pairhmm_exact_geometry(ex_y.shape[1], B_HMM_EXACT, banded, sw._sm_count(dev))
+        for name, banded in (("geometry", True), ("unbanded_geometry", False))
+    }
     report_float(
         "pairhmm_fwd_exact", "rust_bio_tpu_torch/ops/csrc/pairhmm_exact.cu", "rust_bio_tpu/stats/pairhmm/exact.py:150",
         max(err, u_err), 1e-14, ms, plain_ms, hmm_bytes(ex_x, ex_y, 8, 24), K17_EXACT_OPS_PER_CELL * e_cells,
         F64_OPS_PER_S, peak="f64 34 TFLOP/s", banded_cells=e_cells, bit_identical_lanes=bit_equal, lanes=B_HMM_EXACT,
         unbanded_ms=u_ms, unbanded_plain_ms=u_plain_ms, unbanded_bit_identical_lanes=u_same,
-        unbanded_bound_ms=K17_EXACT_OPS_PER_CELL * u_cells / F64_OPS_PER_S * 1e3,
+        unbanded_bound_ms=K17_EXACT_OPS_PER_CELL * u_cells / F64_OPS_PER_S * 1e3, **e_geometry,
     )
     # K17-homopoly on the homopoly corpus, f32 (the main path's) and f64
     h_args, h_xl, h_yl = hmm_inputs(hox, hoy)

@@ -1,8 +1,8 @@
-// K9 sw_scan_custom and K7 sw_scan_local: the affine-gap DP with all four
-// clip penalties, for constant match/mismatch scoring. Replace
-// rust_bio_tpu/ops/sw_pallas.py scan_custom_pallas_mp -> _kernel_scan_custom_mp
-// and scan_local_pallas_mp -> _kernel_scan_local_mp (runs="ins"). K7 and
-// K9 fed by a LUT (K7-LUT, K9-LUT) are csrc/sw_warp.cu's.
+// K9 sw_scan_custom: the affine-gap DP with all four clip penalties, for
+// constant match/mismatch scoring. Replaces rust_bio_tpu/ops/sw_pallas.py
+// scan_custom_pallas_mp -> _kernel_scan_custom_mp (runs="ins"). K7 (K9 at
+// clips 0) and K9 fed by a LUT (K9-LUT) are csrc/sw_warp.cu's, one warp a
+// pair.
 //
 // Outputs: the traceback cells of columns j = 0..nlens (column 0, the init
 // column, at index 0) for rows i = 0..mlens, 12 bits plus the vertical
@@ -22,12 +22,7 @@
 // as a masked column reduction, the row-m replacement by the x-suffix clip,
 // is here a running maximum of S + xcs over rows 1..m-1 (strict '>', so the
 // first row that reaches it gives Lx), applied when the thread reaches row m.
-// K7 is the same kernel with the clips zero at compile time, so it gives
-// K9's outputs at clips 0 byte for byte and needs no packing; the terms that
-// clip 0 leaves dead while no sum wraps (the y-prefix clip candidate, the
-// x-prefix clip's gap) stay, since a wrapped gap sum makes them live (the
-// Pallas custom kernel keeps them; the Pallas local kernel drops them). The
-// substitution source is a template parameter, as in sw_global.cu (here
+// The substitution source is a template parameter, as in sw_global.cu (here
 // only MatchParams); the Match/Subst bit is byte equality.
 //
 // Bound on this card: like K5, it writes (N+1) * (M+1) * B uint16 cells and
@@ -105,8 +100,8 @@ struct Column {
   }
 };
 
-// LOCAL: clips 0 (K7); TB: store tb and lx; RUNS: the run nibble (K7, K9)
-template <bool LOCAL, bool TB, bool RUNS, class Subst>
+// TB: store tb and lx; RUNS: the run nibble
+template <bool TB, bool RUNS, class Subst>
 __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
@@ -121,9 +116,6 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
     int* __restrict__ tbk,
     int* __restrict__ scratch) {  // (5, M + 1, B) or null
   static_assert(TB || !RUNS, "the run nibble rides in tb cells");
-  if constexpr (LOCAL) {
-    xcp = xcs = ycp = ycs = 0;
-  }
   extern __shared__ int smem[];
   const int pairs = blockDim.x;
   const int b = blockIdx.x * pairs + threadIdx.x;
@@ -330,7 +322,7 @@ __global__ void __launch_bounds__(PAIRS) scan_clip_kernel(
   }
 }
 
-template <bool LOCAL, bool TB, bool RUNS, class Subst>
+template <bool TB, bool RUNS, class Subst>
 int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
            int B, int M, int go, int ge, Subst sub, int xcp, int xcs,
            int ycp, int ycs, void* tb, void* lx, void* s_f, void* i_f,
@@ -344,12 +336,12 @@ int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
   const size_t smem = scratch ? 0 : per_pair * pairs;
   if (smem > 48 * 1024) {
     const cudaError_t rc = cudaFuncSetAttribute(
-        scan_clip_kernel<LOCAL, TB, RUNS, Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        scan_clip_kernel<TB, RUNS, Subst>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (rc != cudaSuccess) return static_cast<int>(rc);
   }
-  scan_clip_kernel<LOCAL, TB, RUNS, Subst><<<(B + pairs - 1) / pairs, pairs, smem,
-                                             static_cast<cudaStream_t>(stream)>>>(
+  scan_clip_kernel<TB, RUNS, Subst><<<(B + pairs - 1) / pairs, pairs, smem,
+                                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
       static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, go,
       ge, sub, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
@@ -377,19 +369,9 @@ int sw_scan_custom(const void* xt, const void* yt, const void* mlens,
                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
                    void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
                    void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<false, true, true, MatchParams> : launch<false, false, false, MatchParams>;
+  auto fn = tb ? launch<true, true, MatchParams> : launch<false, false, MatchParams>;
   return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
             ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
-}
-
-// K7: K9 at clips (0, 0, 0, 0); needs gap_open, gap_extend <= 0.
-int sw_scan_local(const void* xt, const void* yt, const void* mlens,
-                  const void* nlens, int B, int M, int go, int ge, int ma,
-                  int mi, void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
-                  void* ly_f, void* tbk, void* scratch, void* stream) {
-  auto fn = tb ? launch<true, true, true, MatchParams> : launch<true, false, false, MatchParams>;
-  return fn(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, 0, 0, 0, 0,
-            tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

@@ -3,15 +3,18 @@
 // sw_scan_semiglobal_lut: the global (with its traceback, and score only),
 // the local, the custom-clip and the semiglobal affine-gap DP under a
 // (256, 256) substitution LUT at protein lengths, one warp a pair over row
-// stripes held by its lanes; and K3 at short x, sw_scores_global_warp,
-// K18's kernel under match / mismatch scores.
+// stripes held by its lanes; and, under match / mismatch scores, K3 at
+// short x, sw_scores_global_warp (K18's kernel), and K7 sw_scan_local
+// (K7-LUT's kernel), the local DP of the 150 bp reads.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
 // lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
 // :79 _kernel (sw_scores_global :140, which reads a (B, M, N) substitution
-// tensor), :199 _kernel_mp (sw_scores_global_matchparams :258, K3), :1328 _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs
-// :1529, runs="ins") and, in local and custom mode under a LUT, the XLA
+// tensor), :199 _kernel_mp (sw_scores_global_matchparams :258, K3), :1328
+// _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
+// runs="ins"), :1966 _kernel_scan_local_mp (scan_local_pallas_mp :2177,
+// runs="ins", K7) and, in local and custom mode under a LUT, the XLA
 // engine alignment/pairwise/batched.py:948 _align_batch_device, which the
 // JAX package runs there.
 //
@@ -28,7 +31,10 @@
 //   nlens. A lane with nlens = 0 takes column 0's I and cells as its
 //   finals. Without a tb (score only) it skips the cells, lx and the run
 //   nibble, as K9 does. K7-LUT: K7 fed by the LUT, the same kernel with the
-//   clips zero at compile time (K9's cell at clips 0, as K7).
+//   clips zero at compile time (K9's cell at clips 0: the y-prefix and
+//   x-prefix clip terms stay, which a wrapped gap sum makes live). K7 is
+//   that kernel under match / mismatch scores (the template's substitution
+//   source, as K3's).
 //  K12: csrc/sw_semiglobal.cu's K5 fed by the LUT: the cells of columns
 //   j = 1..nlens and rows 0..mlens with the run nibble; the finals S, I,
 //   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
@@ -67,7 +73,7 @@
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
 // S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
-// and Sn, Ly besides for K7-LUT, K9-LUT and K12 (10 KB), in the warp's
+// and Sn, Ly besides for K7, K7-LUT, K9-LUT and K12 (10 KB), in the warp's
 // slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
@@ -75,7 +81,7 @@
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
 // 16-byte store into the pair-major tb, (B, N, Xp) for K11 and K12 and
-// (B, N+1, Xp) for K7-LUT and K9-LUT, Xp = M + 1 rounded up to 8
+// (B, N+1, Xp) for K7, K7-LUT and K9-LUT, Xp = M + 1 rounded up to 8
 // (ops/sw.py returns the (N, M+1, B) or (N+1, M+1, B) view, which K2, K6,
 // K8 and K10 read through their strides);
 // the lane that holds row mlens stops after the group of 8 that holds it.
@@ -83,11 +89,14 @@
 // Bound on this card: the cells' integer operations (about 34 a cell for
 // K11, 52 for K7-LUT and K9-LUT: 1.0 G cells of the homolog corpus take
 // 1.0-1.6 ms at the int32 peak) or the tb's 2 bytes a cell (2.0 GB there:
-// 0.6 ms), the larger (K12: about 42 a cell, K5's). The one-thread-a-pair kernels before
+// 0.6 ms), the larger (K12: about 42 a cell, K5's; K7 on 8192 random
+// 150 bp pairs: 45 a cell over 184 M cells, 0.29 ms, R = 8 rows a lane and
+// 19 of 32 lanes live, 2.3 KB of x and 5 KB of state a warp). The
+// one-thread-a-pair kernels before
 // these kept a pair's column in shared memory and fit one warp an SM (K11:
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
 // M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
-// 27.2 ms on the domain corpus, 47x); here a warp
+// 27.2 ms on the domain corpus, 47x; K7: 5.45 ms, 19x); here a warp
 // needs 4-11 KB. K18's and K3's bound: about 14 operations a cell (at
 // M = 150 K3's lanes hold R = 8 rows, 19 of 32 lanes live, 2.3 KB a warp;
 // the one-thread K3 before it ran 1.0-1.2 ms on 8192 pairs, 13x that
@@ -456,13 +465,13 @@ __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
 
 // K9-LUT, and K7-LUT at LOCAL (the clips zero at compile time). TB: store
 // the cells with the run nibble, and lx (else score only)
-template <bool TB, bool ONCHIP, bool LOCAL>
+template <bool TB, bool ONCHIP, bool LOCAL, class Subst>
 __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
     const uint8_t* __restrict__ xb,  // (B, M)
     const uint8_t* __restrict__ yb,  // (B, N)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
     int Xp, int R, int go, int ge,
-    const int* __restrict__ lut,  // (256, 256), row x
+    typename Subst::Param subst,  // MatchParams: (ma, mi); Lut: the (256, 256) table, row x
     int xcp, int xcs, int ycp, int ycs,
     uint16_t* __restrict__ tb,    // (B, N + 1, Xp), or null
     int* __restrict__ lx,         // (N + 1, B), or null
@@ -576,7 +585,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
       } else {
         const int yj = y_next;
         if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
-        const int* lut_y = lut + yj;
+        const auto col = Subst::column(subst, yj);
         const bool last = j == nl;
         const int d_gap = add(go, mul(ge, j - 1));
         const int xclip = add(xcp, max(ycp, d_gap));  // the column's x-prefix clip
@@ -632,7 +641,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
               const int dp = st.at(1, r);
               const int sbp = st.at(2, r);
               const int snp = st.at(3, r);
-              const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+              const int m_val = add(s_up_old, col.score(xi));
               const int m_bits = TB_SUBST + (xi == yj);  // TB_MATCH = TB_SUBST + 1
               const int d_ext = add(dp, ge);
               const int d_open = add(sp, go);
@@ -940,23 +949,25 @@ int launch_scores(const void* xb, const void* yb, const void* mlens, const void*
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool LOCAL>
+template <bool LOCAL, class Subst>
 int launch_clip(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
-                int N, int Xp, int go, int ge, const void* lut, int xcp, int xcs, int ycp, int ycs,
-                void* tb, void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
+                int N, int Xp, int go, int ge, typename Subst::Param subst, int xcp, int xcs, int ycp,
+                int ycs, void* tb, void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
                 void* scratch, void* stream) {
   size_t smem = 0;
   const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
   if (B < 1 || M < 0 || N < 0 || R == 0 || !tb != !lx || (tb && (Xp < M + 1 || Xp % GROUP)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tb ? (scratch ? scan_clip_warp_kernel<true, false, LOCAL> : scan_clip_warp_kernel<true, true, LOCAL>)
-                   : (scratch ? scan_clip_warp_kernel<false, false, LOCAL> : scan_clip_warp_kernel<false, true, LOCAL>);
+  auto kernel = tb ? (scratch ? scan_clip_warp_kernel<true, false, LOCAL, Subst>
+                              : scan_clip_warp_kernel<true, true, LOCAL, Subst>)
+                   : (scratch ? scan_clip_warp_kernel<false, false, LOCAL, Subst>
+                              : scan_clip_warp_kernel<false, true, LOCAL, Subst>);
   const int rc = opt_in(kernel, smem);
   if (rc) return rc;
   kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
-      static_cast<const int*>(lut), xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(lx),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge, subst,
+      xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(lx),
       static_cast<int*>(s_f), static_cast<int*>(i_f), static_cast<int*>(sn_f),
       static_cast<int*>(ly_f), static_cast<int*>(tbk), static_cast<int*>(scratch));
   return static_cast<int>(cudaGetLastError());
@@ -972,10 +983,10 @@ const char* rbt_error_string(int code) {
 
 // Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
 // int32 table on the device; tb null for a score-only call, else the
-// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7-LUT, K9-LUT)
+// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9-LUT)
 // uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
 // row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 2 for K18 and K3, 5 for K7-LUT, K9-LUT and K12).
+// above (layers 3 for K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9-LUT and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -1014,14 +1025,24 @@ int sw_scores_global_lut(const void* xb, const void* yb, const void* mlens,
                             scratch, stream);
 }
 
+// K7: the local DP under match / mismatch scores ma / mi; needs gap_open,
+// gap_extend <= 0. lx null with tb.
+int sw_scan_local(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
+                  int M, int N, int Xp, int go, int ge, int ma, int mi, void* tb, void* lx,
+                  void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk, void* scratch,
+                  void* stream) {
+  return launch_clip<true, MatchParams>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, make_int2(ma, mi),
+                                        0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
 // K7-LUT: K7 fed by the LUT; needs gap_open, gap_extend <= 0. lx null with tb.
 int sw_scan_local_lut(const void* xb, const void* yb, const void* mlens,
                       const void* nlens, int B, int M, int N, int Xp, int go,
                       int ge, const void* lut, void* tb, void* lx, void* s_f,
                       void* i_f, void* sn_f, void* ly_f, void* tbk,
                       void* scratch, void* stream) {
-  return launch_clip<true>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, lut, 0, 0, 0, 0, tb, lx, s_f,
-                           i_f, sn_f, ly_f, tbk, scratch, stream);
+  return launch_clip<true, Lut>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, static_cast<const int*>(lut),
+                                0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 // K9-LUT: K9 fed by the LUT, the four clip penalties live; needs gap_open,
@@ -1031,8 +1052,8 @@ int sw_scan_custom_lut(const void* xb, const void* yb, const void* mlens,
                        int ge, const void* lut, int xcp, int xcs, int ycp, int ycs,
                        void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
                        void* ly_f, void* tbk, void* scratch, void* stream) {
-  return launch_clip<false>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, lut, xcp, xcs, ycp, ycs, tb,
-                            lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+  return launch_clip<false, Lut>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, static_cast<const int*>(lut),
+                                 xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 // K12: K5 fed by the LUT; ycp and ycs the y-clip penalties (0 / 0 in

@@ -11,7 +11,8 @@
   lane column stripes (``pairhmm_log_geometry``).
 - K17-exact ``pairhmm_fwd_exact`` (``csrc/pairhmm_exact.cu``, f64) replaces
   the XLA engine ``stats/pairhmm/exact.py`` ``BatchPairHMMExact._forward``:
-  the host oracle's loop, operation for operation.
+  the host oracle's loop, operation for operation, on K17-log's warp over
+  lane column stripes (``pairhmm_exact_geometry``).
 - K17-homopoly ``pairhmm_fwd_homopoly`` (``csrc/pairhmm_homopoly.cu``, f32
   or f64) replaces the XLA engine ``stats/pairhmm/homopoly_device.py``
   ``BatchHomopolyPairHMM._forward``: the 14-state forward, K17-log's warp
@@ -59,13 +60,22 @@ LOG_REG_BYTES = 192
 HOMOPOLY_REG_BYTES = 224
 _LOG_WARPS_MAX = 8
 _REG_C_MAX = {3: 16, HOMOPOLY_STATES: 4}
+# K17-exact's launch (csrc/pairhmm_exact.cu): K17-log's lanes; a lane keeps
+# the oracle's two buffers of each of its columns, EXACT_SLOTS float64
+# values a column (fm, fx, fy; banded EXACT_BANDED_SLOTS: fm, fx and fy
+# twice, med twice), in registers up to EXACT_REG_BYTES a lane (C a power
+# of two: 8 columns unbanded, 2 banded), else in a (B, slots, C, 32)
+# device scratch
+EXACT_REG_BYTES = 192
+EXACT_SLOTS = 3
+EXACT_BANDED_SLOTS = 7
 
 PAIRHMM_FWD_SCALED = CudaKernel(
     "pairhmm_scaled", "pairhmm_fwd_scaled", [PTR] * 6 + [INT] * 5 + [PTR] * 2
 )
 PAIRHMM_FWD_LOG = CudaKernel("pairhmm_log", "pairhmm_fwd_log", [PTR] * 6 + [INT] * 8 + [PTR] * 2)
 PAIRHMM_FWD_EXACT = CudaKernel(
-    "pairhmm_exact", "pairhmm_fwd_exact", [PTR] * 6 + [INT] * 6 + [ctypes.c_longlong] + [PTR] * 4
+    "pairhmm_exact", "pairhmm_fwd_exact", [PTR] * 6 + [INT] * 6 + [ctypes.c_longlong] + [INT] * 2 + [PTR] * 4
 )
 PAIRHMM_FWD_HOMOPOLY = CudaKernel(
     "pairhmm_homopoly", "pairhmm_fwd_homopoly", [PTR] * 6 + [INT] * 8 + [PTR] * 2
@@ -267,6 +277,22 @@ def pairhmm_log_geometry(N: int, B: int, dtype, sms: int = 132, states: int = 3)
     return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
 
 
+def pairhmm_exact_geometry(N: int, B: int, banded: bool, sms: int = 132):
+    """K17-exact's launch at y width ``N`` and ``B`` pairs, ``banded`` (a
+    ``max_edit_dist``) or not, on a card of ``sms`` SMs: (C columns a
+    lane, warps (that is pairs) a block, where the state lives:
+    ``"registers"`` or ``"scratch"``), as ``pairhmm_log_geometry`` picks
+    them at ``EXACT_SLOTS`` or ``EXACT_BANDED_SLOTS`` float64 values a
+    column within ``EXACT_REG_BYTES``."""
+    C = max(1, -(-N // 32))
+    pow2 = 1 << (C - 1).bit_length()
+    slots = EXACT_BANDED_SLOTS if banded else EXACT_SLOTS
+    placement = "scratch"
+    if slots * pow2 * 8 <= EXACT_REG_BYTES:
+        C, placement = pow2, "registers"
+    return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
+
+
 def pairhmm_fwd_log(xs, ys, xlens, ylens, params, emit, semiglobal: bool):
     """K17-log. (B,) log-likelihoods in ``params.dtype`` (float32 or
     float64), at most 0, the surrogate -3e38 / -1e308 for no path.
@@ -366,11 +392,13 @@ def pairhmm_fwd_exact(
     skip = torch.zeros((B, M, N), dtype=torch.uint8, device=dev) if skip_mask else None
     if B:
         ends = torch.empty((B, 3 * M), dtype=torch.float64, device=dev) if semiglobal else None
-        scratch = _scratch(8 if banded else 6, 8, B, N, torch.float64, dev)
+        C, warps, placement = pairhmm_exact_geometry(N, B, banded, _sm_count(dev))
+        slots = EXACT_BANDED_SLOTS if banded else EXACT_SLOTS
+        scratch = torch.empty((B, slots, C, 32), dtype=torch.float64, device=dev) if placement == "scratch" else None
         PAIRHMM_FWD_EXACT.launch(
             dev, xs.data_ptr(), ys.data_ptr(), xlens.data_ptr(), ylens.data_ptr(),
             params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)),
-            int(banded), int(max_edit_dist) if banded else 0, out.data_ptr(), _ptr(ends),
+            int(banded), int(max_edit_dist) if banded else 0, C, warps, out.data_ptr(), _ptr(ends),
             _ptr(skip), _ptr(scratch),
         )
     if skip_mask:

@@ -4,7 +4,8 @@ warp a pair over row stripes at short x, ``csrc/sw_warp.cu``, one block a
 pair at long x, ``csrc/sw_global_rows.cu``; ``scores_route`` picks); K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
-penalties live) and K7 (``scan_local``: K9 at clips 0), ``csrc/sw_custom.cu``;
+penalties live), ``csrc/sw_custom.cu``; K7 (``scan_local``: K9 at clips 0,
+one warp a pair over row stripes with a pair-major tb), ``csrc/sw_warp.cu``;
 K13 (``scan_global_rows``: K1's DP for long x, a row-stripe wavefront
 over one pair a block, with a pair-major tb), ``csrc/sw_global_rows.cu``;
 K15 (``scan_columns``: K9's DP without the run nibble, the clip-mode engine
@@ -46,8 +47,8 @@ or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
 one thread a pair, except K13, K15 and K3 at long x, where one block sweeps
 a pair's columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K18, K3 at short x, K7-LUT, K9-LUT and K12, where
-one warp does (``warp_geometry``), and K16, where one warp computes each column's band
+``columns_geometry``), K11, K18, K3 at short x, K7, K7-LUT, K9-LUT and K12,
+where one warp does (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
@@ -99,7 +100,7 @@ SCAN_SEMIGLOBAL = CudaKernel(
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
 )
 SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
-SCAN_LOCAL = CudaKernel("sw_custom", "sw_scan_local", [PTR] * 4 + [INT] * 6 + [PTR] * 8)
+SCAN_LOCAL = CudaKernel("sw_warp", "sw_scan_local", [PTR] * 4 + [INT] * 8 + [PTR] * 8)
 # the LUT twins: the table's pointer in place of (match, mismatch)
 SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
 SCORES_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scores_global_lut", [PTR] * 4 + [INT] * 5 + [PTR] * 3)
@@ -166,11 +167,12 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9727
-# K11's, K18's, K7-LUT's, K9-LUT's and K12's launch (csrc/sw_warp.cu): one warp a
-# pair, 4 pairs a block; lane t over a stripe of R rows, R a multiple of 8
-# (a lane stores 8 cells at once) with 32 * R >= M + 1; the x bytes of a
-# warp's stripes in its slice of shared memory, beside its row state (three
-# int32 layers a row for K11, two for K18, five for K7-LUT, K9-LUT and K12) while
+# K11's, K18's, K3's (short x), K7's, K7-LUT's, K9-LUT's and K12's launch
+# (csrc/sw_warp.cu): one warp a pair, 4 pairs a block; lane t over a stripe of
+# R rows, R a multiple of 8 (a lane stores 8 cells at once) with 32 * R >= M +
+# 1; the x bytes of a warp's stripes in its slice of shared memory, beside its
+# row state (three int32 layers a row for K11, two for K18 and K3, five for
+# K7, K7-LUT, K9-LUT and K12) while
 # that slice stays within WARP_SHARED_MAX bytes (two blocks an SM at least),
 # else the state in a (B, layers, R, 32) device scratch
 _WARP_LANES = 32
@@ -292,7 +294,7 @@ def scores_route(M: int, B: int) -> str:
 
 
 def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
-    """K11's (``layers`` 3), K18's (2) or K7-LUT's, K9-LUT's and K12's (5) launch at x
+    """K11's (``layers`` 3), K18's and K3's (2) or K7's, K7-LUT's, K9-LUT's and K12's (5) launch at x
     length ``M``, as csrc/sw_warp.cu computes it: (R rows a lane, where the
     row state lives: ``"shared"`` or ``"scratch"``, dynamic shared bytes a
     warp). Lane t owns rows [t * R, t * R + R); R is a multiple of 8. The
@@ -344,7 +346,7 @@ def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7-LUT / K9-LUT / K12, Xp =
+    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7 / K7-LUT / K9-LUT / K12, Xp =
     M + 1 rounded up to a multiple of 8."""
     return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
@@ -594,7 +596,9 @@ def scan_custom_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
 
 def scan_local(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score, traceback=True):
     """K7: ``scan_custom`` at clips (0, 0, 0, 0), the local preset; same
-    outputs, byte for byte."""
+    outputs, byte for byte. On the card ``tb`` is the (N+1, M+1, B) view of
+    a pair-major (B, N+1, Xp) tensor, as K7-LUT's, which
+    ``ops.walk.sweep_walk_local`` and ``sweep_walk_custom`` read in place."""
     return _scan_clip(
         SCAN_LOCAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), (0, 0, 0, 0),
         traceback,
@@ -910,7 +914,7 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
         return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, traceback, runs)
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
-    if kernel in (SCAN_LOCAL_LUT, SCAN_CUSTOM_LUT):
+    if kernel in (SCAN_LOCAL, SCAN_LOCAL_LUT, SCAN_CUSTOM_LUT):
         tb = _pair_major(B, N + 1, M, dev) if traceback else None
         if B:
             scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
@@ -933,8 +937,7 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
             )
         kernel.launch(
             dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),
-            *(f.data_ptr() for f in finals), _ptr(scratch),
+            B, M, go, ge, *sub, *clips, _ptr(tb), _ptr(lx), *(f.data_ptr() for f in finals), _ptr(scratch),
         )
     return (tb, lx, *finals)
 

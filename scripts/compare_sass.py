@@ -3,16 +3,19 @@
 ``rust_bio_tpu_torch/ops/csrc/`` compile to, kernel by kernel, with the
 flags ``ops/_build.py`` builds them with (``sm_90a``).
 
-    python3 scripts/compare_sass.py OLD.cu NEW.cu [--source NAME]
+    python3 scripts/compare_sass.py OLD.cu NEW.cu [--source NAME] [--diff N]
 
 ``--source`` names the source whose ``EXTRA_FLAGS`` apply (default: NEW's
-file name without ``.cu``). A kernel is named by its demangled function
+file name without ``.cu``); ``--diff N`` prints, under each pair that
+differs, the first N lines of a unified diff of their instructions. A kernel is named by its demangled function
 name without namespaces, return type and parameters, template arguments
 kept. For each kernel it prints ``same`` or ``differs`` (with the
 instruction counts); a new kernel without its old name is held against
-each old kernel of the same name up to its template arguments that the
-new side lacks (``same as old ...``), else it is ``new only``; an old one
-left over is ``old only``. Equal machine code means equal outputs and
+the old kernels of the same name up to its template arguments that the
+new side lacks, those whose arguments are a subsequence of its own or it
+of theirs (a template argument gained or dropped) where there are any
+(``same as old ...``), else it is ``new only``; an old one left over is
+``old only``. Equal machine code means equal outputs and
 equal time on the same inputs. Exits non-zero when nvcc or cuobjdump is
 missing or a build fails. Needs the CUDA toolkit, not a card.
 """
@@ -20,6 +23,7 @@ missing or a build fails. Needs the CUDA toolkit, not a card.
 from __future__ import annotations
 
 import argparse
+import difflib
 import re
 import shutil
 import subprocess
@@ -77,6 +81,7 @@ def main() -> int:
     ap.add_argument("old", type=Path)
     ap.add_argument("new", type=Path)
     ap.add_argument("--source")
+    ap.add_argument("--diff", type=int, default=0)
     args = ap.parse_args()
     sys.path.insert(0, str(HERE))
     from rust_bio_tpu_torch.ops import _build
@@ -86,17 +91,35 @@ def main() -> int:
         old, new = kernels(args.old, flags, Path(d)), kernels(args.new, flags, Path(d))
     bare = lambda name: re.sub(r"<.*>$", "", name)  # noqa: E731
     paired = set()
+
+    def targs(name: str) -> list:
+        inner = re.search(r"<(.*)>$", name)
+        return [a.strip() for a in inner.group(1).split(",")] if inner else []
+
+    def within(short: list, long: list) -> bool:
+        it = iter(long)
+        return all(a in it for a in short)
+
+    def show(o: str, n: str) -> None:
+        if args.diff and old[o] != new[n]:
+            lines = list(difflib.unified_diff(old[o], new[n], "old", "new", n=1, lineterm=""))
+            print("\n".join("    " + line for line in lines[: args.diff]))
+
     for name in sorted(set(old) | set(new)):
         if name in old and name in new:
             same = "same" if old[name] == new[name] else "differs"
             print(f"{name}: {same} ({len(old[name])} against {len(new[name])} instructions)")
+            show(name, name)
         elif name in new:
             # a kernel that lost or gained its template: against each old
             # instantiation of its bare name that the new side lacks
             olds = [o for o in old if o not in new and bare(o) == bare(name)]
+            near = [o for o in olds if within(targs(o), targs(name)) or within(targs(name), targs(o))]
+            olds = near or olds
             for o in olds:
                 same = "same as" if old[o] == new[name] else "differs from"
                 print(f"{name}: {same} old {o} ({len(old[o])} against {len(new[name])} instructions)")
+                show(o, name)
             paired.update(olds)
             if not olds:
                 print(f"{name}: new only")

@@ -25,12 +25,15 @@ or the finals, and the tb cells read as ``tb[j, i, b]`` whatever the tb's
 layout; equal checksums from two trees: equal outputs); and the card's name
 and power limit as nvidia-smi reports them. Then it times the launches of
 the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
-contiguous tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA
-pairs, and of K6, which reads K12's, on K5's contiguous tb of the same
-pairs, and K3 (``sw.scores_global``) on those pairs, as chip_smoke.py
-phase 2 times it (10 x ``--reps`` launches, a checksum of their outputs);
-then K1, K5 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties
-and clips) on the same pairs, with checksums as the protein scans'.
+tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA pairs (K7's
+pair-major view where the tree's K7 runs in ``sw_warp``), and of K6, which
+reads K12's, on K5's contiguous tb of the same pairs, and K3
+(``sw.scores_global``) on those pairs, as chip_smoke.py phase 2 times it
+(10 x ``--reps`` launches, a checksum of their outputs); then K1, K5
+(y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties and clips) on
+the same pairs, with checksums as the protein scans', K7 and K9 also
+without traceback (``scores_only_ms``), with the source each is built from
+and K7's rows a lane where that is ``sw_warp``.
 Exits non-zero without a CUDA device.
 """
 
@@ -152,7 +155,7 @@ def time_k18(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
 
 def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
     """Time the launches of K2, K8 and K6, which read a pair-major tb
-    through its strides, on the contiguous tbs of K1, K7 and K5 over
+    through its strides, on the tbs of K1, K7 and K5 over
     chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2) (K5
     with y-clips 0), and K3 on those pairs; one JSON line each, with a
     checksum of the outputs."""
@@ -188,27 +191,37 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
         for t in out:
             w = torch.arange(1, t.numel() + 1, device=dev).reshape(t.shape)
             total = [x + y for x, y in zip(total, _sums(torch, t, w))]
+        tb_of = {k2: tb, k8: scan[0], k6: semi[0]}.get(fn)
+        layout = "" if tb_of is None else (", contiguous tb" if tb_of.is_contiguous() else ", pair-major view")
         print(json.dumps({
-            "kernel": name, **fields, "input": "150 bp DNA" + ("" if fn is k3 else ", contiguous tb"), "pairs": B,
+            "kernel": name, **fields, "input": "150 bp DNA" + layout, "pairs": B,
             "reps": reps,
             "ms": chip_smoke.cuda_ms(torch, fn, reps), "checksum": total, "card": card,
         }), flush=True)
     cpens = chip_smoke.CUSTOM_PENS
     cclips = (chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_YCLIP, chip_smoke.CUSTOM_YCLIP)
+    del scan, semi, tb
+    kernels = {k.symbol: k for k in vars(sw).values() if isinstance(k, type(sw.SCAN_GLOBAL))}
+    n = max(1, reps // 10)
     for name, fn, first_col in (
-        ("sw_scan_global", lambda: sw.scan_global(*a, *pens), 1),
-        ("sw_scan_semiglobal", lambda: sw.scan_semiglobal(*a, *pens, 0, 0), 1),
-        ("sw_scan_local", lambda: sw.scan_local(*a, *pens), 0),
-        ("sw_scan_custom", lambda: sw.scan_custom(*a, *cpens, *cclips), 0),
+        ("sw_scan_global", lambda **kw: sw.scan_global(*a, *pens), 1),
+        ("sw_scan_semiglobal", lambda **kw: sw.scan_semiglobal(*a, *pens, 0, 0), 1),
+        ("sw_scan_local", lambda **kw: sw.scan_local(*a, *pens, **kw), 0),
+        ("sw_scan_custom", lambda **kw: sw.scan_custom(*a, *cpens, *cclips, **kw), 0),
     ):
         out = fn()
         torch.cuda.synchronize()
         outs = [out[1], out[0], out[2]] if name == "sw_scan_global" else list(out)
         total = checksum(torch, outs, a[2], a[3], first_col)
         del out, outs
+        source = kernels[name].source
+        extra = {"stripe_rows": sw.warp_geometry(L, 5)[:2]} if source == "sw_warp" else {}
+        clip = name in ("sw_scan_local", "sw_scan_custom")
         print(json.dumps({
-            "kernel": name, **fields, "input": "150 bp DNA", "pairs": B, "reps": reps // 10,
-            "ms": chip_smoke.cuda_ms(torch, fn, max(1, reps // 10)), "checksum": total, "card": card,
+            "kernel": name, **fields, "input": "150 bp DNA", "source": source, **extra, "pairs": B, "reps": n,
+            "ms": chip_smoke.cuda_ms(torch, fn, n),
+            "scores_only_ms": chip_smoke.cuda_ms(torch, lambda: fn(traceback=False), n) if clip else None,
+            "checksum": total, "card": card,
         }), flush=True)
 
 

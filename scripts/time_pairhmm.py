@@ -9,7 +9,9 @@ and 256 of them global, in float32; and K17-homopoly
 (``pairhmm.pairhmm_fwd_homopoly``) on phase 3g's 2048 homopoly pairs (the
 bench pairs' first 2048 haplotypes and their exact read substrings, hop
 open 1e-4, extension 0.5), semiglobal (the main path's) and global, in
-float32 and float64.
+float32 and float64; and K17-exact (``pairhmm.pairhmm_fwd_exact``) on phase
+3g's 1024 exact pairs (the first 1024 bench pairs), semiglobal, unbanded
+and at ``max_edit_dist`` 4, with a checksum of the skip mask too.
 
     python3 scripts/time_pairhmm.py [--root DIR] [--reps N] [--seed S]
 
@@ -18,7 +20,8 @@ the one holding this script), so that two trees can be compared on one card
 in one call; the inputs come from this checkout's chip_smoke.py generator
 either way. For each input it prints one JSON line: the median of ``--reps``
 CUDA-event-timed launches after one warm-up, the launch geometry where the
-timed tree has ``pairhmm_log_geometry``, a checksum of the output's raw bits
+timed tree has ``pairhmm_log_geometry`` (K17-exact: ``pairhmm_exact_geometry``),
+a checksum of the output's raw bits
 (int64 sums, plain and weighted by lane, of the float32 or float64 words
 read as integers: equal checksums from two trees are equal outputs, bit for
 bit), and the card's name and power limit as nvidia-smi reports them. Exits
@@ -63,7 +66,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import rust_bio_tpu_torch
     from rust_bio_tpu_torch.ops import pairhmm
-    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM
+    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM, BatchPairHMMExact
 
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_pairhmm: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
@@ -115,6 +118,25 @@ def main() -> int:
             "root": str(root), "pairs": B, "M": int(a[0].shape[1]), "N": N,
             "cells": int((arrays[2].astype(np.int64) * arrays[3]).sum()), **geometry, "reps": args.reps,
             "ms": cs.cuda_ms(torch, fn, args.reps, warm=False), "checksum": checksum(torch, out), "card": card,
+        }), flush=True)
+    ex = tens(hbx[: cs.B_HMM_EXACT], hby[: cs.B_HMM_EXACT], full(hbx[: cs.B_HMM_EXACT]), full(hby[: cs.B_HMM_EXACT]))
+    params = BatchPairHMMExact(*bench_gaps, device=dev)._params
+    e = torch.from_numpy(bench_emit).to(dev)
+    for med in (None, cs.HMM_MED):
+        out, skip = pairhmm.pairhmm_fwd_exact(*ex, params, e, True, med, True)
+        torch.cuda.synchronize()
+        fn = lambda med=med: pairhmm.pairhmm_fwd_exact(*ex, params, e, True, med)  # noqa: E731
+        B, N = ex[1].shape
+        geometry = (
+            {"geometry": list(pairhmm.pairhmm_exact_geometry(N, B, med is not None, sms))}
+            if hasattr(pairhmm, "pairhmm_exact_geometry") else {}
+        )
+        print(json.dumps({
+            "kernel": "pairhmm_fwd_exact", "input": "exact" if med is None else "exact_banded", "max_edit_dist": med,
+            "dtype": "float64", "semiglobal": True, "root": str(root), "pairs": B, "M": int(ex[0].shape[1]), "N": N,
+            "cells": B * int(ex[0].shape[1]) * N, "skipped": int(skip.sum()), **geometry, "reps": args.reps,
+            "ms": cs.cuda_ms(torch, fn, args.reps, warm=False), "checksum": checksum(torch, out),
+            "skip_checksum": checksum(torch, skip.to(torch.int32).reshape(-1)), "card": card,
         }), flush=True)
     return 0
 

@@ -655,7 +655,7 @@ def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, p
             ("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
             ("SCORES_ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1),
         ):
-            if kernel in ("K1", "K5", "K7", "K9") or name != "_SMEM_MAX":
+            if kernel in ("K1", "K5", "K9") or name != "_SMEM_MAX":
                 monkeypatch.setattr(sw, name, value)
     cases, ml, nl = _wrap_cases(kernel, cuda_device)
     assert cases
@@ -824,6 +824,42 @@ def test_warp_local_lut_scan_and_walks_match_plain(cuda_device, monkeypatch, M, 
         for g, w in zip(walk.local_entry(got[0], lx, tbfix, lx_n, ml, nl),
                         walk.local_entry(got[0].contiguous(), lx, tbfix, lx_n, ml, nl)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("placement", ["shared", "scratch"])
+def test_warp_local_scan_and_walks_match_plain(cuda_device, monkeypatch, placement):
+    """K7 (csrc/sw_warp.cu: K7-LUT's lanes under match / mismatch scores)
+    with traceback and score-only against ``scan_local_plain`` bit for bit
+    at M = 1-700 (``K3_MS``) and four gap costs, related lanes (long
+    diagonals), mlens = 0 and nlens = 0 lanes, the row state in shared
+    memory and in the device scratch; then K8 (where go + ge < 0) and K10
+    on its pair-major view and on a contiguous copy against their plain
+    versions."""
+    rng = np.random.default_rng(75)
+    for M in K3_MS:
+        _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+        args, mlens, nlens = _pairs(rng, 24, M, M + 9, cuda_device)
+        for k in range(4, 24, 2):
+            n = int(min(mlens[k], nlens[k]))
+            args[0][k, :n] = args[1][k, :n]
+        ml, nl = args[2], args[3]
+        for go, ge in PENS + [(0, 0)]:
+            got = sw.scan_local(*args, go, ge, 2, -2)
+            torch.cuda.synchronize()
+            want = sw.scan_local_plain(*args, go, ge, 2, -2)
+            assert got[0].shape == want[0].shape and got[0].stride()[1] == 1, M  # the pair-major view
+            _clip_scans_match(got, want, mlens, nlens)
+            only = sw.scan_local(*args, go, ge, 2, -2, traceback=False)
+            assert only[0] is None and only[1] is None
+            for g, w in zip(only[2:6], got[2:6]):
+                assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+            assert torch.equal(_masked(only[6], mlens), _masked(got[6] & 0xFFF, mlens))
+            tbfix, lx, lx_n = _local_walk_inputs(got, ml, nl, go, ge)
+            inputs = (tbfix, lx, lx_n, ml, nl)
+            fns = [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain, inputs)]
+            if go + ge < 0:
+                fns.append((walk.sweep_walk_local, walk.sweep_walk_local_plain, inputs))
+            _walks_on_both_layouts(got[0], fns)
 
 
 CLIP_CHOICES = (MIN, 0, -7)
@@ -1620,16 +1656,25 @@ def test_pairhmm_log_warp_placements_match_plain(cuda_device, monkeypatch, N, dt
                 _rel_close(got, want, 1e-12)
 
 
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
 @pytest.mark.parametrize("N", [54, 5_000])
-def test_pairhmm_exact_matches_plain(cuda_device, N):
-    """K17-exact in shared memory and in the device scratch (6 or 8 layers
-    of 8 * (N + 1) bytes over 227 KB at N 5,000), with its skip mask."""
+def test_pairhmm_exact_matches_plain(cuda_device, monkeypatch, N, placement):
+    """K17-exact, one warp a pair, with its skip mask, bit for bit: in the
+    geometry's placement (registers at N 54, two columns a lane; the device
+    scratch at N 5,000, 157 columns a lane) and in the scratch at both N
+    (the register budget lowered to 0)."""
     from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMMExact
 
+    if placement == "scratch":
+        monkeypatch.setattr(pairhmm_ops, "EXACT_REG_BYTES", 0)
     small = N < 1000
     B, M = (64, 60) if small else (4, 3)
+    for banded in (False, True):
+        want_placement = "registers" if placement == "geometry" and small else "scratch"
+        assert pairhmm_ops.pairhmm_exact_geometry(N, B, banded, sw._sm_count(cuda_device))[2] == want_placement
     xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 2), B, M, N)
-    bit_equal = total = 0
+    if small:  # ylen at both places of a two-column stripe, on lanes 0, 15, 16 and 26
+        yl[4:10] = [1, 2, 31, 32, 33, 53]
     # the plain version loops over j for a band or an extended Y state:
     # the long rows take the bench gaps, unbanded and at 4
     for gaps in HMM_GAPS if small else ("bench",):
@@ -1642,9 +1687,7 @@ def test_pairhmm_exact_matches_plain(cuda_device, N):
                 want, wskip = pairhmm_ops.pairhmm_fwd_exact_plain(*args[:4], hmm._params, args[4], semi, med, True)
                 _rel_close(got, want, 1e-14)
                 assert torch.equal(skip, wskip)
-                bit_equal += int((got == want).sum())
-                total += B
-    print(f"K17-exact: {bit_equal} of {total} lanes bit-identical to the plain version")
+                assert torch.equal(got.view(torch.int64), want.view(torch.int64)), (gaps, semi, med)
 
 
 @pytest.mark.parametrize("placement", ["geometry", "scratch"])

@@ -1,8 +1,10 @@
 """The port stands alone: no file of ``rust_bio_tpu_torch`` nor
 ``chip_smoke.py`` imports JAX or the JAX package, and the entry points
-refuse to run without a card unless the caller asks for the CPU."""
+refuse to run without a card unless the caller asks for the CPU; each C
+entry point the wrappers bind is the one its source defines."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -123,3 +125,30 @@ def test_default_device_raises_without_cuda(monkeypatch):
         pairhmm_from_params("BatchPairHMM", BatchPairHMM(*gaps, device="cpu").g)
     assert BatchBandedAligner(sc, 8, 8, device="cpu").device.type == "cpu"
     assert BatchAligner(sc, device="cpu").device.type == "cpu"
+
+
+def _kernels():
+    from rust_bio_tpu_torch.ops import _build, fm, sw, walk
+
+    return [k for m in (sw, walk, pairhmm_ops, fm) for k in vars(m).values() if isinstance(k, _build.CudaKernel)]
+
+
+@pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)
+def test_kernel_entry_points_match_their_sources(kernel):
+    """Each C entry point a wrapper binds is defined in the one source it
+    names, and in no other, with the wrapper's arguments in order (a
+    pointer for ``void*``, ``long long`` for ``long long``, else ``int``)
+    and the stream last: K7's ``sw_scan_local`` in ``sw_warp.cu`` only."""
+    import ctypes
+
+    from rust_bio_tpu_torch.ops import _build
+
+    found = {}
+    for path in sorted(_build.CSRC.glob("*.cu")):
+        m = re.search(r"^int %s\(([^)]*)\)" % kernel.symbol, path.read_text(), re.M)
+        if m:
+            found[path.stem] = [" ".join(p.split()) for p in m.group(1).split(",")]
+    assert list(found) == [kernel.source]
+    params = found[kernel.source]
+    kinds = [_build.PTR if "void*" in p else ctypes.c_longlong if p.startswith("long long") else _build.INT for p in params]
+    assert kinds == kernel.argtypes + [_build.PTR] and params[-1].endswith("stream")

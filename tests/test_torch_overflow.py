@@ -11,6 +11,10 @@ interpret mode, the plain K13 against ``scan_global_rows_pallas_mp`` with
 hold lanes with an empty x and an empty y. Integers throughout: every
 comparison is exact (tolerance 0). The final I of an empty-y lane is held to
 column 0's I, which the port keeps and the JAX kernels leave at MIN_SCORE.
+Last, ``BatchAligner(device="cpu").global_`` where int32 wraps: the port
+routes a batch to K1 or K13 by its padded M, where the JAX package routes
+by its VMEM model, so one pair's answer depends on its batch there; pinned
+with the JAX package's answer beside it.
 """
 
 import jax.numpy as jnp
@@ -228,3 +232,68 @@ def test_k15_plain_matches_pallas_under_wrap(case):
     for b in range(B):
         np.testing.assert_array_equal(got[1][: nlens[b] + 1, b].numpy(), want_lx[: nlens[b] + 1, b])
     _assert_finals(got[2:], (S_f, I_f, Sn_f, Ly_f, tb_f), mlens, nlens, i0=_column0_i(go, ge, clips[0], M + 1))
+
+
+# ---- global alignment's engine where int32 wraps: the port routes by padded M ----
+
+# the smallest input of the departure: M = 424, N = 434, scores whose sums
+# wrap int32. Alone in its batch (padded M + 1 = 425 < T_ROWS) it runs K1;
+# beside a 700 bp pair (padded M + 1 = 691) K13 with 128-row seams. The JAX
+# package leaves K1 for its block-row engine here by its VMEM model
+# (``transposed_feasible``, ``_pick_block_rows``), which the port does not
+# carry: its answer depends on the batch's padded M, as the JAX package's
+# depends on its padded shape.
+Q3_PENS = (-(2**30), -(2**29), 2**30, -(2**30))
+
+
+def _q3_pairs():
+    y = np.random.default_rng(1).choice(list(b"ACGT"), size=434).astype(np.uint8).tobytes()
+    y2 = np.random.default_rng(2).choice(list(b"ACGT"), size=700).astype(np.uint8).tobytes()
+    return (y[5:429], y), (y2[:690], y2)
+
+
+def _port_global(pens, pairs):
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+
+    return BatchAligner(Scoring.from_scores(*pens), device="cpu").global_([p[0] for p in pairs], [p[1] for p in pairs])
+
+
+def test_global_wrap_alone_takes_k1_and_parts_from_jax():
+    """Alone, the M = 424 pair takes K1 (padded M + 1 below ``T_ROWS``):
+    score 1,825,361,101 and 616 operations. The JAX package, computed here,
+    takes its block-row engine: 1,610,612,736 and 705. The port keeps its
+    own routing (pinned)."""
+    from rust_bio_tpu.alignment.pairwise.batched import BatchAligner as JaxBatchAligner
+    from rust_bio_tpu.alignment.pairwise.scoring import Scoring as JaxScoring
+    from rust_bio_tpu_torch.alignment.pairwise.batched import T_ROWS
+
+    (x, y), _ = _q3_pairs()
+    assert len(x) + 1 < T_ROWS
+    got = _port_global(Q3_PENS, [(x, y)])[0]
+    jax = JaxBatchAligner(JaxScoring.from_scores(*Q3_PENS)).global_([x], [y])[0]
+    assert (got.score, len(got.operations)) == (1_825_361_101, 616)
+    assert (jax.score, len(jax.operations)) == (1_610_612_736, 705)
+
+
+def test_global_wrap_beside_a_long_pair_takes_k13():
+    """The same pair beside a 700 bp pair: the padded M + 1 = 691 passes
+    ``T_ROWS`` and the batch runs K13, whose seams give 1,610,612,736 and
+    705 operations for it (the JAX package's answer alone); the long pair
+    its own."""
+    pairs = _q3_pairs()
+    got = _port_global(Q3_PENS, pairs)
+    assert (got[0].score, len(got[0].operations)) == (1_610_612_736, 705)
+    alone = _port_global(Q3_PENS, pairs[1:])[0]
+    assert (got[1].score, got[1].operations) == (alone.score, alone.operations)
+
+
+def test_global_without_wrap_does_not_depend_on_the_batch():
+    """Under (-5, -1, 2, -2), where no sum wraps, both batches give the M =
+    424 pair one answer (score 830), as the JAX package does."""
+    pairs = _q3_pairs()
+    alone = _port_global((-5, -1, 2, -2), pairs[:1])[0]
+    beside = _port_global((-5, -1, 2, -2), pairs)[0]
+    assert alone.score == beside.score == 830
+    assert (alone.xstart, alone.xend, alone.ystart, alone.yend, alone.operations) == (
+        beside.xstart, beside.xend, beside.ystart, beside.yend, beside.operations
+    )

@@ -1,11 +1,17 @@
-"""K17-log's and K17-homopoly's launch geometry (``ops/pairhmm.py``
-``pairhmm_log_geometry``, which ``ops/csrc/pairhmm_log.cu`` and
-``pairhmm_homopoly.cu`` take from the wrapper): one warp a pair, lane t
-over the columns [t * C + 1, t * C + C] of y; the state (3 or 14 values a
-column) in registers or in the device scratch; warps a block. Pure Python:
+"""K17-log's, K17-homopoly's and K17-exact's launch geometry
+(``ops/pairhmm.py`` ``pairhmm_log_geometry`` and
+``pairhmm_exact_geometry``, which ``ops/csrc/pairhmm_log.cu``,
+``pairhmm_homopoly.cu`` and ``pairhmm_exact.cu`` take from the wrapper):
+one warp a pair, lane t over the columns [t * C + 1, t * C + C] of y; the
+state (3 or 14 values a column; K17-exact 3, or 7 banded) in registers or
+in the device scratch; warps a block; K17-exact's constants against its
+source. Pure Python:
 the kernels themselves run in ``test_torch_cuda.py``, their plain versions
 against the JAX package in ``test_torch_pairhmm.py``.
 """
+
+import re
+from pathlib import Path
 
 import pytest
 import torch
@@ -134,3 +140,80 @@ def test_homopoly_lowered_budget_moves_the_placement_early(monkeypatch):
     monkeypatch.setattr(pairhmm, "HOMOPOLY_REG_BYTES", 10**6)
     assert pairhmm.pairhmm_log_geometry(128, 64, torch.float64, 132, HOMOPOLY) == (4, 1, "registers")
     assert pairhmm.pairhmm_log_geometry(129, 64, torch.float64, 132, HOMOPOLY) == (5, 1, "scratch")
+
+
+# ---- K17-exact (ops/csrc/pairhmm_exact.cu, ``pairhmm_exact_geometry``) ----
+
+CSRC = Path(pairhmm.__file__).resolve().parent / "csrc"
+
+
+def _exact_constants() -> dict:
+    text = (CSRC / "pairhmm_exact.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+def test_exact_mirrors_match_the_source():
+    """The register budget, the values a column keeps (unbanded and
+    banded), the lanes and the warps a block of the CUDA source are the
+    wrapper's; the source instantiates the register stripes 1, 2, 4 and 8
+    that the geometry can pick."""
+    c = _exact_constants()
+    assert c["REG_BYTES"] == pairhmm.EXACT_REG_BYTES
+    assert (c["SLOTS"], c["BANDED_SLOTS"]) == (pairhmm.EXACT_SLOTS, pairhmm.EXACT_BANDED_SLOTS)
+    assert (c["LANES"], c["MAX_WARPS"]) == (32, pairhmm._LOG_WARPS_MAX)
+    text = (CSRC / "pairhmm_exact.cu").read_text()
+    regs = {int(v) for v in re.findall(r"pairhmm_exact_warp_kernel<BANDED, (\d+)>", text)} - {0}
+    assert regs == {1, 2, 4, 8}
+    # the budget's largest power-of-two stripes, unbanded and banded, are instantiated
+    assert {1 << (pairhmm.EXACT_REG_BYTES // (8 * s)).bit_length() - 1 for s in (c["SLOTS"], c["BANDED_SLOTS"])} <= regs
+
+
+@pytest.mark.parametrize("banded", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 54, 64, 65, 96, 97, 150, 256, 257, 500, 5000])
+def test_exact_geometry_covers_every_column_once(n, banded):
+    """The 32 stripes cover columns 1..N, each once; in registers C is the
+    least power of two that does, its columns' values within
+    ``EXACT_REG_BYTES`` (8 columns of 3 values unbanded, 2 of 7 banded); in
+    the scratch the least C."""
+    C, warps, placement = pairhmm.pairhmm_exact_geometry(n, 64, banded)
+    cols = [j for stripe in _stripes(C) for j in stripe]
+    assert len(cols) == len(set(cols)) and set(range(1, n + 1)) <= set(cols)
+    least = max(1, -(-n // 32))
+    reg_max = 2 if banded else 8
+    slots = pairhmm.EXACT_BANDED_SLOTS if banded else pairhmm.EXACT_SLOTS
+    if placement == "registers":
+        assert C <= reg_max and C & (C - 1) == 0 and C // 2 < least <= C
+        assert slots * C * 8 <= pairhmm.EXACT_REG_BYTES
+    else:
+        assert placement == "scratch" and C == least > reg_max
+    assert warps == 1
+
+
+def test_exact_geometry_of_the_main_path():
+    """The 1024 exact bench pairs (y 54): C = 2 in registers, unbanded and
+    at ``max_edit_dist`` 4, one warp a block (1024 warps on 132 SMs, where
+    the one-thread kernel ran 32); N = 5,000 in the scratch at C = 157;
+    more pairs than 32 blocks an SM hold: more warps a block, up to 8."""
+    for banded in (False, True):
+        assert pairhmm.pairhmm_exact_geometry(54, 1024, banded, 132) == (2, 1, "registers")
+        assert pairhmm.pairhmm_exact_geometry(5000, 4, banded, 132) == (157, 1, "scratch")
+        assert pairhmm.pairhmm_exact_geometry(54, 32 * 132 + 1, banded, 132)[1] == 2
+        assert pairhmm.pairhmm_exact_geometry(54, 10**6, banded, 132)[1] == 8
+    assert pairhmm.pairhmm_exact_geometry(256, 64, False) == (8, 1, "registers")
+    assert pairhmm.pairhmm_exact_geometry(257, 64, False) == (9, 1, "scratch")
+    assert pairhmm.pairhmm_exact_geometry(64, 64, True) == (2, 1, "registers")
+    assert pairhmm.pairhmm_exact_geometry(65, 64, True) == (3, 1, "scratch")
+
+
+def test_exact_lowered_budget_moves_the_placement_early(monkeypatch):
+    """A budget of one banded column (56 bytes) keeps C = 1 in registers
+    banded and C = 2 unbanded; at 0 every width goes to the scratch (the
+    card tests' scratch placement)."""
+    monkeypatch.setattr(pairhmm, "EXACT_REG_BYTES", 56)
+    assert pairhmm.pairhmm_exact_geometry(32, 64, True) == (1, 1, "registers")
+    assert pairhmm.pairhmm_exact_geometry(33, 64, True) == (2, 1, "scratch")
+    assert pairhmm.pairhmm_exact_geometry(64, 64, False) == (2, 1, "registers")
+    assert pairhmm.pairhmm_exact_geometry(65, 64, False) == (3, 1, "scratch")
+    monkeypatch.setattr(pairhmm, "EXACT_REG_BYTES", 0)
+    assert pairhmm.pairhmm_exact_geometry(54, 64, False) == (2, 1, "scratch")
+    assert pairhmm.pairhmm_exact_geometry(1, 64, True) == (1, 1, "scratch")
