@@ -155,7 +155,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit operations per DP cell in the inner loops of csrc/sw_global.cu,
-# csrc/sw_semiglobal.cu and csrc/sw_custom.cu (compares, selects, adds, max,
+# csrc/sw_semiglobal.cu and csrc/sw_warp.cu's K7 and K9 (compares, selects, adds, max,
 # the run counter, the cell packing and, in K5, K7 and K9, the clip
 # candidates and the Sn/Ly update; K7 and K9 add the running x-suffix
 # maximum; loads, stores and address arithmetic not counted), the
@@ -1644,12 +1644,11 @@ def main() -> int:
         Bq, Mq = args[0].shape
         Nq = args[1].shape[1]
         cells_q = Mq * int(nlens_np.sum())
-        # K7 runs one warp a pair in sw_warp.cu (K7-LUT's lanes), K9 one
-        # thread a pair in sw_custom.cu
+        # K7 and K9 run one warp a pair in sw_warp.cu (K7-LUT's and
+        # K9-LUT's lanes)
         extra = {"scores_only_ms": cuda_ms(torch, lambda: scan_fn(traceback=False), 10)}
-        if local:
-            R_, placement_, _ = sw.warp_geometry(Mq, sw.LOCAL_WARP_LAYERS)
-            extra.update(stripe_rows=R_, placement=placement_, live_lanes=-(-(Mq + 1) // R_), tb_strides=list(got[0].stride()))
+        R_, placement_, _ = sw.warp_geometry(Mq, sw.LOCAL_WARP_LAYERS)
+        extra.update(stripe_rows=R_, placement=placement_, live_lanes=-(-(Mq + 1) // R_), tb_strides=list(got[0].stride()))
         report(
             scan_name, f"rust_bio_tpu_torch/ops/csrc/{sw.SCAN_LOCAL.source if local else sw.SCAN_CUSTOM.source}.cu",
             replaces[0], defined_clip(got, ml_d_, nl_d_), defined_clip(want, ml_d_, nl_d_),
@@ -1939,7 +1938,9 @@ def main() -> int:
     # protein local corpus: one check launch against the plain version (tb
     # compared 256 columns at a time), the plain version timed by that one
     # run, the kernel by 5 warm launches, and by 5 more without traceback
-    # (scores_only_ms: the same launch without the tb and lx stores)
+    # (scores_only_ms: the same launch without the tb and lx stores);
+    # geometry (T, R, placement) and the tb's strides (its pair-major view);
+    # K15-walk on that view (tile: its launch, vector_rows: 16-byte copies)
     def columns_kernel(name, args_d, scan, plain, replaces, table_bytes=0):
         got = scan()
         torch.cuda.synchronize()
@@ -1962,6 +1963,7 @@ def main() -> int:
             + 4 * int((nl64 + 1).sum()) + 5 * 4 * int((ml64 + 1).sum()),
             K15_OPS_PER_CELL * int((ml64 * nl64).sum()), err=err,
             scores_only_ms=cuda_ms(torch, lambda: scan(traceback=False), 5),
+            geometry=sw.columns_geometry(int(args_d[0].shape[1]))[:3], tb_strides=list(got[0].stride()),
         )
         return got
 
@@ -1981,9 +1983,11 @@ def main() -> int:
     T, Bq = wgot[0].shape
     report(
         "walk_steps", "rust_bio_tpu_torch/ops/csrc/walk_steps.cu", "rust_bio_tpu/alignment/pairwise/batched.py:507",
-        wgot, wwant, cuda_ms(torch, lambda: walk.walk_steps(*winputs), 3), wplain_ms,
+        wgot, wwant, cuda_ms(torch, lambda: walk.walk_steps(*winputs), 5), wplain_ms,
         2 * (steps + Bq) + 4 * clip_steps + 8 * Bq + 3 * T * Bq + 16 * Bq,
         8 * (steps + Bq),
+        tile=walk.seg_walk_geometry(), vector_rows=walk._vector_rows(scan[0]), tb_strides=list(scan[0].stride()),
+        path_steps=steps, path_steps_max=int((wgot[0] > 0).sum(0).max()),
     )
     del scan, winputs, wgot, wwant
     pargs = tens(*bp._pad(*prot_set))

@@ -382,7 +382,9 @@ def _columns_fixups(scan, mlens, nlens, pens):
     and, where the scan kept its traceback, the fixed column and its x-suffix
     clip length written into its tb and lx at column nlens[b] (batched.py
     ``_postlude``), in place: the JAX package concatenates a second tb,
-    10 GB at 128 pairs of 6.4 kb. Returns the (B,) int32 scores."""
+    10 GB at 128 pairs of 6.4 kb. On the card the tb is K15's pair-major
+    view, and the indexed write goes through it into K15's tensor, copying
+    nothing. Returns the (B,) int32 scores."""
     tb, lx, S_f, I_f, Sn_f, _Ly, tbk = scan
     B, X = S_f.shape
     rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, mlens)

@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
-    "sw_custom", "walk_custom", "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
+    "walk_custom", "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
     "sw_columns", "sw_banded", "walk_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
     "pairhmm_homopoly",
 )

@@ -6,16 +6,20 @@
 // each column's Lx into the high nibbles of tb rows 0-2, hence M < 4096)
 // and, under a LUT, the XLA engine batched.py:948 _align_batch_device over
 // _column_body :228 (_scan_columns_xla), which the JAX package runs at
-// M >= 4096. _column_body is K9's recurrence (csrc/sw_custom.cu) for any
+// M >= 4096. _column_body is K9's recurrence (csrc/sw_warp.cu) for any
 // four clips; K15 gives it with 12-bit cells i | d << 4 | s << 8 in tb and
 // tbk, no run nibble, and each column's x-suffix clip length in full in lx,
 // so M is limited only by the uint16 clip lengths of the walk (M <= 65534).
 //
-// Outputs: tb (N+1, M+1, B) uint16, the cells of columns j = 0..nlens
-// (column 0, the init column, at index 0) for rows i = 0..mlens; lx (N+1, B)
-// int32, the x-suffix clip length of each column's row mlens; the finals at
-// j = nlens that the suffix fixups read: S, I, Sn, Ly and the cells tbk,
-// each (B, M+1) int32. A null tb skips the tb and lx stores (score-only).
+// Outputs: tb, pair-major (B, N+1, Xp) uint16 with a row pitch Xp >= M + 1
+// that is a multiple of 8: the cell of DP cell (i, j) of pair b at
+// tb[(b * (N + 1) + j) * Xp + i], for columns j = 0..nlens (column 0, the
+// init column, at index 0) and rows i = 0..mlens (ops/sw.py returns the
+// (N+1, M+1, B) view, which K15-walk, the suffix fixups and the tests read
+// through its strides); lx (N+1, B) int32, the x-suffix clip length of each
+// column's row mlens; the finals at j = nlens that the suffix fixups read:
+// S, I, Sn, Ly and the cells tbk, each (B, M+1) int32. A null tb skips the
+// tb and lx stores (score-only).
 //
 // Bound on this card: the larger of the tb bytes over HBM (2 bytes a cell)
 // and about 45 integer operations a cell over the int32 rate. What held the
@@ -45,17 +49,26 @@
 // clip of row i and the x-prefix clip of column j are closed forms.
 //
 // Geometry (ops/sw.py columns_geometry, which the wrapper uses to size the
-// scratch, computes the same): R = ceil((M + 1) / 512), T = ceil((M + 1) / R)
-// rounded up to a multiple of 32 (at most 512); at M = 5,588, R = 11 and
-// T = 512, 140 KB of shared memory, one block an SM. The substitution source
-// is a template parameter: MatchParams, or a (256, 256) LUT read through
-// the read-only path; the Match/Subst bit is byte equality under either.
+// scratch, computes the same): R = 8 * ceil((M + 1) / (8 * 1024)),
+// T = ceil((M + 1) / R) rounded up to a multiple of 32 (at most 1,024); at
+// M = 5,588, R = 8 and T = 704, 149 KB of shared memory, one block an SM.
+// The substitution source is a template parameter: MatchParams, or a
+// (256, 256) LUT read through the read-only path; the Match/Subst bit is
+// byte equality under either.
 //
-// The tb layout keeps the pair innermost ((N+1, M+1, B), as K15-walk, the
-// fixups and the plain versions read it), so a block stores 2 bytes in each
-// 32-byte sector and 15 other blocks fill the rest. On an H100 those stores
-// take over 90% of a launch at x of 5.6 kb (the score-only call, null tb,
-// shows it; PERF.md); a pair-major tb is the next step.
+// The tb stores: a thread's cells of a column are its R rows, 2R
+// contiguous bytes of the pair-major tb, and thread t + 1 writes the next
+// 2R a step later. A thread shifts each row's cell into a 16-byte word
+// (four funnel shifts) and stores the word when it completes an 8-row
+// group, so R, a multiple of 8, makes every store an aligned 16-byte one;
+// the thread that holds row mlens closes its last group early, the rows
+// past mlens zero. The layout it replaces kept the pair innermost
+// ((N+1, M+1, B)): each block stored 2 bytes in each 32-byte sector, over
+// 90% of a launch at x of 5.6 kb on an H100 (268 ms against 21 score-only,
+// PERF.md). On phase 3e's STR pairs (scripts/columns_trial.py, H100): 49 ms
+// at 1,024 stripes with plain stores, 28.5 with streaming ones, 31 with the
+// cells computed and no store at all; at 512 stripes (R = 16) 40.6, 34.4
+// and 36.0; at 256 (R = 24) 48 with plain stores.
 //
 // Exactness, as csrc/sw_custom.cu (sw_pallas.py:1601-1881): int32
 // arithmetic wraps as in XLA; D starts at MIN_I32 = -858993459; the running
@@ -93,7 +106,8 @@ constexpr int TB_YCLIP_PREFIX = 7;
 constexpr int TB_YCLIP_SUFFIX = 8;
 constexpr int MIN_I32 = -858993459;  // reference MIN_SCORE
 constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
-constexpr int T_STRIPES = 512;       // most threads (stripes) a block
+constexpr int T_STRIPES = 1024;      // most threads (stripes) a block
+constexpr int GROUP = 8;             // rows a thread stores at once
 constexpr int CARRIES = 6;           // S, S~, P, s-bits, running max, its first row
 constexpr int LAYERS = 5;            // S, D, s-bits, Sn, Ly
 constexpr size_t SMEM_MAX = 232448;  // dynamic shared memory a block may opt into
@@ -127,14 +141,39 @@ struct Lut {
   __device__ __forceinline__ int score(int x, int y) const { return __ldg(lut + (x << 8) + y); }
 };
 
+// A thread's cells of one 8-row group of a column, shifted in from the top:
+// after the group's last row, w0..w3 hold its 8 cells in row order, one
+// 16-byte streaming store (evict-first: the tb is written once, read by the
+// walk later, and would otherwise push the row state out of L2).
+struct Pack {
+  uint32_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+  __device__ __forceinline__ void push(uint32_t cell) {
+    w0 = __funnelshift_r(w0, w1, 16);
+    w1 = __funnelshift_r(w1, w2, 16);
+    w2 = __funnelshift_r(w2, w3, 16);
+    w3 = __funnelshift_r(w3, cell, 16);
+  }
+  __device__ __forceinline__ void store(uint16_t* dst) const {
+    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w0, w1, w2, w3));
+  }
+  // after the row r - 1 of the stripe (rows 0..r-1 pushed): store the group
+  // that a stop before its end left open, its rows past the stop zero
+  __device__ __forceinline__ void close(uint16_t* col, int r) {
+    if (r & (GROUP - 1)) {
+      for (int k = r; k & (GROUP - 1); ++k) push(0);
+      store(col + (r & ~(GROUP - 1)));
+    }
+  }
+};
+
 // ONCHIP: the row state in shared memory, else in the device scratch
 template <bool TB, bool ONCHIP, class Subst>
 __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
     const uint8_t* __restrict__ xt,  // (M, B)
     const uint8_t* __restrict__ yt,  // (N, B)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
-    int R, int go, int ge, Subst sub, int xcp, int xcs, int ycp, int ycs,
-    uint16_t* __restrict__ tb,    // (N + 1, M + 1, B), or null
+    int N, int Xp, int R, int go, int ge, Subst sub, int xcp, int xcs, int ycp, int ycs,
+    uint16_t* __restrict__ tb,    // (B, N + 1, Xp), or null
     int* __restrict__ lx,         // (N + 1, B), or null
     int* __restrict__ s_f,        // (B, M + 1) each
     int* __restrict__ i_f,
@@ -150,7 +189,6 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
   const int ml = mlens[b];
   const int nl = nlens[b];
   const size_t fb = static_cast<size_t>(b) * rows;
-  const size_t col_stride = static_cast<size_t>(rows) * B;  // tb elements a column
 
   int* carry = smem;  // [2][CARRIES][T]
   int* state;         // [LAYERS][R][T]
@@ -163,6 +201,8 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
   auto at = [&](int k, int r) -> int& { return state[(k * R + r) * T + t]; };
 
   const int i0 = t * R;                        // this stripe's first row
+  // this stripe's cells of column 0 (column j at + j * Xp)
+  uint16_t* const tb0 = TB ? tb + static_cast<size_t>(b) * (N + 1) * Xp + i0 : nullptr;
   const int t_act = ml / R + 1;                // stripes that hold a row <= mlens
   const bool owner = t < t_act;
   const bool holds_m = t == t_act - 1;         // the stripe of row mlens
@@ -187,6 +227,8 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
       int acc = SENT;  // running max of S + xcs over rows 1..m-1
       int first = 0;
       int s_new = MIN_I32;  // this column's S at the stripe's last row
+      uint16_t* const tbcol = TB ? tb0 + static_cast<size_t>(j) * Xp : nullptr;
+      Pack pk;
       if (j == 0) {
         // column 0 (sw_pallas.py:1648-1711): I0 takes a gap or the
         // x-prefix clip, S the better of I0 and the clip, row m the
@@ -196,7 +238,8 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           acc = in[4 * T];
           first = in[5 * T];
         }
-        for (int r = 0; r < R; ++r) {
+        int r = 0;
+        for (; r < R; ++r) {
           const int i = i0 + r;
           if (i > ml) break;
           int s0 = 0;
@@ -225,7 +268,10 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
             }
           }
           const int cell = ib | (TB_START << 4) | (sb << 8);
-          if constexpr (TB) tb[static_cast<size_t>(i) * B + b] = static_cast<uint16_t>(cell);
+          if constexpr (TB) {
+            pk.push(cell);
+            if ((r & (GROUP - 1)) == GROUP - 1) pk.store(tbcol + r - (GROUP - 1));
+          }
           at(0, r) = s0;
           at(1, r) = MIN_I32;
           at(2, r) = sb;
@@ -239,11 +285,11 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           }
           s_new = s0;
         }
+        if constexpr (TB) pk.close(tbcol, r);
         out[0] = s_new;
         out[4 * T] = acc;
         out[5 * T] = first;
       } else {
-        uint16_t* tbcol = TB ? tb + static_cast<size_t>(j) * col_stride + b : nullptr;
         const int d_gap = add(go, mul(ge, j - 1));
         // the column's x-prefix clip score
         const int xclip = add(xcp, max(ycp, d_gap));
@@ -276,7 +322,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
             at(4, 0) = nl - j;
           }
           const int cell0 = TB_START | (db0 << 4) | (sb0 << 8);
-          if constexpr (TB) tbcol[0] = static_cast<uint16_t>(cell0);
+          if constexpr (TB) pk.push(cell0);
           s_up_old = at(0, 0);
           st_up = s0j;
           p_up = MIN_I32;
@@ -358,7 +404,10 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
             take(s_col, s_bits, yclip, TB_YCLIP_PREFIX);
           }
           const int cell = i_bits | (d_bits << 4) | (s_bits << 8);
-          if constexpr (TB) tbcol[static_cast<size_t>(i) * B] = static_cast<uint16_t>(cell);
+          if constexpr (TB) {
+            pk.push(cell);
+            if ((r & (GROUP - 1)) == GROUP - 1) pk.store(tbcol + r - (GROUP - 1));
+          }
           if (add(s_col, ycs) > snp) {
             at(3, r) = add(s_col, ycs);
             at(4, r) = nl - j;
@@ -376,6 +425,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
           }
           s_new = s_col;
         }
+        if constexpr (TB) pk.close(tbcol, r);
         out[0] = s_new;
         out[T] = st_up;
         out[2 * T] = p_up;
@@ -399,7 +449,7 @@ __global__ void __launch_bounds__(T_STRIPES) scan_columns_kernel(
 }
 
 template <bool TB, bool ONCHIP, class Subst>
-int launch_on(int B, int M, int R, int T, size_t smem, const void* xt, const void* yt,
+int launch_on(int B, int M, int N, int Xp, int R, int T, size_t smem, const void* xt, const void* yt,
               const void* mlens, const void* nlens, int go, int ge, Subst sub,
               int xcp, int xcs, int ycp, int ycs, void* tb, void* lx, void* s_f,
               void* i_f, void* sn_f, void* ly_f, void* tbk, void* scratch,
@@ -412,7 +462,7 @@ int launch_on(int B, int M, int R, int T, size_t smem, const void* xt, const voi
   }
   kernel<<<B, T, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(xt), static_cast<const uint8_t*>(yt),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, R, go,
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go,
       ge, sub, xcp, xcs, ycp, ycs, static_cast<uint16_t*>(tb),
       static_cast<int*>(lx), static_cast<int*>(s_f), static_cast<int*>(i_f),
       static_cast<int*>(sn_f), static_cast<int*>(ly_f), static_cast<int*>(tbk),
@@ -422,13 +472,14 @@ int launch_on(int B, int M, int R, int T, size_t smem, const void* xt, const voi
 
 template <class Subst>
 int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
-           int B, int M, int go, int ge, Subst sub, int xcp, int xcs, int ycp,
+           int B, int M, int N, int Xp, int go, int ge, Subst sub, int xcp, int xcs, int ycp,
            int ycs, void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
            void* ly_f, void* tbk, void* scratch, void* stream) {
-  if (B < 1 || M < 0 || M > 65534) return static_cast<int>(cudaErrorInvalidValue);
+  if (B < 1 || M < 0 || M > 65534 || N < 0 || !tb != !lx || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
   // the geometry of ops/sw.py columns_geometry
   const int rows = M + 1;
-  const int R = (rows + T_STRIPES - 1) / T_STRIPES;
+  const int R = (rows + GROUP * T_STRIPES - 1) / (GROUP * T_STRIPES) * GROUP;
   const int T = ((rows + R - 1) / R + 31) / 32 * 32;
   const size_t onchip = static_cast<size_t>(LAYERS) * R * T * sizeof(int);
   const size_t smem = static_cast<size_t>(2 * CARRIES) * T * sizeof(int)
@@ -436,11 +487,11 @@ int launch(const void* xt, const void* yt, const void* mlens, const void* nlens,
   if (smem > SMEM_MAX) return static_cast<int>(cudaErrorInvalidValue);
   if (tb) {
     auto fn = scratch ? launch_on<true, false, Subst> : launch_on<true, true, Subst>;
-    return fn(B, M, R, T, smem, xt, yt, mlens, nlens, go, ge, sub, xcp, xcs, ycp,
+    return fn(B, M, N, Xp, R, T, smem, xt, yt, mlens, nlens, go, ge, sub, xcp, xcs, ycp,
               ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
   }
   auto fn = scratch ? launch_on<false, false, Subst> : launch_on<false, true, Subst>;
-  return fn(B, M, R, T, smem, xt, yt, mlens, nlens, go, ge, sub, xcp, xcs, ycp,
+  return fn(B, M, N, Xp, R, T, smem, xt, yt, mlens, nlens, go, ge, sub, xcp, xcs, ycp,
             ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
@@ -452,27 +503,29 @@ const char* rbt_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Entry points: tb/lx null for a score-only call; scratch null to keep the
-// row state in shared memory, else a (B, 5, R, T) int32 buffer in the
-// geometry above; lut a (256, 256) int32 table on the device.
+// Entry points: xt (M, B) and yt (N, B) uint8; tb/lx null for a
+// score-only call, else tb the pair-major (B, N + 1, Xp) uint16 tensor,
+// Xp >= M + 1 a multiple of 8, and lx (N + 1, B) int32; scratch null to
+// keep the row state in shared memory, else a (B, 5, R, T) int32 buffer in
+// the geometry above; lut a (256, 256) int32 table on the device.
 
 // K15: any clips, constant match/mismatch scores.
 int sw_scan_columns(const void* xt, const void* yt, const void* mlens,
-                    const void* nlens, int B, int M, int go, int ge, int ma,
-                    int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
+                    const void* nlens, int B, int M, int N, int Xp, int go, int ge,
+                    int ma, int mi, int xcp, int xcs, int ycp, int ycs, void* tb,
                     void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
                     void* tbk, void* scratch, void* stream) {
-  return launch(xt, yt, mlens, nlens, B, M, go, ge, MatchParams{ma, mi}, xcp, xcs,
+  return launch(xt, yt, mlens, nlens, B, M, N, Xp, go, ge, MatchParams{ma, mi}, xcp, xcs,
                 ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 // K15-LUT: K15 fed by the LUT.
 int sw_scan_columns_lut(const void* xt, const void* yt, const void* mlens,
-                        const void* nlens, int B, int M, int go, int ge,
+                        const void* nlens, int B, int M, int N, int Xp, int go, int ge,
                         const void* lut, int xcp, int xcs, int ycp, int ycs,
                         void* tb, void* lx, void* s_f, void* i_f, void* sn_f,
                         void* ly_f, void* tbk, void* scratch, void* stream) {
-  return launch(xt, yt, mlens, nlens, B, M, go, ge, Lut{static_cast<const int*>(lut)},
+  return launch(xt, yt, mlens, nlens, B, M, N, Xp, go, ge, Lut{static_cast<const int*>(lut)},
                 xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
                 stream);
 }

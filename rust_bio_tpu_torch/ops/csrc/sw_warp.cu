@@ -4,8 +4,9 @@
 // the local, the custom-clip and the semiglobal affine-gap DP under a
 // (256, 256) substitution LUT at protein lengths, one warp a pair over row
 // stripes held by its lanes; and, under match / mismatch scores, K3 at
-// short x, sw_scores_global_warp (K18's kernel), and K7 sw_scan_local
-// (K7-LUT's kernel), the local DP of the 150 bp reads.
+// short x, sw_scores_global_warp (K18's kernel), K7 sw_scan_local (K7-LUT's
+// kernel), the local DP of the 150 bp reads, and K9 sw_scan_custom
+// (K9-LUT's kernel), their custom-clip DP.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
@@ -14,7 +15,8 @@
 // tensor), :199 _kernel_mp (sw_scores_global_matchparams :258, K3), :1328
 // _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
 // runs="ins"), :1966 _kernel_scan_local_mp (scan_local_pallas_mp :2177,
-// runs="ins", K7) and, in local and custom mode under a LUT, the XLA
+// runs="ins", K7), :1601 _kernel_scan_custom_mp (scan_custom_pallas_mp
+// :1884, runs="ins", K9) and, in local and custom mode under a LUT, the XLA
 // engine alignment/pairwise/batched.py:948 _align_batch_device, which the
 // JAX package runs there.
 //
@@ -24,17 +26,18 @@
 //   i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12 of columns
 //   j = 1..nlens and rows i = 0..mlens; tbk (B, M+1), the cells of column
 //   nlens (column 0's when nlens = 0).
-//  K9-LUT: csrc/sw_custom.cu's K9 fed by the LUT, all four clips live: the
+//  K9-LUT: K9 fed by the LUT, all four clips live (the JAX custom kernel's
+//   recurrence, sw_pallas.py:1601-1881): the
 //   cells of columns j = 0..nlens (column 0, the init column, at index 0)
 //   with the run nibble; lx (N+1, B), the x-suffix clip length of each
 //   column's row mlens; the finals S, I, Sn, Ly and tbk (B, M+1) at column
 //   nlens. A lane with nlens = 0 takes column 0's I and cells as its
 //   finals. Without a tb (score only) it skips the cells, lx and the run
-//   nibble, as K9 does. K7-LUT: K7 fed by the LUT, the same kernel with the
+//   nibble. K7-LUT: K7 fed by the LUT, the same kernel with the
 //   clips zero at compile time (K9's cell at clips 0: the y-prefix and
-//   x-prefix clip terms stay, which a wrapped gap sum makes live). K7 is
-//   that kernel under match / mismatch scores (the template's substitution
-//   source, as K3's).
+//   x-prefix clip terms stay, which a wrapped gap sum makes live). K9 and
+//   K7 are those two kernels under match / mismatch scores (the template's
+//   substitution source, as K3's).
 //  K12: csrc/sw_semiglobal.cu's K5 fed by the LUT: the cells of columns
 //   j = 1..nlens and rows 0..mlens with the run nibble; the finals S, I,
 //   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
@@ -73,7 +76,7 @@
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
 // S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
-// and Sn, Ly besides for K7, K7-LUT, K9-LUT and K12 (10 KB), in the warp's
+// and Sn, Ly besides for K7, K7-LUT, K9, K9-LUT and K12 (10 KB), in the warp's
 // slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
@@ -81,7 +84,7 @@
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
 // 16-byte store into the pair-major tb, (B, N, Xp) for K11 and K12 and
-// (B, N+1, Xp) for K7, K7-LUT and K9-LUT, Xp = M + 1 rounded up to 8
+// (B, N+1, Xp) for K7, K7-LUT, K9 and K9-LUT, Xp = M + 1 rounded up to 8
 // (ops/sw.py returns the (N, M+1, B) or (N+1, M+1, B) view, which K2, K6,
 // K8 and K10 read through their strides);
 // the lane that holds row mlens stops after the group of 8 that holds it.
@@ -91,18 +94,21 @@
 // 1.0-1.6 ms at the int32 peak) or the tb's 2 bytes a cell (2.0 GB there:
 // 0.6 ms), the larger (K12: about 42 a cell, K5's; K7 on 8192 random
 // 150 bp pairs: 45 a cell over 184 M cells, 0.29 ms, R = 8 rows a lane and
-// 19 of 32 lanes live, 2.3 KB of x and 5 KB of state a warp). The
+// 19 of 32 lanes live, 2.3 KB of x and 5 KB of state a warp; K9 on 8192
+// clipped 150 bp reads against 166-bp windows: 52 a cell, 0.32 ms). The
 // one-thread-a-pair kernels before
 // these kept a pair's column in shared memory and fit one warp an SM (K11:
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
 // M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
-// 27.2 ms on the domain corpus, 47x; K7: 5.45 ms, 19x); here a warp
+// 27.2 ms on the domain corpus, 47x; K7: 5.45 ms, 19x; K9: 5.79 ms,
+// 18x); here a warp
 // needs 4-11 KB. K18's and K3's bound: about 14 operations a cell (at
 // M = 150 K3's lanes hold R = 8 rows, 19 of 32 lanes live, 2.3 KB a warp;
 // the one-thread K3 before it ran 1.0-1.2 ms on 8192 pairs, 13x that
 // bound).
 //
-// Exactness as K1, K9 and K5 (sw_global.cu, sw_custom.cu, sw_semiglobal.cu):
+// Exactness as K1 and K5 (sw_global.cu, sw_semiglobal.cu) and the JAX
+// custom kernel (sw_pallas.py:1601-1881):
 // int32 arithmetic wraps, LUT entries included; D starts at MIN_I32 =
 // -858993459; the running maximum starts at -2^31 + 1 and counts only
 // above MIN_I32; every choice is a strict '>' with priority Match/Subst >
@@ -463,7 +469,8 @@ __global__ void __launch_bounds__(WARPS * LANES) scores_global_warp_kernel(
   if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
 }
 
-// K9-LUT, and K7-LUT at LOCAL (the clips zero at compile time). TB: store
+// K9 and K9-LUT, and K7 and K7-LUT at LOCAL (the clips zero at compile
+// time). TB: store
 // the cells with the run nibble, and lx (else score only)
 template <bool TB, bool ONCHIP, bool LOCAL, class Subst>
 __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
@@ -523,7 +530,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
       }
       uint16_t* tbcol = TB ? tb + (static_cast<size_t>(b) * (N + 1) + j) * Xp + st.i0 : nullptr;
       if (j == 0) {
-        // column 0 (sw_custom.cu column 0): I0 takes a gap or the x-prefix
+        // column 0 (sw_pallas.py:1648-1711): I0 takes a gap or the x-prefix
         // clip, S the better of I0 and the clip, row m the x-suffix
         // replacement
         for (int g = 0; g < st.groups; ++g) {
@@ -983,10 +990,11 @@ const char* rbt_error_string(int code) {
 
 // Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
 // int32 table on the device; tb null for a score-only call, else the
-// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9-LUT)
+// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9, K9-LUT)
 // uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
 // row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9-LUT and K12).
+// above (layers 3 for K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9, K9-LUT
+// and K12).
 
 // K11.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
@@ -1043,6 +1051,17 @@ int sw_scan_local_lut(const void* xb, const void* yb, const void* mlens,
                       void* scratch, void* stream) {
   return launch_clip<true, Lut>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, static_cast<const int*>(lut),
                                 0, 0, 0, 0, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
+// K9: the custom-clip DP under match / mismatch scores ma / mi, the four
+// clip penalties live; needs gap_open, gap_extend <= 0. lx null with tb.
+int sw_scan_custom(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
+                   int M, int N, int Xp, int go, int ge, int ma, int mi, int xcp, int xcs, int ycp,
+                   int ycs, void* tb, void* lx, void* s_f, void* i_f, void* sn_f, void* ly_f,
+                   void* tbk, void* scratch, void* stream) {
+  return launch_clip<false, MatchParams>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, make_int2(ma, mi),
+                                         xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch,
+                                         stream);
 }
 
 // K9-LUT: K9 fed by the LUT, the four clip penalties live; needs gap_open,

@@ -1,13 +1,13 @@
 // K10 sweep_walk_custom and K8 sweep_walk_local: the traceback walks of the
-// general-clip family over the traceback tensor of K9 / K7 (sw_custom.cu)
-// or K7-LUT (sw_warp.cu). Replace rust_bio_tpu/ops/walk_pallas.py
+// general-clip family over the traceback tensor of K9 / K7 / K9-LUT /
+// K7-LUT (sw_warp.cu). Replace rust_bio_tpu/ops/walk_pallas.py
 // sweep_walk_custom -> _kernel_sweep_walk_custom and sweep_walk_local ->
 // _kernel_sweep_walk_local.
 //
 // Layouts: they read the cell of DP cell (i, j) of pair b at
 // tb[j * sj + i * si + b * sb], element strides they are given: a
-// contiguous (N+1, X, B) tensor (sj = X * B, si = B, sb = 1), as K7's and
-// K9's, or K7-LUT's pair-major (B, N+1, Xp) one (sj = Xp, si = 1,
+// contiguous (N+1, X, B) tensor (sj = X * B, si = B, sb = 1), as the plain
+// versions', or the scans' pair-major (B, N+1, Xp) one (sj = Xp, si = 1,
 // sb = (N+1) * Xp), read in place; ops/walk.py takes those two and raises
 // on others.
 //

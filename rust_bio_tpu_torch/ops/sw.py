@@ -4,13 +4,13 @@ warp a pair over row stripes at short x, ``csrc/sw_warp.cu``, one block a
 pair at long x, ``csrc/sw_global_rows.cu``; ``scores_route`` picks); K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
 machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
-penalties live), ``csrc/sw_custom.cu``; K7 (``scan_local``: K9 at clips 0,
-one warp a pair over row stripes with a pair-major tb), ``csrc/sw_warp.cu``;
+penalties live) and K7 (``scan_local``: K9 at clips 0), one warp a pair
+over row stripes with a pair-major tb, ``csrc/sw_warp.cu``;
 K13 (``scan_global_rows``: K1's DP for long x, a row-stripe wavefront
 over one pair a block, with a pair-major tb), ``csrc/sw_global_rows.cu``;
 K15 (``scan_columns``: K9's DP without the run nibble, the clip-mode engine
-of long x, a row-stripe wavefront over one pair a block),
-``csrc/sw_columns.cu``; K16
+of long x, a row-stripe wavefront over one pair a block, with a pair-major
+tb), ``csrc/sw_columns.cu``; K16
 (``scan_banded``: the banded aligner's DP over per-column row bands, one
 warp a pair over a column's band rows, with a pair-major tb),
 ``csrc/sw_banded.cu``.
@@ -45,9 +45,9 @@ hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
-one thread a pair, except K13, K15 and K3 at long x, where one block sweeps
+one thread a pair (K1, K5), except K13, K15 and K3 at long x, where one block sweeps
 a pair's columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K18, K3 at short x, K7, K7-LUT, K9-LUT and K12,
+``columns_geometry``), K11, K18, K3 at short x, K7, K7-LUT, K9, K9-LUT and K12,
 where one warp does (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
@@ -99,7 +99,7 @@ SCAN_SEMIGLOBAL = CudaKernel(
     "sw_semiglobal", "sw_scan_semiglobal",
     [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
 )
-SCAN_CUSTOM = CudaKernel("sw_custom", "sw_scan_custom", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
+SCAN_CUSTOM = CudaKernel("sw_warp", "sw_scan_custom", [PTR] * 4 + [INT] * 12 + [PTR] * 8)
 SCAN_LOCAL = CudaKernel("sw_warp", "sw_scan_local", [PTR] * 4 + [INT] * 8 + [PTR] * 8)
 # the LUT twins: the table's pointer in place of (match, mismatch)
 SCAN_GLOBAL_LUT = CudaKernel("sw_warp", "sw_scan_global_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 5)
@@ -109,8 +109,8 @@ SCAN_CUSTOM_LUT = CudaKernel("sw_warp", "sw_scan_custom_lut", [PTR] * 4 + [INT] 
 SCAN_LOCAL_LUT = CudaKernel("sw_warp", "sw_scan_local_lut", [PTR] * 4 + [INT] * 6 + [PTR] * 9)
 SCAN_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scan_global_rows", [PTR] * 4 + [INT] * 9 + [PTR] * 3)
 SCAN_GLOBAL_ROWS_LUT = CudaKernel("sw_global_rows", "sw_scan_global_rows_lut", [PTR] * 4 + [INT] * 7 + [PTR] * 4)
-SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 10 + [PTR] * 8)
-SCAN_COLUMNS_LUT = CudaKernel("sw_columns", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 4 + [PTR] + [INT] * 4 + [PTR] * 8)
+SCAN_COLUMNS = CudaKernel("sw_columns", "sw_scan_columns", [PTR] * 4 + [INT] * 12 + [PTR] * 8)
+SCAN_COLUMNS_LUT = CudaKernel("sw_columns", "sw_scan_columns_lut", [PTR] * 4 + [INT] * 6 + [PTR] + [INT] * 4 + [PTR] * 8)
 SCAN_BANDED = CudaKernel("sw_banded", "sw_scan_banded", [PTR] * 6 + [INT] * 13 + [PTR] * 8)
 # K16's per-pair column state: S and D in two parity buffers, I, Sn, Ly and
 # the s-bits stamped with their column (csrc/sw_banded.cu head note); one
@@ -158,16 +158,18 @@ SCORES_ROWS_MIN = 606
 SCORES_WARP_PAIRS = 1024
 SCORES_WARP_MAX_ROWS = 3072
 # K15's launch (csrc/sw_columns.cu): one block a pair, at most this many
-# threads, each over a stripe of rows; six int32 carries a thread in two
-# shared buffers; five int32 layers of row state a row
-_COLUMNS_STRIPES = 512
+# threads, each over a stripe of R rows, R a multiple of 8 (a thread stores
+# 8 cells at once); six int32 carries a thread in two shared buffers; five
+# int32 layers of row state a row
+_COLUMNS_STRIPES = 1024
+_COLUMNS_GROUP = 8
 _COLUMNS_CARRIES = 6
 _COLUMNS_LAYERS = 5
 # the largest M at which K15 keeps its row state in shared memory (beside
-# the carries and x's bytes: 228,864 bytes at M = 9,727, R = 19, T = 512);
+# the carries and x's bytes: 221,184 bytes at M = 9,215, R = 16, T = 576);
 # above it the state goes to a (B, 5, R, T) device scratch
-COLUMNS_SHARED_MAX_M = 9727
-# K11's, K18's, K3's (short x), K7's, K7-LUT's, K9-LUT's and K12's launch
+COLUMNS_SHARED_MAX_M = 9215
+# K11's, K18's, K3's (short x), K7's, K7-LUT's, K9's, K9-LUT's and K12's launch
 # (csrc/sw_warp.cu): one warp a pair, 4 pairs a block; lane t over a stripe of
 # R rows, R a multiple of 8 (a lane stores 8 cells at once) with 32 * R >= M +
 # 1; the x bytes of a warp's stripes in its slice of shared memory, beside its
@@ -238,10 +240,10 @@ def _plain_feed(xb, yb, subst):
     return feed
 
 
-def _scratch(n_layers: int, B: int, M: int, dev, pairs: int = _PAIRS) -> torch.Tensor | None:
-    """None when the column state of ``pairs`` pairs fits a block's shared
-    memory, else a device buffer for it."""
-    if n_layers * (M + 1) * pairs * 4 <= _SMEM_MAX:
+def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
+    """None when the column state of a block's 32 pairs fits its shared
+    memory (K1, K5), else a device buffer for it."""
+    if n_layers * (M + 1) * _PAIRS * 4 <= _SMEM_MAX:
         return None
     return torch.empty((n_layers, M + 1, B), dtype=torch.int32, device=dev)
 
@@ -250,9 +252,9 @@ def columns_geometry(M: int) -> Tuple[int, int, str, int]:
     """K15's launch at x length ``M``, as csrc/sw_columns.cu computes it:
     (T threads a block, R rows a thread, where the row state lives:
     ``"shared"`` or ``"scratch"``, dynamic shared bytes). Thread t owns rows
-    [t * R, t * R + R); T is a multiple of 32."""
+    [t * R, t * R + R); T is a multiple of 32, R of 8."""
     rows = M + 1
-    R = -(-rows // _COLUMNS_STRIPES)
+    R = -(-rows // (_COLUMNS_GROUP * _COLUMNS_STRIPES)) * _COLUMNS_GROUP
     stripes = -(-rows // R)
     T = -(-stripes // 32) * 32
     placement = "shared" if M <= COLUMNS_SHARED_MAX_M else "scratch"
@@ -346,8 +348,8 @@ def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7 / K7-LUT / K9-LUT / K12, Xp =
-    M + 1 rounded up to a multiple of 8."""
+    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7 / K7-LUT / K9 / K9-LUT / K12 /
+    K15 / K15-LUT, Xp = M + 1 rounded up to a multiple of 8."""
     return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
 
@@ -577,7 +579,12 @@ def scan_custom(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
     ``0 <= j <= nlens[b]`` (column 0, the init column, at index 0) and
     ``0 <= i <= mlens[b]``; ``lx[j, b]`` is the x-suffix clip length of
     column j's row ``mlens[b]`` (0 when it has none). Clip codes sit in the
-    s-bits (and the x-prefix clip in column 0's i-bits)."""
+    s-bits (and the x-prefix clip in column 0's i-bits).
+
+    On the card one warp computes a pair (csrc/sw_warp.cu, K9-LUT's kernel
+    under match / mismatch scores) and ``tb`` is the (N+1, M+1, B) view of a
+    pair-major (B, N+1, Xp) tensor, Xp = M + 1 rounded up to a multiple of
+    8, which ``ops.walk.sweep_walk_custom`` reads in place."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
     return _scan_clip(
         SCAN_CUSTOM, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), clips, traceback
@@ -621,7 +628,14 @@ def scan_columns(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismat
     ``scan_custom``'s, with 12-bit cells: ``tb`` (N+1, M+1, B) uint16 holds
     ``i | d << 4 | s << 8`` and no run nibble, ``tbk`` likewise; ``lx``
     (N+1, B) int32 is each column's x-suffix clip length in full (the
-    Pallas kernel packs it in tb nibbles, which caps M below 4096)."""
+    Pallas kernel packs it in tb nibbles, which caps M below 4096).
+
+    On the card one block computes a pair (``columns_geometry``) and
+    ``tb`` is the (N+1, M+1, B) view of a pair-major (B, N+1, Xp) tensor,
+    Xp = M + 1 rounded up to a multiple of 8, which ``ops.walk.walk_steps``
+    reads in place and ``batched._columns_fixups`` writes the fixed column
+    into through the view; never copy it (9 GB at phase 3e's 128 STR
+    pairs)."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
     return _scan_clip(
         SCAN_COLUMNS, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score), clips, traceback
@@ -631,7 +645,8 @@ def scan_columns(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismat
 def scan_columns_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut,
                      xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix, traceback=True):
     """K15-LUT: K15 with the substitution score ``lut[x, y]`` (in place of
-    the XLA engine batched.py ``_align_batch_device``); same outputs."""
+    the XLA engine batched.py ``_align_batch_device``); same outputs, the
+    same pair-major view on the card."""
     clips = (xclip_prefix, xclip_suffix, yclip_prefix, yclip_suffix)
     return _scan_clip(SCAN_COLUMNS_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, clips, traceback)
 
@@ -908,38 +923,35 @@ def _scan_clip(kernel, xb, yb, mlens, nlens, go, ge, subst, clips, traceback):
         raise ValueError("gap_open and gap_extend must be <= 0")
     sub = _subst(subst, dev)
     local = kernel in (SCAN_LOCAL, SCAN_LOCAL_LUT)
-    runs = kernel not in (SCAN_COLUMNS, SCAN_COLUMNS_LUT)
+    columns = kernel in (SCAN_COLUMNS, SCAN_COLUMNS_LUT)
     if dev.type == "cpu":
         feed = _plain_feed(xb, yb, subst)
-        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, traceback, runs)
+        return _scan_clip_core(feed, M, N, mlens, nlens, go, ge, *clips, traceback, not columns)
+    # every kernel writes a pair-major (B, N+1, Xp) tb, returned as its
+    # (N+1, M+1, B) view
+    tb = _pair_major(B, N + 1, M, dev) if traceback else None
     lx = torch.empty((N + 1, B), dtype=torch.int32, device=dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
-    if kernel in (SCAN_LOCAL, SCAN_LOCAL_LUT, SCAN_CUSTOM_LUT):
-        tb = _pair_major(B, N + 1, M, dev) if traceback else None
-        if B:
-            scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
-            kernel.launch(
-                dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
-                0 if tb is None else tb.shape[2], go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx),
-                *(f.data_ptr() for f in finals), _ptr(scratch),
-            )
-        return (tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, lx, *finals)
-    tb = torch.empty((N + 1, M + 1, B), dtype=torch.uint16, device=dev) if traceback else None
-    if B:
+    Xp = 0 if tb is None else tb.shape[2]
+    if B and columns:
+        T, R, placement, _ = columns_geometry(M)
+        scratch = None if placement == "shared" else torch.empty(
+            (B, _COLUMNS_LAYERS, R, T), dtype=torch.int32, device=dev
+        )
         xt = xb.t().contiguous()
         yt = yb.t().contiguous()
-        if runs:
-            scratch = _scratch(5, B, M, dev, pairs=1)  # the kernel fits 1-32 pairs a block
-        else:
-            T, R, placement, _ = columns_geometry(M)
-            scratch = None if placement == "shared" else torch.empty(
-                (B, _COLUMNS_LAYERS, R, T), dtype=torch.int32, device=dev
-            )
         kernel.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, *sub, *clips, _ptr(tb), _ptr(lx), *(f.data_ptr() for f in finals), _ptr(scratch),
+            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N, Xp,
+            go, ge, *sub, *clips, _ptr(tb), _ptr(lx), *(f.data_ptr() for f in finals), _ptr(scratch),
         )
-    return (tb, lx, *finals)
+    elif B:
+        scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
+        kernel.launch(
+            dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N, Xp,
+            go, ge, *sub, *(() if local else clips), _ptr(tb), _ptr(lx), *(f.data_ptr() for f in finals),
+            _ptr(scratch),
+        )
+    return (tb[:, :, : M + 1].permute(1, 2, 0) if traceback else None, lx, *finals)
 
 
 # ---------------------------------------------------------------------------

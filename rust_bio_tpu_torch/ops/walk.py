@@ -13,9 +13,10 @@ the XLA walk ``banded_device.py`` ``_walk_banded``; their sections at the
 end of this module say what they read and write.
 
 Input: the traceback tensor of K1, K11, K5 or K12 (``ops.sw``), ``tb`` (N,
-X, B) uint16 with X = M + 1 (K11's, K12's, K13's, K7-LUT's and K16's are
-views of pair-major tensors, which K2, K6, K14, K8, K10 and K16-walk read
-in place through their strides), and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
+X, B) uint16 with X = M + 1 (K11's, K12's, K13's, K7's, K7-LUT's, K9's,
+K9-LUT's, K15's and K16's are views of pair-major tensors, which K2, K6,
+K14, K8, K10, K15-walk and K16-walk read in place through their strides),
+and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
 (row j - 1) and pair: ``ins_cnt`` Ins ops, then one exit op ``exit_op``
 (TB_MATCH / TB_SUBST / TB_DEL, in K6 also TB_YCLIP_PREFIX; 0 where the pair
 is not), walking end -> start; plus ``ins0``, the Ins run in column 0. All
@@ -55,10 +56,11 @@ SWEEP_WALK_GLOBAL = CudaKernel(
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
     "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, INT, PTR, PTR, PTR]
 )
-# K14's launch (csrc/walk_global_seg.cu): one warp a pair, SEG_WARPS pairs a
-# block; a warp's two tiles (the one it walks, the one fetched ahead, whose
-# last row lies SEG_AHEAD rows above the row the first was fetched for)
-# hold SEG_TILE_COLUMNS DP columns (one a lane) of SEG_TILE_ROWS rows each,
+# K14's launch (csrc/walk_global_seg.cu), and K15-walk's (csrc/walk_steps.cu):
+# one warp a pair, SEG_WARPS pairs a block; a warp's two tiles (the one it
+# walks, the one fetched ahead, whose last row lies SEG_AHEAD rows above the
+# row the first was fetched for where the path runs left) hold
+# SEG_TILE_COLUMNS DP columns (one a lane) of SEG_TILE_ROWS rows each,
 # SEG_TILE_PITCH uint16 apart in shared memory
 SEG_WARPS = 2
 SEG_TILE_COLUMNS = 32
@@ -75,7 +77,7 @@ SWEEP_WALK_CUSTOM = CudaKernel(
 SWEEP_WALK_LOCAL = CudaKernel(
     "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4
 )
-WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [PTR] * 6)
+WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [I64] * 3 + [INT] + [PTR] * 6)
 
 
 def sweep_walk_global(tb, mlens, nlens):
@@ -99,7 +101,8 @@ def sweep_walk_global_seg(tb, mlens, nlens):
 
 
 def seg_walk_geometry() -> dict:
-    """K14's launch, as csrc/walk_global_seg.cu sets it: pairs (warps) a
+    """K14's launch, and K15-walk's, as csrc/walk_global_seg.cu and
+    csrc/walk_steps.cu set it: pairs (warps) a
     block, a tile's columns and rows, the rows between the bottoms of a
     tile and the one fetched ahead, the bytes between tile columns and a
     block's static shared bytes (two tiles a warp)."""
@@ -110,8 +113,8 @@ def seg_walk_geometry() -> dict:
 
 
 def _vector_rows(tb) -> bool:
-    """Whether K14 may read a column's rows 8 at a time with aligned 16-byte
-    loads: rows of stride 1, columns (and pairs, where B > 1) 8 elements
+    """Whether K14 or K15-walk may read a column's rows 8 at a time with
+    aligned 16-byte loads: rows of stride 1, columns (and pairs, where B > 1) 8 elements
     apart, the data 16-byte aligned, and the storage holding each column's
     rows up to X rounded up to 8 (the last group of 8 may pass row X - 1)."""
     N, X, B = tb.shape
@@ -126,10 +129,10 @@ def _vector_rows(tb) -> bool:
 
 def _walk_strides(tb) -> tuple:
     """(column, row, pair) element strides of an (N, X, B) tb that K2, K6,
-    K8, K10, K14 and K16-walk read: contiguous, or rows of stride 1 inside
-    columns inside pairs, none overlapping (the view of K11's, K12's,
-    K7-LUT's, K13's or K16's pair-major tensor). Raises ``ValueError`` on
-    any other layout."""
+    K8, K10, K14, K15-walk and K16-walk read: contiguous, or rows of stride
+    1 inside columns inside pairs, none overlapping (the view of K11's,
+    K12's, K7's, K7-LUT's, K9's, K9-LUT's, K13's, K15's or K16's pair-major
+    tensor). Raises ``ValueError`` on any other layout."""
     N, X, B = tb.shape
     if tb.is_contiguous() or tb.numel() == 0:
         return X * B, B, 1
@@ -753,7 +756,8 @@ def _sweep_clip_plain(tb, lx, icur, jcur, carried, us1, dn1, xs0=None, ys0=None,
 # ---------------------------------------------------------------------------
 #
 # Input: K15's ``tb`` (N+1, X, B) uint16 of 12-bit cells (column 0 at index
-# 0) with the suffix-fixed column written at column nlens[b], its ``lx``
+# 0) with the suffix-fixed column written at column nlens[b], contiguous or
+# the pair-major view K15 returns (``_walk_strides``), its ``lx``
 # (N+1, B) int32 with the fixed column's clip length, and ``ly`` (B, X) int32,
 # K15's final Ly. Output, one entry a step of T = M + N + 8, end -> start:
 # ``op_codes`` (T, B) uint8, the TB_* layer of the step (0 once the lane is
@@ -765,8 +769,7 @@ def _check_steps(tb, lx, ly, mlens, nlens):
     dev = same_device(tb, lx, ly, mlens, nlens)
     if tb.dim() != 3:
         raise ValueError(f"tb: expected (N+1, X, B), got shape {tuple(tb.shape)}")
-    Nc, X, B = tb.shape
-    check(tb, "tb", torch.uint16, (Nc, X, B))
+    Nc, X, B = _check_tb(tb)
     check(lx, "lx", torch.int32, (Nc, B))
     check(ly, "ly", torch.int32, (B, X))
     check(mlens, "mlens", torch.int32, (B,))
@@ -778,7 +781,12 @@ def _check_steps(tb, lx, ly, mlens, nlens):
 
 def walk_steps(tb, lx, ly, mlens, nlens):
     """K15-walk. Returns (op_codes (T, B) uint8, op_lens (T, B) uint16,
-    xstart, ystart, xend, yend (B,) int32)."""
+    xstart, ystart, xend, yend (B,) int32). ``tb`` is a contiguous (N+1, X,
+    B) tensor or, as K15 returns it, a pair-major view: read in place, never
+    copied. On the card one warp a pair walks tiles of the tb staged in
+    shared memory (K14's, ``seg_walk_geometry``), 8 rows a copy where
+    ``_vector_rows`` allows, a run of Match/Subst, Ins or Del steps a
+    round (a lane a step)."""
     if _check_steps(tb, lx, ly, mlens, nlens).type == "cpu":
         return walk_steps_plain(tb, lx, ly, mlens, nlens)
     Nc, X, B = tb.shape
@@ -790,7 +798,8 @@ def walk_steps(tb, lx, ly, mlens, nlens):
     if B:
         WALK_STEPS.launch(
             dev, tb.data_ptr(), lx.data_ptr(), ly.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, X - 1, Nc - 1, T, op_codes.data_ptr(), op_lens.data_ptr(), *(c.data_ptr() for c in coords),
+            B, X - 1, Nc - 1, T, *_walk_strides(tb), int(_vector_rows(tb)), op_codes.data_ptr(),
+            op_lens.data_ptr(), *(c.data_ptr() for c in coords),
         )
     return (op_codes, op_lens, *coords)
 
@@ -798,12 +807,17 @@ def walk_steps(tb, lx, ly, mlens, nlens):
 def walk_steps_plain(tb, lx, ly, mlens, nlens):
     """Plain version of K15-walk (batched.py ``_walk``, three-gather form):
     pairs vectorized, steps in a Python loop with a gather each for the
-    cell, lx and Ly, until every lane is done."""
+    cell, lx and Ly, until every lane is done. The cell is gathered from
+    ``tb``'s storage through its strides (``_walk_strides``), so that a
+    pair-major view is read in place, not copied."""
     Nc, X, B = tb.shape
     T = (X - 1) + (Nc - 1) + 8
     dev = tb.device
     i32 = torch.int32
-    flat = tb.reshape(-1).view(torch.int16)  # no uint16 indexing on CUDA
+    sj, si, sb = _walk_strides(tb)
+    off = tb.storage_offset()
+    # the storage from tb's first element on, as int16 (no uint16 indexing on CUDA)
+    flat = tb.view(torch.int16).as_strided((tb.untyped_storage().nbytes() // 2 - off,), (1,), off)
     bidx = torch.arange(B, device=dev)
     i, j = mlens.clone(), nlens.clone()
     carried = torch.full((B,), TB_START, dtype=i32, device=dev)
@@ -816,7 +830,7 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
         if t % 32 == 0 and bool(done.all()):
             break
         ic, jc = i.clamp(0, X - 1).long(), j.clamp(0, Nc - 1).long()
-        cell = flat[(jc * X + ic) * B + bidx].to(i32) & 0xFFFF
+        cell = flat[jc * sj + ic * si + bidx * sb].to(i32) & 0xFFFF
         lxj = lx[jc, bidx]
         lyi = ly[bidx, ic]
         layer = torch.where(use_s, (cell >> 8) & 0xF, carried)

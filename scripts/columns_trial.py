@@ -1,14 +1,22 @@
 #!/usr/bin/env python3
 """Trials of variants of K15 (csrc/sw_columns.cu) on one NVIDIA GPU: other
-stripe counts (T_STRIPES, the most threads a block), and blocks run in
+stripe counts (T_STRIPES, the most threads a block), the cells computed
+but their tb stores skipped (what the stores themselves cost), and blocks run in
 thread-block clusters of C pairs held within E steps of each other by a
 cluster barrier (does keeping the blocks that share the tb's 32-byte
 sectors in step let L2 merge their 2-byte stores?).
 
-    python3 scripts/columns_trial.py [--stripes 512] [--clusters 1] [--every 4] [--reps 3]
+    python3 scripts/columns_trial.py [--stripes 1024] [--clusters 1] [--every 4] [--reps 3]
+                                     [--placements shared,scratch] [--stores cs,plain,off]
 
-``--stripes`` and ``--clusters`` take comma-separated lists; every pair of
-values is one variant. A variant is made from the source in this checkout
+``--stripes``, ``--clusters`` and ``--stores`` take comma-separated lists;
+every triple of values is one variant (``--stores cs``: the source's
+streaming stores, ``__stcs``; ``plain``: plain 16-byte stores; ``off``: a
+thread's word is stored only where all its bits are set, which 12-bit
+cells never are, so the cells stay computed and nothing is stored; its
+checksums then differ), timed in each of ``--placements`` (``scratch``:
+the row state in the device scratch, ``sw.COLUMNS_SHARED_MAX_M`` set to
+-1). A variant is made from the source in this checkout
 by the substitutions below (each must apply), built with nvcc into
 ``ops/_build/``, and put in place of the K15 and K15-LUT entry points (and
 ``ops.sw``'s stripe count, which sizes the scratch); a cluster variant pads
@@ -81,11 +89,16 @@ extern "C" int trial_max_clusters(int T, int smem) {
 """
 
 
-STRIPES = "constexpr int T_STRIPES = 512;"
+STRIPES = "constexpr int T_STRIPES = 1024;"
+STORE = "    __stcs(reinterpret_cast<uint4*>(dst), make_uint4(w0, w1, w2, w3));"
 
 
-def variant_source(src: str, stripes: int, cluster: int) -> str:
-    subs = [(STRIPES, STRIPES.replace("512", str(stripes)))]
+def variant_source(src: str, stripes: int, cluster: int, stores: str = "cs") -> str:
+    subs = [(STRIPES, STRIPES.replace("1024", str(stripes)))]
+    if stores == "off":
+        subs.append((STORE, "    if ((w0 & w1 & w2 & w3) == 0xFFFFFFFFu)\n  " + STORE))
+    elif stores == "plain":
+        subs.append((STORE, "    *reinterpret_cast<uint4*>(dst) = make_uint4(w0, w1, w2, w3);"))
     if cluster > 1:
         subs += SUBSTITUTIONS
     for old, new in subs:
@@ -97,10 +110,12 @@ def variant_source(src: str, stripes: int, cluster: int) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--stripes", default="512")
+    ap.add_argument("--stripes", default="1024")
     ap.add_argument("--clusters", default="1")
     ap.add_argument("--every", type=int, default=4)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--placements", default="shared")
+    ap.add_argument("--stores", default="cs")
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
 
@@ -115,19 +130,22 @@ def main() -> int:
 
     _build.BUILD_DIR.mkdir(exist_ok=True)
     source = (_build.CSRC / "sw_columns.cu").read_text()
-    variants = [(int(t), int(c)) for t in args.stripes.split(",") for c in args.clusters.split(",")]
+    variants = [
+        (int(t), int(c), st) for t in args.stripes.split(",") for c in args.clusters.split(",")
+        for st in args.stores.split(",")
+    ]
     libs, procs = {}, []
-    for t, c in variants:
-        src = _build.BUILD_DIR / f"trial_sw_columns_t{t}_c{c}.cu"
-        src.write_text(variant_source(source, t, c))
-        libs[t, c] = src.with_suffix(".so")
+    for t, c, st in variants:
+        src = _build.BUILD_DIR / f"trial_sw_columns_t{t}_c{c}_{st}.cu"
+        src.write_text(variant_source(source, t, c, st))
+        libs[t, c, st] = src.with_suffix(".so")
         procs.append(subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, f"-DCLUSTER={c}",
-                                       f"-DEVERY={args.every}", "-o", str(libs[t, c]), str(src)]))
+                                       f"-DEVERY={args.every}", "-o", str(libs[t, c, st]), str(src)]))
     if any(p.wait() != 0 for p in procs):
         print("columns_trial: nvcc failed", file=sys.stderr)
         return 1
     cargs, _, _ = time_columns.inputs(torch, chip_smoke, args.seed)
-    for (t, c), path in libs.items():
+    for (t, c, st), path in libs.items():
         lib = ctypes.CDLL(str(path))
         sw._COLUMNS_STRIPES = t
         T, R, _, smem = sw.columns_geometry(cargs[0].shape[1])
@@ -143,10 +161,14 @@ def main() -> int:
             fn.argtypes = kernel.argtypes + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
             kernel._fn = fn
-        fields = {"stripes": t, "threads": T, "rows": R, "cluster": c}
+        fields = {"stripes": t, "threads": T, "rows": R, "cluster": c, "stores": st}
         if c > 1:
             fields["every"] = args.every
-        time_columns.time_scans(torch, chip_smoke, sw, args.seed, args.reps, **fields)
+        shared_max = sw.COLUMNS_SHARED_MAX_M
+        for placement in args.placements.split(","):
+            sw.COLUMNS_SHARED_MAX_M = shared_max if placement == "shared" else -1
+            time_columns.time_scans(torch, chip_smoke, sw, args.seed, args.reps, placement=placement, **fields)
+        sw.COLUMNS_SHARED_MAX_M = shared_max
     return 0
 
 

@@ -285,8 +285,8 @@ def test_clip_scans_and_walks_match_plain(cuda_device):
 
 
 def test_custom_scan_with_device_scratch_matches_plain(cuda_device):
-    """M = 400 (29 pairs' five column layers in a block's shared memory) and
-    M = 11,700 (not one pair's: the device scratch)."""
+    """M = 400 (K9's lanes keep their five row layers in shared memory) and
+    M = 11,700 (past a warp's budget: the device scratch)."""
     rng = np.random.default_rng(32)
     for M in (400, 11_700):
         args, mlens, nlens = _pairs(rng, 40, M, 30, cuda_device)
@@ -655,7 +655,7 @@ def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, p
             ("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
             ("SCORES_ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1),
         ):
-            if kernel in ("K1", "K5", "K9") or name != "_SMEM_MAX":
+            if kernel in ("K1", "K5") or name != "_SMEM_MAX":
                 monkeypatch.setattr(sw, name, value)
     cases, ml, nl = _wrap_cases(kernel, cuda_device)
     assert cases
@@ -775,14 +775,14 @@ def test_warp_global_lut_scan_and_walk_match_plain(cuda_device, monkeypatch, M, 
         _walks_on_both_layouts(tb, [(walk.sweep_walk_global, walk.sweep_walk_global_plain, (ml, nl))])
 
 
-def _local_walk_inputs(scan, ml, nl, go, ge):
+def _local_walk_inputs(scan, ml, nl, go, ge, clips=(0, 0, 0, 0)):
     from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fixups
 
     tb, lx, S_f, I_f, Sn_f, Ly_f, tbk = scan
     B, X = S_f.shape
     rows, row_ge1, mlens_c, is_row_m = _geometry(B, X - 1, ml)
     _, tb_fixed, Lx_n, lx_set = _suffix_fixups(
-        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, 0, 0, 0, 0)
+        S_f, I_f, Sn_f, tbk, B, X - 1, rows, row_ge1, ml, mlens_c, is_row_m, (go, ge, *clips)
     )
     tbfix = (tb_fixed.to(torch.int32) & 0xFFF) | (Ly_f << 12)
     return tbfix, lx, torch.where(lx_set, Lx_n, lx.gather(0, nl.long()[None, :])[0])
@@ -863,6 +863,44 @@ def test_warp_local_scan_and_walks_match_plain(cuda_device, monkeypatch, placeme
 
 
 CLIP_CHOICES = (MIN, 0, -7)
+
+
+@pytest.mark.parametrize("placement", ["shared", "scratch"])
+def test_warp_custom_scan_and_walk_match_plain(cuda_device, monkeypatch, placement):
+    """K9 (csrc/sw_warp.cu: K9-LUT's lanes under match / mismatch scores)
+    with traceback and score-only against ``scan_custom_plain`` bit for bit
+    at M = 1-700 (``K3_MS``), four clip sets of {MIN_SCORE, 0, -7} an M and
+    the gap costs of ``PENS`` and (0, 0) in turn, related lanes (long
+    diagonals), mlens = 0 and nlens = 0 lanes, the row state in shared
+    memory and in the device scratch; then, on the first clip set of each
+    M, K10 on its pair-major view and on a contiguous copy against the
+    plain K10."""
+    rng = np.random.default_rng(76)
+    clip_sets = list(itertools.product(CLIP_CHOICES, repeat=4))
+    gaps = PENS + [(0, 0)]
+    for n, M in enumerate(K3_MS):
+        _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+        args, mlens, nlens = _pairs(rng, 24, M, M + 9, cuda_device)
+        for k in range(4, 24, 2):
+            m = int(min(mlens[k], nlens[k]))
+            args[0][k, :m] = args[1][k, :m]
+        ml, nl = args[2], args[3]
+        for c in range(4):
+            clips = clip_sets[(7 * n + 13 * c) % len(clip_sets)]
+            go, ge = gaps[c % len(gaps)]
+            got = sw.scan_custom(*args, go, ge, 2, -2, *clips)
+            torch.cuda.synchronize()
+            want = sw.scan_custom_plain(*args, go, ge, 2, -2, *clips)
+            assert got[0].shape == want[0].shape and got[0].stride()[1] == 1, M  # the pair-major view
+            _clip_scans_match(got, want, mlens, nlens)
+            only = sw.scan_custom(*args, go, ge, 2, -2, *clips, traceback=False)
+            assert only[0] is None and only[1] is None
+            for g, w in zip(only[2:6], got[2:6]):
+                assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+            assert torch.equal(_masked(only[6], mlens), _masked(got[6] & 0xFFF, mlens))
+            if c == 0:
+                inputs = _local_walk_inputs(got, ml, nl, go, ge, clips) + (ml, nl)
+                _walks_on_both_layouts(got[0], [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain, inputs)])
 
 
 @pytest.mark.parametrize(
@@ -1170,7 +1208,9 @@ def test_columns_scans_match_plain(cuda_device, monkeypatch, M, N, B, placement)
     23 (M = 11,700, past where the state fits shared memory); row mlens at
     the first, the last and a middle row of a stripe, mlens 0 and 1, lanes
     with nlens = 0 (their final I is column 0's I0); K15 equals K9 without
-    the run nibble."""
+    the run nibble. The tb is the view of a pair-major tensor (16-byte
+    stores of a thread's 8-row groups; the holder of row mlens closes its
+    last group early)."""
     if placement == "scratch":
         monkeypatch.setattr(sw, "COLUMNS_SHARED_MAX_M", min(sw.COLUMNS_SHARED_MAX_M, M - 1))
     T, R, where, _ = sw.columns_geometry(M)
@@ -1194,6 +1234,7 @@ def test_columns_scans_match_plain(cuda_device, monkeypatch, M, N, B, placement)
         for table in (lut, None):
             got = _columns_scan(args, go, ge, clips, table)
             torch.cuda.synchronize()
+            assert got[0].stride()[1] == 1  # the pair-major view
             _clip_scans_match(got, _columns_scan(args, go, ge, clips, table, plain=True), mlens, nlens)
             i_f = got[3].cpu()
             assert (i_f[torch.from_numpy((nlens == 0) & (mlens >= 1)), 1] == go).all()
@@ -1226,6 +1267,52 @@ def test_walk_steps_matches_plain(cuda_device):
         assert got[0].dtype == torch.uint8 and got[1].dtype == torch.uint16 and got[0].shape == (300 + 200 + 8, 96)
         for g, w in zip(got, walk.walk_steps_plain(*inputs)):
             assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["pair-major", "contiguous"])
+def test_walk_steps_tiles_match_plain(cuda_device, layout):
+    """K15-walk (one warp a pair over tb tiles in shared memory) against its
+    plain version on K15's pair-major view (16-byte copies) and on a
+    contiguous copy (a cell a load), at M = 5,600, N = 800 in four clip
+    settings: lanes whose x carries a 4.2-4.8 kb insertion (in semiglobal
+    mode an Ins run past dozens of tiles), lanes whose y is a stretch of x
+    and whose x is a stretch of y (each of the four clip codes is stepped
+    somewhere), random lanes, and lanes that end at once (mlens = 0,
+    nlens = 0, both)."""
+    rng = np.random.default_rng(36)
+    B, M, N = 24, 5600, 800
+    args, mlens, nlens = _pairs(rng, B, M, N, "cpu")
+    xb, yb = args[0].numpy(), args[1].numpy()
+    _insertion_pairs(rng, xb, yb, mlens, nlens, range(4, 8))
+    for k in range(8, 16):
+        n = int(rng.integers(200, 700))
+        a = int(rng.integers(0, M - n))
+        if k < 12:  # y a stretch of x, with substitutions
+            yb[k, :n] = xb[k, a : a + n]
+            yb[k, :n][rng.random(n) < 0.03] = ord("A")
+            mlens[k], nlens[k] = M, n
+        else:  # x a stretch of y
+            a = int(rng.integers(0, N - n))
+            xb[k, :n] = yb[k, a : a + n]
+            mlens[k], nlens[k] = n, N
+    mlens[16:19] = [0, 0, 30]
+    nlens[16:19] = [0, 40, 0]
+    args = [torch.from_numpy(a).to(cuda_device) for a in (xb, yb, mlens, nlens)]
+    codes, ins_max = set(), 0
+    for go, ge, clips in ((-5, -1, (MIN, MIN, 0, 0)), (-5, -1, (0, 0, 0, 0)), (-6, -1, (-5, -5, 0, 0)), (-2, -2, (-7, -1, -1, -7))):
+        inputs = list(_walk_inputs(args, _columns_scan(args, go, ge, clips), go, ge, clips))
+        if layout == "contiguous":
+            inputs[0] = inputs[0].contiguous()
+        assert walk._vector_rows(inputs[0]) == (layout == "pair-major")
+        got = walk.walk_steps(*inputs)
+        torch.cuda.synchronize()
+        for g, w in zip(got, walk.walk_steps_plain(*inputs)):
+            assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+        ops = got[0].cpu()
+        codes |= set(ops.unique().tolist())
+        ins_max = max(ins_max, int((ops == 1).sum(0).max()))
+        assert (ops[:, 16] == 0).all()  # a lane that ends at once emits nothing
+    assert {5, 6, 7, 8} <= codes and ins_max >= 4200
 
 
 def test_long_clip_aligner_on_card_matches_cpu(cuda_device):

@@ -172,7 +172,8 @@ def test_scan_columns_plain_matches_pallas_k15(case, subst):
 def test_columns_geometry_covers_every_row_once(m):
     """K15's launch (csrc/sw_columns.cu): the stripes [t * R, t * R + R) of
     T threads own each row 0..M exactly once, T is a multiple of 32 within
-    the 1,024 threads of a block, and the dynamic shared memory fits a
+    the 1,024 threads of a block, R a multiple of 8, and the dynamic shared
+    memory fits a
     block's 232,448 bytes; the row state leaves it above
     ``COLUMNS_SHARED_MAX_M``."""
     T, R, placement, smem = sw.columns_geometry(m)
@@ -180,7 +181,9 @@ def test_columns_geometry_covers_every_row_once(m):
     for t in range(T):
         owned[t * R : t * R + R] += 1
     assert (owned == 1).all()
-    assert T % 32 == 0 and 32 <= T <= 1024 and R >= 1
+    # R a multiple of 8: a thread's 8-row groups are 16-byte pieces of a
+    # pair-major column
+    assert T % 32 == 0 and 32 <= T <= 1024 and R >= 8 and R % 8 == 0
     assert smem <= 232_448
     assert placement == ("shared" if m <= sw.COLUMNS_SHARED_MAX_M else "scratch")
     # shared: the carries, x's bytes and five int32 layers of row state
@@ -191,7 +194,7 @@ def test_columns_geometry_covers_every_row_once(m):
 def test_columns_shared_max_m_is_the_largest_that_fits(monkeypatch):
     """At ``COLUMNS_SHARED_MAX_M`` the row state fits shared memory; one
     more row, and it would not."""
-    assert sw.columns_geometry(sw.COLUMNS_SHARED_MAX_M)[2:] == ("shared", 228_864)
+    assert sw.columns_geometry(sw.COLUMNS_SHARED_MAX_M)[2:] == ("shared", 221_184)
     limit = sw.COLUMNS_SHARED_MAX_M + 1
     monkeypatch.setattr(sw, "COLUMNS_SHARED_MAX_M", limit)
     assert sw.columns_geometry(limit)[3] > 232_448
@@ -225,6 +228,77 @@ def test_walk_steps_plain_matches_jax_walk(case, engine):
     for key, g in zip(("op_codes", "op_lens", "xstart", "ystart", "xend", "yend"), got):
         np.testing.assert_array_equal(g.to(torch.int32).numpy(), steps[key].astype(np.int32), err_msg=key)
     assert (steps["op_codes"] >= 5).any()  # clip steps occur
+
+
+def _pair_major_view(tb, fill=0x0ABC):
+    """``tb`` (N+1, X, B) as K15 returns it on the card: the (N+1, X, B)
+    view of a pair-major (B, N+1, Xp) tensor, Xp = X rounded up to 8, its
+    padding rows holding ``fill`` (a cell no walk may read)."""
+    Nc, X, B = tb.shape
+    pm = torch.full((B, Nc, sw.pair_major_pitch(X - 1)), fill, dtype=torch.int32).to(torch.uint16)
+    pm[:, :, :X] = tb.permute(2, 0, 1)
+    return pm, pm[:, :, :X].permute(1, 2, 0)
+
+
+# lanes whose walk starts on row 0 or column 0 or at once: (mlens, nlens)
+# put in place of lanes 3, 5 and 6
+EDGE_STARTS = ((0, 20), (17, 0), (0, 0))
+
+
+@pytest.mark.parametrize("engine", ["pallas", "xla"])
+@pytest.mark.parametrize("case", CASES, ids=_case_id)
+def test_walk_steps_plain_on_pair_major_view_matches_jax_walk(case, engine):
+    """K15-walk's plain version reading ``tb_full`` through a pair-major
+    view (strided gathers, no copy) against ``_walk``, the cases of
+    ``test_walk_steps_plain_matches_jax_walk`` with lanes 3, 5 and 6
+    starting at mlens = 0, at nlens = 0 and at both (a lane that ends at
+    once); the contiguous tb gives the same steps."""
+    (_, _, mlens, nlens), _, (scan, _, _, tb_full, Lx_full, _) = _jax_case(case, engine)
+    mlens, nlens = mlens.copy(), nlens.copy()
+    for lane, (m, n) in zip((3, 5, 6), EDGE_STARTS):
+        mlens[lane], nlens[lane] = m, n
+    steps = _walk(jnp.asarray(tb_full), jnp.asarray(Lx_full), jnp.asarray(scan[3]), jnp.asarray(mlens),
+                  jnp.asarray(nlens), B, M, N)
+    tb = torch.from_numpy(np.ascontiguousarray(np.transpose(tb_full, (2, 1, 0)).astype(np.int32))).to(torch.uint16)
+    pm, view = _pair_major_view(tb)
+    assert view.data_ptr() == pm.data_ptr() and walk._walk_strides(view) == (pm.shape[2], 1, pm.shape[1] * pm.shape[2])
+    rest = _torch(np.ascontiguousarray(Lx_full.T), scan[3], mlens, nlens)
+    got = walk.walk_steps_plain(view, *rest)
+    for key, g, c in zip(("op_codes", "op_lens", "xstart", "ystart", "xend", "yend"), got, walk.walk_steps(tb, *rest)):
+        np.testing.assert_array_equal(g.to(torch.int32).numpy(), np.asarray(steps[key]).astype(np.int32), err_msg=key)
+        assert torch.equal(g, c), key
+    assert not got[0][:, 6].any()  # the lane at (0, 0) takes no step
+
+
+def test_walk_cases_step_every_clip_kind():
+    """Over the walk cases each of the four clip codes is stepped: the
+    pair-major view's jumps are all exercised."""
+    codes = set()
+    for case in CASES:
+        for engine in ("pallas", "xla"):
+            codes |= set(np.unique(_jax_case(case, engine)[2][5]["op_codes"]).tolist())
+    assert {5, 6, 7, 8} <= codes
+
+
+@pytest.mark.parametrize("case", CASES[:5], ids=_case_id)
+def test_columns_fixups_write_through_pair_major_view(case):
+    """``_columns_fixups`` on K15's finals writes the fixed column and its
+    clip length through a pair-major view of the tb into the pair-major
+    tensor itself (no copy of the tb), as on a contiguous tb; the padding
+    rows stay as they were."""
+    go, ge, clips = case
+    args = _torch(*_jax_case(case, "pallas")[0])
+    tb, lx, *finals = sw.scan_columns(*args, go, ge, MA, MI, *clips)
+    pm, view = _pair_major_view(tb)
+    X = tb.shape[1]
+    scan_c = (tb.clone(), lx.clone(), *finals)
+    scan_v = (view, lx.clone(), *finals)
+    score_c = batched._columns_fixups(scan_c, args[2], args[3], (go, ge, *clips))
+    score_v = batched._columns_fixups(scan_v, args[2], args[3], (go, ge, *clips))
+    assert torch.equal(score_c, score_v)
+    assert torch.equal(pm[:, :, :X].permute(1, 2, 0), scan_c[0]) and not torch.equal(scan_c[0], tb)
+    assert torch.equal(scan_v[1], scan_c[1])
+    assert (pm[:, :, X:] == 0x0ABC).all()
 
 
 def test_pack_steps_roundtrip_and_decode():
