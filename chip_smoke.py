@@ -115,7 +115,8 @@ NVIDIA GPU.
    K14 with its tile geometry and path steps; K7 and K17-exact with their
    lane geometry); holds K8 on K7's pair-major view, K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
-   the domain corpus and K16-walk on K16's too; times K13-LUT on the
+   the domain corpus and K16-walk on K16's of the 1 kb reads and the STR
+   pairs; times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
    bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s and mapped reads/s, device-only and
@@ -154,8 +155,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
-# 32-bit operations per DP cell in the inner loops of csrc/sw_global.cu,
-# csrc/sw_semiglobal.cu and csrc/sw_warp.cu's K7 and K9 (compares, selects, adds, max,
+# 32-bit operations per DP cell in the inner loops of csrc/sw_warp.cu's K1,
+# K7 and K9 and csrc/sw_semiglobal.cu's K5 (compares, selects, adds, max,
 # the run counter, the cell packing and, in K5, K7 and K9, the clip
 # candidates and the Sn/Ly update; K7 and K9 add the running x-suffix
 # maximum; loads, stores and address arithmetic not counted), the
@@ -1524,12 +1525,13 @@ def main() -> int:
     torch.cuda.synchronize()
     want = sw.scan_global_plain(xb_d, yb_d, ml_d, nl_d, *pens)
     report(
-        "sw_scan_global", "rust_bio_tpu_torch/ops/csrc/sw_global.cu", "rust_bio_tpu/ops/sw_pallas.py:559",
+        "sw_scan_global", "rust_bio_tpu_torch/ops/csrc/sw_warp.cu", "rust_bio_tpu/ops/sw_pallas.py:559",
         got, want,
         cuda_ms(torch, lambda: sw.scan_global(xb_d, yb_d, ml_d, nl_d, *pens), 10),
         cuda_ms(torch, lambda: sw.scan_global_plain(xb_d, yb_d, ml_d, nl_d, *pens), 2),
         2 * B_ALN * LEN + 8 * B_ALN + 2 * LEN * (LEN + 1) * B_ALN + 4 * B_ALN + 4 * B_ALN * (LEN + 1),
-        K1_OPS_PER_CELL * cells,
+        K1_OPS_PER_CELL * cells, stripes=sw.warp_geometry(LEN, sw.GLOBAL_WARP_LAYERS)[:2],
+        tb_strides=list(got[1].stride()),
     )
     tb = got[1]
     wgot = walk.sweep_walk_global(tb, ml_d, nl_d)
@@ -2001,8 +2003,9 @@ def main() -> int:
     # about 8 GB; compared 256 columns at a time), the plain version timed by
     # one run, the kernel by 3 (ms: the wrapper with its tb zero-fill,
     # lengths checked on the host as the aligner does; kernel_ms: the launch
-    # alone into the outputs of the checked call); K16-walk on the 1 kb
-    # corpus, on K16's pair-major view
+    # alone into the outputs of the checked call); K16-walk on both
+    # corpora, on K16's pair-major view (its row: the 1 kb corpus, the STR
+    # pairs in its str_global_* fields)
     def banded_arrays(al, mode, xs, ys):
         sc_ = {
             "semiglobal": al.scoring.with_clips(*SEMI_CLIPS), "global_": al.scoring.with_clips(*SEMI_CLIPS[:1] * 4),
@@ -2045,8 +2048,36 @@ def main() -> int:
         warps = sw.banded_geometry(Mq, Bq, torch.cuda.get_device_properties(dev).multi_processor_count)[0]
         band_k16[name] = (got, arrays, err, ms, plain_ms, nbytes, K16_OPS_PER_CELL * cells_q, cells_q, kernel_ms, warps)
         del got, outs
+    # K16-walk on K16's pair-major view of both corpora, before their tbs go
+    def banded_walk(got, arrays):
+        t_ = tens(*arrays[:6])
+        _, winputs = banded_device._walk_inputs(got, t_[2], t_[3], arrays[6], t_[4], t_[5])
+        wgot = walk.walk_banded(*winputs)
+        torch.cuda.synchronize()
+        wwant, wplain_ms = timed_once(torch, lambda: walk.walk_banded_plain(*winputs))
+        err = max_abs_err(wgot, wwant)
+        ms = cuda_ms(torch, lambda: walk.walk_banded(*winputs), 5)
+        # one 2-byte tb cell a step plus the entry cell's; in column nlens
+        # (the steps before the first op that leaves it, and that op) the
+        # 4-byte tbfix cell in its place, which holds Ly; lx on x-suffix
+        # clip steps
+        codes = wgot[0].cpu().numpy().astype(np.int64)
+        lens = wgot[1].cpu().to(torch.int32).numpy()
+        steps = int((codes > 0).sum())
+        leaves = np.isin(codes, (TB_DEL, TB_SUBST, TB_MATCH, TB_YCLIP_PREFIX)) | ((codes == TB_YCLIP_SUFFIX) & (lens > 0))
+        fix_steps = int(np.where(leaves.any(0), leaves.argmax(0) + 1, (codes > 0).sum(0)).sum())
+        xsuffix_steps = int((codes == TB_XCLIP_SUFFIX).sum())
+        T, Bq = codes.shape
+        nbytes = 2 * (steps + Bq) + 2 * fix_steps + 4 * xsuffix_steps + 8 * Bq + 3 * T * Bq + 16 * Bq
+        return {
+            "err": err, "ms": ms, "plain_ms": wplain_ms, "bytes": nbytes, "ops": 8 * (steps + Bq), "steps": steps,
+            "longest_steps": int((codes > 0).sum(0).max()), "tb_strides": list(winputs[0].stride()),
+        }
+
+    walk_kb = banded_walk(band_k16["kb"][0], band_k16["kb"][1])
+    walk_str = banded_walk(band_k16["str_global"][0], band_k16["str_global"][1])
     _, _, _, _, _, sbytes, sops, scells, skernel_ms, swarps = band_k16["str_global"]
-    kgot, karrays, kerr, kms, kplain_ms, kbytes, kops, kcells, kkernel_ms, kwarps = band_k16["kb"]
+    _, _, kerr, kms, kplain_ms, kbytes, kops, kcells, kkernel_ms, kwarps = band_k16["kb"]
     report(
         "sw_scan_banded", "rust_bio_tpu_torch/ops/csrc/sw_banded.cu", "rust_bio_tpu/ops/sw_pallas.py:2514", None, None,
         kms, kplain_ms, kbytes, kops, err=max(kerr, band_k16["str_global"][2]), band_cells=kcells,
@@ -2056,28 +2087,18 @@ def main() -> int:
         str_global_bound_ms=max(sbytes / HBM_BYTES_PER_S, sops / INT32_OPS_PER_S) * 1e3, str_global_band_cells=scells,
     )
     del band_k16
-    kt = tens(*karrays[:6])
-    _, winputs = banded_device._walk_inputs(kgot, kt[2], kt[3], karrays[6], kt[4], kt[5])
-    wgot = walk.walk_banded(*winputs)
-    torch.cuda.synchronize()
-    wwant, wplain_ms = timed_once(torch, lambda: walk.walk_banded_plain(*winputs))
-    # one 2-byte tb cell a step plus the entry cell's; in column nlens (the
-    # steps before the first op that leaves it, and that op) the 4-byte
-    # tbfix cell in its place, which holds Ly; lx on x-suffix clip steps
-    codes = wgot[0].cpu().numpy().astype(np.int64)
-    lens = wgot[1].cpu().to(torch.int32).numpy()
-    steps = int((codes > 0).sum())
-    leaves = np.isin(codes, (TB_DEL, TB_SUBST, TB_MATCH, TB_YCLIP_PREFIX)) | ((codes == TB_YCLIP_SUFFIX) & (lens > 0))
-    fix_steps = int(np.where(leaves.any(0), leaves.argmax(0) + 1, (codes > 0).sum(0)).sum())
-    xsuffix_steps = int((codes == TB_XCLIP_SUFFIX).sum())
-    T, Bq = codes.shape
+    # K16-walk's row: the 1 kb corpus, and the STR pairs beside it
     report(
-        "walk_banded", "rust_bio_tpu_torch/ops/csrc/walk_banded.cu", "rust_bio_tpu/alignment/pairwise/banded_device.py:231",
-        wgot, wwant, cuda_ms(torch, lambda: walk.walk_banded(*winputs), 5), wplain_ms,
-        2 * (steps + Bq) + 2 * fix_steps + 4 * xsuffix_steps + 8 * Bq + 3 * T * Bq + 16 * Bq,
-        8 * (steps + Bq), tb_strides=list(winputs[0].stride()),
+        "walk_banded", "rust_bio_tpu_torch/ops/csrc/walk_steps.cu", "rust_bio_tpu/alignment/pairwise/banded_device.py:231",
+        None, None, walk_kb["ms"], walk_kb["plain_ms"], walk_kb["bytes"], walk_kb["ops"],
+        err=max(walk_kb["err"], walk_str["err"]), steps=walk_kb["steps"], longest_steps=walk_kb["longest_steps"],
+        tb_strides=walk_kb["tb_strides"], tile_geometry=walk.seg_walk_geometry(),
+        str_global_ms=walk_str["ms"], str_global_plain_ms=walk_str["plain_ms"],
+        str_global_bound_ms=max(walk_str["bytes"] / HBM_BYTES_PER_S, walk_str["ops"] / INT32_OPS_PER_S) * 1e3,
+        str_global_bound_by="bytes" if walk_str["bytes"] / HBM_BYTES_PER_S >= walk_str["ops"] / INT32_OPS_PER_S else "operations",
+        str_global_steps=walk_str["steps"], str_global_longest_steps=walk_str["longest_steps"],
+        str_global_max_abs_err=walk_str["err"],
     )
-    del kgot, winputs, wgot, wwant
 
     # the PairHMM kernels on 3g's corpora; floats, each within its stated
     # tolerance of its plain version on the same inputs (f32: 1e-5 of
@@ -2220,10 +2241,10 @@ def main() -> int:
         geometry=[list(pairhmm.pairhmm_log_geometry(hoy.shape[1], hoy.shape[0], dt, sw._sm_count(dev), pairhmm.HOMOPOLY_STATES))
                   for dt in (torch.float32, torch.float64)],
     )
-    # T_ROWS: K1 (its column state in device memory past M = 605) against
-    # K13 (one block a pair; its speed does not depend on rb), on 128 pairs
+    # T_ROWS: K1 (one warp a pair over lane stripes) against K13 (one
+    # block a pair; its speed does not depend on rb), on 128 pairs
     # at 600 bp, 1 kb and 2 kb (y = x at 5% substitutions); T_COLUMNS: K9
-    # (one thread a pair) against K15 (one block a pair) on the same pairs
+    # (one warp a pair) against K15 (one block a pair) on the same pairs
     # in semiglobal mode
     t_rows, t_columns = {}, {}
     acgt = np.frombuffer(b"ACGT", np.uint8)

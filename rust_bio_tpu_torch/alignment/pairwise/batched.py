@@ -18,8 +18,8 @@ tensor, the only device-to-host transfer; the host decodes it into
 reference-exact ``Alignment`` objects. ``scores(..., "global")`` runs K3
 (``ops.sw.scores_global``) instead, at any M.
 
-Long x (M + 1 >= ``T_ROWS``, where K1's column state would leave shared
-memory) takes the block-row path instead: K13 (``ops.sw.scan_global_rows``,
+Long x (M + 1 >= ``T_ROWS``, the routing by padded M that K1 had when its
+column state left shared memory there) takes the block-row path instead: K13 (``ops.sw.scan_global_rows``,
 K13-LUT under a LUT) computes the DP in blocks of rows and writes
 ``TB_REREAD`` i-cells at the block seams, K14
 (``ops.walk.sweep_walk_global_seg``) walks that tensor into K2's outputs.
@@ -102,9 +102,13 @@ from rust_bio_tpu_torch.alignment.types import (
 from rust_bio_tpu_torch.utils.text import to_bytes
 
 _MAX_ROWS = 4096  # _pack_rle keeps ins_cnt <= M + 1 in 12 bits
-# M + 1 >= T_ROWS runs K13 + K14: from M = 605 on, K1's column state
-# (3 * (M+1) * 32 * 4 bytes) leaves the 232,448 bytes of a block's shared
-# memory
+# M + 1 >= T_ROWS runs K13 + K14: the routing by padded M stays where the
+# first K1 (one thread a pair) had to hand over, when its column state left
+# a block's shared memory, so that a batch takes the engine whose chain it
+# took before where int32 wraps (K13's block-seeded chain parts from K1's
+# there); and K13 is the engine of x past 605 (K1's lanes keep their state
+# on chip up to M = 2,047, and at 128 pairs one block a pair fills the
+# card where one warp a pair does not)
 T_ROWS = 606
 # M + 1 >= T_COLUMNS runs the clip modes on K15 and K15-walk (the packs of
 # the column-RLE walks keep Ins counts in 12 bits)

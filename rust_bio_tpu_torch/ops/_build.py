@@ -31,9 +31,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = (
-    "sw_global", "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
+    "walk_global", "fm_search", "sw_semiglobal", "walk_semiglobal",
     "walk_custom", "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
-    "sw_columns", "sw_banded", "walk_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
+    "sw_columns", "sw_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
     "pairhmm_homopoly",
 )
 # per-source flags after NVCC_FLAGS: the PairHMM forwards keep every product

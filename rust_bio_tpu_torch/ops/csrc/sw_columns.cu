@@ -77,7 +77,7 @@
 // Xclip-prefix > Yclip-prefix; the per-row y-prefix clip ycp + go + ge*(i-1)
 // and the per-column x-prefix clip xcp + max(ycp, go + ge*(j-1)) enter
 // S~ = max(m, D, yclip, xclip), hence the I-open candidate; I is the prefix
-// maximum of the JAX scan (csrc/sw_global.cu), a stripe hands its P down; S
+// maximum of the JAX scan (csrc/sw_warp.cu), a stripe hands its P down; S
 // is chosen from MIN_I32 up (Xclip-suffix bits), as batched.py _column_body
 // does, which parts from K9's choice only where every candidate wrapped
 // below MIN_I32; row 0 takes Del

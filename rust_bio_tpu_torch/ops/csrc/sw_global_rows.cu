@@ -8,7 +8,7 @@
 // K3's launch replaces :199 _kernel_mp (sw_scores_global_matchparams :258)
 // where ops/sw.py scores_route picks it.
 //
-// What it computes: K1's DP (csrc/sw_global.cu): S; D, the deletion score
+// What it computes: K1's DP (csrc/sw_warp.cu): S; D, the deletion score
 // carried along a row; I, the insertion score carried down a column; S~ =
 // max(m, D), the I-open candidate; the score, S at (mlens, nlens) clamped
 // at NEG; and the traceback cells i_bits | d_bits << 4 | s_bits << 8 of
@@ -67,7 +67,7 @@
 // parameter: MatchParams, or a (256, 256) LUT read through the read-only
 // path; the Match/Subst bit is byte equality under either.
 //
-// Exactness as K1 (sw_global.cu:40-46): int32 arithmetic wraps, D starts at
+// Exactness as K1 (sw_warp.cu): int32 arithmetic wraps, D starts at
 // MIN_I32 = -858993459, strict '>' with priority Match/Subst > Ins > Del,
 // the I-open candidate uses S~. The insertion chain is the JAX kernel's: in
 // each seam-to-seam block of rows, a prefix maximum P of T[i] - k * ge over

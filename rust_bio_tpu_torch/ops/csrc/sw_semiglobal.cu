@@ -11,9 +11,9 @@
 // j = nlens that the suffix fixups read: S, I, Sn (best y-suffix-clip score
 // per row), Ly (its clip length) and the cells tbk, each (B, M+1).
 //
-// Design: K1's (sw_global.cu). One thread per pair walks columns
+// Design: the first K1's. One thread per pair walks columns
 // j = 1..nlens and rows i = 0..mlens in order, so the insertion score is a
-// scalar carry, K1's prefix maximum P[i] = max(P[i-1], S~[i-1] + go - i * ge),
+// scalar carry, the JAX kernels' prefix maximum P[i] = max(P[i-1], S~[i-1] + go - i * ge),
 // I = P + i * ge (equal to max(I[i-1] + ge, S~[i-1] + go) until a sum
 // wraps int32). The previous
 // column's S, D, s-bits, Sn and Ly live in shared memory as [row][pair],
@@ -21,7 +21,7 @@
 // (5, M+1, B) device scratch when they do not fit. The I layer is not part
 // of the recurrence: I_f and tbk are written from column nlens (from the
 // init column when nlens == 0). The substitution source is a template
-// parameter, as in sw_global.cu (here only MatchParams). The Match/Subst
+// parameter, as in sw_warp.cu (here only MatchParams). The Match/Subst
 // bit is byte equality.
 //
 // Bound on this card: it writes N * (M+1) * B uint16 cells (coalesced: a

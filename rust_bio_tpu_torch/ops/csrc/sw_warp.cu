@@ -3,7 +3,8 @@
 // sw_scan_semiglobal_lut: the global (with its traceback, and score only),
 // the local, the custom-clip and the semiglobal affine-gap DP under a
 // (256, 256) substitution LUT at protein lengths, one warp a pair over row
-// stripes held by its lanes; and, under match / mismatch scores, K3 at
+// stripes held by its lanes; and, under match / mismatch scores, K1
+// sw_scan_global (K11's kernel), the global DP of the 150 bp pairs, K3 at
 // short x, sw_scores_global_warp (K18's kernel), K7 sw_scan_local (K7-LUT's
 // kernel), the local DP of the 150 bp reads, and K9 sw_scan_custom
 // (K9-LUT's kernel), their custom-clip DP.
@@ -11,6 +12,7 @@
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
 // lut[x, y] * 2 | (x == y) in, these kernels read the LUT themselves),
+// :559 _kernel_scan_global_mp (scan_global_pallas_mp :780, runs="ins", K1),
 // :79 _kernel (sw_scores_global :140, which reads a (B, M, N) substitution
 // tensor), :199 _kernel_mp (sw_scores_global_matchparams :258, K3), :1328
 // _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
@@ -21,11 +23,11 @@
 // JAX package runs there.
 //
 // What they compute:
-//  K11: csrc/sw_global.cu's K1 fed by the LUT: the score, S at (mlens,
-//   nlens) clamped at NEG; the traceback cells
+//  K1: the score, S at (mlens, nlens) clamped at NEG; the traceback cells
 //   i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12 of columns
 //   j = 1..nlens and rows i = 0..mlens; tbk (B, M+1), the cells of column
-//   nlens (column 0's when nlens = 0).
+//   nlens (column 0's when nlens = 0). K11 is K1 fed by the LUT, the same
+//   kernel under the other substitution source (the template's, as K3's).
 //  K9-LUT: K9 fed by the LUT, all four clips live (the JAX custom kernel's
 //   recurrence, sw_pallas.py:1601-1881): the
 //   cells of columns j = 0..nlens (column 0, the init column, at index 0)
@@ -52,9 +54,9 @@
 //   launch at long x.
 //  All of them carry the insertion chain as the JAX kernels' prefix
 //  maximum, P = max(P, T - i * ge) down the rows and I = P + i * ge, a
-//  lane handing P down (sw_global.cu): equal to max(I + ge, T) a row until
+//  lane handing P down: equal to max(I + ge, T) a row until
 //  a sum wraps int32, and then still equal to the plain versions and the
-//  JAX kernels.
+//  JAX kernels (K1's one thread a pair carried it as a scalar before).
 //
 // Design: the row-stripe wavefront of csrc/sw_global_rows.cu, shrunk to one
 // warp a pair, WARPS warps a block (the pairs are independent). Lane t owns
@@ -75,7 +77,7 @@
 // down, as K5 does. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
-// S, D, s-bits for K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
+// S, D, s-bits for K1 and K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
 // and Sn, Ly besides for K7, K7-LUT, K9, K9-LUT and K12 (10 KB), in the warp's
 // slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
@@ -83,7 +85,7 @@
 // stripe's x bytes are staged in shared memory once; y_j is read a step
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
-// 16-byte store into the pair-major tb, (B, N, Xp) for K11 and K12 and
+// 16-byte store into the pair-major tb, (B, N, Xp) for K1, K11 and K12 and
 // (B, N+1, Xp) for K7, K7-LUT, K9 and K9-LUT, Xp = M + 1 rounded up to 8
 // (ops/sw.py returns the (N, M+1, B) or (N+1, M+1, B) view, which K2, K6,
 // K8 and K10 read through their strides);
@@ -95,9 +97,11 @@
 // 0.6 ms), the larger (K12: about 42 a cell, K5's; K7 on 8192 random
 // 150 bp pairs: 45 a cell over 184 M cells, 0.29 ms, R = 8 rows a lane and
 // 19 of 32 lanes live, 2.3 KB of x and 5 KB of state a warp; K9 on 8192
-// clipped 150 bp reads against 166-bp windows: 52 a cell, 0.32 ms). The
-// one-thread-a-pair kernels before
-// these kept a pair's column in shared memory and fit one warp an SM (K11:
+// clipped 150 bp reads against 166-bp windows: 52 a cell, 0.32 ms; K1 on
+// 8192 random 150 bp pairs: 34 a cell, 0.19 ms, its 371 MB tb 0.11 ms, 3
+// KB of state a warp). The one-thread-a-pair kernels before
+// these kept a pair's column in shared memory and fit one warp an SM (K1:
+// 32 pairs in 58 KB, 3.6-4.0 ms on those pairs, 20x that bound; K11:
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
 // M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
 // 27.2 ms on the domain corpus, 47x; K7: 5.45 ms, 19x; K9: 5.79 ms,
@@ -107,8 +111,8 @@
 // the one-thread K3 before it ran 1.0-1.2 ms on 8192 pairs, 13x that
 // bound).
 //
-// Exactness as K1 and K5 (sw_global.cu, sw_semiglobal.cu) and the JAX
-// custom kernel (sw_pallas.py:1601-1881):
+// Exactness as the JAX kernels (sw_pallas.py:597-721 for K1, K5's
+// csrc/sw_semiglobal.cu, the custom kernel sw_pallas.py:1601-1881):
 // int32 arithmetic wraps, LUT entries included; D starts at MIN_I32 =
 // -858993459; the running maximum starts at -2^31 + 1 and counts only
 // above MIN_I32; every choice is a strict '>' with priority Match/Subst >
@@ -136,7 +140,7 @@ constexpr int SENT = -2147483647;    // -2^31 + 1: the empty running maximum
 constexpr int LANES = 32;            // stripes a pair
 constexpr int WARPS = 4;             // pairs a block
 constexpr int GROUP = 8;             // rows a lane computes, then stores, at once
-constexpr int GLOBAL_LAYERS = 3;     // K11: S, D, s-bits
+constexpr int GLOBAL_LAYERS = 3;     // K1, K11: S, D, s-bits
 constexpr int SCORE_LAYERS = 2;      // K18, K3: S, D
 constexpr int LOCAL_LAYERS = 5;      // K7-LUT, K9-LUT, K12: S, D, s-bits, Sn, Ly
 constexpr unsigned FULL = 0xffffffffu;
@@ -211,14 +215,35 @@ __device__ __forceinline__ Stripe stripe_of(int* scratch, const uint8_t* __restr
   return st;
 }
 
-// K11. TB: store the cells (else score only; tbk is written either way)
-template <bool TB, bool ONCHIP>
+// Substitution sources of the templated kernels (K1 / K11, K3 / K18, K7 /
+// K7-LUT, K9 / K9-LUT), read a column at a time: the score of x against
+// the column's y. Param is the kernel's argument.
+struct MatchParams {  // ma where the bytes are equal, else mi
+  using Param = int2;  // (ma, mi)
+  struct Column {
+    int y, ma, mi;
+    __device__ __forceinline__ int score(int x) const { return x == y ? ma : mi; }
+  };
+  static __device__ __forceinline__ Column column(Param p, int y) { return Column{y, p.x, p.y}; }
+};
+struct Lut {  // a (256, 256) int32 table, row x, through the read-only path
+  using Param = const int* __restrict__;
+  struct Column {
+    const int* p;
+    __device__ __forceinline__ int score(int x) const { return __ldg(p + (x << 8)); }
+  };
+  static __device__ __forceinline__ Column column(Param lut, int y) { return Column{lut + y}; }
+};
+
+// K1 (Subst = MatchParams) and K11 (Lut). TB: store the cells (else score
+// only; tbk is written either way)
+template <bool TB, bool ONCHIP, class Subst>
 __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
     const uint8_t* __restrict__ xb,  // (B, M)
     const uint8_t* __restrict__ yb,  // (B, N)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
     int Xp, int R, int go, int ge,
-    const int* __restrict__ lut,  // (256, 256), row x
+    typename Subst::Param subst,  // MatchParams: (ma, mi); Lut: the (256, 256) table, row x
     int* __restrict__ score,      // (B,)
     uint16_t* __restrict__ tb,    // (B, N, Xp), or null
     int* __restrict__ tbk,        // (B, M + 1)
@@ -251,7 +276,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
     if (st.groups > 0 && j >= 1 && j <= nl) {
       const int yj = y_next;
       if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
-      const int* lut_y = lut + yj;
+      const auto col = Subst::column(subst, yj);
       const bool last = j == nl;
       // row 0: delete y_1..y_j
       const int dj0 = add(go, mul(ge, j - 1));
@@ -281,7 +306,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
           const int sp = st.at(0, r);
           const int dp = st.at(1, r);
           const int sbp = st.at(2, r);
-          const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+          const int m_val = add(s_up_old, col.score(xi));
           const int d_ext = add(dp, ge);
           const int d_open = add(sp, go);
           const bool d_wins = d_ext > d_open;
@@ -343,25 +368,6 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_global_warp_kernel(
   }
   if (lane == st.t_act - 1) score[b] = max(st.at(0, ml - st.i0), NEG);
 }
-
-// Substitution sources of K3 and K18, read a column at a time: the score
-// of x against the column's y. Param is the kernel's argument.
-struct MatchParams {  // K3: ma where the bytes are equal, else mi
-  using Param = int2;  // (ma, mi)
-  struct Column {
-    int y, ma, mi;
-    __device__ __forceinline__ int score(int x) const { return x == y ? ma : mi; }
-  };
-  static __device__ __forceinline__ Column column(Param p, int y) { return Column{y, p.x, p.y}; }
-};
-struct Lut {  // K18: a (256, 256) int32 table, row x, through the read-only path
-  using Param = const int* __restrict__;
-  struct Column {
-    const int* p;
-    __device__ __forceinline__ int score(int x) const { return __ldg(p + (x << 8)); }
-  };
-  static __device__ __forceinline__ Column column(Param lut, int y) { return Column{lut + y}; }
-};
 
 // K3 (Subst = MatchParams) and K18 (Lut). D and row 0's running maximum
 // start at NEG
@@ -940,6 +946,27 @@ int opt_in(Kernel* kernel, size_t smem) {
 int blocks(int B) { return (B + WARPS - 1) / WARPS; }
 
 template <class Subst>
+int launch_global(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
+                  int N, int Xp, int go, int ge, typename Subst::Param subst, void* score, void* tb,
+                  void* tbk, void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, GLOBAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_global_warp_kernel<true, false, Subst> : scan_global_warp_kernel<true, true, Subst>)
+                   : (scratch ? scan_global_warp_kernel<false, false, Subst>
+                              : scan_global_warp_kernel<false, true, Subst>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge, subst,
+      static_cast<int*>(score), static_cast<uint16_t*>(tb), static_cast<int*>(tbk),
+      static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class Subst>
 int launch_scores(const void* xb, const void* yb, const void* mlens, const void* nlens, int B, int M,
                   int N, int go, int ge, typename Subst::Param subst, void* score, void* scratch,
                   void* stream) {
@@ -990,31 +1017,27 @@ const char* rbt_error_string(int code) {
 
 // Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
 // int32 table on the device; tb null for a score-only call, else the
-// pair-major (B, N, Xp) (K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9, K9-LUT)
+// pair-major (B, N, Xp) (K1, K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9, K9-LUT)
 // uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
 // row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9, K9-LUT
+// above (layers 3 for K1 and K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9, K9-LUT
 // and K12).
 
-// K11.
+// K1: the global DP with its traceback, match / mismatch scores ma / mi.
+int sw_scan_global(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
+                   int M, int N, int Xp, int go, int ge, int ma, int mi, void* score, void* tb,
+                   void* tbk, void* scratch, void* stream) {
+  return launch_global<MatchParams>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, make_int2(ma, mi), score, tb,
+                                    tbk, scratch, stream);
+}
+
+// K11: K1 fed by the LUT.
 int sw_scan_global_lut(const void* xb, const void* yb, const void* mlens,
                        const void* nlens, int B, int M, int N, int Xp, int go,
                        int ge, const void* lut, void* score, void* tb, void* tbk,
                        void* scratch, void* stream) {
-  size_t smem = 0;
-  const int R = geometry(M, GLOBAL_LAYERS, !scratch, &smem);
-  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tb ? (scratch ? scan_global_warp_kernel<true, false> : scan_global_warp_kernel<true, true>)
-                   : (scratch ? scan_global_warp_kernel<false, false> : scan_global_warp_kernel<false, true>);
-  const int rc = opt_in(kernel, smem);
-  if (rc) return rc;
-  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
-      static_cast<const int*>(lut), static_cast<int*>(score), static_cast<uint16_t*>(tb),
-      static_cast<int*>(tbk), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_global<Lut>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, static_cast<const int*>(lut), score, tb,
+                            tbk, scratch, stream);
 }
 
 // K3 at short x: the global score, match / mismatch scores ma / mi.

@@ -1,13 +1,14 @@
 // K2 sweep_walk_global: global-mode traceback walk over the traceback tensor
-// of K1 (sw_global.cu) or K11 (sw_warp.cu). Replaces
+// of K1 or K11 (sw_warp.cu). Replaces
 // rust_bio_tpu/ops/walk_pallas.py sweep_walk_global ->
 // _kernel_sweep_walk_global.
 //
 // Layouts: it reads the cell of DP cell (i, j) of pair b at
 // tb[(j - 1) * sj + i * si + b * sb], element strides it is given: a
-// contiguous (N, X, B) tensor (sj = X * B, si = B, sb = 1), as K1's, or
-// K11's pair-major (B, N, Xp) one (sj = Xp, si = 1, sb = N * Xp), read in
-// place; ops/walk.py takes those two and raises on others.
+// contiguous (N, X, B) tensor (sj = X * B, si = B, sb = 1), as the plain
+// versions', or K1's and K11's pair-major (B, N, Xp) one (sj = Xp, si = 1,
+// sb = N * Xp), read in place; ops/walk.py takes those two and raises on
+// others.
 //
 // Output is the column-RLE form of the path, walked end -> start: per DP
 // column j and pair, ins_cnt[j-1] Ins ops then one exit op

@@ -1,8 +1,10 @@
-// K15-walk walk_steps: the per-step traceback walk of the clip-mode engine.
-// Replaces rust_bio_tpu/alignment/pairwise/batched.py _walk (XLA device code,
-// the traceback of _align_batch_device) in its three-gather form: each step
-// reads one cell tb[j, i, b], and lx[j, b] / Ly[b, i] where the step is an
-// x- / y-suffix clip, and emits one op code and one clip length.
+// K15-walk walk_steps: the per-step traceback walk of the clip-mode engine,
+// and K16-walk walk_banded, the banded aligner's (its section at the end).
+// K15-walk replaces rust_bio_tpu/alignment/pairwise/batched.py _walk (XLA
+// device code, the traceback of _align_batch_device) in its three-gather
+// form: each step reads one cell tb[j, i, b], and lx[j, b] / Ly[b, i] where
+// the step is an x- / y-suffix clip, and emits one op code and one clip
+// length.
 //
 // Inputs: tb, the 12-bit cells i | d << 4 | s << 8 of K15 (csrc/sw_columns.cu)
 // with column 0 at index 0 and the suffix-fixed column written at column
@@ -61,6 +63,33 @@
 // whose rows are not of stride 1, or whose columns or pairs are not 16-byte
 // aligned (the contiguous one), fills the tile one cell at a time and
 // fetches nothing ahead.
+//
+// K16-walk replaces rust_bio_tpu/alignment/pairwise/banded_device.py
+// _walk_banded (XLA device code, a lax.while_loop of M + N + 8 steps over
+// the whole batch). Inputs: K16's tb (N, M + 1, B) uint16, columns 1..N,
+// through its element strides (K16's pair-major view, or a contiguous
+// tensor); tb0 (B, M + 1) int32, column 0's cells; tbfix (B, M + 1) int32,
+// the suffix-fixed column's 12-bit cells with Ly << 12, read in place of
+// column nlens[b] (and its Ly on y-suffix clip steps); lx (B, N + 1) int32,
+// each column's x-suffix clip length. Outputs as K15-walk's; an op's length
+// is 1 for Match/Subst, the clip length for a clip, i or j for a fixup, 0
+// for Ins and Del, as the JAX walk packs it. It is K15-walk's walk and
+// tiles with three things more. A tile lane whose column is 0 or nlens
+// fills it from tb0 or tbfix, a cell a load (BandedColumns). Each step,
+// and each lane of a run, rewrites the s-bits it reads on row 0 and column
+// 0 as banded.py:595-620 rewrites them after the DP (Rewrite), so that a
+// Match run ends where the rewrite sends it elsewhere. A path that stops at
+// TB_START away from the origin emits the out-of-band ending fixups
+// (banded.rs:833-856): Ins x i (or an x-prefix clip of i) back to row 0,
+// then Del x j (or a y-prefix clip of j) back to column 0, a step each.
+// Cells outside the band are 0 (TB_START) in the tb, so a path that reads
+// one stops there. Rows and columns outside the tensors are clamped, and
+// such a cell is read from device memory as the plain version reads it.
+// Bound on this card: as K15-walk, a 2-byte cell a step (about 1.2 k steps
+// a pair on phase 3f's 1 kb reads, 5.6 k on its STR pairs) and 3 bytes of
+// output a step; the chain of steps bounds it, one dependent
+// device-memory load a step in the one-thread-a-pair kernel before this
+// one (1.04-1.10 ms on the 1 kb reads).
 
 #include <cstddef>
 #include <cstdint>
@@ -90,7 +119,7 @@ constexpr unsigned FULL = 0xffffffffu;
 
 // One pair's tb, through its strides.
 struct Tb {
-  const uint16_t* base;  // the pair's cell (0, 0)
+  const uint16_t* base;  // the pair's cell (0, 0) (K16-walk: where it would lie)
   long long sj, si;
   int X;                 // rows, M + 1
   bool vec;              // rows of stride 1, columns 16-byte aligned: 8 rows a copy
@@ -114,26 +143,52 @@ struct Tiles {
   bool pending;  // next's copies are in flight
 };
 
+// K15-walk's columns: every one from the tb.
+struct TbColumns {
+  __device__ bool own(int) const { return false; }
+  __device__ void fill(uint16_t*, int, int, int) const {}
+};
+
+// K16-walk's columns that K16's tb does not hold: column nlens, the
+// suffix-fixed column (tbfix's 12 bits; it takes the place of the tb's
+// column there), and column 0 (tb0); a cell a load.
+struct BandedColumns {
+  const int* fix;   // the pair's tbfix, (M + 1)
+  const int* col0;  // the pair's tb0, (M + 1)
+  int nl;
+  __device__ bool own(int j) const { return j == nl || j == 0; }
+  // rows r0..r1 - 1 of column j (one of its own) into dst
+  __device__ void fill(uint16_t* dst, int j, int r0, int r1) const {
+    const int* src = j == nl ? fix : col0;
+    for (int r = r0; r < r1; ++r) dst[r - r0] = static_cast<uint16_t>(__ldg(src + r) & 0xFFF);
+  }
+};
+
 // Load into tl the tile of columns j - 31..j whose bottom 8-row group holds
 // row i (rows from 0 at a column's top), 0 <= i < X, 0 <= j: with 16-byte
 // cp.async copies committed as one group and not waited for (tb.vec), else
-// a cell at a time.
-__device__ void load_tile(Tile& tl, const Tb& tb, int i, int j) {
+// a cell at a time; the columns cols owns from its own arrays.
+template <class Cols>
+__device__ void load_tile(Tile& tl, const Tb& tb, const Cols& cols, int i, int j) {
   const int lane = threadIdx.x % LANES;
   tl.jt = j;
   tl.r0 = max((i + 8) / 8 * 8 - TILE_ROWS, 0);
   const int jc = j - lane;
   if (jc >= 0) {
-    const uint16_t* col = tb.column(jc);
     uint16_t* dst = tl.s + lane * PITCH;
-    if (tb.vec) {
-#pragma unroll
-      for (int g = 0; g < TILE_ROWS / 8; ++g) {
-        const int r = tl.r0 + 8 * g;
-        if (r < tb.X) __pipeline_memcpy_async(dst + 8 * g, col + r, 16);
-      }
+    if (cols.own(jc)) {
+      cols.fill(dst, jc, tl.r0, min(tl.r0 + TILE_ROWS, tb.X));
     } else {
-      for (int r = tl.r0; r < min(tl.r0 + TILE_ROWS, tb.X); ++r) dst[r - tl.r0] = __ldg(col + r * tb.si);
+      const uint16_t* col = tb.column(jc);
+      if (tb.vec) {
+#pragma unroll
+        for (int g = 0; g < TILE_ROWS / 8; ++g) {
+          const int r = tl.r0 + 8 * g;
+          if (r < tb.X) __pipeline_memcpy_async(dst + 8 * g, col + r, 16);
+        }
+      } else {
+        for (int r = tl.r0; r < min(tl.r0 + TILE_ROWS, tb.X); ++r) dst[r - tl.r0] = __ldg(col + r * tb.si);
+      }
     }
   }
   if (tb.vec) __pipeline_commit();
@@ -141,18 +196,20 @@ __device__ void load_tile(Tile& tl, const Tb& tb, int i, int j) {
 
 // Send for the tile that holds cell (i, j) into the second buffer, unless
 // it is on its way there (tb.vec; nothing outside the tensor).
-__device__ void prefetch(Tiles& t, const Tb& tb, int i, int j) {
+template <class Cols>
+__device__ void prefetch(Tiles& t, const Tb& tb, const Cols& cols, int i, int j) {
   if (!tb.vec || i < 0 || j < 0) return;
   if (t.pending) {
     if (t.next.holds(i, j)) return;
     __pipeline_wait_prior(0);  // the copies in flight land before the buffer is reused
   }
-  load_tile(t.next, tb, i, j);
+  load_tile(t.next, tb, cols, i, j);
   t.pending = true;
 }
 
 // Make the current tile hold cell (i, j), 0 <= i < X, 0 <= j. Warp-uniform.
-__device__ void fill(Tiles& t, const Tb& tb, int i, int j) {
+template <class Cols>
+__device__ void fill(Tiles& t, const Tb& tb, const Cols& cols, int i, int j) {
   // the path left the current tile through its top row: an Ins run
   const bool up = t.cur.jt >= 0 && j > t.cur.jt - LANES;
   __syncwarp();  // every lane is done with the current tile
@@ -169,14 +226,14 @@ __device__ void fill(Tiles& t, const Tb& tb, int i, int j) {
     }
   }
   if (!swapped) {
-    load_tile(t.cur, tb, i, j);
+    load_tile(t.cur, tb, cols, i, j);
     if (tb.vec) __pipeline_wait_prior(0);
     __syncwarp();
   }
   if (up) {
-    prefetch(t, tb, t.cur.r0 - 1, t.cur.jt);
+    prefetch(t, tb, cols, t.cur.r0 - 1, t.cur.jt);
   } else {
-    prefetch(t, tb, max(i - AHEAD, 0), t.cur.jt - LANES);
+    prefetch(t, tb, cols, max(i - AHEAD, 0), t.cur.jt - LANES);
   }
 }
 
@@ -211,7 +268,7 @@ __global__ void __launch_bounds__(WARPS * LANES) walk_steps_kernel(
   while (t < T) {
     const int ic = min(max(i, 0), M);
     const int jc = min(max(j, 0), N);
-    if (!tl.cur.holds(ic, jc)) fill(tl, tbs, ic, jc);
+    if (!tl.cur.holds(ic, jc)) fill(tl, tbs, TbColumns{}, ic, jc);
     const int cell = tl.cur.at(ic, jc);
     const int layer = use_s ? (cell >> 8) & 0xF : carried;
     if (layer == TB_START) break;
@@ -275,7 +332,188 @@ __global__ void __launch_bounds__(WARPS * LANES) walk_steps_kernel(
       }
       const int nic = min(max(ni, 0), M);
       const int njc = min(max(nj, 0), N);
-      if (!tl.cur.holds(nic, njc)) prefetch(tl, tbs, nic, njc);
+      if (!tl.cur.holds(nic, njc)) prefetch(tl, tbs, TbColumns{}, nic, njc);
+    }
+    if (lane == 0) {
+      op_codes[static_cast<size_t>(t) * B + b] = static_cast<uint8_t>(layer);
+      op_lens[static_cast<size_t>(t) * B + b] = static_cast<uint16_t>(len);
+    }
+    carried = layer == TB_INS ? cell & 0xF : (cell >> 4) & 0xF;
+    use_s = layer != TB_INS && layer != TB_DEL;
+    i = ni;
+    j = nj;
+    ++t;
+  }
+  if (lane == 0) {
+    xstart[b] = xs;
+    ystart[b] = ys;
+    xend[b] = xe;
+    yend[b] = ye;
+  }
+  __pipeline_wait_prior(0);  // no copy outlives the warp
+}
+
+// int32 add / multiply that wrap like XLA's (signed overflow is UB in C++)
+__device__ __forceinline__ int add(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int mul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// The banded host's rewrites of row 0 and column 0 (banded.py:595-620,
+// after its DP), made where a step reads a cell's s-bits: row 0 (j >= 1,
+// not the fixed column) a Del or a y-prefix clip, column 0 (i >= 1) an Ins
+// or an x-prefix clip, row mlens of column 0 an x-suffix clip where that
+// beats both.
+struct Rewrite {
+  int go, ge, xcp, xcs, ycp, ml, nl;
+  __device__ int sbits(int cell, int i, int j) const {
+    int sb = (cell >> 8) & 0xF;
+    if (i == 0 && j >= 1 && j != nl) sb = add(go, mul(ge, j - 1)) > ycp ? TB_DEL : TB_YCLIP_PREFIX;
+    if (j == 0 && i >= 1) {
+      const int c_i = add(go, mul(ge, i - 1));
+      sb = c_i > xcp ? TB_INS : TB_XCLIP_PREFIX;
+      if (i == ml && xcs > max(c_i, xcp)) sb = TB_XCLIP_SUFFIX;
+    }
+    return sb;
+  }
+};
+
+// K16-walk: K15-walk's tile walk over K16's tb, its columns 1..N; column 0
+// from tb0 and column nlens from tbfix (BandedColumns), the s-bits
+// rewritten as they are read (Rewrite), and the ending fixups.
+__global__ void __launch_bounds__(WARPS * LANES) walk_banded_kernel(
+    const uint16_t* __restrict__ tb,  // (N, M + 1, B) through the strides: columns 1..N
+    const int* __restrict__ tb0,      // (B, M + 1)
+    const int* __restrict__ tbfix,    // (B, M + 1): 12-bit cells | Ly << 12
+    const int* __restrict__ lx,       // (B, N + 1)
+    const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M,
+    int N, int T, int go, int ge, int xcp, int xcs, int ycp, long long sj, long long si,
+    long long sb, int vec,
+    uint8_t* __restrict__ op_codes,   // (T, B), zeroed
+    uint16_t* __restrict__ op_lens,   // (T, B), zeroed
+    int* __restrict__ xstart, int* __restrict__ ystart, int* __restrict__ xend,
+    int* __restrict__ yend) {
+  __shared__ __align__(16) uint16_t tiles[WARPS][2][LANES * PITCH];
+  const int lane = threadIdx.x % LANES;
+  const int w = threadIdx.x / LANES;
+  const int b = blockIdx.x * WARPS + w;
+  if (b >= B) return;  // the whole warp
+  const size_t rows = static_cast<size_t>(M) + 1;
+  const int ml = mlens[b];
+  const int nl = nlens[b];
+  const int* fix = tbfix + static_cast<size_t>(b) * rows;
+  const int* col0 = tb0 + static_cast<size_t>(b) * rows;
+  const int* lx_b = lx + static_cast<size_t>(b) * (N + 1);
+  const uint16_t* tb_b = tb + b * sb;
+  // DP column j >= 1 is the tb's column j - 1
+  const Tb tbs{tb_b - sj, sj, si, M + 1, vec != 0};
+  const BandedColumns cols{fix, col0, nl};
+  const Rewrite rw{go, ge, xcp, xcs, ycp, ml, nl};
+  Tiles tl{{tiles[w][0], -1, 0}, {tiles[w][1], -1, 0}, false};  // jt = -1: empty
+  int i = ml;
+  int j = nl;
+  int xs = 0, ys = 0, xe = i, ye = j;
+  int carried = TB_START;
+  bool use_s = true;  // the first step reads the s-bits at (m, n)
+  int t = 0;
+  while (t < T) {
+    const int ic = min(max(i, 0), M);
+    const int jc = min(max(j, 0), N);
+    const bool inside = i == ic && j == jc;
+    int cell;
+    if (inside) {
+      if (!tl.cur.holds(i, j)) fill(tl, tbs, cols, i, j);
+      cell = tl.cur.at(i, j);
+    } else {  // a clamped cell, from the array the plain version reads it from
+      cell = j == nl ? fix[ic] : (jc == 0 ? col0[ic] : tb_b[(jc - 1) * sj + ic * si]);
+    }
+    const int layer = use_s ? rw.sbits(cell, i, j) : carried;
+    if (layer == TB_START) {
+      // a path that stops away from the origin (banded.rs:833-856): Ins x i
+      // or an x-prefix clip of i back to row 0, then Del x j or a y-prefix
+      // clip of j back to column 0, a step each
+      int f = t;
+      if (i > 0) {
+        const bool iw = add(go, mul(ge, i - 1)) > xcp;
+        if (lane == 0) {
+          op_codes[static_cast<size_t>(f) * B + b] = iw ? TB_INS : TB_XCLIP_PREFIX;
+          op_lens[static_cast<size_t>(f) * B + b] = static_cast<uint16_t>(i);
+        }
+        xs = iw ? 0 : i;
+        ++f;
+      }
+      if (i >= 0 && j > 0 && f < T) {
+        const bool dw = add(go, mul(ge, j - 1)) > ycp;
+        if (lane == 0) {
+          op_codes[static_cast<size_t>(f) * B + b] = dw ? TB_DEL : TB_YCLIP_PREFIX;
+          op_lens[static_cast<size_t>(f) * B + b] = static_cast<uint16_t>(j);
+        }
+        ys = dw ? 0 : j;
+      }
+      break;
+    }
+    const bool mm = layer == TB_MATCH || layer == TB_SUBST;
+    if ((mm || layer == TB_INS || layer == TB_DEL) && inside) {
+      // a run, as K15-walk's; a Match/Subst step's layer is its cell's
+      // s-bits rewritten, its length 1
+      const int di = layer != TB_DEL;
+      const int dj = layer != TB_INS;
+      const int li = i - lane * di;
+      const int lj = j - lane * dj;
+      const bool valid = li >= 0 && lj >= 0 && tl.cur.holds(li, lj);
+      const int c = valid ? tl.cur.at(li, lj) : 0;
+      const int prev = __shfl_up_sync(FULL, c, 1);
+      int my = mm ? rw.sbits(c, li, lj) : (layer == TB_INS ? prev & 0xF : (prev >> 4) & 0xF);
+      if (lane == 0) my = layer;
+      const bool same = mm ? my == TB_MATCH || my == TB_SUBST : my == layer;
+      const unsigned out = __ballot_sync(FULL, !valid);
+      const unsigned other = __ballot_sync(FULL, lane > 0 && !same);
+      int k = min(out ? __ffs(out) - 1 : LANES, other ? __ffs(other) - 1 : LANES);
+      k = min(k, T - t);
+      if (lane < k) {
+        op_codes[static_cast<size_t>(t + lane) * B + b] = static_cast<uint8_t>(my);
+        if (mm) op_lens[static_cast<size_t>(t + lane) * B + b] = 1;
+      }
+      const int last = __shfl_sync(FULL, c, k - 1);  // the run's last cell
+      i -= k * di;
+      j -= k * dj;
+      carried = layer == TB_INS ? last & 0xF : (last >> 4) & 0xF;
+      use_s = mm;
+      t += k;
+      continue;
+    }
+    // one step: a clip jump, a layer of no move, or a clamped cell
+    int len = mm;
+    int ni = i - (layer == TB_INS || mm);
+    int nj = j - (layer == TB_DEL || mm);
+    if (layer >= TB_XCLIP_PREFIX && layer <= TB_YCLIP_SUFFIX) {
+      switch (layer) {
+        case TB_XCLIP_PREFIX:
+          len = i;
+          xs = i;
+          ni = 0;
+          break;
+        case TB_XCLIP_SUFFIX:
+          len = lx_b[jc];
+          ni = i - len;
+          xe = ni;
+          break;
+        case TB_YCLIP_PREFIX:
+          len = j;
+          ys = j;
+          nj = 0;
+          break;
+        default:  // TB_YCLIP_SUFFIX: Ly from the fixed column's cell
+          len = fix[ic] >> 12;
+          nj = j - len;
+          ye = nj;
+          break;
+      }
+      const int nic = min(max(ni, 0), M);
+      const int njc = min(max(nj, 0), N);
+      if (!tl.cur.holds(nic, njc)) prefetch(tl, tbs, cols, nic, njc);
     }
     if (lane == 0) {
       op_codes[static_cast<size_t>(t) * B + b] = static_cast<uint8_t>(layer);
@@ -321,6 +559,27 @@ int walk_steps(const void* tb, const void* lx, const void* ly, const void* mlens
       static_cast<const int*>(ly), static_cast<const int*>(mlens),
       static_cast<const int*>(nlens), B, M, N, T, sj, si, sb, vec,
       static_cast<uint8_t*>(op_codes), static_cast<uint16_t*>(op_lens),
+      static_cast<int*>(xstart), static_cast<int*>(ystart), static_cast<int*>(xend),
+      static_cast<int*>(yend));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K16-walk. op_codes / op_lens must be zeroed by the caller; sj, si, sb
+// are tb's element strides (column, row, pair), vec as K15-walk's. The
+// penalties are the first five of (go, ge, xcp, xcs, ycp, ycs): a y-suffix
+// clip takes its length from tbfix.
+int walk_banded(const void* tb, const void* tb0, const void* tbfix, const void* lx,
+                const void* mlens, const void* nlens, int B, int M, int N, int T, int go,
+                int ge, int xcp, int xcs, int ycp, long long sj, long long si, long long sb,
+                int vec, void* op_codes, void* op_lens, void* xstart, void* ystart, void* xend,
+                void* yend, void* stream) {
+  if (vec && (si != 1 || sj % 8 || (B > 1 && sb % 8) || reinterpret_cast<uintptr_t>(tb) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  walk_banded_kernel<<<(B + WARPS - 1) / WARPS, WARPS * LANES, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint16_t*>(tb), static_cast<const int*>(tb0),
+      static_cast<const int*>(tbfix), static_cast<const int*>(lx),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, T, go, ge, xcp,
+      xcs, ycp, sj, si, sb, vec, static_cast<uint8_t*>(op_codes), static_cast<uint16_t*>(op_lens),
       static_cast<int*>(xstart), static_cast<int*>(ystart), static_cast<int*>(xend),
       static_cast<int*>(yend));
   return static_cast<int>(cudaGetLastError());

@@ -1,5 +1,6 @@
-"""Affine-gap DP kernels: K1 (``scan_global``: score + traceback cells),
-CUDA source ``csrc/sw_global.cu``; K3 (``scores_global``: score only, one
+"""Affine-gap DP kernels: K1 (``scan_global``: score + traceback cells, one
+warp a pair over row stripes with a pair-major tb), CUDA source
+``csrc/sw_warp.cu``; K3 (``scores_global``: score only, one
 warp a pair over row stripes at short x, ``csrc/sw_warp.cu``, one block a
 pair at long x, ``csrc/sw_global_rows.cu``; ``scores_route`` picks); K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
@@ -45,9 +46,9 @@ hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
 (``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
-one thread a pair (K1, K5), except K13, K15 and K3 at long x, where one block sweeps
+one thread a pair (K5), except K13, K15 and K3 at long x, where one block sweeps
 a pair's columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K11, K18, K3 at short x, K7, K7-LUT, K9, K9-LUT and K12,
+``columns_geometry``), K1, K11, K18, K3 at short x, K7, K7-LUT, K9, K9-LUT and K12,
 where one warp does (``warp_geometry``), and K16, where one warp computes each column's band
 rows (``banded_geometry``). All are exact in int32.
 
@@ -85,13 +86,10 @@ from rust_bio_tpu_torch.ops._build import (
 
 NEG = -(2**30)  # final-reduction sentinel (and K3's -inf)
 _SENT = -(2**31) + 1  # the empty x-suffix accumulator of K7/K9
-_PAIRS = 32  # pairs per block in csrc/sw_global.cu
+_PAIRS = 32  # pairs per block in csrc/sw_semiglobal.cu
 _SMEM_MAX = 232_448  # dynamic shared memory a block may opt into on Hopper
 
-SCAN_GLOBAL = CudaKernel(
-    "sw_global", "sw_scan_global",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, PTR, PTR, PTR, PTR],
-)
+SCAN_GLOBAL = CudaKernel("sw_warp", "sw_scan_global", [PTR] * 4 + [INT] * 8 + [PTR] * 4)
 # K3's two launches: K18's lanes (short x) and K13's blocks (long x)
 SCORES_GLOBAL_WARP = CudaKernel("sw_warp", "sw_scores_global_warp", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
 SCORES_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scores_global_rows", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
@@ -169,11 +167,11 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 221,184 bytes at M = 9,215, R = 16, T = 576);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9215
-# K11's, K18's, K3's (short x), K7's, K7-LUT's, K9's, K9-LUT's and K12's launch
+# K1's, K11's, K18's, K3's (short x), K7's, K7-LUT's, K9's, K9-LUT's and K12's launch
 # (csrc/sw_warp.cu): one warp a pair, 4 pairs a block; lane t over a stripe of
 # R rows, R a multiple of 8 (a lane stores 8 cells at once) with 32 * R >= M +
 # 1; the x bytes of a warp's stripes in its slice of shared memory, beside its
-# row state (three int32 layers a row for K11, two for K18 and K3, five for
+# row state (three int32 layers a row for K1 and K11, two for K18 and K3, five for
 # K7, K7-LUT, K9-LUT and K12) while
 # that slice stays within WARP_SHARED_MAX bytes (two blocks an SM at least),
 # else the state in a (B, layers, R, 32) device scratch
@@ -242,7 +240,7 @@ def _plain_feed(xb, yb, subst):
 
 def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
     """None when the column state of a block's 32 pairs fits its shared
-    memory (K1, K5), else a device buffer for it."""
+    memory (K5), else a device buffer for it."""
     if n_layers * (M + 1) * _PAIRS * 4 <= _SMEM_MAX:
         return None
     return torch.empty((n_layers, M + 1, B), dtype=torch.int32, device=dev)
@@ -296,7 +294,7 @@ def scores_route(M: int, B: int) -> str:
 
 
 def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
-    """K11's (``layers`` 3), K18's and K3's (2) or K7's, K7-LUT's, K9-LUT's and K12's (5) launch at x
+    """K1's and K11's (``layers`` 3), K18's and K3's (2) or K7's, K7-LUT's, K9-LUT's and K12's (5) launch at x
     length ``M``, as csrc/sw_warp.cu computes it: (R rows a lane, where the
     row state lives: ``"shared"`` or ``"scratch"``, dynamic shared bytes a
     warp). Lane t owns rows [t * R, t * R + R); R is a multiple of 8. The
@@ -348,7 +346,7 @@ def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K11 / K7 / K7-LUT / K9 / K9-LUT / K12 /
+    """The pair-major (B, cols, Xp) uint16 tb of K1 / K11 / K7 / K7-LUT / K9 / K9-LUT / K12 /
     K15 / K15-LUT, Xp = M + 1 rounded up to a multiple of 8."""
     return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
@@ -364,43 +362,34 @@ def scan_global(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatc
     ``tb[j-1, i, b]`` is the traceback cell of DP cell (i, j):
     ``i_bits | d_bits << 4 | s_bits << 8 | min(ins_run, 15) << 12``; only
     ``1 <= j <= nlens[b]``, ``0 <= i <= mlens[b]`` is defined. ``tbk[b]``
-    holds the cells of column ``nlens[b]`` (rows ``<= mlens[b]``)."""
-    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge, ma, mi = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score))
-    if dev.type == "cpu":
-        return _scan_global_core(_mp_feed(xb, yb, ma, mi), M, N, mlens, nlens, go, ge)
-    score = torch.empty(B, dtype=torch.int32, device=dev)
-    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
-    tbk = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
-    if B:
-        xt = xb.t().contiguous()
-        yt = yb.t().contiguous()
-        scratch = _scratch(3, B, M, dev)
-        SCAN_GLOBAL.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, ma, mi, score.data_ptr(), tb.data_ptr(), tbk.data_ptr(), _ptr(scratch),
-        )
-    return score, tb, tbk
+    holds the cells of column ``nlens[b]`` (rows ``<= mlens[b]``). On the
+    card one warp a pair computes it over row stripes
+    (``warp_geometry(M, GLOBAL_WARP_LAYERS)``), and ``tb`` is the (N, M+1,
+    B) view of a pair-major (B, N, Xp) tensor, Xp = M + 1 rounded up to a
+    multiple of 8, which ``ops.walk.sweep_walk_global`` reads in place."""
+    return _scan_global(SCAN_GLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score))
 
 
 def scan_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback=True):
     """K11: K1 with the substitution score ``lut[x, y]``; same outputs, tb
-    None with ``traceback=False`` (score only). On the card ``tb`` is the
-    (N, M+1, B) view of a pair-major (B, N, Xp) tensor, Xp = M + 1 rounded
-    up to a multiple of 8, which ``ops.walk.sweep_walk_global`` reads in
-    place."""
+    None with ``traceback=False`` (score only)."""
+    return _scan_global(SCAN_GLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, traceback)
+
+
+def _scan_global(kernel, xb, yb, mlens, nlens, go, ge, subst, traceback=True):
+    """K1's or K11's wrapper: ``subst`` is (match, mismatch) or the LUT."""
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge = int(gap_open), int(gap_extend)
-    sub = _subst(lut, dev)
+    go, ge = int(go), int(ge)
+    sub = _subst(subst, dev)
     if dev.type == "cpu":
-        score, tb, tbk = _scan_global_core(_plain_feed(xb, yb, lut), M, N, mlens, nlens, go, ge)
+        score, tb, tbk = _scan_global_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge)
         return score, tb if traceback else None, tbk
     score = torch.empty(B, dtype=torch.int32, device=dev)
     tb = _pair_major(B, N, M, dev) if traceback else None
     tbk = torch.empty((B, M + 1), dtype=torch.int32, device=dev)
     if B:
         scratch = _warp_scratch(GLOBAL_WARP_LAYERS, B, M, dev)
-        SCAN_GLOBAL_LUT.launch(
+        kernel.launch(
             dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
             0 if tb is None else tb.shape[2], go, ge, *sub, score.data_ptr(), _ptr(tb), tbk.data_ptr(),
             _ptr(scratch),

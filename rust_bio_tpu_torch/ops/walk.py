@@ -8,12 +8,12 @@ mode), CUDA source ``csrc/walk_custom.cu``. They replace
 and ``sweep_walk_local``. Kernel K15-walk (``walk_steps``, the per-step walk
 of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
 ``rust_bio_tpu/alignment/pairwise/batched.py`` ``_walk``, and K16-walk
-(``walk_banded``, the banded aligner's lockstep walk, ``csrc/walk_banded.cu``)
-the XLA walk ``banded_device.py`` ``_walk_banded``; their sections at the
-end of this module say what they read and write.
+(``walk_banded``, the banded aligner's walk, in the same source) the XLA
+walk ``banded_device.py`` ``_walk_banded``; their sections at the end of
+this module say what they read and write.
 
 Input: the traceback tensor of K1, K11, K5 or K12 (``ops.sw``), ``tb`` (N,
-X, B) uint16 with X = M + 1 (K11's, K12's, K13's, K7's, K7-LUT's, K9's,
+X, B) uint16 with X = M + 1 (K1's, K11's, K12's, K13's, K7's, K7-LUT's, K9's,
 K9-LUT's, K15's and K16's are views of pair-major tensors, which K2, K6,
 K14, K8, K10, K15-walk and K16-walk read in place through their strides),
 and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
@@ -56,7 +56,7 @@ SWEEP_WALK_GLOBAL = CudaKernel(
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
     "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, INT, PTR, PTR, PTR]
 )
-# K14's launch (csrc/walk_global_seg.cu), and K15-walk's (csrc/walk_steps.cu):
+# K14's launch (csrc/walk_global_seg.cu), and K15-walk's and K16-walk's (csrc/walk_steps.cu):
 # one warp a pair, SEG_WARPS pairs a block; a warp's two tiles (the one it
 # walks, the one fetched ahead, whose last row lies SEG_AHEAD rows above the
 # row the first was fetched for where the path runs left) hold
@@ -82,7 +82,7 @@ WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [I64
 
 def sweep_walk_global(tb, mlens, nlens):
     """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16.
-    ``tb`` is a contiguous (N, X, B) tensor (K1's) or, as K11 returns it, a
+    ``tb`` is a contiguous (N, X, B) tensor or, as K1 and K11 return it, a
     pair-major view (``_walk_strides``): read in place, never copied."""
     return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens)
 
@@ -101,7 +101,7 @@ def sweep_walk_global_seg(tb, mlens, nlens):
 
 
 def seg_walk_geometry() -> dict:
-    """K14's launch, and K15-walk's, as csrc/walk_global_seg.cu and
+    """K14's launch, and K15-walk's and K16-walk's, as csrc/walk_global_seg.cu and
     csrc/walk_steps.cu set it: pairs (warps) a
     block, a tile's columns and rows, the rows between the bottoms of a
     tile and the one fetched ahead, the bytes between tile columns and a
@@ -113,7 +113,7 @@ def seg_walk_geometry() -> dict:
 
 
 def _vector_rows(tb) -> bool:
-    """Whether K14 or K15-walk may read a column's rows 8 at a time with
+    """Whether K14, K15-walk or K16-walk may read a column's rows 8 at a time with
     aligned 16-byte loads: rows of stride 1, columns (and pairs, where B > 1) 8 elements
     apart, the data 16-byte aligned, and the storage holding each column's
     rows up to X rounded up to 8 (the last group of 8 may pass row X - 1)."""
@@ -804,6 +804,14 @@ def walk_steps(tb, lx, ly, mlens, nlens):
     return (op_codes, op_lens, *coords)
 
 
+def _storage(tb):
+    """``tb``'s storage from its first element on, as flat int16 (no uint16
+    indexing on CUDA): the plain walks gather a view's cells from it through
+    the strides, in place."""
+    off = tb.storage_offset()
+    return tb.view(torch.int16).as_strided((tb.untyped_storage().nbytes() // 2 - off,), (1,), off)
+
+
 def walk_steps_plain(tb, lx, ly, mlens, nlens):
     """Plain version of K15-walk (batched.py ``_walk``, three-gather form):
     pairs vectorized, steps in a Python loop with a gather each for the
@@ -815,9 +823,7 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
     dev = tb.device
     i32 = torch.int32
     sj, si, sb = _walk_strides(tb)
-    off = tb.storage_offset()
-    # the storage from tb's first element on, as int16 (no uint16 indexing on CUDA)
-    flat = tb.view(torch.int16).as_strided((tb.untyped_storage().nbytes() // 2 - off,), (1,), off)
+    flat = _storage(tb)
     bidx = torch.arange(B, device=dev)
     i, j = mlens.clone(), nlens.clone()
     carried = torch.full((B,), TB_START, dtype=i32, device=dev)
@@ -878,7 +884,7 @@ def walk_steps_plain(tb, lx, ly, mlens, nlens):
 # x i or an x-prefix clip, then Del x j or a y-prefix clip (banded.rs:833-856).
 # Decode with ``banded_device._decode_ops_batch``.
 
-WALK_BANDED = CudaKernel("walk_banded", "walk_banded", [PTR] * 6 + [INT] * 10 + [I64] * 3 + [PTR] * 6)
+WALK_BANDED = CudaKernel("walk_steps", "walk_banded", [PTR] * 6 + [INT] * 9 + [I64] * 3 + [INT] + [PTR] * 6)
 
 
 def _check_banded_walk(tb, tb0, tbfix, lx, mlens, nlens):
@@ -896,7 +902,13 @@ def walk_banded(tb, tb0, tbfix, lx, mlens, nlens, pens):
     """K16-walk (banded_device.py ``_walk_banded``). Returns (op_codes (T, B)
     uint8, op_lens (T, B) uint16, xstart, ystart, xend, yend (B,) int32).
     ``0 <= mlens <= X - 1`` and ``0 <= nlens <= N`` are the caller's to keep
-    (the kernel clamps the cells it reads into the tensors)."""
+    (the kernel clamps the cells it reads into the tensors). ``tb`` is a
+    contiguous (N, X, B) tensor or, as K16 returns it, a pair-major view:
+    read in place, never copied. On the card K15-walk's tile walk: one
+    warp a pair over tiles of the tb in shared memory (``seg_walk_geometry``;
+    column 0 from ``tb0``, column nlens from ``tbfix``), 8 rows a copy where
+    ``_vector_rows`` allows, a run of Match/Subst, Ins or Del steps a
+    round."""
     dev = _check_banded_walk(tb, tb0, tbfix, lx, mlens, nlens)
     pens = tuple(int(v) for v in pens)[:6]
     if dev.type == "cpu":
@@ -909,21 +921,23 @@ def walk_banded(tb, tb0, tbfix, lx, mlens, nlens, pens):
     if B:
         WALK_BANDED.launch(
             dev, tb.data_ptr(), tb0.data_ptr(), tbfix.data_ptr(), lx.data_ptr(), mlens.data_ptr(),
-            nlens.data_ptr(), B, X - 1, N, T, *pens, *_walk_strides(tb), op_codes.data_ptr(), op_lens.data_ptr(),
-            *(c.data_ptr() for c in coords),
+            nlens.data_ptr(), B, X - 1, N, T, *pens[:5], *_walk_strides(tb), int(_vector_rows(tb)), op_codes.data_ptr(),
+            op_lens.data_ptr(), *(c.data_ptr() for c in coords),
         )
     return (op_codes, op_lens, *coords)
 
 
 def walk_banded_plain(tb, tb0, tbfix, lx, mlens, nlens, pens):
     """Plain version of K16-walk: ``_walk_banded``'s step, pairs vectorized,
-    steps in a Python loop until every lane is done."""
+    steps in a Python loop until every lane is done. The cell is gathered
+    from ``tb``'s storage through its strides, as ``walk_steps_plain``
+    gathers it."""
     go, ge, xcp, xcs, ycp, ycs = (int(v) for v in pens[:6])
     N, X, B = tb.shape
     T = (X - 1) + N + 8
     dev = tb.device
     i32 = torch.int32
-    flat = tb.reshape(-1).view(torch.int16)  # no uint16 indexing on CUDA
+    flat, (s_col, s_row, s_pair) = _storage(tb), _walk_strides(tb)
     bidx = torch.arange(B, device=dev)
     i, j = mlens.clone(), nlens.clone()
     carried = torch.full((B,), TB_START, dtype=i32, device=dev)
@@ -937,7 +951,7 @@ def walk_banded_plain(tb, tb0, tbfix, lx, mlens, nlens, pens):
         if t % 32 == 0 and bool(done.all()):
             break
         ic, jc = i.clamp(0, X - 1).long(), j.clamp(0, N).long()
-        cm = flat[((jc - 1).clamp(min=0) * X + ic) * B + bidx].to(i32) & 0xFFFF
+        cm = flat[(jc - 1).clamp(min=0) * s_col + ic * s_row + bidx * s_pair].to(i32) & 0xFFFF
         cm = torch.where(jc == 0, tb0[bidx, ic], cm)
         cf = tbfix[bidx, ic]
         use_fix = j == nlens

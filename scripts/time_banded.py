@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K16 (``sw.scan_banded``) on one NVIDIA GPU, on the inputs the banded
-aligner gives it in chip_smoke.py phase 3f: 256 1 kb reads (20 random
+"""Time K16 (``sw.scan_banded``) and K16-walk (``walk.walk_banded``, on
+K16's tb after the fixups, as the aligner runs it) on one NVIDIA GPU, on the
+inputs the banded aligner gives them in chip_smoke.py phase 3f: 256 1 kb reads (20 random
 substitutions) in their 20 kb targets through ``semiglobal`` (the band
 build's cropped windows), and 128 STR pairs from phase 3d's generator
 (4.6-5.6 kb, y at 5% substitutions and 0.5% indels) through ``global_`` (a
@@ -20,8 +21,11 @@ null); the warps a block where the tree has ``banded_geometry``; the band
 cells; a checksum of the outputs (the tb read as ``tb[j - 1, i, b]``
 whatever its layout, over columns 1..nlens and every row, lx and the five
 finals; equal checksums from two trees: equal outputs); and the card's
-name and power limit as nvidia-smi reports them. Exits non-zero without a
-CUDA device.
+name and power limit as nvidia-smi reports them. Then, for each corpus, one
+line for K16-walk on that tb: the median of ``--reps`` timed launches, its
+steps, and a checksum of its op codes, lengths and coordinates (as
+``scripts/time_columns.py``'s of K15-walk). Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -61,10 +65,12 @@ def checksum(torch, outs, nl) -> list:
     return total
 
 
-def time_corpora(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
-    """Time K16 on the 1 kb reads and the STR pairs; one JSON line each,
-    with ``fields``."""
-    from rust_bio_tpu_torch.alignment.pairwise import BatchBandedAligner, Scoring
+def time_corpora(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
+    """Time K16 and K16-walk on the 1 kb reads and the STR pairs; one JSON
+    line each, with ``fields``."""
+    from time_columns import walk_checksum
+
+    from rust_bio_tpu_torch.alignment.pairwise import BatchBandedAligner, Scoring, banded_device
     from rust_bio_tpu_torch.alignment.types import AlignmentMode
 
     dev = torch.device("cuda")
@@ -95,7 +101,13 @@ def time_corpora(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
             torch.cuda.synchronize()
             if checksum(torch, outs, t[3]) != total:
                 raise RuntimeError(f"{name}: a repeated launch changed the outputs")
-        del outs
+        _, winputs = banded_device._walk_inputs(outs, t[2], t[3], pens8, t[4], t[5])
+        wout = walk.walk_banded(*winputs)
+        torch.cuda.synchronize()
+        wtotal = walk_checksum(torch, wout)
+        steps = int((wout[0] > 0).sum())
+        wms = chip_smoke.cuda_ms(torch, lambda: walk.walk_banded(*winputs), reps)
+        del outs, winputs, wout
         B, M = host[0].shape
         N = host[1].shape[1]
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -104,6 +116,10 @@ def time_corpora(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
             "kernel": "sw_scan_banded", "corpus": name, **fields, "pairs": B, "M": M, "N": N,
             "band_cells": chip_smoke.band_cells(arrays), "warps_a_block": warps, "reps": reps, "ms": ms,
             "kernel_ms": kernel_ms, "checksum": total, "card": card,
+        }), flush=True)
+        print(json.dumps({
+            "kernel": "walk_banded", "corpus": name, **fields, "pairs": B, "steps": steps, "reps": reps, "ms": wms,
+            "checksum": wtotal, "card": card,
         }), flush=True)
 
 
@@ -121,16 +137,17 @@ def main() -> int:
         return 1
     root = args.root.resolve()
     sys.path.insert(0, str(HERE))
+    sys.path.insert(0, str(HERE / "scripts"))
     import chip_smoke
 
     sys.path.insert(0, str(root))
     import rust_bio_tpu_torch
-    from rust_bio_tpu_torch.ops import sw
+    from rust_bio_tpu_torch.ops import sw, walk
 
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_banded: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
-    time_corpora(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
+    time_corpora(torch, chip_smoke, sw, walk, args.seed, args.reps, root=str(root))
     return 0
 
 

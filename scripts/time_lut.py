@@ -9,7 +9,7 @@ K9-LUT (``sw.scan_custom_lut``, the domain's clips) on its domain corpus:
 (``sw.scores_global_lut``) on the homolog corpus and on phase 3d's 64 long
 protein pairs (4,200-5,000 residues, 30% substitutions, 3% indels).
 
-    python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S]
+    python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S] [--dna]
 
 ``--root`` names the checkout whose ``rust_bio_tpu_torch`` is timed (default:
 the one holding this script), so that two trees can be compared on one card
@@ -33,8 +33,8 @@ reads K12's, on K5's contiguous tb of the same pairs, and K3
 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties and clips) on
 the same pairs, with checksums as the protein scans', K7 and K9 also
 without traceback (``scores_only_ms``), with the source each is built from
-and K7's rows a lane where that is ``sw_warp``.
-Exits non-zero without a CUDA device.
+and K1's and K7's rows a lane where that is ``sw_warp``. ``--dna``: the
+150 bp DNA rows only. Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -215,7 +215,8 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
         total = checksum(torch, outs, a[2], a[3], first_col)
         del out, outs
         source = kernels[name].source
-        extra = {"stripe_rows": sw.warp_geometry(L, 5)[:2]} if source == "sw_warp" else {}
+        layers = sw.GLOBAL_WARP_LAYERS if name == "sw_scan_global" else 5
+        extra = {"stripe_rows": sw.warp_geometry(L, layers)[:2]} if source == "sw_warp" else {}
         clip = name in ("sw_scan_local", "sw_scan_custom")
         print(json.dumps({
             "kernel": name, **fields, "input": "150 bp DNA", "source": source, **extra, "pairs": B, "reps": n,
@@ -230,6 +231,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=HERE)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
+    ap.add_argument("--dna", action="store_true", help="the 150 bp DNA walks and scans only")
     args = ap.parse_args()
 
     import torch
@@ -248,8 +250,9 @@ def main() -> int:
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_lut: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
-    time_scans(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
-    time_k18(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
+    if not args.dna:
+        time_scans(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
+        time_k18(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
     time_dna_walks(torch, chip_smoke, sw, walk, args.seed, 10 * args.reps, root=str(root))
     return 0
 

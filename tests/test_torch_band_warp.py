@@ -4,7 +4,9 @@ both with a pair-major tb, and the walks that read that tb, on the CPU.
 
 ``banded_geometry``, the launch K16's wrapper sizes its scratch with, and
 the pair-major row pitch; the plain K16-walk and K6 on a pair-major view of
-the CPU scans' tb against the same on the contiguous tb; the layout check
+the CPU scans' tb against the same on the contiguous tb; the plain
+K16-walk on a poisoned pair-major view of synthetic cells that step every
+op code against the JAX ``_walk_banded``; the layout check
 the two walks share; K12's score-only call; and ``BatchAligner(device=
 "cpu")`` under BLOSUM62 in semiglobal mode and ``BatchBandedAligner(device=
 "cpu")`` in its four modes against the JAX classes. Integers throughout:
@@ -12,6 +14,7 @@ every comparison is exact (tolerance 0). The kernels themselves run in
 ``test_torch_cuda.py``.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -25,6 +28,7 @@ from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, BatchBandedAlign
 from rust_bio_tpu_torch.alignment.pairwise import banded_device as bd
 from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 from rust_bio_tpu_torch.ops import sw, walk
+from test_torch_cuda import _poisoned_view, _walk_cells, _walk_path
 
 MIN = -858_993_459  # MIN_SCORE: a clip switched off
 # the card tests' penalty sets (go, ge, xcp, xcs, ycp, ycs, match, mismatch):
@@ -130,6 +134,43 @@ def test_banded_walk_on_pair_major_view_equals_contiguous(pens8):
         got = walk.walk_banded(_pair_major_view(inputs[0], Xp), *inputs[1:])
         for g, w in zip(got, want):
             assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("pens8", BANDED_PENS)
+def test_banded_walk_plain_on_poisoned_view_matches_jax(pens8):
+    """The plain K16-walk on a pair-major view whose padding rows hold
+    0x0ABC (a cell no walk may read) against the JAX ``_walk_banded`` on
+    synthetic cells (``_walk_cells``) that step every op code: both ending
+    fixups, the four clips, starts at mlens 0, nlens 0 and both, Del runs
+    along row 0, Ins runs down column 0 and column nlens; the contiguous tb
+    gives the same steps."""
+    rng = np.random.default_rng(30 - pens8[0])
+    B, M, N = 24, 40, 46
+    tb, tb0, tbfix, lx, ml, nl = _walk_cells(rng, B, M, N)
+    tb_xb = np.concatenate([tb0.T.astype(np.uint16)[None], tb], axis=0).reshape(-1, B)
+    pens = tuple(jnp.int32(v) for v in pens8[:6])
+    want = jax_bd._walk_banded(jnp.asarray(tb_xb), *(jnp.asarray(a) for a in (tbfix, lx, ml, nl)), B, M, N, pens)
+    t = [torch.from_numpy(a) for a in (tb, tb0, tbfix, lx, ml, nl)]
+    got = walk.walk_banded(_poisoned_view(t[0]), *t[1:], pens8[:6])
+    T = M + N + 8
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want["op_codes"])[:T])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want["op_lens"])[:T])
+    for g, name in zip(got[2:], ("xstart", "ystart", "xend", "yend")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want[name]), err_msg=name)
+    for g, c in zip(got, walk.walk_banded(*t, pens8[:6])):
+        assert torch.equal(g.to(torch.int32), c.to(torch.int32))
+    codes, lens = got[0].numpy(), got[1].numpy()
+    steps = [s for b in range(B) for s in _walk_path(codes[:, b], lens[:, b], ml[b], nl[b])]
+    assert {c for _, _, c, _ in steps} == set(range(1, 9))
+    assert min(min(i, j) for i, j, _, _ in steps) >= 0
+    assert any(c == 2 and k == 0 and i == 0 for i, _, c, k in steps)  # a Del run along row 0
+    assert any(c == 1 and k == 0 and j == n for b, n in enumerate(nl) for _, j, c, k in _walk_path(
+        codes[:, b], lens[:, b], ml[b], n) if n)  # an Ins run down column nlens
+    if pens8[2] == MIN:  # no x-prefix clip: an Ins run down column 0, the x fixup as Ins x i
+        assert any(c == 1 and k == 0 and j == 0 for _, j, c, k in steps)
+        assert any(c == 1 and k > 0 for _, _, c, k in steps)
+    if pens8[4] == MIN:  # no y-prefix clip: the y fixup as Del x j
+        assert any(c == 2 and k > 0 for _, _, c, k in steps)
 
 
 def _lut_pairs(rng, B, M, N):

@@ -63,8 +63,11 @@ def test_scan_and_scores_match_plain(cuda_device, go, ge):
         np.testing.assert_array_equal(tbk[b, : m + 1], ptbk[b, : m + 1])
 
 
-def test_scan_with_device_scratch_matches_plain(cuda_device):
-    """M large enough that the column state leaves shared memory."""
+def test_scan_with_device_scratch_matches_plain(cuda_device, monkeypatch):
+    """K1 with its row state in the device scratch (the warp budget set to
+    0), and K3 at M = 700."""
+    monkeypatch.setattr(sw, "WARP_SHARED_MAX", 0)
+    assert sw.warp_geometry(700, sw.GLOBAL_WARP_LAYERS)[1] == "scratch"
     args, _, _ = _pairs(np.random.default_rng(3), 40, 700, 30, cuda_device)
     assert torch.equal(sw.scan_global(*args, -5, -1, 2, -2)[0], sw.scan_global_plain(*args, -5, -1, 2, -2)[0])
     assert torch.equal(sw.scores_global(*args, -5, -1, 2, -2), sw.scores_global_plain(*args, -5, -1, 2, -2))
@@ -77,6 +80,30 @@ def test_walk_matches_plain(cuda_device):
     torch.cuda.synchronize()
     for g, w in zip(got, walk.sweep_walk_global_plain(tb, args[2], args[3])):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("placement", ["shared", "scratch"])
+@pytest.mark.parametrize("M", [1, 7, 8, 150, 255, 256, 600, 605])
+def test_k1_warp_scan_and_walk_match_plain(cuda_device, monkeypatch, M, placement):
+    """K1 (``scan_global_warp_kernel``'s MatchParams instantiation, one warp
+    a pair over row stripes) against its plain version bit for bit: score,
+    tb over the defined cells, tbk; mlens on a stripe's first and last rows
+    and lane 31's, lanes with nlens = 0 and mlens = 0, long diagonals; the
+    row state in shared memory and in the device scratch. Then K2 on its
+    pair-major view and on a contiguous copy against the plain K2."""
+    _warp_cases(M, placement, monkeypatch, sw.GLOBAL_WARP_LAYERS)
+    rng = np.random.default_rng(80 + M)
+    args, mlens, nlens = _warp_pairs(rng, 48, M, 160, cuda_device, b"ACGT")
+    ml, nl = args[2], args[3]
+    for go, ge in PENS:
+        score, tb, tbk = sw.scan_global(*args, go, ge, 2, -2)
+        torch.cuda.synchronize()
+        ps, ptb, ptbk = sw.scan_global_plain(*args, go, ge, 2, -2)
+        assert torch.equal(score, ps)
+        assert tb.shape == ptb.shape and tb.stride() == (sw.pair_major_pitch(M), 1, 160 * sw.pair_major_pitch(M))
+        assert torch.equal(_masked(tb, mlens, nlens), _masked(ptb, mlens, nlens))
+        assert torch.equal(_masked(tbk, mlens), _masked(ptbk, mlens))
+        _walks_on_both_layouts(tb, [(walk.sweep_walk_global, walk.sweep_walk_global_plain, (ml, nl))])
 
 
 def test_aligner_on_card_matches_cpu(cuda_device):
@@ -655,7 +682,7 @@ def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, p
             ("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
             ("SCORES_ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1),
         ):
-            if kernel in ("K1", "K5") or name != "_SMEM_MAX":
+            if kernel == "K5" or name != "_SMEM_MAX":
                 monkeypatch.setattr(sw, name, value)
     cases, ml, nl = _wrap_cases(kernel, cuda_device)
     assert cases
@@ -1504,6 +1531,116 @@ def test_banded_scan_clamps_lengths(cuda_device):
     _banded_scans_match(lanes(got), lanes(want), arrays[3][2:])
 
 
+# TB_* codes (alignment/pairwise/tb.py)
+START, INS, DEL, SUBST, MATCH, XCLIP_PREFIX, XCLIP_SUFFIX, YCLIP_PREFIX, YCLIP_SUFFIX = range(9)
+
+
+def _walk_cells(rng, B, M, N):
+    """Synthetic K16-walk inputs that step every op code: numpy (tb (N, M+1,
+    B) uint16, columns 1..N with random run nibbles; tb0 (B, M+1), tbfix
+    (B, M+1) with Ly << 12, lx (B, N+1), mlens, nlens (B,)) int32. Lanes
+    start at (M, N), (0, N), (M, 0), (0, 0) and at random; lane kinds by b %
+    4 favour long Match/Subst runs, Ins runs (down column nlens too), Del
+    runs (along row 0 too) or none. The cells keep a path inside the
+    tensors, as K16's do: an x-suffix clip only at row mlens (lengths 1..m),
+    a y-suffix clip only in the fixed column (Ly 1..n), no Ins into row 0
+    from row 1 and no Del into column 0, (0, 0) TB_START."""
+    X = M + 1
+    mlens = rng.integers(0, M + 1, size=B).astype(np.int32)
+    nlens = rng.integers(0, N + 1, size=B).astype(np.int32)
+    mlens[:4], nlens[:4] = [M, 0, M, 0], [N, N, 0, 0]
+    mlens[4:8], nlens[4:8] = M, N
+    moving = [START, INS, DEL, SUBST, MATCH, XCLIP_PREFIX, YCLIP_PREFIX]
+
+    def draw(shape, favour, p):
+        other = rng.choice(moving, size=shape)
+        return np.where(rng.random(shape) < p, rng.choice(favour, size=shape), other)
+
+    tb = np.zeros((B, N, X), np.int64)
+    tb0 = np.zeros((B, X), np.int64)
+    tbfix = np.zeros((B, X), np.int64)
+    lx = np.zeros((B, N + 1), np.int64)
+    for b in range(B):
+        m, n, kind = int(mlens[b]), int(nlens[b]), b % 4
+        shape = (N + 1, X)  # column 0 and the fixed column drawn with the others
+        p = 0.99 if b < 16 else 0.9
+        s_bits = draw(shape, [[MATCH, SUBST], [INS], [DEL], moving][kind], p if kind < 3 else 0.0)
+        i_bits = draw(shape, [INS], p if kind == 1 else 0.3)
+        d_bits = draw(shape, [DEL], p if kind == 2 else 0.3)
+        s_bits[:, m] = np.where(rng.random(N + 1) < 0.3, XCLIP_SUFFIX, s_bits[:, m]) if m else s_bits[:, m]
+        d_bits[1:, m] = np.where(rng.random(N) < 0.1, XCLIP_SUFFIX, d_bits[1:, m]) if m else d_bits[1:, m]
+        # row 0 as K16 leaves it: no Ins into it, a Del run along it
+        i_bits[:, 0] = START
+        d_bits[:, 0] = np.where(rng.random(N + 1) < 0.8, DEL, YCLIP_PREFIX)
+        d_bits[1, 0] = START
+        # row 1 sends no Ins (nor Match) into row 0; column 1 no Del (nor
+        # Match) into column 0
+        i_bits[:, 1 : min(2, X)] = rng.choice([START, DEL, YCLIP_PREFIX, XCLIP_PREFIX], size=(N + 1, min(1, M)))
+        if N >= 1:
+            d_bits[1, 1:] = np.where(s_bits[1, 1:] == XCLIP_SUFFIX, XCLIP_SUFFIX,
+                                     rng.choice([START, INS, XCLIP_PREFIX], size=M))
+        # column 0 as the init column: Ins from row 2 down, the s-bits rewritten
+        i_bits[0, :2] = START
+        i_bits[0, 2:] = np.where(rng.random(max(M - 1, 0)) < 0.85, INS, rng.choice([START, XCLIP_PREFIX], size=max(M - 1, 0)))
+        d_bits[0] = START
+        cells = i_bits | d_bits << 4 | s_bits << 8
+        cells[0, 0] = START
+        tb0[b] = cells[0] & 0xFFF
+        tb[b] = cells[1:] | rng.integers(0, 16, size=(N, X)) << 12
+        # the fixed column: its own s-bits (a y-suffix clip among them), Ly
+        fix = cells[n].copy()
+        fs = (fix >> 8) & 0xF
+        fs = np.where(rng.random(X) < 0.2, YCLIP_SUFFIX, fs) if n else fs
+        fs[0] = rng.choice([DEL, YCLIP_PREFIX, YCLIP_SUFFIX, START]) if n else START
+        if kind == 1 and m:
+            fs[m] = INS
+        fi = fix & 0xF
+        if n:
+            fi[2:] = np.where(rng.random(max(M - 1, 0)) < 0.05, YCLIP_SUFFIX, fi[2:])
+        fix = fi | (fix & 0xF0) | fs << 8
+        ly = rng.integers(1, n + 1, size=X) if n else np.zeros(X, np.int64)
+        tbfix[b] = fix | ly << 12
+        lx[b] = rng.integers(1, m + 1, size=N + 1) if m else 0
+    i32 = np.int32
+    return (tb.transpose(1, 2, 0).astype(np.uint16), tb0.astype(i32), tbfix.astype(i32), lx.astype(i32), mlens, nlens)
+
+
+def _walk_path(codes, lens, m, n):
+    """(i, j, code, len) of each step of one lane's K16-walk output, end ->
+    start, replayed from (m, n)."""
+    i, j, steps = int(m), int(n), []
+    for c, k in zip(codes, lens):
+        c, k = int(c), int(k)
+        if c == 0:
+            break
+        steps.append((i, j, c, k))
+        if c in (MATCH, SUBST):
+            i, j = i - 1, j - 1
+        elif c == INS:
+            i = 0 if k else i - 1
+        elif c == DEL:
+            j = 0 if k else j - 1
+        elif c == XCLIP_PREFIX:
+            i = 0
+        elif c == XCLIP_SUFFIX:
+            i -= k
+        elif c == YCLIP_PREFIX:
+            j = 0
+        else:
+            j -= k
+    return steps
+
+
+def _poisoned_view(tb, fill=0x0ABC):
+    """``tb`` (N, X, B) as the (N, X, B) view of a pair-major (B, N, Xp)
+    tensor, Xp = X rounded up to 8, its padding rows holding ``fill`` (a cell
+    no walk may read)."""
+    N, X, B = tb.shape
+    pm = torch.full((B, N, sw.pair_major_pitch(X - 1)), fill, dtype=torch.int32, device=tb.device).to(torch.uint16)
+    pm[:, :, :X] = tb.permute(2, 0, 1)
+    return pm[:, :, :X].permute(1, 2, 0)
+
+
 def test_banded_walk_matches_plain(cuda_device):
     """K16-walk against its plain version on the plain path's tensors (the
     plain K16, the fixups, column 0's twin)."""
@@ -1540,6 +1677,116 @@ def test_banded_walk_on_kernel_view_matches_plain(cuda_device):
             torch.cuda.synchronize()
             for g, w in zip(got, want):
                 assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+
+
+@pytest.mark.parametrize("M,N", [(40, 46), (300, 420), (700, 150)])
+def test_banded_walk_tiles_on_synthetic_cells_match_plain(cuda_device, M, N):
+    """K16-walk's tile walk against its plain version on ``_walk_cells``
+    (every op code, both ending fixups, runs past a tile's 32 columns and 96
+    rows, Ins runs down column 0 and column nlens, Del runs along row 0)
+    under every penalty set, on a pair-major view whose padding rows hold
+    0x0ABC (16-byte copies) and on a contiguous tb (a cell a load)."""
+    rng = np.random.default_rng(M + N)
+    t = [torch.from_numpy(a).to(cuda_device) for a in _walk_cells(rng, 64, M, N)]
+    longest = 0
+    for pens8 in BANDED_PENS:
+        want = walk.walk_banded_plain(*t, pens8[:6])
+        for tb in (_poisoned_view(t[0]), t[0]):
+            assert walk._vector_rows(tb) == (tb is not t[0])
+            got = walk.walk_banded(tb, *t[1:], pens8[:6])
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.to(torch.int32), w.to(torch.int32))
+        longest = max(longest, _longest_run(want[0].cpu().numpy()))
+    assert longest > (32 if M > 100 else 8)
+
+
+def _longest_run(codes):
+    """The longest run of one op code down a lane of (T, B) op codes."""
+    best = 0
+    for lane in codes.T:
+        run = 1
+        for a, b in zip(lane[:-1], lane[1:]):
+            run = run + 1 if a == b and a > 0 else 1
+            best = max(best, run)
+    return best
+
+
+def _banded_corpora(rng):
+    """Small copies of phase 3f's five banded corpora as (mode, scoring,
+    xs, ys): 150 bp reads in 2 kb targets (4 substitutions) semiglobal, 1
+    kb reads in 3 kb targets (20) semiglobal, STR-like pairs of 0.8-1.2 kb
+    (y at 5% substitutions and 1-3 bp indels) global, the 150 bp reads
+    local, and reads with 0-30 random bases at each end against their 166
+    bp windows in custom mode under BWA-MEM's soft clips."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    sc = Scoring.from_scores(-5, -1, 2, -2)
+
+    def reads(n, m, target, subs):
+        xs, ys = [], []
+        for _ in range(n):
+            y = acgt[rng.integers(0, 4, size=target)]
+            at = int(rng.integers(0, target - m))
+            x = y[at : at + m].copy()
+            x[rng.integers(0, m, size=subs)] = acgt[rng.integers(0, 4, size=subs)]
+            xs.append(x.tobytes())
+            ys.append(y.tobytes())
+        return xs, ys
+
+    def str_pair():
+        x = acgt[rng.integers(0, 4, size=int(rng.integers(800, 1200)))]
+        motif = acgt[rng.integers(0, 4, size=4)]
+        for at in rng.integers(0, len(x) - 100, size=3):
+            x[at : at + 100] = np.tile(motif, 25)
+        y = x.copy()
+        sub = rng.random(len(y)) < 0.05
+        y[sub] = acgt[rng.integers(0, 4, size=int(sub.sum()))]
+        for at in sorted(rng.integers(0, len(y) - 10, size=5), reverse=True):
+            k = int(rng.integers(1, 4))
+            y = np.delete(y, np.arange(at, at + k)) if rng.random() < 0.5 else np.insert(y, at, acgt[rng.integers(0, 4, size=k)])
+        return x.tobytes(), y.tobytes()
+
+    short = reads(16, 150, 2000, 4)
+    pairs = [str_pair() for _ in range(6)]
+    clipped_x, windows = [], []
+    for _ in range(16):
+        w = acgt[rng.integers(0, 4, size=166)]
+        x = w[8:158].copy()
+        for end in (slice(0, int(rng.integers(0, 31))), slice(150 - int(rng.integers(0, 31)), 150)):
+            x[end] = acgt[rng.integers(0, 4, size=len(x[end]))]
+        clipped_x.append(x.tobytes())
+        windows.append(w.tobytes())
+    return [
+        ("semiglobal", sc.with_clips(MIN, MIN, 0, 0), *short),
+        ("semiglobal", sc.with_clips(MIN, MIN, 0, 0), *reads(6, 1000, 3000, 20)),
+        ("global", sc.with_clips(MIN, MIN, MIN, MIN), [x for x, _ in pairs], [y for _, y in pairs]),
+        ("local", sc.with_clips(0, 0, 0, 0), *short),
+        ("custom", Scoring.from_scores(-6, -1, 1, -4).with_clips(-5, -5, 0, 0), clipped_x, windows),
+    ]
+
+
+def test_banded_walk_on_the_banded_corpora_matches_plain(cuda_device):
+    """K16-walk against its plain version on K16's outputs for small copies
+    of the five banded corpora (``_banded_corpora``), on K16's pair-major
+    view (16-byte copies) and on a contiguous copy (a cell a load)."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchBandedAligner, banded_device as bd
+    from rust_bio_tpu_torch.alignment.types import AlignmentMode
+
+    for mode, sc, xs, ys in _banded_corpora(np.random.default_rng(74)):
+        al = BatchBandedAligner(sc, 8, 8, device=cuda_device)
+        _, run_idx, _, _, arrays = al._band_batch(xs, ys, sc, AlignmentMode.Custom, False)
+        assert len(run_idx) == len(xs), mode
+        *host, pens8 = arrays
+        t = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device) for a in host]
+        scan = sw.scan_banded(*t[:4], pens8, *t[4:])
+        _, inputs = bd._walk_inputs(scan, t[2], t[3], pens8, t[4], t[5])
+        assert walk._vector_rows(inputs[0])
+        want = walk.walk_banded_plain(*inputs)
+        for tb in (inputs[0], inputs[0].contiguous()):
+            got = walk.walk_banded(tb, *inputs[1:])
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert torch.equal(g.to(torch.int32), w.to(torch.int32)), mode
 
 
 def _banded_pairs(rng, B, long_targets=False):

@@ -1,6 +1,8 @@
 """Port kernel K2 (global column-sweep traceback walk) against the JAX
 package's Pallas walk, run in interpret mode on the CPU, on traceback
-tensors of the JAX scan. Exact comparison (tolerance 0)."""
+tensors of the JAX scan, and on the pair-major view of K1's tb (the port's
+CPU scan, padding rows poisoned) at 150 bp; K1's launch geometry at every x
+length below ``T_ROWS``. Exact comparison (tolerance 0)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -9,8 +11,11 @@ import torch
 
 from rust_bio_tpu.ops.sw_pallas import scan_global_pallas_mp
 from rust_bio_tpu.ops.walk_pallas import sweep_walk_global as jax_sweep_walk_global
+from rust_bio_tpu_torch.alignment.pairwise.batched import T_ROWS
 from rust_bio_tpu_torch.alignment.pairwise.scoring import MIN_SCORE
+from rust_bio_tpu_torch.ops import sw
 from rust_bio_tpu_torch.ops.walk import sweep_walk_global
+from test_torch_cuda import _poisoned_view
 
 
 
@@ -64,3 +69,46 @@ def test_walk_long_insertion_runs_and_short_lanes():
     ins_cnt, _, ins0 = _check(xb, yb, mlens, nlens, -5, -1)
     assert int(ins_cnt.to(torch.int32).max()) > 15  # the re-gather chain ran
     assert int(ins0.to(torch.int32).max()) > 15
+
+
+@pytest.mark.parametrize("go,ge", [(-5, -1), (-2, -2)])
+def test_walk_on_k1_pair_major_view_matches_jax(go, ge):
+    """K2's plain walk on the pair-major view of K1's tb (the port's CPU
+    scan, as K1 returns it on the card: padding rows holding 0x0ABC, a cell
+    no walk may read) equals the JAX walk on the JAX scan's tb, on 150 bp
+    pairs, random and at 2% divergence, with mlens = 0 and nlens = 0 lanes."""
+    rng = np.random.default_rng(21 - go)
+    B, L = 8, 150
+    xb = rng.choice(list(b"ACGT"), size=(B, L)).astype(np.uint8)
+    yb = rng.choice(list(b"ACGT"), size=(B, L)).astype(np.uint8)
+    yb[4:] = xb[4:]
+    mut = rng.random(size=(4, L)) < 0.02
+    yb[4:][mut] = rng.choice(list(b"ACGT"), size=int(mut.sum())).astype(np.uint8)
+    mlens = np.full(B, L, np.int32)
+    nlens = np.full(B, L, np.int32)
+    mlens[:3], nlens[:3] = [0, L, 0], [L, 0, 0]
+    jtb = _jax_tb(xb, yb, mlens, nlens, go, ge)
+    want = [np.asarray(v) for v in jax_sweep_walk_global(jnp.asarray(jtb), jnp.asarray(mlens), jnp.asarray(nlens))]
+    args = [torch.from_numpy(a) for a in (xb, yb, mlens, nlens)]
+    _, tb, _ = sw.scan_global(*args, go, ge, 2, -2)
+    view = _poisoned_view(tb)
+    assert view.stride()[1] == 1 and not view.is_contiguous()
+    got = sweep_walk_global(view, args[2], args[3])
+    np.testing.assert_array_equal(got[0].numpy(), want[0][:L])
+    np.testing.assert_array_equal(got[1].numpy(), want[1][:L])
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    for g, c in zip(got, sweep_walk_global(tb, args[2], args[3])):
+        assert torch.equal(g, c)
+
+
+def test_k1_warp_geometry_keeps_its_state_on_chip():
+    """K1's launch (``warp_geometry(M, GLOBAL_WARP_LAYERS)``) at every M with
+    M + 1 < ``T_ROWS``: its three layers in shared memory, R the least
+    multiple of 8 with 32 R >= M + 1, the 32 lane stripes covering rows
+    0..M once each."""
+    for m in range(T_ROWS - 1):
+        R, placement, smem = sw.warp_geometry(m, sw.GLOBAL_WARP_LAYERS)
+        assert placement == "shared" and smem == R * 32 + 3 * R * 32 * 4 <= sw.WARP_SHARED_MAX, m
+        assert R % 8 == 0 and 32 * R >= m + 1 > 32 * (R - 8), m
+        owners = np.concatenate([np.arange(t * R, t * R + R) for t in range(32)])
+        assert (np.bincount(owners, minlength=m + 1)[: m + 1] == 1).all(), m
