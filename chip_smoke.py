@@ -109,11 +109,13 @@ NVIDIA GPU.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
-   events (K7, K9, K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also
+   events (K5, K7, K9, K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also
    without traceback; K16 also without its tb's zero-fill; K18 also on
    phase 3d's long proteins, K3 also on its STR pairs, K3's block launch;
-   K14 with its tile geometry and path steps; K7 and K17-exact with their
-   lane geometry); holds K8 on K7's pair-major view, K2, K8 and K10 on
+   K14 with its tile geometry and path steps; K5, K7, K17 and K17-exact
+   with their lane geometry, K17 also on the GATK-like pairs, with the
+   count of lanes bit-identical to its plain version); holds K6 on K5's
+   pair-major view and K8 on K7's, K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's of the 1 kb reads and the STR
    pairs; times K13-LUT on the
@@ -138,6 +140,8 @@ import json
 import math
 import multiprocessing
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -156,7 +160,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 2
 
 # 32-bit operations per DP cell in the inner loops of csrc/sw_warp.cu's K1,
-# K7 and K9 and csrc/sw_semiglobal.cu's K5 (compares, selects, adds, max,
+# K7, K9 and K5 (compares, selects, adds, max,
 # the run counter, the cell packing and, in K5, K7 and K9, the clip
 # candidates and the Sn/Ly update; K7 and K9 add the running x-suffix
 # maximum; loads, stores and address arithmetic not counted), the
@@ -244,8 +248,9 @@ HMM_CPU = 64
 # the f32 classes on the card against the CPU path: the same plain
 # arithmetic, but the host's exp and log differ from the card's by an ulp,
 # and over 300-500 rows of f32 the two part by up to 4.0e-5 of max(1, |p|)
-# (K17 on the card equals its plain version there bit for bit); the
-# kernels against their plain versions on the card are held to 1e-5
+# (K17 on the card parts from its plain version there only where its Y
+# recurrence, split at the lane stripes, rounds otherwise); the kernels
+# against their plain versions on the card are held to 1e-5
 CPU_PATH_F32_TOL = 1e-4
 # H100 SXM published peaks outside the tensor cores: 67 TFLOP/s f32, 34
 # TFLOP/s f64, an FMA counted as two; the PairHMM kernels are built with
@@ -256,8 +261,9 @@ F64_OPS_PER_S = 34e12 / 2
 # operations a DP cell, counted from the inner loops of csrc/pairhmm_*.cu
 # (an exp or a log1p counted as one; loads, stores, addresses not counted):
 # K17: 3 rescaling products, m_in's 3 products and 2 sums, the emission's
-# compare and select, 1 product for fm, 4 for fx, 3 for fy, 3 max, the ylen
-# compare; a logaddexp is 10 (compare, 2 selects, the surrogate test, a
+# compare and select, 1 product for fm, 4 for fx, 3 for fy (A, the chain's
+# product and sum; the stripe's carry term left out, as the lanes' scan),
+# 3 max, the ylen compare; a logaddexp is 10 (compare, 2 selects, the surrogate test, a
 # difference, the clamp's compare and select, exp, log1p, the sum); K17-log:
 # 4 logaddexps, 9 sums, the emission select, the first-column test;
 # K17-homopoly: 29 logaddexps, 33 sums, 20 compares and selects; K17-exact:
@@ -287,6 +293,25 @@ def nvidia_smi_line() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi exit {out.returncode}: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_registers(library: Path, pattern: str) -> dict:
+    """Registers a thread of each kernel in ``library`` whose mangled name
+    matches ``pattern``, keyed by the pattern's groups joined by ","
+    (``cuobjdump -res-usage``); {} without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    out = subprocess.run([tool, "-res-usage", str(library)], capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump -res-usage {library.name}: exit {out.returncode}")
+    regs, name = {}, None
+    for line in out.stdout.splitlines():
+        if line.strip().startswith("Function "):
+            name = re.search(pattern, line)
+        elif name and "REG:" in line:
+            regs[",".join(name.groups())] = int(re.search(r"REG:(\d+)", line).group(1))
+            name = None
+    return regs
 
 
 def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
@@ -1600,13 +1625,26 @@ def main() -> int:
     got = sw.scan_semiglobal(*ext, *sg)
     torch.cuda.synchronize()
     want = sw.scan_semiglobal_plain(*ext, *sg)
+    # K5 runs one warp a pair in sw_warp.cu (K12's lanes); its score-only
+    # call skips the tb stores
+    only = sw.scan_semiglobal(*ext, *sg, traceback=False)
+    torch.cuda.synchronize()
+    check(only[0] is None, "sw_scan_semiglobal: the score-only call returned a tb")
+    for g, w in zip(defined((got[0], *only[1:]), ext[2], ext[3])[1:], defined(want, ext[2], ext[3])[1:]):
+        check(torch.equal(g, w), "sw_scan_semiglobal: the score-only finals differ from the plain version's")
+    del only
+    R5, placement5, _ = sw.warp_geometry(READ_LEN, sw.LOCAL_WARP_LAYERS)
     report(
-        "sw_scan_semiglobal", "rust_bio_tpu_torch/ops/csrc/sw_semiglobal.cu", "rust_bio_tpu/ops/sw_pallas.py:855",
+        "sw_scan_semiglobal", f"rust_bio_tpu_torch/ops/csrc/{sw.SCAN_SEMIGLOBAL.source}.cu", "rust_bio_tpu/ops/sw_pallas.py:855",
         defined(got, ext[2], ext[3]), defined(want, ext[2], ext[3]),
         cuda_ms(torch, lambda: sw.scan_semiglobal(*ext, *sg), 10),
         cuda_ms(torch, lambda: sw.scan_semiglobal_plain(*ext, *sg), 2),
         B_READS * (READ_LEN + W) + 8 * B_READS + 2 * (READ_LEN + 1) * int(nl_ext.sum()) + 5 * 4 * B_READS * (READ_LEN + 1),
         K5_OPS_PER_CELL * READ_LEN * int(nl_ext.sum()),
+        scores_only_ms=cuda_ms(torch, lambda: sw.scan_semiglobal(*ext, *sg, traceback=False), 10),
+        stripe_rows=R5, placement=placement5, live_lanes=-(-(READ_LEN + 1) // R5), tb_strides=list(got[0].stride()),
+        # registers of the instantiations <TB, ONCHIP>
+        registers=kernel_registers(_build.build(["sw_warp"])["sw_warp"], r"scan_semiglobal_warp_kernelILb([01])ELb([01])ENS_11MatchParams"),
     )
     del want
     tb5 = got[0]
@@ -1626,6 +1664,7 @@ def main() -> int:
         2 * path_cells + 4 * 7 * B_READS + 2 * 2 * W * B_READS + 6 * B_READS,
         8 * path_cells,
         wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_semiglobal(tb5, tbfix, ext[2], ext[3]), 10),
+        tb_strides=list(tb5.stride()),
     )
     del got, tb5, wwant
 
@@ -2137,14 +2176,14 @@ def main() -> int:
 
     lin_emit = torch.from_numpy(np.exp(bench_emit).astype(np.float32)).to(dev)
     bargs, bxl, byl = hmm_inputs(hbx, hby)
-    err, ms, plain_ms, _ = hmm_check(
+    err, ms, plain_ms, same = hmm_check(
         lambda: pairhmm.pairhmm_fwd_scaled(*bargs, lin._lin_params, lin_emit, True),
         lambda: pairhmm.pairhmm_fwd_scaled_plain(*bargs, lin._lin_params, lin_emit, True), f32_err, 10,
     )
     # GATK-like pairs, per-lane emissions: every column of the padded width
     g_args, g_xl, _ = hmm_inputs(gx, gy, gxl, gyl)
     g_emit = torch.from_numpy(np.exp(gep).astype(np.float32)).to(dev)
-    g_err, g_ms, g_plain_ms, _ = hmm_check(
+    g_err, g_ms, g_plain_ms, g_same = hmm_check(
         lambda: pairhmm.pairhmm_fwd_scaled(*g_args, glin._lin_params, g_emit, True),
         lambda: pairhmm.pairhmm_fwd_scaled_plain(*g_args, glin._lin_params, g_emit, True), f32_err, 5,
     )
@@ -2154,6 +2193,11 @@ def main() -> int:
         max(err, g_err), 1e-5, ms, plain_ms, hmm_bytes(hbx, hby, 4, 12), K17_OPS_PER_CELL * int(bxl.sum()) * hby.shape[1],
         F32_OPS_PER_S, peak="f32 67 TFLOP/s", gatk_ms=g_ms, gatk_plain_ms=g_plain_ms, gatk_err=g_err,
         gatk_bound_ms=max(hmm_bytes(gx, gy, 4, 12 * B_GATK) / HBM_BYTES_PER_S, g_ops / F32_OPS_PER_S) * 1e3,
+        geometry=list(pairhmm.pairhmm_scaled_geometry(hby.shape[1], B_HMM, sw._sm_count(dev))),
+        gatk_geometry=list(pairhmm.pairhmm_scaled_geometry(gy.shape[1], B_GATK, sw._sm_count(dev))),
+        bit_identical_lanes=same, lanes=B_HMM, gatk_bit_identical_lanes=g_same, gatk_lanes=B_GATK,
+        # registers of the instantiations <SEMI, C> (C 0: the scratch's)
+        registers=kernel_registers(_build.build(["pairhmm_scaled"])["pairhmm_scaled"], r"pairhmm_scaled_warp_kernelILb([01])ELi(\d+)E"),
     )
     # K17-log on the read-as-x lanes (its main-path inputs), f32 and f64; on
     # the bench pairs too, beside K17

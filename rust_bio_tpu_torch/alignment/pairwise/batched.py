@@ -796,18 +796,16 @@ class BatchAligner:
     def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True):
         """The semiglobal path on padded arrays (batched.py
         ``_align_batch_device_semiglobal_mp``, sweep-walk branch): K5 (K12
-        under a LUT, score only without traceback) with y-clips 0, the
-        suffix fixups, then, with traceback, K6 and the pack. Returns the
-        (10 + N, B) uint16 packed tensor, or the (B,) int32 scores without
-        traceback; both stay on the device."""
+        under a LUT; score only, its tb stores skipped, without traceback)
+        with y-clips 0, the suffix fixups, then, with traceback, K6 and the
+        pack. Returns the (10 + N, B) uint16 packed tensor, or the (B,)
+        int32 scores without traceback; both stay on the device."""
         go, ge = self.scoring.gap_open, self.scoring.gap_extend
         from rust_bio_tpu_torch.ops.walk import sweep_walk_semiglobal
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
-        # K12 skips its tb stores without traceback; K5 has no such call
-        only = {} if with_traceback or self._lut is None else {"traceback": False}
         tb, S_f, I_f, Sn_f, Ly_f, tbk = self._kernel("scan_semiglobal")(
-            xt, yt, ml, nl, go, ge, *self._subst, 0, 0, **only
+            xt, yt, ml, nl, go, ge, *self._subst, 0, 0, traceback=with_traceback
         )
         score, tbfix = _fixed_column(S_f, I_f, Sn_f, Ly_f, tbk, ml, go, ge)
         if not with_traceback:

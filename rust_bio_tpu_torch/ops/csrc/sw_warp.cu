@@ -6,8 +6,9 @@
 // stripes held by its lanes; and, under match / mismatch scores, K1
 // sw_scan_global (K11's kernel), the global DP of the 150 bp pairs, K3 at
 // short x, sw_scores_global_warp (K18's kernel), K7 sw_scan_local (K7-LUT's
-// kernel), the local DP of the 150 bp reads, and K9 sw_scan_custom
-// (K9-LUT's kernel), their custom-clip DP.
+// kernel), the local DP of the 150 bp reads, K9 sw_scan_custom
+// (K9-LUT's kernel), their custom-clip DP, and K5 sw_scan_semiglobal
+// (K12's kernel), the semiglobal DP of the read mapper's extension.
 //
 // Replace rust_bio_tpu/ops/sw_pallas.py:1129 _kernel_scan_global_subs
 // (scan_global_pallas_subs :1275, runs="ins"; the JAX package streams
@@ -18,7 +19,9 @@
 // _kernel_scan_semiglobal_subs (scan_semiglobal_pallas_subs :1529,
 // runs="ins"), :1966 _kernel_scan_local_mp (scan_local_pallas_mp :2177,
 // runs="ins", K7), :1601 _kernel_scan_custom_mp (scan_custom_pallas_mp
-// :1884, runs="ins", K9) and, in local and custom mode under a LUT, the XLA
+// :1884, runs="ins", K9), :855 _kernel_scan_semiglobal_mp
+// (scan_semiglobal_pallas_mp :1057, runs="ins", K5) and, in local and
+// custom mode under a LUT, the XLA
 // engine alignment/pairwise/batched.py:948 _align_batch_device, which the
 // JAX package runs there.
 //
@@ -40,11 +43,13 @@
 //   x-prefix clip terms stay, which a wrapped gap sum makes live). K9 and
 //   K7 are those two kernels under match / mismatch scores (the template's
 //   substitution source, as K3's).
-//  K12: csrc/sw_semiglobal.cu's K5 fed by the LUT: the cells of columns
-//   j = 1..nlens and rows 0..mlens with the run nibble; the finals S, I,
-//   Sn, Ly and tbk (B, M+1) at column nlens (column 0's I and cells when
-//   nlens = 0). Without a tb it skips the cells' stores only: its finals
-//   are the full call's.
+//  K5: the semiglobal-family DP (x-clips off, the y-clip penalties ycp and
+//   ycs live, 0 / 0 in semiglobal mode): the cells of columns j = 1..nlens
+//   and rows 0..mlens with the run nibble; the finals S, I, Sn, Ly and tbk
+//   (B, M+1) at column nlens (column 0's I and cells when nlens = 0).
+//   Without a tb it skips the cells' stores only: its finals are the full
+//   call's. K12 is K5 fed by the LUT, the same kernel under the other
+//   substitution source.
 //  K18: K3 fed by the LUT, K11's DP without tb, tbk or s-bits: the
 //   score, S at (mlens, nlens) clamped at NEG. Its D and row 0's I start
 //   at NEG = -2^30, K3's and the JAX kernel's sentinel, not at K11's
@@ -73,19 +78,19 @@
 // the s-bits and the Ins run, capped at 15, in one word; K9-LUT also the
 // running maximum of S + xcs over rows 1..m-1 and its first row, which
 // decide row m's x-suffix replacement and lx (the row's first is packed in
-// the s-bits' word); K12 hands S~ = max(m, D, the row's y-prefix clip)
-// down, as K5 does. No barrier in the column loop: a warp's
+// the s-bits' word); K5 and K12 hand S~ = max(m, D, the row's y-prefix
+// clip) down. No barrier in the column loop: a warp's
 // lanes read and write only their own rows. Along a row, the state stays
 // with the row's owner as [layer][R][32], lane innermost (conflict-free):
 // S, D, s-bits for K1 and K11 (6 KB a warp at M = 450), S and D for K18 and K3 (4 KB),
-// and Sn, Ly besides for K7, K7-LUT, K9, K9-LUT and K12 (10 KB), in the warp's
+// and Sn, Ly besides for K5, K7, K7-LUT, K9, K9-LUT and K12 (10 KB), in the warp's
 // slice of shared memory, or, where the
 // wrapper passes a scratch (ops/sw.py warp_geometry, above its per-warp
 // budget), in the warp's slice of a (B, layers, R, 32) device scratch. The
 // stripe's x bytes are staged in shared memory once; y_j is read a step
 // ahead; the LUT through the read-only path (its live entries stay in L1).
 // A lane computes its rows 8 at a time and stores their cells with one
-// 16-byte store into the pair-major tb, (B, N, Xp) for K1, K11 and K12 and
+// 16-byte store into the pair-major tb, (B, N, Xp) for K1, K11, K5 and K12 and
 // (B, N+1, Xp) for K7, K7-LUT, K9 and K9-LUT, Xp = M + 1 rounded up to 8
 // (ops/sw.py returns the (N, M+1, B) or (N+1, M+1, B) view, which K2, K6,
 // K8 and K10 read through their strides);
@@ -94,7 +99,9 @@
 // Bound on this card: the cells' integer operations (about 34 a cell for
 // K11, 52 for K7-LUT and K9-LUT: 1.0 G cells of the homolog corpus take
 // 1.0-1.6 ms at the int32 peak) or the tb's 2 bytes a cell (2.0 GB there:
-// 0.6 ms), the larger (K12: about 42 a cell, K5's; K7 on 8192 random
+// 0.6 ms), the larger (K12 and K5: about 42 a cell; K5 on the read
+// mapper's 8192 extensions of 150 bp reads into 166 bp windows: 42 a cell
+// over 8192 * 150 * nlens cells, its tb 2 bytes a cell; K7 on 8192 random
 // 150 bp pairs: 45 a cell over 184 M cells, 0.29 ms, R = 8 rows a lane and
 // 19 of 32 lanes live, 2.3 KB of x and 5 KB of state a warp; K9 on 8192
 // clipped 150 bp reads against 166-bp windows: 52 a cell, 0.32 ms; K1 on
@@ -103,7 +110,8 @@
 // these kept a pair's column in shared memory and fit one warp an SM (K1:
 // 32 pairs in 58 KB, 3.6-4.0 ms on those pairs, 20x that bound; K11:
 // 32 pairs in 173 KB; K18: 32 pairs in 115 KB; K12: 32 pairs in 129 KB at
-// M = 200) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
+// M = 200; K5: 32 pairs in 96.6 KB at M = 150, 4.6-5.3 ms on the mapper's
+// extensions, 18-20x that bound) or less (K7-LUT: 25 pairs), 50-100x off that bound (K9-LUT:
 // 27.2 ms on the domain corpus, 47x; K7: 5.45 ms, 19x; K9: 5.79 ms,
 // 18x); here a warp
 // needs 4-11 KB. K18's and K3's bound: about 14 operations a cell (at
@@ -111,8 +119,8 @@
 // the one-thread K3 before it ran 1.0-1.2 ms on 8192 pairs, 13x that
 // bound).
 //
-// Exactness as the JAX kernels (sw_pallas.py:597-721 for K1, K5's
-// csrc/sw_semiglobal.cu, the custom kernel sw_pallas.py:1601-1881):
+// Exactness as the JAX kernels (sw_pallas.py:597-721 for K1, :855-1054 for
+// K5, the custom kernel sw_pallas.py:1601-1881):
 // int32 arithmetic wraps, LUT entries included; D starts at MIN_I32 =
 // -858993459; the running maximum starts at -2^31 + 1 and counts only
 // above MIN_I32; every choice is a strict '>' with priority Match/Subst >
@@ -216,7 +224,7 @@ __device__ __forceinline__ Stripe stripe_of(int* scratch, const uint8_t* __restr
 }
 
 // Substitution sources of the templated kernels (K1 / K11, K3 / K18, K7 /
-// K7-LUT, K9 / K9-LUT), read a column at a time: the score of x against
+// K7-LUT, K9 / K9-LUT, K5 / K12), read a column at a time: the score of x against
 // the column's y. Param is the kernel's argument.
 struct MatchParams {  // ma where the bytes are equal, else mi
   using Param = int2;  // (ma, mi)
@@ -744,14 +752,15 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_clip_warp_kernel(
   }
 }
 
-// K12. TB: store the cells (the run nibble is in tbk either way)
-template <bool TB, bool ONCHIP>
+// K5 (Subst = MatchParams) and K12 (Lut). TB: store the cells (the run
+// nibble is in tbk either way)
+template <bool TB, bool ONCHIP, class Subst>
 __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
     const uint8_t* __restrict__ xb,  // (B, M)
     const uint8_t* __restrict__ yb,  // (B, N)
     const int* __restrict__ mlens, const int* __restrict__ nlens, int B, int M, int N,
     int Xp, int R, int go, int ge,
-    const int* __restrict__ lut,  // (256, 256), row x
+    typename Subst::Param subst,  // MatchParams: (ma, mi); Lut: the (256, 256) table, row x
     int ycp, int ycs,
     uint16_t* __restrict__ tb,    // (B, N, Xp), or null
     int* __restrict__ s_f,        // (B, M + 1) each
@@ -795,7 +804,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
     if (st.groups > 0 && j >= 1 && j <= nl) {
       const int yj = y_next;
       if (j < nl) y_next = yb[static_cast<size_t>(b) * N + j];
-      const int* lut_y = lut + yj;
+      const auto col = Subst::column(subst, yj);
       const bool last = j == nl;
       int s_up_old = 0;  // previous column's S, row i - 1
       int p_up = 0;      // this column's P, row i - 1
@@ -864,7 +873,7 @@ __global__ void __launch_bounds__(WARPS * LANES) scan_semiglobal_warp_kernel(
             const int dp = st.at(1, r);
             const int sbp = st.at(2, r);
             const int snp = st.at(3, r);
-            const int m_val = add(s_up_old, __ldg(lut_y + (xi << 8)));
+            const int m_val = add(s_up_old, col.score(xi));
             const int d_ext = add(dp, ge);
             const int d_open = add(sp, go);
             const bool d_wins = d_ext > d_open;
@@ -1007,6 +1016,30 @@ int launch_clip(const void* xb, const void* yb, const void* mlens, const void* n
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class Subst>
+int launch_semiglobal(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
+                      int M, int N, int Xp, int go, int ge, typename Subst::Param subst, int ycp,
+                      int ycs, void* tb, void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
+                      void* scratch, void* stream) {
+  size_t smem = 0;
+  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
+  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = tb ? (scratch ? scan_semiglobal_warp_kernel<true, false, Subst>
+                              : scan_semiglobal_warp_kernel<true, true, Subst>)
+                   : (scratch ? scan_semiglobal_warp_kernel<false, false, Subst>
+                              : scan_semiglobal_warp_kernel<false, true, Subst>);
+  const int rc = opt_in(kernel, smem);
+  if (rc) return rc;
+  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
+      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge, subst,
+      ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(s_f), static_cast<int*>(i_f),
+      static_cast<int*>(sn_f), static_cast<int*>(ly_f), static_cast<int*>(tbk),
+      static_cast<int*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -1017,11 +1050,11 @@ const char* rbt_error_string(int code) {
 
 // Entry points: xb (B, M) and yb (B, N) uint8 row-major; lut a (256, 256)
 // int32 table on the device; tb null for a score-only call, else the
-// pair-major (B, N, Xp) (K1, K11, K12) or (B, N+1, Xp) (K7, K7-LUT, K9, K9-LUT)
+// pair-major (B, N, Xp) (K1, K11, K5, K12) or (B, N+1, Xp) (K7, K7-LUT, K9, K9-LUT)
 // uint16 tensor with Xp >= M + 1 a multiple of 8; scratch null to keep the
 // row state in shared memory, else a (B, layers, R, 32) int32 buffer in the geometry
-// above (layers 3 for K1 and K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9, K9-LUT
-// and K12).
+// above (layers 3 for K1 and K11, 2 for K18 and K3, 5 for K7, K7-LUT, K9, K9-LUT,
+// K5 and K12).
 
 // K1: the global DP with its traceback, match / mismatch scores ma / mi.
 int sw_scan_global(const void* xb, const void* yb, const void* mlens, const void* nlens, int B,
@@ -1098,6 +1131,16 @@ int sw_scan_custom_lut(const void* xb, const void* yb, const void* mlens,
                                  xcp, xcs, ycp, ycs, tb, lx, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
+// K5: the semiglobal-family DP under match / mismatch scores ma / mi;
+// ycp and ycs the y-clip penalties (0 / 0 in semiglobal mode).
+int sw_scan_semiglobal(const void* xb, const void* yb, const void* mlens, const void* nlens,
+                       int B, int M, int N, int Xp, int go, int ge, int ma, int mi, int ycp,
+                       int ycs, void* tb, void* s_f, void* i_f, void* sn_f, void* ly_f,
+                       void* tbk, void* scratch, void* stream) {
+  return launch_semiglobal<MatchParams>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, make_int2(ma, mi),
+                                        ycp, ycs, tb, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
+}
+
 // K12: K5 fed by the LUT; ycp and ycs the y-clip penalties (0 / 0 in
 // semiglobal mode).
 int sw_scan_semiglobal_lut(const void* xb, const void* yb, const void* mlens,
@@ -1105,21 +1148,8 @@ int sw_scan_semiglobal_lut(const void* xb, const void* yb, const void* mlens,
                            int ge, const void* lut, int ycp, int ycs, void* tb,
                            void* s_f, void* i_f, void* sn_f, void* ly_f, void* tbk,
                            void* scratch, void* stream) {
-  size_t smem = 0;
-  const int R = geometry(M, LOCAL_LAYERS, !scratch, &smem);
-  if (B < 1 || M < 0 || N < 0 || R == 0 || (tb && (Xp < M + 1 || Xp % GROUP)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = tb ? (scratch ? scan_semiglobal_warp_kernel<true, false> : scan_semiglobal_warp_kernel<true, true>)
-                   : (scratch ? scan_semiglobal_warp_kernel<false, false> : scan_semiglobal_warp_kernel<false, true>);
-  const int rc = opt_in(kernel, smem);
-  if (rc) return rc;
-  kernel<<<blocks(B), WARPS * LANES, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(xb), static_cast<const uint8_t*>(yb),
-      static_cast<const int*>(mlens), static_cast<const int*>(nlens), B, M, N, Xp, R, go, ge,
-      static_cast<const int*>(lut), ycp, ycs, static_cast<uint16_t*>(tb), static_cast<int*>(s_f),
-      static_cast<int*>(i_f), static_cast<int*>(sn_f), static_cast<int*>(ly_f),
-      static_cast<int*>(tbk), static_cast<int*>(scratch));
-  return static_cast<int>(cudaGetLastError());
+  return launch_semiglobal<Lut>(xb, yb, mlens, nlens, B, M, N, Xp, go, ge, static_cast<const int*>(lut),
+                                ycp, ycs, tb, s_f, i_f, sn_f, ly_f, tbk, scratch, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,7 @@
 // K6 sweep_walk_semiglobal: the traceback walk of the semiglobal family
-// over the traceback tensor of K5 (sw_semiglobal.cu, contiguous (N, X, B))
-// or K12 (sw_warp.cu, the (N, X, B) view of a pair-major tensor), read
-// through its element strides. Replaces
+// over the traceback tensor of K5 or K12 (sw_warp.cu, the (N, X, B) view of
+// a pair-major tensor) or a contiguous (N, X, B) tensor, read through its
+// element strides. Replaces
 // rust_bio_tpu/ops/walk_pallas.py sweep_walk_semiglobal ->
 // _kernel_sweep_walk_semi.
 //
@@ -25,8 +25,9 @@
 // pair emits the column-0 Ins run of its row.
 //
 // Bound on this card: per pair it reads the cells of its path (about
-// M + N, scattered on K5's tb: one 32-byte sector each; on K12's view a
-// column's cells are contiguous, so an Ins run shares sectors) and writes
+// M + N; on K5's and K12's views a column's cells are contiguous, so an
+// Ins run shares sectors, on a contiguous (N, X, B) tensor each cell is a
+// 32-byte sector of its own) and writes
 // 2 * N uint16; each step waits on a dependent load, so it is
 // latency-bound, as K2 is.
 

@@ -4,7 +4,8 @@
 - K17 ``pairhmm_fwd_scaled`` (``csrc/pairhmm_scaled.cu``) replaces
   ``rust_bio_tpu/ops/pairhmm_pallas.py`` ``pairhmm_fwd_scaled`` (its
   ``_kernel``) and the XLA engine ``BatchPairHMMLinear._forward``: the f32
-  scaled linear-space forward.
+  scaled linear-space forward, one warp a pair over lane column stripes,
+  a row at a time (``pairhmm_scaled_geometry``).
 - K17-log ``pairhmm_fwd_log`` (``csrc/pairhmm_log.cu``, f32 or f64)
   replaces the XLA engine ``stats/pairhmm/device.py``
   ``BatchPairHMM._forward``: the log-space forward, one warp a pair over
@@ -36,7 +37,7 @@ from typing import Optional
 import torch
 
 from rust_bio_tpu_torch.ops._build import INT, PTR, CudaKernel, check, same_device
-from rust_bio_tpu_torch.ops.sw import _SMEM_MAX, _ptr, _sm_count
+from rust_bio_tpu_torch.ops.sw import _ptr, _sm_count
 from rust_bio_tpu_torch.utils.fastexp import fastexp_torch
 
 # the surrogates of -inf (device.py NEG_INF, NEG_INF64): in log space, and
@@ -46,6 +47,12 @@ NEG_F64 = -1.0e308
 MED_SENT = 1 << 62  # the plain exact version's usize::MAX (exact.py MED_SENT)
 HOMOPOLY_NPAR = 34  # csrc/pairhmm_homopoly.cu's parameter vector
 HOMOPOLY_STATES = 14  # its states a column
+# K17's launch (csrc/pairhmm_scaled.cu): K17-log's lanes, lane t over the
+# columns [t * C + 1, t * C + C] of y, 32 * C >= N, a row at a time; a
+# lane's three f32 values a column in registers up to SCALED_REG_BYTES (C
+# then a power of two up to 16), else in a (B, 3, C, 32) device scratch; at
+# most 8 warps a block
+SCALED_REG_BYTES = 192
 # K17-log's and K17-homopoly's launch (csrc/pairhmm_log.cu,
 # pairhmm_homopoly.cu): one warp a pair, lane t over the columns
 # [t * C + 1, t * C + C] of y, 32 * C >= N; a lane's state (three values a
@@ -70,9 +77,7 @@ EXACT_REG_BYTES = 192
 EXACT_SLOTS = 3
 EXACT_BANDED_SLOTS = 7
 
-PAIRHMM_FWD_SCALED = CudaKernel(
-    "pairhmm_scaled", "pairhmm_fwd_scaled", [PTR] * 6 + [INT] * 5 + [PTR] * 2
-)
+PAIRHMM_FWD_SCALED = CudaKernel("pairhmm_scaled", "pairhmm_fwd_scaled", [PTR] * 6 + [INT] * 7 + [PTR] * 2)
 PAIRHMM_FWD_LOG = CudaKernel("pairhmm_log", "pairhmm_fwd_log", [PTR] * 6 + [INT] * 8 + [PTR] * 2)
 PAIRHMM_FWD_EXACT = CudaKernel(
     "pairhmm_exact", "pairhmm_fwd_exact", [PTR] * 6 + [INT] * 6 + [ctypes.c_longlong] + [INT] * 2 + [PTR] * 4
@@ -102,15 +107,6 @@ def _check_batch(xs, ys, xlens, ylens, params, emit, n_par: int, n_emit: int, dt
     return B, M, N, dev, 0 if shared else n_emit
 
 
-def _scratch(layers: int, elem: int, B: int, N: int, dtype, dev) -> Optional[torch.Tensor]:
-    """None when one pair's state rows (``layers`` of N + 1 values of
-    ``elem`` bytes, and its N y bytes) fit a block's shared memory, else a
-    (layers, N + 1, B) device buffer for them."""
-    if layers * (N + 1) * elem + N <= _SMEM_MAX:
-        return None
-    return torch.empty((layers, N + 1, B), dtype=dtype, device=dev)
-
-
 def _lens(lens: torch.Tensor, limit: int) -> torch.Tensor:
     return lens.clamp(0, limit).long()
 
@@ -133,19 +129,38 @@ def pairhmm_fwd_scaled(xs, ys, xlens, ylens, params, emit, semiglobal: bool):
 
     ``params`` (7,) float32 probabilities [no_gap, no_gap_x_ext,
     no_gap_y_ext, gap_x, gap_y, gap_x_ext, gap_y_ext]; ``emit`` float32
-    probabilities [p_match, p_mismatch, p_gap_emit], (3,) or (B, 3)."""
+    probabilities [p_match, p_mismatch, p_gap_emit], (3,) or (B, 3).
+
+    On the card one warp computes a pair a row at a time over lane column
+    stripes (``pairhmm_scaled_geometry``); each stripe runs the Y
+    recurrence in sequence from a carry that a scan over the lanes gives,
+    so only the carries round otherwise than the plain version's chain
+    wherever the gap extension is not 0 (within 1e-5 of max(1, |p|) on the
+    tests' inputs; every lane bit-identical on chip_smoke.py's corpora)."""
     B, M, N, dev, estride = _check_batch(xs, ys, xlens, ylens, params, emit, 7, 3, (torch.float32,))
     if dev.type == "cpu":
         return pairhmm_fwd_scaled_plain(xs, ys, xlens, ylens, params, emit, semiglobal)
     out = torch.empty(B, dtype=torch.float32, device=dev)
     if B:
-        scratch = _scratch(3, 4, B, N, torch.float32, dev)
+        C, warps, placement = pairhmm_scaled_geometry(N, B, _sm_count(dev))
+        scratch = torch.empty((B, 3, C, 32), dtype=torch.float32, device=dev) if placement == "scratch" else None
         PAIRHMM_FWD_SCALED.launch(
             dev, xs.data_ptr(), ys.data_ptr(), xlens.data_ptr(), ylens.data_ptr(),
-            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)),
+            params.data_ptr(), emit.data_ptr(), estride, B, M, N, int(bool(semiglobal)), C, warps,
             out.data_ptr(), _ptr(scratch),
         )
     return out
+
+
+def pairhmm_scaled_geometry(N: int, B: int, sms: int = 132):
+    """K17's launch at y width ``N`` and ``B`` pairs on a card of ``sms``
+    SMs: (C columns a lane, warps (that is pairs) a block, where the state
+    lives: ``"registers"`` or ``"scratch"``). Lane t owns the columns
+    [t * C + 1, t * C + C]: in registers C is the least power of two with
+    32 * C >= N while its three f32 values a column fit
+    ``SCALED_REG_BYTES`` (16 columns, N <= 512), else the least C in the
+    scratch. Warps a block as ``pairhmm_log_geometry``."""
+    return _lane_stripes(N, B, sms, 3 * 4, SCALED_REG_BYTES, _REG_C_MAX[3])
 
 
 _F32_TINY = torch.finfo(torch.float32).tiny
@@ -268,11 +283,21 @@ def pairhmm_log_geometry(N: int, B: int, dtype, sms: int = 132, states: int = 3)
     [t * C + 1, t * C + C]. One warp a block while the card holds every pair
     at 32 blocks an SM (the pairs spread over the SMs), more, up to 8,
     beyond that."""
+    budget = LOG_REG_BYTES if states == 3 else HOMOPOLY_REG_BYTES
+    return _lane_stripes(N, B, sms, states * (8 if dtype == torch.float64 else 4), budget, _REG_C_MAX[states])
+
+
+def _lane_stripes(N: int, B: int, sms: int, column_bytes: int, budget: int, c_max: Optional[int] = None):
+    """(C, warps a block, placement) of the PairHMM warp kernels: in
+    registers the least power of two C with 32 * C >= N while C columns of
+    ``column_bytes`` fit ``budget`` (and C <= ``c_max``, the largest
+    register stripe a kernel instantiates, where given), else the least C in
+    the scratch; one warp a block until 32 blocks an SM hold every pair,
+    up to 8 beyond that."""
     C = max(1, -(-N // 32))
     pow2 = 1 << (C - 1).bit_length()
     placement = "scratch"
-    budget = LOG_REG_BYTES if states == 3 else HOMOPOLY_REG_BYTES
-    if states * pow2 * (8 if dtype == torch.float64 else 4) <= budget and pow2 <= _REG_C_MAX[states]:
+    if column_bytes * pow2 <= budget and (c_max is None or pow2 <= c_max):
         C, placement = pow2, "registers"
     return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
 
@@ -284,13 +309,8 @@ def pairhmm_exact_geometry(N: int, B: int, banded: bool, sms: int = 132):
     ``"registers"`` or ``"scratch"``), as ``pairhmm_log_geometry`` picks
     them at ``EXACT_SLOTS`` or ``EXACT_BANDED_SLOTS`` float64 values a
     column within ``EXACT_REG_BYTES``."""
-    C = max(1, -(-N // 32))
-    pow2 = 1 << (C - 1).bit_length()
     slots = EXACT_BANDED_SLOTS if banded else EXACT_SLOTS
-    placement = "scratch"
-    if slots * pow2 * 8 <= EXACT_REG_BYTES:
-        C, placement = pow2, "registers"
-    return C, max(1, min(_LOG_WARPS_MAX, -(-B // (32 * sms)))), placement
+    return _lane_stripes(N, B, sms, slots * 8, EXACT_REG_BYTES)
 
 
 def pairhmm_fwd_log(xs, ys, xlens, ylens, params, emit, semiglobal: bool):

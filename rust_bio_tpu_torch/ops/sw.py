@@ -4,9 +4,9 @@ warp a pair over row stripes with a pair-major tb), CUDA source
 warp a pair over row stripes at short x, ``csrc/sw_warp.cu``, one block a
 pair at long x, ``csrc/sw_global_rows.cu``; ``scores_route`` picks); K5
 (``scan_semiglobal``: traceback cells + the finals of the y-clip
-machinery), ``csrc/sw_semiglobal.cu``; K9 (``scan_custom``: all four clip
-penalties live) and K7 (``scan_local``: K9 at clips 0), one warp a pair
-over row stripes with a pair-major tb, ``csrc/sw_warp.cu``;
+machinery), K9 (``scan_custom``: all four clip penalties live) and K7
+(``scan_local``: K9 at clips 0), one warp a pair over row stripes with a
+pair-major tb, ``csrc/sw_warp.cu``;
 K13 (``scan_global_rows``: K1's DP for long x, a row-stripe wavefront
 over one pair a block, with a pair-major tb), ``csrc/sw_global_rows.cu``;
 K15 (``scan_columns``: K9's DP without the run nibble, the clip-mode engine
@@ -45,12 +45,12 @@ wrappers' CPU path, or, in the ``*_lut_plain`` versions that the tests
 hold against the JAX subs kernels, from the (N, M, B) stream
 ``lut[x, y] * 2 | (x == y)`` (``subs2_stream_plain``) those kernels read,
 or for K18 from the (B, M, N) tensor of ``sw_scores_global``
-(``subs_tensor_plain``). The CUDA kernels walk each pair's cells in order,
-one thread a pair (K5), except K13, K15 and K3 at long x, where one block sweeps
-a pair's columns as a wavefront over stripes of its rows (``rows_geometry``,
-``columns_geometry``), K1, K11, K18, K3 at short x, K7, K7-LUT, K9, K9-LUT and K12,
-where one warp does (``warp_geometry``), and K16, where one warp computes each column's band
-rows (``banded_geometry``). All are exact in int32.
+(``subs_tensor_plain``). In the CUDA kernels one block sweeps a pair's
+columns as a wavefront over stripes of its rows in K13, K15 and K3 at long x
+(``rows_geometry``, ``columns_geometry``), one warp does in K1, K11, K18,
+K3 at short x, K5, K12, K7, K7-LUT, K9 and K9-LUT (``warp_geometry``), and
+one warp computes each column's band rows in K16 (``banded_geometry``).
+All are exact in int32.
 
 Inputs: ``xb`` (B, M) and ``yb`` (B, N) uint8, ``mlens``/``nlens`` (B,)
 int32 with ``0 <= mlens <= M`` and ``0 <= nlens <= N``; ``lut`` (256, 256)
@@ -86,17 +86,13 @@ from rust_bio_tpu_torch.ops._build import (
 
 NEG = -(2**30)  # final-reduction sentinel (and K3's -inf)
 _SENT = -(2**31) + 1  # the empty x-suffix accumulator of K7/K9
-_PAIRS = 32  # pairs per block in csrc/sw_semiglobal.cu
 _SMEM_MAX = 232_448  # dynamic shared memory a block may opt into on Hopper
 
 SCAN_GLOBAL = CudaKernel("sw_warp", "sw_scan_global", [PTR] * 4 + [INT] * 8 + [PTR] * 4)
 # K3's two launches: K18's lanes (short x) and K13's blocks (long x)
 SCORES_GLOBAL_WARP = CudaKernel("sw_warp", "sw_scores_global_warp", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
 SCORES_GLOBAL_ROWS = CudaKernel("sw_global_rows", "sw_scores_global_rows", [PTR] * 4 + [INT] * 7 + [PTR] * 2)
-SCAN_SEMIGLOBAL = CudaKernel(
-    "sw_semiglobal", "sw_scan_semiglobal",
-    [PTR, PTR, PTR, PTR, INT, INT, INT, INT, INT, INT, INT, INT] + [PTR] * 7,
-)
+SCAN_SEMIGLOBAL = CudaKernel("sw_warp", "sw_scan_semiglobal", [PTR] * 4 + [INT] * 10 + [PTR] * 7)
 SCAN_CUSTOM = CudaKernel("sw_warp", "sw_scan_custom", [PTR] * 4 + [INT] * 12 + [PTR] * 8)
 SCAN_LOCAL = CudaKernel("sw_warp", "sw_scan_local", [PTR] * 4 + [INT] * 8 + [PTR] * 8)
 # the LUT twins: the table's pointer in place of (match, mismatch)
@@ -167,12 +163,12 @@ _COLUMNS_LAYERS = 5
 # the carries and x's bytes: 221,184 bytes at M = 9,215, R = 16, T = 576);
 # above it the state goes to a (B, 5, R, T) device scratch
 COLUMNS_SHARED_MAX_M = 9215
-# K1's, K11's, K18's, K3's (short x), K7's, K7-LUT's, K9's, K9-LUT's and K12's launch
+# K1's, K11's, K18's, K3's (short x), K5's, K12's, K7's, K7-LUT's, K9's and K9-LUT's launch
 # (csrc/sw_warp.cu): one warp a pair, 4 pairs a block; lane t over a stripe of
 # R rows, R a multiple of 8 (a lane stores 8 cells at once) with 32 * R >= M +
 # 1; the x bytes of a warp's stripes in its slice of shared memory, beside its
 # row state (three int32 layers a row for K1 and K11, two for K18 and K3, five for
-# K7, K7-LUT, K9-LUT and K12) while
+# K5, K12, K7, K7-LUT, K9 and K9-LUT) while
 # that slice stays within WARP_SHARED_MAX bytes (two blocks an SM at least),
 # else the state in a (B, layers, R, 32) device scratch
 _WARP_LANES = 32
@@ -238,14 +234,6 @@ def _plain_feed(xb, yb, subst):
     return feed
 
 
-def _scratch(n_layers: int, B: int, M: int, dev) -> torch.Tensor | None:
-    """None when the column state of a block's 32 pairs fits its shared
-    memory (K5), else a device buffer for it."""
-    if n_layers * (M + 1) * _PAIRS * 4 <= _SMEM_MAX:
-        return None
-    return torch.empty((n_layers, M + 1, B), dtype=torch.int32, device=dev)
-
-
 def columns_geometry(M: int) -> Tuple[int, int, str, int]:
     """K15's launch at x length ``M``, as csrc/sw_columns.cu computes it:
     (T threads a block, R rows a thread, where the row state lives:
@@ -294,7 +282,7 @@ def scores_route(M: int, B: int) -> str:
 
 
 def warp_geometry(M: int, layers: int, budget: int | None = None) -> Tuple[int, str, int]:
-    """K1's and K11's (``layers`` 3), K18's and K3's (2) or K7's, K7-LUT's, K9-LUT's and K12's (5) launch at x
+    """K1's and K11's (``layers`` 3), K18's and K3's (2) or K5's, K12's, K7's, K7-LUT's, K9's and K9-LUT's (5) launch at x
     length ``M``, as csrc/sw_warp.cu computes it: (R rows a lane, where the
     row state lives: ``"shared"`` or ``"scratch"``, dynamic shared bytes a
     warp). Lane t owns rows [t * R, t * R + R); R is a multiple of 8. The
@@ -346,7 +334,7 @@ def _warp_scratch(layers: int, B: int, M: int, dev, budget: int | None = None) -
 
 
 def _pair_major(B: int, cols: int, M: int, dev) -> torch.Tensor:
-    """The pair-major (B, cols, Xp) uint16 tb of K1 / K11 / K7 / K7-LUT / K9 / K9-LUT / K12 /
+    """The pair-major (B, cols, Xp) uint16 tb of K1 / K11 / K5 / K12 / K7 / K7-LUT / K9 / K9-LUT /
     K15 / K15-LUT, Xp = M + 1 rounded up to a multiple of 8."""
     return torch.empty((B, cols, pair_major_pitch(M)), dtype=torch.uint16, device=dev)
 
@@ -503,53 +491,50 @@ def scores_global_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut):
 
 
 def scan_semiglobal(xb, yb, mlens, nlens, gap_open, gap_extend, match_score, mismatch_score,
-                    yclip_prefix, yclip_suffix):
+                    yclip_prefix, yclip_suffix, traceback=True):
     """K5: the DP of the semiglobal family (x-clips disabled, y-clip
     penalties ``yclip_prefix``/``yclip_suffix`` live). Returns (tb (N, M+1,
-    B) uint16, S_f, I_f, Sn_f, Ly_f, tbk), the finals (B, M+1) int32.
+    B) uint16, S_f, I_f, Sn_f, Ly_f, tbk), the finals (B, M+1) int32; tb
+    None with ``traceback=False`` (the finals are the full call's).
 
     ``tb`` is laid out and packed as K1's, with y-clip codes in the s- and
     d-bits. The finals are the column-``nlens[b]`` state that
     ``_suffix_fixups`` reads: S, I (the insertion score of that column),
     Sn/Ly (best y-suffix-clip score per row and its clip length) and the
     cells ``tbk``. Defined for rows ``<= mlens[b]`` and, in ``tb``, columns
-    ``1 <= j <= nlens[b]``."""
-    B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge, ma, mi, ycp, ycs = (int(v) for v in (gap_open, gap_extend, match_score, mismatch_score,
-                                                 yclip_prefix, yclip_suffix))
-    if dev.type == "cpu":
-        return _scan_semiglobal_core(_mp_feed(xb, yb, ma, mi), M, N, mlens, nlens, go, ge, ycp, ycs)
-    tb = torch.empty((N, M + 1, B), dtype=torch.uint16, device=dev)
-    finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
-    if B:
-        xt = xb.t().contiguous()
-        yt = yb.t().contiguous()
-        scratch = _scratch(5, B, M, dev)
-        SCAN_SEMIGLOBAL.launch(
-            dev, xt.data_ptr(), yt.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
-            B, M, go, ge, ma, mi, ycp, ycs, tb.data_ptr(), *(f.data_ptr() for f in finals), _ptr(scratch),
-        )
-    return (tb, *finals)
+    ``1 <= j <= nlens[b]``. On the card one warp a pair computes it over
+    row stripes (``warp_geometry(M, LOCAL_WARP_LAYERS)``, K12's kernel
+    under match / mismatch scores), and ``tb`` is the (N, M+1, B) view of a
+    pair-major (B, N, Xp) tensor, Xp = M + 1 rounded up to a multiple of 8,
+    which ``ops.walk.sweep_walk_semiglobal`` reads in place."""
+    return _scan_semiglobal(
+        SCAN_SEMIGLOBAL, xb, yb, mlens, nlens, gap_open, gap_extend, (match_score, mismatch_score),
+        yclip_prefix, yclip_suffix, traceback,
+    )
 
 
 def scan_semiglobal_lut(xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix,
                         traceback=True):
-    """K12: K5 with the substitution score ``lut[x, y]``; same outputs, tb
-    None with ``traceback=False`` (the finals are the full call's). On the
-    card ``tb`` is the (N, M+1, B) view of a pair-major (B, N, Xp) tensor,
-    Xp = M + 1 rounded up to a multiple of 8, which
-    ``ops.walk.sweep_walk_semiglobal`` reads in place."""
+    """K12: K5 with the substitution score ``lut[x, y]``; same outputs, the
+    same pair-major view on the card."""
+    return _scan_semiglobal(
+        SCAN_SEMIGLOBAL_LUT, xb, yb, mlens, nlens, gap_open, gap_extend, lut, yclip_prefix, yclip_suffix, traceback
+    )
+
+
+def _scan_semiglobal(kernel, xb, yb, mlens, nlens, go, ge, subst, ycp, ycs, traceback):
+    """K5's or K12's wrapper: ``subst`` is (match, mismatch) or the LUT."""
     B, M, N, dev = _check_pairs(xb, yb, mlens, nlens)
-    go, ge, ycp, ycs = (int(v) for v in (gap_open, gap_extend, yclip_prefix, yclip_suffix))
-    sub = _subst(lut, dev)
+    go, ge, ycp, ycs = (int(v) for v in (go, ge, ycp, ycs))
+    sub = _subst(subst, dev)
     if dev.type == "cpu":
-        tb, *finals = _scan_semiglobal_core(_plain_feed(xb, yb, lut), M, N, mlens, nlens, go, ge, ycp, ycs)
+        tb, *finals = _scan_semiglobal_core(_plain_feed(xb, yb, subst), M, N, mlens, nlens, go, ge, ycp, ycs)
         return (tb if traceback else None, *finals)
     tb = _pair_major(B, N, M, dev) if traceback else None
     finals = [torch.empty((B, M + 1), dtype=torch.int32, device=dev) for _ in range(5)]
     if B:
         scratch = _warp_scratch(LOCAL_WARP_LAYERS, B, M, dev)
-        SCAN_SEMIGLOBAL_LUT.launch(
+        kernel.launch(
             dev, xb.data_ptr(), yb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, M, N,
             0 if tb is None else tb.shape[2], go, ge, *sub, ycp, ycs, _ptr(tb), *(f.data_ptr() for f in finals),
             _ptr(scratch),

@@ -13,7 +13,7 @@ walk ``banded_device.py`` ``_walk_banded``; their sections at the end of
 this module say what they read and write.
 
 Input: the traceback tensor of K1, K11, K5 or K12 (``ops.sw``), ``tb`` (N,
-X, B) uint16 with X = M + 1 (K1's, K11's, K12's, K13's, K7's, K7-LUT's, K9's,
+X, B) uint16 with X = M + 1 (K1's, K11's, K5's, K12's, K13's, K7's, K7-LUT's, K9's,
 K9-LUT's, K15's and K16's are views of pair-major tensors, which K2, K6,
 K14, K8, K10, K15-walk and K16-walk read in place through their strides),
 and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
@@ -374,8 +374,8 @@ def _check_semi_walk(tb, tbfix, mlens, nlens):
 def sweep_walk_semiglobal(tb, tbfix, mlens, nlens):
     """K6. Returns (ins_cnt (N, B) uint16, exit_op (N, B) uint16, ins0 (B,)
     uint16, fix_ins, fix_exit, fix_ly, ystart, yend (B,) int32). ``tb`` is a
-    contiguous (N, X, B) tensor (K5's) or, as K12 returns it, a pair-major
-    view (``_walk_strides``): read in place, never copied.
+    pair-major view, as K5 and K12 return it, or a contiguous (N, X, B)
+    tensor (``_walk_strides``): read in place, never copied.
 
     ``tbfix`` (B, X) int32 is the suffix-fixed final column with Ly << 12
     (``batched._semiglobal_device``). The walk enters the sweep from

@@ -27,13 +27,15 @@ and power limit as nvidia-smi reports them. Then it times the launches of
 the walks K2 and K8, which read K11's and K7-LUT's pair-major tb, on the
 tb of K1 and K7 over chip_smoke.py's 8192 random 150 bp DNA pairs (K7's
 pair-major view where the tree's K7 runs in ``sw_warp``), and of K6, which
-reads K12's, on K5's contiguous tb of the same pairs, and K3
+reads K12's, on K5's tb of the same pairs (a pair-major view where the
+tree's K5 runs in ``sw_warp``, else contiguous), and K3
 (``sw.scores_global``) on those pairs, as chip_smoke.py phase 2 times it
 (10 x ``--reps`` launches, a checksum of their outputs); then K1, K5
 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties and clips) on
-the same pairs, with checksums as the protein scans', K7 and K9 also
-without traceback (``scores_only_ms``), with the source each is built from
-and K1's and K7's rows a lane where that is ``sw_warp``. ``--dna``: the
+the same pairs, with checksums as the protein scans', K7 and K9, and K5
+where the tree's wrapper takes ``traceback=False``, also without traceback
+(``scores_only_ms``), with the source each is built from and the rows a
+lane of those that run in ``sw_warp``. ``--dna``: the
 150 bp DNA rows only. Exits non-zero without a CUDA device.
 """
 
@@ -205,7 +207,7 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
     n = max(1, reps // 10)
     for name, fn, first_col in (
         ("sw_scan_global", lambda **kw: sw.scan_global(*a, *pens), 1),
-        ("sw_scan_semiglobal", lambda **kw: sw.scan_semiglobal(*a, *pens, 0, 0), 1),
+        ("sw_scan_semiglobal", lambda **kw: sw.scan_semiglobal(*a, *pens, 0, 0, **kw), 1),
         ("sw_scan_local", lambda **kw: sw.scan_local(*a, *pens, **kw), 0),
         ("sw_scan_custom", lambda **kw: sw.scan_custom(*a, *cpens, *cclips, **kw), 0),
     ):
@@ -217,7 +219,9 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
         source = kernels[name].source
         layers = sw.GLOBAL_WARP_LAYERS if name == "sw_scan_global" else 5
         extra = {"stripe_rows": sw.warp_geometry(L, layers)[:2]} if source == "sw_warp" else {}
-        clip = name in ("sw_scan_local", "sw_scan_custom")
+        clip = name in ("sw_scan_local", "sw_scan_custom") or (
+            name == "sw_scan_semiglobal" and "traceback" in inspect.signature(sw.scan_semiglobal).parameters
+        )
         print(json.dumps({
             "kernel": name, **fields, "input": "150 bp DNA", "source": source, **extra, "pairs": B, "reps": n,
             "ms": chip_smoke.cuda_ms(torch, fn, n),

@@ -1,6 +1,12 @@
 #!/usr/bin/env python3
-"""Time K17-log (``pairhmm.pairhmm_fwd_log``) on one NVIDIA GPU on the
-inputs of chip_smoke.py phase 3g: its main-path lanes, the 64 GATK-like
+"""Time K17 (``pairhmm.pairhmm_fwd_scaled``) on one NVIDIA GPU on the
+inputs of chip_smoke.py phase 3g: the 4096 bench pairs (x a 207 bp
+haplotype, y a 54 bp read, benches/pairhmm.rs:9-19, shared emissions, no
+gap extension) and the 8192 GATK-like pairs (x a 300-500 bp haplotype, y a
+150 bp read, gap open phred 45, continuation phred 10, per-lane emissions
+from a mean base quality of Q20-Q40), semiglobal, in float32, as
+``BatchPairHMMLinear`` calls it; K17-log (``pairhmm.pairhmm_fwd_log``) on
+its main-path lanes, the 64 GATK-like
 pairs with the 150 bp read as x and the 300-500 bp haplotype as y
 (HaplotypeCaller's gap open phred 45, continuation phred 10, shared Q30
 emissions), semiglobal, in float32 and float64; and the 4096 bench pairs
@@ -20,7 +26,8 @@ the one holding this script), so that two trees can be compared on one card
 in one call; the inputs come from this checkout's chip_smoke.py generator
 either way. For each input it prints one JSON line: the median of ``--reps``
 CUDA-event-timed launches after one warm-up, the launch geometry where the
-timed tree has ``pairhmm_log_geometry`` (K17-exact: ``pairhmm_exact_geometry``),
+timed tree has ``pairhmm_log_geometry`` (K17-exact: ``pairhmm_exact_geometry``;
+K17: ``pairhmm_scaled_geometry``),
 a checksum of the output's raw bits
 (int64 sums, plain and weighted by lane, of the float32 or float64 words
 read as integers: equal checksums from two trees are equal outputs, bit for
@@ -66,14 +73,14 @@ def main() -> int:
     sys.path.insert(0, str(root))
     import rust_bio_tpu_torch
     from rust_bio_tpu_torch.ops import pairhmm
-    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM, BatchPairHMMExact
+    from rust_bio_tpu_torch.stats.pairhmm import BatchHomopolyPairHMM, BatchPairHMM, BatchPairHMMExact, BatchPairHMMLinear
 
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_pairhmm: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
     card = cs.nvidia_smi_line()
-    (hbx, hby), (hox, hoy), (gx, gy, gxl, gyl, _) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
+    (hbx, hby), (hox, hoy), (gx, gy, gxl, gyl, gep) = cs.pairhmm_corpora(np.random.default_rng((args.seed, 5)))
     neg_inf = float("-inf")
     bench_gaps = (math.log(cs.HMM_INS), math.log(cs.HMM_DEL), neg_inf, neg_inf)
     gatk_gaps = (math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_OPEN), math.log(cs.GATK_GAP_CONT), math.log(cs.GATK_GAP_CONT))
@@ -96,6 +103,29 @@ def main() -> int:
           for dtype in (torch.float32, torch.float64) for semi in (True, False)),
     )
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # K17 with BatchPairHMMLinear's parameters and probabilities
+    for name, arrays, gaps, emit in (
+        ("bench", (hbx, hby, full(hbx), full(hby)), bench_gaps, np.exp(bench_emit)),
+        ("gatk_per_lane", (gx, gy, gxl, gyl), gatk_gaps, np.exp(gep)),
+    ):
+        a = tens(*arrays)
+        e = torch.from_numpy(emit.astype(np.float32)).to(dev)
+        params = BatchPairHMMLinear(*gaps, device=dev)._lin_params
+        fn = lambda a=a, params=params, e=e: pairhmm.pairhmm_fwd_scaled(*a, params, e, True)  # noqa: E731
+        out = fn()
+        torch.cuda.synchronize()
+        B, N = a[1].shape
+        geometry = (
+            {"geometry": list(pairhmm.pairhmm_scaled_geometry(N, B, sms))}
+            if hasattr(pairhmm, "pairhmm_scaled_geometry") else {}
+        )
+        print(json.dumps({
+            "kernel": "pairhmm_fwd_scaled", "input": name, "dtype": "float32", "semiglobal": True,
+            "root": str(root), "pairs": B, "M": int(a[0].shape[1]), "N": N,
+            "cells": int((arrays[2].astype(np.int64) * N).sum()), **geometry, "reps": args.reps,
+            "ms": cs.cuda_ms(torch, fn, args.reps, warm=False), "checksum": checksum(torch, out),
+            "underflowed": int((out <= -1.5e38).sum()), "card": card,
+        }), flush=True)
     for kernel, name, arrays, gaps, emit, dtype, semi in cases:
         a = tens(*arrays)
         e = torch.from_numpy(emit).to(dtype).to(dev)

@@ -181,14 +181,18 @@ def test_semiglobal_scan_and_walk_match_plain(cuda_device, go, ge):
         assert torch.equal(g, w)
 
 
-def test_semiglobal_scan_with_clip_penalties_and_scratch_match_plain(cuda_device):
-    """Nonzero y-clip penalties, and M large enough that the five column
-    layers leave shared memory for the device scratch."""
+def test_semiglobal_scan_with_clip_penalties_and_scratch_match_plain(cuda_device, monkeypatch):
+    """Nonzero y-clip penalties at M = 700, the five row layers in the
+    warp's shared memory (the geometry's placement) and in the device
+    scratch (the warp budget set to 0)."""
     args, mlens, nlens = _pairs(np.random.default_rng(22), 40, 700, 30, cuda_device)
-    for ycp, ycs in ((0, 0), (-3, -4)):
-        got = sw.scan_semiglobal(*args, -5, -1, 2, -2, ycp, ycs)
-        torch.cuda.synchronize()
-        _semi_finals_match(got, sw.scan_semiglobal_plain(*args, -5, -1, 2, -2, ycp, ycs), mlens, nlens)
+    for budget, placement in ((sw.WARP_SHARED_MAX, "shared"), (0, "scratch")):
+        monkeypatch.setattr(sw, "WARP_SHARED_MAX", budget)
+        assert sw.warp_geometry(700, sw.LOCAL_WARP_LAYERS)[1] == placement
+        for ycp, ycs in ((0, 0), (-3, -4)):
+            got = sw.scan_semiglobal(*args, -5, -1, 2, -2, ycp, ycs)
+            torch.cuda.synchronize()
+            _semi_finals_match(got, sw.scan_semiglobal_plain(*args, -5, -1, 2, -2, ycp, ycs), mlens, nlens)
 
 
 def test_semiglobal_aligner_on_card_matches_cpu(cuda_device):
@@ -679,11 +683,10 @@ def test_scans_match_plain_where_int32_wraps(cuda_device, monkeypatch, kernel, p
     placement and with its state forced into the device scratch."""
     if placement == "scratch":
         for name, value in (
-            ("_SMEM_MAX", 0), ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
+            ("WARP_SHARED_MAX", 0), ("SCORE_WARP_SHARED_MAX", 0), ("ROWS_SHARED_MAX_M", -1),
             ("SCORES_ROWS_SHARED_MAX_M", -1), ("COLUMNS_SHARED_MAX_M", -1),
         ):
-            if kernel == "K5" or name != "_SMEM_MAX":
-                monkeypatch.setattr(sw, name, value)
+            monkeypatch.setattr(sw, name, value)
     cases, ml, nl = _wrap_cases(kernel, cuda_device)
     assert cases
     for call, plain, kind in cases:
@@ -1004,18 +1007,57 @@ def test_warp_semiglobal_lut_scan_and_walk_match_plain(cuda_device, monkeypatch,
             )
 
 
+@pytest.mark.parametrize(
+    "M,placement",
+    [(m, p) for m in (1, 7, 31, 32, 33, 150, 255, 256, 450, 604) for p in ("shared", "scratch")] + [(4095, "scratch")],
+)
+def test_warp_semiglobal_scan_and_walk_match_plain(cuda_device, monkeypatch, M, placement):
+    """K5 (``scan_semiglobal_warp_kernel``'s MatchParams instantiation, K12's
+    lanes) with traceback and score-only against its plain version bit for
+    bit: tb over the defined cells, the finals; mlens on a stripe's first
+    and last rows and lane 31's, lanes with nlens = 0 and mlens = 0, long
+    diagonals, y-clips 0/0 and (-5, -3); the row state in shared memory and
+    in the device scratch (M = 4,095: R = 128, the geometry's scratch).
+    Then K6 on its pair-major view and on a contiguous copy against the
+    plain K6."""
+    _warp_cases(M, placement, monkeypatch, sw.LOCAL_WARP_LAYERS)
+    rng = np.random.default_rng(90 + M)
+    B, N = (48, 166) if M <= 604 else (12, 24)
+    args, mlens, nlens = _warp_pairs(rng, B, M, N, cuda_device, b"ACGT")
+    ml, nl = args[2], args[3]
+    for go, ge in PENS:
+        for ycp, ycs in ((0, 0), (-5, -3)):
+            got = sw.scan_semiglobal(*args, go, ge, 2, -2, ycp, ycs)
+            torch.cuda.synchronize()
+            want = sw.scan_semiglobal_plain(*args, go, ge, 2, -2, ycp, ycs)
+            assert got[0].shape == want[0].shape
+            assert got[0].stride() == (sw.pair_major_pitch(M), 1, N * sw.pair_major_pitch(M))  # the pair-major view
+            _semi_finals_match(got, want, mlens, nlens)
+            only = sw.scan_semiglobal(*args, go, ge, 2, -2, ycp, ycs, traceback=False)
+            assert only[0] is None
+            for g, w in zip(only[1:], got[1:]):
+                assert torch.equal(_masked(g, mlens), _masked(w, mlens))
+            if (ycp, ycs) == (0, 0):
+                _, tbfix = _fixed_column(*got[1:], ml, go, ge)
+                _walks_on_both_layouts(
+                    got[0], [(walk.sweep_walk_semiglobal, walk.sweep_walk_semiglobal_plain, (tbfix, ml, nl))]
+                )
+
+
 def test_semiglobal_walk_on_k5_tb_matches_plain(cuda_device):
-    """K6 on K5's contiguous tb (the mapper's layout) against the plain K6,
-    beside K12's pair-major view of the same scores."""
+    """K6 on K5's pair-major view (the mapper's layout) and on a contiguous
+    copy against the plain K6, beside K12's pair-major view of the same
+    scores."""
     args, mlens, nlens = _pairs(np.random.default_rng(23), 300, 150, 166, cuda_device)
     ml, nl = args[2], args[3]
     got = sw.scan_semiglobal(*args, -5, -1, 2, -2, 0, 0)
     torch.cuda.synchronize()
-    assert got[0].is_contiguous()
+    assert got[0].stride()[1] == 1 and not got[0].is_contiguous()
     _, tbfix = _fixed_column(*got[1:], ml, -5, -1)
     want = walk.sweep_walk_semiglobal_plain(got[0], tbfix, ml, nl)
-    for g, w in zip(walk.sweep_walk_semiglobal(got[0], tbfix, ml, nl), want):
-        assert torch.equal(g, w)
+    for t in (got[0], got[0].contiguous()):
+        for g, w in zip(walk.sweep_walk_semiglobal(t, tbfix, ml, nl), want):
+            assert torch.equal(g, w)
     lut = torch.full((256, 256), -2, dtype=torch.int32, device=cuda_device)
     lut.fill_diagonal_(2)
     view = sw.scan_semiglobal_lut(*args, -5, -1, lut, 0, 0)[0]
@@ -1912,8 +1954,8 @@ def _rel_close(got, want, rel):
 
 @pytest.mark.parametrize("N", [54, 150, 19_400])
 def test_pairhmm_scaled_matches_plain(cuda_device, N):
-    """K17 in shared memory (N 54, 150) and with its rows in the device
-    scratch (N 19,400: 3 * 4 * (N + 1) bytes over 227 KB)."""
+    """K17 with its lane stripes in registers (N 54, 150: C = 2, 8) and in
+    the device scratch (N 19,400: C = 607 columns a lane)."""
     from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMMLinear
 
     B, M = (300, 207) if N < 1000 else (6, 12)
@@ -1921,6 +1963,36 @@ def test_pairhmm_scaled_matches_plain(cuda_device, N):
     for gaps in HMM_GAPS:
         hmm = BatchPairHMMLinear(*HMM_GAPS[gaps], device=cuda_device)
         args = _on(cuda_device, xs, ys, xl, yl)
+        for emit in (HMM_EMIT, ep):
+            e = torch.from_numpy(np.exp(emit).astype(np.float32)).to(cuda_device)
+            for semi in (False, True):
+                got = pairhmm_ops.pairhmm_fwd_scaled(*args, hmm._lin_params, e, semi)
+                torch.cuda.synchronize()
+                _f32_close(got, pairhmm_ops.pairhmm_fwd_scaled_plain(*args, hmm._lin_params, e, semi))
+
+
+@pytest.mark.parametrize("placement", ["geometry", "scratch"])
+@pytest.mark.parametrize("N", [1, 33, 54, 150, 500, 700])
+def test_pairhmm_scaled_warp_placements_match_plain(cuda_device, monkeypatch, N, placement):
+    """K17's lane stripes, a row at a time, at ylen 0, 1, 31, 32, 33 and N
+    and xlen 0 and 1, semiglobal and global, shared and per-lane emissions,
+    without gap extension (``bench``: c_ext = 0, the lanes' scan skipped)
+    and with it (``extend``): in the geometry's placement (registers up to
+    N = 512, the device scratch above) and in the scratch at every N (the
+    register budget lowered to 0). The same lanes underflow to -3e38."""
+    from rust_bio_tpu_torch.stats.pairhmm import BatchPairHMMLinear
+
+    if placement == "scratch":
+        monkeypatch.setattr(pairhmm_ops, "SCALED_REG_BYTES", 0)
+    B, M = 40, 60
+    want_placement = "registers" if placement == "geometry" and N <= 512 else "scratch"
+    assert pairhmm_ops.pairhmm_scaled_geometry(N, B, sw._sm_count(cuda_device))[2] == want_placement
+    xs, ys, xl, yl, ep = _hmm_pairs(np.random.default_rng(N + 9), B, M, N)
+    yl[4:10] = np.minimum([0, 1, 31, 32, 33, N], N)
+    xl[10:12] = [0, 1]
+    args = _on(cuda_device, xs, ys, xl, yl)
+    for gaps in HMM_GAPS:
+        hmm = BatchPairHMMLinear(*HMM_GAPS[gaps], device=cuda_device)
         for emit in (HMM_EMIT, ep):
             e = torch.from_numpy(np.exp(emit).astype(np.float32)).to(cuda_device)
             for semi in (False, True):

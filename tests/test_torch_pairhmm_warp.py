@@ -1,11 +1,11 @@
-"""K17-log's, K17-homopoly's and K17-exact's launch geometry
-(``ops/pairhmm.py`` ``pairhmm_log_geometry`` and
-``pairhmm_exact_geometry``, which ``ops/csrc/pairhmm_log.cu``,
-``pairhmm_homopoly.cu`` and ``pairhmm_exact.cu`` take from the wrapper):
-one warp a pair, lane t over the columns [t * C + 1, t * C + C] of y; the
-state (3 or 14 values a column; K17-exact 3, or 7 banded) in registers or
-in the device scratch; warps a block; K17-exact's constants against its
-source. Pure Python:
+"""K17-log's, K17-homopoly's, K17-exact's and K17's launch geometry
+(``ops/pairhmm.py`` ``pairhmm_log_geometry``, ``pairhmm_exact_geometry``
+and ``pairhmm_scaled_geometry``, which ``ops/csrc/pairhmm_log.cu``,
+``pairhmm_homopoly.cu``, ``pairhmm_exact.cu`` and ``pairhmm_scaled.cu``
+take from the wrapper): one warp a pair, lane t over the columns [t * C +
+1, t * C + C] of y; the state (3 or 14 values a column; K17-exact 3, or 7
+banded) in registers or in the device scratch; warps a block; K17-exact's
+and K17's constants against their sources. Pure Python:
 the kernels themselves run in ``test_torch_cuda.py``, their plain versions
 against the JAX package in ``test_torch_pairhmm.py``.
 """
@@ -217,3 +217,82 @@ def test_exact_lowered_budget_moves_the_placement_early(monkeypatch):
     monkeypatch.setattr(pairhmm, "EXACT_REG_BYTES", 0)
     assert pairhmm.pairhmm_exact_geometry(54, 64, False) == (2, 1, "scratch")
     assert pairhmm.pairhmm_exact_geometry(1, 64, True) == (1, 1, "scratch")
+
+
+# ---- K17 (ops/csrc/pairhmm_scaled.cu, ``pairhmm_scaled_geometry``) ----
+
+
+def _scaled_constants() -> dict:
+    text = (CSRC / "pairhmm_scaled.cu").read_text()
+    return {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+);", text)}
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 100), (100, 200), (200, 300), (300, 400), (400, 500), (500, 601), (19_400, 19_401)])
+def test_scaled_geometry_covers_every_column_once(lo, hi):
+    """N = 0-600 and 19,400: the 32 stripes own each column 1..N once; in
+    registers C is the least power of two that does, its three f32 values a
+    column within ``SCALED_REG_BYTES`` (16 columns, N <= 512), in the
+    scratch the least C."""
+    for n in range(lo, hi):
+        C, warps, placement = pairhmm.pairhmm_scaled_geometry(n, 64)
+        owned = [0] * (32 * C + 1)
+        for stripe in _stripes(C):
+            for j in stripe:
+                owned[j] += 1
+        assert all(owned[j] == 1 for j in range(1, n + 1)), n
+        least = max(1, -(-n // 32))
+        if placement == "registers":
+            assert C <= 16 and C & (C - 1) == 0 and C // 2 < least <= C and 3 * C * 4 <= pairhmm.SCALED_REG_BYTES
+        else:
+            assert placement == "scratch" and C == least > 16, n
+        assert placement == ("registers" if n <= 512 else "scratch") and warps == 1
+
+
+def test_scaled_geometry_of_the_main_path():
+    """chip_smoke.py's K17 inputs on 132 SMs: the 4096 bench pairs (y 54):
+    C = 2, one warp a block; the 8192 GATK-like pairs (y, the read, 150):
+    C = 8, two warps a block; the read-as-x lanes (y, the haplotype, up to
+    500): C = 16; y of 207: C = 8; all in registers."""
+    assert pairhmm.pairhmm_scaled_geometry(54, 4096, 132) == (2, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(150, 8192, 132) == (8, 2, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(500, 64, 132) == (16, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(207, 4096, 132) == (8, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(54, 10**6, 132)[1] == 8
+
+
+def test_scaled_placement_moves_to_the_scratch_as_n_grows(monkeypatch):
+    """Registers up to N = 512, the scratch from 513 (C = 17) and at N =
+    19,400 (C = 607, the card test's long rows); a lowered budget moves the
+    placement early, 0 sends every width to the scratch (the card tests'
+    scratch placement); a raised one keeps C = 16, the kernel's largest
+    register stripe."""
+    assert pairhmm.pairhmm_scaled_geometry(512, 64) == (16, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(513, 64) == (17, 1, "scratch")
+    assert pairhmm.pairhmm_scaled_geometry(19_400, 6) == (607, 1, "scratch")
+    assert pairhmm.pairhmm_scaled_geometry(513, 32 * 132 + 1)[1] == 2
+    monkeypatch.setattr(pairhmm, "SCALED_REG_BYTES", 3 * 4 * 4)
+    assert pairhmm.pairhmm_scaled_geometry(128, 64) == (4, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(129, 64) == (5, 1, "scratch")
+    monkeypatch.setattr(pairhmm, "SCALED_REG_BYTES", 0)
+    assert pairhmm.pairhmm_scaled_geometry(54, 64) == (2, 1, "scratch")
+    assert pairhmm.pairhmm_scaled_geometry(150, 64) == (5, 1, "scratch")
+    assert pairhmm.pairhmm_scaled_geometry(0, 64) == (1, 1, "scratch")
+    monkeypatch.setattr(pairhmm, "SCALED_REG_BYTES", 10**6)
+    assert pairhmm.pairhmm_scaled_geometry(512, 64) == (16, 1, "registers")
+    assert pairhmm.pairhmm_scaled_geometry(513, 64) == (17, 1, "scratch")
+
+
+def test_scaled_mirrors_match_the_source():
+    """The register budget, the lanes and the warps a block of the CUDA
+    source are the wrapper's; the source instantiates the register stripes
+    1, 2, 4, 8 and 16 that the geometry can pick, and its C entry point
+    takes C and warps from the wrapper."""
+    c = _scaled_constants()
+    assert c["REG_BYTES"] == pairhmm.SCALED_REG_BYTES
+    assert (c["LANES"], c["MAX_WARPS"]) == (32, pairhmm._LOG_WARPS_MAX)
+    text = (CSRC / "pairhmm_scaled.cu").read_text()
+    regs = {int(v) for v in re.findall(r"pairhmm_scaled_warp_kernel<SEMI, (\d+)>", text)} - {0}
+    assert regs == {1, 2, 4, 8, 16}
+    assert max(regs) == 1 << (pairhmm.SCALED_REG_BYTES // (3 * 4)).bit_length() - 1
+    assert {C for n in range(0, 513) for C in [pairhmm.pairhmm_scaled_geometry(n, 1)[0]]} == regs
+    assert "int semiglobal, int C, int warps, void* out, void* scratch" in text
