@@ -295,10 +295,11 @@ def nvidia_smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def kernel_registers(library: Path, pattern: str) -> dict:
+def kernel_registers(library: Path, pattern: str, field: str = "REG") -> dict:
     """Registers a thread of each kernel in ``library`` whose mangled name
     matches ``pattern``, keyed by the pattern's groups joined by ","
-    (``cuobjdump -res-usage``); {} without cuobjdump."""
+    (``cuobjdump -res-usage``); ``field`` "STACK": its stack frame's bytes
+    instead, where spilled registers go; {} without cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return {}
@@ -309,7 +310,7 @@ def kernel_registers(library: Path, pattern: str) -> dict:
         if line.strip().startswith("Function "):
             name = re.search(pattern, line)
         elif name and "REG:" in line:
-            regs[",".join(name.groups())] = int(re.search(r"REG:(\d+)", line).group(1))
+            regs[",".join(name.groups())] = int(re.search(field + r":(\d+)", line).group(1))
             name = None
     return regs
 
@@ -486,6 +487,34 @@ def defined_clip(outs, mlens, nlens):
     return [torch.where(keep, tb.to(torch.int32), 0), torch.where(cols[:, None] <= nlens[None, :], lx, 0)] + [
         torch.where(keep_f, f, 0) for f in finals
     ]
+
+
+def k2_launch_ms(torch, walk, tb, mlens, nlens, reps: int) -> float:
+    """Milliseconds of K2's launch alone, without its wrapper's input checks
+    (a host sync each for the lengths): its C entry point called with the
+    wrapper's arguments, the same in every tree since K2 reads strides."""
+    N, X, B = tb.shape
+    outs = [torch.empty((N, B), dtype=torch.uint16, device=tb.device) for _ in range(2)]
+    outs.append(torch.empty(B, dtype=torch.uint16, device=tb.device))
+    args = (tb.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *walk._walk_strides(tb), *(o.data_ptr() for o in outs))
+    return cuda_ms(torch, lambda: walk.SWEEP_WALK_GLOBAL.launch(tb.device, *args), reps)
+
+
+def semi_path_cells(outs) -> int:
+    """The tb cells K6's sweep reads, from ``sweep_walk_semiglobal``'s
+    outputs: one an emitted op, and each pair's entry cell."""
+    return int(outs[0].long().sum() + (outs[1].long() > 0).sum()) + outs[0].shape[1]
+
+
+def semi_walk_bytes(outs, mlens, N: int) -> int:
+    """Bytes K6 with its fixed-column prolog must move, from its outputs:
+    the sweep's tb cells (2 bytes each), the fixed column's cells the
+    prolog reads (4 bytes each: its Ins run from row mlens, the exit row and
+    the row below it, or the one entry cell), mlens and nlens; written,
+    ins_cnt and exit_op (N, B), ins0 and the five (B,) int32 fields."""
+    B = outs[0].shape[1]
+    fixed = int((outs[3].long().minimum(mlens.long() + 1) + 1).sum())
+    return 2 * semi_path_cells(outs) + 4 * fixed + 8 * B + 2 * 2 * N * B + 2 * B + 4 * 5 * B
 
 
 def clip_walk_inputs(torch, scan, mlens, nlens, pens, clips):
@@ -1564,13 +1593,21 @@ def main() -> int:
     wwant = walk.sweep_walk_global_plain(tb, ml_d, nl_d)
     # the walk needs one traceback cell per emitted op (plus the entry cell)
     path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_ALN
+    # K2's and K6's ms: the launch alone; wrapper_ms adds the input checks
+    sweep_lib = _build.build(["walk_sweep"])["walk_sweep"]
+    sweep_usage = {
+        "registers": kernel_registers(sweep_lib, r"(sweep_walk_(?:semi)?global)_kernel"),
+        "stack_bytes": kernel_registers(sweep_lib, r"(sweep_walk_(?:semi)?global)_kernel", "STACK"),
+    }
     report(
-        "sweep_walk_global", "rust_bio_tpu_torch/ops/csrc/walk_global.cu", "rust_bio_tpu/ops/walk_pallas.py:74",
+        "sweep_walk_global", f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_GLOBAL.source}.cu",
+        "rust_bio_tpu/ops/walk_pallas.py:74",
         wgot, wwant,
-        cuda_ms(torch, lambda: walk.sweep_walk_global(tb, ml_d, nl_d), 10),
+        k2_launch_ms(torch, walk, tb, ml_d, nl_d, 10),
         cuda_ms(torch, lambda: walk.sweep_walk_global_plain(tb, ml_d, nl_d), 2),
         2 * path_cells + 8 * B_ALN + 2 * 2 * LEN * B_ALN + 2 * B_ALN,
-        8 * path_cells,
+        8 * path_cells, wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_global(tb, ml_d, nl_d), 10),
+        geometry=walk.sweep_walk_geometry(B_ALN, LEN), tb_strides=list(tb.stride()), **sweep_usage,
     )
     del got, want, tb, wwant
     # K3: its warp launch on the 150 bp pairs (phase 2) and its block launch
@@ -1652,19 +1689,16 @@ def main() -> int:
     wgot = walk.sweep_walk_semiglobal(tb5, tbfix, ext[2], ext[3])
     torch.cuda.synchronize()
     wwant = walk.sweep_walk_semiglobal_plain(tb5, tbfix, ext[2], ext[3])
-    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum()) + B_READS
-    # ms: the launch alone, from the entry state the torch prolog resolves;
-    # wrapper_ms adds the prolog and the input checks
-    entry = walk.resolve_fixed_column(tbfix, ext[2], ext[3])[3:9]
+    # ms: the fused launch (the fixed column's prolog and the sweep)
     report(
-        "sweep_walk_semiglobal", "rust_bio_tpu_torch/ops/csrc/walk_semiglobal.cu", "rust_bio_tpu/ops/walk_pallas.py:609",
+        "sweep_walk_semiglobal", f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_SEMIGLOBAL.source}.cu",
+        "rust_bio_tpu/ops/walk_pallas.py:609",
         wgot, wwant,
-        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb5, *entry), 10),
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb5, tbfix, ext[2], ext[3]), 10),
         cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_plain(tb5, tbfix, ext[2], ext[3]), 2),
-        2 * path_cells + 4 * 7 * B_READS + 2 * 2 * W * B_READS + 6 * B_READS,
-        8 * path_cells,
+        semi_walk_bytes(wgot, ext[2], W), 8 * semi_path_cells(wgot),
         wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_semiglobal(tb5, tbfix, ext[2], ext[3]), 10),
-        tb_strides=list(tb5.stride()),
+        geometry=walk.sweep_walk_geometry(int(tb5.shape[2]), int(tb5.shape[0])), tb_strides=list(tb5.stride()), **sweep_usage,
     )
     del got, tb5, wwant
 
@@ -1786,12 +1820,14 @@ def main() -> int:
     wwant = walk.sweep_walk_global_plain(tb, hom[2], hom[3])
     path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_PROT
     report(
-        "sweep_walk_global_homolog", "rust_bio_tpu_torch/ops/csrc/walk_global.cu", "rust_bio_tpu/ops/walk_pallas.py:74",
+        "sweep_walk_global_homolog", f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_GLOBAL.source}.cu",
+        "rust_bio_tpu/ops/walk_pallas.py:74",
         wgot, wwant,
-        cuda_ms(torch, lambda: walk.sweep_walk_global(tb, hom[2], hom[3]), 10),
+        k2_launch_ms(torch, walk, tb, hom[2], hom[3], 10),
         cuda_ms(torch, lambda: walk.sweep_walk_global_plain(tb, hom[2], hom[3]), 2),
         2 * path_cells + 8 * B_PROT + 2 * 2 * hyb.shape[1] * B_PROT + 2 * B_PROT,
         8 * path_cells, n_launches=prot_launches["sweep_walk_global"], tb_strides=list(tb.stride()),
+        wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_global(tb, hom[2], hom[3]), 10),
     )
     del got, tb, wgot, wwant
     # for comparison, not a route: the block-a-pair design (K13-LUT, with
@@ -1858,16 +1894,13 @@ def main() -> int:
     wgot = walk.sweep_walk_semiglobal(tb, tbfix, dom[2], dom[3])
     torch.cuda.synchronize()
     wwant = walk.sweep_walk_semiglobal_plain(tb, tbfix, dom[2], dom[3])
-    path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum()) + B_PROT
-    entry = walk.resolve_fixed_column(tbfix, dom[2], dom[3])[3:9]
     report(
-        "sweep_walk_semiglobal_domain", "rust_bio_tpu_torch/ops/csrc/walk_semiglobal.cu",
+        "sweep_walk_semiglobal_domain", f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_SEMIGLOBAL.source}.cu",
         "rust_bio_tpu/ops/walk_pallas.py:609",
         wgot, wwant,
-        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb, *entry), 10),
+        cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_launch(tb, tbfix, dom[2], dom[3]), 10),
         cuda_ms(torch, lambda: walk.sweep_walk_semiglobal_plain(tb, tbfix, dom[2], dom[3]), 2),
-        2 * path_cells + 4 * 7 * B_PROT + 2 * 2 * dyb.shape[1] * B_PROT + 6 * B_PROT,
-        8 * path_cells, n_launches=prot_launches["sweep_walk_semiglobal"],
+        semi_walk_bytes(wgot, dom[2], dyb.shape[1]), 8 * semi_path_cells(wgot), n_launches=prot_launches["sweep_walk_semiglobal"],
         wrapper_ms=cuda_ms(torch, lambda: walk.sweep_walk_semiglobal(tb, tbfix, dom[2], dom[3]), 10),
         tb_strides=list(tb.stride()),
     )

@@ -28,7 +28,7 @@
 // no interior cell carries a clip op, Xclip-prefix, Yclip-prefix and Start
 // end the path, and their row and column give xstart and ystart.
 //
-// Design: K6's (walk_semiglobal.cu): one thread per pair keeps the Pallas
+// Design: one thread per pair keeps the Pallas
 // kernel's state machine. An Ins run's length comes from the 15-capped
 // nibble in bits 12-15 plus the re-read chain for runs of 15 or more; the
 // Pallas kernel's speculative second gather (TPU vector rules) is a plain

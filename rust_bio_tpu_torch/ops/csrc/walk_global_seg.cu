@@ -9,7 +9,7 @@
 // contiguous (N, X, B) one (sj = X * B, si = B, sb = 1), as K1's and the
 // plain versions' are; ops/walk.py takes those two and raises on others.
 //
-// Output is K2's (csrc/walk_global.cu): per DP column j and pair,
+// Output is K2's (csrc/walk_sweep.cu): per DP column j and pair,
 // ins_cnt[j-1] Ins ops then one exit op exit_op[j-1] (TB_MATCH / TB_SUBST /
 // TB_DEL, 0 where the pair never is), walking end -> start, and ins0, the
 // Ins run left in column 0. Every (j, b) is written.

@@ -1,11 +1,12 @@
-"""Column-sweep traceback walks: kernel K2 (global mode, CUDA source
-``csrc/walk_global.cu``), kernel K14 (global mode on the block-row tb of
-K13, ``csrc/walk_global_seg.cu``), kernel K6 (semiglobal family,
-``csrc/walk_semiglobal.cu``), and kernels K10 (general clips) and K8 (local
+"""Column-sweep traceback walks: kernels K2 (global mode) and K6 (semiglobal
+family, with its fixed-column prolog), CUDA source ``csrc/walk_sweep.cu``;
+kernel K14 (global mode on the block-row tb of K13,
+``csrc/walk_global_seg.cu``), and kernels K10 (general clips) and K8 (local
 mode), CUDA source ``csrc/walk_custom.cu``. They replace
 ``rust_bio_tpu/ops/walk_pallas.py`` ``sweep_walk_global``,
-``_sweep_walk_global_seg``, ``sweep_walk_semiglobal``, ``sweep_walk_custom``
-and ``sweep_walk_local``. Kernel K15-walk (``walk_steps``, the per-step walk
+``_sweep_walk_global_seg``, ``sweep_walk_semiglobal`` (with
+``_resolve_fixed_column``), ``sweep_walk_custom`` and ``sweep_walk_local``.
+Kernel K15-walk (``walk_steps``, the per-step walk
 of K15's traceback tensor, ``csrc/walk_steps.cu``) replaces the XLA walk
 ``rust_bio_tpu/alignment/pairwise/batched.py`` ``_walk``, and K16-walk
 (``walk_banded``, the banded aligner's walk, in the same source) the XLA
@@ -51,7 +52,7 @@ from rust_bio_tpu_torch.ops._build import (
 )
 
 SWEEP_WALK_GLOBAL = CudaKernel(
-    "walk_global", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
+    "walk_sweep", "sweep_walk_global", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, PTR, PTR, PTR]
 )
 SWEEP_WALK_GLOBAL_SEG = CudaKernel(
     "walk_global_seg", "sweep_walk_global_seg", [PTR, PTR, PTR, INT, INT, INT, I64, I64, I64, INT, PTR, PTR, PTR]
@@ -68,9 +69,14 @@ SEG_TILE_ROWS = 96
 SEG_TILE_PITCH = SEG_TILE_ROWS + 8
 SEG_AHEAD = 16
 SWEEP_WALK_SEMIGLOBAL = CudaKernel(
-    "walk_semiglobal", "sweep_walk_semiglobal",
-    [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4,
+    "walk_sweep", "sweep_walk_semiglobal", [PTR] * 4 + [INT, INT, INT, I64, I64, I64] + [PTR] * 8
 )
+# K2's and K6's launch (csrc/walk_sweep.cu): one warp a pair, SWEEP_WARPS
+# pairs a block, whose column outputs are staged in shared memory (4 *
+# SWEEP_WARPS * N bytes) where they fit SWEEP_STAGE_MAX_BYTES
+SWEEP_WARPS = 16
+SWEEP_LANES = 32
+SWEEP_STAGE_MAX_BYTES = 48 * 1024
 SWEEP_WALK_CUSTOM = CudaKernel(
     "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 5
 )
@@ -83,7 +89,9 @@ WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [I64
 def sweep_walk_global(tb, mlens, nlens):
     """K2. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)), uint16.
     ``tb`` is a contiguous (N, X, B) tensor or, as K1 and K11 return it, a
-    pair-major view (``_walk_strides``): read in place, never copied."""
+    pair-major view (``_walk_strides``): read in place, never copied. On
+    the card one warp a pair walks a run of Match/Subst or Del columns, or
+    one column's Ins run, a round, a lane a step (``sweep_walk_geometry``)."""
     return _global_walk(SWEEP_WALK_GLOBAL, sweep_walk_global_plain, tb, mlens, nlens)
 
 
@@ -98,6 +106,20 @@ def sweep_walk_global_seg(tb, mlens, nlens):
     return _global_walk(
         SWEEP_WALK_GLOBAL_SEG, sweep_walk_global_seg_plain, tb, mlens, nlens, lambda: (int(_vector_rows(tb)),)
     )
+
+
+def sweep_walk_geometry(B: int, N: int) -> dict:
+    """K2's and K6's launch for B pairs of N columns, as csrc/walk_sweep.cu
+    sets it: pairs (warps) a block, lanes a warp, blocks, threads a block,
+    whether a block stages its pairs' column outputs in shared memory (so
+    that it stores a column's outputs of its pairs in one sector each),
+    and its shared bytes (the stage, else none)."""
+    stage = 4 * SWEEP_WARPS * N
+    staged = stage <= SWEEP_STAGE_MAX_BYTES
+    return {
+        "warps": SWEEP_WARPS, "lanes": SWEEP_LANES, "blocks": -(-B // SWEEP_WARPS),
+        "threads": SWEEP_WARPS * SWEEP_LANES, "staged": staged, "shared_bytes": stage if staged else 0,
+    }
 
 
 def seg_walk_geometry() -> dict:
@@ -183,7 +205,7 @@ def sweep_walk_global_plain(tb, mlens, nlens):
     B = tb.shape[2]
     start = torch.full((B,), TB_START, dtype=torch.int32, device=tb.device)
     ones = torch.ones(B, dtype=torch.bool, device=tb.device)
-    ins_cnt, exit_op, ins0, _ = _sweep_plain(tb, mlens, nlens, start, ones, ~ones, torch.zeros_like(start))
+    ins_cnt, exit_op, ins0, _ = _sweep_plain(tb, mlens, nlens, start, ones, ~ones, torch.zeros_like(start), False)
     return ins_cnt, exit_op, ins0
 
 
@@ -240,13 +262,14 @@ def sweep_walk_global_seg_plain(tb, mlens, nlens):
     return ins_out.to(u16), exit_out.to(u16), ins0.to(u16)
 
 
-def _sweep_plain(tb, icur, jcur, carried, use_s, done, ystart):
+def _sweep_plain(tb, icur, jcur, carried, use_s, done, ystart, yclip=True):
     """The column sweep of K2 and K6, plain: pairs vectorized, columns
     j = N..1 in a Python loop, Ins runs from the bits 12-15 nibble plus
-    the re-gather chain for runs of 15 or more. A Yclip-prefix exit (K6
-    only) jumps to column 0 and keeps reading s-bits; ``ystart`` takes its
-    column. Returns (ins_cnt (N, B), exit_op (N, B), ins0 (B,)) uint16 and
-    ystart (B,) int32."""
+    the re-gather chain for runs of 15 or more. A Yclip-prefix exit (K6,
+    ``yclip``; K2 stops there, as the global Pallas walk does) jumps to
+    column 0 and keeps reading s-bits; ``ystart`` takes its column. Returns
+    (ins_cnt (N, B), exit_op (N, B), ins0 (B,)) uint16 and ystart (B,)
+    int32."""
     N, X, B = tb.shape
     dev = tb.device
     i32 = torch.int32
@@ -281,7 +304,7 @@ def _sweep_plain(tb, icur, jcur, carried, use_s, done, ystart):
         i2 = torch.where(is_ins, icur - m - 1, icur)
         is_mm = (layer2 == TB_MATCH) | (layer2 == TB_SUBST)
         is_del = layer2 == TB_DEL
-        is_ycp = layer2 == TB_YCLIP_PREFIX
+        is_ycp = (layer2 == TB_YCLIP_PREFIX) & yclip
 
         ins_out[j - 1] = ins_cnt
         exit_out[j - 1] = torch.where(at & (is_mm | is_del | is_ycp), layer2, 0)
@@ -306,7 +329,8 @@ def _sweep_plain(tb, icur, jcur, carried, use_s, done, ystart):
 
 def resolve_fixed_column(tbfix, mlens, nlens):
     """The walk's steps inside the suffix-fixed final column (walk_pallas.py
-    ``_resolve_fixed_column``), plain torch on the tensors' device.
+    ``_resolve_fixed_column``), plain torch on the tensors' device: K6's
+    prolog in its plain version (on the card K6 resolves it itself).
 
     ``tbfix`` (B, X) int32: the fixed column's 12-bit cells with Ly(i) << 12.
     Returns (fix_ins, fix_exit, fix_ly, i1, j1, ca1, us1, dn1, ystart0,
@@ -378,22 +402,20 @@ def sweep_walk_semiglobal(tb, tbfix, mlens, nlens):
     tensor (``_walk_strides``): read in place, never copied.
 
     ``tbfix`` (B, X) int32 is the suffix-fixed final column with Ly << 12
-    (``batched._semiglobal_device``). The walk enters the sweep from
-    ``resolve_fixed_column``; the fixed column's own ops are ``fix_ins`` Ins
+    (``batched._semiglobal_device``). The walk enters the sweep from the
+    fixed column (``resolve_fixed_column``, which the kernel resolves
+    itself on the card); the fixed column's own ops are ``fix_ins`` Ins
     after the exit ``fix_exit`` of length ``fix_ly``. Decode with
     ``batched._decode_semi_batch``."""
     dev = _check_semi_walk(tb, tbfix, mlens, nlens)
     if dev.type == "cpu":
         return sweep_walk_semiglobal_plain(tb, tbfix, mlens, nlens)
-    fix_ins, fix_exit, fix_ly, *entry, yend0 = resolve_fixed_column(tbfix, mlens, nlens)
-    ins_cnt, exit_op, ins0, ystart = sweep_walk_semiglobal_launch(tb, *entry)
-    return ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly, ystart, yend0
+    return sweep_walk_semiglobal_launch(tb, tbfix, mlens, nlens)
 
 
-def sweep_walk_semiglobal_launch(tb, i1, j1, ca1, us1, dn1, ystart0):
-    """The launch of K6 alone, from the entry state of
-    ``resolve_fixed_column`` (CUDA tensors, (B,) int32 each): (ins_cnt,
-    exit_op, ins0, ystart)."""
+def sweep_walk_semiglobal_launch(tb, tbfix, mlens, nlens):
+    """The launch of K6 alone, without the wrapper's input checks (CUDA
+    tensors as ``sweep_walk_semiglobal`` takes them): its outputs."""
     N, X, B = tb.shape
     dev = tb.device
     if dev.type != "cuda":
@@ -401,14 +423,13 @@ def sweep_walk_semiglobal_launch(tb, i1, j1, ca1, us1, dn1, ystart0):
     ins_cnt = torch.empty((N, B), dtype=torch.uint16, device=dev)
     exit_op = torch.empty((N, B), dtype=torch.uint16, device=dev)
     ins0 = torch.empty(B, dtype=torch.uint16, device=dev)
-    ystart = torch.empty(B, dtype=torch.int32, device=dev)
+    per_pair = [torch.empty(B, dtype=torch.int32, device=dev) for _ in range(5)]  # fix_ins .. yend
     if B:
         SWEEP_WALK_SEMIGLOBAL.launch(
-            dev, tb.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(),
-            us1.data_ptr(), dn1.data_ptr(), ystart0.data_ptr(), B, X, N, *_walk_strides(tb),
-            ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(), ystart.data_ptr(),
+            dev, tb.data_ptr(), tbfix.data_ptr(), mlens.data_ptr(), nlens.data_ptr(), B, X, N, *_walk_strides(tb),
+            ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(), *(t.data_ptr() for t in per_pair),
         )
-    return ins_cnt, exit_op, ins0, ystart
+    return (ins_cnt, exit_op, ins0, *per_pair)
 
 
 def sweep_walk_semiglobal_plain(tb, tbfix, mlens, nlens):

@@ -1,0 +1,228 @@
+#!/usr/bin/env python3
+"""Trials of variants of K2 and K6 (csrc/walk_sweep.cu) on one NVIDIA GPU:
+other warps a block (WARPS); the column outputs stored by each lane
+straight to device memory instead of staged in shared memory and written
+out a block at a time (``--stage 0``); and the diagonal and row runs read
+from a tile of the tb in shared memory instead of a cell a lane from
+device memory (``--tile R``: 32 DP columns, one a lane, by the R rows that
+end at the 8-row group of the path's row, filled with 16-byte loads when
+the walk leaves it; the Ins runs and K6's fixed column keep their direct
+loads; a variant whose shared memory passes 48 KB a block is skipped); and
+a fixed number W of steps loaded a diagonal or row round (``--width W``)
+in place of the source's, the last such run's (``--width 0``).
+
+    python3 scripts/sweep_trial.py [--warps 16] [--stage 1,0] [--tile 0,32] [--width 0,32] [--reps 50] [--seed 7]
+
+Inputs, from chip_smoke.py's generators: K1's pair-major tb of 8192 random
+150 bp DNA pairs and of 8192 pairs at 2% divergence (K2), K5's of the random
+pairs with its fixed column (K6), K11's of the homolog corpus (K2) and
+K12's of the domain corpus (K6). ``--warps``, ``--stage``, ``--tile`` and
+``--width`` take comma-separated lists; every combination is one variant
+(stage 1, tile 0, width 0: the source's own design), made from this
+checkout's source by text
+substitution (each must apply), built with nvcc into ``ops/_build/`` and
+called through ctypes as the wrappers call the tree's kernels. For each
+variant and input it prints one JSON line: the median of ``--reps``
+CUDA-event-timed launches, whether the outputs equal the tree's wrapper's,
+the registers a thread (``cuobjdump -res-usage``), and the card's name and
+power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+
+HERE = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(HERE))
+
+TILE = '''
+constexpr int TROWS = {rows};           // rows of a tile column, a multiple of 8
+constexpr int TPITCH = TROWS + 8;       // uint16 between tile columns
+struct Tile {{
+  uint16_t* s;
+  int jt, r0;
+  __device__ bool holds(int i, int j) const {{
+    return j <= jt && j > jt - LANES && i >= r0 && i < r0 + TROWS;
+  }}
+  // cell (i, j): -1 outside the column's rows, UNLOADED outside the tile
+  __device__ int get(const Pair& p, int i, int j) const {{
+    if (i < 0 || i >= p.X) return -1;
+    return holds(i, j) ? s[(jt - j) * TPITCH + i - r0] : UNLOADED;
+  }}
+  // columns j - 31..j, the TROWS rows ending at the 8-row group of row i
+  __device__ void fill(const Pair& p, int i, int j) {{
+    __syncwarp();
+    jt = j;
+    r0 = max((i + 8) / 8 * 8 - TROWS, 0);
+    const int jc = j - p.lane;
+    if (jc >= 1) {{
+      const uint16_t* col = p.tb + (jc - 1) * p.sj;
+      uint16_t* dst = s + p.lane * TPITCH;
+#pragma unroll
+      for (int g = 0; g < TROWS / 8; ++g) {{
+        const int r = r0 + 8 * g;
+        if (r < p.X) *reinterpret_cast<uint4*>(dst + 8 * g) = __ldg(reinterpret_cast<const uint4*>(col + r));
+      }}
+    }}
+    __syncwarp();
+  }}
+}};
+
+'''
+
+
+def variant_source(src: str, warps: int, stage: int, rows: int, width: int = 0) -> str:
+    subs = [("constexpr int WARPS = 16;", f"constexpr int WARPS = {warps};", 1)]
+    if not stage:
+        subs.append(("  return bytes <= STAGE_MAX_BYTES ? static_cast<int>(bytes) : 0;", "  return 0;", 1))
+    if width:
+        subs += [
+            ("  int width = LANES;", f"  int width = {width};", 1),
+            ("      width = k < width ? max(k, MIN_WIDTH) : min(2 * width, LANES);", f"      width = {width};", 2),
+        ]
+    if rows:
+        subs += [
+            ("// The column sweep from column j, row i,", TILE.format(rows=rows) + "// The column sweep from column j, row i,", 1),
+            ("  const int lane = p.lane;\n  if (done",
+             "  const int lane = p.lane;\n  __shared__ __align__(16) uint16_t tile_mem[WARPS][LANES * TPITCH];\n"
+             "  Tile tile{tile_mem[threadIdx.x / LANES], -1, 0};\n  if (done", 1),
+            ("      const int c = lane >= width ? UNLOADED : (lj >= 1 ? p.cell(i - lane, lj) : -1);",
+             "      if (!tile.holds(i, j)) tile.fill(p, i, j);\n"
+             "      const int c = lane >= width ? UNLOADED : (lj >= 1 ? tile.get(p, i - lane, lj) : -1);", 1),
+            ("      const int c = lane >= width ? UNLOADED : (lj >= 1 ? p.cell(i, lj) : -1);",
+             "      if (!tile.holds(i, j)) tile.fill(p, i, j);\n"
+             "      const int c = lane >= width ? UNLOADED : (lj >= 1 ? tile.get(p, i, lj) : -1);", 1),
+        ]
+    for old, new, count in subs:
+        if src.count(old) != count:
+            raise SystemExit(f"sweep_trial: the source no longer holds {old!r} {count} time(s)")
+        src = src.replace(old, new)
+    return src
+
+
+def build(src: str, tag: str) -> Path:
+    from rust_bio_tpu_torch.ops import _build
+
+    digest = hashlib.sha256(src.encode()).hexdigest()[:12]
+    cu = _build.BUILD_DIR / f"sweep_trial_{tag}_{digest}.cu"
+    so = cu.with_suffix(".so")
+    if not so.exists():
+        _build.BUILD_DIR.mkdir(exist_ok=True)
+        cu.write_text(src)
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)], check=True)
+    return so
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--warps", default="16")
+    ap.add_argument("--stage", default="1,0")
+    ap.add_argument("--tile", default="0,32")
+    ap.add_argument("--width", default="0")
+    ap.add_argument("--reps", type=int, default=50)
+    ap.add_argument("--seed", type=int, default=7)
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("sweep_trial: no CUDA device", file=sys.stderr)
+        return 1
+    import chip_smoke
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
+    from rust_bio_tpu_torch.ops import _build, sw, walk
+    from rust_bio_tpu_torch.scores import blosum62, dense_matrix
+
+    dev = torch.device("cuda")
+    card = chip_smoke.nvidia_smi_line()
+    rng = np.random.default_rng(args.seed)
+    B, L = chip_smoke.B_ALN, chip_smoke.LEN
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    xb = acgt[rng.integers(0, 4, size=(B, L))]
+    yb = acgt[rng.integers(0, 4, size=(B, L))]
+    yb_hi = xb.copy()
+    mut = rng.random(size=(B, L)) < 0.02
+    yb_hi[mut] = acgt[rng.integers(0, 4, size=int(mut.sum()))]
+    lens = np.full(B, L, np.int32)
+    pens = (chip_smoke.GO, chip_smoke.GE, chip_smoke.MA, chip_smoke.MI)
+    dna = [torch.from_numpy(v).to(dev) for v in (xb, yb, lens, lens)]
+    div = [torch.from_numpy(v).to(dev) for v in (xb, yb_hi, lens, lens)]
+    semi = sw.scan_semiglobal(*dna, *pens, 0, 0)
+    _, tbfix5 = _fixed_column(*semi[1:], dna[2], chip_smoke.GO, chip_smoke.GE)
+    (hxs, hys), (dxs, dys) = chip_smoke.protein_corpora(np.random.default_rng(args.seed))
+    bp = BatchAligner(Scoring.new(chip_smoke.PROT_GO, chip_smoke.PROT_GE, blosum62), device=dev)
+    hom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(hxs, hys)]
+    dom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(dxs, dys)]
+    lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
+    pgo, pge = chip_smoke.PROT_GO, chip_smoke.PROT_GE
+    dsemi = sw.scan_semiglobal_lut(*dom, pgo, pge, lut, 0, 0)
+    _, tbfix12 = _fixed_column(*dsemi[1:], dom[2], pgo, pge)
+    cases = [
+        ("sweep_walk_global", "150 bp random", sw.scan_global(*dna, *pens)[1], None, dna),
+        ("sweep_walk_global", "150 bp 2% diverged", sw.scan_global(*div, *pens)[1], None, div),
+        ("sweep_walk_global", "homolog", sw.scan_global_lut(*hom, pgo, pge, lut)[1], None, hom),
+        ("sweep_walk_semiglobal", "150 bp random", semi[0], tbfix5, dna),
+        ("sweep_walk_semiglobal", "domain", dsemi[0], tbfix12, dom),
+    ]
+    for _, _, tb, _, _ in cases:
+        assert walk._vector_rows(tb), "sweep_trial: a tb the tile fill cannot read 16 bytes at a time"
+    wants = [
+        walk.sweep_walk_global(tb, a[2], a[3]) if fix is None else walk.sweep_walk_semiglobal(tb, fix, a[2], a[3])
+        for _, _, tb, fix, a in cases
+    ]
+    src = (_build.CSRC / "walk_sweep.cu").read_text()
+    stream = torch.cuda.current_stream().cuda_stream
+    variants = [
+        (int(w), int(st), int(r), int(wd))
+        for w in args.warps.split(",") for st in args.stage.split(",") for r in args.tile.split(",")
+        for wd in args.width.split(",")
+    ]
+    for warps, stage, rows, width in variants:
+        so = build(variant_source(src, warps, stage, rows, width), f"w{warps}_s{stage}_t{rows}_l{width}")
+        lib = ctypes.CDLL(str(so))
+        regs = chip_smoke.kernel_registers(so, r"(sweep_walk_(?:semi)?global)_kernel")
+        for (name, what, tb, fix, a), want in zip(cases, wants):
+            N, X, Bq = tb.shape
+            shared = (warps * 32 * (rows + 8) * 2 if rows else 0) + (4 * warps * N if stage and 4 * warps * N <= 48 * 1024 else 0)
+            if shared > 48 * 1024:
+                print(json.dumps({"trial": "walk_sweep", "kernel": name, "input": what, "warps": warps, "stage": stage,
+                                  "tile_rows": rows, "width": width, "skipped": f"{shared} shared bytes a block"}), flush=True)
+                continue
+            kernel = walk.SWEEP_WALK_GLOBAL if fix is None else walk.SWEEP_WALK_SEMIGLOBAL
+            fn = getattr(lib, name)
+            fn.argtypes = kernel.argtypes + [_build.PTR]
+            fn.restype = _build.INT
+            outs = [torch.empty_like(w) for w in want]
+            head = [tb.data_ptr()] + ([] if fix is None else [fix.data_ptr()])
+
+            def run():
+                rc = fn(*head, a[2].data_ptr(), a[3].data_ptr(), Bq, X, N, *walk._walk_strides(tb),
+                        *(o.data_ptr() for o in outs), stream)
+                if rc:
+                    raise RuntimeError(f"sweep_trial: {name} CUDA error {rc}")
+
+            run()
+            torch.cuda.synchronize()
+            same = all(torch.equal(o, w) for o, w in zip(outs, want))
+            print(json.dumps({
+                "trial": "walk_sweep", "kernel": name, "input": what, "warps": warps, "stage": stage, "tile_rows": rows,
+                "width": width,
+                "pairs": int(Bq), "M": int(X) - 1, "N": int(N), "reps": args.reps,
+                "ms": chip_smoke.cuda_ms(torch, run, args.reps), "equal": same, "registers": regs, "card": card,
+            }), flush=True)
+            if not same:
+                return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

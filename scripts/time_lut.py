@@ -9,7 +9,7 @@ K9-LUT (``sw.scan_custom_lut``, the domain's clips) on its domain corpus:
 (``sw.scores_global_lut``) on the homolog corpus and on phase 3d's 64 long
 protein pairs (4,200-5,000 residues, 30% substitutions, 3% indels).
 
-    python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S] [--dna]
+    python3 scripts/time_lut.py [--root DIR] [--reps N] [--seed S] [--dna | --walks]
 
 ``--root`` names the checkout whose ``rust_bio_tpu_torch`` is timed (default:
 the one holding this script), so that two trees can be compared on one card
@@ -30,13 +30,19 @@ pair-major view where the tree's K7 runs in ``sw_warp``), and of K6, which
 reads K12's, on K5's tb of the same pairs (a pair-major view where the
 tree's K5 runs in ``sw_warp``, else contiguous), and K3
 (``sw.scores_global``) on those pairs, as chip_smoke.py phase 2 times it
-(10 x ``--reps`` launches, a checksum of their outputs); then K1, K5
+(10 x ``--reps`` launches, a checksum of their outputs; K2 and K6 through
+their wrappers, K6's with its fixed-column prolog, K8 its launch alone, and
+K2's launch alone too, ``launch_ms``);
+then K1, K5
 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties and clips) on
 the same pairs, with checksums as the protein scans', K7 and K9, and K5
 where the tree's wrapper takes ``traceback=False``, also without traceback
 (``scores_only_ms``), with the source each is built from and the rows a
 lane of those that run in ``sw_warp``. ``--dna``: the
-150 bp DNA rows only. Exits non-zero without a CUDA device.
+150 bp DNA rows only. ``--walks``: the walks only, K2, K8 and K6 on the
+DNA pairs, then K2 on K11's tb of the homolog corpus and K6 on K12's tb of
+the domain corpus (through their wrappers, 10 x ``--reps`` launches, a
+checksum of their outputs). Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -155,12 +161,55 @@ def time_k18(torch, chip_smoke, sw, seed: int, reps: int, **fields) -> None:
         }), flush=True)
 
 
-def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
-    """Time the launches of K2, K8 and K6, which read a pair-major tb
-    through its strides, on the tbs of K1, K7 and K5 over
-    chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2) (K5
-    with y-clips 0), and K3 on those pairs; one JSON line each, with a
-    checksum of the outputs."""
+def walk_sums(torch, out) -> list:
+    """Int64 sums, plain and weighted by place, of every output tensor."""
+    total = [0, 0]
+    for t in out:
+        w = torch.arange(1, t.numel() + 1, device=t.device).reshape(t.shape)
+        total = [x + y for x, y in zip(total, _sums(torch, t, w))]
+    return total
+
+
+def time_protein_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
+    """Time K2 on K11's tb of the homolog corpus and K6 (with its prolog) on
+    K12's tb of the domain corpus, through their wrappers; one JSON line
+    each, with a checksum of the outputs."""
+    from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
+    from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
+    from rust_bio_tpu_torch.scores import blosum62, dense_matrix
+
+    dev = torch.device("cuda")
+    (hxs, hys), (dxs, dys) = chip_smoke.protein_corpora(np.random.default_rng(seed))
+    bp = BatchAligner(Scoring.new(chip_smoke.PROT_GO, chip_smoke.PROT_GE, blosum62), device=dev)
+    hom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(hxs, hys)]
+    dom = [torch.from_numpy(np.ascontiguousarray(v)).to(dev) for v in bp._pad(dxs, dys)]
+    lut = torch.from_numpy(dense_matrix("blosum62")).to(dev)
+    go, ge = chip_smoke.PROT_GO, chip_smoke.PROT_GE
+    card = chip_smoke.nvidia_smi_line()
+    tb = sw.scan_global_lut(*hom, go, ge, lut)[1]
+    semi = sw.scan_semiglobal_lut(*dom, go, ge, lut, 0, 0)
+    _, tbfix = _fixed_column(*semi[1:], dom[2], go, ge)
+    for name, fn, t in (
+        ("sweep_walk_global", lambda: walk.sweep_walk_global(tb, hom[2], hom[3]), tb),
+        ("sweep_walk_semiglobal", lambda: walk.sweep_walk_semiglobal(semi[0], tbfix, dom[2], dom[3]), semi[0]),
+    ):
+        out = fn()
+        torch.cuda.synchronize()
+        launch = chip_smoke.k2_launch_ms(torch, walk, tb, hom[2], hom[3], reps) if t is tb else None
+        print(json.dumps({
+            "kernel": name, **fields, "input": "homolog" if t is tb else "domain", "pairs": int(t.shape[2]),
+            "M": int(t.shape[1]) - 1, "N": int(t.shape[0]), "tb_strides": list(t.stride()), "reps": reps,
+            "ms": chip_smoke.cuda_ms(torch, fn, reps), "launch_ms": launch, "checksum": walk_sums(torch, out),
+            "card": card,
+        }), flush=True)
+
+
+def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, scans: bool = True, **fields) -> None:
+    """Time K2 and K6 (through their wrappers) and the launch of K8, which
+    read a pair-major tb through its strides, on the tbs of K1, K7 and K5
+    over chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2)
+    (K5 with y-clips 0), and K3 on those pairs; with ``scans``, then the
+    scans; one JSON line each, with a checksum of the outputs."""
     from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 
     dev = torch.device("cuda")
@@ -181,25 +230,24 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) 
     k8 = lambda: walk.sweep_walk_local_launch(scan[0], *entry)  # noqa: E731
     semi = sw.scan_semiglobal(*a, *pens, 0, 0)
     _, tbfix5 = _fixed_column(*semi[1:], a[2], chip_smoke.GO, chip_smoke.GE)
-    entry5 = walk.resolve_fixed_column(tbfix5, a[2], a[3])[3:9]
-    k6 = lambda: walk.sweep_walk_semiglobal_launch(semi[0], *entry5)  # noqa: E731
+    k6 = lambda: walk.sweep_walk_semiglobal(semi[0], tbfix5, a[2], a[3])  # noqa: E731
     k3 = lambda: (sw.scores_global(*a, *pens),)  # noqa: E731
     for name, fn in (
         ("sweep_walk_global", k2), ("sweep_walk_local", k8), ("sweep_walk_semiglobal", k6), ("sw_scores_global", k3),
     ):
         out = fn()
         torch.cuda.synchronize()
-        total = [0, 0]
-        for t in out:
-            w = torch.arange(1, t.numel() + 1, device=dev).reshape(t.shape)
-            total = [x + y for x, y in zip(total, _sums(torch, t, w))]
+        total = walk_sums(torch, out)
         tb_of = {k2: tb, k8: scan[0], k6: semi[0]}.get(fn)
         layout = "" if tb_of is None else (", contiguous tb" if tb_of.is_contiguous() else ", pair-major view")
+        launch = chip_smoke.k2_launch_ms(torch, walk, tb, a[2], a[3], reps) if fn is k2 else None
         print(json.dumps({
             "kernel": name, **fields, "input": "150 bp DNA" + layout, "pairs": B,
             "reps": reps,
-            "ms": chip_smoke.cuda_ms(torch, fn, reps), "checksum": total, "card": card,
+            "ms": chip_smoke.cuda_ms(torch, fn, reps), "launch_ms": launch, "checksum": total, "card": card,
         }), flush=True)
+    if not scans:
+        return
     cpens = chip_smoke.CUSTOM_PENS
     cclips = (chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_YCLIP, chip_smoke.CUSTOM_YCLIP)
     del scan, semi, tb
@@ -236,6 +284,7 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=7)
     ap.add_argument("--dna", action="store_true", help="the 150 bp DNA walks and scans only")
+    ap.add_argument("--walks", action="store_true", help="the walks only: DNA, homolog and domain")
     args = ap.parse_args()
 
     import torch
@@ -254,6 +303,10 @@ def main() -> int:
     if not Path(rust_bio_tpu_torch.__file__).resolve().is_relative_to(root):
         print(f"time_lut: rust_bio_tpu_torch from {rust_bio_tpu_torch.__file__}, not {root}", file=sys.stderr)
         return 1
+    if args.walks:
+        time_dna_walks(torch, chip_smoke, sw, walk, args.seed, 10 * args.reps, scans=False, root=str(root))
+        time_protein_walks(torch, chip_smoke, sw, walk, args.seed, 10 * args.reps, root=str(root))
+        return 0
     if not args.dna:
         time_scans(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))
         time_k18(torch, chip_smoke, sw, args.seed, args.reps, root=str(root))

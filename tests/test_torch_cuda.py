@@ -1044,6 +1044,157 @@ def test_warp_semiglobal_scan_and_walk_match_plain(cuda_device, monkeypatch, M, 
                 )
 
 
+def _sweep_cells(rng, N, X, B):
+    """Synthetic K2 / K6 traceback cells, numpy (N, X, B) uint16: the i-,
+    d- and s-bits drawn by lane kind (b % 4: long Match/Subst diagonals
+    that cross 32-column edges; Ins s-bits over stretches of 15 to 150 Ins
+    i-bits down a column, across 32- and 96-row edges; Del runs along a
+    row; every code 0..15 alike) and the run nibble (bits 12-15) the capped
+    run of Ins i-bits ending at each row, as the scans write it."""
+    cells = np.zeros((N, X, B), np.int64)
+    other = [0, 1, 2, 3, 4, 7, 9]
+    for b in range(B):
+        kind = b % 4
+        shape = (N, X)
+        if kind == 3:
+            i_bits, d_bits, s_bits = (rng.integers(0, 16, size=shape) for _ in range(3))
+        else:
+            favour = [[3, 4], [1, 3, 4], [2]][kind]
+            p = [0.97, 0.5, 0.45][kind]
+            s_bits = np.where(rng.random(shape) < p, rng.choice(favour, size=shape), rng.choice(other, size=shape))
+            i_bits = np.where(rng.random(shape) < (0.985 if kind == 1 else 0.3), 1, rng.choice(other, size=shape))
+            if kind == 1:
+                for j in range(N):
+                    lo = int(rng.integers(0, X))
+                    i_bits[j, lo : lo + int(rng.integers(15, 151))] = 1
+            d_bits = np.where(rng.random(shape) < (0.95 if kind == 2 else 0.3), 2, rng.choice(other, size=shape))
+        cells[:, :, b] = i_bits | d_bits << 4 | s_bits << 8
+    run = np.zeros((N, B), np.int64)
+    for r in range(X):
+        run = np.where((cells[:, r] & 0xF) == 1, run + 1, 0)
+        cells[:, r] |= np.minimum(run, 15) << 12
+    return cells.astype(np.uint16)
+
+
+def _fixed_cells(rng, X, B, mlens, nlens):
+    """Synthetic K6 fixed columns, numpy (B, X) int32: 12-bit cells with
+    Ly << 12 (Ly in -2..nlens + 2), the cell at row mlens by lane kind (b %
+    6): Ins s-bits over Ins i-bits up to row 1 (the exit row's neighbour
+    -1 wraps to row X - 1), up to row 0 (the prolog's 2^20 sentinel run),
+    a Yclip-prefix exit, a Yclip-suffix exit, an Ins run of 20-60 rows
+    that exits Match, Subst or Del into the sweep, or mostly such an exit
+    at once."""
+    cells = rng.integers(0, 1 << 12, size=(B, X))
+    ly = rng.integers(-2, int(max(nlens.max(), 0)) + 3, size=(B, X))
+    for b in range(B):
+        m, kind = int(mlens[b]), b % 6
+        if kind in (0, 1, 4):
+            lo = {0: 1, 1: 0, 4: max(m - int(rng.integers(20, 61)), 0)}[kind]
+            cells[b, lo : m + 1] = (cells[b, lo : m + 1] & ~0xF) | 1
+            if lo:
+                cells[b, lo - 1] = (cells[b, lo - 1] & ~0xF) | int(rng.choice([2, 3, 4]))
+            cells[b, m] = (cells[b, m] & ~0xF00) | 1 << 8
+        elif kind in (2, 3):
+            cells[b, m] = (cells[b, m] & ~0xF00) | (7 if kind == 2 else 8) << 8
+        elif rng.random() < 0.8:
+            cells[b, m] = (cells[b, m] & ~0xF00) | int(rng.choice([2, 3, 4])) << 8
+    return (cells | ly << 12).astype(np.int32)
+
+
+def _sweep_inputs(rng, N, X, B, device):
+    """(tb, tbfix, mlens, nlens) on ``device``: ``_sweep_cells``,
+    ``_fixed_cells``, mlens on rows 0, X - 1 and at random, nlens 0, N and
+    at random."""
+    mlens = rng.integers(0, X, size=B).astype(np.int32)
+    nlens = rng.integers(0, N + 1, size=B).astype(np.int32)
+    mlens[:4], nlens[:4] = [X - 1, 0, X - 1, 0], [N, N, 0, 0]
+    mlens[4 : B // 2], nlens[4 : B // 2] = X - 1, N
+    tb = torch.from_numpy(_sweep_cells(rng, N, X, B).astype(np.int32)).to(torch.uint16)
+    tbfix = torch.from_numpy(_fixed_cells(rng, X, B, mlens, nlens))
+    return [t.to(device) for t in (tb, tbfix, torch.from_numpy(mlens), torch.from_numpy(nlens))]
+
+
+@pytest.mark.parametrize("N,X,B", [(70, 203, 29), (150, 151, 300), (33, 97, 5), (24, 4095, 12), (1, 1, 5), (800, 40, 21)])
+def test_sweep_walks_on_synthetic_cells_match_plain(cuda_device, N, X, B):
+    """K2 and K6 (with its fused prolog) against their plain versions bit
+    for bit on ``_sweep_cells`` / ``_fixed_cells``: Ins runs past 32 and 96
+    rows and the nibble's cap, diagonals past 32 columns, Del runs, every
+    layer code, the fixed column's edge cases, X not a multiple of 8, B not
+    a multiple of the warps a block, X = 4,095 (K5's limit), N = 800 (past
+    the outputs' stage: direct stores); on a contiguous tb and on a
+    pair-major view with poisoned padding rows."""
+    tb, tbfix, ml, nl = _sweep_inputs(np.random.default_rng(N + X + B), N, X, B, cuda_device)
+    for t in (tb, _poisoned_view(tb)):
+        for fn, plain, inputs in (
+            (walk.sweep_walk_global, walk.sweep_walk_global_plain, (ml, nl)),
+            (walk.sweep_walk_semiglobal, walk.sweep_walk_semiglobal_plain, (tbfix, ml, nl)),
+        ):
+            got = fn(t, *inputs)
+            torch.cuda.synchronize()
+            for k, (g, w) in enumerate(zip(got, plain(t, *inputs))):
+                assert torch.equal(g, w), (fn.__name__, k)
+
+
+def test_fused_prolog_fields_match_resolve_fixed_column(cuda_device):
+    """K6's prolog, resolved in the kernel, field by field against
+    ``resolve_fixed_column`` on ``_fixed_cells``' edge cases (Ins runs to
+    row 1 and to row 0, Yclip-prefix and Yclip-suffix exits, long Ins runs,
+    mlens = 0 lanes, fixed columns past 32 rows, X = 4,095): fix_ins, fix_exit, fix_ly
+    and yend equal the prolog's, ystart the prolog's unless the sweep took
+    a Yclip-prefix exit further right."""
+    rng = np.random.default_rng(31)
+    for N, X, B in ((40, 9, 24), (40, 203, 48), (12, 4095, 24)):
+        tb, tbfix, ml, nl = _sweep_inputs(rng, N, X, B, cuda_device)
+        got = walk.sweep_walk_semiglobal(tb, tbfix, ml, nl)
+        torch.cuda.synchronize()
+        fix_ins, fix_exit, fix_ly, *_, ystart0, yend0 = walk.resolve_fixed_column(tbfix, ml, nl)
+        for k, want in ((3, fix_ins), (4, fix_exit), (5, fix_ly), (7, yend0)):
+            assert torch.equal(got[k], want), k
+        swept = torch.where(got[1].to(torch.int32) == YCLIP_PREFIX, torch.arange(1, N + 1, device=cuda_device)[:, None], 0)
+        assert torch.equal(got[6], torch.maximum(ystart0, swept.amax(dim=0).to(torch.int32)))
+        kinds = torch.arange(B, device=cuda_device) % 6
+        assert bool((fix_ins[kinds == 1] > 2**20).all()) and bool((fix_exit[kinds == 2] == YCLIP_PREFIX).all())
+
+
+def _homologs(rng, B, M, N, device):
+    """Protein pairs as chip_smoke.py's homolog corpus makes them: x of up
+    to M residues, y x at 30% substitutions and 3% single-residue indels,
+    at most N long."""
+    syms = np.frombuffer(b"ARNDCQEGHILKMFPSTWYV", np.uint8)
+    xb = np.zeros((B, M), np.uint8)
+    yb = np.zeros((B, N), np.uint8)
+    mlens = np.zeros(B, np.int32)
+    nlens = np.zeros(B, np.int32)
+    for b in range(B):
+        x = syms[rng.integers(0, 20, size=int(rng.integers(M // 2, M + 1)))]
+        y = []
+        for c in x:
+            r = rng.random()
+            if r < 0.015:
+                continue
+            y.append(syms[rng.integers(0, 20)] if r < 0.3 else c)
+            if rng.random() < 0.015:
+                y.append(syms[rng.integers(0, 20)])
+        y = np.array(y[:N], np.uint8)
+        xb[b, : len(x)], yb[b, : len(y)], mlens[b], nlens[b] = x, y, len(x), len(y)
+    return [torch.from_numpy(a).to(device) for a in (xb, yb, mlens, nlens)]
+
+
+def test_sweep_walks_on_protein_views_match_plain(cuda_device):
+    """K2 on K11's pair-major view of 450 x 457 homologs and K6 on K12's
+    view of 200 x 450 domain-shaped pairs under BLOSUM62 (-11, -1), on the
+    views and on contiguous copies, against their plain versions."""
+    rng = np.random.default_rng(32)
+    lut = _lut("blosum62", cuda_device)
+    hom = _homologs(rng, 64, 450, 457, cuda_device)
+    tb = sw.scan_global_lut(*hom, -11, -1, lut)[1]
+    _walks_on_both_layouts(tb, [(walk.sweep_walk_global, walk.sweep_walk_global_plain, (hom[2], hom[3]))])
+    dom = _homologs(rng, 64, 200, 450, cuda_device)
+    got = sw.scan_semiglobal_lut(*dom, -11, -1, lut, 0, 0)
+    _, tbfix = _fixed_column(*got[1:], dom[2], -11, -1)
+    _walks_on_both_layouts(got[0], [(walk.sweep_walk_semiglobal, walk.sweep_walk_semiglobal_plain, (tbfix, dom[2], dom[3]))])
+
+
 def test_semiglobal_walk_on_k5_tb_matches_plain(cuda_device):
     """K6 on K5's pair-major view (the mapper's layout) and on a contiguous
     copy against the plain K6, beside K12's pair-major view of the same

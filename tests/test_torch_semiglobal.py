@@ -22,7 +22,8 @@ from rust_bio_tpu_torch.alignment.pairwise.batched import _geometry, _suffix_fix
 from rust_bio_tpu_torch.alignment.pairwise.scoring import MIN_SCORE
 from rust_bio_tpu_torch.alignment.pairwise.tb import TB_YCLIP_PREFIX
 from rust_bio_tpu_torch.ops.sw import scan_semiglobal
-from rust_bio_tpu_torch.ops.walk import resolve_fixed_column, sweep_walk_semiglobal
+from rust_bio_tpu_torch.ops.walk import resolve_fixed_column, sweep_walk_semiglobal, sweep_walk_semiglobal_plain
+from test_torch_cuda import _poisoned_view, _sweep_inputs
 
 MA, MI = 2, -2
 # (go, ge, ycp, ycs): the three gap models of the global tests with the
@@ -164,6 +165,31 @@ def _check_walk(xb, yb, mlens, nlens, pens8):
         w = w[:N] if w.ndim == 2 else w
         np.testing.assert_array_equal(g.to(torch.int32).numpy(), w.astype(np.int32), err_msg=str(k))
     return got
+
+
+@pytest.mark.parametrize("N,X,B", [(70, 203, 29), (24, 37, 18), (40, 1, 5)])
+def test_sweep_walk_semiglobal_plain_on_synthetic_runs_matches_jax(N, X, B):
+    """The plain K6 (prolog and sweep) on ``_sweep_cells`` and
+    ``_fixed_cells`` against the JAX walk: Ins runs across 32- and 96-row
+    edges and past the nibble's cap, diagonals past 32 columns, Del runs,
+    Yclip-prefix exits in the sweep; fixed columns whose Ins run reaches
+    row 1 (the exit row's neighbour -1 wraps to row X - 1) or row 0 (the
+    2^20 sentinel), Yclip-prefix and Yclip-suffix exits there, mlens = 0
+    lanes; X not a multiple of 8, B not a multiple of K6's warps a block;
+    on the contiguous tb and on a pair-major view."""
+    tb, tbfix, ml, nl = _sweep_inputs(np.random.default_rng(N + X + 1), N, X, B, "cpu")
+    want = [
+        np.asarray(v)
+        for v in jax_sweep_walk_semiglobal(*(jnp.asarray(t.numpy()) for t in (tb, tbfix, ml, nl)))
+    ]
+    for t in (tb, _poisoned_view(tb)):
+        got = sweep_walk_semiglobal_plain(t, tbfix, ml, nl)
+        for k, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(g.to(torch.int32).numpy(), w.astype(np.int32), err_msg=str(k))
+    if X > 200:
+        assert int(got[0].to(torch.int32).max()) > 96  # an Ins run across three 32-row rounds
+        assert bool((got[1].to(torch.int32) == TB_YCLIP_PREFIX).any())
+        assert int(got[3].max()) > 2**20 and int(got[3][0::6].min()) >= 1  # the sentinel, the wraps
 
 
 def test_resolve_fixed_column_fields():

@@ -1,8 +1,13 @@
 """Port kernel K2 (global column-sweep traceback walk) against the JAX
 package's Pallas walk, run in interpret mode on the CPU, on traceback
-tensors of the JAX scan, and on the pair-major view of K1's tb (the port's
-CPU scan, padding rows poisoned) at 150 bp; K1's launch geometry at every x
-length below ``T_ROWS``. Exact comparison (tolerance 0)."""
+tensors of the JAX scan, on the pair-major view of K1's tb (the port's CPU
+scan, padding rows poisoned) at 150 bp, and on synthetic cells whose runs
+cross the card kernel's round edges; K1's launch geometry at every x
+length below ``T_ROWS``, and K2's and K6's (``walk.sweep_walk_geometry``)
+against csrc/walk_sweep.cu. Exact comparison (tolerance 0)."""
+
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -14,8 +19,9 @@ from rust_bio_tpu.ops.walk_pallas import sweep_walk_global as jax_sweep_walk_glo
 from rust_bio_tpu_torch.alignment.pairwise.batched import T_ROWS
 from rust_bio_tpu_torch.alignment.pairwise.scoring import MIN_SCORE
 from rust_bio_tpu_torch.ops import sw
-from rust_bio_tpu_torch.ops.walk import sweep_walk_global
-from test_torch_cuda import _poisoned_view
+from rust_bio_tpu_torch.ops import walk
+from rust_bio_tpu_torch.ops.walk import sweep_walk_global, sweep_walk_global_plain
+from test_torch_cuda import _poisoned_view, _sweep_inputs
 
 
 
@@ -112,3 +118,47 @@ def test_k1_warp_geometry_keeps_its_state_on_chip():
         assert R % 8 == 0 and 32 * R >= m + 1 > 32 * (R - 8), m
         owners = np.concatenate([np.arange(t * R, t * R + R) for t in range(32)])
         assert (np.bincount(owners, minlength=m + 1)[: m + 1] == 1).all(), m
+
+
+@pytest.mark.parametrize("N,X,B", [(70, 203, 29), (40, 100, 6), (1, 1, 5)])
+def test_walk_plain_on_synthetic_runs_matches_jax(N, X, B):
+    """The plain K2 on ``_sweep_cells`` (every layer code; Ins runs of 15 to
+    150 rows across 32- and 96-row edges and past the nibble's cap,
+    diagonals past 32 columns, Del runs; X not a multiple of 8, B not a
+    multiple of K2's warps a block) against the JAX walk, on the contiguous
+    tb and on a pair-major view with poisoned padding rows."""
+    tb, _, ml, nl = _sweep_inputs(np.random.default_rng(N + X), N, X, B, "cpu")
+    want = [np.asarray(v) for v in jax_sweep_walk_global(jnp.asarray(tb.numpy()), jnp.asarray(ml.numpy()), jnp.asarray(nl.numpy()))]
+    for t in (tb, _poisoned_view(tb)):
+        got = sweep_walk_global_plain(t, ml, nl)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.uint16
+            np.testing.assert_array_equal(g.to(torch.int32).numpy(), w.astype(np.int32))
+    if X > 200:
+        ins = got[0].to(torch.int32)
+        assert int(ins.max()) > 96  # an Ins run across three 32-row rounds
+        mm = ((got[1].to(torch.int32) - 3).abs() <= 1) & (ins == 0)  # Match/Subst exits with no Ins
+        longest = max(max((len(r) for r in "".join("1" if v else "0" for v in col).split("0")), default=0) for col in mm.T.tolist())
+        assert longest > 32  # a diagonal across a 32-column edge
+
+
+@pytest.mark.parametrize("N", [0, 1, 150, 457, 768, 769, 4096])
+def test_sweep_walk_geometry_mirrors_the_source(N):
+    """K2's and K6's launch (``walk.sweep_walk_geometry``) against
+    csrc/walk_sweep.cu: its warps a block, lanes and stage limit; the grid
+    covers every pair once; a block stages its column outputs exactly while
+    they fit the limit, and its shared bytes fit the 48 KB a block takes
+    without opting in (227 KB with)."""
+    text = (Path(walk.__file__).parent / "csrc" / "walk_sweep.cu").read_text()
+    consts = {k: int(v) for k, v in re.findall(r"constexpr int (\w+) = (\d+)(?: \* 1024)?;", text)}
+    limit = int(re.search(r"constexpr int STAGE_MAX_BYTES = (\d+) \* 1024;", text).group(1)) * 1024
+    assert limit == walk.SWEEP_STAGE_MAX_BYTES
+    for B in (0, 1, 3, 15, 16, 17, 8191, 8192, 8193):
+        g = walk.sweep_walk_geometry(B, N)
+        assert (g["warps"], g["lanes"]) == (consts["WARPS"], consts["LANES"])
+        assert g["threads"] == g["warps"] * g["lanes"] <= 1024
+        assert (g["blocks"] - 1) * g["warps"] < B <= g["blocks"] * g["warps"] or B == g["blocks"] == 0
+        assert g["staged"] == (4 * g["warps"] * N <= limit)
+        assert g["shared_bytes"] == (4 * g["warps"] * N if g["staged"] else 0) <= 48 * 1024 <= 227 * 1024
+    # a staged column of a block's pairs fills one 32-byte sector of each output
+    assert 2 * walk.SWEEP_WARPS == 32
