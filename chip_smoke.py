@@ -112,7 +112,9 @@ NVIDIA GPU.
    events (K5, K7, K9, K11, K7-LUT, K12, K13, K13-LUT, K15 and K15-LUT also
    without traceback; K16 also without its tb's zero-fill; K18 also on
    phase 3d's long proteins, K3 also on its STR pairs, K3's block launch;
-   K14 with its tile geometry and path steps; K5, K7, K17 and K17-exact
+   K14 with its tile geometry and path steps; K2, K6, K8 and K10 with
+   their warp geometry and registers, K6, K8 and K10 as the one launch
+   that holds the prolog each folds in; K5, K7, K17 and K17-exact
    with their lane geometry, K17 also on the GATK-like pairs, with the
    count of lanes bit-identical to its plain version); holds K6 on K5's
    pair-major view and K8 on K7's, K2, K8 and K10 on
@@ -515,6 +517,27 @@ def semi_walk_bytes(outs, mlens, N: int) -> int:
     B = outs[0].shape[1]
     fixed = int((outs[3].long().minimum(mlens.long() + 1) + 1).sum())
     return 2 * semi_path_cells(outs) + 4 * fixed + 8 * B + 2 * 2 * N * B + 2 * B + 4 * 5 * B
+
+
+def clip_path_cells(outs, ins_at: int) -> int:
+    """The tb cells K8's or K10's sweep reads, from its outputs: one an
+    emitted op, and each pair's entry cell."""
+    return int(outs[ins_at].long().sum() + (outs[ins_at + 1].long() > 0).sum()) + outs[ins_at].shape[1]
+
+
+def clip_walk_bytes(outs, ins_at: int, n_out: int, mlens, custom: bool) -> int:
+    """Bytes K8 or K10 with its prolog must move, from its outputs: the
+    sweep's tb cells (2 bytes each), the fixed column's cells the prolog
+    reads (4 bytes each: an Ins run's rows from its slot, up to mlens + 1,
+    and one more a step), K10's lx at each x-suffix jump, lx_n, mlens and
+    nlens; written, the n_out (N + 1, B) uint16 column outputs, fix_codes
+    and fix_lens (B, 4) and the four (B,) int32 coordinates."""
+    Nc, B = outs[ins_at].shape
+    fix_codes, fix_lens = outs[n_out].long(), outs[n_out + 1].long()
+    runs = int((fix_lens.minimum(mlens.long()[:, None] + 1) * (fix_codes == 1)).sum())
+    fixed = runs + int((fix_codes != 0).sum()) + B
+    jumps = int((outs[0].long() > 0).sum()) if custom else 0
+    return 2 * clip_path_cells(outs, ins_at) + 4 * fixed + 4 * jumps + 12 * B + 2 * n_out * Nc * B + 32 * B + 16 * B
 
 
 def clip_walk_inputs(torch, scan, mlens, nlens, pens, clips):
@@ -1595,9 +1618,12 @@ def main() -> int:
     path_cells = int(wgot[0].long().sum() + (wgot[1].long() > 0).sum() + wgot[2].long().sum()) + B_ALN
     # K2's and K6's ms: the launch alone; wrapper_ms adds the input checks
     sweep_lib = _build.build(["walk_sweep"])["walk_sweep"]
+    # registers and stack bytes of K2, K6 and the two clip instantiations
+    # (sweep_walk_clip_kernel<false>: K8, <true>: K10)
+    kernel_pattern = r"(sweep_walk_(?:semi)?global(?=_kernel)|sweep_walk_clip_kernelILb[01]E)"
     sweep_usage = {
-        "registers": kernel_registers(sweep_lib, r"(sweep_walk_(?:semi)?global)_kernel"),
-        "stack_bytes": kernel_registers(sweep_lib, r"(sweep_walk_(?:semi)?global)_kernel", "STACK"),
+        "registers": kernel_registers(sweep_lib, kernel_pattern),
+        "stack_bytes": kernel_registers(sweep_lib, kernel_pattern, "STACK"),
     }
     report(
         "sweep_walk_global", f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_GLOBAL.source}.cu",
@@ -1737,34 +1763,26 @@ def main() -> int:
 
     def clip_walk(row, walk_name, scan, ml_d_, nl_d_, pens, clips, replaces, n_launches=None):
         """K8 or K10 (``walk_name``) on a K7 / K9 / K7-LUT scan's tb, in the
-        row ``row``: the launch alone timed (``ms``), and with its prolog
-        (``wrapper_ms``)."""
+        row ``row``: its one launch timed with the prolog it folds in
+        (``ms``), and with the wrapper's input checks (``wrapper_ms``)."""
         tb_q, lx_q = scan[0], scan[1]
         Nq, _, Bq = tb_q.shape
         tbfix, lx_n = clip_walk_inputs(torch, scan, ml_d_, nl_d_, pens, clips)
         winputs = (tb_q, tbfix, lx_q, lx_n, ml_d_, nl_d_)
-        if walk_name == "sweep_walk_local":
-            wrapper, plain = walk.sweep_walk_local, walk.sweep_walk_local_plain
-            entry = walk.local_entry(tb_q, lx_q, tbfix, lx_n, ml_d_, nl_d_)[2:9]
-            launch = lambda: walk.sweep_walk_local_launch(tb_q, *entry)  # noqa: E731
-            n_out, ins_at = 2, 0  # (ins_cnt, exit_op, ...)
-        else:
-            wrapper, plain = walk.sweep_walk_custom, walk.sweep_walk_custom_plain
-            entry = walk.resolve_fixed_column_custom(tbfix, lx_n, ml_d_, nl_d_)[2:7]
-            launch = lambda: walk.sweep_walk_custom_launch(tb_q, lx_q, *entry)  # noqa: E731
-            n_out, ins_at = 5, 1  # (pre, ins_cnt, exit_op, exit_len, post, ...)
+        custom = walk_name == "sweep_walk_custom"
+        wrapper, plain, launch = (getattr(walk, walk_name + end) for end in ("", "_plain", "_launch"))
+        # K10's outputs (pre, ins_cnt, exit_op, exit_len, post, ...), K8's (ins_cnt, exit_op, ...)
+        n_out, ins_at = (walk.CLIP_CUSTOM_OUTPUTS, 1) if custom else (walk.CLIP_LOCAL_OUTPUTS, 0)
         wgot = wrapper(*winputs)
         torch.cuda.synchronize()
         wwant = plain(*winputs)
-        # the walk reads one cell per emitted op plus the entry cell
-        path_cells = int(wgot[ins_at].long().sum() + (wgot[ins_at + 1].long() > 0).sum()) + Bq
         report(
-            row, "rust_bio_tpu_torch/ops/csrc/walk_custom.cu", replaces,
+            row, f"rust_bio_tpu_torch/ops/csrc/{walk.SWEEP_WALK_CUSTOM.source}.cu", replaces,
             wgot, wwant,
-            cuda_ms(torch, launch, 10), cuda_ms(torch, lambda: plain(*winputs), 2),
-            2 * path_cells + 4 * 8 * Bq + 2 * n_out * Nq * Bq + 8 * Bq,
-            8 * path_cells, n_launches=n_launches,
+            cuda_ms(torch, lambda: launch(*winputs), 10), cuda_ms(torch, lambda: plain(*winputs), 2),
+            clip_walk_bytes(wgot, ins_at, n_out, ml_d_, custom), 8 * clip_path_cells(wgot, ins_at), n_launches=n_launches,
             wrapper_ms=cuda_ms(torch, lambda: wrapper(*winputs), 10), tb_strides=list(tb_q.stride()),
+            geometry=walk.clip_walk_geometry(Bq, Nq - 1, custom), **sweep_usage,
         )
         del wgot, wwant
 

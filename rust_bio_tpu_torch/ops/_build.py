@@ -32,7 +32,7 @@ NVCC_FLAGS = (
 )
 SOURCES = (
     "walk_sweep", "fm_search",
-    "walk_custom", "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
+    "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
     "sw_columns", "sw_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
     "pairhmm_homopoly",
 )

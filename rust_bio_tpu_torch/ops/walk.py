@@ -1,8 +1,8 @@
-"""Column-sweep traceback walks: kernels K2 (global mode) and K6 (semiglobal
-family, with its fixed-column prolog), CUDA source ``csrc/walk_sweep.cu``;
-kernel K14 (global mode on the block-row tb of K13,
-``csrc/walk_global_seg.cu``), and kernels K10 (general clips) and K8 (local
-mode), CUDA source ``csrc/walk_custom.cu``. They replace
+"""Column-sweep traceback walks: kernels K2 (global mode), K6 (semiglobal
+family, with its fixed-column prolog), K10 (general clips) and K8 (local
+mode), the last two with their prologs and K10 with its coordinate epilog,
+CUDA source ``csrc/walk_sweep.cu``; kernel K14 (global mode on the
+block-row tb of K13, ``csrc/walk_global_seg.cu``). They replace
 ``rust_bio_tpu/ops/walk_pallas.py`` ``sweep_walk_global``,
 ``_sweep_walk_global_seg``, ``sweep_walk_semiglobal`` (with
 ``_resolve_fixed_column``), ``sweep_walk_custom`` and ``sweep_walk_local``.
@@ -78,11 +78,18 @@ SWEEP_WARPS = 16
 SWEEP_LANES = 32
 SWEEP_STAGE_MAX_BYTES = 48 * 1024
 SWEEP_WALK_CUSTOM = CudaKernel(
-    "walk_custom", "sweep_walk_custom", [PTR] * 7 + [INT, INT, INT, I64, I64, I64] + [PTR] * 5
+    "walk_sweep", "sweep_walk_custom", [PTR] * 6 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4
 )
 SWEEP_WALK_LOCAL = CudaKernel(
-    "walk_custom", "sweep_walk_local", [PTR] * 8 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4
+    "walk_sweep", "sweep_walk_local", [PTR] * 6 + [INT, INT, INT, I64, I64, I64] + [PTR] * 4
 )
+# K8's and K10's launch (csrc/walk_sweep.cu): K2's warps and lanes; a block
+# stages its pairs' column outputs (2 * outputs * SWEEP_WARPS * (N + 1)
+# bytes: K8 two outputs, K10 five) where they fit CLIP_STAGE_MAX_BYTES,
+# past 48 KB by opting in to the larger dynamic shared memory
+CLIP_LOCAL_OUTPUTS = 2
+CLIP_CUSTOM_OUTPUTS = 5
+CLIP_STAGE_MAX_BYTES = 96 * 1024
 WALK_STEPS = CudaKernel("walk_steps", "walk_steps", [PTR] * 5 + [INT] * 4 + [I64] * 3 + [INT] + [PTR] * 6)
 
 
@@ -119,6 +126,24 @@ def sweep_walk_geometry(B: int, N: int) -> dict:
     return {
         "warps": SWEEP_WARPS, "lanes": SWEEP_LANES, "blocks": -(-B // SWEEP_WARPS),
         "threads": SWEEP_WARPS * SWEEP_LANES, "staged": staged, "shared_bytes": stage if staged else 0,
+    }
+
+
+def clip_walk_geometry(B: int, N: int, custom: bool) -> dict:
+    """K8's (``custom`` False) or K10's launch for B pairs over columns
+    0..N, as csrc/walk_sweep.cu sets it: K2's pairs (warps) a block, lanes,
+    blocks and threads, the (N+1, B) uint16 outputs a block stages, whether
+    it stages them (so that it stores a column's outputs of its pairs in one
+    sector each), its shared bytes (the stage, else none) and whether they
+    pass the 48 KB a block takes without opting in."""
+    outputs = CLIP_CUSTOM_OUTPUTS if custom else CLIP_LOCAL_OUTPUTS
+    stage = 2 * outputs * SWEEP_WARPS * (N + 1)
+    staged = stage <= CLIP_STAGE_MAX_BYTES
+    shared = stage if staged else 0
+    return {
+        "warps": SWEEP_WARPS, "lanes": SWEEP_LANES, "blocks": -(-B // SWEEP_WARPS),
+        "threads": SWEEP_WARPS * SWEEP_LANES, "outputs": outputs, "staged": staged, "shared_bytes": shared,
+        "opt_in": shared > 48 * 1024,
     }
 
 
@@ -447,8 +472,10 @@ def sweep_walk_semiglobal_plain(tb, tbfix, mlens, nlens):
 # ---------------------------------------------------------------------------
 #
 # Both walk the (N+1, X, B) traceback tensor of K9 / K7 (column 0 at index 0)
-# after the fixed final column is resolved in torch
-# (``resolve_fixed_column_custom``). That prolog writes up to four op slots
+# after the fixed final column is resolved (``resolve_fixed_column_custom``,
+# their plain prolog; on the card each kernel resolves it itself, K8 with
+# ``local_entry``'s cell, and K10 computes ``_custom_coords`` as it stores
+# its outputs). That prolog writes up to four op slots
 # ``fix_codes``/``fix_lens`` (B, 4), in end -> start order: the fixed
 # column's ops. K10's per-column outputs (N+1, B) uint16, in the decode's
 # start -> end order ``[post][exit][Ins x ins_cnt][Xclip-suffix pre]``:
@@ -573,14 +600,13 @@ def sweep_walk_custom(tb, tbfix, lx, lx_n, mlens, nlens):
     place, never copied), ``tbfix`` (B, X) int32 the fixed final column with Ly << 12, ``lx_n``
     (B,) its x-suffix clip length (``batched._custom_device``). Returns
     (pre, ins_cnt, exit_op, exit_len, post (N+1, B) uint16, fix_codes,
-    fix_lens (B, 4), xstart, ystart, xend, yend (B,)) int32."""
+    fix_lens (B, 4), xstart, ystart, xend, yend (B,)) int32. On the card one
+    launch: one warp a pair resolves the fixed column, walks a run of the
+    column-RLE path a round, as K2 (``clip_walk_geometry``), and writes the
+    coordinates."""
     if _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens).type == "cpu":
         return sweep_walk_custom_plain(tb, tbfix, lx, lx_n, mlens, nlens)
-    fix_codes, fix_lens, *entry, xstart0, ystart0, xend0, yend0 = resolve_fixed_column_custom(
-        tbfix, lx_n, mlens, nlens
-    )
-    outs = sweep_walk_custom_launch(tb, lx, *entry)
-    return outs + (fix_codes, fix_lens) + _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0)
+    return sweep_walk_custom_launch(tb, tbfix, lx, lx_n, mlens, nlens)
 
 
 def _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0):
@@ -597,21 +623,29 @@ def _custom_coords(outs, mlens, xstart0, ystart0, xend0, yend0):
     return xstart, ystart, xend.to(torch.int32), yend0
 
 
-def sweep_walk_custom_launch(tb, lx, i1, j1, ca1, us1, dn1):
-    """The launch of K10 alone, from the entry state of
-    ``resolve_fixed_column_custom`` (CUDA tensors): (pre, ins_cnt, exit_op,
-    exit_len, post)."""
+def sweep_walk_custom_launch(tb, tbfix, lx, lx_n, mlens, nlens):
+    """The launch of K10 alone, without the wrapper's input checks (CUDA
+    tensors as ``sweep_walk_custom`` takes them): its outputs."""
+    return _clip_launch(SWEEP_WALK_CUSTOM, CLIP_CUSTOM_OUTPUTS, tb, tbfix, lx, lx_n, mlens, nlens)
+
+
+def _clip_launch(kernel, outputs, tb, tbfix, lx, lx_n, mlens, nlens):
+    """K8's or K10's one launch: (the ``outputs`` (N+1, B) uint16 column
+    outputs, fix_codes, fix_lens (B, 4), xstart, ystart, xend, yend (B,)),
+    views of three tensors."""
     Nc, X, B = tb.shape
     dev = tb.device
     if dev.type != "cuda":
-        raise ValueError(f"K10 launches on a CUDA device, got {dev}")
-    outs = tuple(torch.empty((Nc, B), dtype=torch.uint16, device=dev) for _ in range(5))
+        raise ValueError(f"{kernel.symbol} launches on a CUDA device, got {dev}")
+    cols = torch.empty((outputs, Nc, B), dtype=torch.uint16, device=dev)
+    fix = torch.empty((2, B, 4), dtype=torch.int32, device=dev)
+    coords = torch.empty((4, B), dtype=torch.int32, device=dev)
     if B:
-        SWEEP_WALK_CUSTOM.launch(
-            dev, tb.data_ptr(), lx.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(),
-            us1.data_ptr(), dn1.data_ptr(), B, X, Nc - 1, *_walk_strides(tb), *(o.data_ptr() for o in outs),
+        kernel.launch(
+            dev, tb.data_ptr(), tbfix.data_ptr(), lx.data_ptr(), lx_n.data_ptr(), mlens.data_ptr(), nlens.data_ptr(),
+            B, X, Nc - 1, *_walk_strides(tb), cols.data_ptr(), fix[0].data_ptr(), fix[1].data_ptr(), coords.data_ptr(),
         )
-    return outs
+    return (*cols.unbind(0), *fix.unbind(0), *coords.unbind(0))
 
 
 def sweep_walk_custom_plain(tb, tbfix, lx, lx_n, mlens, nlens):
@@ -625,7 +659,8 @@ def sweep_walk_custom_plain(tb, tbfix, lx, lx_n, mlens, nlens):
 
 
 def local_entry(tb, lx, tbfix, lx_n, mlens, nlens):
-    """The prolog of K8: ``resolve_fixed_column_custom``, then the x-suffix
+    """The prolog of K8 in its plain version (on the card K8 resolves it
+    itself): ``resolve_fixed_column_custom``, then the x-suffix
     cell a lane reaches after leaving the fixed column through a y-suffix
     clip (walk_pallas.py:1054-1072): row mlens of column j1, read from
     ``tb`` and ``lx``; its clip goes into a free fix slot. Returns
@@ -634,12 +669,15 @@ def local_entry(tb, lx, tbfix, lx_n, mlens, nlens):
     fix_codes, fix_lens, i1, j1, ca1, us1, dn1, xs0, ys0, xend0, yend0 = resolve_fixed_column_custom(
         tbfix, lx_n, mlens, nlens
     )
-    B = tb.shape[2]
+    _, X, B = tb.shape
     bidx = torch.arange(B, device=tb.device)
     live = (dn1 == 0) & (us1 == 1) & (j1 < nlens) & (j1 > 0)
     jg = torch.where(live, j1, 0).long()
-    # (CUDA has no uint16 gather: read the cells as int16)
-    cell = tb.view(torch.int16)[jg, torch.where(live, i1, 0).long(), bidx].to(torch.int32) & 0xFFFF
+    # the row by JAX's index rules (``_gather_cols``); CUDA has no uint16
+    # gather: read the cells as int16
+    rows = torch.where(live, i1, 0)
+    rows = torch.where(rows < 0, rows + X, rows).clamp(0, X - 1).long()
+    cell = tb.view(torch.int16)[jg, rows, bidx].to(torch.int32) & 0xFFFF
     lxj = lx[jg, bidx]
     is_xs = live & (((cell >> 8) & 0xF) == TB_XCLIP_SUFFIX)
     i1 = torch.where(is_xs, i1 - lxj, i1)
@@ -656,32 +694,17 @@ def sweep_walk_local(tb, tbfix, lx, lx_n, mlens, nlens):
     < 0 (a Del run past a free x-suffix clip would tie it otherwise, which
     only K10 resolves). Inputs as ``sweep_walk_custom``. Returns (ins_cnt,
     exit_op (N+1, B) uint16, fix_codes, fix_lens (B, 4), xstart, ystart,
-    xend, yend (B,)) int32."""
+    xend, yend (B,)) int32. On the card one launch, as K10's, with
+    ``local_entry``'s cell read in the kernel."""
     if _check_clip_walk(tb, tbfix, lx, lx_n, mlens, nlens).type == "cpu":
         return sweep_walk_local_plain(tb, tbfix, lx, lx_n, mlens, nlens)
-    fix_codes, fix_lens, *entry, xend, yend0 = local_entry(tb, lx, tbfix, lx_n, mlens, nlens)
-    ins_cnt, exit_op, xstart, ystart = sweep_walk_local_launch(tb, *entry)
-    return ins_cnt, exit_op, fix_codes, fix_lens, xstart, ystart, xend, yend0
+    return sweep_walk_local_launch(tb, tbfix, lx, lx_n, mlens, nlens)
 
 
-def sweep_walk_local_launch(tb, i1, j1, ca1, us1, dn1, xs0, ys0):
-    """The launch of K8 alone, from the entry state of ``local_entry``
-    (CUDA tensors): (ins_cnt, exit_op, xstart, ystart)."""
-    Nc, X, B = tb.shape
-    dev = tb.device
-    if dev.type != "cuda":
-        raise ValueError(f"K8 launches on a CUDA device, got {dev}")
-    ins_cnt = torch.empty((Nc, B), dtype=torch.uint16, device=dev)
-    exit_op = torch.empty((Nc, B), dtype=torch.uint16, device=dev)
-    xstart = torch.empty(B, dtype=torch.int32, device=dev)
-    ystart = torch.empty(B, dtype=torch.int32, device=dev)
-    if B:
-        SWEEP_WALK_LOCAL.launch(
-            dev, tb.data_ptr(), i1.data_ptr(), j1.data_ptr(), ca1.data_ptr(), us1.data_ptr(),
-            dn1.data_ptr(), xs0.data_ptr(), ys0.data_ptr(), B, X, Nc - 1, *_walk_strides(tb),
-            ins_cnt.data_ptr(), exit_op.data_ptr(), xstart.data_ptr(), ystart.data_ptr(),
-        )
-    return ins_cnt, exit_op, xstart, ystart
+def sweep_walk_local_launch(tb, tbfix, lx, lx_n, mlens, nlens):
+    """The launch of K8 alone, without the wrapper's input checks (CUDA
+    tensors as ``sweep_walk_local`` takes them): its outputs."""
+    return _clip_launch(SWEEP_WALK_LOCAL, CLIP_LOCAL_OUTPUTS, tb, tbfix, lx, lx_n, mlens, nlens)
 
 
 def sweep_walk_local_plain(tb, tbfix, lx, lx_n, mlens, nlens):

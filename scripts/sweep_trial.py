@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Trials of variants of K2 and K6 (csrc/walk_sweep.cu) on one NVIDIA GPU:
-other warps a block (WARPS); the column outputs stored by each lane
-straight to device memory instead of staged in shared memory and written
-out a block at a time (``--stage 0``); and the diagonal and row runs read
+"""Trials of variants of K2, K6, K8 and K10 (csrc/walk_sweep.cu) on one
+NVIDIA GPU: other warps a block (WARPS); the column outputs stored by each
+lane straight to device memory instead of staged in shared memory and
+written out a block at a time (``--stage 0``); K8's and K10's stage limit
+(``--clip-stage-kb``: 48 keeps K10's stage on the homolog view, 73,280
+bytes, below the opt-in, so its lanes store their outputs directly; 96,
+the source's, opts in); and K2's and K6's diagonal and row runs read
 from a tile of the tb in shared memory instead of a cell a lane from
 device memory (``--tile R``: 32 DP columns, one a lane, by the R rows that
 end at the 8-row group of the path's row, filled with 16-byte loads when
@@ -11,14 +14,18 @@ loads; a variant whose shared memory passes 48 KB a block is skipped); and
 a fixed number W of steps loaded a diagonal or row round (``--width W``)
 in place of the source's, the last such run's (``--width 0``).
 
-    python3 scripts/sweep_trial.py [--warps 16] [--stage 1,0] [--tile 0,32] [--width 0,32] [--reps 50] [--seed 7]
+    python3 scripts/sweep_trial.py [--warps 16] [--stage 1,0] [--tile 0,32] [--width 0,32] [--clip-stage-kb 96,48]
+                                   [--reps 50] [--seed 7]
 
 Inputs, from chip_smoke.py's generators: K1's pair-major tb of 8192 random
 150 bp DNA pairs and of 8192 pairs at 2% divergence (K2), K5's of the random
 pairs with its fixed column (K6), K11's of the homolog corpus (K2) and
-K12's of the domain corpus (K6). ``--warps``, ``--stage``, ``--tile`` and
-``--width`` take comma-separated lists; every combination is one variant
-(stage 1, tile 0, width 0: the source's own design), made from this
+K12's of the domain corpus (K6); K7's of the random pairs (K8), K9's of
+them under chip_smoke.py's custom-mode penalties and clips (K10), and
+K7-LUT's of the homolog corpus (K8 and K10, N = 457). ``--warps``,
+``--stage``, ``--tile``, ``--width`` and ``--clip-stage-kb`` take
+comma-separated lists; every combination is one variant (stage 1, tile
+0, width 0, clip stage 96 KB: the source's own design), made from this
 checkout's source by text
 substitution (each must apply), built with nvcc into ``ops/_build/`` and
 called through ctypes as the wrappers call the tree's kernels. For each
@@ -79,14 +86,17 @@ struct Tile {{
 '''
 
 
-def variant_source(src: str, warps: int, stage: int, rows: int, width: int = 0) -> str:
+def variant_source(src: str, warps: int, stage: int, rows: int, width: int = 0, clip_kb: int = 96) -> str:
     subs = [("constexpr int WARPS = 16;", f"constexpr int WARPS = {warps};", 1)]
+    if clip_kb != 96:
+        subs.append(("constexpr int CLIP_STAGE_MAX_BYTES = 96 * 1024;", f"constexpr int CLIP_STAGE_MAX_BYTES = {clip_kb} * 1024;", 1))
     if not stage:
         subs.append(("  return bytes <= STAGE_MAX_BYTES ? static_cast<int>(bytes) : 0;", "  return 0;", 1))
+        subs.append(("  return bytes <= CLIP_STAGE_MAX_BYTES ? static_cast<int>(bytes) : 0;", "  return 0;", 1))
     if width:
         subs += [
-            ("  int width = LANES;", f"  int width = {width};", 1),
-            ("      width = k < width ? max(k, MIN_WIDTH) : min(2 * width, LANES);", f"      width = {width};", 2),
+            ("  int width = LANES;", f"  int width = {width};", 2),
+            ("      width = k < width ? max(k, MIN_WIDTH) : min(2 * width, LANES);", f"      width = {width};", 4),
         ]
     if rows:
         subs += [
@@ -127,6 +137,7 @@ def main() -> int:
     ap.add_argument("--stage", default="1,0")
     ap.add_argument("--tile", default="0,32")
     ap.add_argument("--width", default="0")
+    ap.add_argument("--clip-stage-kb", default="96")
     ap.add_argument("--reps", type=int, default=50)
     ap.add_argument("--seed", type=int, default=7)
     args = ap.parse_args()
@@ -175,38 +186,65 @@ def main() -> int:
     ]
     for _, _, tb, _, _ in cases:
         assert walk._vector_rows(tb), "sweep_trial: a tb the tile fill cannot read 16 bytes at a time"
-    wants = [
-        walk.sweep_walk_global(tb, a[2], a[3]) if fix is None else walk.sweep_walk_semiglobal(tb, fix, a[2], a[3])
-        for _, _, tb, fix, a in cases
-    ]
+    # K8 and K10: (tb, tbfix, lx, lx_n) in place of the fixed column
+    cclips = (chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_YCLIP, chip_smoke.CUSTOM_YCLIP)
+    for name, what, scan, a, gaps, clips in (
+        ("sweep_walk_local", "150 bp random", sw.scan_local(*dna, *pens), dna, pens[:2], (0, 0, 0, 0)),
+        ("sweep_walk_custom", "150 bp random", sw.scan_custom(*dna, *chip_smoke.CUSTOM_PENS, *cclips), dna,
+         chip_smoke.CUSTOM_PENS[:2], cclips),
+        ("sweep_walk_local", "homolog", sw.scan_local_lut(*hom, pgo, pge, lut), hom, (pgo, pge), (0, 0, 0, 0)),
+        ("sweep_walk_custom", "homolog", sw.scan_local_lut(*hom, pgo, pge, lut), hom, (pgo, pge), (0, 0, 0, 0)),
+    ):
+        tbfix, lx_n = chip_smoke.clip_walk_inputs(torch, scan, a[2], a[3], gaps, clips)
+        cases.append((name, what, scan[0], (tbfix, scan[1], lx_n), a))
+    wants = []
+    for name, _, tb, fix, a in cases:
+        extra = () if fix is None else (fix,) if name == "sweep_walk_semiglobal" else fix
+        wants.append(getattr(walk, name)(tb, *extra, a[2], a[3]))
     src = (_build.CSRC / "walk_sweep.cu").read_text()
     stream = torch.cuda.current_stream().cuda_stream
     variants = [
-        (int(w), int(st), int(r), int(wd))
+        (int(w), int(st), int(r), int(wd), int(kb))
         for w in args.warps.split(",") for st in args.stage.split(",") for r in args.tile.split(",")
-        for wd in args.width.split(",")
+        for wd in args.width.split(",") for kb in args.clip_stage_kb.split(",")
     ]
-    for warps, stage, rows, width in variants:
-        so = build(variant_source(src, warps, stage, rows, width), f"w{warps}_s{stage}_t{rows}_l{width}")
+    kernels = {k.symbol: k for k in (walk.SWEEP_WALK_GLOBAL, walk.SWEEP_WALK_SEMIGLOBAL, walk.SWEEP_WALK_LOCAL, walk.SWEEP_WALK_CUSTOM)}
+    for warps, stage, rows, width, clip_kb in variants:
+        so = build(variant_source(src, warps, stage, rows, width, clip_kb), f"w{warps}_s{stage}_t{rows}_l{width}_c{clip_kb}")
         lib = ctypes.CDLL(str(so))
-        regs = chip_smoke.kernel_registers(so, r"(sweep_walk_(?:semi)?global)_kernel")
+        regs = chip_smoke.kernel_registers(so, r"(sweep_walk_(?:semi)?global(?=_kernel)|sweep_walk_clip_kernelILb[01]E)")
         for (name, what, tb, fix, a), want in zip(cases, wants):
             N, X, Bq = tb.shape
-            shared = (warps * 32 * (rows + 8) * 2 if rows else 0) + (4 * warps * N if stage and 4 * warps * N <= 48 * 1024 else 0)
-            if shared > 48 * 1024:
-                print(json.dumps({"trial": "walk_sweep", "kernel": name, "input": what, "warps": warps, "stage": stage,
-                                  "tile_rows": rows, "width": width, "skipped": f"{shared} shared bytes a block"}), flush=True)
+            clip = name in ("sweep_walk_local", "sweep_walk_custom")
+            if clip:
+                stage_bytes = 2 * (5 if name == "sweep_walk_custom" else 2) * warps * N
+                stage_bytes = stage_bytes if stage and stage_bytes <= clip_kb * 1024 else 0
+            else:
+                stage_bytes = 4 * warps * N if stage and 4 * warps * N <= 48 * 1024 else 0
+            shared = (warps * 32 * (rows + 8) * 2 if rows and not clip else 0) + stage_bytes
+            fields = {"trial": "walk_sweep", "kernel": name, "input": what, "warps": warps, "stage": stage,
+                      "tile_rows": rows, "width": width, "clip_stage_kb": clip_kb, "shared_bytes": shared}
+            if shared > (227 if clip else 48) * 1024:
+                print(json.dumps({**fields, "skipped": f"{shared} shared bytes a block"}), flush=True)
                 continue
-            kernel = walk.SWEEP_WALK_GLOBAL if fix is None else walk.SWEEP_WALK_SEMIGLOBAL
             fn = getattr(lib, name)
-            fn.argtypes = kernel.argtypes + [_build.PTR]
+            fn.argtypes = kernels[name].argtypes + [_build.PTR]
             fn.restype = _build.INT
-            outs = [torch.empty_like(w) for w in want]
-            head = [tb.data_ptr()] + ([] if fix is None else [fix.data_ptr()])
+            if clip:
+                flat = torch.empty((len(want) - 6, N, Bq), dtype=torch.uint16, device=dev)
+                small = [torch.empty((2, Bq, 4), dtype=torch.int32, device=dev), torch.empty((4, Bq), dtype=torch.int32, device=dev)]
+                outs = [*flat.unbind(0), *small[0].unbind(0), *small[1].unbind(0)]
+                head = [tb.data_ptr(), fix[0].data_ptr(), fix[1].data_ptr(), fix[2].data_ptr()]
+                tail = [flat.data_ptr(), small[0][0].data_ptr(), small[0][1].data_ptr(), small[1].data_ptr()]
+                dims = (Bq, X, N - 1)
+            else:
+                outs = [torch.empty_like(w) for w in want]
+                head = [tb.data_ptr()] + ([] if fix is None else [fix.data_ptr()])
+                tail = [o.data_ptr() for o in outs]
+                dims = (Bq, X, N)
 
             def run():
-                rc = fn(*head, a[2].data_ptr(), a[3].data_ptr(), Bq, X, N, *walk._walk_strides(tb),
-                        *(o.data_ptr() for o in outs), stream)
+                rc = fn(*head, a[2].data_ptr(), a[3].data_ptr(), *dims, *walk._walk_strides(tb), *tail, stream)
                 if rc:
                     raise RuntimeError(f"sweep_trial: {name} CUDA error {rc}")
 
@@ -214,9 +252,7 @@ def main() -> int:
             torch.cuda.synchronize()
             same = all(torch.equal(o, w) for o, w in zip(outs, want))
             print(json.dumps({
-                "trial": "walk_sweep", "kernel": name, "input": what, "warps": warps, "stage": stage, "tile_rows": rows,
-                "width": width,
-                "pairs": int(Bq), "M": int(X) - 1, "N": int(N), "reps": args.reps,
+                **fields, "pairs": int(Bq), "M": int(X) - 1, "N": int(N), "reps": args.reps,
                 "ms": chip_smoke.cuda_ms(torch, run, args.reps), "equal": same, "registers": regs, "card": card,
             }), flush=True)
             if not same:

@@ -31,17 +31,23 @@ reads K12's, on K5's tb of the same pairs (a pair-major view where the
 tree's K5 runs in ``sw_warp``, else contiguous), and K3
 (``sw.scores_global``) on those pairs, as chip_smoke.py phase 2 times it
 (10 x ``--reps`` launches, a checksum of their outputs; K2 and K6 through
-their wrappers, K6's with its fixed-column prolog, K8 its launch alone, and
-K2's launch alone too, ``launch_ms``);
+their wrappers, K6's with its fixed-column prolog, and K2's launch alone
+too, ``launch_ms``), and K8 and K10 on K7's and K9's tb of those pairs
+(chip_smoke.py's custom-mode penalties and clips for K9), through their
+wrappers and as the tree's own launch (``launch_ms``: where the tree's
+``*_launch`` takes the wrapper's inputs, the one launch with the prolog
+it folds in; where it takes the prolog's entry state, the launch alone,
+the torch prolog run once before);
 then K1, K5
 (y-clips 0), K7 and K9 (chip_smoke.py's custom-mode penalties and clips) on
 the same pairs, with checksums as the protein scans', K7 and K9, and K5
 where the tree's wrapper takes ``traceback=False``, also without traceback
 (``scores_only_ms``), with the source each is built from and the rows a
 lane of those that run in ``sw_warp``. ``--dna``: the
-150 bp DNA rows only. ``--walks``: the walks only, K2, K8 and K6 on the
-DNA pairs, then K2 on K11's tb of the homolog corpus and K6 on K12's tb of
-the domain corpus (through their wrappers, 10 x ``--reps`` launches, a
+150 bp DNA rows only. ``--walks``: the walks only, K2, K8, K10 and K6 on
+the DNA pairs, then K2 on K11's tb of the homolog corpus, K8 and K10 on
+K7-LUT's and K6 on K12's tb of the domain corpus (through their wrappers,
+K8 and K10 also as the tree's launch; 10 x ``--reps`` launches, a
 checksum of their outputs). Exits non-zero without a CUDA device.
 """
 
@@ -170,10 +176,47 @@ def walk_sums(torch, out) -> list:
     return total
 
 
+def clip_launch(walk, name, tb, tbfix, lx, lx_n, ml, nl):
+    """K8's (``name`` "sweep_walk_local") or K10's launch as the timed tree
+    has it: one launch with the wrapper's inputs, holding its prolog, or,
+    where ``*_launch`` takes the prolog's entry state, the launch alone
+    after that torch prolog, run here once."""
+    launch = getattr(walk, f"{name}_launch")
+    if len(inspect.signature(launch).parameters) == 6:
+        return lambda: launch(tb, tbfix, lx, lx_n, ml, nl)
+    if name == "sweep_walk_local":
+        entry = walk.local_entry(tb, lx, tbfix, lx_n, ml, nl)[2:9]
+        return lambda: launch(tb, *entry)
+    entry = walk.resolve_fixed_column_custom(tbfix, lx_n, ml, nl)[2:7]
+    return lambda: launch(tb, lx, *entry)
+
+
+def time_clip_walks(torch, chip_smoke, walk, scans, card: str, reps: int, **fields) -> None:
+    """Time K8 and K10 through their wrappers and as the tree's launch
+    (``clip_launch``) on each of ``scans``: (walk name, input label, a K7 /
+    K9 / K7-LUT scan's outputs, mlens, nlens, gap costs, clips); one JSON
+    line each, with a checksum of the wrapper's outputs."""
+    for name, what, scan, ml, nl, pens, clips in scans:
+        tbfix, lx_n = chip_smoke.clip_walk_inputs(torch, scan, ml, nl, pens, clips)
+        args = (scan[0], tbfix, scan[1], lx_n, ml, nl)
+        wrapper = getattr(walk, name)
+        out = wrapper(*args)
+        torch.cuda.synchronize()
+        t = scan[0]
+        print(json.dumps({
+            "kernel": name, **fields, "input": what, "pairs": int(t.shape[2]), "M": int(t.shape[1]) - 1,
+            "N": int(t.shape[0]) - 1, "tb_strides": list(t.stride()), "reps": reps,
+            "ms": chip_smoke.cuda_ms(torch, lambda: wrapper(*args), reps),
+            "launch_ms": chip_smoke.cuda_ms(torch, clip_launch(walk, name, *args), reps),
+            "checksum": walk_sums(torch, out), "card": card,
+        }), flush=True)
+
+
 def time_protein_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fields) -> None:
-    """Time K2 on K11's tb of the homolog corpus and K6 (with its prolog) on
-    K12's tb of the domain corpus, through their wrappers; one JSON line
-    each, with a checksum of the outputs."""
+    """Time K2 on K11's tb of the homolog corpus, K8 and K10 on K7-LUT's
+    (``time_clip_walks``) and K6 (with its prolog) on K12's tb of the domain
+    corpus, through their wrappers; one JSON line each, with a checksum of
+    the outputs."""
     from rust_bio_tpu_torch.alignment.pairwise import BatchAligner, Scoring
     from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix
@@ -202,14 +245,20 @@ def time_protein_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, **fiel
             "ms": chip_smoke.cuda_ms(torch, fn, reps), "launch_ms": launch, "checksum": walk_sums(torch, out),
             "card": card,
         }), flush=True)
+    del tb, semi
+    local = sw.scan_local_lut(*hom, go, ge, lut)
+    time_clip_walks(torch, chip_smoke, walk, [
+        (name, "homolog", local, hom[2], hom[3], (go, ge), (0, 0, 0, 0)) for name in ("sweep_walk_local", "sweep_walk_custom")
+    ], card, reps, **fields)
 
 
 def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, scans: bool = True, **fields) -> None:
-    """Time K2 and K6 (through their wrappers) and the launch of K8, which
-    read a pair-major tb through its strides, on the tbs of K1, K7 and K5
-    over chip_smoke.py's 8192 random 150 bp DNA pairs under (-5, -1, 2, -2)
-    (K5 with y-clips 0), and K3 on those pairs; with ``scans``, then the
-    scans; one JSON line each, with a checksum of the outputs."""
+    """Time K2 and K6 (through their wrappers), which read a pair-major tb
+    through its strides, on the tbs of K1 and K5 over chip_smoke.py's 8192
+    random 150 bp DNA pairs under (-5, -1, 2, -2) (K5 with y-clips 0), and
+    K3 on those pairs, then K8 and K10 on K7's and K9's tb of those pairs
+    (``time_clip_walks``); with ``scans``, then the scans; one JSON line
+    each, with a checksum of the outputs."""
     from rust_bio_tpu_torch.alignment.pairwise.batched import _fixed_column
 
     dev = torch.device("cuda")
@@ -224,21 +273,15 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, scans: boo
     card = chip_smoke.nvidia_smi_line()
     tb = sw.scan_global(*a, *pens)[1]
     k2 = lambda: walk.sweep_walk_global(tb, a[2], a[3])  # noqa: E731
-    scan = sw.scan_local(*a, *pens)
-    tbfix, lx_n = chip_smoke.clip_walk_inputs(torch, scan, a[2], a[3], pens, (0, 0, 0, 0))
-    entry = walk.local_entry(scan[0], scan[1], tbfix, lx_n, a[2], a[3])[2:9]
-    k8 = lambda: walk.sweep_walk_local_launch(scan[0], *entry)  # noqa: E731
     semi = sw.scan_semiglobal(*a, *pens, 0, 0)
     _, tbfix5 = _fixed_column(*semi[1:], a[2], chip_smoke.GO, chip_smoke.GE)
     k6 = lambda: walk.sweep_walk_semiglobal(semi[0], tbfix5, a[2], a[3])  # noqa: E731
     k3 = lambda: (sw.scores_global(*a, *pens),)  # noqa: E731
-    for name, fn in (
-        ("sweep_walk_global", k2), ("sweep_walk_local", k8), ("sweep_walk_semiglobal", k6), ("sw_scores_global", k3),
-    ):
+    for name, fn in (("sweep_walk_global", k2), ("sweep_walk_semiglobal", k6), ("sw_scores_global", k3)):
         out = fn()
         torch.cuda.synchronize()
         total = walk_sums(torch, out)
-        tb_of = {k2: tb, k8: scan[0], k6: semi[0]}.get(fn)
+        tb_of = {k2: tb, k6: semi[0]}.get(fn)
         layout = "" if tb_of is None else (", contiguous tb" if tb_of.is_contiguous() else ", pair-major view")
         launch = chip_smoke.k2_launch_ms(torch, walk, tb, a[2], a[3], reps) if fn is k2 else None
         print(json.dumps({
@@ -246,11 +289,15 @@ def time_dna_walks(torch, chip_smoke, sw, walk, seed: int, reps: int, scans: boo
             "reps": reps,
             "ms": chip_smoke.cuda_ms(torch, fn, reps), "launch_ms": launch, "checksum": total, "card": card,
         }), flush=True)
-    if not scans:
-        return
     cpens = chip_smoke.CUSTOM_PENS
     cclips = (chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_XCLIP, chip_smoke.CUSTOM_YCLIP, chip_smoke.CUSTOM_YCLIP)
-    del scan, semi, tb
+    del semi, tb
+    time_clip_walks(torch, chip_smoke, walk, [
+        ("sweep_walk_local", "150 bp DNA", sw.scan_local(*a, *pens), a[2], a[3], pens[:2], (0, 0, 0, 0)),
+        ("sweep_walk_custom", "150 bp DNA", sw.scan_custom(*a, *cpens, *cclips), a[2], a[3], cpens[:2], cclips),
+    ], card, reps, **fields)
+    if not scans:
+        return
     kernels = {k.symbol: k for k in vars(sw).values() if isinstance(k, type(sw.SCAN_GLOBAL))}
     n = max(1, reps // 10)
     for name, fn, first_col in (

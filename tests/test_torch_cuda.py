@@ -1114,6 +1114,114 @@ def _sweep_inputs(rng, N, X, B, device):
     return [t.to(device) for t in (tb, tbfix, torch.from_numpy(mlens), torch.from_numpy(nlens))]
 
 
+def _clip_cells(rng, Nc, X, B, mlens):
+    """Synthetic K8 / K10 traceback cells, numpy (Nc, X, B) uint16 (column 0
+    at index 0), by lane kind (b % 5): long Match/Subst diagonals across
+    32-column edges; Ins runs of 15 to 150 rows down a column, past 32
+    rows and the nibble's cap, exiting through any layer; Del rows across
+    32-column edges; clips (Xclip-suffix s-bits at row mlens, Xclip-prefix
+    and Yclip-prefix exits, row 0's s-bits a Del, Yclip-prefix or Start
+    post); every code 0..15 alike. Bits 12-15: the capped run of Ins
+    i-bits ending at each row, as the scans write it."""
+    cells = np.zeros((Nc, X, B), np.int64)
+    other = [0, 1, 2, 3, 4, 5, 6, 7, 8, 9]
+    for b in range(B):
+        kind = b % 5
+        shape = (Nc, X)
+        if kind == 4:
+            i_bits, d_bits, s_bits = (rng.integers(0, 16, size=shape) for _ in range(3))
+        else:
+            favour = [[3, 4], [1, 3, 4], [2], [5, 6, 7, 0, 3, 4, 1]][kind]
+            p = [0.97, 0.5, 0.45, 0.6][kind]
+            s_bits = np.where(rng.random(shape) < p, rng.choice(favour, size=shape), rng.choice(other, size=shape))
+            exits = [5, 7, 3, 4, 2, 0, 5] if kind == 1 else other  # an Ins run's exit: Xclip-prefix often
+            i_bits = np.where(rng.random(shape) < (0.985 if kind == 1 else 0.3), 1, rng.choice(exits, size=shape))
+            if kind == 1:
+                for j in range(Nc):
+                    lo = int(rng.integers(0, X))
+                    i_bits[j, lo : lo + int(rng.integers(15, 151))] = 1
+            d_bits = np.where(rng.random(shape) < (0.985 if kind == 2 else 0.3), 2, rng.choice(other, size=shape))
+        if kind == 3:
+            s_bits[rng.random(Nc) < 0.7, mlens[b]] = 6
+        if kind != 4:  # row 0's s-bits: an Xclip-prefix's post, Del, Yclip-prefix and Start by turns
+            s_bits[:, 0] = np.array([2, 7, 0])[(np.arange(Nc) + b) % 3]
+        cells[:, :, b] = i_bits | d_bits << 4 | s_bits << 8
+    run = np.zeros((Nc, B), np.int64)
+    for r in range(X):
+        run = np.where((cells[:, r] & 0xF) == 1, run + 1, 0)
+        cells[:, r] |= np.minimum(run, 15) << 12
+    return cells.astype(np.uint16)
+
+
+def _clip_fixed_cells(rng, X, B, mlens, nlens, lx_n):
+    """Synthetic K8 / K10 fixed columns, numpy (B, X) int32: 12-bit cells
+    with Ly << 12 (Ly in 0..nlens + 2: a y-suffix clip length, never
+    negative in a scan), the cell at row mlens by lane kind (b // 5 % 8, so
+    that each kind meets each of ``_clip_cells``' lane kinds): an Ins run
+    up to row 1, up to row 0 (the prolog's 2^20 sentinel run), a
+    Yclip-prefix exit, a Yclip-suffix exit, an Ins run of 20-60 rows exiting
+    Match, Subst, Del or Xclip-prefix, an Xclip-suffix jump of ``lx_n`` rows
+    (to a negative row where lx_n > mlens) onto an Ins run with an
+    Xclip-prefix exit, then row 0 an Xclip-suffix again (more than four
+    emits), an Xclip-prefix exit with row 0's post, or mostly a Match,
+    Subst or Del exit into the sweep."""
+    cells = rng.integers(0, 1 << 12, size=(B, X))
+    ly = rng.integers(0, int(max(nlens.max(), 0)) + 3, size=(B, X))
+
+    def put(b, row, s=None, i=None):
+        row %= X
+        if s is not None:
+            cells[b, row] = (cells[b, row] & ~0xF00) | s << 8
+        if i is not None:
+            cells[b, row] = (cells[b, row] & ~0xF) | i
+
+    for b in range(B):
+        m, kind = int(mlens[b]), b // 5 % 8
+        if kind in (0, 1, 4):
+            lo = {0: 1, 1: 0, 4: max(m - int(rng.integers(20, 61)), 0)}[kind]
+            cells[b, lo : m + 1] = (cells[b, lo : m + 1] & ~0xF) | 1
+            if lo:
+                put(b, lo - 1, i=int(rng.choice([2, 3, 4, 5])))
+            if kind == 0:  # a Del exit at row 0 carries row -1's d-bits: row X - 1's, as JAX wraps it
+                put(b, 0, i=2)
+                cells[b, 0] = (cells[b, 0] & ~0xF0) | 2 << 4
+                cells[b, X - 1] = (cells[b, X - 1] & ~0xF0) | int(rng.choice([3, 4])) << 4
+            put(b, m, s=1)
+        elif kind in (2, 3):
+            put(b, m, s=7 if kind == 2 else 8)
+        elif kind == 5:
+            put(b, m, s=6)
+            top = m - int(lx_n[b])
+            put(b, top, s=1, i=1)
+            put(b, top - 1, i=1)
+            put(b, top - 2, i=5)
+            put(b, 0, s=6)
+        elif kind == 6:
+            put(b, m, s=5)
+            put(b, 0, s=int(rng.choice([2, 7, 0, 6, 3])))
+        elif rng.random() < 0.9:
+            put(b, m, s=int(rng.choice([2, 3, 4])))
+    return (cells | ly << 12).astype(np.int32)
+
+
+def _clip_inputs(rng, N, X, B, device):
+    """(tb (N+1, X, B), tbfix, lx, lx_n, mlens, nlens) on ``device`` for K8
+    and K10: ``_clip_cells``, ``_clip_fixed_cells``; lx mostly within the
+    rows above mlens, else up to X + 2 (a jump to a negative row); mlens
+    on rows 0, X - 1 and at random, nlens 0, N and at random."""
+    mlens = rng.integers(0, X, size=B).astype(np.int32)
+    nlens = rng.integers(0, N + 1, size=B).astype(np.int32)
+    mlens[:4], nlens[:4] = [X - 1, 0, X - 1, 0], [N, N, 0, 0]
+    mlens[4 : B // 2], nlens[4 : B // 2] = X - 1, N
+    near = rng.random(size=(N + 1, B)) < 0.85
+    lx = np.where(near, rng.integers(0, mlens + 1, size=(N + 1, B)), rng.integers(0, X + 3, size=(N + 1, B)))
+    lx_n = np.where(rng.random(B) < 0.8, rng.integers(0, mlens + 1), rng.integers(0, X + 3, size=B)).astype(np.int32)
+    tb = torch.from_numpy(_clip_cells(rng, N + 1, X, B, mlens).astype(np.int32)).to(torch.uint16)
+    tbfix = torch.from_numpy(_clip_fixed_cells(rng, X, B, mlens, nlens, lx_n))
+    arrays = (tbfix, lx.astype(np.int32), lx_n, mlens, nlens)
+    return [tb.to(device)] + [torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in arrays]
+
+
 @pytest.mark.parametrize("N,X,B", [(70, 203, 29), (150, 151, 300), (33, 97, 5), (24, 4095, 12), (1, 1, 5), (800, 40, 21)])
 def test_sweep_walks_on_synthetic_cells_match_plain(cuda_device, N, X, B):
     """K2 and K6 (with its fused prolog) against their plain versions bit
@@ -1193,6 +1301,107 @@ def test_sweep_walks_on_protein_views_match_plain(cuda_device):
     got = sw.scan_semiglobal_lut(*dom, -11, -1, lut, 0, 0)
     _, tbfix = _fixed_column(*got[1:], dom[2], -11, -1)
     _walks_on_both_layouts(got[0], [(walk.sweep_walk_semiglobal, walk.sweep_walk_semiglobal_plain, (tbfix, dom[2], dom[3]))])
+
+
+CLIP_WALKS = [
+    (walk.sweep_walk_custom, walk.sweep_walk_custom_plain, walk.SWEEP_WALK_CUSTOM),
+    (walk.sweep_walk_local, walk.sweep_walk_local_plain, walk.SWEEP_WALK_LOCAL),
+]
+
+
+@pytest.mark.parametrize(
+    "N,X,B", [(70, 203, 80), (150, 151, 300), (33, 97, 5), (24, 4095, 12), (1, 1, 5), (0, 9, 8), (800, 40, 40), (1600, 9, 20)]
+)
+def test_clip_walks_on_synthetic_cells_match_plain(cuda_device, N, X, B):
+    """K10 and K8, each one launch with its prolog (and K10's coordinate
+    epilog), against their plain versions bit for bit on ``_clip_inputs``:
+    every layer code, Xclip-suffix jumps (to negative rows too),
+    Xclip-prefix exits and their posts, Yclip-prefix exits, Ins runs past
+    32 rows and the nibble's cap, diagonals and Del rows past 32 columns,
+    the fixed column's edge cases, X not a multiple of 8, B not a multiple
+    of the warps a block, X = 4,095, N = 800 (K8's stage past 48 KB, opted
+    in; K10's past the limit: direct stores) and N = 1,600 (K8's direct
+    stores); on a contiguous tb and on a pair-major view with poisoned
+    padding rows."""
+    inputs = _clip_inputs(np.random.default_rng(N + X + B), N, X, B, cuda_device)
+    for t in (inputs[0], _poisoned_view(inputs[0])):
+        for fn, plain, kernel in CLIP_WALKS:
+            got = fn(t, *inputs[1:])
+            torch.cuda.synchronize()
+            want = plain(t, *inputs[1:])
+            assert len(got) == len(want)
+            for k, (g, w) in enumerate(zip(got, want)):
+                assert g.dtype == w.dtype and torch.equal(g, w), (fn.__name__, k)
+    for custom in (False, True):
+        assert walk.clip_walk_geometry(B, N, custom)["staged"] == (N < (800 if custom else 1600))
+
+
+def test_clip_walks_fold_their_torch_prolog_and_epilog(cuda_device, monkeypatch):
+    """On the card K8 and K10 make one launch after their input checks: with
+    ``resolve_fixed_column_custom``, ``local_entry``, ``_sweep_clip_plain``
+    and ``_custom_coords`` patched to raise, each wrapper still runs, its
+    kernel's count goes up by one, and its outputs equal those of the plain
+    versions (run before the patch)."""
+    inputs = _clip_inputs(np.random.default_rng(5), 60, 130, 48, cuda_device)
+    wants = [plain(*inputs) for _, plain, _ in CLIP_WALKS]
+
+    def boom(*args, **kwargs):
+        raise AssertionError("a plain torch stage ran on the card path")
+
+    for name in ("resolve_fixed_column_custom", "local_entry", "_sweep_clip_plain", "_custom_coords"):
+        monkeypatch.setattr(walk, name, boom)
+    for (fn, _, kernel), want in zip(CLIP_WALKS, wants):
+        before = kernel.launches
+        got = fn(*inputs)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), fn.__name__
+
+
+def test_clip_fused_prolog_fields_match_plain_stages(cuda_device):
+    """The prologs and K10's epilog, resolved in the kernels, field by field
+    against their plain stages on ``_clip_inputs``: K10's fix_codes,
+    fix_lens and yend against ``resolve_fixed_column_custom``, its four
+    coordinates against ``_custom_coords`` of its own column outputs; K8's
+    fix_codes, fix_lens, xend and yend against ``local_entry``."""
+    rng = np.random.default_rng(33)
+    for N, X, B in ((40, 9, 48), (40, 203, 96), (12, 4095, 48)):
+        tb, tbfix, lx, lx_n, ml, nl = _clip_inputs(rng, N, X, B, cuda_device)
+        got = walk.sweep_walk_custom(tb, tbfix, lx, lx_n, ml, nl)
+        torch.cuda.synchronize()
+        fix_codes, fix_lens, *_, xstart0, ystart0, xend0, yend0 = walk.resolve_fixed_column_custom(tbfix, lx_n, ml, nl)
+        assert torch.equal(got[5], fix_codes) and torch.equal(got[6], fix_lens) and torch.equal(got[10], yend0)
+        coords = walk._custom_coords(got[:5], ml, xstart0, ystart0, xend0, yend0)
+        for k, want in enumerate(coords):
+            assert torch.equal(got[7 + k], want), k
+        got = walk.sweep_walk_local(tb, tbfix, lx, lx_n, ml, nl)
+        torch.cuda.synchronize()
+        entry = walk.local_entry(tb, lx, tbfix, lx_n, ml, nl)
+        for k, want in ((2, entry[0]), (3, entry[1]), (6, entry[9]), (7, entry[10])):
+            assert torch.equal(got[k], want), k
+        assert bool((fix_codes != 0).all(dim=1).any())  # a lane filling all four slots
+
+
+def test_clip_walks_on_protein_views_match_plain(cuda_device):
+    """K8 and K10 on K7-LUT's pair-major view of 450 x 457 homologs (N =
+    457: K10's stage opted in past 48 KB) and K10 on K9-LUT's view of 200 x
+    450 domain-shaped pairs under BLOSUM62 (-11, -1) with the domain
+    corpus's clips, on the views and on contiguous copies, against their
+    plain versions."""
+    rng = np.random.default_rng(34)
+    lut = _lut("blosum62", cuda_device)
+    hom = _homologs(rng, 64, 450, 457, cuda_device)
+    scan = sw.scan_local_lut(*hom, -11, -1, lut)
+    tbfix, lx, lx_n = _local_walk_inputs(scan, hom[2], hom[3], -11, -1)
+    inputs = (tbfix, lx, lx_n, hom[2], hom[3])
+    assert walk.clip_walk_geometry(64, 457, True)["opt_in"]
+    _walks_on_both_layouts(scan[0], [(fn, plain, inputs) for fn, plain, _ in CLIP_WALKS])
+    dom = _homologs(rng, 64, 200, 450, cuda_device)
+    clips = (-10, -10, -5, -5)
+    scan = sw.scan_custom_lut(*dom, -11, -1, lut, *clips)
+    inputs = _local_walk_inputs(scan, dom[2], dom[3], -11, -1, clips) + (dom[2], dom[3])
+    _walks_on_both_layouts(scan[0], [(walk.sweep_walk_custom, walk.sweep_walk_custom_plain, inputs)])
 
 
 def test_semiglobal_walk_on_k5_tb_matches_plain(cuda_device):
