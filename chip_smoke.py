@@ -13,7 +13,8 @@ NVIDIA GPU.
    on 8192 random 150 bp pairs and on 8192 pairs at 2% divergence, then a
    ``DeviceFMIndex`` built on the card from a random 4,641,652 bp DNA text
    (the length of E. coli K-12 MG1655, GenBank U00096.3) searched with
-   65,536 20-mers (half sampled from the text, half mutated) and located.
+   65,536 20-mers (half sampled from the text, half mutated) and located
+   (K4, K4-locate).
    Every alignment must re-score to its score and consume both sequences,
    agree with ``scores`` and, on a subset, with the plain PyTorch path on
    the CPU; every sampled query must be COMPLETE and locate to its start,
@@ -120,10 +121,11 @@ NVIDIA GPU.
    pair-major view and K8 on K7's, K2, K8 and K10 on
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's of the 1 kb reads and the STR
-   pairs; times K13-LUT on the
+   pairs; K4 with its geometry and registers, K4-locate on phase 2's rows
+   and on 8192 random rows (the mapper's batch); times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
    bp, 1 kb and 2 kb batches.
-5. Prints alignments/s, queries/s and mapped reads/s, device-only and
+5. Prints alignments/s, queries/s, located rows/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
    band build's seconds a batch and a cProfile of one batch of reads; the
@@ -192,6 +194,9 @@ K16_OPS_PER_CELL = 56
 # same operations, the LUT read in place of the match/mismatch select
 
 DEVICE = "cuda"
+# about 10 ms of the card's clock: longer than the host takes to enqueue
+# queued_ms's launches
+QUEUE_SLEEP_CYCLES = 20_000_000
 GO, GE, MA, MI = -5, -1, 2, -2
 B_ALN, LEN = 8192, 150
 TEXT_LEN = 4_641_652
@@ -278,6 +283,38 @@ K17_HOMOPOLY_OPS_PER_CELL = 343
 K17_EXACT_OPS_PER_CELL = 20
 
 
+def fm_corpus(rng):
+    """Phase 2's FM inputs from ``rng``: the text (TEXT_LEN random bases and
+    the sentinel, uint8) and B_FM 20-mers, the first B_FM // 2 sampled from
+    the text at ``starts``, the rest with one substitution each."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    text_arr = np.concatenate([acgt[rng.integers(0, 4, size=TEXT_LEN)], np.frombuffer(b"$", np.uint8)])
+    n_sampled = B_FM // 2
+    starts = rng.integers(0, TEXT_LEN - QLEN, size=B_FM)
+    pats_np = text_arr[starts[:, None] + np.arange(QLEN)[None, :]].copy()
+    mpos = rng.integers(0, QLEN, size=B_FM - n_sampled)
+    rows_m = np.arange(n_sampled, B_FM)
+    pats_np[rows_m, mpos] = acgt[(np.searchsorted(acgt, pats_np[rows_m, mpos]) + rng.integers(1, 4, size=rows_m.size)) % 4]
+    return text_arr, starts, pats_np
+
+
+def fm_inputs(seed: int):
+    """``fm_corpus`` as main() draws it for ``seed`` (after the 150 bp pairs;
+    main() checks that the two agree)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, 4, size=(B_ALN, LEN))
+    rng.integers(0, 4, size=(B_ALN, LEN))
+    mut = rng.random(size=(B_ALN, LEN)) < 0.02
+    rng.integers(0, 4, size=int(mut.sum()))
+    return fm_corpus(rng)
+
+
+def interval_rows(lower, upper):
+    """The suffix-array rows of intervals [lower, upper), concatenated."""
+    sizes = upper - lower
+    return (np.repeat(lower - np.cumsum(sizes) + sizes, sizes) + np.arange(int(sizes.sum()))).astype(np.int32)
+
+
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
@@ -334,6 +371,24 @@ def cuda_ms(torch, fn, reps: int, warm: bool = True) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def queued_ms(torch, fn, reps: int) -> float:
+    """Device milliseconds a call of ``fn()`` (a launch that needs no host
+    sync): the card sleeps while the host enqueues ``reps`` calls between two
+    events, so the events time the launches back to back, without the
+    host's enqueue gaps that ``cuda_ms`` counts for a short launch."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def timed_once(torch, fn):
@@ -949,6 +1004,7 @@ def main() -> int:
         "sw_scores_global": sw.SCORES_GLOBAL_WARP,
         "sw_scores_global_rows": sw.SCORES_GLOBAL_ROWS,
         "fm_backward_search": fm.FM_BACKWARD_SEARCH,
+        "fm_locate": fm.FM_LOCATE,
         "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
         "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
         "sw_scan_local": sw.SCAN_LOCAL,
@@ -986,14 +1042,11 @@ def main() -> int:
         "random": ([bytes(r) for r in xb], [bytes(r) for r in yb]),
         "diverged2pct": ([bytes(r) for r in xb], [bytes(r) for r in yb_hi]),
     }
-    text_arr = np.concatenate([acgt[rng.integers(0, 4, size=TEXT_LEN)], np.frombuffer(b"$", np.uint8)])
+    text_arr, starts, pats_np = fm_corpus(rng)
+    # scripts/time_fm.py and fm_trial.py time these inputs through fm_inputs
+    check(np.array_equal(fm_inputs(args.seed)[2], pats_np), "fm_inputs no longer draws main()'s FM corpus")
     text = text_arr.tobytes()
     n_sampled = B_FM // 2
-    starts = rng.integers(0, TEXT_LEN - QLEN, size=B_FM)
-    pats_np = text_arr[starts[:, None] + np.arange(QLEN)[None, :]].copy()
-    mpos = rng.integers(0, QLEN, size=B_FM - n_sampled)
-    rows_m = np.arange(n_sampled, B_FM)
-    pats_np[rows_m, mpos] = acgt[(np.searchsorted(acgt, pats_np[rows_m, mpos]) + rng.integers(1, 4, size=rows_m.size)) % 4]
     queries = [bytes(r) for r in pats_np]
     # mapper reads: four batches of 150 bp from the text (the genome), 1%
     # substitutions, every second one reverse-complemented; the first
@@ -1062,8 +1115,8 @@ def main() -> int:
     check(all(r.kind.value == "complete" for r in sampled), "a sampled query is not COMPLETE")
     lows = np.array([r.interval.lower for r in sampled])
     highs = np.array([r.interval.upper for r in sampled])
-    rows = np.concatenate([np.arange(lo, hi) for lo, hi in zip(lows, highs)])
-    pos = index.locate_batch(rows)
+    fm_rows = interval_rows(lows, highs)
+    pos = index.locate_batch(fm_rows)
     owner = np.repeat(np.arange(n_sampled), highs - lows)
     hit = np.zeros(n_sampled, bool)
     hit[owner[pos == starts[owner]]] = True
@@ -1071,7 +1124,7 @@ def main() -> int:
     for q in range(0, n_sampled, n_sampled // 64):
         check(starts[q] in index.locate_interval(sampled[q].interval), f"locate_interval: query {q}")
     launches = {name: k.launches for name, k in counters.items()}
-    path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search")
+    path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search", "fm_locate")
     check(all(launches[n] > 0 for n in path_kernels), f"a kernel of the global path did not launch: {launches}")
     print(json.dumps({"phase": "main_path", "launches": launches, "fm_index_build_s": build_s, "seconds": time.perf_counter() - t_phase}), flush=True)
 
@@ -1102,7 +1155,7 @@ def main() -> int:
     mapper_build_s = time.perf_counter() - t0
     mapped = mapper.map_batch(main_reads)
     mapper_launches = {name: k.launches for name, k in counters.items()}
-    path_kernels = ("fm_backward_search", "sw_scan_semiglobal", "sweep_walk_semiglobal")
+    path_kernels = ("fm_backward_search", "fm_locate", "sw_scan_semiglobal", "sweep_walk_semiglobal")
     check(all(mapper_launches[n] > 0 for n in path_kernels), f"a kernel of the mapper did not launch: {mapper_launches}")
     check(len(mapped) == len(main_reads), "mapper: result count")
     exempt = []  # reads whose seed also occurs elsewhere in the genome
@@ -1674,14 +1727,61 @@ def main() -> int:
     # rank reads this run needs: two per matched step, one for a failing step
     steps_ok = int(fgot[3].long().sum())
     steps_failed = int((fgot[3] < plens_d).long().sum())
+    fm_lib = _build.build(["fm_search"])["fm_search"]
+    fm_pattern = r"(fm_search_kernel|fm_locate_kernel)"
+    fm_usage = {
+        "registers": kernel_registers(fm_lib, fm_pattern),
+        "stack_bytes": kernel_registers(fm_lib, fm_pattern, "STACK"),
+    }
+    # K4's ms: the launch alone, into outputs made once; wrapper_ms adds the
+    # input checks (the plens check waits for the card) and the outputs
+    # (queued_ms: the launch's device time alone, without the host's gaps)
+    fouts = [torch.empty_like(t) for t in fgot]
+    k4_launch = lambda: fm.FM_BACKWARD_SEARCH.launch(  # noqa: E731
+        dev, index._fused.data_ptr(), index._less256.data_ptr(), index.sym_of.data_ptr(), pats_d.data_ptr(),
+        plens_d.data_ptr(), B_FM, QLEN, index._fused.shape[1], index.n, *(o.data_ptr() for o in fouts),
+    )
     report(
         "fm_backward_search", "rust_bio_tpu_torch/ops/csrc/fm_search.cu", "rust_bio_tpu/ops/fm_pallas.py:123",
         fgot, fwant,
-        cuda_ms(torch, lambda: index.search_arrays(pats_d, plens_d), 20),
+        cuda_ms(torch, k4_launch, 20),
         cuda_ms(torch, lambda: fm.backward_search_plain(index._fused, index._less256, index.sym_of, pats_d, plens_d, index.n), 2),
         B_FM * QLEN + 4 * B_FM + 16 * B_FM + 8 * (2 * steps_ok + steps_failed) + 2 * 256 * 4,
         12 * (steps_ok + steps_failed),
+        wrapper_ms=cuda_ms(torch, lambda: index.search_arrays(pats_d, plens_d), 20),
+        queued_ms=queued_ms(torch, k4_launch, 50),
+        launch_equal=all(torch.equal(o, g) for o, g in zip(fouts, fgot)),
+        geometry={"threads": fm.FM_THREADS, "blocks": -(-B_FM // fm.FM_THREADS)}, **fm_usage,
     )
+    check(all(torch.equal(o, g) for o, g in zip(fouts, fgot)), "fm_backward_search: the timed launches' outputs differ")
+    del fouts
+    # K4-locate on phase 2's rows (the sampled queries' intervals) through
+    # its wrapper, and on 8192 random rows (one a read: the mapper's batch)
+    loc_tables = (index._fused, index.bwt_sym, index.less_sym, index.sa_sample, index.sent_rows, index.sent_vals)
+    loc_rows = torch.from_numpy(fm_rows).to(dev)
+    lgot = fm.locate(*loc_tables, loc_rows, index.s)
+    torch.cuda.synchronize()
+    lwant = fm.locate_plain(*loc_tables, loc_rows, index.s)
+    loc_plain_ms = cuda_ms(torch, lambda: fm.locate_plain(*loc_tables, loc_rows, index.s), 2)
+    # reads this run needs: the row and its result, a symbol byte and a
+    # rank entry a step, the stop's sample (or a sentinel row's search)
+    _, loc_steps = fm.locate_walk_plain(index._fused, index.bwt_sym, index.less_sym, loc_rows, index.s)
+    loc_steps = loc_steps.cpu().numpy()
+    rand_rows = torch.from_numpy(np.random.default_rng((args.seed, 6)).integers(0, index.n, size=B_READS).astype(np.int32)).to(dev)
+    report(
+        "fm_locate", "rust_bio_tpu_torch/ops/csrc/fm_search.cu",
+        "rust_bio_tpu/data_structures/fm_device.py:753",
+        [lgot], [lwant],
+        cuda_ms(torch, lambda: fm.locate(*loc_tables, loc_rows, index.s), 20),
+        loc_plain_ms,
+        12 * len(fm_rows) + 9 * int(loc_steps.sum()) + 4 * len(index.symbols),
+        12 * int(loc_steps.sum()),
+        rows=len(fm_rows), steps=int(loc_steps.sum()), longest_walk=int(loc_steps.max()),
+        queued_ms=queued_ms(torch, lambda: fm.locate(*loc_tables, loc_rows, index.s), 20),
+        random_rows=B_READS, random_rows_ms=cuda_ms(torch, lambda: fm.locate(*loc_tables, rand_rows, index.s), 20),
+        geometry={"threads": fm.FM_THREADS, "blocks": -(-len(fm_rows) // fm.FM_THREADS)},
+    )
+    del loc_rows, lgot, lwant, rand_rows
 
     ext = tens(xb_ext, yb_ext, ml_ext, nl_ext)
     sg = (GO, GE, MA, MI, 0, 0)
@@ -2371,6 +2471,8 @@ def main() -> int:
     rates["fm_queries_per_s_device"] = B_FM / host_s(torch, lambda: index.search_arrays(pats_d, plens_d), 10)
     rates["fm_queries_per_s_delivered"] = B_FM / host_s(torch, lambda: index.backward_search_batch(queries), 3)
     rates["fm_index_build_s"] = build_s
+    fm_rows_d = torch.from_numpy(fm_rows).to(dev)
+    rates["fm_locate_rows_per_s_device"] = len(fm_rows) / host_s(torch, lambda: index.locate_rows(fm_rows_d), 10)
     rates["mapper_reads_per_s"] = len(main_reads) / host_s(torch, lambda: mapper.map_batch(main_reads), 3)
     stream = [reads[o : o + B_READS] for o in range(0, n_reads, B_READS)]
     rates["mapper_stream_reads_per_s"] = n_reads / host_s(torch, lambda: [len(p) for p in mapper.map_stream(stream)], 2)

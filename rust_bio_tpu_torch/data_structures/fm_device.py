@@ -8,9 +8,9 @@ so that
     rank(r, a) = ckpt[a, r >> 5] + popcount(bits[a, r >> 5] & mask(r & 31))
 
 is one 8-byte gather. Backward search over a pattern batch is kernel K4
-(``ops.fm.backward_search``); locate is a batched LF-walk in plain torch on
-the device to the nearest sampled suffix-array row (or a sentinel row,
-whose value is stored exactly).
+(``ops.fm.backward_search``); locate is kernel K4-locate
+(``ops.fm.locate``), a batched LF-walk on the device to the nearest sampled
+suffix-array row (or a sentinel row, whose value is stored exactly).
 
 Positions are int32: texts of 2^31 symbols or more raise (the uint32
 kernels are ROADMAP Queue 1 item 2). Results are bit-identical to the JAX
@@ -40,7 +40,7 @@ from rust_bio_tpu_torch.ops.fm import (
     COMPLETE,
     PARTIAL,
     backward_search,
-    rank_plain,
+    locate,
 )
 from rust_bio_tpu_torch.utils.text import to_array
 
@@ -233,34 +233,43 @@ class DeviceFMIndex:
     # ------------------------------------------------------------------
     def locate_rows(self, rows: torch.Tensor) -> torch.Tensor:
         """Text positions (int32, on the device) of suffix-array rows
-        ``rows`` (int32 tensor on the device): an LF-walk of at most ``s``
-        steps per row to a sampled row or a sentinel row
-        (fm_device.py ``_locate_impl``, suffix_array.rs:157-184)."""
+        ``rows`` (a tensor): the LF-walk of each row to a sampled row or a
+        sentinel row (K4-locate; fm_device.py ``_locate_impl``,
+        suffix_array.rs:157-184). Rows outside [0, n) raise ``ValueError``
+        (one host sync)."""
+        rows = rows.to(self.device)
+        if rows.numel() and bool(((rows < 0) | (rows >= self.n)).any()):
+            raise ValueError(f"suffix-array rows must lie in [0, {self.n})")
+        return self._locate(rows.to(torch.int32).contiguous())
+
+    def _locate(self, rows: torch.Tensor) -> torch.Tensor:
         if self.sa_sample is None:
             raise ValueError("index built without suffix array")
-        pos = rows.to(self.device, torch.int32)
-        offset = torch.zeros_like(pos)
-        done = torch.zeros(pos.shape, dtype=torch.bool, device=self.device)
-        while not bool(done.all()):
-            sym = self.bwt_sym[pos.long()].to(torch.int32)
-            # the sentinel is the smallest symbol, index 0
-            done = done | (pos % self.s == 0) | (sym == 0)
-            nxt = self.less_sym[sym.long()] + rank_plain(self._fused, pos - 1, sym)
-            pos = torch.where(done, pos, nxt)
-            offset = torch.where(done, offset, offset + 1)
-        sampled = pos % self.s == 0
-        # non-sampled stops are sentinel rows: exact values from sent_vals
-        si = torch.searchsorted(self.sent_rows, pos).clamp(0, self.sent_rows.numel() - 1)
-        sent_base = torch.where(self.sent_rows[si] == pos, self.sent_vals[si], 0)
-        base = torch.where(sampled, self.sa_sample[(pos // self.s).long()], sent_base)
-        return base + offset
+        return locate(
+            self._fused, self.bwt_sym, self.less_sym, self.sa_sample,
+            self.sent_rows, self.sent_vals, rows.flatten(), self.s,
+        ).view(rows.shape)
 
     def locate_batch(self, rows) -> np.ndarray:
         """Text positions (int32) for a batch of suffix-array row indices."""
-        rows = np.asarray(rows, np.int32)
-        if rows.size == 0:
-            return rows
-        return self.locate_rows(torch.from_numpy(rows).to(self.device)).cpu().numpy()
+        handle, nb = self.locate_batch_async(rows)
+        if handle is None:
+            return np.asarray(rows, np.int32)
+        return handle.cpu().numpy()[:nb]
+
+    def locate_batch_async(self, rows):
+        """Start the locate of a batch of suffix-array rows without waiting
+        for it: returns (device tensor, row count), ``(None, 0)`` for an empty
+        batch; ``tensor.cpu().numpy()[:nb]`` collects. Rows outside [0, n)
+        raise ``ValueError`` (checked on the host, before the upload)."""
+        rows = np.asarray(rows)
+        nb = rows.shape[0]
+        if nb == 0:
+            return None, 0
+        if rows.min() < 0 or rows.max() >= self.n:
+            raise ValueError(f"suffix-array rows must lie in [0, {self.n})")
+        rows = torch.from_numpy(np.ascontiguousarray(rows, np.int32))
+        return self._locate(rows.to(self.device)), nb
 
     def locate_interval(self, interval: Interval) -> np.ndarray:
         return self.locate_batch(np.arange(interval.lower, interval.upper))

@@ -5,7 +5,8 @@ extension (port of ``rust_bio_tpu.pipelines.read_mapper.ReadMapper``).
    FM-index of ``genome + "$"``, all on the device (``DeviceFMIndex``).
 2. Per read batch: exact seed lookup on both strands (``seed_tries``
    windows of ``seed_len`` spread over each oriented read, backward search
-   on kernel K4), then the locate LF-walk of the first complete seed.
+   on kernel K4), then the locate LF-walk of the first complete seed
+   (kernel K4-locate).
 3. Extension: the oriented read against the reference window around its
    seed hit (``flank`` bases either side), through the packed semiglobal
    path (kernels K5 and K6), giving scores and reference-exact CIGARs; a

@@ -143,6 +143,133 @@ def test_fm_index_on_card_matches_cpu(cuda_device):
     np.testing.assert_array_equal(on_card.locate_batch(rows), on_cpu.locate_batch(rows))
 
 
+def _fm_text(rng, n, alphabet=b"ACGT"):
+    return rng.choice(list(alphabet), size=n).astype(np.uint8).tobytes() + b"$"
+
+
+def _k4_patterns(rng, text, L):
+    """(B, L) patterns and lengths that reach each branch of K4: every length
+    0..L, the sentinel, bytes of the alphabet absent from the text (N, a:
+    occ_r == 0 at the first step), bytes outside it (X, 0x80-0xFF), PARTIAL
+    at the last step, text substrings and random DNA."""
+    t = np.frombuffer(text, np.uint8)
+    n = len(text)
+    pats = [text[st : st + ln] for ln, st in zip(range(L + 1), rng.integers(0, n - L - 1, size=L + 1))]
+    pats += [b"$", text[-6:], text[-1:], b"N", b"ACGN", b"a", b"NACG", b"ACaG", b"X", bytes([0x80]), bytes([0xFF, 65]),
+             b"AC" + bytes([200]) + b"GT", bytes(range(0x80, 0x80 + L))]
+    partial = 0
+    for st in rng.integers(0, n - L - 1, size=400):
+        tail = text[st + 1 : st + L]
+        first = [c for c in b"ACGT" if bytes([c]) + tail not in text]
+        if first and b"$" not in tail:
+            pats.append(bytes([first[0]]) + tail)
+            partial += 1
+    assert partial >= 20
+    for st in rng.integers(0, n - L - 1, size=300):
+        pats.append(t[st : st + int(rng.integers(1, L + 1))].tobytes())
+    pats += [rng.choice(list(b"ACGT"), size=int(rng.integers(1, L + 1))).astype(np.uint8).tobytes() for _ in range(300)]
+    pb = np.zeros((len(pats), L), np.uint8)
+    plens = np.zeros(len(pats), np.int32)
+    for i, p in enumerate(pats):
+        pb[i, : len(p)] = np.frombuffer(p, np.uint8)
+        plens[i] = len(p)
+    return pb, plens
+
+
+@pytest.mark.parametrize("n,L", [(5000, 24), (5000, 80), (2**23 + 1000, 24)], ids=["5k", "5k-long", "above-2^23"])
+def test_k4_matches_plain_on_every_branch(cuda_device, n, L):
+    """K4 against its plain version on the card: n + 1 not a multiple of 32,
+    patterns of up to 80 bytes, and a text past the
+    TPU kernel's 2^23 limit."""
+    rng = np.random.default_rng(40 + L)
+    text = _fm_text(rng, n)
+    assert len(text) % 32 != 0
+    index = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=32, device=cuda_device)
+    pats, plens = _k4_patterns(rng, text, L)
+    pats_d, plens_d = torch.from_numpy(pats).to(cuda_device), torch.from_numpy(plens).to(cuda_device)
+    before = fm.FM_BACKWARD_SEARCH.launches
+    got = index.search_arrays(pats_d, plens_d)
+    torch.cuda.synchronize()
+    assert fm.FM_BACKWARD_SEARCH.launches == before + 1
+    want = fm.backward_search_plain(index._fused, index._less256, index.sym_of, pats_d, plens_d, index.n)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    status, _, _, mlen = (t.cpu().numpy() for t in got)
+    assert set(status.tolist()) == {fm.ABSENT, fm.PARTIAL, fm.COMPLETE}
+    assert ((status == fm.PARTIAL) & (mlen == plens - 1) & (plens == L)).sum() >= 20
+    last = pats[np.arange(len(plens)), np.maximum(plens - 1, 0)]
+    assert ((status == fm.ABSENT) & (plens > 0) & np.isin(last, list(b"Na"))).sum() >= 3
+    assert ((status == fm.COMPLETE) & (plens > 32)).any() == (L > 32)
+
+
+def _locate_check(index, rows):
+    """K4-locate on ``rows`` (a device tensor) against its plain version on
+    the card, through ``locate_rows``: one launch, no plain walk."""
+    tables = (index._fused, index.bwt_sym, index.less_sym, index.sa_sample, index.sent_rows, index.sent_vals)
+    before = fm.FM_LOCATE.launches
+    got = index.locate_rows(rows)
+    torch.cuda.synchronize()
+    assert fm.FM_LOCATE.launches == before + 1
+    want = fm.locate_plain(*tables, rows, index.s)
+    assert torch.equal(got, want)
+    return got.cpu().numpy()
+
+
+@pytest.mark.parametrize("s", [1, 5, 32, 64])
+def test_locate_matches_plain_on_every_row(cuda_device, monkeypatch, s):
+    rng = np.random.default_rng(50 + s)
+    text = _fm_text(rng, 5000, b"ACGTN")
+    index = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=s, device=cuda_device)
+    sa = index.to("cpu").locate_batch(np.arange(len(text)))
+    got = _locate_check(index, torch.arange(len(text), dtype=torch.int32, device=cuda_device))
+    np.testing.assert_array_equal(got, sa)
+    np.testing.assert_array_equal(np.sort(got), np.arange(len(text)))
+    # the card path runs the kernel alone
+    monkeypatch.setattr(fm, "locate_walk_plain", None)
+    np.testing.assert_array_equal(index.locate_batch(np.arange(len(text))[::-1]), sa[::-1])
+    handle, nb = index.locate_batch_async(np.arange(7, 400))
+    assert handle.device.type == "cuda" and nb == 393
+    np.testing.assert_array_equal(handle.cpu().numpy(), sa[7:400])
+
+
+@pytest.mark.parametrize("s", [5, 32])
+@pytest.mark.parametrize("kind", ["short", "random", "protein"])
+def test_locate_sentinels_and_wide_alphabets_match_plain(cuda_device, s, kind):
+    """Several sentinels (rows stopped by the binary search of sent_rows),
+    and a protein text (21 symbols)."""
+    from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array
+
+    rng = np.random.default_rng(60 + s)
+    alpha = dna.n_alphabet()
+    alpha.insert(ord("$"))
+    if kind == "short":
+        text = b"ATTCGGGG$CCCCGAAT$"
+    elif kind == "random":
+        text = b"$".join(_fm_text(rng, k)[:-1] for k in (900, 1, 570, 1200, 33)) + b"$"
+    else:
+        text, alpha = _fm_text(rng, 4000, b"ARNDCQEGHILKMFPSTWYV"), None
+    index = DeviceFMIndex.from_text(text, alpha, sampling_rate=s, device=cuda_device)
+    assert index.sent_rows.numel() == text.count(b"$")
+    got = _locate_check(index, torch.arange(len(text), dtype=torch.int32, device=cuda_device))
+    np.testing.assert_array_equal(got, suffix_array(text, device="cpu").numpy())
+
+
+def test_locate_rows_outside_the_text(cuda_device):
+    rng = np.random.default_rng(70)
+    text = _fm_text(rng, 777)
+    index = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=4, device=cuda_device)
+    tables = (index._fused, index.bwt_sym, index.less_sym, index.sa_sample, index.sent_rows, index.sent_vals)
+    rows = torch.tensor([-1, 0, len(text), 5, -2**31, 2**31 - 1], dtype=torch.int32, device=cuda_device)
+    got = fm.locate(*tables, rows, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got, fm.locate_plain(*tables, rows, 4))
+    assert got.cpu().tolist()[::2] == [-1, -1, -1]
+    with pytest.raises(ValueError, match="rows must lie"):
+        index.locate_rows(rows)
+    with pytest.raises(ValueError, match="rows must lie"):
+        index.locate_batch(rows.cpu().numpy())
+
+
 def _masked(t, mlens, nlens=None):
     """``t`` with the entries outside the defined region zeroed: rows above
     mlens[b] of (B, X) finals, or of (N, X, B) cells also columns past

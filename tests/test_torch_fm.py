@@ -4,6 +4,8 @@ locate walk) against the JAX package: its host ``FMIndex`` oracle, its
 CPU). Exact comparison (tolerance 0)."""
 
 import json
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +23,9 @@ from rust_bio_tpu_torch.alphabets import dna
 from rust_bio_tpu_torch.carry import fm_index_from_arrays, load_fm_index
 from rust_bio_tpu_torch.data_structures.bwt import bwt
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.data_structures.fmindex import Interval
 from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array
+from rust_bio_tpu_torch.ops import fm as fm_ops
 from rust_bio_tpu_torch.ops.fm import backward_search
 
 
@@ -192,3 +196,113 @@ def test_bad_inputs_raise():
         port.search_arrays(pats, torch.tensor([1, 4], dtype=torch.int32))
     with pytest.raises(TypeError):
         port.search_arrays(pats, torch.tensor([1, 2]))
+
+
+def _locate_tables(port):
+    return (port._fused, port.bwt_sym, port.less_sym, port.sa_sample, port.sent_rows, port.sent_vals)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("s", [1, 4, 5, 32, 64])
+def test_locate_plain_matches_jax_and_suffix_array(s, seed):
+    """K4-locate's plain version on every row against the JAX XLA walk
+    ``_locate_impl`` and the suffix array, at sampling rates that stop the
+    walk at once (1), below, at and above a word (32)."""
+    rng = np.random.default_rng(20 + seed)
+    text = _random_text(rng, 400 + 97 * seed, nl=seed == 1)
+    sa, b, _, jdev = _jax_index(text, sampling_rate=s)
+    port = DeviceFMIndex(b, dna.n_alphabet(), sa=sa, sampling_rate=s, device="cpu")
+    rows = np.arange(len(sa), dtype=np.int32)
+    got = fm_ops.locate_plain(*_locate_tables(port), torch.from_numpy(rows), s)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), sa)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jdev._locate_kernel(jnp.asarray(rows))))
+    np.testing.assert_array_equal(fm_ops.locate(*_locate_tables(port), torch.from_numpy(rows), s).numpy(), sa)
+
+
+def _multi_sentinel_text():
+    rng = np.random.default_rng(31)
+    parts = [rng.choice(list(b"ACGT"), size=k).astype("uint8").tobytes() for k in (90, 1, 57, 120)]
+    return b"$".join(parts) + b"$"
+
+
+@pytest.mark.parametrize("s", [5, 32])
+@pytest.mark.parametrize("text", [b"ATTCGGGG$CCCCGAAT$", _multi_sentinel_text()], ids=["short", "random"])
+def test_locate_plain_multi_sentinel_matches_jax(text, s):
+    """Sentinel rows stop the walk at their exact stored value (binary
+    search of sent_rows), as in the JAX walk."""
+    sa = jax_suffix_array(text)
+    b = jax_bwt(text, sa)
+    jalpha = jax_dna.n_alphabet()
+    jalpha.insert(ord("$"))
+    jdev = JaxDeviceFMIndex(b, jalpha, sa=sa, sampling_rate=s)
+    alpha = dna.n_alphabet()
+    alpha.insert(ord("$"))
+    port = DeviceFMIndex(b, alpha, sa=sa, sampling_rate=s, device="cpu")
+    assert port.sent_rows.numel() == text.count(b"$")
+    rows = np.arange(len(sa), dtype=np.int32)
+    got = fm_ops.locate_plain(*_locate_tables(port), torch.from_numpy(rows), s).numpy()
+    np.testing.assert_array_equal(got, sa)
+    np.testing.assert_array_equal(got, np.asarray(jdev._locate_kernel(jnp.asarray(rows))))
+
+
+def test_locate_batch_async_matches_locate_batch_and_jax():
+    rng = np.random.default_rng(33)
+    text = _random_text(rng, 600, nl=True)
+    sa, b, _, jdev = _jax_index(text, sampling_rate=8)
+    port = DeviceFMIndex(b, dna.n_alphabet(), sa=sa, sampling_rate=8, device="cpu")
+    rows = rng.integers(0, len(sa), size=37).astype(np.int32)
+    handle, nb = port.locate_batch_async(rows)
+    assert nb == 37 and isinstance(handle, torch.Tensor) and handle.dtype == torch.int32
+    got = handle.cpu().numpy()[:nb]
+    np.testing.assert_array_equal(got, port.locate_batch(rows))
+    jhandle, jnb = jdev.locate_batch_async(rows)
+    assert jnb == nb
+    np.testing.assert_array_equal(got, np.asarray(jhandle)[:jnb])
+    np.testing.assert_array_equal(got, sa[rows])
+    assert port.locate_batch_async(np.zeros(0, np.int32)) == (None, 0) == jdev.locate_batch_async(np.zeros(0, np.int32))
+    assert port.locate_batch([]).size == 0
+
+
+@pytest.mark.parametrize("bad", [[-1], [0, 3, 601], [5, 2**32 + 3]], ids=["negative", "n", "wraps"])
+def test_locate_rows_out_of_range_raise(bad):
+    rng = np.random.default_rng(34)
+    text = _random_text(rng, 600)
+    port = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=4, device="cpu")
+    assert port.n == 601
+    with pytest.raises(ValueError, match="rows must lie"):
+        port.locate_batch(bad)
+    with pytest.raises(ValueError, match="rows must lie"):
+        port.locate_batch_async(bad)
+    with pytest.raises(ValueError, match="rows must lie"):
+        port.locate_rows(torch.tensor(bad, dtype=torch.int64))
+    with pytest.raises(ValueError, match="rows must lie"):
+        port.locate_interval(Interval(598, 603))
+
+
+def test_locate_wrapper_contract():
+    """Rows outside [0, n) give -1 from the wrapper (the callers check them);
+    its input checks raise."""
+    rng = np.random.default_rng(35)
+    text = _random_text(rng, 300)
+    sa = jax_suffix_array(text)
+    port = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=4, device="cpu")
+    tables = _locate_tables(port)
+    rows = torch.tensor([-1, 0, port.n, 3, -7], dtype=torch.int32)
+    assert fm_ops.locate(*tables, rows, 4).tolist() == [-1, sa[0], -1, sa[3], -1]
+    assert fm_ops.locate(*tables, rows[:0], 4).shape == (0,)
+    with pytest.raises(TypeError):
+        fm_ops.locate(*tables, rows.long(), 4)
+    with pytest.raises(ValueError, match="sampling rate"):
+        fm_ops.locate(*tables, rows, 0)
+    with pytest.raises(ValueError, match="sa_sample"):
+        fm_ops.locate(*tables, rows, 8)
+    bare = DeviceFMIndex(port.bwt_bytes, dna.n_alphabet(), device="cpu")
+    with pytest.raises(ValueError, match="suffix array"):
+        bare.locate_batch([0])
+
+
+def test_fm_constants_mirror_the_source():
+    """``ops.fm.FM_THREADS`` is csrc/fm_search.cu's ``THREADS``."""
+    src = (Path(fm_ops.__file__).parent / "csrc" / "fm_search.cu").read_text()
+    assert int(re.search(r"constexpr int THREADS = (\d+);", src).group(1)) == fm_ops.FM_THREADS
