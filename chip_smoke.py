@@ -5,27 +5,38 @@ NVIDIA GPU.
     python3 chip_smoke.py [--seed S]
 
 1. Builds the CUDA kernels from ``rust_bio_tpu_torch/ops/csrc`` with nvcc
-   (``sm_90a``) and, beside them, the host band builder
-   (``rust_bio_tpu_torch/csrc/band_build.cpp``) with the host compiler, and
-   prints the card's name and power limit.
+   (``sm_90a``) and, beside them, the host library (the band builder, the
+   SA-IS and the CIGAR emitter, ``rust_bio_tpu_torch/csrc/``) with the host
+   compiler, and prints the card's name and power limit.
 2. Drives the global path through its entry points with every launch
    counter at 0: ``BatchAligner.global_`` and ``.scores(..., "global")``
    on 8192 random 150 bp pairs and on 8192 pairs at 2% divergence, then a
    ``DeviceFMIndex`` built on the card from a random 4,641,652 bp DNA text
    (the length of E. coli K-12 MG1655, GenBank U00096.3) searched with
    65,536 20-mers (half sampled from the text, half mutated) and located
-   (K4, K4-locate).
+   (K4, K4-locate); the 2%-divergence pairs also through the compact path
+   (``global_packed_compact_async_arrays``: K1, K2, K-merge), finished
+   alone and as 8 handles with one pull (``packed_compact_finish_many``).
    Every alignment must re-score to its score and consume both sequences,
    agree with ``scores`` and, on a subset, with the plain PyTorch path on
-   the CPU; every sampled query must be COMPLETE and locate to its start,
-   and a subset of interval sizes must equal a brute-force count.
+   the CPU; every compact CIGAR must equal ``global_packed(...).cigars()``
+   with no lane past R runs; every sampled query must be COMPLETE and
+   locate to its start, and a subset of interval sizes must equal a
+   brute-force count.
 3. Drives the read mapper with the counters at 0 again: a ``ReadMapper``
    built on the card over that text as genome maps 8192 150 bp reads (half
    reverse-complemented, 1% substitutions) plus 256 random reads. Every
    mapped read's CIGAR must re-score to its score against the genome and
    consume the read; every read with an error-free seed window on its
-   strand must map to its origin; the random reads must stay unmapped; on
-   64 reads the card must equal the port's CPU path.
+   strand must map to its origin, or else (an end substitution can make an
+   indel alignment score more; the count is printed) to what the port's CPU
+   path maps it to, position, score and CIGAR; the random reads must stay
+   unmapped; on 64 reads the card must equal the port's CPU path. The
+   mapper's 8192 extension pairs (the reads in their 166 bp windows) go,
+   with the counters at 0 once more, through
+   ``semiglobal_packed_compact_async_arrays`` (K5, K6, K-merge):
+   their CIGARs must equal the dense path's, which come from the native
+   emitter and must equal the numpy merge.
 3b. Drives local and custom alignment with the counters at 0 again:
    ``BatchAligner.local`` and ``.scores(..., "local")`` on both pair corpora
    of step 2, and ``BatchAligner.custom`` and ``.scores(..., "custom")``
@@ -107,6 +118,18 @@ NVIDIA GPU.
    with the host oracles (run in worker processes beside the card; the
    exact path within 1e-12 relative, the f32 classes within the JAX
    suites' rel 2e-3, abs 2e-3) and 64 with the CPU path.
+3h. Drives the FM index at genome scale with the counters at 0 again, in
+   the JAX bench's fm_large geometry (bench.py:792-868, :1640): a random
+   50,000,000 bp text and its sentinel, the suffix array by the native
+   SA-IS on the host (timed), the index and its q = 12 table built on the
+   card, 65,536 20-mers sampled from the text through ``search_batch_lut``
+   (K4-LUT) and K4, located (K4-locate); the same index with ``force_u32``
+   (the uint32 K4-LUT, K4 and K4-locate). Every query must be COMPLETE at
+   mlen 20 and locate to its start; both modes must agree. Then a random
+   2,200,000,001-byte ACGT array with one sentinel, made on the card and
+   taken as a BWT (no suffix array), indexed with its table: the uint32
+   K4 and K4-LUT on 65,536 random 20-mers must equal their plain versions
+   on the card, with intervals past 2^31 and word indices past 2^26.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
@@ -122,14 +145,18 @@ NVIDIA GPU.
    K11's and K7-LUT's pair-major views of the homolog corpus, K6 on K12's of
    the domain corpus and K16-walk on K16's of the 1 kb reads and the STR
    pairs; K4 with its geometry and registers, K4-locate on phase 2's rows
-   and on 8192 random rows (the mapper's batch); times K13-LUT on the
+   and on 8192 random rows (the mapper's batch); K-merge on phase 2's
+   and the mapper's walk streams; K4-LUT and the uint32 K4, K4-LUT and
+   K4-locate on phase 3h's indexes; times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
    bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s, located rows/s and mapped reads/s, device-only and
    delivered, for DNA and for protein, short and long; the banded
    aligner's reads/s (pipelined and synchronous) and pairs/s, with the host
    band build's seconds a batch and a cProfile of one batch of reads; the
-   PairHMM pairs/s of each 3g corpus.
+   PairHMM pairs/s of each 3g corpus; the compact path's delivered pairs/s
+   (8 handles, one pull), the 50 Mbp index's queries/s through K4-LUT and
+   K4, and the host SA-IS seconds.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -244,6 +271,20 @@ B_HMM, HMM_HAP, HMM_READ, HMM_ERRORS, B_HMM_GLOBAL = 4096, 207, 54, 2, 256
 B_GATK, GATK_READ, GATK_REGION, GATK_PAD, GATK_SUB = 8192, 150, 300, 100, 0.01
 GATK_GAP_OPEN, GATK_GAP_CONT, GATK_Q, GATK_Q_RANGE, B_GATK_SWAP = 10**-4.5, 0.1, 30.0, (20.0, 40.0), 64
 B_HMM_EXACT, HMM_MED, B_HOMOPOLY, HOP, HOP_EXTEND = 1024, 4, 2048, 1e-4, 0.5
+# the compact path (phase 2): K handles of the 2%-divergence pairs finished
+# with one pull, as bench.py:1350-1360 chains them
+COMPACT_HANDLES = 8
+# the FM index at genome scale (3h): the JAX bench's fm_large row
+# (bench.py:792-868, :1640): a random 50 Mbp text, 65,536 20-mers sampled
+# from it, the q = 12 table; and a random 2,200,000,001-symbol array with
+# one sentinel taken as a BWT, past 2^31 (a SA-IS of a real text of that
+# length takes far longer than this run)
+FM_LARGE_LEN, FM_LUT_Q, FM_BIG_LEN = 50_000_000, 12, 2_200_000_001
+# operations the run merge needs per stream entry, whatever kernel does it:
+# the keep test, the compare with the previous kept run's kind, the add to
+# its length and the add to the run count (the warp's ballots, shuffles and
+# scan are the design's, not the function's, and are not counted)
+MERGE_OPS_PER_ENTRY = 4
 # pairs held to the host oracle (16 a corpus, 4 homopoly: the Python
 # oracles take 0.1-7 s a pair; they run in worker processes beside the card)
 # and to the port's CPU path
@@ -307,6 +348,30 @@ def fm_inputs(seed: int):
     mut = rng.random(size=(B_ALN, LEN)) < 0.02
     rng.integers(0, 4, size=int(mut.sum()))
     return fm_corpus(rng)
+
+
+def fm_large_corpus(rng):
+    """Phase 3h's text (FM_LARGE_LEN random bases and the sentinel, uint8)
+    and B_FM 20-mers sampled from it with their starts."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    text = np.concatenate([acgt[rng.integers(0, 4, size=FM_LARGE_LEN)], np.frombuffer(b"$", np.uint8)])
+    starts = rng.integers(0, FM_LARGE_LEN - QLEN, size=B_FM)
+    return text, starts, text[starts[:, None] + np.arange(QLEN)[None, :]].copy()
+
+
+def random_bwt(torch, dev, seed: int, n: int):
+    """n random A/C/G/T bytes with one sentinel at a random place, made on
+    the card (``seed``'s generator), ``1 << 26`` at a time."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    lut = torch.tensor(list(b"ACGT"), dtype=torch.uint8, device=dev)
+    out = torch.empty(n, dtype=torch.uint8, device=dev)
+    step = 1 << 26
+    for lo in range(0, n, step):
+        hi = min(lo + step, n)
+        out[lo:hi] = lut[torch.randint(0, 4, (hi - lo,), device=dev, generator=g)]
+    out[int(torch.randint(0, n, (1,), device=dev, generator=g))] = ord("$")
+    return out
 
 
 def interval_rows(lower, upper):
@@ -976,8 +1041,9 @@ def main() -> int:
     from rust_bio_tpu_torch.alignment.pairwise.tb import (
         TB_DEL, TB_MATCH, TB_SUBST, TB_XCLIP_SUFFIX, TB_YCLIP_PREFIX, TB_YCLIP_SUFFIX,
     )
-    from rust_bio_tpu_torch.alphabets import dna
+    from rust_bio_tpu_torch.alphabets import Alphabet, dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+    from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array_host
     from rust_bio_tpu_torch.ops import _build, fm, pairhmm, sw, walk
     from rust_bio_tpu_torch.pipelines import ReadMapper
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix, pam250
@@ -1005,6 +1071,11 @@ def main() -> int:
         "sw_scores_global_rows": sw.SCORES_GLOBAL_ROWS,
         "fm_backward_search": fm.FM_BACKWARD_SEARCH,
         "fm_locate": fm.FM_LOCATE,
+        "rle_merge": walk.RLE_MERGE,
+        "fm_search_lut": fm.FM_SEARCH_LUT,
+        "fm_search_lut_u32": fm.FM_SEARCH_LUT_U32,
+        "fm_backward_search_u32": fm.FM_BACKWARD_SEARCH_U32,
+        "fm_locate_u32": fm.FM_LOCATE_U32,
         "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
         "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
         "sw_scan_local": sw.SCAN_LOCAL,
@@ -1106,6 +1177,20 @@ def main() -> int:
             check(rescore([op.kind for op in a.operations], x, y) == (a.score, len(x), len(y)), f"{name}: pair {k} does not re-score to {a.score}")
             check((a.xstart, a.ystart, a.xend, a.yend) == (0, 0, len(x), len(y)), f"{name}: pair {k} coordinates")
         results[name] = alns
+    # the compact path (bench.py:1325-1360): the 2%-divergence pairs with the
+    # run merge on the card (K-merge), once alone and as COMPACT_HANDLES
+    # handles finished with one pull; every CIGAR global_packed's, no lane
+    # past R runs
+    ml_np = np.full(B_ALN, LEN, np.int32)
+    dense_cigars = ba.global_packed(*corpora["diverged2pct"]).cigars()
+    comp = BatchAligner.packed_compact_finish(ba.global_packed_compact_async_arrays(xb, yb_hi, ml_np, ml_np))
+    check(not comp.overflow.any(), "compact: a 2%-divergence lane overflowed R runs")
+    check(comp.cigars() == dense_cigars, "compact: CIGARs != global_packed(...).cigars()")
+    many = BatchAligner.packed_compact_finish_many(
+        [ba.global_packed_compact_async_arrays(xb, yb_hi, ml_np, ml_np) for _ in range(COMPACT_HANDLES)]
+    )
+    check(all(not m.overflow.any() and m.cigars() == dense_cigars for m in many), "compact: finish_many != global_packed")
+    compact_runs = comp._up["n_runs"]
     t0 = time.perf_counter()
     index = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=32, device=dev)
     torch.cuda.synchronize()
@@ -1124,9 +1209,13 @@ def main() -> int:
     for q in range(0, n_sampled, n_sampled // 64):
         check(starts[q] in index.locate_interval(sampled[q].interval), f"locate_interval: query {q}")
     launches = {name: k.launches for name, k in counters.items()}
-    path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search", "fm_locate")
+    path_kernels = ("sw_scan_global", "sweep_walk_global", "sw_scores_global", "fm_backward_search", "fm_locate", "rle_merge")
     check(all(launches[n] > 0 for n in path_kernels), f"a kernel of the global path did not launch: {launches}")
-    print(json.dumps({"phase": "main_path", "launches": launches, "fm_index_build_s": build_s, "seconds": time.perf_counter() - t_phase}), flush=True)
+    print(json.dumps({
+        "phase": "main_path", "launches": launches, "fm_index_build_s": build_s,
+        "compact_runs_max": int(compact_runs.max()), "compact_runs_mean": float(compact_runs.mean()),
+        "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
 
     # small-input reference: the plain PyTorch path on the CPU, and a
     # brute-force count of pattern occurrences in the text
@@ -1157,8 +1246,26 @@ def main() -> int:
     mapper_launches = {name: k.launches for name, k in counters.items()}
     path_kernels = ("fm_backward_search", "fm_locate", "sw_scan_semiglobal", "sweep_walk_semiglobal")
     check(all(mapper_launches[n] > 0 for n in path_kernels), f"a kernel of the mapper did not launch: {mapper_launches}")
+    # the mapper's extension pairs through the compact path, counted apart;
+    # the dense CIGARs come from the native emitter, which must equal the
+    # numpy merge
+    for k in counters.values():
+        k.launches = 0
+    dense_ext = ba.semiglobal_packed_finish(ba.semiglobal_packed_async_arrays(xb_ext, yb_ext, ml_ext, nl_ext))
+    ext_cigars = dense_ext.cigars()
+    check(ext_cigars == dense_ext.cigars_plain(), "the native CIGAR emitter != the numpy merge")
+    semi_comp = BatchAligner.packed_compact_finish(ba.semiglobal_packed_compact_async_arrays(xb_ext, yb_ext, ml_ext, nl_ext))
+    check(np.array_equal(semi_comp.score, dense_ext.score), "compact semiglobal: scores != the dense path's")
+    check(semi_comp.cigars() == ext_cigars, "compact semiglobal: CIGARs != the dense path's")
+    compact_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("sw_scan_semiglobal", "sweep_walk_semiglobal", "rle_merge")
+    check(all(compact_launches[n] > 0 for n in path_kernels), f"a kernel of the compact semiglobal path did not launch: {compact_launches}")
     check(len(mapped) == len(main_reads), "mapper: result count")
     exempt = []  # reads whose seed also occurs elsewhere in the genome
+    # reads with a clean seed that map elsewhere than their origin (an end
+    # substitution can make an indel alignment score more): held to the
+    # port's CPU path instead
+    off_origin = []
     for k, (read, m) in enumerate(zip(main_reads, mapped)):
         rc = dna.revcomp(read)
         if m.pos >= 0:
@@ -1168,27 +1275,40 @@ def main() -> int:
         if k < B_READS:
             want = (int(origins[k]), "-" if is_rev[k] else "+")
             if clean_seed[k] and (m.pos, m.strand) != want:
-                check(seeds_hit_elsewhere(genome, (read, rc), oriented[k], want[0]), f"read {k}: mapped to {(m.pos, m.strand)}, origin {want}")
-                exempt.append(k)
+                if seeds_hit_elsewhere(genome, (read, rc), oriented[k], want[0]):
+                    exempt.append(k)
+                else:
+                    off_origin.append(k)
         elif m.pos >= 0:
             check(seeds_hit_elsewhere(genome, (read, rc), None, -1), f"random read {k} mapped to {m.pos}")
             exempt.append(k)
+    cpu_mapper = mapper.to("cpu")
+    if off_origin:
+        held = cpu_mapper.map_batch([main_reads[k] for k in off_origin])
+        for k, c in zip(off_origin, held):
+            m = mapped[k]
+            check(
+                (m.pos, m.strand, m.score, m.cigar) == (c.pos, c.strand, c.score, c.cigar),
+                f"read {k}: mapped to {(m.pos, m.strand, m.score, m.cigar)}, the CPU path to {(c.pos, c.strand, c.score, c.cigar)}",
+            )
     n_mapped = sum(m.pos >= 0 for m in mapped)
     print(json.dumps({
         "phase": "mapper", "launches": mapper_launches, "reads": len(main_reads), "mapped": n_mapped,
         "clean_seed_reads": int(clean_seed[:B_READS].sum()), "exempt_repeat_seeds": exempt,
+        "off_origin_held_to_cpu": len(off_origin), "off_origin_reads": off_origin,
+        "compact_semiglobal_overflow": int(semi_comp.overflow.sum()), "compact_semiglobal_launches": compact_launches,
         "mapper_index_build_s": mapper_build_s, "seconds": time.perf_counter() - t_phase,
     }), flush=True)
     # small-input reference: 64 reads through the port's CPU path, on the
     # card-built index moved to the CPU
     sample = list(range(60)) + list(range(len(main_reads) - 4, len(main_reads)))
-    on_cpu = mapper.to("cpu").map_batch([main_reads[k] for k in sample])
+    on_cpu = cpu_mapper.map_batch([main_reads[k] for k in sample])
 
     def mkey(m):
         return (m.pos, m.strand, m.score, m.cigar, None if m.alignment is None else fields(m.alignment))
 
     check([mkey(mapped[k]) for k in sample] == [mkey(m) for m in on_cpu], "mapper: card != CPU plain path")
-    launches = {name: launches[name] + mapper_launches[name] for name in counters}
+    launches = {name: launches[name] + mapper_launches[name] + compact_launches[name] for name in counters}
 
     # ---- 3b. local and custom alignment, counted ---------------------------
     for k in counters.values():
@@ -1621,6 +1741,85 @@ def main() -> int:
     launches = {name: launches[name] + hmm_launches[name] for name in counters}
     del hmm_runs
 
+    # ---- 3h. the FM index at genome scale, counted ------------------------
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+
+    def on_card(*arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in arrays]
+
+    large_text, large_starts, large_pats = fm_large_corpus(np.random.default_rng((args.seed, 7)))
+    t0 = time.perf_counter()
+    large_sa = suffix_array_host(large_text)
+    sais_s = time.perf_counter() - t0
+    large_bwt = large_text[large_sa - 1]  # sa == 0 reads the last symbol
+    t0 = time.perf_counter()
+    large = DeviceFMIndex(large_bwt, dna.n_alphabet(), sa=large_sa, sampling_rate=32, device=dev)
+    torch.cuda.synchronize()
+    large_index_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    large.build_kmer_lut(q=FM_LUT_Q)
+    torch.cuda.synchronize()
+    large_lut_s = time.perf_counter() - t0
+    large_u32 = DeviceFMIndex(large_bwt, dna.n_alphabet(), sa=large_sa, sampling_rate=32, device=dev, force_u32=True)
+    large_u32.build_kmer_lut(q=FM_LUT_Q)
+    check(large_u32._big and not large._big, "3h: the index modes")
+    del large_sa, large_bwt, large_text
+    ll_np = np.full(B_FM, QLEN, np.int32)
+    lp_d, ll_d = on_card(large_pats, ll_np)
+    lut_np = large.search_batch_lut(large_pats, ll_np)
+    k4_np = [o.cpu().numpy() for o in large.search_arrays(lp_d, ll_d)]
+    check(all(np.array_equal(a, b) for a, b in zip(lut_np, k4_np)), "3h: K4-LUT != K4 on the 50 Mbp index")
+    check(bool((lut_np[0] == fm.COMPLETE).all() and (lut_np[3] == QLEN).all()), "3h: a sampled query is not COMPLETE at mlen 20")
+    for name, outs in (("K4-LUT", large_u32.search_arrays_lut(lp_d, ll_d)), ("K4", large_u32.search_arrays(lp_d, ll_d))):
+        check(
+            all(np.array_equal(o.cpu().numpy().astype(np.int64), w.astype(np.int64)) for o, w in zip(outs, k4_np)),
+            f"3h: the uint32 {name} != the int32 index",
+        )
+    large_rows = interval_rows(lut_np[1], lut_np[2])
+    large_pos = large.locate_batch(large_rows)
+    check(np.array_equal(large_u32.locate_batch(large_rows), large_pos.astype(np.int64)), "3h: the uint32 K4-locate != the int32 index")
+    owner = np.repeat(np.arange(B_FM), lut_np[2] - lut_np[1])
+    hit = np.zeros(B_FM, bool)
+    hit[owner[large_pos == large_starts[owner]]] = True
+    check(bool(hit.all()), "3h: a query's located positions miss its start")
+    # past 2^31: a random array taken as a BWT, no suffix array
+    t0 = time.perf_counter()
+    big = DeviceFMIndex(random_bwt(torch, dev, args.seed, FM_BIG_LEN), Alphabet(b"$ACGT"), device=dev)
+    big.build_kmer_lut(q=FM_LUT_Q)
+    torch.cuda.synchronize()
+    big_build_s = time.perf_counter() - t0
+    check(big._big and big.n == FM_BIG_LEN, "3h: the 2^31-plus index is not the uint32 one")
+    bp_d, bl_d = on_card(np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng((args.seed, 8)).integers(0, 4, size=(B_FM, QLEN))], ll_np)
+    big_k4 = big.search_arrays(bp_d, bl_d)
+    big_lut = big._search_kernel_lut(bp_d, bl_d)
+    torch.cuda.synchronize()
+    big_args = (big._fused, big._less256, big.sym_of)
+    check(
+        all(torch.equal(g, w) for g, w in zip(big_k4, fm.backward_search_plain(*big_args, bp_d, bl_d, big.n, True))),
+        "3h: the uint32 K4 != its plain version past 2^31",
+    )
+    big_lut_args = (*big_args, big._lut_rank, big._lut, FM_LUT_Q)
+    check(
+        all(torch.equal(g, w) for g, w in zip(big_lut, fm.search_lut_plain(*big_lut_args, bp_d, bl_d, big.n, True))),
+        "3h: the uint32 K4-LUT != its plain version past 2^31",
+    )
+    check(all(torch.equal(g, w) for g, w in zip(big_lut[:4], big_k4)), "3h: the uint32 K4-LUT != K4 past 2^31")
+    big_top = int(big_k4[2].max()) - 1
+    check(big_top >= 2**31 and (big_top >> 5) >= 2**26, f"3h: no interval reaches past 2^31 / word 2^26 ({big_top})")
+    scale_launches = {name: k.launches for name, k in counters.items()}
+    path_kernels = ("fm_search_lut", "fm_backward_search", "fm_locate", "fm_search_lut_u32", "fm_backward_search_u32", "fm_locate_u32")
+    check(all(scale_launches[n] > 0 for n in path_kernels), f"a kernel of the FM phase did not launch: {scale_launches}")
+    print(json.dumps({
+        "phase": "fm_scale", "launches": scale_launches, "text": FM_LARGE_LEN + 1, "queries": B_FM, "fm_sais_s": sais_s,
+        "index_s": large_index_s, "lut_s": large_lut_s, "lut_misses": int(large._search_kernel_lut(lp_d, ll_d)[4].sum()),
+        "located_rows": len(large_rows), "big_n": big.n, "big_build_s": big_build_s, "big_top_row": big_top,
+        "big_misses": int(big_lut[4].sum()), "big_complete": int((big_k4[0] == fm.COMPLETE).sum()),
+        "seconds": time.perf_counter() - t_phase,
+    }), flush=True)
+    launches = {name: launches[name] + scale_launches[name] for name in counters}
+
     # ---- 4. kernels against their plain versions, timed ---------------
     t_phase = time.perf_counter()
     def tens(*arrays):
@@ -1728,7 +1927,7 @@ def main() -> int:
     steps_ok = int(fgot[3].long().sum())
     steps_failed = int((fgot[3] < plens_d).long().sum())
     fm_lib = _build.build(["fm_search"])["fm_search"]
-    fm_pattern = r"(fm_search_kernel|fm_locate_kernel)"
+    fm_pattern = r"(fm_search_kernel|fm_search_lut_kernel|fm_locate_kernel)I([ij])E"
     fm_usage = {
         "registers": kernel_registers(fm_lib, fm_pattern),
         "stack_bytes": kernel_registers(fm_lib, fm_pattern, "STACK"),
@@ -1782,6 +1981,131 @@ def main() -> int:
         geometry={"threads": fm.FM_THREADS, "blocks": -(-len(fm_rows) // fm.FM_THREADS)},
     )
     del loc_rows, lgot, lwant, rand_rows
+    # K-merge on phase 2's 2%-divergence pairs' K2 streams (R = 32), and on
+    # the mapper's extension pairs' K6 streams (semiglobal_ms)
+    R = BatchAligner._COMPACT_RUNS
+    hi_d = tens(yb_hi)[0]
+    sc_m, tb_m, _ = sw.scan_global(xb_d, hi_d, ml_d, nl_d, *pens)
+    ic_m, eo_m, i0_m = walk.sweep_walk_global(tb_m, ml_d, nl_d)
+    del tb_m
+    mgot = walk.merge_rle(sc_m, ic_m, eo_m, i0_m, None, None, nl_d, None, ml_d, R)
+    torch.cuda.synchronize()
+    mwant = walk.merge_rle_plain(sc_m, ic_m, eo_m, i0_m, None, None, nl_d, None, ml_d, R)
+    mout = torch.empty_like(mgot)
+    merge_launch = lambda: walk.RLE_MERGE.launch(  # noqa: E731
+        dev, sc_m.data_ptr(), ic_m.data_ptr(), eo_m.data_ptr(), i0_m.data_ptr(), 0, 0, nl_d.data_ptr(), 0,
+        ml_d.data_ptr(), B_ALN, LEN, R, mout.data_ptr(),
+    )
+    ext_m = tens(xb_ext, yb_ext, ml_ext, nl_ext)
+    sg_m = sw.scan_semiglobal(*ext_m, GO, GE, MA, MI, 0, 0)
+    score_s, tbfix_s = _fixed_column(*sg_m[1:5], sg_m[5], ext_m[2], GO, GE)
+    semi_walk = walk.sweep_walk_semiglobal(sg_m[0], tbfix_s, ext_m[2], ext_m[3])
+    del sg_m
+    semi_args = (score_s, *semi_walk[:5], ext_m[3], None, ext_m[2], R)
+    sgot_m = walk.merge_rle(*semi_args)
+    torch.cuda.synchronize()
+    swant_m = walk.merge_rle_plain(*semi_args)
+    entries = int(2 * B_ALN * LEN + 3 * B_ALN)
+    report(
+        "rle_merge", "rust_bio_tpu_torch/ops/csrc/rle_merge.cu", "rust_bio_tpu/alignment/pairwise/batched.py:800",
+        [mgot, sgot_m], [mwant, swant_m],
+        cuda_ms(torch, merge_launch, 20),
+        cuda_ms(torch, lambda: walk.merge_rle_plain(sc_m, ic_m, eo_m, i0_m, None, None, nl_d, None, ml_d, R), 2),
+        4 * B_ALN * LEN + 2 * B_ALN + 12 * B_ALN + 2 * (5 + R) * B_ALN,
+        MERGE_OPS_PER_ENTRY * entries,
+        queued_ms=queued_ms(torch, merge_launch, 50),
+        wrapper_ms=cuda_ms(torch, lambda: walk.merge_rle(sc_m, ic_m, eo_m, i0_m, None, None, nl_d, None, ml_d, R), 20),
+        semiglobal_ms=cuda_ms(torch, lambda: walk.merge_rle(*semi_args), 20),
+        launch_equal=torch.equal(mout, mgot), R=R, runs_max=int((mgot[4].long() & 0x7FFF).max()),
+        geometry={"warps": walk.MERGE_WARPS, "blocks": -(-B_ALN // walk.MERGE_WARPS)},
+    )
+    check(torch.equal(mout, mgot), "rle_merge: the timed launches' output differs")
+    del sc_m, ic_m, eo_m, i0_m, mgot, mwant, mout, ext_m, semi_walk, semi_args, sgot_m, swant_m
+
+    # K4-LUT and the uint32 K4, K4-LUT and K4-locate on phase 3h's indexes
+    def fm_bytes(outs, plens, q=0, hits=None):
+        """(bytes, rank steps) a search needs: the patterns, lengths,
+        outputs and byte tables, an 8-byte rank entry a rank read (two a
+        matched step past the table, one a failing step), an 8-byte table
+        entry a lane that hits the table."""
+        mlen = outs[3].long()
+        start = torch.zeros_like(mlen) if hits is None else torch.where(hits, q, 0)
+        ok = int((mlen - start).clamp(min=0).sum())
+        failed = int((mlen < plens).long().sum())
+        n_hits = 0 if hits is None else int(hits.sum())
+        return B_FM * QLEN + 4 * B_FM + 17 * B_FM + 8 * (2 * ok + failed) + 8 * n_hits + 3 * 256 * 4, ok + failed
+
+    def lut_call(index, pats, plens, outs, miss, kernel):
+        return lambda: kernel.launch(
+            dev, index._fused.data_ptr(), index._less256.data_ptr(), index.sym_of.data_ptr(),
+            index._lut_rank.data_ptr(), index._lut.data_ptr(), FM_LUT_Q, pats.data_ptr(), plens.data_ptr(),
+            B_FM, QLEN, index._fused.shape[1], index.n, *(o.data_ptr() for o in outs), miss.data_ptr(),
+        )
+
+    def k4_call(index, pats, plens, outs, kernel):
+        return lambda: kernel.launch(
+            dev, index._fused.data_ptr(), index._less256.data_ptr(), index.sym_of.data_ptr(), pats.data_ptr(),
+            plens.data_ptr(), B_FM, QLEN, index._fused.shape[1], index.n, *(o.data_ptr() for o in outs),
+        )
+
+    for name, fmi, q_pats, q_lens in (("fm_search_lut", large, lp_d, ll_d), ("fm_search_lut_u32", big, bp_d, bl_d)):
+        u = fmi._big
+        lut_args = (fmi._fused, fmi._less256, fmi.sym_of, fmi._lut_rank, fmi._lut, FM_LUT_Q)
+        got = fm.search_lut(*lut_args, q_pats, q_lens, fmi.n, u)
+        torch.cuda.synchronize()
+        want = fm.search_lut_plain(*lut_args, q_pats, q_lens, fmi.n, u)
+        nbytes, steps = fm_bytes(got, q_lens, FM_LUT_Q, ~got[4])
+        louts = [torch.empty(B_FM, dtype=torch.int32, device=dev) for _ in range(4)]
+        lmiss = torch.empty(B_FM, dtype=torch.bool, device=dev)
+        kouts = [torch.empty(B_FM, dtype=torch.int32, device=dev) for _ in range(4)]
+        launch = lut_call(fmi, q_pats, q_lens, louts, lmiss, fm.FM_SEARCH_LUT_U32 if u else fm.FM_SEARCH_LUT)
+        k4 = k4_call(fmi, q_pats, q_lens, kouts, fm.FM_BACKWARD_SEARCH_U32 if u else fm.FM_BACKWARD_SEARCH)
+        report(
+            name, "rust_bio_tpu_torch/ops/csrc/fm_search.cu", "rust_bio_tpu/data_structures/fm_device.py:598",
+            got, want,
+            cuda_ms(torch, launch, 20),
+            cuda_ms(torch, lambda: fm.search_lut_plain(*lut_args, q_pats, q_lens, fmi.n, u), 2),
+            nbytes, 12 * steps + 4 * FM_LUT_Q * B_FM,
+            queued_ms=queued_ms(torch, launch, 50), k4_queued_ms=queued_ms(torch, k4, 50), k4_ms=cuda_ms(torch, k4, 20),
+            wrapper_ms=cuda_ms(torch, lambda: fmi.search_arrays_lut(q_pats, q_lens), 20),
+            misses=int(got[4].sum()), text=fmi.n, table_bytes=8 * 4**FM_LUT_Q,
+        )
+        if u:
+            kgot = fmi.search_arrays(q_pats, q_lens)
+            torch.cuda.synchronize()
+            kwant = fm.backward_search_plain(fmi._fused, fmi._less256, fmi.sym_of, q_pats, q_lens, fmi.n, True)
+            nbytes, steps = fm_bytes(kgot, q_lens)
+            report(
+                "fm_backward_search_u32", "rust_bio_tpu_torch/ops/csrc/fm_search.cu", "rust_bio_tpu/ops/fm_pallas.py:123",
+                kgot, kwant,
+                cuda_ms(torch, k4, 20),
+                cuda_ms(torch, lambda: fm.backward_search_plain(fmi._fused, fmi._less256, fmi.sym_of, q_pats, q_lens, fmi.n, True), 2),
+                nbytes, 12 * steps, queued_ms=queued_ms(torch, k4, 50), text=fmi.n,
+            )
+    # the uint32 K4-locate on 3h's located rows, over the force_u32 twin
+    u_tables = (large_u32._fused, large_u32.bwt_sym, large_u32.less_sym, large_u32.sa_sample, large_u32.sent_rows, large_u32.sent_vals)
+    u_rows = large_u32._row_tensor(torch.from_numpy(large_rows.astype(np.int64)).to(dev))
+    ugot = fm.locate(*u_tables, u_rows, large_u32.s, True)
+    torch.cuda.synchronize()
+    uwant = fm.locate_plain(*u_tables, u_rows, large_u32.s, True)
+    _, u_steps = fm.locate_walk_plain(large_u32._fused, large_u32.bwt_sym, large_u32.less_sym, u_rows.long() & fm.U32_MASK, large_u32.s, True)
+    u_steps = u_steps.cpu().numpy()
+    report(
+        "fm_locate_u32", "rust_bio_tpu_torch/ops/csrc/fm_search.cu", "rust_bio_tpu/data_structures/fm_device.py:753",
+        [ugot], [uwant],
+        cuda_ms(torch, lambda: fm.locate(*u_tables, u_rows, large_u32.s, True), 20),
+        cuda_ms(torch, lambda: fm.locate_plain(*u_tables, u_rows, large_u32.s, True), 2),
+        12 * len(large_rows) + 9 * int(u_steps.sum()) + 4 * len(large_u32.symbols),
+        12 * int(u_steps.sum()),
+        rows=len(large_rows), steps=int(u_steps.sum()), longest_walk=int(u_steps.max()),
+        queued_ms=queued_ms(torch, lambda: fm.locate(*u_tables, u_rows, large_u32.s, True), 20),
+        int32_ms=cuda_ms(torch, lambda: large.locate_rows(torch.from_numpy(large_rows).to(dev)), 20),
+    )
+    # every name that holds a table of the 2.2 G index or the uint32 twin,
+    # so that the empty_cache below returns their blocks to the card
+    del big, large_u32, bp_d, bl_d, big_k4, big_lut, big_args, big_lut_args, u_tables, u_rows, ugot, uwant
+    del fmi, lut_args, got, want, launch, k4, louts, lmiss, kouts, kgot, kwant
+    torch.cuda.empty_cache()
 
     ext = tens(xb_ext, yb_ext, ml_ext, nl_ext)
     sg = (GO, GE, MA, MI, 0, 0)
@@ -2471,6 +2795,22 @@ def main() -> int:
     rates["fm_queries_per_s_device"] = B_FM / host_s(torch, lambda: index.search_arrays(pats_d, plens_d), 10)
     rates["fm_queries_per_s_delivered"] = B_FM / host_s(torch, lambda: index.backward_search_batch(queries), 3)
     rates["fm_index_build_s"] = build_s
+    # the compact path: COMPACT_HANDLES handles of the 2%-divergence pairs,
+    # one stacked pull, every CIGAR formatted (bench.py:1350-1360)
+    hi_ml = np.full(B_ALN, LEN, np.int32)
+
+    def run_compact():
+        handles = [ba.global_packed_compact_async_arrays(xb, yb_hi, hi_ml, hi_ml) for _ in range(COMPACT_HANDLES)]
+        for r in BatchAligner.packed_compact_finish_many(handles):
+            r.cigars()
+
+    rates["compact_global_pairs_per_s_delivered"] = COMPACT_HANDLES * B_ALN / host_s(torch, run_compact, 3)
+    # phase 3h's 50 Mbp index: K4-LUT and K4 device-only (each with its
+    # wrapper's length check), K4-LUT delivered from numpy; the host SA-IS
+    rates["fm_lut_queries_per_s_device"] = B_FM / host_s(torch, lambda: large.search_arrays_lut(lp_d, ll_d), 10)
+    rates["fm_lut_queries_per_s_delivered"] = B_FM / host_s(torch, lambda: large.search_batch_lut(large_pats, ll_np), 3)
+    rates["fm_large_queries_per_s_device"] = B_FM / host_s(torch, lambda: large.search_arrays(lp_d, ll_d), 10)
+    rates["fm_sais_s"] = sais_s
     fm_rows_d = torch.from_numpy(fm_rows).to(dev)
     rates["fm_locate_rows_per_s_device"] = len(fm_rows) / host_s(torch, lambda: index.locate_rows(fm_rows_d), 10)
     rates["mapper_reads_per_s"] = len(main_reads) / host_s(torch, lambda: mapper.map_batch(main_reads), 3)

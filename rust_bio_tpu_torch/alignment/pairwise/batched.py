@@ -35,6 +35,18 @@ the y-clip penalties 0, ``_suffix_fixups`` (plain torch) on its finals, K6
 same pack with the fix/clip fields live. ``PackedSemiglobal`` holds the
 pulled result: vectorized CIGARs and per-read ``Alignment`` decode.
 
+The compact path (``global_packed_compact_async_arrays``,
+``semiglobal_packed_compact_async_arrays``, ``packed_compact_finish``,
+``packed_compact_finish_many``): K1 -> K2 or K5 -> K6 as above, then K-merge
+(``ops.walk.merge_rle``) merges the walk's column-RLE stream into at most R
+(``max_runs``, default ``_COMPACT_RUNS`` = 32) runs a pair and packs them
+as one (5 + R, B) uint16 tensor; the host formats the CIGARs
+(``PackedMergedCigars``) and re-runs the lanes that overflow R runs or a
+12-bit run length through the dense packed path. As in the JAX package only
+MatchParams scoring on the column-RLE engines has this route: in the port
+K1 below padded M + 1 = ``T_ROWS`` and K5 below M + 1 = 4096 (the routing
+by padded M); elsewhere the compact calls raise ``ValueError``.
+
 The path of ``BatchAligner.local`` and ``.custom`` (``_custom_device``):
 K7 (``ops.sw.scan_local``) when all four clip penalties are 0, else K9
 (``ops.sw.scan_custom``); ``_suffix_fixups`` with all four clips; then K8
@@ -153,6 +165,23 @@ def _unpack_rle(packed: np.ndarray):
         "yend": small[9],
         "ins_cnt": merged & 0xFFF,
         "exit_op": merged >> 12,
+    }
+
+
+def _unpack_rle_merged(packed: np.ndarray):
+    """Host-side inverse of the compact pack (K-merge's, batched.py
+    ``_pack_rle_merged``): (score (B,), dict of arrays)."""
+    small = packed[:5].astype(np.int64)
+    v = (small[0] << 16) | small[1]
+    score = np.where(v >= 2**31, v - 2**32, v).astype(np.int64)
+    kl = packed[5:]
+    return score, {
+        "xstart": small[2],
+        "xend": small[3],
+        "n_runs": small[4] & 0x7FFF,
+        "ovf": (small[4] >> 15).astype(bool),
+        "run_kind": kl >> 12,  # (R, B)
+        "run_len": kl & 0xFFF,
     }
 
 
@@ -670,8 +699,32 @@ class PackedSemiglobal:
         self.yend = up["yend"]
 
     def cigars(self) -> List[str]:
-        """All CIGAR strings, by one flat numpy run-length merge over the
-        interleaved op streams (clips dropped; runs merge across them)."""
+        """All CIGAR strings, from the native column-RLE emitter
+        (``native.cigars_colrle``, threaded over lanes); a row whose string
+        overflows the emitter's buffer is formatted by the numpy merge
+        (``cigars_plain``), as the JAX class formats it."""
+        up = self._up
+        B = len(self.mlens)
+        N = int(self.nlens.max()) if B else 0
+        if not (B and N):
+            return self.cigars_plain()
+        from rust_bio_tpu_torch import native
+
+        got = native.cigars_colrle(
+            up["exit_op"][:N].T, up["ins_cnt"][:N].T, self.nlens, self.mlens, up["ins0"],
+            up["fix_exit"], up["fix_ins"], self.xstart, self.xend,
+        )
+        missing = [k for k, c in enumerate(got) if c is None]
+        if missing:
+            plain = self.cigars_plain()
+            for k in missing:
+                got[k] = plain[k]
+        return got
+
+    def cigars_plain(self) -> List[str]:
+        """All CIGAR strings by one flat numpy run-length merge over the
+        interleaved op streams (clips dropped; runs merge across them): the
+        native emitter's oracle."""
         up = self._up
         B = len(self.mlens)
         C, Lm, _ = _interleave_semi(
@@ -716,6 +769,43 @@ class PackedSemiglobal:
         if self.mode is not AlignmentMode.Global:
             aln.filter_clip_operations()
         return aln
+
+
+class PackedMergedCigars:
+    """Compact batch result (batched.py ``PackedMergedCigars``): the walk's
+    column-RLE stream merged on the card (K-merge) and pulled as (5 + R, B)
+    uint16. Holds the scores and each lane's merged runs; ``cigars()`` only
+    formats. ``overflow`` lanes (more than R runs, or a run past 4095)
+    carry no runs: the compact finishes re-run them through the dense
+    packed path and keep their CIGARs here."""
+
+    def __init__(self, score, up, mlens, nlens) -> None:
+        self.score = score
+        self._up = up
+        self.mlens = np.asarray(mlens)
+        self.nlens = np.asarray(nlens)
+        self.xstart = up["xstart"]
+        self.xend = up["xend"]
+        self.overflow = up["ovf"]
+        self._ovf_idx = None  # set by the compact finish on overflow
+        self._ovf_cigars = None
+
+    def cigars(self) -> List[str]:
+        up = self._up
+        B = len(self.mlens)
+        nr = up["n_runs"]  # (B,)
+        R = up["run_len"].shape[0]
+        mask = (np.arange(R)[None, :] < nr[:, None]) & ~up["ovf"][:, None]
+        kinds = up["run_kind"].T[mask]
+        lens_ = up["run_len"].T[mask]
+        rows = np.nonzero(mask)[0]
+        out = _format_cigar_strings(
+            rows, kinds, lens_.astype(np.int64), B, up["xstart"], up["xend"], self.mlens,
+        )
+        if self._ovf_idx is not None:
+            for i, c in zip(self._ovf_idx, self._ovf_cigars):
+                out[i] = c
+        return out
 
 
 class BatchAligner:
@@ -771,16 +861,20 @@ class BatchAligner:
             for a in (xb, yb, np.asarray(mlens, np.int32), np.asarray(nlens, np.int32))
         )
 
-    def global_packed_arrays(self, xb, yb, mlens, nlens) -> torch.Tensor:
+    def global_packed_arrays(self, xb, yb, mlens, nlens, merged_runs: int = 0) -> torch.Tensor:
         """The device part of ``global_`` on padded arrays, returning the
         packed uint16 tensor on the device: K1 (K11 under a LUT), K2 and
         ``_pack_rle``; at M + 1 >= ``T_ROWS`` K13 (K13-LUT) and K14 in
-        their place, and from M + 1 >= 4096 on ``_pack_rle_wide``."""
+        their place, and from M + 1 >= 4096 on ``_pack_rle_wide``. With
+        ``merged_runs`` R > 0 (K1 and MatchParams only): K1, K2 and K-merge,
+        the (5 + R, B) compact pack."""
         from rust_bio_tpu_torch.ops import walk
 
         M, N = xb.shape[1], yb.shape[1]
         _check_limits("global", M, N)
         s = self.scoring
+        if merged_runs:
+            self._check_compact("global", M + 1 < T_ROWS, f"padded M + 1 < T_ROWS = {T_ROWS}")
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
         if M + 1 >= T_ROWS:
             score, tb = self._kernel("scan_global_rows")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
@@ -789,19 +883,23 @@ class BatchAligner:
             score, tb, _tbk = self._kernel("scan_global")(xt, yt, ml, nl, s.gap_open, s.gap_extend, *self._subst)
             ins_cnt, exit_op, ins0 = walk.sweep_walk_global(tb, ml, nl)
         del tb
+        if merged_runs:
+            return walk.merge_rle(score, ins_cnt, exit_op, ins0, None, None, nl, None, ml, merged_runs)
         z = torch.zeros_like(ml)
         pack = _pack_rle_wide if _wide(M) else _pack_rle
         return pack(score, ins_cnt, exit_op, ins0, z, z, z, z, z, ml, nl)
 
-    def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True):
+    def _semiglobal_device(self, xb, yb, mlens, nlens, with_traceback: bool = True, merged_runs: int = 0):
         """The semiglobal path on padded arrays (batched.py
         ``_align_batch_device_semiglobal_mp``, sweep-walk branch): K5 (K12
         under a LUT; score only, its tb stores skipped, without traceback)
         with y-clips 0, the suffix fixups, then, with traceback, K6 and the
         pack. Returns the (10 + N, B) uint16 packed tensor, or the (B,)
-        int32 scores without traceback; both stay on the device."""
+        int32 scores without traceback; both stay on the device. With
+        ``merged_runs`` R > 0, K-merge's (5 + R, B) compact pack in place
+        of the pack."""
         go, ge = self.scoring.gap_open, self.scoring.gap_extend
-        from rust_bio_tpu_torch.ops.walk import sweep_walk_semiglobal
+        from rust_bio_tpu_torch.ops.walk import merge_rle, sweep_walk_semiglobal
 
         xt, yt, ml, nl = self._tensors(xb, yb, mlens, nlens)
         tb, S_f, I_f, Sn_f, Ly_f, tbk = self._kernel("scan_semiglobal")(
@@ -813,6 +911,8 @@ class BatchAligner:
         ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly, ystart, yend = sweep_walk_semiglobal(
             tb, tbfix, ml, nl
         )
+        if merged_runs:
+            return merge_rle(score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, nl, None, ml, merged_runs)
         return _pack_rle(
             score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, fix_ly,
             torch.zeros_like(ml), ystart, ml, yend,
@@ -1082,3 +1182,83 @@ class BatchAligner:
     def global_packed(self, xs, ys) -> "PackedSemiglobal":
         """Global batch without op-list objects (see ``semiglobal_packed``)."""
         return self.global_packed_finish(self.global_packed_async_arrays(*self._pad(xs, ys)))
+
+    # --- compact delivered CIGARs: the run merge on the card (K-merge) ---
+
+    _COMPACT_RUNS = 32  # a 150 bp read at mapper identity merges to far fewer
+
+    def _check_compact(self, mode: str, route_ok: bool, route: str) -> None:
+        """Raise ``ValueError`` outside the compact route: MatchParams
+        scoring on K1 (global) or K5 (semiglobal) at this padded M."""
+        if self._lut is not None:
+            raise ValueError(f"compact {mode} CIGARs need MatchParams scoring (the column-RLE engines)")
+        if not route_ok:
+            raise ValueError(f"compact {mode} CIGARs run on the column-RLE engine only: {route}")
+
+    def global_packed_compact_async_arrays(self, xb, yb, mlens, nlens, max_runs: int = 0):
+        """Start the global batch with the run merge on the card (K1, K2,
+        K-merge): the pull is (5 + R, B) uint16, R = ``max_runs`` or
+        ``_COMPACT_RUNS``. Pass the handle to ``packed_compact_finish``
+        (or ``packed_compact_finish_many``); lanes past R runs are re-run
+        there through the dense packed path."""
+        R = max_runs or self._COMPACT_RUNS
+        mlens = np.asarray(mlens, np.int32)
+        nlens = np.asarray(nlens, np.int32)
+        packed = self.global_packed_arrays(xb, yb, mlens, nlens, merged_runs=R)
+        return packed, mlens, nlens, (self, xb, yb, "global")
+
+    def semiglobal_packed_compact_async_arrays(self, xb, yb, mlens, nlens, max_runs: int = 0):
+        """``global_packed_compact_async_arrays`` for semiglobal mode (K5,
+        K6, K-merge)."""
+        R = max_runs or self._COMPACT_RUNS
+        M = xb.shape[1]
+        self._check_compact("semiglobal", not _wide(M), f"M + 1 < {_MAX_ROWS}")
+        mlens = np.asarray(mlens, np.int32)
+        nlens = np.asarray(nlens, np.int32)
+        packed = self._semiglobal_device(xb, yb, mlens, nlens, merged_runs=R)
+        return packed, mlens, nlens, (self, xb, yb, "semiglobal")
+
+    @staticmethod
+    def packed_compact_finish_many(handles) -> List["PackedMergedCigars"]:
+        """Finish several compact handles with one device-to-host pull of
+        the stacked (H, 5 + R, B) packs; overflow lanes re-run per handle as
+        in ``packed_compact_finish``. Handles of different shapes raise
+        ``ValueError``."""
+        if not handles:
+            return []
+        shapes = {tuple(h[0].shape) for h in handles}
+        if len(shapes) != 1:
+            raise ValueError(f"packed_compact_finish_many: handles of different shapes {sorted(shapes)}; finish them apart")
+        stacked = torch.stack([h[0] for h in handles]).cpu().numpy()
+        return [
+            BatchAligner._finish_compact_host(stacked[k], mlens, nlens, ctx)
+            for k, (_, mlens, nlens, ctx) in enumerate(handles)
+        ]
+
+    @staticmethod
+    def packed_compact_finish(handle) -> "PackedMergedCigars":
+        """Pull a compact handle (one device-to-host transfer) into a
+        ``PackedMergedCigars``; lanes that overflowed R runs (or a 12-bit
+        run) re-run through the dense packed path, so ``cigars()`` is
+        complete and exact."""
+        packed, mlens, nlens, ctx = handle
+        return BatchAligner._finish_compact_host(packed.cpu().numpy(), mlens, nlens, ctx)
+
+    @staticmethod
+    def _finish_compact_host(packed_np, mlens, nlens, ctx) -> "PackedMergedCigars":
+        """The host half of the compact finishes: unpack, and the dense
+        re-run of the overflow lanes, padded to a multiple of 8 lanes."""
+        ba, xb, yb, mode = ctx
+        score, up = _unpack_rle_merged(packed_np)
+        res = PackedMergedCigars(score, up, mlens, nlens)
+        if up["ovf"].any():
+            idx = np.nonzero(up["ovf"])[0]
+            sel = np.resize(idx, -(-len(idx) // 8) * 8)
+            args = (np.asarray(xb)[sel], np.asarray(yb)[sel], np.asarray(mlens)[sel], np.asarray(nlens)[sel])
+            if mode == "global":
+                dense = BatchAligner.global_packed_finish(ba.global_packed_async_arrays(*args))
+            else:
+                dense = BatchAligner.semiglobal_packed_finish(ba.semiglobal_packed_async_arrays(*args))
+            res._ovf_idx = idx
+            res._ovf_cigars = dense.cigars()[: len(idx)]
+        return res

@@ -3,12 +3,14 @@
 ``rust_bio_tpu.data_structures.serialize.save_fm_index`` writes an index as
 one ``.npz`` with the arrays ``bits``, ``ckpt``, ``less``, ``sym_of``,
 ``bwt_bytes`` (and ``sa_sample``, ``sent_rows``, ``sent_vals`` when the
-index can locate) and a JSON header ``__meta__`` holding ``n``, ``s``,
-``sentinel``, ``symbols`` and a content hash. ``load_fm_index`` reads that
-file, checks the hash the same way, and returns the port's
-``DeviceFMIndex``; ``fm_index_from_arrays`` does the same from the arrays
-and header already in memory. Index caches built by the JAX package load
-unchanged.
+index can locate; ``lut`` and ``lut_rank`` when it has a q-mer table) and a
+JSON header ``__meta__`` holding ``n``, ``s``, ``sentinel``, ``symbols``,
+``lut_q`` and a content hash. ``load_fm_index`` reads that file, checks
+the hash the same way, and returns the port's ``DeviceFMIndex``;
+``fm_index_from_arrays`` does the same from the arrays and header already
+in memory. Index caches built by the JAX package load unchanged: a uint32
+index (from 2^31 symbols on, or saved with ``force_u32``, its ``less``
+uint32) loads as the port's uint32 index, a table with its ``lut_q``.
 
 A scoring needs no converter: it is a handful of integers plus, for
 substitution matrices, a (256, 256) int32 table (``Scoring.dense_lut``),
@@ -56,6 +58,8 @@ def fm_index_from_arrays(arrays: dict, meta: dict, device=None) -> DeviceFMIndex
     package's index format (``device=None`` means CUDA)."""
     dev = resolve_device(device)
     idx = DeviceFMIndex.__new__(DeviceFMIndex)
+    if "lut" in arrays:
+        arrays = {**arrays, "lut_q": int(meta.get("lut_q", 12))}
     idx._set_tables(
         arrays, int(meta["n"]), int(meta["s"]), int(meta["sentinel"]),
         meta["symbols"], dev,

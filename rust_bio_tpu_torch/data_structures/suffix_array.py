@@ -1,11 +1,18 @@
-"""Suffix array construction on the device (port of
+"""Suffix array construction (port of
 ``rust_bio_tpu.data_structures.suffix_array``; reference parity:
 src/data_structures/suffix_array.rs).
 
-Prefix doubling with ``torch.argsort``: O(n log n) over whole-array passes
-on whatever device the text is on. The sentinel transform matches the
+Two routes, one array. A text handed over as bytes, str or numpy with
+``device="cpu"`` runs the native O(n) SA-IS (``native.sais``, the JAX
+package's route): the rank-recoded text as uint8, into an int32 SA below
+2^31 - 1 symbols and a uint32 one from there to below 2^32 - 1
+(``suffix_array_host``). Otherwise, a tensor or a text for the card, the
+SA comes from prefix doubling with ``torch.argsort`` (O(n log n)
+whole-array passes on the text's device, several 8n-byte arrays, an int64
+key that overflows at 2^31 symbols): the plain version, and the oracle the
+tests hold the native route against. The sentinel transform matches the
 reference (later sentinels rank smaller), so the arrays equal the JAX
-package's (its native SAIS is not carried over).
+package's.
 """
 
 from __future__ import annotations
@@ -82,10 +89,58 @@ def _sa_prefix_doubling(rank0: torch.Tensor) -> torch.Tensor:
         k *= 2
 
 
+def transform_text_host(arr: np.ndarray) -> np.ndarray:
+    """``transform_text`` of a uint8 numpy text on the host, as uint8 (the
+    JAX ``transform_text``'s dtype for at most 256 ranks): each sentinel a
+    distinct descending rank, every other symbol its rank plus the
+    sentinel count minus 1."""
+    sc = _sentinel_count_host(arr)
+    alphabet = Alphabet(np.unique(arr).tobytes())
+    maxv = len(alphabet) - 1 + sc - 1
+    if maxv >= 256:
+        raise ValueError(f"{sc} sentinels: the recoded text does not fit a byte")
+    ranks = (RankTransform(alphabet).lut.astype(np.int64) + (sc - 1)).astype(np.uint8)
+    out = ranks[arr]
+    out[np.flatnonzero(arr == arr[-1])] = (sc - 1 - np.arange(sc)).astype(np.uint8)
+    return out
+
+
+def _sentinel_count_host(arr: np.ndarray) -> int:
+    s = arr[-1]
+    if arr.min() < s:
+        raise ValueError(
+            "Expecting extra sentinel symbol being lexicographically smallest "
+            "at the end of the text."
+        )
+    return int(np.count_nonzero(arr == s))
+
+
+def suffix_array_host(text) -> np.ndarray:
+    """Suffix array of a sentinel-terminated text on the host by the native
+    SA-IS (JAX ``suffix_array``'s route): int64 below 2^27 symbols, int32
+    from there to below 2^31 - 1, uint32 to below 2^32 - 1."""
+    from rust_bio_tpu_torch import native
+
+    arr = to_array(text)
+    if len(arr) == 0:
+        return np.zeros(0, dtype=np.int64)
+    if len(arr) >= 2**32 - 1:
+        raise ValueError(f"text of {len(arr)} symbols: the suffix array's index stops below 2^32 - 1")
+    transformed = transform_text_host(arr)
+    return native.sais(transformed, int(transformed.max()) + 1)
+
+
 def suffix_array(text, device=None) -> torch.Tensor:
-    """Suffix array (int64 tensor on ``device``) of a sentinel-terminated
-    text; multi-sentinel texts allowed (reference: suffix_array.rs:264)."""
+    """Suffix array (a tensor on ``device``) of a sentinel-terminated text;
+    multi-sentinel texts allowed (reference: suffix_array.rs:264). A text
+    that is not a tensor, with ``device="cpu"``, runs the native SA-IS
+    (``suffix_array_host``: int64 below 2^27 symbols, int32 below 2^31 - 1,
+    uint32 values as int64 beyond); anything else prefix doubling on the
+    device (int64)."""
     dev = text.device if isinstance(text, torch.Tensor) and device is None else resolve_device(device)
+    if not isinstance(text, torch.Tensor) and dev.type == "cpu":
+        sa = suffix_array_host(text)
+        return torch.from_numpy(sa.astype(np.int64) if sa.dtype == np.uint32 else sa)
     arr = as_text_tensor(text, dev)
     if arr.numel() == 0:
         return torch.zeros(0, dtype=torch.int64, device=dev)

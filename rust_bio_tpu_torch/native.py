@@ -1,18 +1,20 @@
-"""ctypes bindings of the port's host C++ (``csrc/band_build.cpp``): the band
-builder of the banded aligner (port of the band entry points of
-``rust_bio_tpu.native``).
+"""ctypes bindings of the port's host C++: the band builder of the banded
+aligner (``csrc/band_build.cpp``, port of the band entry points of
+``rust_bio_tpu.native``), and the SA-IS suffix arrays and the column-RLE
+CIGAR emitter (``csrc/host_index.cpp`` over ``csrc/sais.hpp``, port of
+``rust_bio_tpu.native.sais``, ``sais_u32`` and ``cigars_colrle``).
 
-The library is compiled at first use with
+Both sources are compiled together at first use with
 
     c++ -O3 -std=c++17 -shared -fPIC -pthread
 
-into ``ops/_build/band_build-<hash>.so``, ``<hash>`` covering the source and
-the flags. A failed build raises ``RuntimeError`` with the compiler's
-message: there is no Python stand-in on the aligner's path (the Python
-builders in ``sparse`` and ``banded.Band`` are the oracles the tests hold
-this library against). ``band_build_batch`` releases the GIL (ctypes does
-for every foreign call), so a band build on one thread overlaps device work
-queued from another.
+into ``ops/_build/band_build-<hash>.so``, ``<hash>`` covering the sources,
+the header and the flags. A failed build raises ``RuntimeError`` with the
+compiler's message: there is no Python stand-in (the Python builders in
+``sparse`` and ``banded.Band``, the prefix-doubling suffix array and the
+numpy CIGAR merge are the oracles the tests hold this library against).
+Every foreign call releases the GIL (ctypes does), so a band build on one
+thread overlaps device work queued from another.
 """
 
 from __future__ import annotations
@@ -28,6 +30,10 @@ from pathlib import Path
 import numpy as np
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "band_build.cpp"
+# compiled into the same library: the SAIS entry points and the CIGAR
+# emitter, and the header they include
+EXTRA_SOURCES = (SOURCE.parent / "host_index.cpp",)
+HEADERS = (SOURCE.parent / "sais.hpp",)
 BUILD_DIR = Path(__file__).resolve().parent / "ops" / "_build"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
@@ -38,6 +44,8 @@ I64 = ctypes.c_int64
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _i32p = ctypes.POINTER(ctypes.c_int32)
 _i64p = ctypes.POINTER(ctypes.c_int64)
+_u16p = ctypes.POINTER(ctypes.c_uint16)
+_u32p = ctypes.POINTER(ctypes.c_uint32)
 
 
 def _compiler() -> str:
@@ -49,14 +57,15 @@ def _compiler() -> str:
 
 def library_path() -> Path:
     """The built library, compiled now if it is missing."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
+    files = (SOURCE, *EXTRA_SOURCES, *HEADERS)
+    digest = hashlib.sha256(b"".join(f.read_bytes() for f in files) + " ".join(CXX_FLAGS).encode()).hexdigest()[:16]
     target = BUILD_DIR / f"band_build-{digest}.so"
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     proc = subprocess.run(
-        [_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True
+        [_compiler(), *CXX_FLAGS, "-o", str(tmp), str(SOURCE), *(str(f) for f in EXTRA_SOURCES)], capture_output=True, text=True
     )
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -81,6 +90,16 @@ def get_lib() -> ctypes.CDLL:
                 [_u8p, _i64p, I64, _u8p, _i64p] + [I64] * 14 + [_i32p, _i32p, _i64p, _i64p, _i64p, _i64p]
             )
             lib.band_build_batch.restype = None
+            lib.sais_i64.argtypes = [_i64p, I64, I64, _i64p]
+            lib.sais_i64.restype = None
+            lib.sais_u8_i32.argtypes = [_u8p, ctypes.c_int32, ctypes.c_int32, _i32p]
+            lib.sais_u8_i32.restype = None
+            lib.sais_u8_i64.argtypes = [_u8p, I64, I64, _i64p]
+            lib.sais_u8_i64.restype = None
+            lib.sais_u8_u32.argtypes = [_u8p, I64, I64, _u32p]
+            lib.sais_u8_u32.restype = None
+            lib.cigars_colrle.argtypes = [_u16p, _u16p, I64, I64] + [_i32p] * 7 + [I64, ctypes.c_char_p, _i32p, I64]
+            lib.cigars_colrle.restype = None
             _lib = lib
         return _lib
 
@@ -170,3 +189,72 @@ def band_build_batch(xb, mlens, yb, nlens, k: int, w: int, clips, match_score: i
         _ptr(jwin, _i64p),
     )
     return st_w, en_w, c0, nle, cells, jwin
+
+
+def sais(transformed: np.ndarray, alphabet_size: int) -> np.ndarray:
+    """O(n) suffix array of an integer text (values in [0,
+    ``alphabet_size``)), dispatched as the JAX binding dispatches: a byte
+    alphabet runs the u8-text kernel into an int32 SA below 2^31 - 1
+    symbols (int64 on return below 2^27, int32 from there on: no 8n
+    transient at genome scale), a uint32 SA below 2^32, an int64 one
+    beyond; wider alphabets the int64 kernel. Raises ``RuntimeError`` when
+    the library cannot be built."""
+    lib = get_lib()
+    n = len(transformed)
+    if alphabet_size <= 256:
+        t = np.ascontiguousarray(transformed, dtype=np.uint8)
+        if n < 2**31 - 1:
+            sa32 = np.empty(n, dtype=np.int32)
+            lib.sais_u8_i32(_ptr(t, _u8p), n, int(alphabet_size), _ptr(sa32, _i32p))
+            return sa32 if n >= (1 << 27) else sa32.astype(np.int64)
+        if n < 2**32:
+            return sais_u32(t, alphabet_size)
+        sa = np.empty(n, dtype=np.int64)
+        lib.sais_u8_i64(_ptr(t, _u8p), n, int(alphabet_size), _ptr(sa, _i64p))
+        return sa
+    t = np.ascontiguousarray(transformed, dtype=np.int64)
+    sa = np.empty(n, dtype=np.int64)
+    lib.sais_i64(_ptr(t, _i64p), n, int(alphabet_size), _ptr(sa, _i64p))
+    return sa
+
+
+def sais_u32(transformed: np.ndarray, alphabet_size: int) -> np.ndarray:
+    """The u8-text / uint32-SA instantiation at any length (the path of
+    texts of 2^31 to 2^32 - 1 symbols; callable on small texts so that the
+    tests can hold it against the int32 one). ``ValueError`` for an
+    alphabet wider than a byte."""
+    if alphabet_size > 256:
+        raise ValueError(f"sais_u32 takes byte alphabets, got {alphabet_size} symbols")
+    lib = get_lib()
+    t = np.ascontiguousarray(transformed, dtype=np.uint8)
+    sa = np.empty(len(t), dtype=np.uint32)
+    lib.sais_u8_u32(_ptr(t, _u8p), len(t), int(alphabet_size), _ptr(sa, _u32p))
+    return sa
+
+
+def cigars_colrle(ex, cnt, nlens, mlens, ins0, fix_exit, fix_ins, xstart, xend, nthreads: int = 0, cap=None):
+    """CIGAR strings of a batch's column-RLE walk streams, threaded over
+    lanes: a list of B strings, ``None`` for a row whose string does not fit
+    its ``cap`` bytes (default 12 N + 48, the JAX binding's). ``ex`` /
+    ``cnt`` (B, N) uint16 exit codes and Ins runs, row-major; the per-lane
+    fields (B,) int32."""
+    lib = get_lib()
+    ex = np.ascontiguousarray(ex, dtype=np.uint16)
+    cnt = np.ascontiguousarray(cnt, dtype=np.uint16)
+    B, N = ex.shape
+    if cnt.shape != (B, N):
+        raise ValueError(f"ex {ex.shape} and cnt {cnt.shape}: expected equal (B, N) shapes")
+    cap = 12 * N + 48 if cap is None else int(cap)
+    out = np.empty(B * cap, dtype=np.uint8)
+    out_len = np.empty(B, dtype=np.int32)
+    lanes = [np.ascontiguousarray(v, dtype=np.int32) for v in (nlens, mlens, ins0, fix_exit, fix_ins, xstart, xend)]
+    if any(v.shape != (B,) for v in lanes):
+        raise ValueError(f"per-lane fields must have shape ({B},)")
+    if B and int(lanes[0].max()) > N:
+        raise ValueError(f"nlens must not pass the stream's {N} columns")
+    lib.cigars_colrle(
+        _ptr(ex, _u16p), _ptr(cnt, _u16p), B, N, *(_ptr(v, _i32p) for v in lanes), cap,
+        out.ctypes.data_as(ctypes.c_char_p), _ptr(out_len, _i32p), int(nthreads),
+    )
+    raw = out.tobytes()
+    return [None if out_len[b] < 0 else raw[b * cap : b * cap + int(out_len[b])].decode() for b in range(B)]

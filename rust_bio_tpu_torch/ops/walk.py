@@ -23,6 +23,12 @@ and ``mlens``/``nlens`` (B,) int32. Output, per DP column j
 is not), walking end -> start; plus ``ins0``, the Ins run in column 0. All
 uint16. K8 and K10 walk the (N+1, X, B) tensor of K7/K9, column 0 included,
 and emit (N+1, B) outputs; their module section says what.
+
+Kernel K-merge (``merge_rle``, ``csrc/rle_merge.cu``) merges K2's or K6's
+column-RLE outputs into at most R (kind, length) runs a pair and packs them
+as the (5 + R, B) uint16 compact pack; it replaces the XLA functions
+``rust_bio_tpu/alignment/pairwise/batched.py`` ``_merge_rle_device`` and
+``_pack_rle_merged``. Its section at the end of this module says how.
 """
 
 from __future__ import annotations
@@ -1051,3 +1057,95 @@ def walk_banded_plain(tb, tb0, tbfix, lx, mlens, nlens, pens):
         use_s = ~(is_ins | is_del | do_x) | new_done
         i, j, done = new_i, new_j, new_done
     return op_codes.to(torch.uint8), op_lens.to(torch.uint16), xstart, ystart, xend, yend
+
+
+# ---------------------------------------------------------------------------
+# K-merge: the run merge of the compact pack
+# ---------------------------------------------------------------------------
+#
+# A pair's stream in op order is [Ins x ins0], per column j < nlens (exit_op[j]
+# x 1, Ins x ins_cnt[j]), [fix_exit x 1], [Ins x fix_ins]; entries of kind
+# Ins..Match (1-4) with a positive length are kept, and a kept entry starts a
+# run where its kind differs from the previous kept entry's (dropped entries
+# do not break a run, as the numpy merge of ``PackedSemiglobal.cigars``). The
+# pack: rows 0-4 the score's high and low 16 bits, xstart, xend and n_runs |
+# ovf << 15; row 5 + r run r's kind << 12 | min(length, 4095), 0 past the
+# runs. ``ovf``: more than R runs, or one of the first R longer than 4095.
+
+RLE_MERGE = CudaKernel("rle_merge", "rle_merge", [PTR] * 9 + [INT, INT, INT, PTR])
+# csrc/rle_merge.cu's launch: one warp a pair, MERGE_WARPS pairs a block
+MERGE_WARPS = 8
+
+
+def merge_rle(score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens, xstart, xend, R: int):
+    """K-merge. ``score`` (B,) int32; ``ins_cnt``, ``exit_op`` (N, B) and
+    ``ins0`` (B,) uint16 as K2 and K6 return them; ``fix_ins``, ``fix_exit``
+    (B,) int32 or None (global mode: 0); ``nlens``, ``xend`` (B,) int32,
+    ``xstart`` (B,) int32 or None (0). Returns the (5 + R, B) uint16 pack."""
+    dev = same_device(score, ins_cnt, exit_op, ins0, nlens, xend)
+    if ins_cnt.dim() != 2:
+        raise ValueError(f"ins_cnt: expected (N, B), got shape {tuple(ins_cnt.shape)}")
+    N, B = ins_cnt.shape
+    if not 1 <= R < 2**15:
+        raise ValueError(f"R = {R}: expected 1 <= R < 2^15")
+    check(score, "score", torch.int32, (B,))
+    check(ins_cnt, "ins_cnt", torch.uint16, (N, B))
+    check(exit_op, "exit_op", torch.uint16, (N, B))
+    check(ins0, "ins0", torch.uint16, (B,))
+    check(nlens, "nlens", torch.int32, (B,))
+    check(xend, "xend", torch.int32, (B,))
+    for name, t in (("fix_ins", fix_ins), ("fix_exit", fix_exit), ("xstart", xstart)):
+        if t is not None:
+            same_device(score, t)
+            check(t, name, torch.int32, (B,))
+    if dev.type == "cpu":
+        return merge_rle_plain(score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens, xstart, xend, R)
+    pack = torch.empty((5 + R, B), dtype=torch.uint16, device=dev)
+    if B:
+        RLE_MERGE.launch(
+            dev, score.data_ptr(), ins_cnt.data_ptr(), exit_op.data_ptr(), ins0.data_ptr(),
+            *(0 if t is None else t.data_ptr() for t in (fix_ins, fix_exit)), nlens.data_ptr(),
+            0 if xstart is None else xstart.data_ptr(), xend.data_ptr(), B, N, R, pack.data_ptr(),
+        )
+    return pack
+
+
+def merge_rle_plain(score, ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens, xstart, xend, R: int):
+    """Plain version of K-merge: batched.py ``_merge_rle_device`` (the
+    stream, the forward fill of the previous kept kind, here a ``cummax``
+    over the indices of kept entries, the run ids and the masked sums, here
+    ``scatter_add_`` with a column for the runs past R) and
+    ``_pack_rle_merged``."""
+    i32 = torch.int32
+    N, B = ins_cnt.shape
+    dev = ins_cnt.device
+    zero = torch.zeros(B, dtype=i32, device=dev)
+    fix_ins = zero if fix_ins is None else fix_ins
+    fix_exit = zero if fix_exit is None else fix_exit
+    xstart = zero if xstart is None else xstart
+    cvalid = torch.arange(N, device=dev)[None, :] < nlens[:, None]  # (B, N)
+    ex = torch.where(cvalid, exit_op.T.to(i32), 0)
+    cnt = torch.where(cvalid, ins_cnt.T.to(i32), 0)
+    ins = torch.full((B, 1), TB_INS, dtype=i32, device=dev)
+    kind = torch.cat([ins, torch.stack([ex, ins.expand(B, N)], dim=2).reshape(B, 2 * N), fix_exit[:, None], ins], 1)
+    ones = torch.ones((B, 1), dtype=i32, device=dev)
+    ln = torch.cat(
+        [ins0.to(i32)[:, None], torch.stack([ones.expand(B, N), cnt], dim=2).reshape(B, 2 * N), ones, fix_ins[:, None]],
+        1,
+    )
+    W = kind.shape[1]
+    kept = (kind >= TB_INS) & (kind <= TB_MATCH) & (ln > 0)
+    at = torch.arange(W, device=dev).expand(B, W)
+    last = torch.cummax(torch.where(kept, at, -1), dim=1).values  # the last kept entry up to each
+    ffi = torch.where(last >= 0, kind.gather(1, last.clamp(min=0)), 0)
+    prev = torch.cat([torch.zeros((B, 1), dtype=i32, device=dev), ffi[:, :-1]], 1)
+    new = kept & (kind != prev)
+    rid = torch.cumsum(new.to(i32), 1) - 1
+    n_runs = rid[:, -1] + 1
+    slot = torch.where(rid < R, rid, R).clamp(min=0).long()
+    run_len = torch.zeros((B, R + 1), dtype=i32, device=dev).scatter_add_(1, slot, torch.where(kept, ln, 0))[:, :R]
+    run_kind = torch.zeros((B, R + 1), dtype=i32, device=dev).scatter_add_(1, slot, torch.where(new, kind, 0))[:, :R]
+    ovf = (n_runs > R) | (run_len.max(dim=1).values > 0xFFF)
+    small = torch.stack([(score >> 16) & 0xFFFF, score & 0xFFFF, xstart, xend, n_runs | (ovf.to(i32) << 15)])
+    kl = (run_kind.T << 12) | run_len.T.clamp(max=0xFFF)
+    return torch.cat([small, kl], 0).to(torch.uint16)

@@ -2671,3 +2671,160 @@ def test_pairhmm_linear_fallback_on_card(cuda_device):
     _f32_close(torch.from_numpy(got), torch.from_numpy(want))
     f64 = BatchPairHMM(*gaps, dtype=torch.float64, device=cuda_device).prob_related_batch(xs, ys, ep, True, xl, yl)
     _f32_close(torch.from_numpy(got), torch.from_numpy(f64))
+
+
+# ---- K-merge, K4-LUT and the uint32 K4 / K4-locate ----
+
+
+def _merge_stream(rng, N, B):
+    """A synthetic walk stream with dropped codes among the exits, Ins runs
+    past 4095 and ragged lengths (tests/test_torch_compact.py's, without
+    JAX)."""
+    ins_cnt = rng.choice([0, 0, 0, 0, 0, 1, 2, 5, 4095, 4096], size=(N, B)).astype(np.uint16)
+    exit_op = rng.choice([0, 2, 3, 4, 4, 4, 4, 4, 4, 7], size=(N, B)).astype(np.uint16)
+    ins0 = rng.choice([0, 0, 3, 5000], size=B).astype(np.uint16)
+    fix_ins = rng.integers(0, 3, size=B).astype(np.int32)
+    fix_exit = rng.choice([0, 1, 3, 4, 7], size=B).astype(np.int32)
+    nlens = rng.integers(0, N + 1, size=B).astype(np.int32)
+    nlens[:2] = [0, N]
+    score = rng.integers(-(2**31), 2**31, size=B).astype(np.int32)
+    xstart = rng.integers(0, 3, size=B).astype(np.int32)
+    xend = rng.integers(0, 200, size=B).astype(np.int32)
+    return ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens, score, xstart, xend
+
+
+@pytest.mark.parametrize("N,R", [(40, 1), (150, 8), (150, 32), (800, 32), (150, 100)])
+def test_merge_matches_plain(cuda_device, N, R):
+    """K-merge against its plain version on the card, bit for bit: rounds
+    whose runs cross the 32-entry round seams, R small enough to overflow,
+    runs past 4095, R past a warp's lanes, global mode's absent fix fields."""
+    rng = np.random.default_rng(80 + N + R)
+    ins_cnt, exit_op, ins0, fix_ins, fix_exit, nlens, score, xstart, xend = (
+        torch.from_numpy(a).to(cuda_device) for a in _merge_stream(rng, N, 3000)
+    )
+    for fixes in ((fix_ins, fix_exit, xstart), (None, None, None)):
+        before = walk.RLE_MERGE.launches
+        got = walk.merge_rle(score, ins_cnt, exit_op, ins0, fixes[0], fixes[1], nlens, fixes[2], xend, R)
+        torch.cuda.synchronize()
+        assert walk.RLE_MERGE.launches == before + 1
+        want = walk.merge_rle_plain(score, ins_cnt, exit_op, ins0, fixes[0], fixes[1], nlens, fixes[2], xend, R)
+        assert got.dtype == torch.uint16 and torch.equal(got, want)
+        ovf = got[4].cpu().numpy().astype(np.int64) >> 15
+        assert ovf.any() and not ovf.all()
+
+
+@pytest.mark.parametrize("mode", ["global", "semiglobal"])
+def test_compact_on_card_matches_cpu(cuda_device, mode):
+    """The compact path on the card (K1/K5, K2/K6, K-merge) against the CPU
+    path and the dense CIGARs: 2% divergence (no overflow) and random pairs
+    (the dense re-run), finished alone and together."""
+    rng = np.random.default_rng(90)
+    B, M = 512, 150
+    xb = rng.choice(list(b"ACGT"), size=(B, M)).astype(np.uint8)
+    ys = [xb.copy(), rng.choice(list(b"ACGT"), size=(B, M)).astype(np.uint8)]
+    mut = rng.random(size=(B, M)) < 0.02
+    ys[0][mut] = rng.choice(list(b"ACGT"), size=int(mut.sum()))
+    ml = np.full(B, M, np.int32)
+    sc = Scoring.from_scores(-5, -1, 2, -2)
+    on_card, on_cpu = BatchAligner(sc, device=cuda_device), BatchAligner(sc, device="cpu")
+    start = getattr(on_card, f"{mode}_packed_compact_async_arrays")
+    before = walk.RLE_MERGE.launches
+    handles = [start(xb, yb, ml, ml) for yb in ys]
+    assert walk.RLE_MERGE.launches == before + 2
+    many = BatchAligner.packed_compact_finish_many(handles)
+    for yb, h, m in zip(ys, handles, many):
+        cpu_handle = getattr(on_cpu, f"{mode}_packed_compact_async_arrays")(xb, yb, ml, ml)
+        assert torch.equal(h[0].cpu(), cpu_handle[0])
+        want = BatchAligner.packed_compact_finish(cpu_handle)
+        np.testing.assert_array_equal(m.score, want.score)
+        np.testing.assert_array_equal(m.overflow, want.overflow)
+        dense = getattr(BatchAligner, f"{mode}_packed_finish")(getattr(on_card, f"{mode}_packed_async_arrays")(xb, yb, ml, ml))
+        assert m.cigars() == want.cigars() == dense.cigars()
+    assert not many[0].overflow.any() and many[1].overflow.any()
+
+
+def _lut_patterns(rng, text, B, L, q):
+    """Complete, partial, absent, shorter-than-q and non-DNA lanes."""
+    t = np.frombuffer(text, np.uint8)
+    pats = rng.choice(list(b"ACGT"), size=(B, L)).astype(np.uint8)
+    starts = rng.integers(0, len(t) - L - 1, size=B)
+    sub = t[starts[:, None] + np.arange(L)]
+    pats[: B // 2] = sub[: B // 2]
+    part = np.arange(B // 4, B // 2)
+    pats[part, rng.integers(0, L, size=part.size)] = rng.choice(list(b"ACGT"), size=part.size)
+    plens = np.full(B, L, np.int32)
+    plens[::7] = rng.integers(0, q, size=plens[::7].size)
+    pats[3::11, rng.integers(0, L)] = ord("N")
+    return pats, plens
+
+
+@pytest.mark.parametrize("force_u32", [False, True], ids=["int32", "uint32"])
+@pytest.mark.parametrize("n,q", [(5000, 5), (200_000, 12)], ids=["5k-q5", "200k-q12"])
+def test_k4_lut_matches_plain_and_k4(cuda_device, force_u32, n, q):
+    """K4-LUT against its plain version on the card and against K4, bit for
+    bit, in both index modes: the table built on the card equals the one
+    built on the CPU, every lane (miss lanes included) equals K4's, and
+    the miss mask equals the plain version's."""
+    rng = np.random.default_rng(100 + q)
+    text = _fm_text(rng, n)
+    index = DeviceFMIndex.from_text(text, dna.n_alphabet(), sampling_rate=16, device=cuda_device, force_u32=force_u32)
+    index.build_kmer_lut(q=q)
+    on_cpu = index.to("cpu")
+    on_cpu.build_kmer_lut(q=q)
+    assert torch.equal(index._lut.cpu(), on_cpu._lut)
+    pats, plens = _lut_patterns(rng, text, 4096, 20, q)
+    pats_d, plens_d = torch.from_numpy(pats).to(cuda_device), torch.from_numpy(plens).to(cuda_device)
+    kernel = fm.FM_SEARCH_LUT_U32 if force_u32 else fm.FM_SEARCH_LUT
+    before = kernel.launches
+    got = index._search_kernel_lut(pats_d, plens_d)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = fm.search_lut_plain(
+        index._fused, index._less256, index.sym_of, index._lut_rank, index._lut, q, pats_d, plens_d, index.n, force_u32
+    )
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for g, k in zip(got[:4], index.search_arrays(pats_d, plens_d)):
+        assert torch.equal(g, k)
+    miss = got[4].cpu().numpy()
+    assert miss.any() and not miss.all()
+    status = got[0].cpu().numpy()
+    assert set(status.tolist()) == {fm.ABSENT, fm.PARTIAL, fm.COMPLETE}
+    for g, w in zip(index.search_batch_lut(pats, plens), on_cpu.search_batch_lut(pats, plens)):
+        np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("s", [1, 8, 32])
+def test_u32_k4_and_locate_match_plain(cuda_device, s):
+    """The uint32 instantiations of K4 and K4-locate (``force_u32``) against
+    their plain versions on the card and against the int32 index: every
+    branch of K4's patterns, every row, several sentinels, and rows past
+    2^31 and 0xFFFFFFFF, which give 0xFFFFFFFF."""
+    rng = np.random.default_rng(110 + s)
+    text = b"$".join(_fm_text(rng, k)[:-1] for k in (3000, 1, 1700)) + b"$"
+    alpha = dna.n_alphabet()
+    alpha.insert(ord("$"))
+    big = DeviceFMIndex.from_text(text, alpha, sampling_rate=s, device=cuda_device, force_u32=True)
+    small = DeviceFMIndex.from_text(text, alpha, sampling_rate=s, device=cuda_device)
+    pats, plens = _k4_patterns(rng, _fm_text(rng, 3000), 24)
+    pats_d, plens_d = torch.from_numpy(pats).to(cuda_device), torch.from_numpy(plens).to(cuda_device)
+    before = fm.FM_BACKWARD_SEARCH_U32.launches
+    got = big.search_arrays(pats_d, plens_d)
+    torch.cuda.synchronize()
+    assert fm.FM_BACKWARD_SEARCH_U32.launches == before + 1
+    want = fm.backward_search_plain(big._fused, big._less256, big.sym_of, pats_d, plens_d, big.n, True)
+    for g, w, i in zip(got, want, small.search_arrays(pats_d, plens_d)):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(g, i.to(g.dtype))
+    tables = (big._fused, big.bwt_sym, big.less_sym, big.sa_sample, big.sent_rows, big.sent_vals)
+    rows = torch.arange(len(text), device=cuda_device)
+    before = fm.FM_LOCATE_U32.launches
+    pos = big.locate_rows(rows)
+    torch.cuda.synchronize()
+    assert fm.FM_LOCATE_U32.launches == before + 1
+    assert pos.dtype == torch.int64
+    assert torch.equal(pos, fm.locate_plain(*tables, big._row_tensor(rows), s, True))
+    assert torch.equal(pos, small.locate_rows(rows.to(torch.int32)).long())
+    odd = torch.tensor([0, len(text), 2**31 + 5, 2**32 - 1], dtype=torch.int64, device=cuda_device)
+    got = fm.locate(*tables, big._row_tensor(odd), s, big=True)
+    assert torch.equal(got, fm.locate_plain(*tables, big._row_tensor(odd), s, True))
+    assert got.cpu().tolist()[1:] == [2**32 - 1] * 3

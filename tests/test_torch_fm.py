@@ -189,8 +189,8 @@ def test_carry_detects_corruption(tmp_path):
 
 def test_bad_inputs_raise():
     port = DeviceFMIndex(b"ACGT$", dna.n_alphabet(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port._set_tables({}, 2**31, 32, 0, [], torch.device("cpu"))
+    with pytest.raises(ValueError, match="2\\^32 - 1"):
+        port._set_tables({}, 2**32 - 1, 32, 0, [], torch.device("cpu"))
     pats = torch.zeros((2, 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="plens"):
         port.search_arrays(pats, torch.tensor([1, 4], dtype=torch.int32))

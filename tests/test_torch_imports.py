@@ -88,7 +88,7 @@ def test_port_has_its_files():
     assert native.SOURCE == ROOT / "rust_bio_tpu_torch" / "csrc" / "band_build.cpp" and native.SOURCE.is_file()
     csrc = ROOT / "rust_bio_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "walk_sweep.cu", "fm_search.cu",
+        "walk_sweep.cu", "fm_search.cu", "rle_merge.cu",
         "sw_warp.cu", "sw_global_rows.cu", "walk_global_seg.cu", "walk_steps.cu",
         "sw_columns.cu", "sw_banded.cu", "pairhmm_scaled.cu", "pairhmm_log.cu", "pairhmm_exact.cu",
         "pairhmm_homopoly.cu",
