@@ -130,6 +130,28 @@ NVIDIA GPU.
    taken as a BWT (no suffix array), indexed with its table: the uint32
    K4 and K4-LUT on 65,536 random 20-mers must equal their plain versions
    on the card, with intervals past 2^31 and word indices past 2^26.
+3i. Drives the SMEM read mapper (``SmemReadMapper``: K-SMEM with the seed
+   pick in its epilog, K4-locate, then K5 and K6) with the counters at 0
+   again, after phase 4 has freed 3h's 2.2 G index: the FMD index of phase
+   2's genome (the text ``T$revcomp(T)$``, 9,283,306 symbols, the native
+   SA-IS, timed with its tables), 8192 100 bp reads with two mixed errors
+   each (bench.py:678-696; 70% substitutions, 15% 1-2 bp insertions, 15%
+   deletions), every second one reverse-complemented, through
+   ``map_batch``, then 3 x 8192 through ``map_stream``; at least 90% must
+   map at their origin on their strand (bench.py:716-717), every CIGAR
+   re-score to its score, 64 reads equal the CPU path. K-SMEM's launches
+   must equal the seed paths' (main, quarter and wide retries; the lanes of
+   each and of the host oracle printed). K-SMEM is held against its plain
+   version on the 8192 read middles in both modes at E = 16 and 32 (all
+   seven outputs) and with its pick, its mapper-mode SMEMs on 256 lanes
+   against the host oracle. Then a random 50,000,000 bp genome (FMD text
+   100,000,002 symbols): built once into an index cache in a temporary
+   directory, loaded back by a second mapper with the genome check, a
+   cache of another genome refused; 6 x 1024 reads with 2 substitutions
+   streamed, 90% at their origin. Then the 1 Mbp repeat genome
+   (bench.py:755) with 8192 reads: 90% of the uniquely originating reads at
+   their origin, the seed paths' lanes printed (and whether any reached
+   the host oracle).
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
@@ -147,7 +169,7 @@ NVIDIA GPU.
    pairs; K4 with its geometry and registers, K4-locate on phase 2's rows
    and on 8192 random rows (the mapper's batch); K-merge on phase 2's
    and the mapper's walk streams; K4-LUT and the uint32 K4, K4-LUT and
-   K4-locate on phase 3h's indexes; times K13-LUT on the
+   K4-locate on phase 3h's indexes; K-SMEM (in phase 3i); times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
    bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s, located rows/s and mapped reads/s, device-only and
@@ -156,7 +178,9 @@ NVIDIA GPU.
    band build's seconds a batch and a cProfile of one batch of reads; the
    PairHMM pairs/s of each 3g corpus; the compact path's delivered pairs/s
    (8 handles, one pull), the 50 Mbp index's queries/s through K4-LUT and
-   K4, and the host SA-IS seconds.
+   K4, and the host SA-IS seconds; the SMEM mapper's reads/s (the seed
+   chain device-only, ``map_batch`` and ``map_stream`` delivered) at 4.6
+   and 50 Mbp and on the repeat genome, and its FMD builds' seconds.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -280,6 +304,25 @@ COMPACT_HANDLES = 8
 # one sentinel taken as a BWT, past 2^31 (a SA-IS of a real text of that
 # length takes far longer than this run)
 FM_LARGE_LEN, FM_LUT_Q, FM_BIG_LEN = 50_000_000, 12, 2_200_000_001
+# the SMEM read mapper (3i): the JAX bench's SMEM rows (bench.py:292-330,
+# :678-750, :1013-1060): 100 bp reads with two mixed errors each (70%
+# substitutions, 15% 1-2 bp insertions, 15% deletions, 10 bp or more from
+# the ends), both strands, over phase 2's genome (8192 through map_batch,
+# 3 x 8192 through map_stream); a random 50 Mbp genome (6 x 1024 reads, 2
+# substitutions each) built once into an index cache and loaded back; the
+# 1 Mbp repeat genome (bench.py:755: 15% segmental duplications, 5%
+# tandem repeats); K-SMEM held against its plain version at E = 16 and 32
+# in both modes, its mapper outputs on 256 lanes against the host oracle
+SMEM_LEN, B_SMEM, SMEM_STREAM = 100, 8192, 3
+SMEM_LARGE_LEN, B_SMEM_LARGE, SMEM_LARGE_BATCHES = 50_000_000, 1024, 6
+SMEM_REPEAT_LEN, SMEM_ORACLE, SMEM_MIN_SEED = 1_000_000, 256, 19
+# 32-bit operations K-SMEM's function needs, counted from csrc/fmd_smem.cu
+# (loads, stores, addresses, shuffles and ballots not counted): a phase-1
+# step ranks KE symbols at two ends (the mask, the popcount, the add: 3
+# each), sums them (2 KE: the lower end's select, the difference and the
+# running sum) and forms the extension (8); a phase-2 slot step two ranks
+# (6), the size and lower bound (4), the append and emit tests (8)
+SMEM_OPS_PHASE1_PER_SYMBOL, SMEM_OPS_PHASE1_STEP, SMEM_OPS_SLOT_STEP = 8, 8, 18
 # operations the run merge needs per stream entry, whatever kernel does it:
 # the keep test, the compare with the previous kept run's kind, the add to
 # its length and the add to the run count (the warp's ballots, shuffles and
@@ -872,6 +915,278 @@ def host_profile(torch, fn, top: int = 14) -> dict:
     }
 
 
+def mut_reads(genome: bytes, starts, length: int, rng):
+    """Reads with two mixed errors each, 10 bp or more from the read ends so
+    that the mapping position stays the window start (bench.py:678-696)."""
+    reads = []
+    for s in starts:
+        r = bytearray(genome[s : s + length + 8])  # slack for deletions
+        for _ in range(2):
+            p = int(rng.integers(10, length - 10))
+            kind = rng.random()
+            if kind < 0.70:
+                r[p] = int(rng.choice(list(b"ACGT")))
+            elif kind < 0.85:
+                del r[p : p + int(rng.integers(1, 3))]
+            else:
+                r[p:p] = rng.choice(list(b"ACGT"), size=int(rng.integers(1, 3))).astype(np.uint8).tobytes()
+        reads.append(bytes(r[:length]))
+    return reads
+
+
+def repeat_genome(G: int, seed: int):
+    """A random genome with 15% segmental duplications (0.5-3 kb copies) and
+    5% tandem repeats (2-50 bp units, 10-100 copies) pasted over it, and
+    the (G,) mask of positions never pasted over or copied from
+    (bench.py:755-791)."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 4, size=G, dtype=np.uint8)
+    pasted = np.zeros(G, bool)
+    placed = 0
+    while placed < int(G * 0.15):
+        L = int(rng.integers(500, 3000))
+        src = int(rng.integers(0, G - L))
+        dst = int(rng.integers(0, G - L))
+        base[dst : dst + L] = base[src : src + L]
+        pasted[dst : dst + L] = True
+        pasted[src : src + L] = True
+        placed += L
+    placed = 0
+    while placed < int(G * 0.05):
+        u = int(rng.integers(2, 50))
+        reps = int(rng.integers(10, 100))
+        L = u * reps
+        dst = int(rng.integers(0, G - L))
+        base[dst : dst + L] = np.tile(rng.integers(0, 4, size=u, dtype=np.uint8), reps)
+        pasted[dst : dst + L] = True
+        placed += L
+    return np.frombuffer(b"ACGT", np.uint8)[base].tobytes(), ~pasted
+
+
+def both_strands(oriented):
+    """Every second read reverse-complemented."""
+    from rust_bio_tpu_torch.alphabets import dna
+
+    return [dna.revcomp(o) if k % 2 else o for k, o in enumerate(oriented)]
+
+
+def at_origin(mapped, starts) -> int:
+    """Reads mapped at their start on their strand (every second one '-')."""
+    return sum(m.pos == int(s) and m.strand == ("-" if k % 2 else "+") for k, (m, s) in enumerate(zip(mapped, starts)))
+
+
+def smem_phase(torch, dev, seed: int, genome: bytes, sc, counters: dict, report, smi: str):
+    """Phase 3i, the SMEM mapper with the launch counters at 0 (see the
+    module docstring). Returns (the main path's launches, the rates, the
+    seed paths' counts); reports K-SMEM's kernel row through ``report``."""
+    import tempfile
+
+    from rust_bio_tpu_torch.alphabets import dna
+    from rust_bio_tpu_torch.ops import _build, fmd
+    from rust_bio_tpu_torch.pipelines import SmemReadMapper
+    from rust_bio_tpu_torch.data_structures.fmd_device import pad_batch
+
+    G = len(genome)
+    rng = np.random.default_rng((seed, 9))
+    for k in counters.values():
+        k.launches = 0
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    sm = SmemReadMapper(genome, sc, min_seed_len=SMEM_MIN_SEED, device=dev)
+    build = {**sm.build_s, "total_s": time.perf_counter() - t0}
+    starts = rng.integers(0, G - SMEM_LEN - 8, size=(1 + SMEM_STREAM) * B_SMEM)
+    reads = both_strands(mut_reads(genome, starts, SMEM_LEN, rng))
+    main_reads, main_starts = reads[:B_SMEM], starts[:B_SMEM]
+    batches = [reads[B_SMEM * (k + 1) : B_SMEM * (k + 2)] for k in range(SMEM_STREAM)]
+    mapped = sm.map_batch(main_reads)
+    batch_stats = dict(sm.seed_stats)
+    streamed = [m for part in sm.map_stream(batches) for m in part]
+    smem_launches = {name: k.launches for name, k in counters.items()}
+    path = ("fmd_smems", "fm_locate", "sw_scan_semiglobal", "sweep_walk_semiglobal")
+    check(all(smem_launches[n] > 0 for n in path), f"a kernel of the SMEM mapper did not launch: {smem_launches}")
+    stats = {k: sm.seed_stats[k] for k in sm.seed_stats}
+    check(smem_launches["fmd_smems"] == stats["main_launches"] + stats["quarter_launches"] + stats["wide_launches"],
+          f"3i: K-SMEM launches {smem_launches['fmd_smems']} != the seed paths' {stats}")
+    ok_batch = at_origin(mapped, main_starts)
+    ok_stream = at_origin(streamed, starts[B_SMEM:])
+    check(ok_batch >= 0.9 * B_SMEM, f"3i: {ok_batch} of {B_SMEM} reads at their origin")
+    check(ok_stream >= 0.9 * SMEM_STREAM * B_SMEM, f"3i: map_stream put {ok_stream} reads at their origin")
+    for k, (read, m) in enumerate(zip(main_reads, mapped)):
+        if m.pos >= 0:
+            x = read if m.strand == "+" else dna.revcomp(read)
+            got = rescore(cigar_kinds(m.cigar), x, genome[m.pos : m.pos + 2 * SMEM_LEN])
+            check(got is not None and got[:2] == (m.score, len(x)), f"3i: read {k}: CIGAR {m.cigar} does not re-score to {m.score}")
+    # the card against the plain versions on the CPU, 64 reads
+    cpu = sm.to("cpu")
+    key = lambda ms: [(m.pos, m.strand, m.score, m.cigar) for m in ms]  # noqa: E731
+    check(key(mapped[:64]) == key(cpu.map_batch(main_reads[:64])), "3i: card != CPU plain path")
+    del cpu
+    print(json.dumps({
+        "phase": "smem_mapper", "launches": smem_launches, "reads": B_SMEM, "at_origin": ok_batch,
+        "stream_reads": SMEM_STREAM * B_SMEM, "stream_at_origin": ok_stream, "mapped": sum(m.pos >= 0 for m in mapped),
+        "seed_paths_map_batch": batch_stats, "seed_paths_all": stats, "fmd_build": build, "text": 2 * G + 2,
+        "seconds": time.perf_counter() - t_phase, "card": smi,
+    }), flush=True)
+
+    # K-SMEM against its plain version on the main path's 8192 lanes (the
+    # read middles), both modes, E = 16 and 32; the pick; the host oracle
+    pb, plens, _ = pad_batch(main_reads)
+    iis = np.maximum(plens // 2 - 1, 0).astype(np.int32)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pb, plens, iis)]
+    t = sm.fmd.tables
+    err, checks = 0, {}
+    for mapper in (True, False):
+        for E in (16, 32):
+            got = fmd.smems(t, *args, SMEM_MIN_SEED, E, E, mapper)
+            torch.cuda.synchronize()
+            want = fmd.smems_plain(t, *args, SMEM_MIN_SEED, E, E, mapper)
+            e = max_abs_err(got, want)
+            checks[f"{'mapper' if mapper else 'full'}_E{E}"] = {"max_abs_err": e, "ovf": int(want[6].sum()), "matches": int(want[5].sum())}
+            err = max(err, e)
+    check(err == 0, f"fmd_smems differs from its plain version: {checks}")
+    pick = torch.empty((4, B_SMEM), dtype=torch.int32, device=dev)
+    rows = fmd.seed_pick(t, *args, SMEM_MIN_SEED, sm._E0, pick)
+    torch.cuda.synchronize()
+    work = {}
+    wrows, wpick = fmd.pick_plain(*fmd.smems_plain(t, *args, SMEM_MIN_SEED, sm._E0, sm._E0, True, work))
+    err = max(err, max_abs_err([rows, pick], [wrows, wpick]))
+    check(err == 0, "fmd_smems: the seed pick differs from its plain version")
+    lanes = np.arange(0, B_SMEM, B_SMEM // SMEM_ORACLE)
+    t0 = time.perf_counter()
+    oracle_fmd = sm.host_fmd
+    dev_lanes = sm.fmd.smems_batch(
+        [main_reads[i] for i in lanes], iis[lanes], SMEM_MIN_SEED, 16, 16, host_oracle=oracle_fmd, mapper_mode=True
+    )
+    oracle = [oracle_fmd.smems(main_reads[i], int(iis[i]), SMEM_MIN_SEED) for i in lanes]
+    drop_lor = lambda lanes_: [[(i.lower, i.size, i.match_size, p, n) for i, p, n in lane] for lane in lanes_]  # noqa: E731
+    check(drop_lor(dev_lanes) == drop_lor(oracle), "fmd_smems: mapper-mode SMEMs != the host oracle's")
+    oracle_s = time.perf_counter() - t0
+    # the bytes this run's lanes need: a rank-row read of phase 1 as the
+    # 32-byte sectors of its 2S words, a phase-2 slot rank as one sector,
+    # two each a step; the reads, lengths, positions and the pick
+    S = int(sm.index._fused.shape[0])
+    row_bytes = 32 * -(-(8 * S) // 32)
+    nbytes = 2 * row_bytes * work["phase1_steps"] + 2 * 32 * work["slot_steps"] + pb.size + 8 * B_SMEM + 20 * B_SMEM
+    nops = (SMEM_OPS_PHASE1_PER_SYMBOL * sm.fmd.KE + SMEM_OPS_PHASE1_STEP) * work["phase1_steps"] + SMEM_OPS_SLOT_STEP * work["slot_steps"]
+    out = torch.empty((4, B_SMEM), dtype=torch.int32, device=dev)
+    launch = lambda: fmd.seed_pick(t, *args, SMEM_MIN_SEED, sm._E0, out)  # noqa: E731
+    wide = lambda: fmd.seed_pick(t, *args, SMEM_MIN_SEED, 2 * sm._E0, out)  # noqa: E731
+    full = lambda: fmd.smems(t, *args, SMEM_MIN_SEED, 16, 16, False)  # noqa: E731
+    lib = _build.build(["fmd_smem"])["fmd_smem"]
+    report(
+        "fmd_smems", "rust_bio_tpu_torch/ops/csrc/fmd_smem.cu", "rust_bio_tpu/data_structures/fmd_device.py:143",
+        [rows, pick], [wrows, wpick], cuda_ms(torch, launch, 20),
+        cuda_ms(torch, lambda: fmd.pick_plain(*fmd.smems_plain(t, *args, SMEM_MIN_SEED, sm._E0, sm._E0, True)), 2),
+        nbytes, nops, err=err, n_launches=smem_launches["fmd_smems"],
+        queued_ms=queued_ms(torch, launch, 20), wide_ms=cuda_ms(torch, wide, 10), full_mode_ms=cuda_ms(torch, full, 5),
+        checks=checks, work=work, lanes=B_SMEM, oracle_lanes=len(lanes), oracle_s=oracle_s,
+        seed_paths=stats, geometry={"warps": fmd.SMEM_WARPS, "blocks": -(-B_SMEM // fmd.SMEM_WARPS)},
+        registers=kernel_registers(lib, r"fmd_smems_kernelILb([01])E"),
+        stack_bytes=kernel_registers(lib, r"fmd_smems_kernelILb([01])E", "STACK"),
+    )
+    del got, want, rows, pick, wrows, wpick, out
+
+    # rates at 4.6 Mbp: the seed chain device-only (upload, K-SMEM with
+    # the pick, K4-locate, one pull), map_batch and map_stream delivered
+    rates = {}
+    chain = lambda: sm._seed_arrays(pb, plens, iis, sm._E0).cpu()  # noqa: E731
+    rates["smem_seed_chain_reads_per_s_device"] = B_SMEM / host_s(torch, chain, 5)
+    rates["smem_reads_per_s_delivered"] = B_SMEM / host_s(torch, lambda: sm.map_batch(main_reads), 3)
+    rates["smem_stream_reads_per_s_delivered"] = SMEM_STREAM * B_SMEM / host_s(torch, lambda: [len(p) for p in sm.map_stream(batches)], 2)
+    rates["smem_fmd_sais_s"] = build["sais_s"]
+    rates["smem_fmd_tables_s"] = build["tables_s"]
+    print(json.dumps({"phase": "smem_mapper_profile", **host_profile(torch, lambda: sm.map_batch(main_reads))}), flush=True)
+    del sm
+    torch.cuda.empty_cache()
+
+    # the genome scale: a random 50 Mbp genome, its index built once into a
+    # cache and loaded back with the genome check; 6 x 1024 reads streamed
+    t_scale = time.perf_counter()
+    rng50 = np.random.default_rng((seed, 10))
+    g50 = np.frombuffer(b"ACGT", np.uint8)[rng50.integers(0, 4, size=SMEM_LARGE_LEN, dtype=np.uint8)].tobytes()
+    with tempfile.TemporaryDirectory() as td:
+        cache = os.path.join(td, "smem_50mbp.npz")
+        t0 = time.perf_counter()
+        m50 = SmemReadMapper(g50, sc, min_seed_len=SMEM_MIN_SEED, index_cache=cache, device=dev)
+        build50 = {**m50.build_s, "total_s": time.perf_counter() - t0, "cache_bytes": os.path.getsize(cache)}
+        del m50
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        m50 = SmemReadMapper(g50, sc, min_seed_len=SMEM_MIN_SEED, index_cache=cache, device=dev)
+        build50["reload_s"] = time.perf_counter() - t0
+        check("load_s" in m50.build_s and m50.index.n == 2 * SMEM_LARGE_LEN + 2, "3i: the 50 Mbp mapper did not load its cache")
+        other = bytearray(g50)
+        other[SMEM_LARGE_LEN // 2] = ord("A") if other[SMEM_LARGE_LEN // 2] != ord("A") else ord("C")
+        try:
+            SmemReadMapper(bytes(other), sc, min_seed_len=SMEM_MIN_SEED, index_cache=cache, device=dev)
+            refused = False
+        except ValueError as e:
+            refused = "another genome" in str(e)
+        check(refused, "3i: a cache of another genome was not refused")
+        del other
+    starts50 = rng50.integers(0, SMEM_LARGE_LEN - SMEM_LEN, size=SMEM_LARGE_BATCHES * B_SMEM_LARGE)
+    oriented = []
+    for s in starts50:
+        r = bytearray(g50[s : s + SMEM_LEN])
+        for _ in range(2):
+            r[int(rng50.integers(0, SMEM_LEN))] = int(rng50.choice(list(b"ACGT")))
+        oriented.append(bytes(r))
+    reads50 = both_strands(oriented)
+    batches50 = [reads50[k * B_SMEM_LARGE : (k + 1) * B_SMEM_LARGE] for k in range(SMEM_LARGE_BATCHES)]
+    for k in counters.values():
+        k.launches = 0
+    out50 = [m for part in m50.map_stream(batches50) for m in part]
+    stats50 = dict(m50.seed_stats)
+    launches50 = {n: counters[n].launches for n in path}
+    check(all(v > 0 for v in launches50.values()), f"3i: a kernel of the 50 Mbp stream did not launch: {launches50}")
+    ok50 = at_origin(out50, starts50)
+    check(ok50 >= 0.9 * len(reads50), f"3i: {ok50} of {len(reads50)} reads at their origin at 50 Mbp")
+    pb50, pl50, _ = pad_batch(batches50[0])
+    ii50 = np.maximum(pl50 // 2 - 1, 0).astype(np.int32)
+    a50 = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (pb50, pl50, ii50)]
+    out = torch.empty((4, B_SMEM_LARGE), dtype=torch.int32, device=dev)
+    k_smem_50 = cuda_ms(torch, lambda: fmd.seed_pick(m50.fmd.tables, *a50, SMEM_MIN_SEED, m50._E0, out), 10)
+    rates["smem_50mbp_seed_chain_reads_per_s_device"] = B_SMEM_LARGE / host_s(
+        torch, lambda: m50._seed_arrays(pb50, pl50, ii50, m50._E0).cpu(), 5
+    )
+    rates["smem_50mbp_reads_per_s_delivered"] = B_SMEM_LARGE / host_s(torch, lambda: m50.map_batch(batches50[0]), 3)
+    rates["smem_50mbp_stream_reads_per_s_delivered"] = len(reads50) / host_s(torch, lambda: [len(p) for p in m50.map_stream(batches50)], 2)
+    rates["smem_50mbp_fmd_sais_s"] = build50["sais_s"]
+    rates["smem_50mbp_fmd_tables_s"] = build50["tables_s"]
+    rates["smem_50mbp_cache_load_s"] = build50["reload_s"]
+    print(json.dumps({
+        "phase": "smem_50mbp", "launches": launches50, "text": m50.index.n, "reads": len(reads50), "at_origin": ok50,
+        "seed_paths": stats50, "build": build50, "k_smem_ms_1024": k_smem_50,
+        "seconds": time.perf_counter() - t_scale, "card": smi,
+    }), flush=True)
+    del m50, a50, out
+    torch.cuda.empty_cache()
+
+    # the hard case: the 1 Mbp repeat genome, 8192 reads
+    t_rep = time.perf_counter()
+    grep, uniq = repeat_genome(SMEM_REPEAT_LEN, seed + 41)
+    mrep = SmemReadMapper(grep, sc, min_seed_len=SMEM_MIN_SEED, device=dev)
+    rrng = np.random.default_rng((seed, 11))
+    rstarts = rrng.integers(0, SMEM_REPEAT_LEN - SMEM_LEN - 8, size=B_SMEM)
+    cm = np.concatenate([[0], np.cumsum(~uniq)])
+    unique = (cm[rstarts + SMEM_LEN] - cm[rstarts]) == 0
+    rreads = both_strands(mut_reads(grep, rstarts, SMEM_LEN, rrng))
+    rmapped = mrep.map_batch(rreads)
+    rep_stats = dict(mrep.seed_stats)
+    ok_rep = sum(m.pos == int(s) and m.strand == ("-" if k % 2 else "+") for k, (m, s, u) in enumerate(zip(rmapped, rstarts, unique)) if u)
+    check(ok_rep >= 0.9 * int(unique.sum()), f"3i: {ok_rep} of {int(unique.sum())} uniquely originating repeat-genome reads at their origin")
+    rates["smem_repeat_reads_per_s_delivered"] = B_SMEM / host_s(torch, lambda: mrep.map_batch(rreads), 2)
+    print(json.dumps({
+        "phase": "smem_repeats", "reads": B_SMEM, "unique_reads": int(unique.sum()), "unique_at_origin": ok_rep,
+        "mapped": sum(m.pos >= 0 for m in rmapped), "seed_paths": rep_stats,
+        "oracle_note": "no lane reached the host oracle" if rep_stats["oracle_lanes"] == 0 else "",
+        "seconds": time.perf_counter() - t_rep, "card": smi,
+    }), flush=True)
+    del mrep
+    torch.cuda.empty_cache()
+    return smem_launches, rates, stats
+
+
 def pairhmm_corpora(rng):
     """Phase 3g's inputs as numpy arrays: the bench pairs (x, y) with their
     first ``B_HOMOPOLY`` haplotypes' exact read substrings for the homopoly
@@ -1044,7 +1359,7 @@ def main() -> int:
     from rust_bio_tpu_torch.alphabets import Alphabet, dna
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array_host
-    from rust_bio_tpu_torch.ops import _build, fm, pairhmm, sw, walk
+    from rust_bio_tpu_torch.ops import _build, fm, fmd, pairhmm, sw, walk
     from rust_bio_tpu_torch.pipelines import ReadMapper
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix, pam250
     from rust_bio_tpu_torch.stats.pairhmm import (
@@ -1076,6 +1391,7 @@ def main() -> int:
         "fm_search_lut_u32": fm.FM_SEARCH_LUT_U32,
         "fm_backward_search_u32": fm.FM_BACKWARD_SEARCH_U32,
         "fm_locate_u32": fm.FM_LOCATE_U32,
+        "fmd_smems": fmd.FMD_SMEMS,
         "sw_scan_semiglobal": sw.SCAN_SEMIGLOBAL,
         "sweep_walk_semiglobal": walk.SWEEP_WALK_SEMIGLOBAL,
         "sw_scan_local": sw.SCAN_LOCAL,
@@ -2781,9 +3097,14 @@ def main() -> int:
     print(json.dumps({"phase": "t_columns", "pairs": B_STR, **t_columns, "card": smi}), flush=True)
     print(json.dumps({"phase": "kernel_checks", "seconds": time.perf_counter() - t_phase}), flush=True)
 
+    # ---- 3i. the SMEM read mapper, counted (after phase 4, which frees
+    # phase 3h's 2.2 G index; K-SMEM's kernel row is reported here) ------
+    smem_launches, smem_rates, _ = smem_phase(torch, dev, args.seed, genome, sc, counters, report, smi)
+    launches = {name: launches[name] + smem_launches[name] for name in counters}
+
     # ---- 5. end-to-end rates --------------------------------------------
     t_phase = time.perf_counter()
-    rates = {}
+    rates = dict(smem_rates)
     for name, (xs, ys) in corpora.items():
         yarr = yb if name == "random" else yb_hi
         ml_np = np.full(B_ALN, LEN, np.int32)

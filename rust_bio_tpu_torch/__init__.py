@@ -12,8 +12,12 @@ path with hand-written CUDA kernels (``ops/csrc/*.cu``, built with nvcc for
 - ``DeviceFMIndex`` construction, backward search and locate
   (:mod:`rust_bio_tpu_torch.data_structures.fm_device`), and loading of
   index files written by the JAX package (:mod:`rust_bio_tpu_torch.carry`);
-- the FM-seeded read mapper ``ReadMapper``
-  (:mod:`rust_bio_tpu_torch.pipelines`);
+- the FM-seeded read mapper ``ReadMapper`` and the SMEM-seeded
+  ``SmemReadMapper`` (:mod:`rust_bio_tpu_torch.pipelines`) over
+  ``DeviceFMDIndex``'s batched SMEM search, kernel K-SMEM
+  (:mod:`rust_bio_tpu_torch.data_structures.fmd_device`), and index files
+  in the JAX package's format both ways
+  (:mod:`rust_bio_tpu_torch.data_structures.serialize`);
 - the banded aligner ``BatchBandedAligner`` (k-mer bands through long
   targets; its band builder is host C++, ``csrc/band_build.cpp``, built
   with the host compiler at first use by :mod:`rust_bio_tpu_torch.native`);

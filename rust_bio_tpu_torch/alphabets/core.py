@@ -32,6 +32,11 @@ class Alphabet:
     def __contains__(self, a: int) -> bool:
         return bool(self._mask[a])
 
+    def max_symbol(self):
+        """The largest member symbol, or None for an empty alphabet."""
+        nz = np.nonzero(self._mask)[0]
+        return int(nz[-1]) if len(nz) else None
+
     def symbols(self) -> List[int]:
         """Sorted list of member symbols."""
         return [int(s) for s in np.nonzero(self._mask)[0]]

@@ -8,7 +8,8 @@ JSON header ``__meta__`` holding ``n``, ``s``, ``sentinel``, ``symbols``,
 ``lut_q`` and a content hash. ``load_fm_index`` reads that file, checks
 the hash the same way, and returns the port's ``DeviceFMIndex``;
 ``fm_index_from_arrays`` does the same from the arrays and header already
-in memory. Index caches built by the JAX package load unchanged: a uint32
+in memory. Both live in ``data_structures.serialize``, which also writes
+such files (``save_fm_index``). Index caches built by the JAX package load unchanged: a uint32
 index (from 2^31 symbols on, or saved with ``force_u32``, its ``less``
 uint32) loads as the port's uint32 index, a table with its ``lut_q``.
 
@@ -31,59 +32,14 @@ numpy arrays (``BatchPairHMM.g``, the fields of ``BatchPairHMMExact.g``,
 
 from __future__ import annotations
 
-import hashlib
-import json
-
 import numpy as np
 import torch
 
 from rust_bio_tpu_torch._device import resolve_device
-from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.data_structures.serialize import fm_index_from_arrays, load_fm_index
 from rust_bio_tpu_torch.stats import pairhmm
 
-FORMAT_VERSION = 1
-
-
-def _content_hash(arrays: dict) -> str:
-    """The npz format's content hash (serialize.py ``_content_hash``)."""
-    h = hashlib.sha256()
-    for key in sorted(arrays):
-        h.update(key.encode())
-        h.update(np.ascontiguousarray(arrays[key]).tobytes())
-    return h.hexdigest()[:16]
-
-
-def fm_index_from_arrays(arrays: dict, meta: dict, device=None) -> DeviceFMIndex:
-    """The port's ``DeviceFMIndex`` from the arrays and header of the JAX
-    package's index format (``device=None`` means CUDA)."""
-    dev = resolve_device(device)
-    idx = DeviceFMIndex.__new__(DeviceFMIndex)
-    if "lut" in arrays:
-        arrays = {**arrays, "lut_q": int(meta.get("lut_q", 12))}
-    idx._set_tables(
-        arrays, int(meta["n"]), int(meta["s"]), int(meta["sentinel"]),
-        meta["symbols"], dev,
-    )
-    return idx
-
-
-def load_fm_index(path, device=None, verify: bool = True) -> DeviceFMIndex:
-    """Read an index file written by the JAX package's ``save_fm_index``.
-    Raises ``ValueError`` on another format and, with ``verify``, when the
-    content hash does not match the header."""
-    with np.load(path) as z:
-        meta = json.loads(bytes(z["__meta__"]).decode())
-        arrays = {k: z[k] for k in z.files if k != "__meta__"}
-    if meta.get("format_version") != FORMAT_VERSION or meta.get("kind") != "fm_index":
-        raise ValueError(
-            f"unsupported index file: format {meta.get('format_version')}, "
-            f"kind {meta.get('kind')}"
-        )
-    if verify:
-        got = _content_hash(arrays)
-        if got != meta["hash"]:
-            raise ValueError(f"index file corrupted: hash {got} != {meta['hash']}")
-    return fm_index_from_arrays(arrays, meta, device)
+__all__ = ["banded_inputs", "fm_index_from_arrays", "load_fm_index", "pairhmm_from_params"]
 
 
 def banded_inputs(starts, ends, pen8, device=None):

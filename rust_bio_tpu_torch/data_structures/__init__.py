@@ -1,2 +1,3 @@
-"""Index structures (port of ``rust_bio_tpu.data_structures``, slice 1: suffix
-array, BWT and the device FM-index)."""
+"""Index structures (port of ``rust_bio_tpu.data_structures``): suffix
+array, BWT, the device FM-index, the FMD index with its SMEM search, the
+host FM/FMD oracles and index files."""

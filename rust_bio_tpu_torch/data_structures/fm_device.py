@@ -422,12 +422,12 @@ class DeviceFMIndex:
             raise ValueError(f"suffix-array rows must lie in [0, {self.n})")
         return self._locate(self._row_tensor(rows).contiguous())
 
-    def _locate(self, rows: torch.Tensor) -> torch.Tensor:
+    def _locate(self, rows: torch.Tensor, out=None) -> torch.Tensor:
         if self.sa_sample is None:
             raise ValueError("index built without suffix array")
         return locate(
             self._fused, self.bwt_sym, self.less_sym, self.sa_sample,
-            self.sent_rows, self.sent_vals, rows.flatten(), self.s, self._big,
+            self.sent_rows, self.sent_vals, rows.flatten(), self.s, self._big, out,
         ).view(rows.shape)
 
     def locate_batch(self, rows) -> np.ndarray:

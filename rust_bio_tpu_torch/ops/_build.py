@@ -31,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 SOURCES = (
-    "walk_sweep", "fm_search", "rle_merge",
+    "walk_sweep", "fm_search", "rle_merge", "fmd_smem",
     "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
     "sw_columns", "sw_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
     "pairhmm_homopoly",

@@ -144,10 +144,12 @@ def search_lut(fused, less, sym_of, lut_rank, lut, q: int, pats, plens, n: int, 
     return (*_widen(outs, big), miss)
 
 
-def locate(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows, s: int, big: bool = False):
+def locate(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows, s: int, big: bool = False, out=None):
     """K4-locate. Returns the (B,) text positions of suffix-array rows
     ``rows`` (int32; int64 in big mode), -1 (0xFFFFFFFF in big mode) for a
-    row outside [0, n) (no sync: the callers check)."""
+    row outside [0, n) (no sync: the callers check). ``out``: a contiguous
+    (B,) int32 tensor to write the positions into (the read mapper's packed
+    seed rows), in place of a new one."""
     dev = same_device(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows)
     n = bwt_sym.numel()
     S, nw = _check_text(fused, n, big)
@@ -162,10 +164,18 @@ def locate(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows, s: i
     if not 1 <= s < 2**31:
         raise ValueError(f"sampling rate {s} < 1")
     check(sa_sample, "sa_sample", torch.int32, ((n + s - 1) // s,))
-    if dev.type == "cpu":
-        return locate_plain(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows, s, big)
     B = rows.numel()
-    out = torch.empty(B, dtype=torch.int32, device=dev)
+    if out is not None:
+        same_device(rows, out)
+        check(out, "out", torch.int32, (B,))
+    if dev.type == "cpu":
+        pos = locate_plain(fused, bwt_sym, less_sym, sa_sample, sent_rows, sent_vals, rows, s, big)
+        if out is None:
+            return pos
+        out.copy_(pos)  # in big mode the uint32 values' bit patterns
+        return u32(out) if big else out
+    if out is None:
+        out = torch.empty(B, dtype=torch.int32, device=dev)
     if B:
         (FM_LOCATE_U32 if big else FM_LOCATE).launch(
             dev, fused.data_ptr(), bwt_sym.data_ptr(), less_sym.data_ptr(), S,

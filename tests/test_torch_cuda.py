@@ -2828,3 +2828,169 @@ def test_u32_k4_and_locate_match_plain(cuda_device, s):
     got = fm.locate(*tables, big._row_tensor(odd), s, big=True)
     assert torch.equal(got, fm.locate_plain(*tables, big._row_tensor(odd), s, True))
     assert got.cpu().tolist()[1:] == [2**32 - 1] * 3
+
+
+def _fmd_index(seq: bytes, device):
+    """A DeviceFMDIndex of ``seq``'s FMD text on ``device`` (the native
+    SA-IS on the host, the tables on the device)."""
+    from rust_bio_tpu_torch.data_structures.fmd_device import DeviceFMDIndex
+    from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array_host
+
+    text = np.frombuffer(seq + b"$" + dna.revcomp(seq) + b"$", np.uint8)
+    sa = suffix_array_host(text)
+    alpha = dna.n_alphabet()
+    alpha.insert(ord("$"))
+    return DeviceFMDIndex(DeviceFMIndex(text[sa - 1], alpha, sa=sa, device=device))
+
+
+def _smem_queries(rng, seq: bytes, B: int, L: int):
+    """Substrings of ``seq`` and of its reverse complement with up to 4
+    bytes rewritten (A/C/G/T, N, X outside the alphabet, a lowercase a),
+    ragged, one empty; positions anywhere in each."""
+    both = seq + dna.revcomp(seq)
+    pats = np.zeros((B, L), np.uint8)
+    plens = np.zeros(B, np.int32)
+    for i in range(1, B):
+        ln = int(rng.integers(1, L + 1))
+        s = int(rng.integers(0, len(both) - ln))
+        p = bytearray(both[s : s + ln])
+        for _ in range(int(rng.integers(0, 5))):
+            p[int(rng.integers(0, ln))] = int(rng.choice(list(b"ACGTNXa")))
+        pats[i, :ln] = np.frombuffer(bytes(p), np.uint8)
+        plens[i] = ln
+    iis = np.array([int(rng.integers(0, max(n, 1))) for n in plens], np.int32)
+    return pats, plens, iis
+
+
+@pytest.fixture(scope="module")
+def repeat_fmd():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    rng = np.random.default_rng(3)
+    unit = rng.choice(list(b"ACGT"), size=7).astype("uint8").tobytes()
+    seq = rng.choice(list(b"ACGT"), size=20_000).astype("uint8").tobytes()
+    seq = seq[:3000] + unit * 40 + seq[3000:] + b"NNACGTN"
+    return seq, _fmd_index(seq, torch.device("cuda"))
+
+
+@pytest.mark.parametrize("mapper", [False, True], ids=["full", "mapper"])
+@pytest.mark.parametrize("E", [2, 4, 16, 32])
+def test_k_smem_matches_plain(repeat_fmd, mapper, E):
+    """K-SMEM against its plain version, all seven outputs bit for bit, at
+    every width of the mapper's budgets, on a tandem repeat (phase-1 and
+    compaction overflows) with N, X and lowercase bytes in the reads."""
+    from rust_bio_tpu_torch.ops import fmd
+
+    seq, index = repeat_fmd
+    dev = torch.device("cuda")
+    pats, plens, iis = _smem_queries(np.random.default_rng(E), seq, 600, 150)
+    # reads entering the repeat with the position deep in it
+    starts = np.arange(2900, 3100, 5)
+    deep = np.stack([np.frombuffer(seq[s : s + 150], np.uint8) for s in starts])
+    pats = np.concatenate([pats, deep])
+    plens = np.concatenate([plens, np.full(len(starts), 150, np.int32)])
+    iis = np.concatenate([iis, np.full(len(starts), 120, np.int32)])
+    args = [torch.from_numpy(a).to(dev) for a in (pats, plens, iis)]
+    for l, MC in ((0, E), (19, 4)):
+        got = fmd.smems(index.tables, *args, l, E, MC, mapper)
+        torch.cuda.synchronize()
+        want = fmd.smems_plain(index.tables, *args, l, E, MC, mapper)
+        for name, g, w in zip(("m_lo", "m_lor", "m_sz", "m_st", "m_ml", "mcnt", "ovf"), got, want):
+            assert torch.equal(g, w), (name, l, MC)
+    if E <= 4:
+        assert bool(want[6].any())
+    if mapper:
+        out = torch.empty((4, len(plens)), dtype=torch.int32, device=dev)
+        rows = fmd.seed_pick(index.tables, *args, 19, E, out)
+        torch.cuda.synchronize()
+        wrows, wpick = fmd.pick_plain(*fmd.smems_plain(index.tables, *args, 19, E, E, True))
+        assert torch.equal(rows, wrows) and torch.equal(out, wpick)
+
+
+def test_k_smem_matches_host_oracle(repeat_fmd):
+    """K-SMEM's results through ``smems_batch`` (both modes) against the
+    port's host ``FMDIndex``."""
+    from rust_bio_tpu_torch.data_structures.bwt import Occ, less
+    from rust_bio_tpu_torch.data_structures.fmindex import FMDIndex, FMIndex
+
+    seq, index = repeat_fmd
+    b = index.fm.bwt_host()
+    alpha = dna.n_alphabet()
+    oracle = FMDIndex(FMIndex(b, less(b, alpha), Occ(b, 64, alpha)))
+    pats, plens, iis = _smem_queries(np.random.default_rng(31), seq.replace(b"N", b"A"), 128, 100)
+    keep = plens > 0
+    reads = [bytes(p[:n]).replace(b"X", b"A").replace(b"a", b"A") for p, n in zip(pats[keep], plens[keep])]
+    poss = iis[keep].tolist()
+    key = lambda lanes: [[(i.lower, i.lower_rev, i.size, i.match_size, s, n) for i, s, n in lane] for lane in lanes]  # noqa: E731
+    got = index.smems_batch(reads, poss, 10, host_oracle=oracle)
+    want = [oracle.smems(r, i, 10) for r, i in zip(reads, poss)]
+    assert key(got) == key(want)
+    mapped = index.smems_batch(reads, poss, 10, mapper_mode=True, host_oracle=oracle)
+    drop = lambda lanes: [[k[:1] + k[2:] for k in lane] for lane in key(lanes)]  # noqa: E731
+    assert drop(mapped) == drop(want)
+
+
+def _mapper_reads(rng, genome: bytes, n: int, length: int = 100):
+    """Reads with two mixed errors each (70% substitutions, 15% and 15%
+    1-2 bp insertions and deletions), half reverse-complemented."""
+    reads = []
+    for k in range(n):
+        s = int(rng.integers(0, len(genome) - length))
+        r = bytearray(genome[s : s + length])
+        for _ in range(2):
+            at = int(rng.integers(5, len(r) - 5))
+            u = rng.random()
+            if u < 0.7:
+                r[at] = b"ACGT"[(b"ACGT".index(r[at]) + int(rng.integers(1, 4))) % 4]
+            elif u < 0.85:
+                r[at:at] = rng.choice(list(b"ACGT"), size=int(rng.integers(1, 3))).astype("uint8").tobytes()
+            else:
+                del r[at : at + int(rng.integers(1, 3))]
+        reads.append(dna.revcomp(bytes(r)) if k % 2 else bytes(r))
+    return reads
+
+
+def test_seed_chain_matches_plain(repeat_fmd):
+    """The mapper's seed chain on the card (K-SMEM with its pick, then
+    K4-locate) gives the packed (B, 5) of the plain chain on the card."""
+    from rust_bio_tpu_torch.pipelines import SmemReadMapper
+    from rust_bio_tpu_torch.data_structures.fmd_device import pad_batch
+
+    seq, _ = repeat_fmd
+    genome = seq.replace(b"N", b"A")
+    mapper = SmemReadMapper(genome, device="cuda")
+    reads = _mapper_reads(np.random.default_rng(5), genome, 512)
+    pb, plens, _ = pad_batch(reads)
+    iis = np.maximum(plens // 2 - 1, 0).astype(np.int32)
+    dev = torch.device("cuda")
+    args = [torch.from_numpy(a).to(dev) for a in (pb, plens, iis)]
+    for E in (16, 32):
+        got = mapper._seed_kernel(*args, E=E)
+        torch.cuda.synchronize()
+        from rust_bio_tpu_torch.ops import fm, fmd
+
+        rows, pick = fmd.pick_plain(*fmd.smems_plain(mapper.fmd.tables, *args, mapper.min_seed_len, E, E, True))
+        idx = mapper.index
+        pos = fm.locate_plain(idx._fused, idx.bwt_sym, idx.less_sym, idx.sa_sample, idx.sent_rows, idx.sent_vals, rows, idx.s)
+        assert torch.equal(got, torch.cat([pos[None, :], pick])), E
+
+
+def test_smem_mapper_card_matches_cpu(repeat_fmd):
+    """``SmemReadMapper`` with the kernels on the card equals the plain
+    versions on the CPU, read for read, at the full budget and with a
+    shrunken one (the wide retry and the host oracle)."""
+    from rust_bio_tpu_torch.pipelines import SmemReadMapper
+
+    seq, _ = repeat_fmd
+    genome = seq.replace(b"N", b"A")
+    card = SmemReadMapper(genome, device="cuda")
+    cpu = card.to("cpu")
+    rng = np.random.default_rng(9)
+    reads = _mapper_reads(rng, genome, 256) + [genome[2950:3050], b"", rng.choice(list(b"ACGT"), size=100).astype("uint8").tobytes()]
+    key = lambda ms: [(m.pos, m.strand, m.score, m.cigar) for m in ms]  # noqa: E731
+    assert key(card.map_batch(reads)) == key(cpu.map_batch(reads))
+    card._E0 = cpu._E0 = 2
+    got = card.map_batch(reads)
+    assert card.seed_stats["wide_lanes"] > 0 and card.seed_stats["oracle_lanes"] > 0
+    assert key(got) == key(cpu.map_batch(reads))
+    assert [key(b) for b in card.map_stream([reads[:100], reads[100:]])] == [key(cpu.map_batch(reads[:100])), key(cpu.map_batch(reads[100:]))]

@@ -17,9 +17,11 @@ from rust_bio_tpu_torch import scores
 from rust_bio_tpu_torch.alphabets import dna, protein
 from rust_bio_tpu_torch.carry import banded_inputs, fm_index_from_arrays, pairhmm_from_params
 from rust_bio_tpu_torch.data_structures import bit_tree
+from rust_bio_tpu_torch.data_structures import bwt, fmd_device, fmindex, serialize
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
+from rust_bio_tpu_torch.ops import fmd as fmd_ops
 from rust_bio_tpu_torch.ops import pairhmm as pairhmm_ops
-from rust_bio_tpu_torch.pipelines import ReadMapper
+from rust_bio_tpu_torch.pipelines import ReadMapper, SmemReadMapper
 from rust_bio_tpu_torch.stats import pairhmm, probs
 from rust_bio_tpu_torch.stats.pairhmm import (
     BatchHomopolyPairHMM,
@@ -83,12 +85,17 @@ def test_port_has_its_files():
         (pairhmm, "stats/pairhmm/__init__.py"), (homopolypairhmm, "stats/pairhmm/homopolypairhmm.py"),
         (pairhmm_device, "stats/pairhmm/device.py"), (pairhmm_exact, "stats/pairhmm/exact.py"),
         (homopoly_device, "stats/pairhmm/homopoly_device.py"), (pairhmm_ops, "ops/pairhmm.py"),
+        # the FMD index and SMEM seeding: the host oracle and its Occ, the
+        # index files, the batched search and K-SMEM's wrapper
+        (fmindex, "data_structures/fmindex.py"), (bwt, "data_structures/bwt.py"),
+        (serialize, "data_structures/serialize.py"), (fmd_device, "data_structures/fmd_device.py"),
+        (fmd_ops, "ops/fmd.py"),
     ):
         assert Path(mod.__file__) == ROOT / "rust_bio_tpu_torch" / rel
     assert native.SOURCE == ROOT / "rust_bio_tpu_torch" / "csrc" / "band_build.cpp" and native.SOURCE.is_file()
     csrc = ROOT / "rust_bio_tpu_torch" / "ops" / "csrc"
     assert {p.name for p in csrc.glob("*.cu")} == {
-        "walk_sweep.cu", "fm_search.cu", "rle_merge.cu",
+        "walk_sweep.cu", "fm_search.cu", "rle_merge.cu", "fmd_smem.cu",
         "sw_warp.cu", "sw_global_rows.cu", "walk_global_seg.cu", "walk_steps.cu",
         "sw_columns.cu", "sw_banded.cu", "pairhmm_scaled.cu", "pairhmm_log.cu", "pairhmm_exact.cu",
         "pairhmm_homopoly.cu",
@@ -108,6 +115,10 @@ def test_default_device_raises_without_cuda(monkeypatch):
         fm_index_from_arrays({}, {"n": 1, "s": 1, "sentinel": 36, "symbols": []})
     with pytest.raises(RuntimeError, match="CUDA"):
         ReadMapper(b"ACGTACGTTGCA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SmemReadMapper(b"ACGTACGTTGCA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serialize.load_fm_index("no-such-file.npz")
     with pytest.raises(RuntimeError, match="CUDA"):
         BatchBandedAligner(sc, 8, 8)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -130,7 +141,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def _kernels():
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
 
-    return [k for m in (sw, walk, pairhmm_ops, fm) for k in vars(m).values() if isinstance(k, _build.CudaKernel)]
+    return [k for m in (sw, walk, pairhmm_ops, fm, fmd_ops) for k in vars(m).values() if isinstance(k, _build.CudaKernel)]
 
 
 @pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)
