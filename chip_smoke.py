@@ -152,6 +152,36 @@ NVIDIA GPU.
    (bench.py:755) with 8192 reads: 90% of the uniquely originating reads at
    their origin, the seed paths' lanes printed (and whether any reached
    the host oracle).
+3j. Drives the checkpointed stream (``StreamingMapper`` over phase 3's
+   ``ReadMapper``: K4, K4-locate, K5, K6) with the counters at 0 again: a
+   FASTQ of 32,768 150 bp reads cut from phase 2's genome (1%
+   substitutions, every second one reverse-complemented, Q40 strings) in a
+   temporary directory, mapped in the class's default 4096-read batches (8
+   shards). ``run`` then ``finalize`` must give, line for line, the TSV of
+   ``map_batch`` on the same batches, ``on_stats`` fire once a batch; a
+   mapper that raises on the sixth batch leaves exactly the five earlier
+   shards, the rerun maps 3 batches, leaves those shards' bytes and
+   ``mtime_ns`` alone and finalizes to the same file; an edited input
+   restarts and maps all 8 batches.
+3k. Drives the HMM (``BatchDiscreteHMM``, ``BatchGaussianHMM``,
+   ``baum_welch_batch``: K-HMM-vit, K-HMM-fwd, K-HMM-bwd) with the counters
+   at 0 again: the JAX bench's dishonest casino (bench.py:1241-1266; 2
+   states, 6 symbols) on 8192 x 1000 observations and on 8192 ragged
+   sequences of 1-1000; a 5-state copy-number Gaussian HMM (means 0.05-2.0,
+   sd 0.10-0.30, stay 0.999) on 4096 x 1000 depths sampled from its chain;
+   a 128-state model over 20 symbols, with an end vector, on 1024 x 500
+   (one block a sequence);
+   each through ``viterbi_batch``, ``forward_batch`` and
+   ``backward_batch``; Baum-Welch on 1024 casino sequences, 3 iterations
+   (the log-likelihoods must not fall; the emission rows log-sum to 0
+   within 1e-6, the transition rows within 5e-5). Forward and backward
+   totals must agree; 16 casino and Gaussian sequences agree with the host
+   oracle (totals within 2e-4 relative, each path's float64 score within
+   1e-3 of the oracle's best); 64 a corpus and Baum-Welch on 64 agree with
+   the port's CPU path. Each kernel is held against its plain version on
+   every corpus (Viterbi paths equal and the discrete probabilities bit for
+   bit, the Gaussian within 1e-6; forward and backward within 1e-4 of
+   max(1, |x|)) and timed there.
 4. Holds each kernel against its plain PyTorch version on the card at the
    main-path shapes (bit for bit: integer outputs, tolerance 0; the PairHMM
    kernels within their stated tolerances) and times both with CUDA
@@ -169,7 +199,8 @@ NVIDIA GPU.
    pairs; K4 with its geometry and registers, K4-locate on phase 2's rows
    and on 8192 random rows (the mapper's batch); K-merge on phase 2's
    and the mapper's walk streams; K4-LUT and the uint32 K4, K4-LUT and
-   K4-locate on phase 3h's indexes; K-SMEM (in phase 3i); times K13-LUT on the
+   K4-locate on phase 3h's indexes; K-SMEM (in phase 3i); the HMM kernels
+   (in phase 3k); times K13-LUT on the
    homolog corpus beside K11, and K1 against K13 and K9 against K15 on 600
    bp, 1 kb and 2 kb batches.
 5. Prints alignments/s, queries/s, located rows/s and mapped reads/s, device-only and
@@ -180,7 +211,10 @@ NVIDIA GPU.
    (8 handles, one pull), the 50 Mbp index's queries/s through K4-LUT and
    K4, and the host SA-IS seconds; the SMEM mapper's reads/s (the seed
    chain device-only, ``map_batch`` and ``map_stream`` delivered) at 4.6
-   and 50 Mbp and on the repeat genome, and its FMD builds' seconds.
+   and 50 Mbp and on the repeat genome, and its FMD builds' seconds; the
+   stream's reads/s delivered beside ``map_batch``'s; the HMM's Viterbi,
+   forward and backward sequences/s, device-only and delivered, and the
+   Baum-Welch seconds.
 
 Prints a ``{"kernels": [...]}`` line, the nvidia-smi line, and as its last
 line ``{"ok": true, "device": {...}}``. Exits non-zero, with no result
@@ -365,6 +399,34 @@ K17_OPS_PER_CELL = 22
 K17_LOG_OPS_PER_CELL = 52
 K17_HOMOPOLY_OPS_PER_CELL = 343
 K17_EXACT_OPS_PER_CELL = 20
+# the checkpointed stream (3j): 32,768 150 bp reads cut from phase 2's
+# genome (every second one reverse-complemented, 1% substitutions, Q40
+# strings) in a FASTQ, StreamingMapper's default 4096-read batches over
+# phase 3's ReadMapper; the crash on the sixth batch
+B_STREAM, STREAM_BATCH, STREAM_CRASH_AT = 32_768, 4096, 5
+# the HMM (3k): the JAX bench's dishonest casino (bench.py:1241-1266,
+# hmm/mod.rs's doc example: 2 states, 6 symbols), 8192 x 1000 and 8192
+# ragged sequences of 1-1000; a 5-state copy-number HMM segmenting read
+# depth (means 0.05-2.0 of the diploid depth, sd 0.10-0.30, stay 0.999),
+# 4096 x 1000 sampled from the chain; a 128-state model over 20 symbols
+# (Dirichlet rows), 1024 x 500, past one warp a sequence; Baum-Welch on
+# 1024 casino sequences, 3 iterations
+HMM_B, HMM_T, HMM_GAUSS_B, HMM_WIDE = 8192, 1000, 4096, (128, 20, 1024, 500)
+HMM_BW_B, HMM_BW_ITER, HMM_SEQ_ORACLE, HMM_SEQ_CPU = 1024, 3, 16, 64
+CN_MEANS = (0.05, 0.5, 1.0, 1.5, 2.0)
+CN_SDS = (0.10, 0.15, 0.20, 0.25, 0.30)
+CN_STAY = 0.999
+# operations an active step needs for one state of the HMM scans, counted
+# from csrc/hmm.cu (an exp or a log counted as one; shuffles, loads, stores
+# not counted): Viterbi S candidates of 4 (the add, the compare, two
+# selects) and the emission's add; forward and backward S candidates of 6
+# (the add, the max, the difference, the clamp, the exp, the sum), the log,
+# the add, the surrogate test and select, the emission's add; the Gaussian
+# density adds 4 (the difference, two products, the difference); the
+# backtrack one gather a step
+HMM_VIT_OPS_PER_CAND, HMM_VIT_OPS_STEP = 4, 1
+HMM_LSE_OPS_PER_CAND, HMM_LSE_OPS_STEP = 6, 5
+HMM_GAUSS_OPS = 4
 
 
 def fm_corpus(rng):
@@ -1332,6 +1394,351 @@ def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) if g.numel() else 0 for g, w in zip(got, want))
 
 
+
+def stream_phase(torch, genome_arr, mapper, counters: dict, seed: int, smi: str):
+    """Phase 3j, ``StreamingMapper`` over phase 3's mapper with the launch
+    counters at 0 (see the module docstring). Returns (the counted run's
+    launches, the rates)."""
+    import tempfile
+
+    from rust_bio_tpu_torch.alphabets import dna
+    from rust_bio_tpu_torch.pipelines import StreamingMapper
+
+    rng = np.random.default_rng((seed, 10))
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    t_phase = time.perf_counter()
+    origins = rng.integers(0, len(genome_arr) - READ_LEN, size=B_STREAM)
+    cut = genome_arr[origins[:, None] + np.arange(READ_LEN)[None, :]].copy()
+    mut = rng.random(size=cut.shape) < 0.01
+    cut[mut] = acgt[(np.searchsorted(acgt, cut[mut]) + rng.integers(1, 4, size=int(mut.sum()))) % 4]
+    seqs = [dna.revcomp(bytes(r)) if k % 2 else bytes(r) for k, r in enumerate(cut)]
+    ids = [f"s{k}" for k in range(B_STREAM)]
+    n_batches = -(-B_STREAM // STREAM_BATCH)
+    with tempfile.TemporaryDirectory() as d:
+        fq = os.path.join(d, "reads.fq")
+        with open(fq, "w") as f:
+            f.write("".join(f"@{i}\n{r.decode()}\n+\n{'I' * READ_LEN}\n" for i, r in zip(ids, seqs)))
+        out, ck = os.path.join(d, "out.tsv"), os.path.join(d, "ck.json")
+        stats = []
+        sm = StreamingMapper(mapper, on_stats=stats.append)
+        check(sm.batch_size == STREAM_BATCH, f"3j: StreamingMapper's default batch is {sm.batch_size}")
+        for k in counters.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        done = sm.run(fq, out, ck)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = {name: k.launches for name, k in counters.items()}
+        path = ("fm_backward_search", "fm_locate", "sw_scan_semiglobal", "sweep_walk_semiglobal")
+        check(all(launches[n] > 0 for n in path), f"3j: a kernel of the mapper did not launch: {launches}")
+        check(done == n_batches, f"3j: run processed {done} batches, not {n_batches}")
+        check([st["batch"] for st in stats] == list(range(n_batches)), f"3j: on_stats fired for {[st['batch'] for st in stats]}")
+        sm.finalize(out)
+        with open(out, "rb") as f:
+            final = f.read()
+        # map_batch of the same batches, formatted as the shards are
+        t0 = time.perf_counter()
+        want = []
+        for o in range(0, B_STREAM, STREAM_BATCH):
+            for m in mapper.map_batch(seqs[o : o + STREAM_BATCH], ids=ids[o : o + STREAM_BATCH]):
+                want.append(f"{m.read_id}\t{m.pos}\t{m.strand}\t{m.score}\t{m.cigar}\n")
+        batch_s = time.perf_counter() - t0
+        check(final.decode().splitlines(keepends=True) == want, "3j: the streamed TSV != map_batch of the same batches")
+        n_mapped = sum(1 for line in want if line.split("\t")[1] != "-1")
+        # a crash on batch STREAM_CRASH_AT, then the resume
+        out2, ck2 = os.path.join(d, "out2.tsv"), os.path.join(d, "ck2.json")
+        sm2 = StreamingMapper(mapper)
+        calls = {"n": 0}
+        real = mapper.map_batch
+
+        class Crash(RuntimeError):
+            pass
+
+        def flaky(reads, ids=None):
+            calls["n"] += 1
+            if calls["n"] == STREAM_CRASH_AT + 1:
+                raise Crash()
+            return real(reads, ids)
+
+        mapper.map_batch = flaky
+        try:
+            sm2.run(fq, out2, ck2)
+            fail("3j: the crashing mapper did not stop the run")
+        except Crash:
+            pass
+        finally:
+            del mapper.map_batch
+        shards = [sm2._shard_path(out2, k) for k in range(n_batches)]
+        check(all(os.path.exists(x) for x in shards[:STREAM_CRASH_AT]) and not any(os.path.exists(x) for x in shards[STREAM_CRASH_AT:]),
+              "3j: the crash left other shards than the batches before it")
+        kept = [(open(x, "rb").read(), os.stat(x).st_mtime_ns) for x in shards[:STREAM_CRASH_AT]]
+        resumed = sm2.run(fq, out2, ck2)
+        check(resumed == n_batches - STREAM_CRASH_AT, f"3j: the resume processed {resumed} batches")
+        check([(open(x, "rb").read(), os.stat(x).st_mtime_ns) for x in shards[:STREAM_CRASH_AT]] == kept,
+              "3j: the resume touched a shard written before the crash")
+        sm2.finalize(out2)
+        with open(out2, "rb") as f:
+            check(f.read() == final, "3j: the resumed TSV != the uninterrupted one")
+        # an edited input (one base of the first read) starts over
+        with open(fq, "r+b") as f:
+            f.seek(len(ids[0]) + 2)
+            base = f.read(1)
+            f.seek(len(ids[0]) + 2)
+            f.write(b"A" if base != b"A" else b"C")
+        t0 = time.perf_counter()
+        redone = sm2.run(fq, out2, ck2)
+        torch.cuda.synchronize()
+        rerun_s = time.perf_counter() - t0
+        check(redone == n_batches, f"3j: the edited input processed {redone} batches, not {n_batches}")
+        sm2.finalize(out2)
+        with open(out2, "rb") as f:
+            check(len(f.read().splitlines()) == B_STREAM, "3j: the edited input's TSV lost lines")
+    # the counted run is the first at 4096-read batches; the edited input's
+    # run repeats it warm
+    rates = {
+        "stream_reads_per_s_delivered": B_STREAM / rerun_s, "stream_first_run_reads_per_s": B_STREAM / run_s,
+        "stream_map_batch_reads_per_s": B_STREAM / batch_s,
+    }
+    print(json.dumps({
+        "phase": "stream", "launches": launches, "reads": B_STREAM, "batches": n_batches, "mapped": n_mapped,
+        "run_s": run_s, "rerun_s": rerun_s, "map_batch_s": batch_s, **rates, "resumed_batches": resumed, "edited_batches": redone,
+        "seconds": time.perf_counter() - t_phase, "card": smi,
+    }), flush=True)
+    return launches, rates
+
+
+def hmm_corpora(rng):
+    """Phase 3k's models (ln probabilities) and sequences: {name: (kind,
+    model arrays, sequences)}."""
+    casino = tuple(np.log(np.asarray(a, np.float64)) for a in (
+        [[0.95, 0.05], [0.1, 0.9]], [[1 / 6.0] * 6, [0.1, 0.1, 0.1, 0.1, 0.1, 0.5]], [0.5, 0.5],
+    ))
+    obs = rng.integers(0, 6, size=(HMM_B, HMM_T)).astype(np.int32)
+    lens = rng.integers(1, HMM_T + 1, size=HMM_B)
+    lens[:2] = [1, HMM_T]
+    ragged = [rng.integers(0, 6, size=int(n)).astype(np.int32) for n in lens]
+    S = len(CN_MEANS)
+    A = np.full((S, S), (1 - CN_STAY) / (S - 1))
+    np.fill_diagonal(A, CN_STAY)
+    states = np.empty((HMM_GAUSS_B, HMM_T), np.int64)
+    states[:, 0] = rng.integers(0, S, size=HMM_GAUSS_B)
+    cum = np.cumsum(A, axis=1)
+    u = rng.random(size=(HMM_GAUSS_B, HMM_T))
+    for t in range(1, HMM_T):
+        states[:, t] = np.minimum((u[:, t, None] > cum[states[:, t - 1]]).sum(axis=1), S - 1)
+    depth = rng.normal(np.asarray(CN_MEANS)[states], np.asarray(CN_SDS)[states]).astype(np.float32)
+    gauss = (np.log(A), list(zip(CN_MEANS, CN_SDS)), np.log(np.full(S, 1.0 / S)))
+    Sw, Vw, Bw, Tw = HMM_WIDE
+    # the wide model has an end vector, so the checks below reach the
+    # kernels' use of it (Viterbi's last argmax, forward's total, the
+    # backward start value)
+    wide = tuple(np.log(a) for a in (
+        rng.dirichlet(np.ones(Sw), size=Sw), rng.dirichlet(np.ones(Vw), size=Sw), rng.dirichlet(np.ones(Sw)),
+        rng.dirichlet(np.ones(Sw)),
+    ))
+    return {
+        "casino": ("discrete", casino, list(obs)),
+        "ragged": ("discrete", casino, ragged),
+        "gaussian": ("gaussian", gauss, list(depth)),
+        "wide": ("discrete", wide, list(rng.integers(0, Vw, size=(Bw, Tw)).astype(np.int32))),
+    }
+
+
+def hmm_ops_count(lens, S: int, gauss: bool, vit: bool) -> int:
+    """The operations one scan needs on these lengths (see HMM_*_OPS)."""
+    steps = int(np.sum(np.asarray(lens, np.int64) - 1))
+    e = HMM_GAUSS_OPS if gauss else 0
+    if vit:
+        return steps * S * (HMM_VIT_OPS_PER_CAND * S + HMM_VIT_OPS_STEP + e) + steps
+    return steps * S * (HMM_LSE_OPS_PER_CAND * S + HMM_LSE_OPS_STEP + e)
+
+
+def path_logprob(kind, arrays, seq, path) -> float:
+    """A path's float64 ln probability under the model (pi, emissions,
+    transitions; no end: the oracle's Viterbi takes none)."""
+    A = arrays[0]
+    if kind == "gaussian":
+        mu = np.array([m for m, _ in arrays[1]])
+        sd = np.array([s for _, s in arrays[1]])
+        x = np.asarray(seq, np.float64)
+        em = -0.5 * np.log(2 * np.pi) - np.log(sd[path]) - 0.5 * ((x - mu[path]) / sd[path]) ** 2
+    else:
+        em = arrays[1][path, np.asarray(seq)]
+    return float(arrays[2][path[0]] + em.sum() + A[path[:-1], path[1:]].sum())
+
+
+def hmm_phase(torch, dev, seed: int, counters: dict, smi: str, kernels: list):
+    """Phase 3k, the HMM with the launch counters at 0 (see the module
+    docstring), then its three kernels against their plain versions.
+    Returns (the counted launches, the rates)."""
+    from rust_bio_tpu_torch.ops import hmm as hmm_ops
+    from rust_bio_tpu_torch.stats import hmm as oracle
+    from rust_bio_tpu_torch.stats.hmm.device import BatchDiscreteHMM, BatchGaussianHMM, baum_welch_batch
+
+    rng = np.random.default_rng((seed, 11))
+    t_phase = time.perf_counter()
+    sets = hmm_corpora(rng)
+
+    def make(kind, arrays, device):
+        cls = BatchGaussianHMM if kind == "gaussian" else BatchDiscreteHMM
+        return cls(*arrays, device=device)
+
+    models = {name: make(kind, arrays, dev) for name, (kind, arrays, _) in sets.items()}
+    for k in counters.values():
+        k.launches = 0
+    out, delivered_s = {}, {}
+    for name, (kind, arrays, seqs) in sets.items():
+        m = models[name]
+        t0 = time.perf_counter()
+        out[name] = (m.viterbi_batch(seqs), m.forward_batch(seqs), m.backward_batch(seqs))
+        delivered_s[name] = time.perf_counter() - t0
+    bw_seqs = sets["casino"][2][:HMM_BW_B]
+    t0 = time.perf_counter()
+    bw_model, lls = baum_welch_batch(models["casino"], bw_seqs, n_iter=HMM_BW_ITER)
+    torch.cuda.synchronize()
+    bw_s = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in counters.items()}
+    path = ("hmm_viterbi", "hmm_forward", "hmm_backward")
+    check(all(launches[n] > 0 for n in path), f"3k: an HMM kernel did not launch: {launches}")
+    summary = {}
+    for name, (kind, arrays, seqs) in sets.items():
+        (paths, prob), (fv, ft), (bv, bt) = out[name]
+        B, T, S = len(seqs), max(len(x) for x in seqs), arrays[0].shape[0]
+        check(paths.shape == (B, T) and fv.shape == bv.shape == (B, T, S), f"3k {name}: output shapes")
+        check(np.isfinite(prob).all() and np.isfinite(ft).all() and np.isfinite(bt).all(), f"3k {name}: a total is not finite")
+        check(((paths >= 0) & (paths < S)).all(), f"3k {name}: a path state outside the model")
+        tot_err = float((np.abs(ft - bt) / np.maximum(1, np.abs(ft))).max())
+        check(tot_err <= 2e-4, f"3k {name}: forward and backward totals part by {tot_err}")
+        summary[name] = {"sequences": B, "T": T, "S": S, "fwd_bwd_total_rel_err": tot_err, "delivered_s": delivered_s[name]}
+    # Baum-Welch: the log-likelihoods do not fall (float32 E-step noise
+    # allowed: 1e-6 of the total); the emission rows log-sum to 0 within
+    # 1e-6; the transition rows within 5e-5 (the float32 backward rows'
+    # rounding at |b| near 1000 leaves them about 1e-5 off on the card and
+    # 2e-5 in the JAX class: tests/test_torch_hmm.py
+    # test_baum_welch_rows_as_jax)
+    check(all(b >= a - 1e-6 * abs(a) for a, b in zip(lls, lls[1:])), f"3k: Baum-Welch log-likelihoods fell: {lls}")
+    lse_rows = lambda t: np.log(np.exp(t.cpu().numpy().astype(np.float64)).sum(axis=-1))  # noqa: E731
+    a_rows, b_rows = float(np.abs(lse_rows(bw_model.A)).max()), float(np.abs(lse_rows(bw_model.Bm)).max())
+    check(b_rows <= 1e-6 and a_rows <= 5e-5, f"3k: Baum-Welch rows log-sum to {a_rows} (A), {b_rows} (Bm)")
+    check(bw_model.device == dev, "3k: the trained model is not on the card")
+    # the host oracle on 16 sequences of the casino and Gaussian corpora
+    oracle_rows = {}
+    for name in ("casino", "gaussian"):
+        kind, arrays, seqs = sets[name]
+        probs = tuple(np.exp(a) if not isinstance(a, list) else a for a in arrays)
+        om = (oracle.GaussianModel if kind == "gaussian" else oracle.DiscreteEmissionModel).with_float(*probs)
+        (paths, prob), (_, ft), (_, bt) = out[name]
+        same, worst_tot, worst_path = 0, 0.0, 0.0
+        for b in range(HMM_SEQ_ORACLE):
+            seq = [float(v) for v in seqs[b]] if kind == "gaussian" else [int(v) for v in seqs[b]]
+            o_path, o_prob = oracle.viterbi(om, seq)
+            f_tot, b_tot = float(oracle.forward(om, seq)[1]), float(oracle.backward(om, seq)[1])
+            worst_tot = max(worst_tot, abs(ft[b] - f_tot) / abs(f_tot), abs(bt[b] - b_tot) / abs(b_tot))
+            worst_path = max(worst_path, abs(path_logprob(kind, arrays, seqs[b], paths[b]) - float(o_prob)))
+            same += paths[b].tolist() == o_path
+        check(worst_tot <= 2e-4, f"3k {name}: a total parts from the host oracle by {worst_tot} relative")
+        check(worst_path <= 1e-3, f"3k {name}: a path scores {worst_path} off the oracle's best")
+        oracle_rows[name] = {"sequences": HMM_SEQ_ORACLE, "equal_paths": same, "total_rel_err": worst_tot, "path_logprob_err": worst_path}
+    # the port's CPU path: 64 sequences a corpus, and Baum-Welch on 64
+    cpu_rows = {}
+    for name, (kind, arrays, seqs) in sets.items():
+        cm = make(kind, arrays, "cpu")
+        sub = seqs[:HMM_SEQ_CPU]
+        gm = models[name]
+        (cp, cprob), (cfv, cft), (cbv, cbt) = cm.viterbi_batch(sub), cm.forward_batch(sub), cm.backward_batch(sub)
+        (gp, gprob), (gfv, gft), (gbv, gbt) = gm.viterbi_batch(sub), gm.forward_batch(sub), gm.backward_batch(sub)
+        check(np.array_equal(cp, gp), f"3k {name}: Viterbi paths on the card != the CPU path")
+        err = max(rel_err(g, c) for g, c in ((gprob, cprob), (gfv, cfv), (gft, cft), (gbv, cbv), (gbt, cbt)))
+        check(err <= CPU_PATH_F32_TOL, f"3k {name}: the card parts from the CPU path by {err}")
+        cpu_rows[name] = {"viterbi_prob_bit_equal": bool(np.array_equal(gprob, cprob)), "max_err": err}
+    # Baum-Welch on 64 sequences against the CPU path: the log-likelihoods
+    # within 1e-5 relative; the trained ln parameters within 3e-5 (each is
+    # a sum of f + b - ln P(x) over 64 sequences, terms near 1700 in size
+    # whose float32 rounding parts where the card's exp/log and the host's
+    # differ by an ulp: the largest parted by 1.06e-5 on an H100)
+    cm, c_lls = baum_welch_batch(make("discrete", sets["casino"][1], "cpu"), bw_seqs[:HMM_SEQ_CPU], n_iter=HMM_BW_ITER)
+    gm, g_lls = baum_welch_batch(models["casino"], bw_seqs[:HMM_SEQ_CPU], n_iter=HMM_BW_ITER)
+    bw_errs = {n: float((getattr(gm, n).cpu() - getattr(cm, n)).abs().max()) for n in ("A", "Bm", "pi")}
+    bw_err = max(bw_errs.values())
+    ll_err = float(np.max(np.abs(np.subtract(g_lls, c_lls)) / np.abs(c_lls)))
+    check(bw_err <= 3e-5 and ll_err <= 1e-5, f"3k: Baum-Welch on the card parts from the CPU path by {bw_errs}, lls {ll_err}")
+    # sequences/s: device-only (device tensors through the class's scans,
+    # with the wrappers' input check) and delivered (Python sequences to
+    # numpy outputs), the casino corpus
+    m = models["casino"]
+    obs_d, lens_d = m._pad(sets["casino"][2])
+    rates = {}
+    for scan in ("viterbi", "forward", "backward"):
+        rates[f"hmm_{scan}_seqs_per_s_device"] = HMM_B / host_s(torch, lambda f=getattr(m, "_" + scan): f(obs_d, lens_d), 5)
+        rates[f"hmm_{scan}_seqs_per_s_delivered"] = HMM_B / host_s(
+            torch, lambda f=getattr(m, scan + "_batch"): f(sets["casino"][2]), 2
+        )
+    rates["hmm_baum_welch_s"] = bw_s
+    print(json.dumps({
+        "phase": "hmm", "launches": launches, **summary, "baum_welch": {
+            "sequences": HMM_BW_B, "iterations": HMM_BW_ITER, "log_likelihoods": lls, "A_row_lse": a_rows,
+            "Bm_row_lse": b_rows, "seconds": bw_s, "cpu_max_err": bw_errs, "cpu_ll_rel_err": ll_err,
+        }, "oracle": oracle_rows, "cpu_path": cpu_rows, **rates,
+        "seconds": time.perf_counter() - t_phase, "card": smi,
+    }), flush=True)
+
+    # the kernels against their plain versions on the card, each corpus;
+    # ms: the launch alone into outputs made once (the wrapper's input
+    # check syncs the host)
+    sources = {
+        "hmm_viterbi": ("rust_bio_tpu/stats/hmm/device.py:105", hmm_ops.HMM_VITERBI, hmm_ops.viterbi, hmm_ops.viterbi_plain),
+        "hmm_forward": ("rust_bio_tpu/stats/hmm/device.py:142", hmm_ops.HMM_FORWARD, hmm_ops.forward, hmm_ops.forward_plain),
+        "hmm_backward": ("rust_bio_tpu/stats/hmm/device.py:168", hmm_ops.HMM_BACKWARD, hmm_ops.backward, hmm_ops.backward_plain),
+    }
+    per = {n: {} for n in sources}
+    for name, (kind, arrays, seqs) in sets.items():
+        m = models[name]
+        obs_d, lens_d = m._pad(seqs)
+        args = (m.A, m._emit_table(), m.pi, m.end, obs_d, lens_d)
+        B, T = obs_d.shape
+        S = m.A.shape[0]
+        gauss = kind == "gaussian"
+        V = 0 if gauss else m.Bm.shape[1]
+        lens_np = lens_d.cpu().numpy()
+        in_bytes = obs_d.numel() * 4 + B * 4 + 4 * (S * S + m._emit_table().numel() + 2 * S)
+        for kname, (replaces, kernel, fn, plain) in sources.items():
+            got = fn(*args)
+            torch.cuda.synchronize()
+            want, plain_ms = timed_once(torch, lambda: plain(*args))
+            if kname == "hmm_viterbi":
+                check(torch.equal(got[0], want[0]), f"{kname} {name}: paths differ from the plain version")
+                err = rel_err(got[1].cpu().numpy(), want[1].cpu().numpy())
+                check(err == 0 if not gauss else err <= 1e-6, f"{kname} {name}: probs part from the plain version by {err}")
+                outs = (torch.empty((B, T, S), dtype=torch.uint8, device=dev), torch.empty_like(got[0]), torch.empty_like(got[1]))
+                out_bytes = B * T * 4 + B * 4
+            else:
+                err = max(rel_err(g.cpu().numpy(), w.cpu().numpy()) for g, w in zip(got, want))
+                check(err <= 1e-4, f"{kname} {name}: {err} from the plain version (tolerance 1e-4 of max(1, |x|))")
+                outs = (torch.empty_like(got[0]), torch.empty_like(got[1]))
+                out_bytes = B * T * S * 4 + B * 4
+            M = m.A.t().contiguous() if kname == "hmm_backward" else m.A
+            ms = cuda_ms(torch, lambda: hmm_ops.launch_only(kernel, M, *args[1:], V, gauss, *outs), 5)
+            nbytes = in_bytes + out_bytes
+            nops = hmm_ops_count(lens_np, S, gauss, kname == "hmm_viterbi")
+            byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / F32_OPS_PER_S * 1e3
+            per[kname][name] = {
+                "ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "bound_ms": max(byte_ms, op_ms),
+                "bound_by": "bytes" if byte_ms >= op_ms else "operations", "bytes": nbytes, "ops": nops,
+                "geometry": hmm_ops.geometry(S),
+            }
+    for kname, (replaces, kernel, _, _) in sources.items():
+        main_row = per[kname]["casino"]
+        row = {
+            "name": kname, "route": "cuda", "source": "rust_bio_tpu_torch/ops/csrc/hmm.cu", "replaces": replaces,
+            "launches": launches[kname], "max_abs_err": max(r["max_abs_err"] for r in per[kname].values()),
+            "ms": main_row["ms"], "plain_ms": main_row["plain_ms"], "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"], "library_ms": None,
+        }
+        kernels.append(row)
+        print(json.dumps({"phase": "kernel", **row, "tolerance": 0 if kname == "hmm_viterbi" else 1e-4,
+                          "corpora": per[kname], "peak": "f32 67 TFLOP/s", "card": smi}), flush=True)
+    return launches, rates
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=7)
@@ -1360,6 +1767,7 @@ def main() -> int:
     from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
     from rust_bio_tpu_torch.data_structures.suffix_array import suffix_array_host
     from rust_bio_tpu_torch.ops import _build, fm, fmd, pairhmm, sw, walk
+    from rust_bio_tpu_torch.ops import hmm as hmm_ops
     from rust_bio_tpu_torch.pipelines import ReadMapper
     from rust_bio_tpu_torch.scores import blosum62, dense_matrix, pam250
     from rust_bio_tpu_torch.stats.pairhmm import (
@@ -1415,6 +1823,9 @@ def main() -> int:
         "pairhmm_fwd_log": pairhmm.PAIRHMM_FWD_LOG,
         "pairhmm_fwd_exact": pairhmm.PAIRHMM_FWD_EXACT,
         "pairhmm_fwd_homopoly": pairhmm.PAIRHMM_FWD_HOMOPOLY,
+        "hmm_viterbi": hmm_ops.HMM_VITERBI,
+        "hmm_forward": hmm_ops.HMM_FORWARD,
+        "hmm_backward": hmm_ops.HMM_BACKWARD,
     }
 
     # ---- data, made from the seed ------------------------------------
@@ -3102,9 +3513,17 @@ def main() -> int:
     smem_launches, smem_rates, _ = smem_phase(torch, dev, args.seed, genome, sc, counters, report, smi)
     launches = {name: launches[name] + smem_launches[name] for name in counters}
 
+    # ---- 3j. the checkpointed stream over phase 3's mapper, counted ------
+    stream_launches, stream_rates = stream_phase(torch, np.frombuffer(genome, np.uint8), mapper, counters, args.seed, smi)
+    launches = {name: launches[name] + stream_launches[name] for name in counters}
+
+    # ---- 3k. the HMM, counted (its kernel rows reported there) -----------
+    scan_launches, scan_rates = hmm_phase(torch, dev, args.seed, counters, smi, kernels)
+    launches = {name: launches[name] + scan_launches[name] for name in counters}
+
     # ---- 5. end-to-end rates --------------------------------------------
     t_phase = time.perf_counter()
-    rates = dict(smem_rates)
+    rates = {**smem_rates, **stream_rates, **scan_rates}
     for name, (xs, ys) in corpora.items():
         yarr = yb if name == "random" else yb_hi
         ml_np = np.full(B_ALN, LEN, np.int32)

@@ -28,6 +28,11 @@ The PairHMM family carries its derived parameters: ``pairhmm_from_params``
 builds the port's class from those of a JAX object, as plain floats and
 numpy arrays (``BatchPairHMM.g``, the fields of ``BatchPairHMMExact.g``,
 ``BatchHomopolyPairHMM.p``); both packages then compute the same thing.
+
+The batched HMM carries its float32 arrays: ``hmm_from_jax`` reads ``A``,
+``Bm``, ``pi`` and ``end`` of a JAX ``BatchDiscreteHMM`` (and ``mu``,
+``log_norm`` and ``inv2var`` of a ``BatchGaussianHMM``) as numpy and
+builds the port's class from them.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ import torch
 from rust_bio_tpu_torch._device import resolve_device
 from rust_bio_tpu_torch.data_structures.serialize import fm_index_from_arrays, load_fm_index
 from rust_bio_tpu_torch.stats import pairhmm
+from rust_bio_tpu_torch.stats.hmm import device as hmm_device
 
-__all__ = ["banded_inputs", "fm_index_from_arrays", "load_fm_index", "pairhmm_from_params"]
+__all__ = ["banded_inputs", "fm_index_from_arrays", "hmm_from_jax", "load_fm_index", "pairhmm_from_params"]
 
 
 def banded_inputs(starts, ends, pen8, device=None):
@@ -76,3 +82,16 @@ def pairhmm_from_params(kind: str, params: dict, device=None, dtype=torch.float3
     raise ValueError(
         f"kind {kind!r}: expected BatchPairHMM, BatchPairHMMLinear, BatchPairHMMExact or BatchHomopolyPairHMM"
     )
+
+
+def hmm_from_jax(model, device=None):
+    """The port's ``BatchDiscreteHMM`` or ``BatchGaussianHMM`` from a JAX
+    model of that class (``device=None`` means CUDA): its arrays are read
+    as numpy, so both then compute the same thing (the port's backward
+    scan starts from ``end``, where JAX's starts from zeros)."""
+    arr = lambda name: np.asarray(getattr(model, name), np.float32)  # noqa: E731
+    if hasattr(model, "mu"):
+        return hmm_device.BatchGaussianHMM.from_arrays(
+            arr("A"), arr("pi"), arr("end"), arr("mu"), arr("log_norm"), arr("inv2var"), device=device
+        )
+    return hmm_device.BatchDiscreteHMM(arr("A"), arr("Bm"), arr("pi"), arr("end"), device=device)

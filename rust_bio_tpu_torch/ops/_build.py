@@ -34,16 +34,18 @@ SOURCES = (
     "walk_sweep", "fm_search", "rle_merge", "fmd_smem",
     "sw_warp", "sw_global_rows", "walk_global_seg", "walk_steps",
     "sw_columns", "sw_banded", "pairhmm_scaled", "pairhmm_log", "pairhmm_exact",
-    "pairhmm_homopoly",
+    "pairhmm_homopoly", "hmm",
 )
 # per-source flags after NVCC_FLAGS: the PairHMM forwards keep every product
 # and sum unfused, so they round as their plain versions and the host
-# oracle; K17 also flushes f32 subnormals to zero, as the TPU does
+# oracle; K17 also flushes f32 subnormals to zero, as the TPU does; the HMM
+# scans' Gaussian density and sums round as their plain versions and XLA's
 EXTRA_FLAGS = {
     "pairhmm_scaled": ("-fmad=false", "-ftz=true"),
     "pairhmm_log": ("-fmad=false",),
     "pairhmm_exact": ("-fmad=false",),
     "pairhmm_homopoly": ("-fmad=false",),
+    "hmm": ("-fmad=false",),
 }
 
 PTR = ctypes.c_void_p

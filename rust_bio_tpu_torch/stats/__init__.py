@@ -1,3 +1,3 @@
-"""Statistics layer of the port: log-space probabilities and the PairHMM
-family (own copies of the JAX package's host modules, and the batched
-forwards on the card)."""
+"""Statistics layer of the port: log-space probabilities, the PairHMM
+family and the HMM (own copies of the JAX package's host modules, and the
+batched forwards and scans on the card)."""

@@ -2994,3 +2994,125 @@ def test_smem_mapper_card_matches_cpu(repeat_fmd):
     assert card.seed_stats["wide_lanes"] > 0 and card.seed_stats["oracle_lanes"] > 0
     assert key(got) == key(cpu.map_batch(reads))
     assert [key(b) for b in card.map_stream([reads[:100], reads[100:]])] == [key(cpu.map_batch(reads[:100])), key(cpu.map_batch(reads[100:]))]
+
+
+# ---- K-HMM-vit, K-HMM-fwd, K-HMM-bwd (ops/csrc/hmm.cu) ----
+
+
+def _hmm_inputs(device, S, gauss, B, T, seed, ties=False, ln0=False, V=6):
+    """One model and B ragged sequences (lengths 1..T, the first T and 1):
+    ``ties`` makes A and the emissions uniform; ``ln0`` puts ln 0 (the
+    -3e38 surrogate) in a row and a column of A, a start and an end."""
+    from rust_bio_tpu_torch.ops import hmm as hmm_ops
+
+    rng = np.random.default_rng(seed)
+    A = np.log(rng.dirichlet(np.ones(S), size=S))
+    pi = np.log(rng.dirichlet(np.ones(S)))
+    end = np.log(rng.dirichlet(np.ones(S)))
+    if ties:
+        A[:] = np.log(1.0 / S)
+    if ln0:
+        A[0, :] = hmm_ops.NEG
+        A[:, min(1, S - 1)] = hmm_ops.NEG
+        pi[0] = hmm_ops.NEG
+        end[S - 1] = hmm_ops.NEG
+    lens = rng.integers(1, T + 1, size=B)
+    lens[: min(B, 2)] = [T, 1][: min(B, 2)]
+    if gauss:
+        emit = np.stack([rng.normal(0, 2, S), rng.normal(-1, 0.5, S), rng.uniform(0.1, 2, S)])
+        obs = rng.normal(0, 2, size=(B, T)).astype(np.float32)
+    else:
+        emit = np.log(rng.dirichlet(np.ones(V), size=S))
+        if ties:
+            emit[:] = np.log(1.0 / V)
+        obs = rng.integers(0, V, size=(B, T)).astype(np.int32)
+    t = lambda a, dt=torch.float32: torch.from_numpy(np.ascontiguousarray(a)).to(dt).to(device)  # noqa: E731
+    return t(A), t(emit), t(pi), t(end), torch.from_numpy(obs).to(device), t(lens, torch.int32)
+
+
+def _hmm_close(got, want, tol=1e-4):
+    """Within tol of max(1, |want|), the infinite entries equal."""
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    if fin.any():
+        err = ((got - want).abs()[fin] / want.abs()[fin].clamp(min=1)).max().item()
+        assert err <= tol, err
+
+
+@pytest.mark.parametrize("case", ["plain", "ties", "ln0"])
+@pytest.mark.parametrize("gauss", [False, True], ids=["discrete", "gaussian"])
+@pytest.mark.parametrize("S", [2, 5, 33, 128, 256])
+def test_hmm_kernels_match_plain(cuda_device, S, gauss, case):
+    """K-HMM-vit (paths and probs bit for bit, the discrete ones; the
+    Gaussian probs within 1e-6 relative), K-HMM-fwd and K-HMM-bwd (within
+    1e-4 of max(1, |x|)) against their plain versions: both layouts, ties,
+    ln-0 rows, ragged lengths with T = 1 lanes."""
+    from rust_bio_tpu_torch.ops import hmm as hmm_ops
+
+    B, T = (64, 300) if S <= 33 else (16, 120)
+    args = _hmm_inputs(cuda_device, S, gauss, B, T, S + 7 * gauss, ties=case == "ties", ln0=case == "ln0")
+    paths, prob = hmm_ops.viterbi(*args)
+    torch.cuda.synchronize()
+    wpaths, wprob = hmm_ops.viterbi_plain(*args)
+    assert torch.equal(paths, wpaths)
+    if gauss:
+        _hmm_close(prob, wprob, 1e-6)
+    else:
+        assert torch.equal(prob, wprob)
+    for fn, plain in ((hmm_ops.forward, hmm_ops.forward_plain), (hmm_ops.backward, hmm_ops.backward_plain)):
+        vals, tot = fn(*args)
+        torch.cuda.synchronize()
+        wvals, wtot = plain(*args)
+        _hmm_close(vals, wvals)
+        _hmm_close(tot, wtot)
+
+
+@pytest.mark.parametrize("S", [157, 200])
+def test_hmm_kernels_without_shared_matrix(cuda_device, S):
+    """The block layout with A read from device memory (S * S * 4 bytes
+    past SHARED_M_MAX), and T = 1."""
+    from rust_bio_tpu_torch.ops import hmm as hmm_ops
+
+    assert not hmm_ops.geometry(S)["shared_m"]
+    for T in (1, 70):
+        args = _hmm_inputs(cuda_device, S, False, 9, T, S + T)
+        assert all(torch.equal(a, b) for a, b in zip(hmm_ops.viterbi(*args), hmm_ops.viterbi_plain(*args)))
+        for fn, plain in ((hmm_ops.forward, hmm_ops.forward_plain), (hmm_ops.backward, hmm_ops.backward_plain)):
+            for got, want in zip(fn(*args), plain(*args)):
+                _hmm_close(got, want)
+
+
+def test_hmm_classes_on_card_match_cpu(cuda_device):
+    """The batched classes and baum_welch_batch on the card against
+    device="cpu" (the plain versions): Viterbi equal, the rest within 1e-4
+    of max(1, |x|), Baum-Welch within 1e-5."""
+    from rust_bio_tpu_torch.stats.hmm import device as hmm_device
+
+    rng = np.random.default_rng(25)
+    A = np.log([[0.95, 0.05], [0.1, 0.9]])
+    Bm = np.log([[1 / 6.0] * 6, [0.1, 0.1, 0.1, 0.1, 0.1, 0.5]])
+    pi = np.log([0.5, 0.5])
+    seqs = [rng.integers(0, 6, size=int(n)) for n in rng.integers(1, 400, size=48)]
+    card = hmm_device.BatchDiscreteHMM(A, Bm, pi, device=cuda_device)
+    cpu = hmm_device.BatchDiscreteHMM(A, Bm, pi, device="cpu")
+    for name in ("viterbi_batch", "forward_batch", "backward_batch"):
+        for got, want in zip(getattr(card, name)(seqs), getattr(cpu, name)(seqs)):
+            if name == "viterbi_batch":
+                np.testing.assert_array_equal(got, want)
+            else:
+                _hmm_close(torch.from_numpy(got), torch.from_numpy(want))
+    m_card, ll_card = hmm_device.baum_welch_batch(card, seqs, n_iter=2)
+    m_cpu, ll_cpu = hmm_device.baum_welch_batch(cpu, seqs, n_iter=2)
+    assert m_card.device.type == "cuda"
+    np.testing.assert_allclose(ll_card, ll_cpu, rtol=1e-5)
+    for name in ("A", "Bm", "pi"):
+        np.testing.assert_allclose(getattr(m_card, name).cpu().numpy(), getattr(m_cpu, name).numpy(), atol=1e-5)
+    params = [(0.05, 0.1), (0.5, 0.15), (1.0, 0.2)]
+    gA = np.log([[0.98, 0.01, 0.01], [0.01, 0.98, 0.01], [0.01, 0.01, 0.98]])
+    xs = [rng.normal(1.0, 0.5, size=int(n)) for n in (300, 1, 57)]
+    gcard = hmm_device.BatchGaussianHMM(gA, params, np.log(np.full(3, 1 / 3)), device=cuda_device)
+    gcpu = hmm_device.BatchGaussianHMM(gA, params, np.log(np.full(3, 1 / 3)), device="cpu")
+    np.testing.assert_array_equal(gcard.viterbi_batch(xs)[0], gcpu.viterbi_batch(xs)[0])
+    for name in ("forward_batch", "backward_batch"):
+        for got, want in zip(getattr(gcard, name)(xs), getattr(gcpu, name)(xs)):
+            _hmm_close(torch.from_numpy(got), torch.from_numpy(want))

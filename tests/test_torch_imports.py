@@ -20,9 +20,14 @@ from rust_bio_tpu_torch.data_structures import bit_tree
 from rust_bio_tpu_torch.data_structures import bwt, fmd_device, fmindex, serialize
 from rust_bio_tpu_torch.data_structures.fm_device import DeviceFMIndex
 from rust_bio_tpu_torch.ops import fmd as fmd_ops
+from rust_bio_tpu_torch.ops import hmm as hmm_ops
 from rust_bio_tpu_torch.ops import pairhmm as pairhmm_ops
-from rust_bio_tpu_torch.pipelines import ReadMapper, SmemReadMapper
-from rust_bio_tpu_torch.stats import pairhmm, probs
+from rust_bio_tpu_torch import io as port_io
+from rust_bio_tpu_torch.io import batch as io_batch
+from rust_bio_tpu_torch.pipelines import ReadMapper, SmemReadMapper, StreamingMapper, stream
+from rust_bio_tpu_torch.stats import hmm, pairhmm, probs
+from rust_bio_tpu_torch.stats.hmm.device import BatchDiscreteHMM, BatchGaussianHMM
+from rust_bio_tpu_torch.stats.hmm import device as hmm_device
 from rust_bio_tpu_torch.stats.pairhmm import (
     BatchHomopolyPairHMM,
     BatchPairHMM,
@@ -90,6 +95,13 @@ def test_port_has_its_files():
         (fmindex, "data_structures/fmindex.py"), (bwt, "data_structures/bwt.py"),
         (serialize, "data_structures/serialize.py"), (fmd_device, "data_structures/fmd_device.py"),
         (fmd_ops, "ops/fmd.py"),
+        # the io readers and writers, the checkpointed stream, the HMM's host
+        # oracle, batched classes and kernels' wrappers
+        (port_io, "io/__init__.py"), (io_batch, "io/batch.py"), (port_io.fasta, "io/fasta.py"),
+        (port_io.fastq, "io/fastq.py"), (port_io.fastx, "io/fastx.py"), (port_io.bed, "io/bed.py"),
+        (port_io.bedpe, "io/bedpe.py"), (port_io.gff, "io/gff.py"), (port_io.newick, "io/newick.py"),
+        (stream, "pipelines/stream.py"), (hmm, "stats/hmm/__init__.py"), (hmm_device, "stats/hmm/device.py"),
+        (hmm_ops, "ops/hmm.py"),
     ):
         assert Path(mod.__file__) == ROOT / "rust_bio_tpu_torch" / rel
     assert native.SOURCE == ROOT / "rust_bio_tpu_torch" / "csrc" / "band_build.cpp" and native.SOURCE.is_file()
@@ -98,8 +110,9 @@ def test_port_has_its_files():
         "walk_sweep.cu", "fm_search.cu", "rle_merge.cu", "fmd_smem.cu",
         "sw_warp.cu", "sw_global_rows.cu", "walk_global_seg.cu", "walk_steps.cu",
         "sw_columns.cu", "sw_banded.cu", "pairhmm_scaled.cu", "pairhmm_log.cu", "pairhmm_exact.cu",
-        "pairhmm_homopoly.cu",
+        "pairhmm_homopoly.cu", "hmm.cu",
     }
+    assert StreamingMapper.__module__ == "rust_bio_tpu_torch.pipelines.stream"
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -134,6 +147,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
         assert make(device="cpu").device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         pairhmm_from_params("BatchPairHMM", BatchPairHMM(*gaps, device="cpu").g)
+    A = [[-0.1, -2.3], [-2.3, -0.1]]
+    for make in (
+        lambda **kw: BatchDiscreteHMM(A, [[-0.7, -0.7], [-0.1, -2.3]], [-0.7, -0.7], **kw),
+        lambda **kw: BatchGaussianHMM(A, [(0.0, 1.0), (1.0, 0.5)], [-0.7, -0.7], **kw),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        assert make(device="cpu").device.type == "cpu"
     assert BatchBandedAligner(sc, 8, 8, device="cpu").device.type == "cpu"
     assert BatchAligner(sc, device="cpu").device.type == "cpu"
 
@@ -141,7 +162,7 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def _kernels():
     from rust_bio_tpu_torch.ops import _build, fm, sw, walk
 
-    return [k for m in (sw, walk, pairhmm_ops, fm, fmd_ops) for k in vars(m).values() if isinstance(k, _build.CudaKernel)]
+    return [k for m in (sw, walk, pairhmm_ops, fm, fmd_ops, hmm_ops) for k in vars(m).values() if isinstance(k, _build.CudaKernel)]
 
 
 @pytest.mark.parametrize("kernel", _kernels(), ids=lambda k: k.symbol)
